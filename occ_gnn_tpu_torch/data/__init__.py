@@ -1,0 +1,13 @@
+from occ_gnn_tpu_torch.data.graph import Graph, from_edge_list
+from occ_gnn_tpu_torch.data.binary_format import load_graph, read_meta, save_graph
+from occ_gnn_tpu_torch.data.synthetic import block_graph, random_graph
+
+__all__ = [
+    "Graph",
+    "from_edge_list",
+    "save_graph",
+    "load_graph",
+    "read_meta",
+    "random_graph",
+    "block_graph",
+]
