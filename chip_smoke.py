@@ -4,9 +4,11 @@
     python3 chip_smoke.py [--num-nodes N]
 
 1. Prints the card (name and power limit), torch and CUDA versions, and
-   builds every hand-written kernel from the sources in the checkout.
+   builds every hand-written kernel and the C++ sampling service from the
+   sources in the checkout, one compiler for each, all at once.
 2. Builds the products-scale graph (2.45 M nodes, degree 25, 100 features,
-   47 classes) and samples the first batch of the slice.
+   47 classes) once for the single path and split A, and samples the
+   single path's first batch.
 3. Holds each kernel against its plain PyTorch version on the card: at the
    three shapes the first batch gives it, then on ragged cases. For each
    case it prints the max abs error, the kernel's time, the plain
@@ -17,12 +19,24 @@
 5. Drives ``--mode single`` GraphSAGE training (3 layers, hidden 128,
    fan-out 10,10,25, batch 1024, 8 steps) through the port's
    ``train_single``, and checks the kernel launched 3 times a step.
-6. Prints the card again, one JSON line of kernel numbers, and last
+6. Split A, products scale, every width kept: checks one layer 0
+   synthesized on the card from the resident CSR, and the split logits of
+   a host-innermost batch against the single-chip logits of the same
+   sample; times the split path's torch ops at the first batch's shapes
+   beside their byte bounds; then drives ``--mode split --cache-per auto``
+   (replicated cache, device innermost, C++ sampler; 8 steps) through
+   ``train_split`` with one steady step profiled.
+7. Split B, 200,000 nodes (depth cut for time, every width kept):
+   ``--cache-per 0.25 --innermost host --fan-out 10,10,-1``, the
+   refreshing cache with a COO layer 0. Checks the split-vs-single logits,
+   that a step launched before a tail write reads the old tail, one
+   kernel launch a step and one tail write a step.
+8. Prints the card again, one JSON line of kernel numbers, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 It also fails when torch sees no CUDA device, and outside the repository.
-``--num-nodes`` cuts the graph for a quick run; every width stays.
+``--num-nodes`` cuts the products graph for a quick run; every width stays.
 """
 
 from __future__ import annotations
@@ -34,31 +48,55 @@ import subprocess
 import sys
 import time
 from collections import defaultdict
+from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
 
 import numpy as np
 import torch
 
+from occ_gnn_tpu_torch.cache import CachePlan, SplitFeatureCache
 from occ_gnn_tpu_torch.data import random_graph
 from occ_gnn_tpu_torch.models import get_model
-from occ_gnn_tpu_torch.ops.build import KERNELS, build_kernel
+from occ_gnn_tpu_torch.ops.build import KERNELS, build_kernel, build_sampler
 from occ_gnn_tpu_torch.ops.segment_sum_sorted import (
     segment_sum_sorted,
     segment_sum_sorted_reference,
 )
+from occ_gnn_tpu_torch.parallel.model import (
+    SplitSAGE,
+    make_device_csr,
+    make_split_forward,
+)
+from occ_gnn_tpu_torch.parallel.split import (
+    local_aggregate_dense,
+    slice_owned,
+    synthesize_device_innermost,
+)
+from occ_gnn_tpu_torch.sampling.native import NativeSplitSampler
 from occ_gnn_tpu_torch.sampling.neighbor import (
     NeighborSampler,
     measure_capacities,
 )
-from occ_gnn_tpu_torch.train import build_argparser, train_single
+from occ_gnn_tpu_torch.sampling.slicer import (
+    SplitSampler,
+    plan_split_capacities,
+    raw_to_single_batch,
+)
+from occ_gnn_tpu_torch.train import build_argparser, train_single, train_split
 from occ_gnn_tpu_torch.training import gather_features
 from occ_gnn_tpu_torch.utils import PhaseTimers
 
 PRODUCTS_NODES = 2_450_000
+SPLIT_B_NODES = 200_000
 AVG_DEGREE, FEATURE_DIM, NUM_CLASSES = 25, 100, 47
-TRAIN_FLAGS = ["--mode", "single", "--num-hidden", "128",
-               "--fan-out", "10,10,25", "--batch-size", "1024",
-               "--measure-caps", "--limit-train", "8192", "--num-epochs", "1"]
+COMMON_FLAGS = ["--num-hidden", "128", "--batch-size", "1024",
+                "--measure-caps", "--limit-train", "8192", "--num-epochs", "1"]
+TRAIN_FLAGS = ["--mode", "single", "--fan-out", "10,10,25"] + COMMON_FLAGS
+SPLIT_A_FLAGS = ["--mode", "split", "--cache-per", "auto",
+                 "--fan-out", "10,10,25", "--profile-dir",
+                 "chiprun_out/split_a_profile"] + COMMON_FLAGS
+SPLIT_B_FLAGS = ["--mode", "split", "--cache-per", "0.25", "--innermost",
+                 "host", "--fan-out", "10,10,-1"] + COMMON_FLAGS
 # f32 sums taken in another order than the plain version's atomics.
 KERNEL_TOL = 1e-4
 # Logits: the same sums followed by three layers of f32 matmuls; the
@@ -117,15 +155,18 @@ def median_ms(fn) -> float:
 
 
 class StepTimers(PhaseTimers):
-    """PhaseTimers that also keep every duration of each phase, in ms."""
+    """PhaseTimers that also keep every duration of each phase, in ms,
+    and the wall-clock start of each one."""
 
     def __init__(self):
         super().__init__()
         self.each = defaultdict(list)
+        self.starts = defaultdict(list)
 
     @contextmanager
     def phase(self, name: str):
         t0 = time.perf_counter()
+        self.starts[name].append(t0)
         with super().phase(name):
             yield
         self.each[name].append(1e3 * (time.perf_counter() - t0))
@@ -214,6 +255,280 @@ def plain_forward(model, batch, x0):
     return x
 
 
+def graph_args(num_nodes: int, flags: list[str]):
+    return build_argparser().parse_args(
+        ["--graph", "random", "--num-nodes", str(num_nodes),
+         "--avg-degree", str(AVG_DEGREE), "--feature-dim", str(FEATURE_DIM)]
+        + flags)
+
+
+def build_all():
+    """Build every kernel and the C++ service at once, one compiler each."""
+    def timed(fn, *a):
+        t0 = time.perf_counter()
+        report = fn(*a)
+        return time.perf_counter() - t0, report
+
+    with ThreadPoolExecutor(max_workers=len(KERNELS) + 1) as pool:
+        jobs = {f"{k} (nvcc)": pool.submit(timed, build_kernel, k)
+                for k in KERNELS}
+        jobs["occ_sampler (g++)"] = pool.submit(timed, build_sampler)
+        for name, job in jobs.items():
+            secs, report = job.result()
+            print(f"build: {name} in {secs:.2f}s")
+            if report.strip():
+                print(f"--- {name}:\n{report.strip()}")
+
+
+def events_ms(fn, runs: int = 20) -> float:
+    """Mean device time of one call over ``runs`` back-to-back calls
+    between two CUDA events (host launch time included where the device
+    waits for it)."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+    start.record()
+    for _ in range(runs):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / runs
+
+
+def check_synthesized_layer(g, fanouts, batch_size, device):
+    """One layer 0 synthesized on the card from the resident CSR, held to
+    the sampling contract: slot 0 is the self row, every other used slot
+    a true neighbour, unused slots the zero row, rows with deg <= fanout
+    the adjacency in order, and owned_deg == take + 1. Returns the native
+    batch, its synthesized layer 0 and the CSR for the op timings."""
+    pmap = np.zeros(g.num_nodes, np.int32)
+    nodes = g.train_nodes()
+    caps = plan_split_capacities(batch_size, fanouts, g.num_nodes, 1)
+    plan = CachePlan(g, pmap, 1, 1.0, refresh_cap=8)
+    sampler = NativeSplitSampler(g, nodes, pmap, 1, fanouts, batch_size,
+                                 capacities=caps, seed=0, cache=plan,
+                                 innermost="device", device=device)
+    batch = sampler.sample_batch(nodes[:batch_size])
+    sampler.close()
+    csr = make_device_csr(g, device)
+    gen = torch.Generator(device).manual_seed(5)
+    l0 = batch.layers[0].partition(0)
+    syn = synthesize_device_innermost(l0, csr[0], csr[1], gen)
+    indptr, indices = (t.long() for t in csr)
+    K, N, zero = l0.fanout, g.num_nodes, l0.src_cap - 1
+    dg = l0.dst_global.long()
+    valid = dg >= 0
+    gl = dg.clamp(min=0)
+    off = indptr[gl]
+    deg = torch.where(valid, indptr[gl + 1] - off, 0)
+    take = deg.clamp(max=K)
+    nbr = syn.nbr_idx.long()
+    k = torch.arange(1, K + 1, device=device)[:, None]
+    used = k <= take[None, :]
+    checks = {
+        "slot 0 is the self row": bool(
+            (nbr[0] == torch.where(valid, gl, zero)).all()),
+        "unused slots hold the zero row": bool((nbr[1:][~used] == zero).all()),
+    }
+    # Membership: (dst, value) keys against the dst rows' adjacency keys.
+    kd = torch.nonzero(used)
+    keys = gl[kd[:, 1]] * N + nbr[1:][used]
+    vd = torch.nonzero(valid).squeeze(1)
+    dv = deg[vd]
+    rep = torch.repeat_interleave(torch.arange(vd.shape[0], device=device), dv)
+    within = torch.arange(rep.shape[0], device=device) - (
+        torch.cumsum(dv, 0) - dv)[rep]
+    adj_keys = gl[vd][rep] * N + indices[off[vd][rep] + within]
+    checks["every used slot is a true neighbour"] = bool(
+        torch.isin(keys, adj_keys).all())
+    small = used & (deg <= K)[None, :]
+    in_order = indices[(off[None, :] + k - 1).clamp(max=indices.shape[0] - 1)]
+    checks["deg <= fanout rows equal the adjacency in order"] = bool(
+        (nbr[1:][small] == in_order[small]).all())
+    O = l0.out_cap
+    v = valid[:O]
+    checks["owned_deg == take + 1"] = bool(
+        (syn.owned_deg[v] == (take[:O][v] + 1).float()).all()
+        and (syn.owned_deg[~v] == 1).all())
+    print(f"  synthesized layer 0: D={dg.shape[0]} valid={int(valid.sum())} "
+          f"deg>fanout={int((deg > K).sum())} slots used={int(used.sum())}")
+    for name, ok in checks.items():
+        print(f"  check {name}: {'ok' if ok else 'FAILED'}")
+        if not ok:
+            raise AssertionError(f"synthesized layer 0: {name} fails")
+    return batch, syn, csr
+
+
+def split_vs_single(g, fanouts, batch_size, cache_pct, hidden, device):
+    """The first host-innermost batch of the numpy SplitSampler under the
+    cache plan: its split logits against the port's single-chip SAGE
+    logits on ``raw_to_single_batch`` of the same raw sample, with the
+    same weights. Returns what the tail check of split B reuses."""
+    pmap = np.zeros(g.num_nodes, np.int32)
+    nodes = g.train_nodes()
+    caps = plan_split_capacities(batch_size, fanouts, g.num_nodes, 1)
+    plan = CachePlan(g, pmap, 1, cache_pct, refresh_cap=caps["frame_caps"][0])
+    cache = SplitFeatureCache(plan, device=device)
+    sampler = SplitSampler(g, nodes, pmap, 1, fanouts, batch_size,
+                           capacities=caps, seed=0, cache=cache,
+                           device=device)
+    raw = sampler._sample_raw(nodes[:batch_size])
+    split_batch = sampler.slice_raw(raw)
+    single = raw_to_single_batch(raw, g, sampler.caps, device)
+    x0 = gather_features(g.features, single.input_nodes, device)
+    model = SplitSAGE(g.feature_dim, hidden, g.num_classes, len(fanouts),
+                      generator=torch.Generator().manual_seed(0)).to(device)
+    single_model = get_model("sage", g.feature_dim, hidden, g.num_classes,
+                             len(fanouts)).to(device).eval()
+    single_model.load_state_dict(model.state_dict())
+    fwd = make_split_forward(model)
+    with torch.no_grad():
+        split_logits = fwd(split_batch, cache.frames)[0]
+        single_logits = single_model(single, x0)
+    n = raw[0].frontier.shape[0]
+    ref = single_logits[:n]
+    scale = max(1.0, ref.abs().max().item())
+    err = (split_logits[:n] - ref).abs().max().item()
+    print(f"  split vs single logits, first batch ({n} targets): "
+          f"max_abs_err={err:.3g} at scale {scale:.3g} (limit "
+          f"{LOGITS_TOL * scale:.3g})")
+    if not (torch.isfinite(split_logits).all() and err <= LOGITS_TOL * scale):
+        raise AssertionError("split logits differ from single-chip logits")
+    return cache, sampler, fwd, split_batch
+
+
+def check_tail_order(cache, sampler, fwd, batch, nodes, batch_size):
+    """A step launched before a tail write reads the old tail: a forward
+    is enqueued on the frames, the next batch's tail is written in place
+    at once, and the forward's logits must equal those on a copy of the
+    frames taken before the write."""
+    before = cache.frames.clone()
+    in_flight = fwd(batch, cache.frames)
+    sampler.sample_batch(nodes[batch_size : 2 * batch_size])
+    ref = fwd(batch, before)
+    torch.cuda.synchronize()
+    wrote = not torch.equal(before, cache.frames)
+    same = torch.equal(in_flight, ref)
+    print(f"  tail write ordered after the step in flight: tail "
+          f"{'written' if wrote else 'NOT written'}, logits "
+          f"{'unchanged' if same else 'CHANGED'}")
+    if not (wrote and same):
+        raise AssertionError("the in-place tail write raced a step")
+
+
+def split_op_times(batch, syn, csr, frames, hidden, rate, device):
+    """The split path's torch ops at the first batch's shapes: device ms
+    per call, calls a step, and the byte bound (each input read once,
+    each output written once; padding slots of nbr read the one zero
+    row). Layer 0 reads the frame, which takes no gradient."""
+    gen = torch.Generator(device).manual_seed(6)
+    layers = [syn] + [lyr.partition(0) for lyr in batch.layers[1:]]
+    l0 = batch.layers[0].partition(0)
+    rows = []
+
+    def add(name, fn, nbytes):
+        ms = events_ms(fn)
+        rows.append((name, ms, nbytes / rate * 1e3))
+        print(f"  op {name}: ms={ms:.4f} bound_ms={nbytes / rate * 1e3:.4f} "
+              f"(bytes)")
+
+    D0, O0, K0 = l0.dst_global.shape[0], l0.out_cap, l0.fanout
+    used0 = int((syn.nbr_idx[1:] != l0.src_cap - 1).sum())
+    add("synthesize_device_innermost",
+        lambda: synthesize_device_innermost(l0, csr[0], csr[1], gen),
+        4 * (D0 + 2 * D0 + used0 + (K0 + 1) * D0) + 13 * O0)
+    for i, lyr in enumerate(layers):
+        nbr = lyr.nbr_idx
+        K, D = nbr.shape
+        if i == 0:
+            x = frames[0]
+        else:
+            x = torch.randn(lyr.src_cap, hidden, device=device,
+                            requires_grad=True)
+        H, xb = x.shape[1], x.element_size()
+        valid = int((nbr != lyr.src_cap - 1).sum())
+        add(f"local_aggregate_dense fwd, layer {i} (K={K}, D={D}, H={H})",
+            lambda: local_aggregate_dense(x, nbr),
+            4 * K * D + xb * valid * H + 4 * D * H)
+        merged = local_aggregate_dense(x, nbr)
+        if x.requires_grad:
+            g = torch.randn_like(merged)
+            add(f"local_aggregate_dense bwd, layer {i}",
+                lambda: torch.autograd.grad(merged, x, g, retain_graph=True),
+                4 * K * D + 4 * D * H + 4 * x.shape[0] * H)
+        O = lyr.out_cap
+        add(f"slice_owned, layer {i} (O={O})",
+            lambda: slice_owned(merged.detach(), lyr, x.detach()),
+            O * (4 + 4 + 4 + 1) + O * H * (4 + xb) + 2 * 4 * O * H)
+    return rows
+
+
+def print_phases(timers, steps: int, once=("partition", "capacity_plan")):
+    """Each per-step phase must be recorded once a step; prints first and
+    the median of the rest, and the step's wall time: from one step's
+    ``train_step`` start to the next's (so sampling, staging and the wait
+    for the step before are inside it)."""
+    starts = timers.starts["train_step"]
+    walls = [1e3 * (b - a) for a, b in zip(starts, starts[1:])]
+    if walls:
+        rest = walls[1:] or walls
+        print(f"  step wall (launch to launch): first {walls[0]:.2f} ms, "
+              f"median of the rest {statistics.median(rest):.2f} ms (min "
+              f"{min(rest):.2f}, max {max(rest):.2f}) over {len(walls)}")
+    for phase, each in sorted(timers.each.items()):
+        rest = each[1:] or each
+        print(f"  phase {phase}: {sum(each) / 1e3:.4f}s total over "
+              f"{len(each)}, first {each[0]:.2f} ms, median of the rest "
+              f"{statistics.median(rest):.2f} ms (min {min(rest):.2f}, "
+              f"max {max(rest):.2f})")
+        if phase not in once and len(each) != steps:
+            raise AssertionError(f"phase {phase} recorded {len(each)} times "
+                                 f"in {steps} steps")
+
+
+def print_profile(profile: dict):
+    print(f"  profiled step: window {profile['window_ms']:.3f} ms, device "
+          f"busy {profile['device_busy_ms']:.3f} ms, idle share "
+          f"{profile['device_idle_share']:.4f} "
+          f"({profile['device_kernels']} device kernels and copies)")
+    for op in profile["top_ops"]:
+        print(f"    top op {op['device_ms']:9.4f} ms  x{op['calls']:<4} "
+              f"{op['name'][:90]}")
+    for name, v in sorted(profile["named_ms"].items()):
+        print(f"    range {name}: {v['device_ms']:.4f} ms of kernels over "
+              f"{v['calls']} calls")
+
+
+def run_split(label, args, g, fanouts, device):
+    """Drive the split path through train_split with the launch counts
+    set to 0 just before; returns the metrics and the kernel's launches."""
+    timers = StepTimers()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    segment_sum_sorted.launches = 0
+    metrics = train_split(args, g, fanouts, timers, device)
+    launches = segment_sum_sorted.launches
+    peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
+    steps = metrics["steps"]
+    print(f"{label}: {steps} steps, loss {metrics['loss']:.4f}, acc "
+          f"{metrics['acc']:.4f}, cache {metrics['cache_pct']:.4f}, "
+          f"innermost {metrics['innermost']}, sampler {metrics['sampler']}, "
+          f"segment_sum_sorted launches {launches}, tail writes "
+          f"{metrics['tail_batches']}, peak device memory {peak_gib:.3f} GiB")
+    phases = metrics["phases"]
+    print(f"  C++ service per batch: cxx_sample "
+          f"{1e3 * phases.get('cxx_sample', float('nan')):.2f} ms, cxx_slice "
+          f"{1e3 * phases.get('cxx_slice', float('nan')):.2f} ms")
+    print_phases(timers, steps)
+    if steps == 0 or not (np.isfinite(metrics["loss"])
+                          and np.isfinite(metrics["acc"])):
+        raise AssertionError(f"{label}: no steps or non-finite loss: "
+                             f"{metrics}")
+    return metrics, launches
+
+
 def main(argv=None) -> int:
     cli = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     cli.add_argument("--num-nodes", type=int, default=PRODUCTS_NODES)
@@ -231,125 +546,170 @@ def main(argv=None) -> int:
     print(f"card: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"memory rate for the bound {rate / 1e12} TB/s")
+    wall = time.perf_counter()
 
-    # 1. Build every kernel from the checkout's sources.
-    for kernel in KERNELS:
+    @contextmanager
+    def phase(label):
         t0 = time.perf_counter()
-        report = build_kernel(kernel)
-        print(f"kernel build: {kernel} in {time.perf_counter() - t0:.2f}s")
-        print(f"--- nvcc {kernel}:\n{report.strip()}")
+        print(f"== {label}")
+        yield
+        print(f"== {label}: {time.perf_counter() - t0:.1f}s wall")
 
-    # 2. The slice's graph and first batch.
-    args = build_argparser().parse_args(
-        ["--graph", "random", "--num-nodes", str(opts.num_nodes),
-         "--avg-degree", str(AVG_DEGREE), "--feature-dim", str(FEATURE_DIM)]
-        + TRAIN_FLAGS)
+    # 1. Build every kernel and the C++ service from the checkout.
+    with phase("build"):
+        build_all()
+
+    # 2. The products-scale graph, shared by the single path and split A.
+    args = graph_args(opts.num_nodes, TRAIN_FLAGS)
     if opts.num_nodes != PRODUCTS_NODES:
         print(f"cut: {opts.num_nodes} nodes in place of {PRODUCTS_NODES}; "
               f"every width kept")
-    t0 = time.perf_counter()
-    g = random_graph(opts.num_nodes, AVG_DEGREE, FEATURE_DIM,
-                     num_classes=NUM_CLASSES, seed=args.seed)
-    print(f"graph: {g.num_nodes} nodes, {g.num_edges} edges, feat "
-          f"{g.feature_dim}, {g.num_classes} classes, built in "
-          f"{time.perf_counter() - t0:.1f}s")
+    with phase("graph"):
+        g = random_graph(opts.num_nodes, AVG_DEGREE, FEATURE_DIM,
+                         num_classes=NUM_CLASSES, seed=args.seed)
+        print(f"graph: {g.num_nodes} nodes, {g.num_edges} edges, feat "
+              f"{g.feature_dim}, {g.num_classes} classes")
     fanouts = [int(f) for f in args.fan_out.split(",")]
     nodes = g.train_nodes()[: args.limit_train]
-    # The capacities and first batch train_single will use: same seeds.
-    caps = measure_capacities(g, nodes, fanouts, args.batch_size,
-                              seed=args.seed + 99)
-    print(f"capacities: {caps}")
-    batch = next(iter(NeighborSampler(g, nodes, fanouts, args.batch_size,
-                                      capacities=caps, seed=args.seed,
-                                      device=device)))
-    x0 = gather_features(g.features, batch.input_nodes, device)
 
-    # 3. Each kernel against its plain version, main-path shapes first.
-    gen = torch.Generator(device).manual_seed(1)
-    main_cases = []
-    for i, blk in enumerate(batch.blocks):
-        x = x0 if i == 0 else torch.randn(
-            blk.src_cap, args.num_hidden, generator=gen, device=device)
-        msgs = x[blk.edge_src]
-        main_cases.append(kernel_case(f"layer {i}", msgs, blk.edge_dst,
-                                      blk.dst_cap, rate))
-        del msgs
-    ragged = [kernel_case(*c, rate) for c in ragged_cases(device)]
+    # 3-5. The single path: the kernel at its shapes, the first batch's
+    # logits, and train_single.
+    with phase("single path"):
+        # The capacities and first batch train_single will use: same seeds.
+        caps = measure_capacities(g, nodes, fanouts, args.batch_size,
+                                  seed=args.seed + 99)
+        print(f"capacities: {caps}")
+        batch = next(iter(NeighborSampler(g, nodes, fanouts, args.batch_size,
+                                          capacities=caps, seed=args.seed,
+                                          device=device)))
+        x0 = gather_features(g.features, batch.input_nodes, device)
+        gen = torch.Generator(device).manual_seed(1)
+        main_cases = []
+        for i, blk in enumerate(batch.blocks):
+            x = x0 if i == 0 else torch.randn(
+                blk.src_cap, args.num_hidden, generator=gen, device=device)
+            msgs = x[blk.edge_src]
+            main_cases.append(kernel_case(f"layer {i}", msgs, blk.edge_dst,
+                                          blk.dst_cap, rate))
+            del msgs
+        ragged = [kernel_case(*c, rate) for c in ragged_cases(device)]
 
-    # 4. First batch: logits through the kernel == the plain forward.
-    model = get_model("sage", g.feature_dim, args.num_hidden, g.num_classes,
-                      len(fanouts),
-                      generator=torch.Generator().manual_seed(args.seed))
-    model = model.to(device).eval()
-    with torch.no_grad():
-        logits = model(batch, x0)
-        ref = plain_forward(model, batch, x0)
-    torch.cuda.synchronize()
-    if logits.shape != (caps["frame_caps"][-1], g.num_classes) or not (
-            torch.isfinite(logits).all()):
-        raise AssertionError(f"bad logits {tuple(logits.shape)}")
-    scale = max(1.0, ref.abs().max().item())
-    logits_err = (logits - ref).abs().max().item()
-    print(f"first-batch logits: max_abs_err={logits_err:.3g} at scale "
-          f"{scale:.3g} (limit {LOGITS_TOL * scale:.3g})")
-    if not logits_err <= LOGITS_TOL * scale:
-        raise AssertionError("kernel-path logits differ from the plain "
-                             "forward")
-    del batch, x0, logits, ref, model
+        model = get_model("sage", g.feature_dim, args.num_hidden,
+                          g.num_classes, len(fanouts),
+                          generator=torch.Generator().manual_seed(args.seed))
+        model = model.to(device).eval()
+        with torch.no_grad():
+            logits = model(batch, x0)
+            ref = plain_forward(model, batch, x0)
+        torch.cuda.synchronize()
+        if logits.shape != (caps["frame_caps"][-1], g.num_classes) or not (
+                torch.isfinite(logits).all()):
+            raise AssertionError(f"bad logits {tuple(logits.shape)}")
+        scale = max(1.0, ref.abs().max().item())
+        logits_err = (logits - ref).abs().max().item()
+        print(f"first-batch logits: max_abs_err={logits_err:.3g} at scale "
+              f"{scale:.3g} (limit {LOGITS_TOL * scale:.3g})")
+        if not logits_err <= LOGITS_TOL * scale:
+            raise AssertionError("kernel-path logits differ from the plain "
+                                 "forward")
+        del batch, x0, logits, ref, model
 
-    # 5. The slice through the port's entry point.
-    timers = StepTimers()
-    torch.cuda.reset_peak_memory_stats(device)
-    segment_sum_sorted.launches = 0
-    metrics = train_single(args, g, fanouts, timers, device)
-    launches = segment_sum_sorted.launches
-    peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
-    steps = metrics["steps"]
-    print(f"slice: {steps} steps, loss {metrics['loss']:.4f}, acc "
-          f"{metrics['acc']:.4f}, segment_sum_sorted launches {launches}, "
-          f"peak device memory {peak_gib:.3f} GiB")
-    # Each phase is recorded once a step (capacity_plan once a run), so
-    # "the rest" is steps 2..N.
-    for phase, each in sorted(timers.each.items()):
-        rest = each[1:] or each
-        print(f"  phase {phase}: {sum(each) / 1e3:.4f}s total over "
-              f"{len(each)}, first {each[0]:.2f} ms, median of the rest "
-              f"{statistics.median(rest):.2f} ms (min {min(rest):.2f}, "
-              f"max {max(rest):.2f})")
-        if phase != "capacity_plan" and len(each) != steps:
-            raise AssertionError(f"phase {phase} recorded {len(each)} times "
-                                 f"in {steps} steps")
-    if steps == 0 or launches != 3 * steps:
-        raise AssertionError(f"{launches} kernel launches for {steps} steps; "
-                             f"expected 3 a step")
-    if not (np.isfinite(metrics["loss"]) and np.isfinite(metrics["acc"])):
-        raise AssertionError(f"non-finite loss/accuracy: {metrics}")
+        timers = StepTimers()
+        torch.cuda.reset_peak_memory_stats(device)
+        segment_sum_sorted.launches = 0
+        metrics = train_single(args, g, fanouts, timers, device)
+        single_launches = segment_sum_sorted.launches
+        peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
+        steps = metrics["steps"]
+        print(f"slice: {steps} steps, loss {metrics['loss']:.4f}, acc "
+              f"{metrics['acc']:.4f}, segment_sum_sorted launches "
+              f"{single_launches}, peak device memory {peak_gib:.3f} GiB")
+        print_phases(timers, steps, once=("capacity_plan",))
+        if steps == 0 or single_launches != 3 * steps:
+            raise AssertionError(f"{single_launches} kernel launches for "
+                                 f"{steps} steps; expected 3 a step")
+        if not (np.isfinite(metrics["loss"]) and np.isfinite(metrics["acc"])):
+            raise AssertionError(f"non-finite loss/accuracy: {metrics}")
 
-    # 6. Summary: the main-path numbers are one step's three forward shapes.
+    # 6. Split A: products scale, replicated cache, device innermost.
+    with phase("split A"):
+        args_a = graph_args(opts.num_nodes, SPLIT_A_FLAGS)
+        fan_a = [int(f) for f in args_a.fan_out.split(",")]
+        batch, syn, csr = check_synthesized_layer(g, fan_a, args_a.batch_size,
+                                                  device)
+        cache, _, _, _ = split_vs_single(g, fan_a, args_a.batch_size, 1.0,
+                                         args_a.num_hidden, device)
+        op_rows = split_op_times(batch, syn, csr, cache.frames,
+                                 args_a.num_hidden, rate, device)
+        del batch, syn, csr, cache
+        metrics_a, launches_a = run_split("split A", args_a, g, fan_a, device)
+        if not (metrics_a["cache_pct"] >= 1.0
+                and metrics_a["innermost"] == "device"
+                and metrics_a["sampler"] == "native"):
+            raise AssertionError("split A must run with a replicated cache, "
+                                 "device innermost and the native sampler")
+        print_profile(metrics_a["profile"])
+    del g
+
+    # 7. Split B: 200,000 nodes, refreshing cache, COO layer 0.
+    with phase("split B"):
+        args_b = graph_args(SPLIT_B_NODES, SPLIT_B_FLAGS)
+        fan_b = [int(f) for f in args_b.fan_out.split(",")]
+        g_b = random_graph(SPLIT_B_NODES, AVG_DEGREE, FEATURE_DIM,
+                           num_classes=NUM_CLASSES, seed=args_b.seed)
+        cache, sampler, fwd, batch = split_vs_single(
+            g_b, fan_b, args_b.batch_size, 0.25, args_b.num_hidden, device)
+        check_tail_order(cache, sampler, fwd, batch, g_b.train_nodes(),
+                         args_b.batch_size)
+        lyr = batch.layers[0].partition(0)
+        msgs = cache.frames[0][lyr.edge_src.long()].float()
+        split_case = kernel_case("split B layer 0", msgs, lyr.edge_dst,
+                                 lyr.dst_cap, rate)
+        del cache, sampler, fwd, batch, lyr, msgs
+        metrics_b, launches_b = run_split("split B", args_b, g_b, fan_b,
+                                          device)
+        steps_b = metrics_b["steps"]
+        if launches_b != steps_b:
+            raise AssertionError(f"split B: {launches_b} kernel launches for "
+                                 f"{steps_b} steps; expected 1 a step")
+        if metrics_b["tail_batches"] != steps_b:
+            raise AssertionError(f"split B: {metrics_b['tail_batches']} tail "
+                                 f"writes for {steps_b} steps")
+
+    # 8. Summary: the kernel's numbers are one single step's three forward
+    # shapes; its launches those of every phase's main-path run.
     def total(key):
         return sum(c[key] for c in main_cases)
 
     bytes_ms, ops_ms = total("bytes_ms"), total("ops_ms")
+    print("split op times (torch ops, split A's first batch; a step runs "
+          "the synthesis once, the dense aggregation 3 times forward and "
+          "2 times backward, slice_owned 3 times):")
+    for op, ms, bound in op_rows:
+        print(f"  {op}: {ms:.4f} ms, bound {bound:.4f} ms")
+    print(f"kernel at split B's layer 0: ms={split_case['ms']:.4f} "
+          f"bound_ms={max(split_case['bytes_ms'], split_case['ops_ms']):.4f}")
     kernels = [{
         "name": "segment_sum_sorted",
         "route": "cuda",
         "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES,
-        "launches": launches,
-        "max_abs_err": max(c["err"] for c in main_cases + ragged),
+        "launches": single_launches + launches_a + launches_b,
+        "max_abs_err": max(c["err"] for c in main_cases + ragged
+                           + [split_case]),
         "ms": total("ms"),
         "plain_ms": total("plain_ms"),
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "library_ms": total("library_ms"),
     }]
+    print(f"total wall {time.perf_counter() - wall:.1f}s")
     print(f"card: {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))
     return 0
-
 
 if __name__ == "__main__":
     sys.exit(main())

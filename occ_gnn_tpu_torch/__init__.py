@@ -7,16 +7,22 @@ together. Every TPU kernel becomes a kernel written by hand for Hopper
 under ``csrc/``, built with ``nvcc`` at its first launch; importing the
 package builds and loads nothing.
 
-Layer map (the slice ported so far: single-chip GraphSAGE training):
+Layer map (ported so far: split-parallel SAGE/GCN at one partition, and
+single-chip GraphSAGE):
 
-    train CLI            occ_gnn_tpu_torch.train
-    training step        occ_gnn_tpu_torch.training
-    models               occ_gnn_tpu_torch.models.sage
+    train CLI            occ_gnn_tpu_torch.train (--mode split|single)
+    split models, step   occ_gnn_tpu_torch.parallel.model
+    split layer ops      occ_gnn_tpu_torch.parallel.split
+    feature cache        occ_gnn_tpu_torch.cache.{feature_cache,autosize}
+    split samplers       occ_gnn_tpu_torch.sampling.{native,slicer}
+                         (csrc/occ_sampler.cpp, built with g++)
+    single-chip step     occ_gnn_tpu_torch.training, models.sage
     padded block ops     occ_gnn_tpu_torch.ops.{blocks,segment}
     Hopper kernel        occ_gnn_tpu_torch.ops.segment_sum_sorted
-                         (csrc/segment_sum_sorted.cu)
-    sampler              occ_gnn_tpu_torch.sampling.neighbor
+                         (csrc/segment_sum_sorted.cu, built with nvcc)
+    host sampler         occ_gnn_tpu_torch.sampling.neighbor
     dataset layer        occ_gnn_tpu_torch.data.{graph,binary_format,synthetic}
+    profile summary      occ_gnn_tpu_torch.utils.profile
 """
 
 __version__ = "0.1.0"

@@ -78,6 +78,13 @@ class Graph:
     def feature_dim(self) -> int:
         return self.features.shape[1]
 
+    def in_degrees(self) -> np.ndarray:
+        return np.diff(self.indptr)
+
+    def out_degrees(self) -> np.ndarray:
+        return np.bincount(self.indices,
+                           minlength=self.num_nodes).astype(np.int64)
+
     def train_nodes(self) -> np.ndarray:
         if self.train_mask is None:
             return np.arange(self.num_nodes, dtype=np.int64)

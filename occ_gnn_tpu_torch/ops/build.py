@@ -1,11 +1,13 @@
-"""Build the port's hand-written CUDA kernels and load them with ctypes.
+"""Build the port's native libraries and load them with ctypes.
 
-Each kernel is one source, ``csrc/<name>.cu``, with a plain C interface.
-It is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared library
-under ``occ_gnn_tpu_torch/build/`` at first use. The library's file name
-carries a hash of the source and the flags, so an edited source is built
-anew, and two processes building at once never overwrite each other's
-output.
+Each hand-written CUDA kernel is one source, ``csrc/<name>.cu``, with a
+plain C interface, compiled by ``nvcc`` for Hopper (``sm_90a``). The C++
+sampling service, ``csrc/occ_sampler.cpp``, is compiled by ``g++`` with
+the flags of the JAX package's ``csrc/Makefile``. Both are built into
+``occ_gnn_tpu_torch/build/`` at first use. A library's file name carries
+a hash of its source and flags, so an edited source is built anew, and
+it is written through a temporary file and ``os.replace``, so processes
+building at once never overwrite each other's output.
 """
 
 from __future__ import annotations
@@ -23,6 +25,9 @@ BUILD_DIR = PACKAGE_DIR / "build"
 KERNELS = ("segment_sum_sorted",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SAMPLER_SOURCE = CSRC_DIR / "occ_sampler.cpp"
+CXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-fPIC", "-Wall",
+             "-pthread", "-shared")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -41,41 +46,78 @@ def _nvcc() -> str:
     return path
 
 
+def _cxx() -> str:
+    path = shutil.which(os.environ.get("CXX", "g++"))
+    if path is None:
+        raise RuntimeError("g++ not found: the C++ sampling service needs a "
+                           "C++17 compiler (set CXX to another one)")
+    return path
+
+
+def _hashed_path(source: Path, flags) -> Path:
+    digest = hashlib.sha256(
+        source.read_bytes() + " ".join(flags).encode()).hexdigest()
+    return BUILD_DIR / f"lib{source.stem}-{digest[:12]}.so"
+
+
+def _build(source: Path, compiler: str, flags) -> str:
+    out = _hashed_path(source, flags)
+    if out.exists():
+        return ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    proc = subprocess.run([compiler, *flags, "-o", str(tmp), str(source)],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"{Path(compiler).name} failed for {source.name}:"
+                           f"\n{proc.stdout}")
+    os.replace(tmp, out)
+    return proc.stdout
+
+
+def _load(key: str, path: Path) -> ctypes.CDLL:
+    lib = _loaded.get(key)
+    if lib is None:
+        lib = ctypes.CDLL(str(path))
+        _loaded[key] = lib
+    return lib
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+    return _hashed_path(CSRC_DIR / f"{name}.cu", NVCC_FLAGS)
 
 
 def build_kernel(name: str) -> str:
     """Compile the named kernel unless it is built already. Returns the
     compiler's report (ptxas registers, shared memory, spills), empty when
     nothing was built."""
-    out = library_path(name)
-    if out.exists():
-        return ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed for {name}:\n{proc.stdout}")
-    os.replace(tmp, out)
-    return proc.stdout
+    return _build(CSRC_DIR / f"{name}.cu", _nvcc(), NVCC_FLAGS)
 
 
 def load_kernel(name: str) -> ctypes.CDLL:
     """The kernel's library, built first if needed; loaded once a process."""
-    lib = _loaded.get(name)
-    if lib is None:
+    if name not in _loaded:
         build_kernel(name)
-        lib = ctypes.CDLL(str(library_path(name)))
+        lib = _load(name, library_path(name))
         lib.cuda_error_string.argtypes = [ctypes.c_int]
         lib.cuda_error_string.restype = ctypes.c_char_p
-        _loaded[name] = lib
-    return lib
+    return _loaded[name]
+
+
+def build_sampler() -> str:
+    """Compile the C++ sampling service unless it is built already.
+    Returns the compiler's output, empty when nothing was built."""
+    return _build(SAMPLER_SOURCE, _cxx(), CXX_FLAGS)
+
+
+def load_sampler() -> ctypes.CDLL:
+    """The sampling service's library, built first if needed."""
+    if "occ_sampler" not in _loaded:
+        build_sampler()
+        _load("occ_sampler", _hashed_path(SAMPLER_SOURCE, CXX_FLAGS))
+    return _loaded["occ_sampler"]
 
 
 def check_launch(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -1,0 +1,249 @@
+"""Split-parallel batch structures and the per-partition layer ops.
+
+The JAX package's ``parallel/split.py`` as torch ops, at one partition.
+The layout is the same (leading axis P everywhere, of size 1 here):
+
+  edge_src[P, E_cap]   local src row in partition p's input frame
+  edge_dst[P, E_cap]   local dst row in p's dst frame, sorted (pad=dst_cap)
+  push_idx[P, P, S_cap] rows of p's dst frame to send to q (pad=-1)
+  recv_idx[P, P, S_cap] where partials arriving from r land (pad=dst_cap)
+  owned_idx[P, O_cap]  rows of p's dst frame owned by p (pad=-1)
+  owned_deg[P, O_cap]  total sampled in-degree (pad=1)
+  self_idx[P, O_cap]   row of p's input frame holding the owned node's own
+                       feature
+  nbr_idx[P, K_cap, D_cap] dense neighbour matrix; padding points at the
+                       frame's reserved zero row ``src_cap - 1``
+
+The owned output rows of layer l are layer l+1's input frame rows, so
+layers chain with no gather. Each partition aggregates partial sums; with
+one partition they are the whole sums, and the boundary shuffle
+(``shuffle_merge``) has nothing to move. It comes with split training at
+P > 1 (ROADMAP.md, queue 1, item 7).
+
+Index semantics. JAX gathers clamp out-of-range indices and its scatters
+drop them; torch raises. Every padded index is therefore made valid
+before use: ``owned_idx`` -1 and ``dst_global`` -1 read row 0 and are
+masked, ``edge_dst`` padding (``dst_cap``) is dropped by the segment-sum,
+and ``nbr_idx`` padding reads the reserved zero row. Index tensors stay
+int32: ``index_select`` and ``index_add_`` take them as they are.
+
+Not ported: the ``tiled`` lowering of ``local_aggregate_dense`` and the
+``window`` / ``bitsf32`` / ``bitsf32_dk`` lowerings of the device
+sampler; they are TPU memory and instruction choices.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from occ_gnn_tpu_torch.ops.segment_sum_sorted import segment_sum_sorted
+
+_TENSOR_FIELDS = ("edge_src", "edge_dst", "push_idx", "recv_idx",
+                  "owned_idx", "owned_deg", "self_idx", "owned_mask",
+                  "num_owned", "nbr_idx", "dst_global")
+
+
+@dataclasses.dataclass
+class SplitLayer:
+    """One sliced layer. ``edge_src``/``edge_dst`` are None when the layer
+    ships only the dense ``nbr_idx``; a device-sampled layer carries only
+    ``dst_global`` (global ids of its dst frame, pad -1), and
+    ``synthesize_device_innermost`` builds the rest from a resident CSR."""
+
+    edge_src: torch.Tensor | None = None   # i32[P, E_cap]
+    edge_dst: torch.Tensor | None = None   # i32[P, E_cap], pad=dst_cap
+    push_idx: torch.Tensor | None = None   # i32[P, P, S_cap], pad=-1
+    recv_idx: torch.Tensor | None = None   # i32[P, P, S_cap], pad=dst_cap
+    owned_idx: torch.Tensor | None = None  # i32[P, O_cap], pad=-1
+    owned_deg: torch.Tensor | None = None  # f32[P, O_cap], pad=1
+    self_idx: torch.Tensor | None = None   # i32[P, O_cap], pad=0
+    owned_mask: torch.Tensor | None = None  # bool[P, O_cap]
+    num_owned: torch.Tensor | None = None  # i32[P]
+    nbr_idx: torch.Tensor | None = None    # i32[P, K_cap, D_cap]
+    dst_global: torch.Tensor | None = None  # i32[P, D_cap], pad=-1
+    src_cap: int = 0
+    dst_cap: int = 0
+    out_cap: int = 0
+    fanout: int = 0
+
+    @property
+    def device_sampled(self) -> bool:
+        return self.dst_global is not None and self.nbr_idx is None
+
+    def partition(self, p: int) -> "SplitLayer":
+        """The layer of partition ``p``: every tensor without its leading
+        P axis (the JAX step's per-device view inside shard_map)."""
+        return dataclasses.replace(self, **{
+            f: getattr(self, f)[p] for f in _TENSOR_FIELDS
+            if getattr(self, f) is not None})
+
+
+@dataclasses.dataclass
+class SplitBatch:
+    """One sliced minibatch. Layers are innermost-first; layer l's
+    out_cap == layer l+1's src_cap.
+
+    ``input_nodes_host`` is a host copy of ``input_nodes``, set by the
+    samplers, so the per-batch feature gather reads the ids without a
+    round trip through the device."""
+
+    layers: list[SplitLayer]
+    input_nodes: torch.Tensor | None   # i32[P, F0_cap], pad=-1
+    labels: torch.Tensor               # i32[P, T_cap], pad=-1
+    target_nodes: torch.Tensor | None = None  # i32[P, T_cap], pad=-1
+    input_nodes_host: np.ndarray | None = None
+
+    @property
+    def num_partitions(self) -> int:
+        return self.labels.shape[0]
+
+
+def count_layer_edges(lyr: SplitLayer, per_partition: bool = False):
+    """Valid edge count of a sliced layer, from the COO when present, else
+    from the dense nbr matrix (padding slots hold ``src_cap - 1``)."""
+    if lyr.edge_dst is not None:
+        valid = lyr.edge_dst.cpu().numpy() < lyr.dst_cap
+        return valid.sum(axis=1) if per_partition else int(valid.sum())
+    valid = lyr.nbr_idx.cpu().numpy() != (lyr.src_cap - 1)
+    return valid.sum(axis=(1, 2)) if per_partition else int(valid.sum())
+
+
+# ---------------------------------------------------------------------------
+# Per-partition ops: every argument is one partition's (no leading P axis;
+# P-slot axes such as push_idx's first one remain).
+# ---------------------------------------------------------------------------
+
+
+def local_aggregate(x: torch.Tensor, edge_src: torch.Tensor,
+                    edge_dst: torch.Tensor, dst_cap: int) -> torch.Tensor:
+    """Partial neighbour SUM over this partition's COO, accumulated in f32
+    by the sorted segment-sum (the Hopper kernel on a CUDA tensor).
+    Padding edges read row 0 and are dropped by ``edge_dst == dst_cap``."""
+    with record_function("local_aggregate"):
+        msgs = x.index_select(0, edge_src).float()
+        return segment_sum_sorted(msgs, edge_dst, dst_cap)
+
+
+class _DenseAggregate(torch.autograd.Function):
+    """``out[d] = sum_k x[nbr[k, d]]`` in f32: K row-gathers, never one
+    ``[K, D, H]`` gather. The backward adds ``g`` into one ``dx`` buffer
+    K times, where autograd of K gathers would build K full ``dx``."""
+
+    @staticmethod
+    def forward(ctx, x, nbr):
+        ctx.save_for_backward(nbr)
+        ctx.x_shape, ctx.x_dtype = x.shape, x.dtype
+        acc = x.index_select(0, nbr[0]).float()
+        for k in range(1, nbr.shape[0]):
+            acc.add_(x.index_select(0, nbr[k]))
+        return acc
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        (nbr,) = ctx.saved_tensors
+        dx = grad.new_zeros(ctx.x_shape)
+        for k in range(nbr.shape[0]):
+            dx.index_add_(0, nbr[k], grad)
+        return dx.to(ctx.x_dtype), None
+
+
+def local_aggregate_dense(x: torch.Tensor, nbr_idx: torch.Tensor):
+    """Partial neighbour SUM through the dense ``[K_cap, D_cap]`` neighbour
+    matrix; padding slots read the frame's reserved zero row. Returns
+    f32 ``[D_cap, H]``, as ``local_aggregate`` does."""
+    with record_function("local_aggregate_dense"):
+        return _DenseAggregate.apply(x, nbr_idx)
+
+
+def aggregate(x: torch.Tensor, lyr: SplitLayer) -> torch.Tensor:
+    """Partial neighbour sums of one layer: the dense gather path when the
+    slicer emitted ``nbr_idx``, the COO segment-sum otherwise."""
+    if lyr.nbr_idx is not None:
+        return local_aggregate_dense(x, lyr.nbr_idx)
+    return local_aggregate(x, lyr.edge_src, lyr.edge_dst, lyr.dst_cap)
+
+
+def neigh_mean(merged: torch.Tensor, lyr: SplitLayer) -> torch.Tensor:
+    """Owned rows of the merged sums divided by their global degree."""
+    owned_sum = merged.index_select(0, lyr.owned_idx.clamp(min=0))
+    return owned_sum / lyr.owned_deg[:, None]
+
+
+def slice_owned(merged: torch.Tensor, lyr: SplitLayer, x: torch.Tensor):
+    """Select owned rows, finish the mean, fetch self features.
+
+    Returns (self_x[O_cap, H] f32, neigh_mean[O_cap, H], mask[O_cap, 1])."""
+    with record_function("slice_owned"):
+        self_x = x.index_select(0, lyr.self_idx).float()
+        return self_x, neigh_mean(merged, lyr), lyr.owned_mask[:, None]
+
+
+def synthesize_device_innermost(lyr: SplitLayer, indptr: torch.Tensor,
+                                indices: torch.Tensor,
+                                generator: torch.Generator) -> SplitLayer:
+    """Build the innermost layer on the device from a resident CSR.
+
+    The same sample the C++ worker would build: the self slot first, then
+    all neighbours in adjacency order when deg <= fanout (bit-identical
+    to the host path), else ``fanout`` draws with replacement, uniform
+    over the adjacency row. Needs a replicated identity cache (frame row
+    == global id), so every dst row is owned in rank order and the layer
+    has no shuffle.
+
+    ``torch.randint`` takes one upper bound, not one per dst, so each draw
+    is a 62-bit uniform integer reduced modulo the dst's degree: the
+    modulo bias of a value is below deg / 2^62 (under 1e-12 for any degree
+    below 4 million), far below what any sample can show.
+    """
+    with record_function("synthesize_device_innermost"):
+        return _synthesize(lyr, indptr, indices, generator)
+
+
+def _synthesize(lyr, indptr, indices, generator):
+    dg = lyr.dst_global
+    K = lyr.fanout
+    if K <= 0:
+        raise ValueError("device-innermost synthesis needs a bounded fanout")
+    valid = dg >= 0
+    g = dg.clamp(min=0)
+    off = indptr.index_select(0, g)
+    deg = torch.where(valid, indptr.index_select(0, g + 1) - off, 0)
+    take = deg.clamp(max=K)
+    kr = torch.arange(K, device=dg.device)[:, None]
+    draws = torch.randint(0, 2**62, (K, dg.shape[0]), generator=generator,
+                          device=dg.device) % deg.clamp(min=1)[None, :]
+    sel = torch.where(deg[None, :] > K, draws, kr)
+    # Slots k >= take are masked below; clamp keeps their reads in range
+    # (JAX clamps the same gather silently).
+    pos = (off[None, :] + sel).clamp_(max=indices.shape[0] - 1)
+    src = indices[pos]
+    zero_row = lyr.src_cap - 1  # reserved zero row of the cache frame
+    nbr_main = torch.where(kr < take[None, :], src, zero_row)
+    return _finish_innermost(lyr, g, valid, take, nbr_main)
+
+
+def _finish_innermost(lyr, g, valid, take, nbr_main):
+    """Prepend the self slot and assemble the owned-rank-order layer."""
+    zero_row = lyr.src_cap - 1
+    self_rows = torch.where(valid, g, zero_row).to(torch.int32)
+    nbr = torch.cat([self_rows[None, :], nbr_main.to(torch.int32)], dim=0)
+    O = lyr.out_cap
+    v = valid[:O]
+    ar = torch.arange(O, dtype=torch.int32, device=g.device)
+    return SplitLayer(
+        owned_idx=torch.where(v, ar, -1),
+        owned_deg=torch.where(v, (take[:O] + 1).float(), 1.0),
+        self_idx=torch.where(v, g[:O], 0).to(torch.int32),
+        owned_mask=v,
+        num_owned=valid.sum().to(torch.int32),
+        nbr_idx=nbr,
+        src_cap=lyr.src_cap,
+        dst_cap=lyr.dst_cap,
+        out_cap=O,
+        fanout=lyr.fanout,
+    )

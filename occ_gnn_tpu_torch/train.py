@@ -2,16 +2,18 @@
 
 Usage:
 
-    python -m occ_gnn_tpu_torch.train --graph community --mode single \
-        --fan-out 10,10 --batch-size 1024 --num-epochs 3
+    python -m occ_gnn_tpu_torch.train --graph community --mode split \
+        --cache-per auto --fan-out 10,10 --batch-size 1024 --num-epochs 3
 
 Runs on the CUDA device; ``--cpu`` runs on the CPU instead. Without
 ``--cpu`` and without a visible GPU it stops with an error and never falls
 back to the CPU.
 
-Ported so far: ``--mode single`` with ``--model-name sage``. The other
-modes, and the flags that only they read, stop with the ROADMAP.md item
-that ports them.
+Ported so far: ``--mode split`` at one partition (``SplitSAGE`` or
+``SplitGCN``, the C++ or numpy sampler, the feature cache, on-device
+innermost sampling) and ``--mode single`` with ``--model-name sage``. The
+other modes, and the flags no ported path reads, stop with the ROADMAP.md
+item that ports them.
 
 Graphs: a name under --data-root (binary format, see ``data``) or the
 built-in synthetics ``community`` / ``random``.
@@ -21,6 +23,8 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import resource
 import time
 
 import numpy as np
@@ -28,7 +32,6 @@ import torch
 
 # Where each mode that is not ported yet stands in ROADMAP.md, queue 1.
 _NOT_PORTED = {
-    "split": "items 1-7 (split-parallel path)",
     "pa-cache": "item 9 (single-chip cache)",
     "ddp": "item 10 (baselines)",
     "quiver": "item 10 (baselines)",
@@ -37,19 +40,19 @@ _NOT_PORTED = {
 # Flags of the JAX CLI that no ported path reads yet, by the item that
 # ports them. Set away from its default, each one stops the CLI.
 _FLAGS_NOT_PORTED = {
-    "cache_per": "items 6 and 9 (feature cache)",
+    "cache_per": "item 9 (single-chip cache)",
     "num_heads": "items 8 and 9 (GAT)",
     "partitions": "item 7 (split-parallel training at P > 1)",
     "partition_mode": "item 7 (split-parallel training at P > 1)",
-    "sampler": "items 4 and 10 (split-mode samplers)",
-    "innermost": "item 5 (on-device innermost sampling)",
-    "caps_margin": "item 6 (split CLI)",
-    "num_workers": "item 4 (C++ sampler)",
-    "dtype": "item 6 (split CLI)",
-    "save_dir": "item 6 (save and resume)",
-    "resume": "item 6 (save and resume)",
-    "eval": "item 6 (split CLI)",
-    "profile_dir": "item 6 (split CLI)",
+    "sampler": "items 1-6 port it for --mode split only",
+    "innermost": "items 1-6 port it for --mode split only",
+    "caps_margin": "items 1-6 port it for --mode split only",
+    "num_workers": "items 1-6 port it for --mode split only",
+    "dtype": "items 1-6 port it for --mode split only",
+    "save_dir": "item 7 (save and resume)",
+    "resume": "item 7 (save and resume)",
+    "eval": "items 1-6 port it for --mode split only",
+    "profile_dir": "items 1-6 port it for --mode split only",
     "infer_nodes": "item 10 (inference)",
     "output": "item 10 (inference)",
     "cpu_devices": "item 7 (split-parallel training at P > 1)",
@@ -58,6 +61,10 @@ _FLAGS_NOT_PORTED = {
     "num_processes": "item 7 (multi-process training)",
     "process_id": "item 7 (multi-process training)",
 }
+# The flags of that table which --mode split reads (--partitions only as
+# 0 or 1).
+_SPLIT_READS = {"cache_per", "sampler", "innermost", "caps_margin",
+                "num_workers", "dtype", "eval", "profile_dir", "partitions"}
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -79,7 +86,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--lr", type=float, default=0.01)
     p.add_argument("--dropout", type=float, default=0.0)
     p.add_argument("--partitions", type=int, default=0,
-                   help="mesh size for split/ddp; 0 = all devices")
+                   help="partitions for split mode; 0 = one per process "
+                        "(the port runs one)")
     p.add_argument("--partition-mode", type=str, default="greedy",
                    choices=["greedy", "metis", "random", "round_robin"])
     p.add_argument("--sampler", type=str, default="native",
@@ -129,7 +137,7 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="zero-pad feature_dim to a multiple of this "
                         "(inert for the math)")
     p.add_argument("--profile-dir", type=str, default="",
-                   help="capture a profiler trace of a few steps "
+                   help="capture a profiler trace of one steady step "
                         "(split mode)")
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU instead of the CUDA device")
@@ -172,19 +180,34 @@ def resolve_graph(args):
                       mmap_features=args.mmap_features)
 
 
+def _check_ported(parser, args) -> None:
+    """Stop, naming the ROADMAP.md item, on what is not ported yet."""
+    if args.mode in _NOT_PORTED:
+        raise SystemExit(f"--mode {args.mode} is not ported yet: ROADMAP.md "
+                         f"queue 1, {_NOT_PORTED[args.mode]}")
+    split = args.mode == "split"
+    if split and args.model_name == "gat":
+        raise SystemExit("--model-name gat is not ported yet for --mode "
+                         "split: ROADMAP.md queue 1, item 8 (SplitGAT)")
+    if split and args.partitions not in (0, 1):
+        raise SystemExit("--partitions is not ported yet beyond 1: "
+                         "ROADMAP.md queue 1, item 7 (split-parallel "
+                         "training at P > 1)")
+    for dest, item in _FLAGS_NOT_PORTED.items():
+        if split and dest in _SPLIT_READS:
+            continue
+        if getattr(args, dest) != parser.get_default(dest):
+            flag = "--" + dest.replace("_", "-")
+            raise SystemExit(f"{flag} is not ported yet for --mode "
+                             f"{args.mode}: ROADMAP.md queue 1, {item}")
+
+
 def main(argv=None):
     from occ_gnn_tpu_torch.utils import PhaseTimers
 
     parser = build_argparser()
     args = parser.parse_args(argv)
-    if args.mode in _NOT_PORTED:
-        raise SystemExit(f"--mode {args.mode} is not ported yet: ROADMAP.md "
-                         f"queue 1, {_NOT_PORTED[args.mode]}")
-    for dest, item in _FLAGS_NOT_PORTED.items():
-        if getattr(args, dest) != parser.get_default(dest):
-            flag = "--" + dest.replace("_", "-")
-            raise SystemExit(f"{flag} is not ported yet: ROADMAP.md queue 1, "
-                             f"{item}")
+    _check_ported(parser, args)
     device = resolve_device(args)
     fanouts = [int(f) for f in args.fan_out.split(",")]
     g = resolve_graph(args)
@@ -192,7 +215,8 @@ def main(argv=None):
         g = g.pad_feature_dim(args.feature_pad)
     print(f"graph: {g.num_nodes} nodes, {g.num_edges} edges, "
           f"feat {g.feature_dim}, {g.num_classes} classes; device {device}")
-    metrics = train_single(args, g, fanouts, PhaseTimers(), device)
+    train = train_split if args.mode == "split" else train_single
+    metrics = train(args, g, fanouts, PhaseTimers(), device)
     if args.json:
         print(json.dumps(metrics))
     return metrics
@@ -241,9 +265,10 @@ def train_single(args, g, fanouts, timers, device: torch.device | None = None):
                 g, nodes, fanouts, args.batch_size, seed=args.seed + 99,
                 replace=not args.sample_without_replacement,
             )
+    # As the JAX trainer: --sample-without-replacement applies to the
+    # capacity measurement only; the sampler draws with replacement.
     sampler = NeighborSampler(g, nodes, fanouts, args.batch_size,
                               capacities=caps, seed=args.seed,
-                              replace=not args.sample_without_replacement,
                               device=device)
     drop_gen = torch.Generator(device).manual_seed(args.seed)
     acc = loss_v = 0.0
@@ -257,6 +282,7 @@ def train_single(args, g, fanouts, timers, device: torch.device | None = None):
                 batch = sampler.sample_batch(seeds)
             with timers.phase("feature_load"):
                 x0 = gather_features(g.features, batch.input_nodes, device)
+                _synchronize(device)
             with timers.phase("train_step"):
                 loss, c, t = step(batch, x0, drop_gen)
                 _synchronize(device)
@@ -272,6 +298,295 @@ def train_single(args, g, fanouts, timers, device: torch.device | None = None):
         timers.clear()
     return {"mode": "single", "acc": acc, "loss": loss_v, "steps": steps,
             "phases": last_phases}
+
+
+def _one_partition_map(g) -> np.ndarray:
+    """The partition map at P = 1: every node on partition 0, which is what
+    ``partition_graph(g, 1, mode)`` of the JAX package gives in every
+    mode, without its per-node loop over the graph."""
+    if g.partition_map is not None and int(g.partition_map.max()) == 0:
+        return g.partition_map
+    return np.zeros(g.num_nodes, dtype=np.int32)
+
+
+def _make_split_model(args, g):
+    from occ_gnn_tpu_torch.parallel.model import SplitGCN, SplitSAGE
+
+    # As the JAX trainer, the split model is built without --dropout,
+    # which therefore has no effect in split mode.
+    cls = {"sage": SplitSAGE, "gcn": SplitGCN}[args.model_name]
+    dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
+    return cls(g.feature_dim, args.num_hidden, g.num_classes,
+               len(args.fan_out.split(",")), dtype=dtype,
+               generator=torch.Generator().manual_seed(args.seed))
+
+
+def _gather_xs(g, batch, device: torch.device) -> torch.Tensor:
+    """The input frame ``[1, F0_cap, H]``, gathered on the host."""
+    from occ_gnn_tpu_torch.training import gather_features
+
+    ids = batch.input_nodes_host
+    if ids is None:
+        ids = batch.input_nodes.cpu().numpy()
+    return gather_features(g.features, ids[0], device)[None]
+
+
+def _profile_window(steps: int, out_dir: str, summary: dict):
+    """A profiler recording one steady step: the fifth, or the last of a
+    shorter epoch. ``prof.step()`` is called as each step launches and
+    once after the epoch, so the recorded window runs from that launch to
+    the next, by which time the pipeline has waited for the step to
+    finish. When the window closes, its Chrome trace goes to
+    ``out_dir/trace.json`` and its summary into ``summary``."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from occ_gnn_tpu_torch.utils.profile import summarize_step
+
+    def on_ready(prof):
+        os.makedirs(out_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
+        summary.update(summarize_step(prof))
+        print(f"profiler trace -> {out_dir}")
+
+    target = min(4, max(steps - 1, 0))
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    return profile(activities=activities,
+                   schedule=schedule(wait=target, warmup=1, active=1,
+                                     repeat=1),
+                   on_trace_ready=on_ready)
+
+
+def train_split(args, g, fanouts, timers, device: torch.device | None = None,
+                init_state: dict | None = None):
+    """Split-parallel training (``--mode split``) at one partition on
+    ``device``, step for step as the JAX trainer's ``train_split``.
+    ``init_state`` is an optional model state to start from (for
+    instance ``utils.checkpoint.params_from_jax`` of JAX weights)."""
+    from occ_gnn_tpu_torch.cache import CachePlan, SplitFeatureCache
+    from occ_gnn_tpu_torch.cache.autosize import resolve_cache_percentage
+    from occ_gnn_tpu_torch.parallel.model import (
+        make_device_csr,
+        make_split_forward,
+        make_split_train_step,
+    )
+    from occ_gnn_tpu_torch.sampling.slicer import (
+        SplitSampler,
+        measure_split_capacities,
+        plan_split_capacities,
+        scale_capacities,
+    )
+
+    device = device or resolve_device(args)
+    P = 1
+    with timers.phase("partition"):
+        pmap = _one_partition_map(g)
+    with timers.phase("capacity_plan"):
+        safe_caps = plan_split_capacities(args.batch_size, fanouts,
+                                          g.num_nodes, P)
+        cache_pct = resolve_cache_percentage(
+            args.cache_per, g, pmap, P,
+            dtype_bytes=2 if args.dtype == "bfloat16" else 4,
+            refresh_cap=safe_caps["frame_caps"][0], device=device,
+        )
+        if args.cache_per == "auto":
+            print(f"cache auto-sized to {cache_pct:.4f} of the graph "
+                  f"({'no per-batch refresh' if cache_pct >= 1.0 / P else 'refreshing'})")
+        # Innermost placement must be known before capacity measurement:
+        # the padding margin depends on it.
+        will_device = (
+            args.innermost != "host"
+            and args.sampler == "native"
+            and cache_pct >= 1.0
+            and not args.sample_without_replacement
+            and fanouts[-1] > 0
+            and g.num_edges < 2**31
+        )
+        margin = args.caps_margin or (1.2 if will_device else 1.35)
+        if args.measure_caps:
+            # Measure with the cache policy active: it changes where the
+            # innermost layer's edges execute, hence the maxima.
+            probe_plan = None
+            if cache_pct > 0:
+                probe_plan = CachePlan(g, pmap, P, cache_pct,
+                                       refresh_cap=safe_caps["frame_caps"][0])
+            caps = measure_split_capacities(
+                g, g.train_nodes(), pmap, P, fanouts, args.batch_size,
+                seed=args.seed + 99, cache_plan=probe_plan, margin=margin,
+            )
+        else:
+            caps = dict(safe_caps)
+    cache = None
+    if cache_pct > 0:
+        refresh_cap = (max(caps.pop("refresh_cap", 0), 8)
+                       if args.measure_caps else safe_caps["frame_caps"][0])
+        plan = CachePlan(g, pmap, P, cache_pct, refresh_cap=refresh_cap)
+        fdtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
+        cache = SplitFeatureCache(plan, dtype=fdtype, device=device)
+    else:
+        caps.pop("refresh_cap", None)
+
+    # Device-innermost eligibility: native sampler, fully replicated
+    # cache, with-replacement draws, bounded innermost fanout.
+    eligible_device = (
+        args.sampler == "native"
+        and cache is not None
+        and cache.plan.replicated
+        and not args.sample_without_replacement
+        and fanouts[-1] > 0
+        and g.num_edges < 2**31
+    )
+    innermost = args.innermost
+    if innermost == "auto":
+        innermost = "device" if eligible_device else "host"
+    elif innermost == "device" and not eligible_device:
+        raise SystemExit(
+            "--innermost device needs --sampler native, a fully "
+            "replicated cache (--cache-per auto/1.0), with-replacement "
+            "sampling, a bounded innermost fanout, and < 2^31 edges"
+        )
+    csr = None
+    if innermost == "device":
+        csr = make_device_csr(g, device)
+        print("innermost layer: device-sampled from resident CSR")
+
+    def build_sampler(caps, nodes=None, seed=None):
+        nodes = _train_nodes(args, g) if nodes is None else nodes
+        seed = args.seed if seed is None else seed
+        if args.sampler == "native":
+            from occ_gnn_tpu_torch.sampling.native import NativeSplitSampler
+
+            return NativeSplitSampler(
+                g, nodes, pmap, P, fanouts, args.batch_size,
+                capacities=caps, seed=seed, cache=cache,
+                num_workers=args.num_workers,
+                replace=not args.sample_without_replacement,
+                innermost=innermost, device=device,
+            )
+        return SplitSampler(g, nodes, pmap, P, fanouts, args.batch_size,
+                            capacities=caps, seed=seed, cache=cache,
+                            replace=not args.sample_without_replacement,
+                            device=device)
+
+    sampler = build_sampler(caps)
+    model = _make_split_model(args, g)
+    if init_state is not None:
+        model.load_state_dict(init_state)
+    model = model.to(device)
+    opt = torch.optim.Adam(model.parameters(), lr=args.lr)
+    step = make_split_train_step(model, opt, csr=csr)
+    # Device-innermost sampling stream.
+    sample_gen = (torch.Generator(device).manual_seed(args.seed ^ 0xD0C5)
+                  if csr is not None else None)
+    profile = {}
+    prof = (_profile_window(len(sampler), args.profile_dir, profile)
+            if args.profile_dir else None)
+    if prof is not None:
+        prof.start()
+
+    acc = loss_v = 0.0
+    steps = 0
+    last_phases = {}
+    epoch = 0
+    replans = 0
+    while epoch < args.num_epochs:
+        t0 = time.perf_counter()
+        correct = total = 0
+        try:
+            # Lag-1 pipeline: the host samples and stages batch n+1 while
+            # the device runs step n; the reads of step n's counts wait
+            # until batch n+1 is staged.
+            pending = None  # (loss, correct, total) of the step in flight
+            batches = iter(sampler)
+            for _ in range(len(sampler)):
+                with timers.phase("sample"):
+                    batch = next(batches)
+                if cache is not None:
+                    xs = cache.frames
+                else:
+                    with timers.phase("feature_gather"):
+                        xs = _gather_xs(g, batch, device)
+                if pending is not None:
+                    loss, c, t = pending
+                    correct += int(c)
+                    total += int(t)
+                if prof is not None:
+                    prof.step()
+                with timers.phase("train_step"):
+                    loss, c, t = step(batch, xs, sample_generator=sample_gen)
+                steps += 1
+                pending = (loss, c, t)
+            if pending is not None:
+                loss, c, t = pending
+                correct += int(c)
+                total += int(t)
+        except ValueError as e:
+            if "overflow" not in str(e):
+                raise
+            replans += 1
+            if replans > 8:
+                # Growing budgets is not converging: the overflow is not a
+                # padding-budget problem.
+                raise
+            # A tail batch exceeded the measured padding budget: grow every
+            # capacity 1.5x, rebuild the sampler, redo the epoch.
+            caps = scale_capacities(caps, 1.5)
+            print(f"capacity overflow ({e}); re-planning with 1.5x budgets")
+            if hasattr(sampler, "close"):
+                sampler.close()
+            sampler = build_sampler(caps)
+            continue
+        acc = correct / max(total, 1)
+        loss_v = float(loss)
+        dt = time.perf_counter() - t0
+        if prof is not None:
+            prof.step()
+            prof.stop()
+            prof = None
+        print(f"epoch {epoch}: loss={loss_v:.4f} acc={acc:.4f} "
+              f"time={dt:.2f}s [{timers.summary()}]")
+        last_phases = {k: round(v, 4) for k, v in timers.as_dict().items()}
+        timers.clear()
+        epoch += 1
+
+    out = {"mode": "split", "acc": acc, "loss": loss_v, "partitions": P,
+           "phases": last_phases,
+           "peak_rss_mb": round(
+               resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024, 1),
+           "steps": steps, "cache_pct": cache_pct, "innermost": innermost,
+           "sampler": args.sampler,
+           "tail_batches": cache.tail_batches if cache is not None else 0}
+    if profile:
+        out["profile"] = profile
+    if args.sampler == "native":
+        st = sampler.stats()
+        out["phases"]["cxx_sample"] = round(st["sample_s_per_batch"], 4)
+        out["phases"]["cxx_slice"] = round(st["slice_s_per_batch"], 4)
+    if hasattr(sampler, "close"):
+        sampler.close()
+    if args.eval and g.val_mask is not None:
+        fwd = make_split_forward(model, csr=csr)
+        ev_gen = (torch.Generator(device).manual_seed(args.seed + 13)
+                  if csr is not None else None)
+        for split_name, mask in (("val", g.val_mask), ("test", g.test_mask)):
+            nodes = np.nonzero(mask)[0]
+            # Same sampler backend and seeds as the JAX trainer's eval.
+            ev = build_sampler(caps, nodes=nodes, seed=args.seed + 7)
+            correct = total = 0
+            for batch in ev:
+                xs = cache.frames if cache is not None else _gather_xs(
+                    g, batch, device)
+                logits = fwd(batch, xs, sample_generator=ev_gen)
+                labels = batch.labels
+                valid = labels >= 0
+                correct += int(((logits.argmax(-1) == labels) & valid).sum())
+                total += int(valid.sum())
+            if hasattr(ev, "close"):
+                ev.close()
+            out[f"{split_name}_acc"] = correct / max(total, 1)
+            print(f"{split_name} accuracy: {out[f'{split_name}_acc']:.4f}")
+    return out
 
 
 if __name__ == "__main__":
