@@ -31,21 +31,40 @@
    refreshing cache with a COO layer 0. Checks the split-vs-single logits,
    that a step launched before a tail write reads the old tail, one
    kernel launch a step and one tail write a step.
-8. Prints the card again, one JSON line of kernel numbers, and last
+8. Split P2: split A's flags at ``--partitions 2 --partition-mode
+   round_robin`` (metis took 109-123 s a rank on the products graph on
+   the H100 host), two ranks spawned as the CLI's launcher spawns them,
+   each running ``train_split`` on the products graph (saved once in the
+   binary format and loaded by each rank): NCCL when there are two
+   cards, else both ranks on ``cuda:0`` over gloo. Checks equal global
+   metrics on both ranks, 2 shuffles forward and 2 backward a step, and
+   that one raw sample's P = 2 logits, loss and gradients equal P = 1's
+   on the card.
+9. Split P2-B: split B's flags at ``--partitions 2 --partition-mode
+   metis``: the cache tails refresh per rank, layer 0 is COO through the
+   kernel (one launch per rank a step) and shuffles forward only (3
+   forward, 2 backward a step).
+10. Prints the card again, one JSON line of kernel numbers, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 It also fails when torch sees no CUDA device, and outside the repository.
 ``--num-nodes`` cuts the products graph for a quick run; every width stays.
+``--ranks N`` sets the partitions of steps 8 and 9 (default 2), and
+``--ranks-only`` runs only steps 1, 2, 8 and 9: on a machine with a card
+for every rank, the ranks then run over NCCL.
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from collections import defaultdict
 from concurrent.futures import ThreadPoolExecutor
@@ -55,20 +74,34 @@ import numpy as np
 import torch
 
 from occ_gnn_tpu_torch.cache import CachePlan, SplitFeatureCache
-from occ_gnn_tpu_torch.data import random_graph
+from occ_gnn_tpu_torch.data import (
+    edge_cut_fraction,
+    load_graph,
+    random_graph,
+    save_graph,
+)
 from occ_gnn_tpu_torch.models import get_model
-from occ_gnn_tpu_torch.ops.build import KERNELS, build_kernel, build_sampler
+from occ_gnn_tpu_torch.ops.build import (
+    KERNELS,
+    build_kernel,
+    build_partitioner,
+    build_sampler,
+)
 from occ_gnn_tpu_torch.ops.segment_sum_sorted import (
     segment_sum_sorted,
     segment_sum_sorted_reference,
 )
+from occ_gnn_tpu_torch.parallel import dist
 from occ_gnn_tpu_torch.parallel.model import (
     SplitSAGE,
     make_device_csr,
     make_split_forward,
+    make_split_train_step,
 )
 from occ_gnn_tpu_torch.parallel.split import (
     local_aggregate_dense,
+    reset_shuffle_counts,
+    shuffle_counts,
     slice_owned,
     synthesize_device_innermost,
 )
@@ -97,6 +130,16 @@ SPLIT_A_FLAGS = ["--mode", "split", "--cache-per", "auto",
                  "chiprun_out/split_a_profile"] + COMMON_FLAGS
 SPLIT_B_FLAGS = ["--mode", "split", "--cache-per", "0.25", "--innermost",
                  "host", "--fan-out", "10,10,-1"] + COMMON_FLAGS
+# The P > 1 phases, one process per partition: split A's and split B's
+# flags at --partitions RANKS.
+RANKS = 2
+# metis on the products graph took 109.12 s and 122.57 s a rank in two
+# runs on the H100 host (both ranks at once); above 120 s the products
+# phase partitions round-robin. The 200,000-node graph takes metis in
+# ~8 s.
+PRODUCTS_PARTITION_MODE = "round_robin"
+SPLIT_B_PARTITION_MODE = "metis"
+RANK_TIMEOUT_S = 600
 # f32 sums taken in another order than the plain version's atomics.
 KERNEL_TOL = 1e-4
 # Logits: the same sums followed by three layers of f32 matmuls; the
@@ -263,16 +306,18 @@ def graph_args(num_nodes: int, flags: list[str]):
 
 
 def build_all():
-    """Build every kernel and the C++ service at once, one compiler each."""
+    """Build every kernel, the C++ service and the partitioner at once,
+    one compiler each."""
     def timed(fn, *a):
         t0 = time.perf_counter()
         report = fn(*a)
         return time.perf_counter() - t0, report
 
-    with ThreadPoolExecutor(max_workers=len(KERNELS) + 1) as pool:
+    with ThreadPoolExecutor(max_workers=len(KERNELS) + 2) as pool:
         jobs = {f"{k} (nvcc)": pool.submit(timed, build_kernel, k)
                 for k in KERNELS}
         jobs["occ_sampler (g++)"] = pool.submit(timed, build_sampler)
+        jobs["partition (g++)"] = pool.submit(timed, build_partitioner)
         for name, job in jobs.items():
             secs, report = job.result()
             print(f"build: {name} in {secs:.2f}s")
@@ -464,27 +509,36 @@ def split_op_times(batch, syn, csr, frames, hidden, rate, device):
     return rows
 
 
-def print_phases(timers, steps: int, once=("partition", "capacity_plan")):
-    """Each per-step phase must be recorded once a step; prints first and
+def phase_lines(timers, steps: int,
+                once=("partition", "capacity_plan")) -> list[str]:
+    """Each per-step phase must be recorded once a step; reports first and
     the median of the rest, and the step's wall time: from one step's
     ``train_step`` start to the next's (so sampling, staging and the wait
     for the step before are inside it)."""
+    lines = []
     starts = timers.starts["train_step"]
     walls = [1e3 * (b - a) for a, b in zip(starts, starts[1:])]
     if walls:
         rest = walls[1:] or walls
-        print(f"  step wall (launch to launch): first {walls[0]:.2f} ms, "
-              f"median of the rest {statistics.median(rest):.2f} ms (min "
-              f"{min(rest):.2f}, max {max(rest):.2f}) over {len(walls)}")
+        lines.append(f"step wall (launch to launch): first {walls[0]:.2f} "
+                     f"ms, median of the rest {statistics.median(rest):.2f} "
+                     f"ms (min {min(rest):.2f}, max {max(rest):.2f}) over "
+                     f"{len(walls)}")
     for phase, each in sorted(timers.each.items()):
         rest = each[1:] or each
-        print(f"  phase {phase}: {sum(each) / 1e3:.4f}s total over "
-              f"{len(each)}, first {each[0]:.2f} ms, median of the rest "
-              f"{statistics.median(rest):.2f} ms (min {min(rest):.2f}, "
-              f"max {max(rest):.2f})")
+        lines.append(f"phase {phase}: {sum(each) / 1e3:.4f}s total over "
+                     f"{len(each)}, first {each[0]:.2f} ms, median of the "
+                     f"rest {statistics.median(rest):.2f} ms (min "
+                     f"{min(rest):.2f}, max {max(rest):.2f})")
         if phase not in once and len(each) != steps:
             raise AssertionError(f"phase {phase} recorded {len(each)} times "
                                  f"in {steps} steps")
+    return lines
+
+
+def print_phases(timers, steps: int, once=("partition", "capacity_plan")):
+    for line in phase_lines(timers, steps, once):
+        print(f"  {line}")
 
 
 def print_profile(profile: dict):
@@ -529,9 +583,212 @@ def run_split(label, args, g, fanouts, device):
     return metrics, launches
 
 
+def check_vs_one_partition(ranks, g, args, fanouts, device) -> dict:
+    """One raw sample of the numpy SplitSampler sliced at P (this rank's
+    row, its partition map) and at P = 1, under the replicated
+    cache (the same identity frame at both), with the same weights: this
+    rank's owned logits, the global loss and every all-reduced gradient
+    against the P = 1 computation. Errors are relative to the P = 1
+    values' scale (at least 1)."""
+    r, P = ranks.rank, ranks.world_size
+    pmap, nodes, bs = g.partition_map, g.train_nodes(), args.batch_size
+    cache = SplitFeatureCache(CachePlan(g, pmap, P, 1.0, refresh_cap=8),
+                              device=device, partitions=(r, r + 1))
+    s2 = SplitSampler(g, nodes, pmap, P, fanouts, bs, seed=0, cache=cache,
+                      capacities=plan_split_capacities(bs, fanouts,
+                                                       g.num_nodes, P),
+                      emit_range=(r, r + 1), device=device)
+    raw = s2._sample_raw(nodes[:bs])
+    b2 = s2.slice_raw(raw)
+    zeros = np.zeros(g.num_nodes, np.int32)
+    s1 = SplitSampler(g, nodes, zeros, 1, fanouts, bs, seed=0,
+                      cache=CachePlan(g, zeros, 1, 1.0, refresh_cap=8),
+                      capacities=plan_split_capacities(bs, fanouts,
+                                                       g.num_nodes, 1),
+                      device=device)
+    b1 = s1.slice_raw(raw)
+    x0 = cache.frames
+    m2 = SplitSAGE(g.feature_dim, args.num_hidden, g.num_classes,
+                   len(fanouts),
+                   generator=torch.Generator().manual_seed(0)).to(device)
+    m1 = copy.deepcopy(m2)
+    logits2 = make_split_forward(m2, ranks=ranks)(b2, x0)[0]
+    logits1 = make_split_forward(m1)(b1, x0)[0]
+    loss2, _, count = make_split_train_step(
+        m2, torch.optim.SGD(m2.parameters(), lr=0.0), ranks=ranks)(b2, x0)
+    loss1, _, _ = make_split_train_step(
+        m1, torch.optim.SGD(m1.parameters(), lr=0.0))(b1, x0)
+    rows = np.nonzero(pmap[raw[0].frontier] == r)[0]
+    ref = logits1[torch.from_numpy(rows).to(device)]
+    got = logits2[: rows.shape[0]]
+
+    def rel(a, b):
+        return (a - b).abs().max().item() / max(1.0, b.abs().max().item())
+
+    return dict(targets=int(rows.shape[0]), count=int(count),
+                logits_err=rel(got, ref), loss_err=rel(loss2, loss1),
+                grad_err=max(rel(p2.grad, p1.grad) for p2, p1 in
+                             zip(m2.parameters(), m1.parameters())),
+                all_finite=bool(torch.isfinite(logits2).all()))
+
+
+def split_rank(rank, world, store, spec, out_dir):
+    """One rank of a P > 1 phase, as the CLI's launcher runs it: joins
+    the process group, loads the saved graph, and drives ``train_split``
+    with the counts set to 0 just before and read just after; then (split
+    P2) ``check_vs_one_partition``. Writes what it measured to
+    ``out_dir/rank{r}.json``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ranks = dist.init_distributed(store, world, rank, cpu=False)
+    try:
+        device = ranks.device
+        args = build_argparser().parse_args(
+            ["--graph", spec["name"], "--data-root", spec["root"]]
+            + spec["flags"])
+        fanouts = [int(f) for f in args.fan_out.split(",")]
+        g = load_graph(spec["root"], spec["name"])
+        timers = StepTimers()
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        segment_sum_sorted.launches = 0
+        reset_shuffle_counts()
+        metrics = train_split(args, g, fanouts, timers, device, ranks=ranks)
+        out = dict(rank=rank, metrics=metrics,
+                   edge_cut=edge_cut_fraction(g, g.partition_map),
+                   launches=segment_sum_sorted.launches,
+                   shuffles=shuffle_counts(),
+                   peak_gib=torch.cuda.max_memory_allocated(device) / 2**30,
+                   phase_lines=phase_lines(timers, metrics["steps"]))
+        if spec["check"]:
+            out["check"] = check_vs_one_partition(ranks, g, args, fanouts,
+                                                  device)
+    finally:
+        dist.close(ranks)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def run_ranks(label, num_ranks, name, root, flags, check,
+              shuffles_per_step):
+    """Spawn the ranks of a P > 1 phase and hold what they report: equal
+    global loss and accuracy, ``shuffles_per_step`` (forward, backward)
+    all-to-alls a step, and (``check``) the P vs P = 1 errors."""
+    spec = dict(name=name, root=root, flags=flags, check=check)
+    with tempfile.TemporaryDirectory(prefix="occ_smoke_ranks_") as out_dir:
+        dist.spawn(split_rank, num_ranks, spec, out_dir,
+                   timeout=RANK_TIMEOUT_S)
+        results = []
+        for r in range(num_ranks):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                results.append(json.load(f))
+    backends = {res["metrics"]["backend"] for res in results}
+    print(f"{label}: {num_ranks} ranks, partition mode "
+          f"{flags[flags.index('--partition-mode') + 1]} (edge cut "
+          f"{results[0]['edge_cut']:.4f}), backend {', '.join(backends)}, "
+          f"{torch.cuda.device_count()} card(s)"
+          + ("" if "nccl" in backends else
+             " (the ranks share cuda:0; wall times are no scaling numbers)"))
+    fwd, bwd = shuffles_per_step
+    for res in results:
+        m, sh = res["metrics"], res["shuffles"]
+        steps = m["steps"]
+        print(f"  rank {res['rank']}: {steps} steps, global loss "
+              f"{m['loss']:.6f}, acc {m['acc']:.6f}, cache {m['cache_pct']:.4f},"
+              f" innermost {m['innermost']}, replans {m['replans']}, tail "
+              f"writes {m['tail_batches']}, segment_sum_sorted launches "
+              f"{res['launches']}, peak device memory {res['peak_gib']:.3f} "
+              f"GiB")
+        print(f"  rank {res['rank']}: shuffles forward {sh['forward']} "
+              f"({sh['forward'] / max(steps, 1):g} a step), backward "
+              f"{sh['backward']} ({sh['backward'] / max(steps, 1):g} a "
+              f"step), bytes sent {sh['bytes_sent']} "
+              f"({sh['bytes_sent'] / max(steps, 1):.0f} a step), "
+              f"shuffle_caps {m['shuffle_caps']}")
+        phases = m["phases"]
+        print(f"  rank {res['rank']}: C++ service per batch: cxx_sample "
+              f"{1e3 * phases.get('cxx_sample', float('nan')):.2f} ms, "
+              f"cxx_slice {1e3 * phases.get('cxx_slice', float('nan')):.2f}"
+              f" ms")
+        for line in res["phase_lines"]:
+            print(f"  rank {res['rank']}: {line}")
+        if steps == 0 or not (np.isfinite(m["loss"])
+                              and np.isfinite(m["acc"])):
+            raise AssertionError(f"{label}: no steps or non-finite loss: {m}")
+        if (sh["forward"], sh["backward"]) != (fwd * steps, bwd * steps):
+            raise AssertionError(f"{label}: rank {res['rank']} ran {sh} "
+                                 f"shuffles in {steps} steps; expected "
+                                 f"{fwd} forward and {bwd} backward a step")
+        if "check" in res:
+            c = res["check"]
+            print(f"  rank {res['rank']}: P = {num_ranks} vs P = 1, one raw "
+                  f"sample "
+                  f"({c['targets']} owned targets of {c['count']}): logits "
+                  f"{c['logits_err']:.3g}, loss {c['loss_err']:.3g}, "
+                  f"gradients {c['grad_err']:.3g} of scale (limit "
+                  f"{LOGITS_TOL})")
+            if not (c["all_finite"] and max(c["logits_err"], c["loss_err"],
+                                            c["grad_err"]) <= LOGITS_TOL):
+                raise AssertionError(f"{label}: P = {num_ranks} differs "
+                                     f"from P = 1 on rank {res['rank']}: "
+                                     f"{c}")
+    agreed = {(res["metrics"]["loss"], res["metrics"]["acc"],
+               res["metrics"]["steps"]) for res in results}
+    if len(agreed) != 1:
+        raise AssertionError(f"{label}: the ranks report different global "
+                             f"metrics: {agreed}")
+    return results
+
+
+def rank_phases(phase, root: str, num_ranks: int) -> int:
+    """Split P and split P-B: split A's and split B's flags at
+    ``num_ranks`` partitions, on the graphs saved under ``root``. Returns
+    the kernel's launches over both ranks of split P-B."""
+    def parts(mode):
+        return ["--partitions", str(num_ranks), "--partition-mode", mode]
+
+    label = f"split P{num_ranks}"
+    with phase(label):
+        flags = [f for f in SPLIT_A_FLAGS if f not in (
+            "--profile-dir", "chiprun_out/split_a_profile")]
+        flags += parts(PRODUCTS_PARTITION_MODE)
+        for res in run_ranks(label, num_ranks, "products", root, flags,
+                             check=True, shuffles_per_step=(2, 2)):
+            m = res["metrics"]
+            if not (m["cache_pct"] >= 1.0 and m["innermost"] == "device"
+                    and res["launches"] == 0):
+                raise AssertionError(f"{label} must run with a replicated "
+                                     f"cache, device innermost and dense "
+                                     f"layers only")
+    # The cache refreshes per rank when 0.25 < 1/P.
+    refreshing = 0.25 < 1.0 / num_ranks
+    with phase(f"{label}-B"):
+        results = run_ranks(f"{label}-B", num_ranks, "split_b", root,
+                            SPLIT_B_FLAGS + parts(SPLIT_B_PARTITION_MODE),
+                            check=False,
+                            shuffles_per_step=(3, 2))
+        for res in results:
+            m = res["metrics"]
+            if res["launches"] != m["steps"]:
+                raise AssertionError(f"{label}-B: rank {res['rank']}: "
+                                     f"{res['launches']} kernel launches for "
+                                     f"{m['steps']} steps; expected 1 a step")
+            if m["tail_batches"] != (m["steps"] if refreshing else 0):
+                raise AssertionError(f"{label}-B: rank {res['rank']}: "
+                                     f"{m['tail_batches']} tail writes for "
+                                     f"{m['steps']} steps")
+    return sum(res["launches"] for res in results)
+
+
 def main(argv=None) -> int:
     cli = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     cli.add_argument("--num-nodes", type=int, default=PRODUCTS_NODES)
+    cli.add_argument("--ranks", type=int, default=RANKS,
+                     help="partitions (one process each) of the split P "
+                          "phases")
+    cli.add_argument("--ranks-only", action="store_true",
+                     help="run only the split P phases: with one card per "
+                          "rank they run over NCCL")
     opts = cli.parse_args(argv)
     if not torch.cuda.is_available():
         print("error: torch sees no CUDA device; chip_smoke.py runs on a GPU",
@@ -571,6 +828,22 @@ def main(argv=None) -> int:
               f"{g.feature_dim}, {g.num_classes} classes")
     fanouts = [int(f) for f in args.fan_out.split(",")]
     nodes = g.train_nodes()[: args.limit_train]
+    graphs = tempfile.TemporaryDirectory(prefix="occ_smoke_graphs_")
+    if opts.ranks_only:
+        with phase("save graphs"):
+            save_graph(g, graphs.name, "products")
+            save_graph(random_graph(SPLIT_B_NODES, AVG_DEGREE, FEATURE_DIM,
+                                    num_classes=NUM_CLASSES, seed=args.seed),
+                       graphs.name, "split_b")
+        del g
+        rank_phases(phase, graphs.name, opts.ranks)
+        graphs.cleanup()
+        print(f"total wall {time.perf_counter() - wall:.1f}s")
+        print(f"card: {card}")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     # 3-5. The single path: the kernel at its shapes, the first batch's
     # logits, and train_single.
@@ -649,6 +922,8 @@ def main(argv=None) -> int:
             raise AssertionError("split A must run with a replicated cache, "
                                  "device innermost and the native sampler")
         print_profile(metrics_a["profile"])
+    with phase("save graphs"):
+        save_graph(g, graphs.name, "products")
     del g
 
     # 7. Split B: 200,000 nodes, refreshing cache, COO layer 0.
@@ -675,8 +950,15 @@ def main(argv=None) -> int:
         if metrics_b["tail_batches"] != steps_b:
             raise AssertionError(f"split B: {metrics_b['tail_batches']} tail "
                                  f"writes for {steps_b} steps")
+        save_graph(g_b, graphs.name, "split_b")
+        del g_b
 
-    # 8. Summary: the kernel's numbers are one single step's three forward
+    # 8-9. Split P2 and split P2-B: split A and split B at two
+    # partitions, one process each.
+    launches_pb = rank_phases(phase, graphs.name, opts.ranks)
+    graphs.cleanup()
+
+    # 10. Summary: the kernel's numbers are one single step's three forward
     # shapes; its launches those of every phase's main-path run.
     def total(key):
         return sum(c[key] for c in main_cases)
@@ -694,7 +976,8 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES,
-        "launches": single_launches + launches_a + launches_b,
+        "launches": (single_launches + launches_a + launches_b
+                     + launches_pb),
         "max_abs_err": max(c["err"] for c in main_cases + ragged
                            + [split_case]),
         "ms": total("ms"),

@@ -2,7 +2,9 @@
 
 The JAX package's ``cache/feature_cache.py``: ``CachePlan`` is its numpy,
 unchanged, so both packages cache the same nodes at the same frame rows;
-``SplitFeatureCache`` holds the frames as one device tensor.
+``SplitFeatureCache`` holds the frames as one device tensor: all P
+frames, or with one process per partition only that partition's frame
+(the JAX package's ``MultiHostFeatureCache``).
 
   * Each partition's frame is ``[static_cap + refresh_cap + 1, H]``: a
     *static* region filled once (degree-sorted top-k of the partition when
@@ -255,19 +257,31 @@ class CachePlan:
 
 
 class SplitFeatureCache:
-    """Device-side frames ``[P, frame_cap, H]`` for the split path, in the
-    storage ``dtype`` (bf16 halves the frames and the tail traffic; the
-    models upcast per gather). The frames never require grad."""
+    """Device-side frames ``[hi - lo, frame_cap, H]`` of partitions
+    ``[lo, hi)`` (by default all P) for the split path, in the storage
+    ``dtype`` (bf16 halves the frames and the tail traffic; the models
+    upcast per gather). The frames never require grad.
+
+    With one process per partition, rank r passes ``partitions=(r, r +
+    1)``: it holds only its own frame and writes only its own tail rows,
+    while ``plan.refresh`` keeps the global bookkeeping, the same on every
+    rank. Replicated plans give every rank the identity frame."""
 
     def __init__(self, plan: CachePlan, dtype: torch.dtype = torch.float32,
-                 *, device: torch.device | str):
+                 *, device: torch.device | str,
+                 partitions: tuple[int, int] | None = None):
         self.plan = plan
         self.dtype = dtype
         self.device = torch.device(device)
+        self.lo, self.hi = partitions if partitions is not None else (
+            0, plan.P)
+        if not 0 <= self.lo < self.hi <= plan.P:
+            raise ValueError(f"bad partition range {partitions} for "
+                             f"{plan.P} partitions")
         # Cast on the host, so the one-time upload carries the storage
         # dtype.
-        self.frames = torch.from_numpy(plan.static_features()).to(
-            dtype).to(self.device)
+        self.frames = torch.from_numpy(
+            plan.static_features(self.lo, self.hi)).to(dtype).to(self.device)
         # Per-batch tail-transfer accounting.
         self.tail_batches = 0
         self.tail_bytes_total = 0
@@ -283,7 +297,7 @@ class SplitFeatureCache:
         return min(max(-(-fill // q) * q, q), rc)
 
     def _write_tail(self, tail: torch.Tensor) -> None:
-        """Write ``tail [P, bucket, Ht]`` (host, storage dtype) at frame
+        """Write ``tail [hi - lo, bucket, Ht]`` (host, storage dtype) at frame
         rows ``tail_start:`` and columns ``:Ht`` (the columns past the
         true feature width stay zero).
 
@@ -315,12 +329,14 @@ class SplitFeatureCache:
         g = self.plan.graph
         Ht = g.true_feature_dim or g.feature_dim
         bucket = self._bucket(max(self.plan.dynamic_fill_sizes()))
-        self._write_tail(self._host_tail(tail[:, :bucket, :Ht]))
+        self._write_tail(
+            self._host_tail(tail[self.lo:self.hi, :bucket, :Ht]))
 
     def apply_tail(self, refresh_nodes: np.ndarray) -> None:
         """Write the dynamic tail of a sample from the C++ service:
-        ``refresh_nodes[p, c]`` (global id, -1 pad) gets frame row
-        ``tail_start + c``; the features are gathered here on the host."""
+        ``refresh_nodes[p, c]`` (global id, -1 pad; all P partitions)
+        gets frame row ``tail_start + c``; the features of this cache's
+        partitions are gathered here on the host."""
         plan = self.plan
         if not plan.needs_refresh:
             return
@@ -328,18 +344,19 @@ class SplitFeatureCache:
         Ht = g.true_feature_dim or g.feature_dim
         counts = [int((refresh_nodes[p] >= 0).sum()) for p in range(plan.P)]
         bucket = self._bucket(max(counts))
-        tail = np.zeros((plan.P, bucket, Ht), dtype=np.float32)
-        for p in range(plan.P):
+        tail = np.zeros((self.hi - self.lo, bucket, Ht), dtype=np.float32)
+        for i, p in enumerate(range(self.lo, self.hi)):
             k = counts[p]
             if k:
-                tail[p, :k] = g.features[refresh_nodes[p][:k], :Ht]
+                tail[i, :k] = g.features[refresh_nodes[p][:k], :Ht]
         self._write_tail(self._host_tail(tail))
 
     def apply_tail_gathered(self, tail_buf: torch.Tensor,
                             counts: np.ndarray) -> None:
         """Apply a tail the C++ workers already gathered and cast:
-        ``tail_buf[p, c]`` (host, storage dtype, pinned on CUDA) holds the
-        features of refresh row c of partition p for c < counts[p]."""
+        ``tail_buf[i, c]`` (host, storage dtype, pinned on CUDA) holds the
+        features of refresh row c of partition ``lo + i`` for c <
+        counts[lo + i]; ``counts`` covers all P partitions."""
         if not self.plan.needs_refresh:
             return
         k = int(max(counts)) if len(counts) else 0

@@ -2,8 +2,9 @@
 
 Each hand-written CUDA kernel is one source, ``csrc/<name>.cu``, with a
 plain C interface, compiled by ``nvcc`` for Hopper (``sm_90a``). The C++
-sampling service, ``csrc/occ_sampler.cpp``, is compiled by ``g++`` with
-the flags of the JAX package's ``csrc/Makefile``. Both are built into
+sampling service, ``csrc/occ_sampler.cpp``, and the multilevel graph
+partitioner, ``csrc/partition.cpp``, are compiled by ``g++`` with the
+flags of the JAX package's ``csrc/Makefile``. All are built into
 ``occ_gnn_tpu_torch/build/`` at first use. A library's file name carries
 a hash of its source and flags, so an edited source is built anew, and
 it is written through a temporary file and ``os.replace``, so processes
@@ -26,6 +27,7 @@ KERNELS = ("segment_sum_sorted",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SAMPLER_SOURCE = CSRC_DIR / "occ_sampler.cpp"
+PARTITIONER_SOURCE = CSRC_DIR / "partition.cpp"
 CXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-fPIC", "-Wall",
              "-pthread", "-shared")
 
@@ -118,6 +120,20 @@ def load_sampler() -> ctypes.CDLL:
         build_sampler()
         _load("occ_sampler", _hashed_path(SAMPLER_SOURCE, CXX_FLAGS))
     return _loaded["occ_sampler"]
+
+
+def build_partitioner() -> str:
+    """Compile the multilevel partitioner unless it is built already.
+    Returns the compiler's output, empty when nothing was built."""
+    return _build(PARTITIONER_SOURCE, _cxx(), CXX_FLAGS)
+
+
+def load_partitioner() -> ctypes.CDLL:
+    """The partitioner's library, built first if needed."""
+    if "partition" not in _loaded:
+        build_partitioner()
+        _load("partition", _hashed_path(PARTITIONER_SOURCE, CXX_FLAGS))
+    return _loaded["partition"]
 
 
 def check_launch(lib: ctypes.CDLL, err: int, what: str) -> None:

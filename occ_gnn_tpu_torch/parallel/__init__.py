@@ -5,7 +5,11 @@ from occ_gnn_tpu_torch.parallel.model import (
     make_split_forward,
     make_split_train_step,
 )
-from occ_gnn_tpu_torch.parallel.split import SplitBatch, SplitLayer
+from occ_gnn_tpu_torch.parallel.split import (
+    SplitBatch,
+    SplitLayer,
+    shuffle_merge,
+)
 
 __all__ = [
     "SplitBatch",
@@ -15,4 +19,5 @@ __all__ = [
     "make_device_csr",
     "make_split_forward",
     "make_split_train_step",
+    "shuffle_merge",
 ]

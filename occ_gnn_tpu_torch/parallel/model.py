@@ -1,13 +1,20 @@
-"""Split-parallel models and the one-partition training step.
+"""Split-parallel models and the training step of one partition.
 
-The JAX package's ``parallel/model.py`` at P = 1: ``SplitSAGE`` and
-``SplitGCN`` as ``nn.Module``s whose weights are plain ``[in, out]``
-tensors registered as ``layer_{i}/w`` and ``layer_{i}/b`` (the keys of
-the JAX parameter pytree, so ``utils.checkpoint.params_from_jax`` loads
-JAX weights unchanged), the device CSR for on-device innermost sampling,
-and the train step and forward of a one-device mesh. Weights stay f32;
-``dtype`` is the storage precision of activations between layers, with
-f32 accumulation, as in the JAX models.
+The JAX package's ``parallel/model.py``: ``SplitSAGE`` and ``SplitGCN`` as
+``nn.Module``s whose weights are plain ``[in, out]`` tensors registered as
+``layer_{i}/w`` and ``layer_{i}/b`` (the keys of the JAX parameter
+pytree, so ``utils.checkpoint`` loads JAX weights unchanged), the device
+CSR for on-device innermost sampling, and the train step and forward.
+Weights stay f32; ``dtype`` is the storage precision of activations
+between layers, with f32 accumulation, as in the JAX models.
+
+At P = 1 the step is the JAX step on a one-device mesh: no process group
+and no collective. At P > 1 each rank runs the per-device body of the JAX
+step (``model.py:647-744``) on its own partition's row of the batch
+(``ranks``, a ``parallel.dist.DistContext``): the boundary shuffle of
+every layer that carries ``push_idx``, the loss terms ``[nll, count,
+correct]`` all-reduced before the backward, and one SUM all-reduce of the
+gradients before the optimizer step.
 
 Only the feature frame's consumers differentiate: the frame never
 requires grad, so layer 0 builds no ``dx`` (JAX differentiates the
@@ -17,20 +24,25 @@ params only).
 from __future__ import annotations
 
 import torch
+import torch.distributed as torch_dist
 from torch import nn
 
 from occ_gnn_tpu_torch.models.common import dropout, linear, linear_init
+from occ_gnn_tpu_torch.parallel.dist import DistContext, all_reduce_gradients
 from occ_gnn_tpu_torch.parallel.split import (
     SplitBatch,
     SplitLayer,
     aggregate,
     neigh_mean,
+    shuffle_merge,
     slice_owned,
     synthesize_device_innermost,
 )
 
-_SHUFFLE_ITEM = ("split training at P > 1 (the boundary shuffle) is not "
-                 "ported yet: ROADMAP.md queue 1, item 7")
+_SEVERAL_PARTITIONS = ("a batch with several partitions in one process is "
+                       "not ported: each rank takes its own partition's row "
+                       "(ROADMAP.md queue 1, item 7b, several partitions per "
+                       "process)")
 
 
 def make_device_csr(graph, device) -> tuple[torch.Tensor, torch.Tensor]:
@@ -100,10 +112,12 @@ class SplitSAGE(nn.Module):
 
     @staticmethod
     def _merge(neigh: torch.Tensor, lyr: SplitLayer) -> torch.Tensor:
-        """Boundary partials: none exist at one partition."""
-        if lyr.push_idx is not None and lyr.push_idx.shape[0] > 1:
-            raise NotImplementedError(_SHUFFLE_ITEM)
-        return neigh
+        """Add the boundary partials of the other partitions: a shuffle on
+        every layer that carries ``push_idx`` when there is more than one
+        partition (the device-synthesized layer 0 carries none)."""
+        if lyr.push_idx is None or lyr.push_idx.shape[0] == 1:
+            return neigh
+        return shuffle_merge(neigh, lyr.push_idx, lyr.recv_idx)
 
     def layer(self, i: int, lyr: SplitLayer, x: torch.Tensor) -> torch.Tensor:
         merged = self._merge(aggregate(x, lyr), lyr)
@@ -114,7 +128,8 @@ class SplitSAGE(nn.Module):
     def forward_local(self, layers: list[SplitLayer], x: torch.Tensor,
                       generator: torch.Generator | None = None):
         """One partition's forward; ``generator`` enables dropout between
-        layers (training), ``None`` is the deterministic path."""
+        layers (training), ``None`` is the deterministic path. With more
+        than one partition the layers shuffle over the process group."""
         last = len(layers) - 1
         for i, lyr in enumerate(layers):
             x = self.layer(i, lyr, x)
@@ -160,17 +175,40 @@ def _check_dropout_rng(model, generator) -> None:
         )
 
 
-def _one_partition(batch: SplitBatch) -> list[SplitLayer]:
+def _local_layers(batch: SplitBatch,
+                  ranks: DistContext | None) -> list[SplitLayer]:
+    """This rank's layers: the batch holds one partition's row, and its
+    P-slot axes are as wide as the process group."""
     if batch.num_partitions != 1:
-        raise NotImplementedError(_SHUFFLE_ITEM)
-    return [lyr.partition(0) for lyr in batch.layers]
+        raise NotImplementedError(_SEVERAL_PARTITIONS)
+    layers = [lyr.partition(0) for lyr in batch.layers]
+    P = ranks.world_size if ranks is not None else 1
+    for lyr in layers:
+        if lyr.push_idx is not None and lyr.push_idx.shape[0] != P:
+            raise ValueError(f"the batch was sliced for "
+                             f"{lyr.push_idx.shape[0]} partitions, the "
+                             f"process group has {P}")
+    return layers
 
 
-def make_split_train_step(model: SplitSAGE, optimizer, csr=None):
+def _global_ce(nll, count, correct):
+    """``[nll, count, correct]`` summed over the ranks, detached (JAX's
+    psum of the three, ``model.py:683-687``), on the device."""
+    totals = torch.stack([nll.detach().double(), count.double(),
+                          correct.double()])
+    torch_dist.all_reduce(totals)
+    return totals
+
+
+def make_split_train_step(model: SplitSAGE, optimizer, csr=None,
+                          ranks: DistContext | None = None):
     """``step(batch, x0, generator=None, sample_generator=None) -> (loss,
     correct, count)``: forward, masked CE, backward and one optimizer
-    update of ``model`` in place, on a one-partition batch. ``x0`` is the
-    input frame ``[1, F, H]`` (the cache frames or the gathered rows).
+    update of ``model`` in place. ``x0`` is the input frame ``[1, F, H]``
+    (the cache frame or the gathered rows) and ``batch`` holds one
+    partition's row. ``ranks`` (``parallel.dist``) is the process group
+    of a P > 1 run, rank r holding partition r; the loss, correct and
+    count returned are then global, the same on every rank.
 
     ``csr`` (``make_device_csr``) enables device-sampled innermost layers;
     those steps need ``sample_generator``, a generator on the device.
@@ -180,28 +218,38 @@ def make_split_train_step(model: SplitSAGE, optimizer, csr=None):
              generator: torch.Generator | None = None,
              sample_generator: torch.Generator | None = None):
         _check_dropout_rng(model, generator)
-        layers = _materialize_layers(_one_partition(batch), csr,
+        layers = _materialize_layers(_local_layers(batch, ranks), csr,
                                      sample_generator)
         model.train()
         optimizer.zero_grad(set_to_none=True)
         logits = model.forward_local(layers, x0[0], generator)
         nll, count, correct = _local_ce(logits, batch.labels[0])
-        loss = nll / count.clamp(min=1)
-        loss.backward()
+        if ranks is None:
+            loss = nll / count.clamp(min=1)
+            loss.backward()
+            optimizer.step()
+            return loss.detach(), correct, count
+        totals = _global_ce(nll, count, correct)
+        count_g = totals[1].clamp(min=1)
+        (nll / count_g.float()).backward()
+        all_reduce_gradients(model.parameters())
         optimizer.step()
-        return loss.detach(), correct, count
+        return ((totals[0] / count_g).float(), totals[2].long(),
+                totals[1].long())
 
     return step
 
 
-def make_split_forward(model: SplitSAGE, csr=None):
+def make_split_forward(model: SplitSAGE, csr=None,
+                       ranks: DistContext | None = None):
     """``fwd(batch, x0, sample_generator=None) -> logits [1, T_cap, C]``:
-    inference on a one-partition batch, without dropout or gradients."""
+    inference on this rank's partition, without dropout or gradients
+    (with the boundary shuffles when ``ranks`` holds P > 1 ranks)."""
 
     @torch.no_grad()
     def fwd(batch: SplitBatch, x0: torch.Tensor,
             sample_generator: torch.Generator | None = None):
-        layers = _materialize_layers(_one_partition(batch), csr,
+        layers = _materialize_layers(_local_layers(batch, ranks), csr,
                                      sample_generator)
         model.eval()
         return model.forward_local(layers, x0[0])[None]

@@ -1,7 +1,11 @@
-"""Split-parallel batch structures and the per-partition layer ops.
+"""Split-parallel batch structures, the per-partition layer ops and the
+boundary shuffle.
 
-The JAX package's ``parallel/split.py`` as torch ops, at one partition.
-The layout is the same (leading axis P everywhere, of size 1 here):
+The JAX package's ``parallel/split.py`` as torch ops. The layout is the
+same, with one difference: the JAX step holds all P partitions in one
+SPMD program, where each process of the port holds one partition, so a
+batch's leading axis is 1 (a rank's own row), and the P-slot axes of
+``push_idx`` / ``recv_idx`` stay P wide:
 
   edge_src[P, E_cap]   local src row in partition p's input frame
   edge_dst[P, E_cap]   local dst row in p's dst frame, sorted (pad=dst_cap)
@@ -15,17 +19,19 @@ The layout is the same (leading axis P everywhere, of size 1 here):
                        frame's reserved zero row ``src_cap - 1``
 
 The owned output rows of layer l are layer l+1's input frame rows, so
-layers chain with no gather. Each partition aggregates partial sums; with
-one partition they are the whole sums, and the boundary shuffle
-(``shuffle_merge``) has nothing to move. It comes with split training at
-P > 1 (ROADMAP.md, queue 1, item 7).
+layers chain with no gather. Each partition aggregates partial sums and
+``shuffle_merge`` sends the boundary partials to the owner of each dst in
+one all-to-all over the process group (one rank per partition); with one
+partition they are the whole sums and nothing is shuffled.
 
 Index semantics. JAX gathers clamp out-of-range indices and its scatters
 drop them; torch raises. Every padded index is therefore made valid
 before use: ``owned_idx`` -1 and ``dst_global`` -1 read row 0 and are
 masked, ``edge_dst`` padding (``dst_cap``) is dropped by the segment-sum,
-and ``nbr_idx`` padding reads the reserved zero row. Index tensors stay
-int32: ``index_select`` and ``index_add_`` take them as they are.
+``nbr_idx`` padding reads the reserved zero row, ``push_idx`` -1 reads
+row 0 and is masked, and ``recv_idx`` padding (``dst_cap``) lands in a
+sink row that is sliced off. Index tensors stay int32: ``index_select``
+and ``index_add_`` take them as they are.
 
 Not ported: the ``tiled`` lowering of ``local_aggregate_dense`` and the
 ``window`` / ``bitsf32`` / ``bitsf32_dk`` lowerings of the device
@@ -38,6 +44,7 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 
 from occ_gnn_tpu_torch.ops.segment_sum_sorted import segment_sum_sorted
@@ -166,6 +173,120 @@ def aggregate(x: torch.Tensor, lyr: SplitLayer) -> torch.Tensor:
     if lyr.nbr_idx is not None:
         return local_aggregate_dense(x, lyr.nbr_idx)
     return local_aggregate(x, lyr.edge_src, lyr.edge_dst, lyr.dst_cap)
+
+
+def _with_sink(rows: torch.Tensor) -> torch.Tensor:
+    """``rows`` with one zero row appended: the target of padded indices
+    equal to ``rows.shape[0]`` (``index_add_`` has no drop mode)."""
+    out = rows.new_empty((rows.shape[0] + 1,) + tuple(rows.shape[1:]))
+    out[:-1].copy_(rows)
+    out[-1].zero_()
+    return out
+
+
+def _push_rows(rows: torch.Tensor, push_idx: torch.Tensor) -> torch.Tensor:
+    """``rows[push_idx]`` as ``[P * S_cap, H]``, zero where ``push_idx`` is
+    the -1 padding (torch would wrap -1 to the last row)."""
+    flat = push_idx.reshape(-1)
+    valid = (flat >= 0).to(rows.dtype)[:, None]
+    return rows.index_select(0, flat.clamp(min=0)) * valid
+
+
+def _exchange(send: torch.Tensor) -> torch.Tensor:
+    """One ``all_to_all_single`` with equal splits: chunk q of ``send``
+    goes to rank q, and chunk r of the result came from rank r."""
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send)
+    P = dist.get_world_size()
+    shuffle_merge.bytes_sent += (
+        send.numel() // P * (P - 1) * send.element_size())
+    return recv
+
+
+class _ShuffleMerge(torch.autograd.Function):
+    """Forward: gather the push rows, all-to-all, add the received rows at
+    ``recv_idx``. Backward, the transpose: the gradient passes through to
+    ``neigh``, is gathered at ``recv_idx``, crosses back in the same
+    all-to-all (its own transpose) and is added at ``push_idx``."""
+
+    @staticmethod
+    def forward(ctx, neigh, push_idx, recv_idx):
+        ctx.save_for_backward(push_idx, recv_idx)
+        recv = _exchange(_push_rows(neigh, push_idx))
+        shuffle_merge.forward_calls += 1
+        frame = _with_sink(neigh)
+        frame.index_add_(0, recv_idx.reshape(-1), recv)
+        return frame[:-1]
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        push_idx, recv_idx = ctx.saved_tensors
+        g_recv = _with_sink(grad).index_select(0, recv_idx.reshape(-1))
+        g_send = _exchange(g_recv)
+        shuffle_merge.backward_calls += 1
+        flat = push_idx.reshape(-1)
+        valid = (flat >= 0).to(g_send.dtype)[:, None]
+        dneigh = grad.clone()
+        dneigh.index_add_(0, flat.clamp(min=0), g_send * valid)
+        return dneigh, None, None
+
+
+def shuffle_merge(neigh: torch.Tensor, push_idx: torch.Tensor,
+                  recv_idx: torch.Tensor) -> torch.Tensor:
+    """Send this rank's boundary partial sums to their owners and add the
+    partials that arrive into its own dst frame.
+
+    ``neigh`` is f32 ``[dst_cap, H]`` (the partial sums stay f32 under
+    bf16 storage, as in JAX); ``push_idx`` / ``recv_idx`` are this rank's
+    ``[P, S_cap]`` rows, and the default process group has P ranks, rank
+    r holding partition r. The counters ``shuffle_merge.forward_calls``,
+    ``backward_calls`` and ``bytes_sent`` (payload bytes sent to the other
+    ranks) count the all-to-alls."""
+    P = push_idx.shape[0]
+    if dist.get_world_size() != P:
+        raise ValueError(f"the batch has {P} partitions but the process "
+                         f"group has {dist.get_world_size()} ranks")
+    if neigh.dtype != torch.float32:
+        raise TypeError(f"shuffle_merge moves f32 partial sums, got "
+                        f"{neigh.dtype}")
+    with record_function("shuffle_merge"):
+        return _ShuffleMerge.apply(neigh, push_idx, recv_idx)
+
+
+shuffle_merge.forward_calls = 0
+shuffle_merge.backward_calls = 0
+shuffle_merge.bytes_sent = 0
+
+
+def reset_shuffle_counts() -> None:
+    shuffle_merge.forward_calls = 0
+    shuffle_merge.backward_calls = 0
+    shuffle_merge.bytes_sent = 0
+
+
+def shuffle_counts() -> dict:
+    return {"forward": shuffle_merge.forward_calls,
+            "backward": shuffle_merge.backward_calls,
+            "bytes_sent": shuffle_merge.bytes_sent}
+
+
+def shuffle_merge_reference(neighs: torch.Tensor, push_idx: torch.Tensor,
+                            recv_idx: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``shuffle_merge`` over all P partitions in one
+    process, for tests: ``neighs [P, dst_cap, H]``, ``push_idx`` and
+    ``recv_idx [P, P, S_cap]``; partition r's rows for q are moved to q by
+    explicit transposition. Differentiable by autograd."""
+    P, D, H = neighs.shape
+    merged = []
+    for p in range(P):
+        frame = torch.cat([neighs[p], neighs.new_zeros(1, H)])
+        for r in range(P):
+            rows = push_idx[r, p].long()
+            sent = neighs[r][rows.clamp(min=0)] * (rows >= 0)[:, None]
+            frame = frame.index_add(0, recv_idx[p, r].long(), sent)
+        merged.append(frame[:D])
+    return torch.stack(merged)
 
 
 def neigh_mean(merged: torch.Tensor, lyr: SplitLayer) -> torch.Tensor:

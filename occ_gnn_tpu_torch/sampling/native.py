@@ -20,6 +20,13 @@ reused only once that event has completed. A batch parked in the reorder
 buffer keeps its own tail buffer until it is delivered. On the CPU the
 "device" arena is the host arena itself and is never pooled.
 
+One process per partition. With ``emit_range=(r, r + 1)`` the service
+builds only partition r's rows of every ``[P, ...]`` field (the sampling,
+routing and overflow checks still run over all P partitions, so every
+rank draws the same batch and reaches the same verdict); the arena, the
+unpack and the tail buffers are sized by the emitted rows. The refresh
+list stays all-P: cache-tail bookkeeping is global.
+
 Not ported: the unpacked path (``packed=False``, one transfer per field);
 ROADMAP.md lists it.
 """
@@ -176,13 +183,22 @@ class NativeSplitSampler:
         emit_coo: bool | None = None,
         emit_input: bool | None = None,
         innermost: str = "host",
+        emit_range: tuple[int, int] | None = None,
         *,
         device: torch.device | str,
     ):
+        """``emit_range=(lo, hi)`` emits only partitions ``[lo, hi)``
+        (this process's rows); None emits all P."""
         self.graph = graph
         self.device = torch.device(device)
         self.train_nodes = np.asarray(train_nodes, dtype=np.int64)
         self.P = num_partitions
+        self.emit_lo, self.emit_hi = (
+            emit_range if emit_range is not None else (0, num_partitions))
+        if not 0 <= self.emit_lo < self.emit_hi <= num_partitions:
+            raise ValueError(f"bad emit_range {emit_range} for "
+                             f"{num_partitions} partitions")
+        self.P_emit = self.emit_hi - self.emit_lo
         self.fanouts = list(fanouts)
         self.batch_size = batch_size
         self.caps = capacities or plan_split_capacities(
@@ -284,7 +300,7 @@ class NativeSplitSampler:
             feat_stride = f.strides[0] // 4
             feats_p = f.ctypes.data
             self._tail_pool = _BufferPool(
-                (self.P, max(plan.refresh_cap, 1), feat_cols),
+                (self.P_emit, max(plan.refresh_cap, 1), feat_cols),
                 tail_dtype, self.device)
         if plan is not None:
             # Static-only compact maps: dynamic tail ids are assigned per
@@ -341,8 +357,8 @@ class NativeSplitSampler:
             queue_depth,
             seed + 1,
             1 if replace else 0,
-            0,
-            self.P,
+            self.emit_lo,
+            self.emit_hi,
             1 if self.emit_coo else 0,
             1 if self.emit_input else 0,
             feats_p,
@@ -432,6 +448,7 @@ class NativeSplitSampler:
 
     def _build_layout(self):
         P, L = self.P, len(self.fanouts)
+        PE = self.P_emit  # emitted partition rows
         caps = self.caps
         layout = []
         off = 0
@@ -448,26 +465,26 @@ class NativeSplitSampler:
             if l == 0 and self.device_innermost:
                 # One field: the dst frame's global ids — the device
                 # synthesizes everything else from the resident CSR.
-                add("dst_global", 0, (P, caps["dst_caps"][0]), "i32")
+                add("dst_global", 0, (PE, caps["dst_caps"][0]), "i32")
                 continue
             E = caps["edge_caps"][l]
             S = caps["shuffle_caps"][l]
             O = caps["out_caps"][l]
             if self._coo_l[l]:
-                add("edge_src", l, (P, E), "i32")
-                add("edge_dst", l, (P, E), "i32")
-            add("push", l, (P, P, S), "i32")
-            add("recv", l, (P, P, S), "i32")
-            add("owned_idx", l, (P, O), "i32")
-            add("owned_deg", l, (P, O), "f32")
-            add("self_idx", l, (P, O), "i32")
-            add("owned_mask", l, (P, O), "u8")
-            add("num_owned", l, (P,), "i32")
+                add("edge_src", l, (PE, E), "i32")
+                add("edge_dst", l, (PE, E), "i32")
+            add("push", l, (PE, P, S), "i32")
+            add("recv", l, (PE, P, S), "i32")
+            add("owned_idx", l, (PE, O), "i32")
+            add("owned_deg", l, (PE, O), "f32")
+            add("self_idx", l, (PE, O), "i32")
+            add("owned_mask", l, (PE, O), "u8")
+            add("num_owned", l, (PE,), "i32")
             if deg_caps[l] > 0:
-                add("nbr", l, (P, deg_caps[l], caps["dst_caps"][l]), "i32")
+                add("nbr", l, (PE, deg_caps[l], caps["dst_caps"][l]), "i32")
         if self.emit_input:
-            add("input_nodes", None, (P, caps["frame_caps"][0]), "i32")
-        add("targets", None, (P, caps["out_caps"][-1]), "i32")
+            add("input_nodes", None, (PE, caps["frame_caps"][0]), "i32")
+        add("targets", None, (PE, caps["out_caps"][-1]), "i32")
         add("refresh", None, (P, max(self.refresh_cap, 1)), "i32")
         self._layout = {(name, l): (o, shape, kind)
                         for name, l, o, shape, kind in layout}

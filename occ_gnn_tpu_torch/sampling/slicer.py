@@ -2,7 +2,10 @@
 
 The numpy code of the JAX package's ``sampling/slicer.py``, unchanged, so
 one seed gives the same batches in both packages field for field; only
-the final packing into torch tensors on a device is new.
+the final packing into torch tensors on a device is new. With one process
+per partition, ``emit_range`` keeps only this process's rows of every
+``[P, ...]`` field, sliced on the host before the device copy (the JAX
+package's ``MultiHostSplitSampler._assemble``).
 
 Every sampled layer's edges are routed to the partition that OWNS THE
 SOURCE node (where its features live), each partition aggregates partial
@@ -144,6 +147,7 @@ class SplitSampler:
         drop_last: bool = False,
         cache=None,
         replace: bool = True,
+        emit_range: tuple[int, int] | None = None,
         *,
         device: torch.device | str,
     ):
@@ -152,12 +156,18 @@ class SplitSampler:
         src feature is cached on the destination's owner ("natural" edges,
         reference sampler.py:93-123) execute there with no shuffle, others
         route to the src owner — and edge_src indexes the cache frame.
-        Batches are delivered as tensors on ``device``."""
+        Batches are delivered as tensors on ``device``, holding partitions
+        ``emit_range = (lo, hi)`` (by default all P)."""
         self.graph = graph
         self.device = torch.device(device)
         self.train_nodes = np.asarray(train_nodes, dtype=np.int64)
         self.wmap = np.asarray(partition_map, dtype=np.int64)
         self.P = num_partitions
+        self.emit_lo, self.emit_hi = (
+            emit_range if emit_range is not None else (0, num_partitions))
+        if not 0 <= self.emit_lo < self.emit_hi <= num_partitions:
+            raise ValueError(f"bad emit_range {emit_range} for "
+                             f"{num_partitions} partitions")
         assert self.wmap.max() < num_partitions, (
             f"partition map has id {self.wmap.max()} >= {num_partitions}"
         )
@@ -259,11 +269,16 @@ class SplitSampler:
             input_nodes=self._to_device(input_nodes),
             labels=self._to_device(labels),
             target_nodes=self._to_device(target_nodes),
-            input_nodes_host=input_nodes,
+            input_nodes_host=input_nodes[self.emit_lo:self.emit_hi],
         )
 
     def _to_device(self, a: np.ndarray | None) -> torch.Tensor | None:
-        return None if a is None else torch.from_numpy(a).to(self.device)
+        """The emitted partitions' rows of a ``[P, ...]`` field on the
+        device."""
+        if a is None:
+            return None
+        rows = np.ascontiguousarray(a[self.emit_lo:self.emit_hi])
+        return torch.from_numpy(rows).to(self.device)
 
     def _slice_layer(
         self, rl: _RawLayer, l: int, use_cache: bool = False

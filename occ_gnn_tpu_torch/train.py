@@ -9,11 +9,19 @@ Runs on the CUDA device; ``--cpu`` runs on the CPU instead. Without
 ``--cpu`` and without a visible GPU it stops with an error and never falls
 back to the CPU.
 
-Ported so far: ``--mode split`` at one partition (``SplitSAGE`` or
-``SplitGCN``, the C++ or numpy sampler, the feature cache, on-device
-innermost sampling) and ``--mode single`` with ``--model-name sage``. The
-other modes, and the flags no ported path reads, stop with the ROADMAP.md
-item that ports them.
+Ported so far: ``--mode split`` (``SplitSAGE`` or ``SplitGCN``, the C++ or
+numpy sampler, the feature cache, on-device innermost sampling,
+``--save-dir`` / ``--resume``) at any number of partitions, and ``--mode
+single`` with ``--model-name sage``. The other modes, and the flags no
+ported path reads, stop with the ROADMAP.md item that ports them.
+
+Split training at P > 1 runs one process per partition
+(``parallel.dist``): ``--partitions P`` spawns the P ranks itself, and
+``--distributed`` joins a process group of ranks started elsewhere (the
+JAX flags ``--coordinator-address``, ``--num-processes``,
+``--process-id``, or torchrun's environment):
+
+    python -m occ_gnn_tpu_torch.train --graph community --partitions 4 --cpu
 
 Graphs: a name under --data-root (binary format, see ``data``) or the
 built-in synthetics ``community`` / ``random``.
@@ -42,29 +50,30 @@ _NOT_PORTED = {
 _FLAGS_NOT_PORTED = {
     "cache_per": "item 9 (single-chip cache)",
     "num_heads": "items 8 and 9 (GAT)",
-    "partitions": "item 7 (split-parallel training at P > 1)",
-    "partition_mode": "item 7 (split-parallel training at P > 1)",
+    "partitions": "item 7 ports it for --mode split only",
+    "partition_mode": "item 7 ports it for --mode split only",
     "sampler": "items 1-6 port it for --mode split only",
     "innermost": "items 1-6 port it for --mode split only",
     "caps_margin": "items 1-6 port it for --mode split only",
     "num_workers": "items 1-6 port it for --mode split only",
     "dtype": "items 1-6 port it for --mode split only",
-    "save_dir": "item 7 (save and resume)",
-    "resume": "item 7 (save and resume)",
+    "save_dir": "item 7 ports it for --mode split only",
+    "resume": "item 7 ports it for --mode split only",
     "eval": "items 1-6 port it for --mode split only",
     "profile_dir": "items 1-6 port it for --mode split only",
     "infer_nodes": "item 10 (inference)",
     "output": "item 10 (inference)",
-    "cpu_devices": "item 7 (split-parallel training at P > 1)",
-    "distributed": "item 7 (multi-process training)",
-    "coordinator_address": "item 7 (multi-process training)",
-    "num_processes": "item 7 (multi-process training)",
-    "process_id": "item 7 (multi-process training)",
+    "cpu_devices": "item 7b (several partitions per process)",
+    "distributed": "item 7 ports it for --mode split only",
+    "coordinator_address": "item 7 ports it for --mode split only",
+    "num_processes": "item 7 ports it for --mode split only",
+    "process_id": "item 7 ports it for --mode split only",
 }
-# The flags of that table which --mode split reads (--partitions only as
-# 0 or 1).
+# The flags of that table which --mode split reads.
 _SPLIT_READS = {"cache_per", "sampler", "innermost", "caps_margin",
-                "num_workers", "dtype", "eval", "profile_dir", "partitions"}
+                "num_workers", "dtype", "eval", "profile_dir", "partitions",
+                "partition_mode", "save_dir", "resume", "distributed",
+                "coordinator_address", "num_processes", "process_id"}
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -86,8 +95,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--lr", type=float, default=0.01)
     p.add_argument("--dropout", type=float, default=0.0)
     p.add_argument("--partitions", type=int, default=0,
-                   help="partitions for split mode; 0 = one per process "
-                        "(the port runs one)")
+                   help="partitions for split mode, one process each; 0 = "
+                        "the world size with --distributed, else 1")
     p.add_argument("--partition-mode", type=str, default="greedy",
                    choices=["greedy", "metis", "random", "round_robin"])
     p.add_argument("--sampler", type=str, default="native",
@@ -143,13 +152,15 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="run on the CPU instead of the CUDA device")
     p.add_argument("--cpu-devices", type=int, default=8,
                    help="virtual device count per process with --cpu "
-                        "(split mode)")
+                        "(the port runs one partition per process)")
     p.add_argument("--json", action="store_true",
                    help="emit one JSON line of final metrics")
     p.add_argument("--distributed", action="store_true",
-                   help="join a multi-process cluster (split mode)")
+                   help="join a process group, one process per partition "
+                        "(split mode)")
     p.add_argument("--coordinator-address", type=str, default="",
-                   help="host:port of process 0")
+                   help="host:port of process 0, or a tcp:// or file:// "
+                        "URL (empty = torchrun's environment)")
     p.add_argument("--num-processes", type=int, default=-1)
     p.add_argument("--process-id", type=int, default=-1)
     return p
@@ -189,10 +200,6 @@ def _check_ported(parser, args) -> None:
     if split and args.model_name == "gat":
         raise SystemExit("--model-name gat is not ported yet for --mode "
                          "split: ROADMAP.md queue 1, item 8 (SplitGAT)")
-    if split and args.partitions not in (0, 1):
-        raise SystemExit("--partitions is not ported yet beyond 1: "
-                         "ROADMAP.md queue 1, item 7 (split-parallel "
-                         "training at P > 1)")
     for dest, item in _FLAGS_NOT_PORTED.items():
         if split and dest in _SPLIT_READS:
             continue
@@ -203,20 +210,45 @@ def _check_ported(parser, args) -> None:
 
 
 def main(argv=None):
+    import sys
+
+    from occ_gnn_tpu_torch.parallel import dist
     from occ_gnn_tpu_torch.utils import PhaseTimers
 
+    argv = sys.argv[1:] if argv is None else list(argv)
     parser = build_argparser()
     args = parser.parse_args(argv)
     _check_ported(parser, args)
-    device = resolve_device(args)
-    fanouts = [int(f) for f in args.fan_out.split(",")]
-    g = resolve_graph(args)
-    if args.feature_pad > 1:
-        g = g.pad_feature_dim(args.feature_pad)
-    print(f"graph: {g.num_nodes} nodes, {g.num_edges} edges, "
-          f"feat {g.feature_dim}, {g.num_classes} classes; device {device}")
-    train = train_split if args.mode == "split" else train_single
-    metrics = train(args, g, fanouts, PhaseTimers(), device)
+    split = args.mode == "split"
+    ranks = None
+    if split and args.distributed:
+        ranks = dist.init_from_args(args)
+        device = ranks.device
+    elif split and args.partitions > 1:
+        # One process per partition: spawn the P ranks here, once
+        # resolve_device has stopped a run that has no GPU and no --cpu.
+        resolve_device(args)
+        metrics = dist.launch(argv, args.partitions)
+        if args.json:
+            print(json.dumps(metrics))
+        return metrics
+    else:
+        device = resolve_device(args)
+    try:
+        fanouts = [int(f) for f in args.fan_out.split(",")]
+        g = resolve_graph(args)
+        if args.feature_pad > 1:
+            g = g.pad_feature_dim(args.feature_pad)
+        print(f"graph: {g.num_nodes} nodes, {g.num_edges} edges, "
+              f"feat {g.feature_dim}, {g.num_classes} classes; device "
+              f"{device}")
+        if split:
+            metrics = train_split(args, g, fanouts, PhaseTimers(), device,
+                                  ranks=ranks)
+        else:
+            metrics = train_single(args, g, fanouts, PhaseTimers(), device)
+    finally:
+        dist.close(ranks)
     if args.json:
         print(json.dumps(metrics))
     return metrics
@@ -302,11 +334,24 @@ def train_single(args, g, fanouts, timers, device: torch.device | None = None):
 
 def _one_partition_map(g) -> np.ndarray:
     """The partition map at P = 1: every node on partition 0, which is what
-    ``partition_graph(g, 1, mode)`` of the JAX package gives in every
-    mode, without its per-node loop over the graph."""
+    ``partition_graph(g, 1, mode)`` gives in every mode, without its
+    per-node loop over the graph."""
     if g.partition_map is not None and int(g.partition_map.max()) == 0:
         return g.partition_map
     return np.zeros(g.num_nodes, dtype=np.int32)
+
+
+def _partition_map(args, g, P: int) -> np.ndarray:
+    """The node -> partition map: at P > 1 the graph's own map when it has
+    P partitions, else ``--partition-mode`` (attached to the graph, as
+    the JAX trainer does)."""
+    from occ_gnn_tpu_torch.data.partition import partition_graph
+
+    if P == 1:
+        return _one_partition_map(g)
+    if g.partition_map is not None and int(g.partition_map.max()) == P - 1:
+        return g.partition_map
+    return partition_graph(g, P, mode=args.partition_mode)
 
 
 def _make_split_model(args, g):
@@ -358,30 +403,65 @@ def _profile_window(steps: int, out_dir: str, summary: dict):
                    on_trace_ready=on_ready)
 
 
+def _rank_seed(seed: int, rank: int) -> int:
+    """One device-draw stream per rank, as the JAX step folds the axis
+    index into its key; rank 0 keeps ``seed``, so P = 1 is unchanged."""
+    return seed + 1_000_003 * rank
+
+
+def _num_partitions(args, ranks) -> int:
+    if ranks is None:
+        if args.partitions > 1:
+            raise ValueError(
+                f"--partitions {args.partitions} runs one process per "
+                "partition: call main(), which spawns them, or pass the "
+                "ranks= of a process group (parallel.dist)")
+        return 1
+    if args.partitions not in (0, ranks.world_size):
+        raise SystemExit(f"--partitions {args.partitions} must equal the "
+                         f"number of processes, {ranks.world_size}")
+    return ranks.world_size
+
+
 def train_split(args, g, fanouts, timers, device: torch.device | None = None,
-                init_state: dict | None = None):
-    """Split-parallel training (``--mode split``) at one partition on
-    ``device``, step for step as the JAX trainer's ``train_split``.
-    ``init_state`` is an optional model state to start from (for
-    instance ``utils.checkpoint.params_from_jax`` of JAX weights)."""
+                init_state: dict | None = None, ranks=None):
+    """Split-parallel training (``--mode split``) on ``device``, step for
+    step as the JAX trainer's ``train_split``. ``init_state`` is an
+    optional model state to start from (for instance
+    ``utils.checkpoint.params_from_jax`` of JAX weights).
+
+    ``ranks`` (``parallel.dist.DistContext``) makes this process rank r of
+    a P-partition run: it partitions and plans as every other rank does,
+    holds partition r's cache frame, samples partition r's rows, and
+    reports the global loss, accuracy and evaluation counts."""
+    from torch.distributed import ReduceOp
+
     from occ_gnn_tpu_torch.cache import CachePlan, SplitFeatureCache
     from occ_gnn_tpu_torch.cache.autosize import resolve_cache_percentage
+    from occ_gnn_tpu_torch.parallel import dist
     from occ_gnn_tpu_torch.parallel.model import (
         make_device_csr,
         make_split_forward,
         make_split_train_step,
     )
+    from occ_gnn_tpu_torch.parallel.split import shuffle_counts
     from occ_gnn_tpu_torch.sampling.slicer import (
         SplitSampler,
         measure_split_capacities,
         plan_split_capacities,
         scale_capacities,
     )
+    from occ_gnn_tpu_torch.utils.checkpoint import (
+        load_checkpoint,
+        save_checkpoint,
+    )
 
     device = device or resolve_device(args)
-    P = 1
+    P = _num_partitions(args, ranks)
+    rank = ranks.rank if ranks is not None else 0
+    emit = dist.local_partition_range(ranks) if ranks is not None else None
     with timers.phase("partition"):
-        pmap = _one_partition_map(g)
+        pmap = _partition_map(args, g, P)
     with timers.phase("capacity_plan"):
         safe_caps = plan_split_capacities(args.batch_size, fanouts,
                                           g.num_nodes, P)
@@ -390,6 +470,10 @@ def train_split(args, g, fanouts, timers, device: torch.device | None = None,
             dtype_bytes=2 if args.dtype == "bfloat16" else 4,
             refresh_cap=safe_caps["frame_caps"][0], device=device,
         )
+        if ranks is not None and args.cache_per == "auto":
+            # Ranks that share a card see different free memory.
+            cache_pct = float(dist.all_reduce_values(
+                ranks, [cache_pct], op=ReduceOp.MIN)[0])
         if args.cache_per == "auto":
             print(f"cache auto-sized to {cache_pct:.4f} of the graph "
                   f"({'no per-batch refresh' if cache_pct >= 1.0 / P else 'refreshing'})")
@@ -423,7 +507,8 @@ def train_split(args, g, fanouts, timers, device: torch.device | None = None,
                        if args.measure_caps else safe_caps["frame_caps"][0])
         plan = CachePlan(g, pmap, P, cache_pct, refresh_cap=refresh_cap)
         fdtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
-        cache = SplitFeatureCache(plan, dtype=fdtype, device=device)
+        cache = SplitFeatureCache(plan, dtype=fdtype, device=device,
+                                  partitions=emit)
     else:
         caps.pop("refresh_cap", None)
 
@@ -462,12 +547,12 @@ def train_split(args, g, fanouts, timers, device: torch.device | None = None,
                 capacities=caps, seed=seed, cache=cache,
                 num_workers=args.num_workers,
                 replace=not args.sample_without_replacement,
-                innermost=innermost, device=device,
+                innermost=innermost, emit_range=emit, device=device,
             )
         return SplitSampler(g, nodes, pmap, P, fanouts, args.batch_size,
                             capacities=caps, seed=seed, cache=cache,
                             replace=not args.sample_without_replacement,
-                            device=device)
+                            emit_range=emit, device=device)
 
     sampler = build_sampler(caps)
     model = _make_split_model(args, g)
@@ -475,21 +560,32 @@ def train_split(args, g, fanouts, timers, device: torch.device | None = None,
         model.load_state_dict(init_state)
     model = model.to(device)
     opt = torch.optim.Adam(model.parameters(), lr=args.lr)
-    step = make_split_train_step(model, opt, csr=csr)
+    start_epoch = 0
+    if args.resume:
+        start_epoch = load_checkpoint(args.resume, model, opt)
+        print(f"resumed from {args.resume} at epoch {start_epoch}")
+    if ranks is not None:
+        dist.check_agreement(ranks, partition_map=pmap, capacities=caps,
+                             cache_percentage=cache_pct, weights=model)
+        dist.broadcast_parameters(ranks, model)
+    step = make_split_train_step(model, opt, csr=csr, ranks=ranks)
     # Device-innermost sampling stream.
-    sample_gen = (torch.Generator(device).manual_seed(args.seed ^ 0xD0C5)
-                  if csr is not None else None)
+    sample_gen = (torch.Generator(device).manual_seed(
+        _rank_seed(args.seed ^ 0xD0C5, rank)) if csr is not None else None)
     profile = {}
-    prof = (_profile_window(len(sampler), args.profile_dir, profile)
-            if args.profile_dir else None)
-    if prof is not None:
+    prof = None
+    if args.profile_dir:
+        out_dir = (os.path.join(args.profile_dir, f"rank{rank}")
+                   if ranks is not None else args.profile_dir)
+        prof = _profile_window(len(sampler), out_dir, profile)
         prof.start()
 
     acc = loss_v = 0.0
     steps = 0
     last_phases = {}
-    epoch = 0
+    epoch = start_epoch
     replans = 0
+    shuffles_before = shuffle_counts()
     while epoch < args.num_epochs:
         t0 = time.perf_counter()
         correct = total = 0
@@ -530,7 +626,8 @@ def train_split(args, g, fanouts, timers, device: torch.device | None = None,
                 # padding-budget problem.
                 raise
             # A tail batch exceeded the measured padding budget: grow every
-            # capacity 1.5x, rebuild the sampler, redo the epoch.
+            # capacity 1.5x, rebuild the sampler, redo the epoch. Every
+            # rank checks every partition, so all re-plan together.
             caps = scale_capacities(caps, 1.5)
             print(f"capacity overflow ({e}); re-planning with 1.5x budgets")
             if hasattr(sampler, "close"):
@@ -548,15 +645,25 @@ def train_split(args, g, fanouts, timers, device: torch.device | None = None,
               f"time={dt:.2f}s [{timers.summary()}]")
         last_phases = {k: round(v, 4) for k, v in timers.as_dict().items()}
         timers.clear()
+        if args.save_dir and rank == 0:
+            path = save_checkpoint(
+                os.path.join(args.save_dir, "split_epoch.npz"), model, opt,
+                epoch + 1)
+            print(f"checkpoint -> {path}")
         epoch += 1
 
+    shuffles = {k: v - shuffles_before[k]
+                for k, v in shuffle_counts().items()}
     out = {"mode": "split", "acc": acc, "loss": loss_v, "partitions": P,
            "phases": last_phases,
            "peak_rss_mb": round(
                resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024, 1),
-           "steps": steps, "cache_pct": cache_pct, "innermost": innermost,
-           "sampler": args.sampler,
+           "steps": steps, "replans": replans, "cache_pct": cache_pct,
+           "innermost": innermost, "sampler": args.sampler,
            "tail_batches": cache.tail_batches if cache is not None else 0}
+    if ranks is not None:
+        out.update(rank=rank, backend=ranks.backend, shuffle=shuffles,
+                   shuffle_caps=caps["shuffle_caps"])
     if profile:
         out["profile"] = profile
     if args.sampler == "native":
@@ -566,9 +673,9 @@ def train_split(args, g, fanouts, timers, device: torch.device | None = None,
     if hasattr(sampler, "close"):
         sampler.close()
     if args.eval and g.val_mask is not None:
-        fwd = make_split_forward(model, csr=csr)
-        ev_gen = (torch.Generator(device).manual_seed(args.seed + 13)
-                  if csr is not None else None)
+        fwd = make_split_forward(model, csr=csr, ranks=ranks)
+        ev_gen = (torch.Generator(device).manual_seed(
+            _rank_seed(args.seed + 13, rank)) if csr is not None else None)
         for split_name, mask in (("val", g.val_mask), ("test", g.test_mask)):
             nodes = np.nonzero(mask)[0]
             # Same sampler backend and seeds as the JAX trainer's eval.
@@ -584,7 +691,11 @@ def train_split(args, g, fanouts, timers, device: torch.device | None = None,
                 total += int(valid.sum())
             if hasattr(ev, "close"):
                 ev.close()
-            out[f"{split_name}_acc"] = correct / max(total, 1)
+            if ranks is not None:
+                correct, total = dist.all_reduce_values(ranks,
+                                                        [correct, total])
+            out[f"{split_name}_acc"] = float(correct / max(total, 1))
+            out[f"{split_name}_count"] = int(total)
             print(f"{split_name} accuracy: {out[f'{split_name}_acc']:.4f}")
     return out
 

@@ -16,7 +16,8 @@ from torch.autograd import DeviceType
 
 NAMED_RANGES = ("sample", "train_step", "local_aggregate_dense",
                 "_DenseAggregateBackward", "synthesize_device_innermost",
-                "local_aggregate", "slice_owned", "Optimizer.step#Adam.step")
+                "local_aggregate", "slice_owned", "shuffle_merge",
+                "_ShuffleMergeBackward", "Optimizer.step#Adam.step")
 
 
 def _union_ms(intervals) -> float:

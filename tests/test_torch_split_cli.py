@@ -81,12 +81,8 @@ def test_eval_accuracy_equals_jax():
 
 
 @pytest.mark.parametrize("flag", [
-    ["--partitions", "2"], ["--partition-mode", "metis"],
-    ["--cpu-devices", "4"], ["--distributed"],
-    ["--coordinator-address", "localhost:1234"], ["--num-processes", "2"],
-    ["--process-id", "1"], ["--save-dir", "ck"], ["--resume", "ck/a.npz"],
-    ["--model-name", "gat"], ["--num-heads", "2"], ["--infer-nodes", "all"],
-    ["--output", "p.npy"],
+    ["--cpu-devices", "4"], ["--model-name", "gat"], ["--num-heads", "2"],
+    ["--infer-nodes", "all"], ["--output", "p.npy"],
 ], ids=lambda f: f[0])
 def test_split_flags_not_ported_name_their_roadmap_item(flag):
     with pytest.raises(SystemExit, match=f"{flag[0]}.* is not ported.*ROADMAP"):
@@ -94,18 +90,28 @@ def test_split_flags_not_ported_name_their_roadmap_item(flag):
                     *flag])
 
 
-def test_split_run_loads_no_jax():
-    code = ("import sys\n"
-            "from occ_gnn_tpu_torch import train\n"
-            f"train.main({SMOKE[:-3] + ['--num-epochs', '1', '--cpu']!r})\n"
-            "print('jax' in sys.modules, any(k == 'occ_gnn_tpu' or "
-            "k.startswith('occ_gnn_tpu.') for k in sys.modules))")
+@pytest.mark.parametrize("partitions", [1, 2])
+def test_split_run_loads_no_jax(partitions):
+    """A split run, and at 2 partitions each of the ranks it spawns, loads
+    neither JAX nor the JAX package: every process reports its imports
+    (PYTHONPROFILEIMPORTTIME, inherited by the spawned ranks)."""
+    argv = SMOKE[:-3] + ["--num-epochs", "1", "--cpu", "--partitions",
+                         str(partitions)]
+    code = f"from occ_gnn_tpu_torch import train\ntrain.main({argv!r})\n"
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=300,
-                          env=dict(os.environ))
-    assert proc.returncode == 0, proc.stderr
+                          env={**os.environ, "PYTHONPROFILEIMPORTTIME": "1"})
+    assert proc.returncode == 0, proc.stderr[-3000:]
     assert "innermost layer" not in proc.stdout  # --cache-per 0 default
-    assert proc.stdout.split()[-2:] == ["False", "False"]
+    imported = [line.rsplit("|", 1)[-1].strip()
+                for line in proc.stderr.splitlines()
+                if line.startswith("import time:")]
+    # The launching process, and each rank, imported the trainer.
+    assert imported.count("occ_gnn_tpu_torch.train") == (
+        1 if partitions == 1 else 3)
+    assert ("distributed: rank 1/2" in proc.stdout) == (partitions == 2)
+    assert not [m for m in imported
+                if m.split(".")[0] in ("jax", "jaxlib", "occ_gnn_tpu")]
 
 
 def test_single_without_replacement_samples_as_jax(monkeypatch):

@@ -1,0 +1,153 @@
+"""Multi-process helpers for the port's P > 1 tests (no JAX here: the ranks
+import only torch and the port).
+
+``run_ranks(fn, P, *args)`` spawns P fresh processes that join one gloo
+process group through a ``file://`` store (no TCP port to race for under
+xdist), calls ``fn(ranks, *args)`` on each rank, and returns what every
+rank returned, in rank order. A rank that fails stops the others.
+
+The rank functions below compute one rank's part of a sliced P-way batch:
+``shuffle_rank`` the boundary shuffle and its gradient, ``split_rank`` the
+logits, loss and gradients of a step with lr 0, ``adam_rank`` the weights
+after Adam steps.
+"""
+
+from __future__ import annotations
+
+import os
+import pickle
+import tempfile
+
+import numpy as np
+import torch
+
+from occ_gnn_tpu_torch.parallel import dist
+
+TIMEOUT_S = 50
+
+
+def run_ranks(fn, world_size: int, *args) -> list:
+    with tempfile.TemporaryDirectory(prefix="occ_test_ranks_") as tmp:
+        dist.spawn(_rank_entry, world_size, fn, tmp, args, timeout=TIMEOUT_S)
+        results = []
+        for r in range(world_size):
+            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+                results.append(pickle.load(f))
+        return results
+
+
+def _rank_entry(rank, world_size, store, fn, out_dir, args):
+    ranks = dist.init_distributed(store, world_size, rank, cpu=True)
+    try:
+        result = fn(ranks, *args)
+    finally:
+        dist.close(ranks)
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(result, f)
+
+
+# -- one rank's part of a P-way sliced batch --------------------------------
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy().copy()
+
+
+def _sampler(ranks, setup):
+    """The graph, and a sampler that emits this rank's rows."""
+    from occ_gnn_tpu_torch.data import random_graph
+    from occ_gnn_tpu_torch.sampling.slicer import SplitSampler
+
+    g = random_graph(**setup["graph"])
+    sampler = SplitSampler(
+        g, g.train_nodes(), setup["pmap"], ranks.world_size,
+        setup["fanouts"], setup["batch"], seed=setup["seed"], device="cpu",
+        emit_range=(ranks.rank, ranks.rank + 1))
+    return g, sampler
+
+
+def _frame(g, batch):
+    from occ_gnn_tpu_torch.training import gather_features
+
+    return gather_features(g.features, batch.input_nodes_host[0], "cpu")[None]
+
+
+def _model(setup, kind, state):
+    from occ_gnn_tpu_torch.parallel.model import SplitGCN, SplitSAGE
+
+    g = setup["graph"]
+    cls = {"sage": SplitSAGE, "gcn": SplitGCN}[kind]
+    model = cls(g["feature_dim"], setup["hidden"], g["num_classes"],
+                len(setup["fanouts"]))
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+    return model
+
+
+def shuffle_rank(ranks, setup, neighs, weights):
+    """``shuffle_merge`` of this rank's rows of ``neighs[l]`` (all P
+    partitions' partial sums, ``[P, dst_cap, H]``) for each layer, and the
+    gradient of ``sum(merged * weights[l][rank])`` with respect to them."""
+    from occ_gnn_tpu_torch.parallel.split import shuffle_merge
+
+    g, sampler = _sampler(ranks, setup)
+    batch = sampler.slice_raw(sampler._sample_raw(
+        g.train_nodes()[: setup["batch"]]))
+    out = []
+    for l, lyr in enumerate(batch.layers):
+        lp = lyr.partition(0)
+        neigh = torch.from_numpy(neighs[l][ranks.rank]).requires_grad_()
+        merged = shuffle_merge(neigh, lp.push_idx, lp.recv_idx)
+        (merged * torch.from_numpy(weights[l][ranks.rank])).sum().backward()
+        out.append((_numpy(merged), _numpy(neigh.grad)))
+    return out
+
+
+def split_rank(ranks, setup, kind, state):
+    """This rank's logits (forward), and the global loss, count, correct
+    and the all-reduced gradients of one train step with lr 0, on the
+    first batch of ``setup``."""
+    from occ_gnn_tpu_torch.parallel.model import (
+        make_split_forward,
+        make_split_train_step,
+    )
+
+    g, sampler = _sampler(ranks, setup)
+    batch = sampler.slice_raw(sampler._sample_raw(
+        g.train_nodes()[: setup["batch"]]))
+    x0 = _frame(g, batch)
+    model = _model(setup, kind, state)
+    logits = make_split_forward(model, ranks=ranks)(batch, x0)[0]
+    step = make_split_train_step(
+        model, torch.optim.SGD(model.parameters(), lr=0.0), ranks=ranks)
+    loss, correct, count = step(batch, x0)
+    grads = {n: _numpy(p.grad) for n, p in model.named_parameters()}
+    return dict(logits=_numpy(logits), loss=float(loss),
+                correct=int(correct), count=int(count), grads=grads,
+                labels=_numpy(batch.labels[0]))
+
+
+def adam_rank(ranks, setup, kind, state, num_steps, lr):
+    """The weights after ``num_steps`` Adam steps on the sampler's first
+    batches, and the global loss of each step."""
+    from occ_gnn_tpu_torch.parallel.model import make_split_train_step
+
+    g, sampler = _sampler(ranks, setup)
+    model = _model(setup, kind, state)
+    step = make_split_train_step(
+        model, torch.optim.Adam(model.parameters(), lr=lr), ranks=ranks)
+    losses = []
+    for _, batch in zip(range(num_steps), sampler):
+        loss, _, _ = step(batch, _frame(g, batch))
+        losses.append(float(loss))
+    return dict(losses=losses,
+                weights={n: _numpy(p) for n, p in model.named_parameters()})
+
+
+def everything_rank(ranks, setup, neighs, weights, states, num_steps, lr):
+    """Every rank function above in one process group, for one spawn."""
+    return dict(
+        shuffle=shuffle_rank(ranks, setup, neighs, weights),
+        split={k: split_rank(ranks, setup, k, s) for k, s in states.items()},
+        adam={k: adam_rank(ranks, setup, k, s, num_steps, lr)
+              for k, s in states.items()},
+    )
