@@ -43,16 +43,16 @@
 9. Split P2-B: split B's flags at ``--partitions 2 --partition-mode
    metis``: the cache tails refresh per rank, layer 0 is COO through the
    kernel (one launch per rank a step) and shuffles forward only (3
-   forward, 2 backward a step).
+   forward, 2 backward a step). The same P = 2 vs P = 1 check as split
+   P2, with each rank's refreshing frame against the frame of every node.
 10. Prints the card again, one JSON line of kernel numbers, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 It also fails when torch sees no CUDA device, and outside the repository.
 ``--num-nodes`` cuts the products graph for a quick run; every width stays.
-``--ranks N`` sets the partitions of steps 8 and 9 (default 2), and
-``--ranks-only`` runs only steps 1, 2, 8 and 9: on a machine with a card
-for every rank, the ranks then run over NCCL.
+``--ranks N`` sets the partitions of steps 8 and 9 (default 2): on a
+machine with a card for every rank, the ranks run over NCCL.
 """
 
 from __future__ import annotations
@@ -583,47 +583,54 @@ def run_split(label, args, g, fanouts, device):
     return metrics, launches
 
 
-def check_vs_one_partition(ranks, g, args, fanouts, device) -> dict:
+def check_vs_one_partition(ranks, g, args, fanouts, cache_pct,
+                           device) -> dict:
     """One raw sample of the numpy SplitSampler sliced at P (this rank's
-    row, its partition map) and at P = 1, under the replicated
-    cache (the same identity frame at both), with the same weights: this
+    row, its partition map) and at P = 1, with the same weights: this
     rank's owned logits, the global loss and every all-reduced gradient
-    against the P = 1 computation. Errors are relative to the P = 1
-    values' scale (at least 1)."""
+    against the P = 1 computation. At P the rank holds its own frame under
+    the phase's ``cache_pct`` (static rows plus the tail this sample
+    writes when the cache refreshes); at P = 1 the frame holds every node.
+    Each error is relative to the largest magnitude of the P = 1 tensor it
+    is held to."""
     r, P = ranks.rank, ranks.world_size
     pmap, nodes, bs = g.partition_map, g.train_nodes(), args.batch_size
-    cache = SplitFeatureCache(CachePlan(g, pmap, P, 1.0, refresh_cap=8),
-                              device=device, partitions=(r, r + 1))
-    s2 = SplitSampler(g, nodes, pmap, P, fanouts, bs, seed=0, cache=cache,
-                      capacities=plan_split_capacities(bs, fanouts,
-                                                       g.num_nodes, P),
-                      emit_range=(r, r + 1), device=device)
+    caps2 = plan_split_capacities(bs, fanouts, g.num_nodes, P)
+    cache2 = SplitFeatureCache(
+        CachePlan(g, pmap, P, cache_pct, refresh_cap=caps2["frame_caps"][0]),
+        device=device, partitions=(r, r + 1))
+    s2 = SplitSampler(g, nodes, pmap, P, fanouts, bs, seed=0, cache=cache2,
+                      capacities=caps2, emit_range=(r, r + 1), device=device)
     raw = s2._sample_raw(nodes[:bs])
     b2 = s2.slice_raw(raw)
     zeros = np.zeros(g.num_nodes, np.int32)
-    s1 = SplitSampler(g, nodes, zeros, 1, fanouts, bs, seed=0,
-                      cache=CachePlan(g, zeros, 1, 1.0, refresh_cap=8),
+    plan1 = CachePlan(g, zeros, 1, 1.0, refresh_cap=8)
+    s1 = SplitSampler(g, nodes, zeros, 1, fanouts, bs, seed=0, cache=plan1,
                       capacities=plan_split_capacities(bs, fanouts,
                                                        g.num_nodes, 1),
                       device=device)
     b1 = s1.slice_raw(raw)
-    x0 = cache.frames
+    x2 = cache2.frames
+    x1 = (x2 if cache2.plan.replicated
+          else SplitFeatureCache(plan1, device=device).frames)
     m2 = SplitSAGE(g.feature_dim, args.num_hidden, g.num_classes,
                    len(fanouts),
                    generator=torch.Generator().manual_seed(0)).to(device)
     m1 = copy.deepcopy(m2)
-    logits2 = make_split_forward(m2, ranks=ranks)(b2, x0)[0]
-    logits1 = make_split_forward(m1)(b1, x0)[0]
+    logits2 = make_split_forward(m2, ranks=ranks)(b2, x2)[0]
+    logits1 = make_split_forward(m1)(b1, x1)[0]
     loss2, _, count = make_split_train_step(
-        m2, torch.optim.SGD(m2.parameters(), lr=0.0), ranks=ranks)(b2, x0)
+        m2, torch.optim.SGD(m2.parameters(), lr=0.0), ranks=ranks)(b2, x2)
     loss1, _, _ = make_split_train_step(
-        m1, torch.optim.SGD(m1.parameters(), lr=0.0))(b1, x0)
+        m1, torch.optim.SGD(m1.parameters(), lr=0.0))(b1, x1)
     rows = np.nonzero(pmap[raw[0].frontier] == r)[0]
     ref = logits1[torch.from_numpy(rows).to(device)]
     got = logits2[: rows.shape[0]]
 
     def rel(a, b):
-        return (a - b).abs().max().item() / max(1.0, b.abs().max().item())
+        err = (a - b).abs().max().item()
+        scale = b.abs().max().item()
+        return err / scale if scale > 0 else err
 
     return dict(targets=int(rows.shape[0]), count=int(count),
                 logits_err=rel(got, ref), loss_err=rel(loss2, loss1),
@@ -636,7 +643,7 @@ def split_rank(rank, world, store, spec, out_dir):
     """One rank of a P > 1 phase, as the CLI's launcher runs it: joins
     the process group, loads the saved graph, and drives ``train_split``
     with the counts set to 0 just before and read just after; then (split
-    P2) ``check_vs_one_partition``. Writes what it measured to
+    ``check_vs_one_partition`` under the phase's cache. Writes what it measured to
     ``out_dir/rank{r}.json``."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -660,21 +667,19 @@ def split_rank(rank, world, store, spec, out_dir):
                    shuffles=shuffle_counts(),
                    peak_gib=torch.cuda.max_memory_allocated(device) / 2**30,
                    phase_lines=phase_lines(timers, metrics["steps"]))
-        if spec["check"]:
-            out["check"] = check_vs_one_partition(ranks, g, args, fanouts,
-                                                  device)
+        out["check"] = check_vs_one_partition(
+            ranks, g, args, fanouts, metrics["cache_pct"], device)
     finally:
         dist.close(ranks)
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
 
 
-def run_ranks(label, num_ranks, name, root, flags, check,
-              shuffles_per_step):
+def run_ranks(label, num_ranks, name, root, flags, shuffles_per_step):
     """Spawn the ranks of a P > 1 phase and hold what they report: equal
     global loss and accuracy, ``shuffles_per_step`` (forward, backward)
-    all-to-alls a step, and (``check``) the P vs P = 1 errors."""
-    spec = dict(name=name, root=root, flags=flags, check=check)
+    all-to-alls a step, and each rank's P vs P = 1 errors."""
+    spec = dict(name=name, root=root, flags=flags)
     with tempfile.TemporaryDirectory(prefix="occ_smoke_ranks_") as out_dir:
         dist.spawn(split_rank, num_ranks, spec, out_dir,
                    timeout=RANK_TIMEOUT_S)
@@ -719,19 +724,16 @@ def run_ranks(label, num_ranks, name, root, flags, check,
             raise AssertionError(f"{label}: rank {res['rank']} ran {sh} "
                                  f"shuffles in {steps} steps; expected "
                                  f"{fwd} forward and {bwd} backward a step")
-        if "check" in res:
-            c = res["check"]
-            print(f"  rank {res['rank']}: P = {num_ranks} vs P = 1, one raw "
-                  f"sample "
-                  f"({c['targets']} owned targets of {c['count']}): logits "
-                  f"{c['logits_err']:.3g}, loss {c['loss_err']:.3g}, "
-                  f"gradients {c['grad_err']:.3g} of scale (limit "
-                  f"{LOGITS_TOL})")
-            if not (c["all_finite"] and max(c["logits_err"], c["loss_err"],
-                                            c["grad_err"]) <= LOGITS_TOL):
-                raise AssertionError(f"{label}: P = {num_ranks} differs "
-                                     f"from P = 1 on rank {res['rank']}: "
-                                     f"{c}")
+        c = res["check"]
+        print(f"  rank {res['rank']}: P = {num_ranks} vs P = 1, one raw "
+              f"sample ({c['targets']} owned targets of {c['count']}): "
+              f"logits {c['logits_err']:.3g}, loss {c['loss_err']:.3g}, "
+              f"gradients {c['grad_err']:.3g} of each tensor's scale "
+              f"(limit {LOGITS_TOL})")
+        if not (c["all_finite"] and max(c["logits_err"], c["loss_err"],
+                                        c["grad_err"]) <= LOGITS_TOL):
+            raise AssertionError(f"{label}: P = {num_ranks} differs from "
+                                 f"P = 1 on rank {res['rank']}: {c}")
     agreed = {(res["metrics"]["loss"], res["metrics"]["acc"],
                res["metrics"]["steps"]) for res in results}
     if len(agreed) != 1:
@@ -753,7 +755,7 @@ def rank_phases(phase, root: str, num_ranks: int) -> int:
             "--profile-dir", "chiprun_out/split_a_profile")]
         flags += parts(PRODUCTS_PARTITION_MODE)
         for res in run_ranks(label, num_ranks, "products", root, flags,
-                             check=True, shuffles_per_step=(2, 2)):
+                             shuffles_per_step=(2, 2)):
             m = res["metrics"]
             if not (m["cache_pct"] >= 1.0 and m["innermost"] == "device"
                     and res["launches"] == 0):
@@ -765,7 +767,6 @@ def rank_phases(phase, root: str, num_ranks: int) -> int:
     with phase(f"{label}-B"):
         results = run_ranks(f"{label}-B", num_ranks, "split_b", root,
                             SPLIT_B_FLAGS + parts(SPLIT_B_PARTITION_MODE),
-                            check=False,
                             shuffles_per_step=(3, 2))
         for res in results:
             m = res["metrics"]
@@ -786,9 +787,6 @@ def main(argv=None) -> int:
     cli.add_argument("--ranks", type=int, default=RANKS,
                      help="partitions (one process each) of the split P "
                           "phases")
-    cli.add_argument("--ranks-only", action="store_true",
-                     help="run only the split P phases: with one card per "
-                          "rank they run over NCCL")
     opts = cli.parse_args(argv)
     if not torch.cuda.is_available():
         print("error: torch sees no CUDA device; chip_smoke.py runs on a GPU",
@@ -829,22 +827,6 @@ def main(argv=None) -> int:
     fanouts = [int(f) for f in args.fan_out.split(",")]
     nodes = g.train_nodes()[: args.limit_train]
     graphs = tempfile.TemporaryDirectory(prefix="occ_smoke_graphs_")
-    if opts.ranks_only:
-        with phase("save graphs"):
-            save_graph(g, graphs.name, "products")
-            save_graph(random_graph(SPLIT_B_NODES, AVG_DEGREE, FEATURE_DIM,
-                                    num_classes=NUM_CLASSES, seed=args.seed),
-                       graphs.name, "split_b")
-        del g
-        rank_phases(phase, graphs.name, opts.ranks)
-        graphs.cleanup()
-        print(f"total wall {time.perf_counter() - wall:.1f}s")
-        print(f"card: {card}")
-        print(json.dumps({"ok": True, "device": {
-            "platform": "gpu", "kind": name,
-            "count": torch.cuda.device_count()}}))
-        return 0
-
     # 3-5. The single path: the kernel at its shapes, the first batch's
     # logits, and train_single.
     with phase("single path"):

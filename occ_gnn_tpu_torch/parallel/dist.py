@@ -37,9 +37,6 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-BACKENDS = ("auto", "nccl", "gloo")
-
-
 @dataclasses.dataclass(frozen=True)
 class DistContext:
     """This process's place in the (default) process group: rank r holds
@@ -68,32 +65,20 @@ def rank_device(rank: int, cpu: bool) -> torch.device:
     return torch.device("cuda", rank % count)
 
 
-def choose_backend(world_size: int, cpu: bool, requested: str = "auto") -> str:
-    """NCCL when every rank has a card of its own, else gloo. A request
-    for NCCL on the CPU or with ranks sharing a card raises."""
-    if requested not in BACKENDS:
-        raise ValueError(f"backend must be one of {BACKENDS}, got "
-                         f"{requested!r}")
-    cards = 0 if cpu else torch.cuda.device_count()
-    own_card = not cpu and cards >= world_size
-    if requested == "nccl" and not own_card:
-        where = ("on the CPU" if cpu else
-                 f"with {world_size} ranks on {cards} CUDA device(s): NCCL "
-                 "refuses two ranks on one card")
-        raise ValueError(f"the nccl backend cannot run {where}; use gloo")
-    if requested == "auto":
-        return "nccl" if own_card else "gloo"
-    return requested
+def choose_backend(world_size: int, cpu: bool) -> str:
+    """NCCL when every rank has a card of its own, else gloo."""
+    own_card = not cpu and torch.cuda.device_count() >= world_size
+    return "nccl" if own_card else "gloo"
 
 
-def init_distributed(init_method: str, world_size: int, rank: int, cpu: bool,
-                     backend: str = "auto") -> DistContext:
+def init_distributed(init_method: str, world_size: int, rank: int,
+                     cpu: bool) -> DistContext:
     """Join the process group at ``init_method`` (``tcp://host:port``,
     ``file://path`` or ``env://``) as ``rank`` of ``world_size``."""
     if not 0 <= rank < world_size:
         raise ValueError(f"process id {rank} outside [0, {world_size})")
     device = rank_device(rank, cpu)
-    backend = choose_backend(world_size, cpu, backend)
+    backend = choose_backend(world_size, cpu)
     if cpu:
         # The ranks share the host's cores.
         torch.set_num_threads(1)
@@ -166,19 +151,6 @@ def all_reduce_gradients(params) -> None:
         n = g.numel()
         p.grad = flat[offset:offset + n].view_as(g)
         offset += n
-
-
-def broadcast_parameters(ranks: DistContext, module: torch.nn.Module) -> None:
-    """Rank 0's parameters on every rank, in one flat broadcast."""
-    params = list(module.parameters())
-    with torch.no_grad():
-        flat = torch.cat([p.detach().reshape(-1) for p in params])
-        dist.broadcast(flat, src=0)
-        offset = 0
-        for p in params:
-            n = p.numel()
-            p.copy_(flat[offset:offset + n].view_as(p))
-            offset += n
 
 
 def _checksum(value) -> int:

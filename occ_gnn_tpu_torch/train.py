@@ -567,7 +567,6 @@ def train_split(args, g, fanouts, timers, device: torch.device | None = None,
     if ranks is not None:
         dist.check_agreement(ranks, partition_map=pmap, capacities=caps,
                              cache_percentage=cache_pct, weights=model)
-        dist.broadcast_parameters(ranks, model)
     step = make_split_train_step(model, opt, csr=csr, ranks=ranks)
     # Device-innermost sampling stream.
     sample_gen = (torch.Generator(device).manual_seed(

@@ -50,16 +50,6 @@ def _tensor(leaf) -> torch.Tensor:
     return torch.from_numpy(np.array(leaf, dtype=np.float32))
 
 
-def load_jax_checkpoint(path: str, model: torch.nn.Module) -> int:
-    """Load the weights of a JAX ``.npz`` checkpoint into ``model`` (shapes
-    and keys must match exactly) and return the checkpoint's epoch."""
-    with np.load(path, allow_pickle=False) as data:
-        state = params_from_jax(data)
-        epoch = int(data["meta/epoch"])
-    model.load_state_dict(state, strict=True)
-    return epoch
-
-
 def save_checkpoint(path: str, model: torch.nn.Module,
                     optimizer: torch.optim.Adam, epoch: int) -> str:
     """Write ``model``'s weights, ``optimizer``'s Adam state and ``epoch``

@@ -28,10 +28,7 @@ from occ_gnn_tpu_torch.training import (
     make_eval_step,
     make_train_step,
 )
-from occ_gnn_tpu_torch.utils.checkpoint import (
-    load_jax_checkpoint,
-    params_from_jax,
-)
+from occ_gnn_tpu_torch.utils.checkpoint import load_checkpoint, params_from_jax
 
 # f32 on the CPU in both packages; products and sums of a few hundred
 # terms taken in another order.
@@ -124,7 +121,7 @@ def test_jax_checkpoint_predicts_the_same_classes(tmp_path, small_graph):
     save_checkpoint(path, params, optax.adam(1e-2).init(params), epoch=4)
     tm = get_model("sage", g.feature_dim, HIDDEN, g.num_classes,
                    len(FANOUTS))
-    assert load_jax_checkpoint(path, tm) == 4
+    assert load_checkpoint(path, tm) == 4
     js, ts = _samplers(g, seed=4)
     jb, tb = next(iter(js)), next(iter(ts))
     jx0 = jax_gather(g.features, jb.input_nodes)
