@@ -1,19 +1,20 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100).
 
-    python3 chip_smoke.py [--num-nodes N]
+    python3 chip_smoke.py [--num-nodes N] [--ranks N] [--only-ranks]
 
 1. Prints the card (name and power limit), torch and CUDA versions, and
    builds every hand-written kernel and the C++ sampling service from the
    sources in the checkout, one compiler for each, all at once.
 2. Builds the products-scale graph (2.45 M nodes, degree 25, 100 features,
-   47 classes) once for the single path and split A, and samples the
-   single path's first batch.
+   47 classes) once for the single path, split A and split GAT A, and
+   samples the single path's first batch.
 3. Holds each kernel against its plain PyTorch version on the card: at the
-   three shapes the first batch gives it, then on ragged cases. For each
-   case it prints the max abs error, the kernel's time, the plain
-   version's, one ``index_add_`` call's (a yardstick the port never
-   calls) and the least time the card could take (the bound).
+   three shapes the first batch gives it, then on ragged cases (GAT's
+   widths among them). For each case it prints the max abs error, the
+   kernel's time, the plain version's, one ``index_add_`` call's (a
+   yardstick the port never calls) and the least time the card could take
+   (the bound).
 4. Checks that the first batch's logits through the kernel equal those of
    a plain forward written here, with the same weights.
 5. Drives ``--mode single`` GraphSAGE training (3 layers, hidden 128,
@@ -26,11 +27,16 @@
    beside their byte bounds; then drives ``--mode split --cache-per auto``
    (replicated cache, device innermost, C++ sampler; 8 steps) through
    ``train_split`` with one steady step profiled.
+   Split GAT A: the same with ``--model-name gat --num-hidden 32
+   --num-heads 4`` (the JAX package's GAT bench widths): split vs single
+   GAT logits, the batched attention's times forward and backward beside
+   their byte bounds, 8 steps with one profiled, no kernel launch.
 7. Split B, 200,000 nodes (depth cut for time, every width kept):
    ``--cache-per 0.25 --innermost host --fan-out 10,10,-1``, the
    refreshing cache with a COO layer 0. Checks the split-vs-single logits,
    that a step launched before a tail write reads the old tail, one
-   kernel launch a step and one tail write a step.
+   kernel launch a step and one tail write a step. Then single GAT and
+   single GCN on the same graph (3 steps each): 6 and 3 launches a step.
 8. Split P2: split A's flags at ``--partitions 2 --partition-mode
    round_robin`` (metis took 109-123 s a rank on the products graph on
    the H100 host), two ranks spawned as the CLI's launcher spawns them,
@@ -43,8 +49,11 @@
 9. Split P2-B: split B's flags at ``--partitions 2 --partition-mode
    metis``: the cache tails refresh per rank, layer 0 is COO through the
    kernel (one launch per rank a step) and shuffles forward only (3
-   forward, 2 backward a step). The same P = 2 vs P = 1 check as split
-   P2, with each rank's refreshing frame against the frame of every node.
+   forward, 2 backward a step). Split GAT P2-B: the same with GAT, whose
+   layers each run the reverse shuffle and the softmax merge both ways
+   (6 forward, 6 backward a step), and the two shuffles' times. Both with
+   the P = 2 vs P = 1 check of split P2, each rank's refreshing frame
+   against the frame of every node.
 10. Prints the card again, one JSON line of kernel numbers, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -53,6 +62,8 @@ It also fails when torch sees no CUDA device, and outside the repository.
 ``--num-nodes`` cuts the products graph for a quick run; every width stays.
 ``--ranks N`` sets the partitions of steps 8 and 9 (default 2): on a
 machine with a card for every rank, the ranks run over NCCL.
+``--only-ranks`` runs steps 1, 2 and 8-9 alone (a multi-card machine's
+run), with no kernel line.
 """
 
 from __future__ import annotations
@@ -93,7 +104,9 @@ from occ_gnn_tpu_torch.ops.segment_sum_sorted import (
 )
 from occ_gnn_tpu_torch.parallel import dist
 from occ_gnn_tpu_torch.parallel.model import (
+    SplitGAT,
     SplitSAGE,
+    dense_attention,
     make_device_csr,
     make_split_forward,
     make_split_train_step,
@@ -101,7 +114,9 @@ from occ_gnn_tpu_torch.parallel.model import (
 from occ_gnn_tpu_torch.parallel.split import (
     local_aggregate_dense,
     reset_shuffle_counts,
+    reverse_shuffle,
     shuffle_counts,
+    shuffle_softmax_merge,
     slice_owned,
     synthesize_device_innermost,
 )
@@ -130,6 +145,18 @@ SPLIT_A_FLAGS = ["--mode", "split", "--cache-per", "auto",
                  "chiprun_out/split_a_profile"] + COMMON_FLAGS
 SPLIT_B_FLAGS = ["--mode", "split", "--cache-per", "0.25", "--innermost",
                  "host", "--fan-out", "10,10,-1"] + COMMON_FLAGS
+# GAT at the JAX package's GAT bench widths (bench.py:262-268): hidden 32
+# per head, 4 heads. The flags after COMMON_FLAGS win over its hidden 128.
+GAT_FLAGS = ["--model-name", "gat", "--num-hidden", "32", "--num-heads", "4"]
+GAT_A_FLAGS = ["--mode", "split", "--cache-per", "auto", "--fan-out",
+               "10,10,25", "--profile-dir",
+               "chiprun_out/split_gat_a_profile"] + COMMON_FLAGS + GAT_FLAGS
+# The single-chip GAT and GCN phases run 3 steps each on split B's graph.
+SINGLE_B_FLAGS = TRAIN_FLAGS + ["--limit-train", "3072"]
+# Sorted segment-sum launches a step: single GAT sums the softmax
+# denominators and the messages of each of its 3 layers, single GCN (and
+# SAGE) the messages; split GAT its COO layer 0 ([p, p * feat] in one).
+SINGLE_LAUNCHES = {"sage": 3, "gcn": 3, "gat": 6}
 # The P > 1 phases, one process per partition: split A's and split B's
 # flags at --partitions RANKS.
 RANKS = 2
@@ -151,6 +178,8 @@ GRAPH_REPS = 10
 MEMORY_RATE = {"H100 PCIe": 2.0e12, "H100 NVL": 3.9e12, "H200": 4.8e12}
 H100_SXM_RATE = 3.35e12
 F32_RATE = 67e12  # f32 outside the tensor cores, operations/s
+
+NEGATIVE_SLOPE = 0.2  # GAT's leaky ReLU
 
 KERNEL_SOURCE = "occ_gnn_tpu_torch/csrc/segment_sum_sorted.cu"
 KERNEL_REPLACES = "occ_gnn_tpu/ops/pallas_spmm_blocked.py:190"
@@ -264,7 +293,10 @@ def ragged_cases(device):
     yield case("E=0", np.zeros(0, np.int32), 0, 16, 8)
     yield case("all padding", np.zeros(0, np.int32), 1000, 50, 32)
     yield case("num_segments=1", np.zeros(400, np.int32), 500, 1, 64)
-    for h in (1, 3, 100, 128):
+    # 4: GAT's softmax denominators (heads); 132 = 4 x (32 + 1): split
+    # GAT's COO message [p, p * feat]; 188 = 4 x 47: single GAT's last
+    # layer (the scalar path).
+    for h in (1, 3, 4, 100, 128, 132, 188):
         yield case(f"H={h}", rng.integers(0, 777, 15000), 20000, 777, h)
     # Small-integer messages: every partial sum is exact in f32, so the
     # 10000-term row is held to equality whatever the summation order
@@ -405,11 +437,24 @@ def check_synthesized_layer(g, fanouts, batch_size, device):
     return batch, syn, csr
 
 
-def split_vs_single(g, fanouts, batch_size, cache_pct, hidden, device):
+def split_model(args, g, seed: int = 0):
+    """The split model the flags name (SAGE or GAT), weights from ``seed``."""
+    dims = (g.feature_dim, args.num_hidden, g.num_classes,
+            len(args.fan_out.split(",")))
+    gen = torch.Generator().manual_seed(seed)
+    if args.model_name == "gat":
+        return SplitGAT(*dims, num_heads=args.num_heads, generator=gen)
+    return SplitSAGE(*dims, generator=gen)
+
+
+def split_vs_single(g, args, cache_pct, device):
     """The first host-innermost batch of the numpy SplitSampler under the
-    cache plan: its split logits against the port's single-chip SAGE
-    logits on ``raw_to_single_batch`` of the same raw sample, with the
-    same weights. Returns what the tail check of split B reuses."""
+    cache plan: its split logits against the port's single-chip logits
+    (the model of ``args``: SAGE or GAT) on ``raw_to_single_batch`` of the
+    same raw sample, with the same weights. Returns what the tail check of
+    split B reuses."""
+    fanouts = [int(f) for f in args.fan_out.split(",")]
+    batch_size = args.batch_size
     pmap = np.zeros(g.num_nodes, np.int32)
     nodes = g.train_nodes()
     caps = plan_split_capacities(batch_size, fanouts, g.num_nodes, 1)
@@ -422,10 +467,11 @@ def split_vs_single(g, fanouts, batch_size, cache_pct, hidden, device):
     split_batch = sampler.slice_raw(raw)
     single = raw_to_single_batch(raw, g, sampler.caps, device)
     x0 = gather_features(g.features, single.input_nodes, device)
-    model = SplitSAGE(g.feature_dim, hidden, g.num_classes, len(fanouts),
-                      generator=torch.Generator().manual_seed(0)).to(device)
-    single_model = get_model("sage", g.feature_dim, hidden, g.num_classes,
-                             len(fanouts)).to(device).eval()
+    model = split_model(args, g).to(device)
+    kw = {"num_heads": args.num_heads} if args.model_name == "gat" else {}
+    single_model = get_model(args.model_name, g.feature_dim, args.num_hidden,
+                             g.num_classes, len(fanouts), **kw)
+    single_model = single_model.to(device).eval()
     single_model.load_state_dict(model.state_dict())
     fwd = make_split_forward(model)
     with torch.no_grad():
@@ -435,7 +481,8 @@ def split_vs_single(g, fanouts, batch_size, cache_pct, hidden, device):
     ref = single_logits[:n]
     scale = max(1.0, ref.abs().max().item())
     err = (split_logits[:n] - ref).abs().max().item()
-    print(f"  split vs single logits, first batch ({n} targets): "
+    print(f"  split vs single {args.model_name} logits, first batch ({n} "
+          f"targets): "
           f"max_abs_err={err:.3g} at scale {scale:.3g} (limit "
           f"{LOGITS_TOL * scale:.3g})")
     if not (torch.isfinite(split_logits).all() and err <= LOGITS_TOL * scale):
@@ -506,6 +553,115 @@ def split_op_times(batch, syn, csr, frames, hidden, rate, device):
         add(f"slice_owned, layer {i} (O={O})",
             lambda: slice_owned(merged.detach(), lyr, x.detach()),
             O * (4 + 4 + 4 + 1) + O * H * (4 + xb) + 2 * 4 * O * H)
+    return rows
+
+
+def gat_op_times(batch, syn, frames, args, num_classes, rate, device):
+    """GAT's batched attention (``dense_attention``) at split GAT A's first
+    batch's shapes, forward and backward: device ms per call and the byte
+    bound (each input read once, each output written once: the nbr matrix,
+    the valid leaf rows of x, er and the (m, s, v) partials; the backward
+    reads the gradients of s and v and the leaves again, and writes the
+    gradients of er, the weights and, past layer 0, of x)."""
+    gen = torch.Generator(device).manual_seed(8)
+    heads, hidden = args.num_heads, args.num_hidden
+    layers = [syn] + [lyr.partition(0) for lyr in batch.layers[1:]]
+    outs = [hidden] * (len(layers) - 1) + [num_classes]
+    rows = []
+
+    def add(name, fn, nbytes):
+        ms = events_ms(fn)
+        rows.append((name, ms, nbytes / rate * 1e3))
+        print(f"  op {name}: ms={ms:.4f} bound_ms={nbytes / rate * 1e3:.4f} "
+              f"(bytes)")
+
+    def param(*shape):
+        return (0.1 * torch.randn(*shape, generator=gen, device=device)
+                ).requires_grad_()
+
+    for i, lyr in enumerate(layers):
+        nbr = lyr.nbr_idx
+        K, D = nbr.shape
+        x = frames[0] if i == 0 else param(lyr.src_cap, hidden * heads)
+        F, H = x.shape
+        xb, dh = x.element_size(), outs[i]
+        wl, w3, er = param(H, heads), param(H, heads, dh), param(D, heads)
+        valid = int((nbr != F - 1).sum())
+        leaves = 4 * K * D + xb * valid * H
+        add(f"dense_attention fwd, layer {i} (K={K}, D={D}, H={H}, "
+            f"heads={heads}, Dh={dh})",
+            lambda: dense_attention(x, nbr, wl, w3, er, NEGATIVE_SLOPE),
+            leaves + 4 * D * heads + 4 * D * heads * (2 + dh))
+        _, s, v = dense_attention(x, nbr, wl, w3, er, NEGATIVE_SLOPE)
+        grads = (torch.randn_like(s), torch.randn_like(v))
+        inputs = [wl, w3, er] + ([x] if x.requires_grad else [])
+        dx = 4 * F * H if x.requires_grad else 0
+        add(f"dense_attention bwd, layer {i}",
+            lambda: torch.autograd.grad((s, v), inputs, grads,
+                                        retain_graph=True),
+            leaves + 4 * D * heads * (1 + dh) + 4 * D * heads + dx)
+        del s, v, grads
+    return rows
+
+
+def gat_shuffle_times(batch, args, num_classes, rate, device,
+                      runs: int = 10) -> list:
+    """``reverse_shuffle`` and ``shuffle_softmax_merge``, forward and
+    backward, at one P > 1 batch's shapes on this rank: host ms per call
+    (the gloo all-to-all blocks the host), every rank in the same order.
+    The byte bound counts the device bytes of the op's inputs and outputs
+    (frames, partials, gradients, index tensors), each once; the exchange
+    over the link is not in it."""
+    gen = torch.Generator(device).manual_seed(9)
+    heads, hidden = args.num_heads, args.num_hidden
+    outs = [hidden] * (len(batch.layers) - 1) + [num_classes]
+    rows = []
+
+    def timed(fn):
+        fn()
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize(device)
+        return 1e3 * (time.perf_counter() - t0) / runs
+
+    def rand(*shape, grad=False):
+        return torch.randn(*shape, generator=gen, device=device
+                           ).requires_grad_(grad)
+
+    for i, lyr in enumerate(batch.layers):
+        lp = lyr.partition(0)
+        push, recv = lp.push_idx, lp.recv_idx
+        D, dh = lp.dst_cap, outs[i]
+        idx = 2 * 4 * push.numel()
+        frame = rand(D, heads, grad=True)
+        er = reverse_shuffle(frame, push, recv)
+        g_er = torch.randn_like(er)
+        m = rand(D, heads)
+        s = rand(D, heads, grad=True)
+        v = rand(D, heads, dh, grad=True)
+        so, vo = shuffle_softmax_merge(m, s, v, push, recv)
+        g_sv = (torch.randn_like(so), torch.randn_like(vo))
+        sv = 4 * D * heads * (1 + dh)
+        for name, fn, nbytes in (
+                ("reverse_shuffle fwd",
+                 lambda: reverse_shuffle(frame, push, recv),
+                 idx + 2 * 4 * D * heads),
+                ("reverse_shuffle bwd",
+                 lambda: torch.autograd.grad(er, frame, g_er,
+                                             retain_graph=True),
+                 idx + 2 * 4 * D * heads),
+                ("shuffle_softmax_merge fwd",
+                 lambda: shuffle_softmax_merge(m, s, v, push, recv),
+                 idx + 4 * D * heads + 2 * sv),
+                ("shuffle_softmax_merge bwd",
+                 lambda: torch.autograd.grad((so, vo), (s, v), g_sv,
+                                             retain_graph=True),
+                 idx + 2 * sv + 4 * (D + push.numel()) * heads)):
+            rows.append((f"{name}, layer {i} (P={push.shape[0]}, "
+                         f"S={push.shape[1]}, D={D}, heads={heads}, Dh={dh})",
+                         timed(fn), nbytes / rate * 1e3))
     return rows
 
 
@@ -583,16 +739,16 @@ def run_split(label, args, g, fanouts, device):
     return metrics, launches
 
 
-def check_vs_one_partition(ranks, g, args, fanouts, cache_pct,
-                           device) -> dict:
+def check_vs_one_partition(ranks, g, args, fanouts, cache_pct, device):
     """One raw sample of the numpy SplitSampler sliced at P (this rank's
-    row, its partition map) and at P = 1, with the same weights: this
-    rank's owned logits, the global loss and every all-reduced gradient
-    against the P = 1 computation. At P the rank holds its own frame under
-    the phase's ``cache_pct`` (static rows plus the tail this sample
-    writes when the cache refreshes); at P = 1 the frame holds every node.
-    Each error is relative to the largest magnitude of the P = 1 tensor it
-    is held to."""
+    row, its partition map) and at P = 1, with the same weights of the
+    flags' model (SAGE or GAT): this rank's owned logits, the global loss
+    and every all-reduced gradient against the P = 1 computation, and
+    whether all are finite. Returns the errors and this rank's P batch.
+    At P the rank holds its own frame under the phase's ``cache_pct``
+    (static rows plus the tail this sample writes when the cache
+    refreshes); at P = 1 the frame holds every node. Each error is
+    relative to the largest magnitude of the P = 1 tensor it is held to."""
     r, P = ranks.rank, ranks.world_size
     pmap, nodes, bs = g.partition_map, g.train_nodes(), args.batch_size
     caps2 = plan_split_capacities(bs, fanouts, g.num_nodes, P)
@@ -613,9 +769,7 @@ def check_vs_one_partition(ranks, g, args, fanouts, cache_pct,
     x2 = cache2.frames
     x1 = (x2 if cache2.plan.replicated
           else SplitFeatureCache(plan1, device=device).frames)
-    m2 = SplitSAGE(g.feature_dim, args.num_hidden, g.num_classes,
-                   len(fanouts),
-                   generator=torch.Generator().manual_seed(0)).to(device)
+    m2 = split_model(args, g).to(device)
     m1 = copy.deepcopy(m2)
     logits2 = make_split_forward(m2, ranks=ranks)(b2, x2)[0]
     logits1 = make_split_forward(m1)(b1, x1)[0]
@@ -632,18 +786,21 @@ def check_vs_one_partition(ranks, g, args, fanouts, cache_pct,
         scale = b.abs().max().item()
         return err / scale if scale > 0 else err
 
-    return dict(targets=int(rows.shape[0]), count=int(count),
-                logits_err=rel(got, ref), loss_err=rel(loss2, loss1),
-                grad_err=max(rel(p2.grad, p1.grad) for p2, p1 in
-                             zip(m2.parameters(), m1.parameters())),
-                all_finite=bool(torch.isfinite(logits2).all()))
+    check = dict(targets=int(rows.shape[0]), count=int(count),
+                 logits_err=rel(got, ref), loss_err=rel(loss2, loss1),
+                 grad_err=max(rel(p2.grad, p1.grad) for p2, p1 in
+                              zip(m2.parameters(), m1.parameters())),
+                 all_finite=bool(torch.isfinite(logits2).all() and all(
+                     torch.isfinite(p.grad).all() for p in m2.parameters())))
+    return check, b2
 
 
 def split_rank(rank, world, store, spec, out_dir):
     """One rank of a P > 1 phase, as the CLI's launcher runs it: joins
     the process group, loads the saved graph, and drives ``train_split``
-    with the counts set to 0 just before and read just after; then (split
-    ``check_vs_one_partition`` under the phase's cache. Writes what it measured to
+    with the counts set to 0 just before and read just after; then
+    ``check_vs_one_partition`` under the phase's cache and, for GAT, the
+    two GAT shuffles' times. Writes what it measured to
     ``out_dir/rank{r}.json``."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -667,8 +824,12 @@ def split_rank(rank, world, store, spec, out_dir):
                    shuffles=shuffle_counts(),
                    peak_gib=torch.cuda.max_memory_allocated(device) / 2**30,
                    phase_lines=phase_lines(timers, metrics["steps"]))
-        out["check"] = check_vs_one_partition(
+        out["check"], b2 = check_vs_one_partition(
             ranks, g, args, fanouts, metrics["cache_pct"], device)
+        if args.model_name == "gat":
+            out["shuffle_ops"] = gat_shuffle_times(
+                b2, args, g.num_classes,
+                memory_rate(torch.cuda.get_device_name(device)), device)
     finally:
         dist.close(ranks)
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
@@ -734,6 +895,9 @@ def run_ranks(label, num_ranks, name, root, flags, shuffles_per_step):
                                         c["grad_err"]) <= LOGITS_TOL):
             raise AssertionError(f"{label}: P = {num_ranks} differs from "
                                  f"P = 1 on rank {res['rank']}: {c}")
+        for op, ms, bound in res.get("shuffle_ops", []):
+            print(f"  rank {res['rank']}: op {op}: ms={ms:.4f} (host clock) "
+                  f"bound_ms={bound:.4f} (bytes)")
     agreed = {(res["metrics"]["loss"], res["metrics"]["acc"],
                res["metrics"]["steps"]) for res in results}
     if len(agreed) != 1:
@@ -742,10 +906,11 @@ def run_ranks(label, num_ranks, name, root, flags, shuffles_per_step):
     return results
 
 
-def rank_phases(phase, root: str, num_ranks: int) -> int:
-    """Split P and split P-B: split A's and split B's flags at
-    ``num_ranks`` partitions, on the graphs saved under ``root``. Returns
-    the kernel's launches over both ranks of split P-B."""
+def rank_phases(phase, root: str, num_ranks: int):
+    """Split P, split P-B and split GAT P-B: split A's and split B's flags
+    (the latter with SAGE and with GAT) at ``num_ranks`` partitions, on the
+    graphs saved under ``root``. Returns the kernel's launches over every
+    rank of the two P-B phases, and rank 0's GAT shuffle times."""
     def parts(mode):
         return ["--partitions", str(num_ranks), "--partition-mode", mode]
 
@@ -764,21 +929,92 @@ def rank_phases(phase, root: str, num_ranks: int) -> int:
                                      f"layers only")
     # The cache refreshes per rank when 0.25 < 1/P.
     refreshing = 0.25 < 1.0 / num_ranks
-    with phase(f"{label}-B"):
-        results = run_ranks(f"{label}-B", num_ranks, "split_b", root,
-                            SPLIT_B_FLAGS + parts(SPLIT_B_PARTITION_MODE),
-                            shuffles_per_step=(3, 2))
+    launches = 0
+    # Layer 0 is COO through the kernel (one launch a step) in both. SAGE
+    # shuffles it forward only (the frame takes no gradient); GAT runs the
+    # reverse shuffle and the merge on all 3 layers both ways (its layer-0
+    # er, s and v depend on W).
+    for name, extra, shuffles in (
+            (f"{label}-B", [], (3, 2)),
+            (f"split GAT P{num_ranks}-B", GAT_FLAGS, (6, 6))):
+        with phase(name):
+            results = run_ranks(
+                name, num_ranks, "split_b", root,
+                SPLIT_B_FLAGS + extra + parts(SPLIT_B_PARTITION_MODE),
+                shuffles_per_step=shuffles)
         for res in results:
             m = res["metrics"]
             if res["launches"] != m["steps"]:
-                raise AssertionError(f"{label}-B: rank {res['rank']}: "
+                raise AssertionError(f"{name}: rank {res['rank']}: "
                                      f"{res['launches']} kernel launches for "
                                      f"{m['steps']} steps; expected 1 a step")
             if m["tail_batches"] != (m["steps"] if refreshing else 0):
-                raise AssertionError(f"{label}-B: rank {res['rank']}: "
+                raise AssertionError(f"{name}: rank {res['rank']}: "
                                      f"{m['tail_batches']} tail writes for "
                                      f"{m['steps']} steps")
-    return sum(res["launches"] for res in results)
+        launches += sum(res["launches"] for res in results)
+    return launches, results[0]["shuffle_ops"]
+
+
+def check_dense_run(label, metrics, launches):
+    """Split A and split GAT A: replicated cache, device innermost, the C++
+    sampler, and dense layers only (no segment-sum launch)."""
+    if not (metrics["cache_pct"] >= 1.0 and metrics["innermost"] == "device"
+            and metrics["sampler"] == "native" and launches == 0):
+        raise AssertionError(f"{label} must run with a replicated cache, "
+                             f"device innermost, the native sampler and "
+                             f"dense layers only")
+
+
+def single_gat_cases(g, args, rate, device):
+    """The kernel at single GAT's first batch's six shapes (each layer's
+    softmax denominators [E, heads] and messages [E, heads * Dh]), with
+    random messages: the batch ``train_single`` samples first."""
+    fanouts = [int(f) for f in args.fan_out.split(",")]
+    nodes = g.train_nodes()[: args.limit_train]
+    caps = measure_capacities(g, nodes, fanouts, args.batch_size,
+                              seed=args.seed + 99)
+    batch = next(iter(NeighborSampler(g, nodes, fanouts, args.batch_size,
+                                      capacities=caps, seed=args.seed,
+                                      device=device)))
+    gen = torch.Generator(device).manual_seed(2)
+    heads = args.num_heads
+    outs = [args.num_hidden] * (len(fanouts) - 1) + [g.num_classes]
+    cases = []
+    for i, blk in enumerate(batch.blocks):
+        for what, width in (("denominators", heads),
+                            ("messages", heads * outs[i])):
+            msgs = torch.randn(blk.edge_cap, width, generator=gen,
+                               device=device)
+            cases.append(kernel_case(f"single GAT layer {i} {what}", msgs,
+                                     blk.edge_dst, blk.dst_cap, rate))
+    return cases
+
+
+def run_single(kind, args, g, device) -> int:
+    """Drive ``train_single`` with the launch count set to 0 just before;
+    checks the kernel's launches a step. Returns the launches."""
+    fanouts = [int(f) for f in args.fan_out.split(",")]
+    timers = StepTimers()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    segment_sum_sorted.launches = 0
+    metrics = train_single(args, g, fanouts, timers, device)
+    launches = segment_sum_sorted.launches
+    peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
+    steps = metrics["steps"]
+    print(f"single {kind}: {steps} steps, loss {metrics['loss']:.4f}, acc "
+          f"{metrics['acc']:.4f}, segment_sum_sorted launches {launches}, "
+          f"peak device memory {peak_gib:.3f} GiB")
+    print_phases(timers, steps, once=("capacity_plan",))
+    want = SINGLE_LAUNCHES[kind]
+    if steps == 0 or launches != want * steps:
+        raise AssertionError(f"single {kind}: {launches} kernel launches for "
+                             f"{steps} steps; expected {want} a step")
+    if not (np.isfinite(metrics["loss"]) and np.isfinite(metrics["acc"])):
+        raise AssertionError(f"single {kind}: non-finite loss: {metrics}")
+    return launches
 
 
 def main(argv=None) -> int:
@@ -787,6 +1023,10 @@ def main(argv=None) -> int:
     cli.add_argument("--ranks", type=int, default=RANKS,
                      help="partitions (one process each) of the split P "
                           "phases")
+    cli.add_argument("--only-ranks", action="store_true",
+                     help="build, save the two graphs and run only the "
+                          "split P phases (steps 8-9), for a multi-card "
+                          "machine; prints no kernel line")
     opts = cli.parse_args(argv)
     if not torch.cuda.is_available():
         print("error: torch sees no CUDA device; chip_smoke.py runs on a GPU",
@@ -827,6 +1067,21 @@ def main(argv=None) -> int:
     fanouts = [int(f) for f in args.fan_out.split(",")]
     nodes = g.train_nodes()[: args.limit_train]
     graphs = tempfile.TemporaryDirectory(prefix="occ_smoke_graphs_")
+    if opts.only_ranks:
+        with phase("save graphs"):
+            save_graph(g, graphs.name, "products")
+            save_graph(random_graph(SPLIT_B_NODES, AVG_DEGREE, FEATURE_DIM,
+                                    num_classes=NUM_CLASSES, seed=args.seed),
+                       graphs.name, "split_b")
+        del g
+        rank_phases(phase, graphs.name, opts.ranks)
+        graphs.cleanup()
+        print(f"total wall {time.perf_counter() - wall:.1f}s")
+        print(f"card: {card}")
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": name,
+            "count": torch.cuda.device_count()}}))
+        return 0
     # 3-5. The single path: the kernel at its shapes, the first batch's
     # logits, and train_single.
     with phase("single path"):
@@ -869,22 +1124,7 @@ def main(argv=None) -> int:
                                  "forward")
         del batch, x0, logits, ref, model
 
-        timers = StepTimers()
-        torch.cuda.reset_peak_memory_stats(device)
-        segment_sum_sorted.launches = 0
-        metrics = train_single(args, g, fanouts, timers, device)
-        single_launches = segment_sum_sorted.launches
-        peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
-        steps = metrics["steps"]
-        print(f"slice: {steps} steps, loss {metrics['loss']:.4f}, acc "
-              f"{metrics['acc']:.4f}, segment_sum_sorted launches "
-              f"{single_launches}, peak device memory {peak_gib:.3f} GiB")
-        print_phases(timers, steps, once=("capacity_plan",))
-        if steps == 0 or single_launches != 3 * steps:
-            raise AssertionError(f"{single_launches} kernel launches for "
-                                 f"{steps} steps; expected 3 a step")
-        if not (np.isfinite(metrics["loss"]) and np.isfinite(metrics["acc"])):
-            raise AssertionError(f"non-finite loss/accuracy: {metrics}")
+        single_launches = run_single("sage", args, g, device)
 
     # 6. Split A: products scale, replicated cache, device innermost.
     with phase("split A"):
@@ -892,18 +1132,26 @@ def main(argv=None) -> int:
         fan_a = [int(f) for f in args_a.fan_out.split(",")]
         batch, syn, csr = check_synthesized_layer(g, fan_a, args_a.batch_size,
                                                   device)
-        cache, _, _, _ = split_vs_single(g, fan_a, args_a.batch_size, 1.0,
-                                         args_a.num_hidden, device)
+        cache, _, _, _ = split_vs_single(g, args_a, 1.0, device)
         op_rows = split_op_times(batch, syn, csr, cache.frames,
                                  args_a.num_hidden, rate, device)
-        del batch, syn, csr, cache
+        del csr, cache
         metrics_a, launches_a = run_split("split A", args_a, g, fan_a, device)
-        if not (metrics_a["cache_pct"] >= 1.0
-                and metrics_a["innermost"] == "device"
-                and metrics_a["sampler"] == "native"):
-            raise AssertionError("split A must run with a replicated cache, "
-                                 "device innermost and the native sampler")
+        check_dense_run("split A", metrics_a, launches_a)
         print_profile(metrics_a["profile"])
+
+    # 6b. Split GAT A: the same graph and flags with GAT (hidden 32, 4
+    # heads): the batched attention on every layer.
+    with phase("split GAT A"):
+        args_ga = graph_args(opts.num_nodes, GAT_A_FLAGS)
+        cache, _, _, _ = split_vs_single(g, args_ga, 1.0, device)
+        gat_rows = gat_op_times(batch, syn, cache.frames, args_ga,
+                                g.num_classes, rate, device)
+        del batch, syn, cache
+        metrics_ga, launches_ga = run_split("split GAT A", args_ga, g, fan_a,
+                                            device)
+        check_dense_run("split GAT A", metrics_ga, launches_ga)
+        print_profile(metrics_ga["profile"])
     with phase("save graphs"):
         save_graph(g, graphs.name, "products")
     del g
@@ -914,14 +1162,20 @@ def main(argv=None) -> int:
         fan_b = [int(f) for f in args_b.fan_out.split(",")]
         g_b = random_graph(SPLIT_B_NODES, AVG_DEGREE, FEATURE_DIM,
                            num_classes=NUM_CLASSES, seed=args_b.seed)
-        cache, sampler, fwd, batch = split_vs_single(
-            g_b, fan_b, args_b.batch_size, 0.25, args_b.num_hidden, device)
+        cache, sampler, fwd, batch = split_vs_single(g_b, args_b, 0.25,
+                                                     device)
         check_tail_order(cache, sampler, fwd, batch, g_b.train_nodes(),
                          args_b.batch_size)
         lyr = batch.layers[0].partition(0)
         msgs = cache.frames[0][lyr.edge_src.long()].float()
         split_case = kernel_case("split B layer 0", msgs, lyr.edge_dst,
                                  lyr.dst_cap, rate)
+        # Split GAT's COO layer 0 sends one [p, p * feat] message a head:
+        # 4 x (32 + 1) floats an edge.
+        gat_split_case = kernel_case(
+            "split GAT B layer 0", torch.randn(
+                msgs.shape[0], 4 * 33, device=device), lyr.edge_dst,
+            lyr.dst_cap, rate)
         del cache, sampler, fwd, batch, lyr, msgs
         metrics_b, launches_b = run_split("split B", args_b, g_b, fan_b,
                                           device)
@@ -932,12 +1186,24 @@ def main(argv=None) -> int:
         if metrics_b["tail_batches"] != steps_b:
             raise AssertionError(f"split B: {metrics_b['tail_batches']} tail "
                                  f"writes for {steps_b} steps")
-        save_graph(g_b, graphs.name, "split_b")
-        del g_b
 
-    # 8-9. Split P2 and split P2-B: split A and split B at two
-    # partitions, one process each.
-    launches_pb = rank_phases(phase, graphs.name, opts.ranks)
+    # 7b. Single GAT and single GCN on split B's graph, 3 steps each.
+    with phase("single GAT and GCN"):
+        args_sg = graph_args(SPLIT_B_NODES, SINGLE_B_FLAGS + GAT_FLAGS)
+        gat_cases = single_gat_cases(g_b, args_sg, rate, device)
+        launches_sgl = sum(
+            run_single(kind, graph_args(SPLIT_B_NODES, SINGLE_B_FLAGS + extra),
+                       g_b, device)
+            for kind, extra in (("gat", GAT_FLAGS),
+                                ("gcn", ["--model-name", "gcn"])))
+    with phase("save graphs"):
+        save_graph(g_b, graphs.name, "split_b")
+    del g_b
+
+    # 8-9. Split P2, split P2-B and split GAT P2-B: split A and split B
+    # (SAGE and GAT) at two partitions, one process each.
+    launches_pb, gat_shuffle_rows = rank_phases(phase, graphs.name,
+                                                opts.ranks)
     graphs.cleanup()
 
     # 10. Summary: the kernel's numbers are one single step's three forward
@@ -951,17 +1217,32 @@ def main(argv=None) -> int:
           "2 times backward, slice_owned 3 times):")
     for op, ms, bound in op_rows:
         print(f"  {op}: {ms:.4f} ms, bound {bound:.4f} ms")
-    print(f"kernel at split B's layer 0: ms={split_case['ms']:.4f} "
-          f"bound_ms={max(split_case['bytes_ms'], split_case['ops_ms']):.4f}")
+    print("GAT op times (split GAT A's first batch; a step runs each layer's "
+          "batched attention once forward and once backward):")
+    for op, ms, bound in gat_rows:
+        print(f"  {op}: {ms:.4f} ms, bound {bound:.4f} ms")
+    print(f"GAT shuffle times (split GAT P{opts.ranks}-B, rank 0, host "
+          f"clock; a step runs each once a layer):")
+    for op, ms, bound in gat_shuffle_rows:
+        print(f"  {op}: {ms:.4f} ms, bound {bound:.4f} ms")
+    for label, case in (("split B's layer 0", split_case),
+                        ("split GAT B's layer 0", gat_split_case)):
+        print(f"kernel at {label}: ms={case['ms']:.4f} bound_ms="
+              f"{max(case['bytes_ms'], case['ops_ms']):.4f}")
+    print(f"kernel at single GAT's step (6 launches): ms="
+          f"{sum(c['ms'] for c in gat_cases):.4f} bound_ms="
+          f"{sum(max(c['bytes_ms'], c['ops_ms']) for c in gat_cases):.4f} "
+          f"plain_ms={sum(c['plain_ms'] for c in gat_cases):.4f} "
+          f"index_add_ms={sum(c['library_ms'] for c in gat_cases):.4f}")
     kernels = [{
         "name": "segment_sum_sorted",
         "route": "cuda",
         "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES,
-        "launches": (single_launches + launches_a + launches_b
-                     + launches_pb),
-        "max_abs_err": max(c["err"] for c in main_cases + ragged
-                           + [split_case]),
+        "launches": (single_launches + launches_a + launches_ga
+                     + launches_b + launches_sgl + launches_pb),
+        "max_abs_err": max(c["err"] for c in main_cases + ragged + gat_cases
+                           + [split_case, gat_split_case]),
         "ms": total("ms"),
         "plain_ms": total("plain_ms"),
         "bound_ms": max(bytes_ms, ops_ms),

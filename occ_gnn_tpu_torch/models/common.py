@@ -55,6 +55,15 @@ def masked_accuracy(logits: torch.Tensor, labels: torch.Tensor):
     return correct, valid.sum()
 
 
+def zero_missing_grads(params) -> None:
+    """Give each parameter the loss did not read (GAT's last-layer bias) a
+    zero gradient, as ``jax.grad`` does, so that Adam counts the step for
+    it as optax does (``torch.optim.Adam`` skips a ``None`` gradient)."""
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+
+
 def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None,
             training: bool) -> torch.Tensor:
     """Inverted dropout with the mask drawn from ``generator`` (a generator

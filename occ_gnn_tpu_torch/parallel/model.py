@@ -1,10 +1,11 @@
 """Split-parallel models and the training step of one partition.
 
-The JAX package's ``parallel/model.py``: ``SplitSAGE`` and ``SplitGCN`` as
-``nn.Module``s whose weights are plain ``[in, out]`` tensors registered as
-``layer_{i}/w`` and ``layer_{i}/b`` (the keys of the JAX parameter
-pytree, so ``utils.checkpoint`` loads JAX weights unchanged), the device
-CSR for on-device innermost sampling, and the train step and forward.
+The JAX package's ``parallel/model.py``: ``SplitSAGE``, ``SplitGCN`` and
+``SplitGAT`` as ``nn.Module``s whose weights are plain tensors registered
+under the keys of the JAX parameter pytree (``layer_{i}/w``,
+``layer_{i}/b``, and GAT's ``layer_{i}/attn_l`` / ``attn_r``), so
+``utils.checkpoint`` loads JAX weights unchanged, the device CSR for
+on-device innermost sampling, and the train step and forward.
 Weights stay f32; ``dtype`` is the storage precision of activations
 between layers, with f32 accumulation, as in the JAX models.
 
@@ -26,15 +27,27 @@ from __future__ import annotations
 import torch
 import torch.distributed as torch_dist
 from torch import nn
+from torch.nn import functional as F
+from torch.profiler import record_function
 
-from occ_gnn_tpu_torch.models.common import dropout, linear, linear_init
+from occ_gnn_tpu_torch.models.common import (
+    dropout,
+    linear,
+    linear_init,
+    zero_missing_grads,
+)
+from occ_gnn_tpu_torch.models.gat import GAT_LEAVES, register_gat_params
+from occ_gnn_tpu_torch.ops.segment import segment_max
+from occ_gnn_tpu_torch.ops.segment_sum_sorted import segment_sum_sorted
 from occ_gnn_tpu_torch.parallel.dist import DistContext, all_reduce_gradients
 from occ_gnn_tpu_torch.parallel.split import (
     SplitBatch,
     SplitLayer,
     aggregate,
     neigh_mean,
+    reverse_shuffle,
     shuffle_merge,
+    shuffle_softmax_merge,
     slice_owned,
     synthesize_device_innermost,
 )
@@ -154,6 +167,164 @@ class SplitGCN(SplitSAGE):
         return h * lyr.owned_mask[:, None]
 
 
+def dense_attention(x: torch.Tensor, nbr: torch.Tensor, wl: torch.Tensor,
+                    w3: torch.Tensor, er_frame: torch.Tensor,
+                    negative_slope: float):
+    """GAT's local streaming-softmax partials through the dense ``[K, D]``
+    neighbour matrix, in the batched two-pass form of the JAX package
+    (``parallel/model.py:294-363``, its default): gather the K leaf rows of
+    ``x`` once, score them ``leaky_relu(x_leaf @ wl + er)``, take the exact
+    max over K, weight, sum the weighted leaves per head in leaf space, and
+    project per head with ``w3 [H_in, heads, Dh]`` last.
+
+    Padding slots read the frame's reserved zero row ``x.shape[0] - 1`` and
+    are masked to -inf before the exp, so no inf reaches the backward. The
+    max is a shift and detached. Returns f32 ``(m_loc, s_loc [D, heads],
+    v_loc [D, heads, Dh])``; a row with no valid leaf has ``m = -inf`` and
+    zero sums. Under bf16 storage the products are taken in f32 on
+    bf16-rounded operands, which is what JAX's bf16 dots with f32
+    accumulation compute."""
+    with record_function("gat_attention_dense"):
+        K, D = nbr.shape
+        xg = x.index_select(0, nbr.reshape(-1)).reshape(K, D, -1)
+        valid = (nbr != x.shape[0] - 1)[..., None]
+        low = x.dtype != torch.float32
+        if low:
+            wl = wl.to(x.dtype).float()
+            xg = xg.float()
+        z = F.leaky_relu(xg @ wl + er_frame[None], negative_slope)
+        m_loc = z.detach().masked_fill(~valid, float("-inf")).amax(dim=0)
+        safe = torch.where(torch.isfinite(m_loc), m_loc, 0.0)
+        pw = torch.exp((z - safe[None]).masked_fill(~valid, float("-inf")))
+        s_loc = pw.sum(dim=0)
+        if low:
+            pw = pw.to(x.dtype).float()
+        agg = torch.einsum("kdc,kdh->dch", pw, xg)
+        return m_loc, s_loc, torch.einsum("dch,hco->dco", agg, w3)
+
+
+def coo_attention(x: torch.Tensor, w: torch.Tensor, attn_l: torch.Tensor,
+                  edge_src: torch.Tensor, edge_dst: torch.Tensor,
+                  er_frame: torch.Tensor, negative_slope: float):
+    """GAT's local streaming-softmax partials over this partition's
+    dst-sorted COO (the JAX package's ``model.py:369-392``): project the
+    frame, score each edge ``leaky_relu(el[src] + er[dst])``, take the
+    segment max (detached; padding edges are dropped and masked to -inf
+    before the exp), and sum ``p`` and ``p * feat[src]`` per dst.
+
+    The two sums are one message per edge and head, ``[p, p * feat]``, so
+    one sorted segment-sum launch gives both. Returns f32 ``(m_loc, s_loc
+    [dst_cap, heads], v_loc [dst_cap, heads, Dh])``."""
+    with record_function("gat_attention_coo"):
+        k, d_out = attn_l.shape
+        dst_cap = er_frame.shape[0]
+        feat = (x.float() @ w).reshape(-1, k, d_out)
+        el = torch.einsum("skd,kd->sk", feat, attn_l)
+        valid = (edge_dst < dst_cap)[:, None]
+        safe_dst = edge_dst.clamp(max=dst_cap - 1)
+        scores = F.leaky_relu(el.index_select(0, edge_src)
+                              + er_frame.index_select(0, safe_dst),
+                              negative_slope)
+        m_loc = segment_max(scores.detach(), edge_dst, dst_cap)
+        safe_m = torch.where(torch.isfinite(m_loc), m_loc, 0.0)
+        pvals = torch.exp((scores - safe_m.index_select(0, safe_dst))
+                          .masked_fill(~valid, float("-inf")))
+        feat1 = torch.cat([feat.new_ones(feat.shape[0], k, 1), feat], dim=-1)
+        msgs = (pvals[:, :, None] * feat1.index_select(0, edge_src)).reshape(
+            edge_src.shape[0], -1)
+        sums = segment_sum_sorted(msgs, edge_dst, dst_cap)
+        sums = sums.reshape(dst_cap, k, d_out + 1)
+        return m_loc, sums[..., 0], sums[..., 1:]
+
+
+class SplitGAT(nn.Module):
+    """Split-parallel GAT, the component the reference only stubbed
+    (``dist_gatconv.py:3-6``). At P > 1 a layer runs two all-to-alls
+    forward and two backward: ``reverse_shuffle`` sends the owners'
+    attention terms ``er_v = a_r . W x_v`` to the partitions holding v's
+    edges, and ``shuffle_softmax_merge`` merges the partitions' (max,
+    sum-exp, weighted value) partials at the owner, exactly.
+
+    Weights as ``models.gat.GATModel``'s. ``dtype`` is the storage
+    precision between layers; the CLI builds it with none (f32), as the
+    JAX trainer does, so a bf16 cache frame reaches layer 0 only."""
+
+    def __init__(self, in_dim: int, hidden: int, num_classes: int,
+                 num_layers: int, num_heads: int = 4,
+                 negative_slope: float = 0.2, dropout: float = 0.0,
+                 dtype: torch.dtype = torch.float32,
+                 generator: torch.Generator | None = None):
+        """Weights are drawn on the CPU from ``generator``; move the model
+        with ``.to(device)``."""
+        super().__init__()
+        self.in_dim = in_dim
+        self.hidden = hidden
+        self.num_classes = num_classes
+        self.num_layers = num_layers
+        self.num_heads = num_heads
+        self.negative_slope = negative_slope
+        self.dropout = dropout
+        self.dtype = dtype
+        register_gat_params(self, in_dim, hidden, num_classes, num_layers,
+                            num_heads, generator)
+
+    def layer_params(self, i: int) -> dict:
+        return {name: getattr(self, f"layer_{i}/{name}")
+                for name in GAT_LEAVES}
+
+    def layer(self, i: int, lyr: SplitLayer, x: torch.Tensor,
+              is_last: bool) -> torch.Tensor:
+        p = self.layer_params(i)
+        k, d_out = p["attn_l"].shape
+        dst_cap = lyr.dst_cap
+        # The attention vectors contracted into W: el / er of a row are
+        # x_row @ wl / wr, so the frame's projection is never needed whole.
+        w3 = p["w"].reshape(x.shape[-1], k, d_out)
+        wl = torch.einsum("hkd,kd->hk", w3, p["attn_l"])
+        wr = torch.einsum("hkd,kd->hk", w3, p["attn_r"])
+        # er on the dst frame: the owned rows from their own features, the
+        # foreign rows by the reverse shuffle from their owners.
+        x_self = x.index_select(0, lyr.self_idx).float()
+        er_own = (x_self @ wr) * lyr.owned_mask[:, None]
+        tgt = torch.where(lyr.owned_idx < 0, dst_cap, lyr.owned_idx).long()
+        er_frame = er_own.new_zeros(dst_cap + 1, k).index_copy(
+            0, tgt, er_own)[:dst_cap]
+        multi = lyr.push_idx is not None and lyr.push_idx.shape[0] > 1
+        if multi:
+            er_frame = reverse_shuffle(er_frame, lyr.push_idx, lyr.recv_idx)
+        if lyr.nbr_idx is not None:
+            m_loc, s, v = dense_attention(x, lyr.nbr_idx, wl, w3, er_frame,
+                                          self.negative_slope)
+        else:
+            m_loc, s, v = coo_attention(x, p["w"], p["attn_l"], lyr.edge_src,
+                                        lyr.edge_dst, er_frame,
+                                        self.negative_slope)
+        if multi:
+            s, v = shuffle_softmax_merge(m_loc, s, v, lyr.push_idx,
+                                         lyr.recv_idx)
+        own = lyr.owned_idx.clamp(min=0)
+        s_own = s.index_select(0, own).clamp(min=1e-16)
+        out = v.index_select(0, own) / s_own[..., None]   # [O_cap, K, D]
+        out = out * lyr.owned_mask[:, None, None]
+        if is_last:
+            return out.mean(dim=1)
+        return (out.reshape(-1, k * d_out) + p["b"]) * lyr.owned_mask[:, None]
+
+    def forward_local(self, layers: list[SplitLayer], x: torch.Tensor,
+                      generator: torch.Generator | None = None):
+        """One partition's forward, as ``SplitSAGE.forward_local``, with
+        ELU between layers."""
+        last = len(layers) - 1
+        for i, lyr in enumerate(layers):
+            x = self.layer(i, lyr, x, is_last=(i == last))
+            if i != last:
+                x = F.elu(x)
+                if generator is not None and self.dropout > 0.0:
+                    x = dropout(x, self.dropout, generator, True)
+                x = x.to(self.dtype)
+        return x
+
+
 def _local_ce(logits: torch.Tensor, labels: torch.Tensor):
     """CE sum, valid count and correct count of one partition."""
     valid = labels >= 0
@@ -227,6 +398,7 @@ def make_split_train_step(model: SplitSAGE, optimizer, csr=None,
         if ranks is None:
             loss = nll / count.clamp(min=1)
             loss.backward()
+            zero_missing_grads(model.parameters())
             optimizer.step()
             return loss.detach(), correct, count
         totals = _global_ce(nll, count, correct)

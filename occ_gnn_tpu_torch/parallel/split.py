@@ -22,7 +22,13 @@ The owned output rows of layer l are layer l+1's input frame rows, so
 layers chain with no gather. Each partition aggregates partial sums and
 ``shuffle_merge`` sends the boundary partials to the owner of each dst in
 one all-to-all over the process group (one rank per partition); with one
-partition they are the whole sums and nothing is shuffled.
+partition they are the whole sums and nothing is shuffled. Distributed
+GAT adds two all-to-alls a layer on the same index tensors:
+``reverse_shuffle`` sends each owned dst's attention term to the
+partitions that hold its edges, and ``shuffle_softmax_merge`` merges the
+partitions' streaming-softmax partials at the owner. Each of the three is
+an autograd Function whose backward is one more all-to-all, and
+``shuffle_counts()`` counts them all.
 
 Index semantics. JAX gathers clamp out-of-range indices and its scatters
 drop them; torch raises. Every padded index is therefore made valid
@@ -192,15 +198,48 @@ def _push_rows(rows: torch.Tensor, push_idx: torch.Tensor) -> torch.Tensor:
     return rows.index_select(0, flat.clamp(min=0)) * valid
 
 
-def _exchange(send: torch.Tensor) -> torch.Tensor:
+# All-to-alls of this process, by direction, and the payload bytes it sent
+# to the other ranks: every shuffle below counts here.
+_SHUFFLES = {"forward": 0, "backward": 0, "bytes_sent": 0}
+
+
+def reset_shuffle_counts() -> None:
+    for key in _SHUFFLES:
+        _SHUFFLES[key] = 0
+
+
+def shuffle_counts() -> dict:
+    return dict(_SHUFFLES)
+
+
+def _exchange(send: torch.Tensor, direction: str) -> torch.Tensor:
     """One ``all_to_all_single`` with equal splits: chunk q of ``send``
-    goes to rank q, and chunk r of the result came from rank r."""
+    goes to rank q, and chunk r of the result came from rank r. Counted
+    under ``direction`` ("forward" or "backward")."""
     recv = torch.empty_like(send)
     dist.all_to_all_single(recv, send)
     P = dist.get_world_size()
-    shuffle_merge.bytes_sent += (
+    _SHUFFLES[direction] += 1
+    _SHUFFLES["bytes_sent"] += (
         send.numel() // P * (P - 1) * send.element_size())
     return recv
+
+
+def _check_group(push_idx: torch.Tensor, name: str,
+                 *f32: torch.Tensor) -> None:
+    P = push_idx.shape[0]
+    if dist.get_world_size() != P:
+        raise ValueError(f"the batch has {P} partitions but the process "
+                         f"group has {dist.get_world_size()} ranks")
+    for t in f32:
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} moves f32 rows, got {t.dtype}")
+
+
+def _mask_pad(flat_push: torch.Tensor, dst_cap: int) -> torch.Tensor:
+    """``push_idx`` with its -1 padding sent to the sink row ``dst_cap``,
+    as int64 (``index_copy_`` and ``index_fill_`` take no int32)."""
+    return torch.where(flat_push < 0, dst_cap, flat_push).long()
 
 
 class _ShuffleMerge(torch.autograd.Function):
@@ -212,8 +251,7 @@ class _ShuffleMerge(torch.autograd.Function):
     @staticmethod
     def forward(ctx, neigh, push_idx, recv_idx):
         ctx.save_for_backward(push_idx, recv_idx)
-        recv = _exchange(_push_rows(neigh, push_idx))
-        shuffle_merge.forward_calls += 1
+        recv = _exchange(_push_rows(neigh, push_idx), "forward")
         frame = _with_sink(neigh)
         frame.index_add_(0, recv_idx.reshape(-1), recv)
         return frame[:-1]
@@ -223,8 +261,7 @@ class _ShuffleMerge(torch.autograd.Function):
     def backward(ctx, grad):
         push_idx, recv_idx = ctx.saved_tensors
         g_recv = _with_sink(grad).index_select(0, recv_idx.reshape(-1))
-        g_send = _exchange(g_recv)
-        shuffle_merge.backward_calls += 1
+        g_send = _exchange(g_recv, "backward")
         flat = push_idx.reshape(-1)
         valid = (flat >= 0).to(g_send.dtype)[:, None]
         dneigh = grad.clone()
@@ -240,35 +277,144 @@ def shuffle_merge(neigh: torch.Tensor, push_idx: torch.Tensor,
     ``neigh`` is f32 ``[dst_cap, H]`` (the partial sums stay f32 under
     bf16 storage, as in JAX); ``push_idx`` / ``recv_idx`` are this rank's
     ``[P, S_cap]`` rows, and the default process group has P ranks, rank
-    r holding partition r. The counters ``shuffle_merge.forward_calls``,
-    ``backward_calls`` and ``bytes_sent`` (payload bytes sent to the other
-    ranks) count the all-to-alls."""
-    P = push_idx.shape[0]
-    if dist.get_world_size() != P:
-        raise ValueError(f"the batch has {P} partitions but the process "
-                         f"group has {dist.get_world_size()} ranks")
-    if neigh.dtype != torch.float32:
-        raise TypeError(f"shuffle_merge moves f32 partial sums, got "
-                        f"{neigh.dtype}")
+    r holding partition r. ``shuffle_counts()`` counts the all-to-alls and
+    the payload bytes sent to the other ranks."""
+    _check_group(push_idx, "shuffle_merge", neigh)
     with record_function("shuffle_merge"):
         return _ShuffleMerge.apply(neigh, push_idx, recv_idx)
 
 
-shuffle_merge.forward_calls = 0
-shuffle_merge.backward_calls = 0
-shuffle_merge.bytes_sent = 0
+class _ReverseShuffle(torch.autograd.Function):
+    """Forward: each owner gathers its rows at ``recv_idx`` (padding reads
+    the zero sink row), all-to-all, and each edge holder writes what it
+    received at ``push_idx`` of a copy of its frame. Backward, the
+    transpose of that write: the written rows take no gradient, the
+    gradient at ``push_idx`` crosses back in the same all-to-all and is
+    added at the owner's ``recv_idx`` rows."""
+
+    @staticmethod
+    def forward(ctx, frame, push_idx, recv_idx):
+        ctx.save_for_backward(push_idx, recv_idx)
+        d = frame.shape[0]
+        send = _with_sink(frame).index_select(0, recv_idx.reshape(-1))
+        recv = _exchange(send, "forward")
+        out = _with_sink(frame)
+        out.index_copy_(0, _mask_pad(push_idx.reshape(-1), d), recv)
+        return out[:-1]
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, grad):
+        push_idx, recv_idx = ctx.saved_tensors
+        d = grad.shape[0]
+        g_back = _exchange(_push_rows(grad, push_idx), "backward")
+        dframe = _with_sink(grad)
+        dframe.index_fill_(0, _mask_pad(push_idx.reshape(-1), d), 0.0)
+        dframe.index_add_(0, recv_idx.reshape(-1), g_back)
+        return dframe[:-1], None, None
 
 
-def reset_shuffle_counts() -> None:
-    shuffle_merge.forward_calls = 0
-    shuffle_merge.backward_calls = 0
-    shuffle_merge.bytes_sent = 0
+def reverse_shuffle(frame: torch.Tensor, push_idx: torch.Tensor,
+                    recv_idx: torch.Tensor) -> torch.Tensor:
+    """Owner -> edge-holder shuffle, the reverse of ``shuffle_merge`` on
+    the same index tensors: owner q sends the rows of its f32 dst frame
+    ``[dst_cap, C]`` listed in ``recv_idx[p]`` to rank p, which writes
+    them at ``push_idx[q]`` of its own frame. Distributed GAT sends each
+    dst's attention term to the partitions that hold its edges."""
+    _check_group(push_idx, "reverse_shuffle", frame)
+    with record_function("reverse_shuffle"):
+        return _ReverseShuffle.apply(frame, push_idx, recv_idx)
 
 
-def shuffle_counts() -> dict:
-    return {"forward": shuffle_merge.forward_calls,
-            "backward": shuffle_merge.backward_calls,
-            "bytes_sent": shuffle_merge.bytes_sent}
+def _merge_scales(m_loc, r_m, recv_idx):
+    """The streaming-softmax rescaling at the owner: ``m* = max`` of the
+    local and received maxima (padding is -inf and lands in the sink),
+    then ``exp(m - m*)`` for the local partials and for each received one,
+    0 where a max is -inf (a row or partial with no edge)."""
+    flat = recv_idx.reshape(-1).long()
+    k = m_loc.shape[-1]
+    m_star = _with_sink(m_loc)
+    m_star[-1] = float("-inf")
+    m_star.scatter_reduce_(0, flat[:, None].expand(-1, k), r_m, "amax",
+                           include_self=True)
+    safe = torch.where(torch.isfinite(m_star), m_star, 0.0)
+    scale_loc = torch.where(torch.isfinite(m_loc),
+                            torch.exp(m_loc - safe[:-1]), 0.0)
+    r_scale = torch.where(torch.isfinite(r_m), torch.exp(r_m - safe[flat]),
+                          0.0)
+    return scale_loc, r_scale
+
+
+class _ShuffleSoftmaxMerge(torch.autograd.Function):
+    """Forward: one all-to-all of the pushed ``(m, s, v)`` rows (padding
+    sends m = -inf and zero sums), then the streaming-softmax merge at the
+    owner. The maxima are shifts the layer's output does not depend on, so
+    they take no gradient (as in flash attention); the backward carries
+    ``(s, v)`` only: scaled by ``exp(m_loc - m*)`` locally, and for the
+    received rows gathered at ``recv_idx``, scaled by ``r_scale``, sent
+    back in the same all-to-all and added at ``push_idx``."""
+
+    @staticmethod
+    def forward(ctx, m_loc, s_loc, v_loc, push_idx, recv_idx):
+        d, k = s_loc.shape
+        payload = torch.cat([m_loc, s_loc, v_loc.reshape(d, -1)], dim=-1)
+        flat_push = push_idx.reshape(-1)
+        valid = (flat_push >= 0)[:, None]
+        send = payload.index_select(0, flat_push.clamp(min=0))
+        send[:, :k].masked_fill_(~valid, float("-inf"))
+        send[:, k:].masked_fill_(~valid, 0.0)
+        recv = _exchange(send, "forward")
+        r_m, r_s, r_v = recv[:, :k], recv[:, k:2 * k], recv[:, 2 * k:]
+        scale_loc, r_scale = _merge_scales(m_loc, r_m, recv_idx)
+        ctx.save_for_backward(push_idx, recv_idx, scale_loc, r_scale)
+        ctx.v_shape = v_loc.shape
+        flat_recv = recv_idx.reshape(-1)
+        s_out = _with_sink(s_loc * scale_loc)
+        s_out.index_add_(0, flat_recv, r_s * r_scale)
+        v_out = _with_sink((v_loc * scale_loc[..., None]).reshape(d, -1))
+        dv = v_loc.shape[-1]
+        v_out.index_add_(0, flat_recv,
+                         (r_v.reshape(-1, k, dv) * r_scale[..., None])
+                         .reshape(r_v.shape))
+        return s_out[:-1], v_out[:-1].reshape(v_loc.shape)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g_s, g_v):
+        push_idx, recv_idx, scale_loc, r_scale = ctx.saved_tensors
+        d, k, dv = ctx.v_shape
+        flat_recv = recv_idx.reshape(-1)
+        gs_r = _with_sink(g_s).index_select(0, flat_recv) * r_scale
+        gv_r = (_with_sink(g_v.reshape(d, -1)).index_select(0, flat_recv)
+                .reshape(-1, k, dv) * r_scale[..., None])
+        back = _exchange(torch.cat([gs_r, gv_r.reshape(-1, k * dv)], -1),
+                         "backward")
+        flat_push = push_idx.reshape(-1)
+        valid = (flat_push >= 0).to(back.dtype)[:, None]
+        back = back * valid
+        rows = flat_push.clamp(min=0)
+        ds = g_s * scale_loc
+        ds.index_add_(0, rows, back[:, :k])
+        dv_loc = (g_v * scale_loc[..., None]).reshape(d, -1)
+        dv_loc.index_add_(0, rows, back[:, k:])
+        return None, ds, dv_loc.reshape(d, k, dv), None, None
+
+
+def shuffle_softmax_merge(m_loc: torch.Tensor, s_loc: torch.Tensor,
+                          v_loc: torch.Tensor, push_idx: torch.Tensor,
+                          recv_idx: torch.Tensor):
+    """Exact distributed segment softmax in one all-to-all: this rank's
+    local max ``m_loc [dst_cap, K]`` (-inf for a row with no local edge),
+    sum of exps ``s_loc [dst_cap, K]`` and weighted values ``v_loc
+    [dst_cap, K, Dh]``, all f32, go to the owners of their rows in one
+    payload, and each owner merges them with its own: ``m* = max``, every
+    partial rescaled by ``exp(m_p - m*)``. Returns the merged ``(s, v)``;
+    ``m_loc`` takes no gradient."""
+    _check_group(push_idx, "shuffle_softmax_merge", m_loc, s_loc, v_loc)
+    with record_function("shuffle_softmax_merge"):
+        return _ShuffleSoftmaxMerge.apply(m_loc.detach(), s_loc,
+                                          v_loc.contiguous(), push_idx,
+                                          recv_idx)
 
 
 def shuffle_merge_reference(neighs: torch.Tensor, push_idx: torch.Tensor,
@@ -287,6 +433,67 @@ def shuffle_merge_reference(neighs: torch.Tensor, push_idx: torch.Tensor,
             frame = frame.index_add(0, recv_idx[p, r].long(), sent)
         merged.append(frame[:D])
     return torch.stack(merged)
+
+
+def reverse_shuffle_reference(frames: torch.Tensor, push_idx: torch.Tensor,
+                              recv_idx: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``reverse_shuffle`` over all P partitions in one
+    process, for tests: ``frames [P, dst_cap, C]``; partition p writes the
+    rows owner q lists in ``recv_idx[q, p]`` at its ``push_idx[p, q]``.
+    Differentiable by autograd."""
+    P, D, C = frames.shape
+    out = []
+    for p in range(P):
+        frame = torch.cat([frames[p], frames.new_zeros(1, C)])
+        for q in range(P):
+            owner = torch.cat([frames[q], frames.new_zeros(1, C)])
+            rows = owner[recv_idx[q, p].long()]
+            tgt = push_idx[p, q].long()
+            frame = frame.index_copy(0, torch.where(tgt < 0, D, tgt), rows)
+        out.append(frame[:D])
+    return torch.stack(out)
+
+
+def shuffle_softmax_merge_reference(m_loc: torch.Tensor, s_loc: torch.Tensor,
+                                    v_loc: torch.Tensor,
+                                    push_idx: torch.Tensor,
+                                    recv_idx: torch.Tensor):
+    """Plain version of ``shuffle_softmax_merge`` over all P partitions in
+    one process, for tests: ``m_loc``, ``s_loc [P, dst_cap, K]`` and
+    ``v_loc [P, dst_cap, K, Dh]``; owner p merges the rows partition r
+    pushes (``push_idx[r, p]``) at ``recv_idx[p, r]`` with its own. The
+    maxima are detached, as in the all-to-all version; differentiable in
+    ``s`` and ``v`` by autograd."""
+    m_loc = m_loc.detach()
+    P, D, K = s_loc.shape
+    s_out, v_out = [], []
+    for p in range(P):
+        m_star = torch.cat([m_loc[p], m_loc.new_full((1, K), float("-inf"))])
+        pushed = []
+        for r in range(P):
+            rows = push_idx[r, p].long()
+            valid = (rows >= 0)[:, None]
+            safe = rows.clamp(min=0)
+            r_m = torch.where(valid, m_loc[r][safe], float("-inf"))
+            tgt = recv_idx[p, r].long()
+            m_star = m_star.scatter_reduce(0, tgt[:, None].expand(-1, K),
+                                           r_m, "amax", include_self=True)
+            pushed.append((tgt, r_m, s_loc[r][safe] * valid,
+                           v_loc[r][safe] * valid[..., None]))
+        m_star = torch.where(torch.isfinite(m_star), m_star, 0.0)
+        scale = torch.where(torch.isfinite(m_loc[p]),
+                            torch.exp(m_loc[p] - m_star[:D]), 0.0)
+        s = torch.cat([s_loc[p] * scale, s_loc.new_zeros(1, K)])
+        v = torch.cat([v_loc[p] * scale[..., None],
+                       v_loc.new_zeros((1,) + tuple(v_loc.shape[2:]))])
+        for tgt, r_m, r_s, r_v in pushed:
+            r_scale = torch.where(torch.isfinite(r_m),
+                                  torch.exp(r_m - m_star[tgt]), 0.0)
+            s = s.index_add(0, tgt, r_s * r_scale)
+            v = v.index_add(0, tgt, r_v * r_scale[..., None])
+        s_out.append(s[:D])
+        v_out.append(v[:D])
+    return torch.stack(s_out), torch.stack(v_out)
 
 
 def neigh_mean(merged: torch.Tensor, lyr: SplitLayer) -> torch.Tensor:

@@ -9,11 +9,12 @@ Runs on the CUDA device; ``--cpu`` runs on the CPU instead. Without
 ``--cpu`` and without a visible GPU it stops with an error and never falls
 back to the CPU.
 
-Ported so far: ``--mode split`` (``SplitSAGE`` or ``SplitGCN``, the C++ or
-numpy sampler, the feature cache, on-device innermost sampling,
-``--save-dir`` / ``--resume``) at any number of partitions, and ``--mode
-single`` with ``--model-name sage``. The other modes, and the flags no
-ported path reads, stop with the ROADMAP.md item that ports them.
+Ported so far: ``--mode split`` (``SplitSAGE``, ``SplitGCN`` or
+``SplitGAT``, the C++ or numpy sampler, the feature cache, on-device
+innermost sampling, ``--save-dir`` / ``--resume``) at any number of
+partitions, and ``--mode single`` with every ``--model-name``. The other
+modes, and the flags no ported path reads, stop with the ROADMAP.md item
+that ports them.
 
 Split training at P > 1 runs one process per partition
 (``parallel.dist``): ``--partitions P`` spawns the P ranks itself, and
@@ -49,7 +50,6 @@ _NOT_PORTED = {
 # ports them. Set away from its default, each one stops the CLI.
 _FLAGS_NOT_PORTED = {
     "cache_per": "item 9 (single-chip cache)",
-    "num_heads": "items 8 and 9 (GAT)",
     "partitions": "item 7 ports it for --mode split only",
     "partition_mode": "item 7 ports it for --mode split only",
     "sampler": "items 1-6 port it for --mode split only",
@@ -197,9 +197,6 @@ def _check_ported(parser, args) -> None:
         raise SystemExit(f"--mode {args.mode} is not ported yet: ROADMAP.md "
                          f"queue 1, {_NOT_PORTED[args.mode]}")
     split = args.mode == "split"
-    if split and args.model_name == "gat":
-        raise SystemExit("--model-name gat is not ported yet for --mode "
-                         "split: ROADMAP.md queue 1, item 8 (SplitGAT)")
     for dest, item in _FLAGS_NOT_PORTED.items():
         if split and dest in _SPLIT_READS:
             continue
@@ -257,10 +254,13 @@ def main(argv=None):
 def _make_model(args, g, device: torch.device):
     from occ_gnn_tpu_torch.models import get_model
 
-    generator = torch.Generator().manual_seed(args.seed)
+    kw = dict(dropout=args.dropout)
+    if args.model_name == "gat":
+        kw["num_heads"] = args.num_heads
     model = get_model(args.model_name, g.feature_dim, args.num_hidden,
                       g.num_classes, len(args.fan_out.split(",")),
-                      dropout=args.dropout, generator=generator)
+                      generator=torch.Generator().manual_seed(args.seed),
+                      **kw)
     return model.to(device)
 
 
@@ -355,15 +355,20 @@ def _partition_map(args, g, P: int) -> np.ndarray:
 
 
 def _make_split_model(args, g):
-    from occ_gnn_tpu_torch.parallel.model import SplitGCN, SplitSAGE
+    from occ_gnn_tpu_torch.parallel.model import SplitGAT, SplitGCN, SplitSAGE
 
     # As the JAX trainer, the split model is built without --dropout,
-    # which therefore has no effect in split mode.
+    # which therefore has no effect in split mode, and SplitGAT without
+    # --dtype: its activations stay f32 (a bf16 cache frame still feeds
+    # layer 0).
+    generator = torch.Generator().manual_seed(args.seed)
+    dims = (g.feature_dim, args.num_hidden, g.num_classes,
+            len(args.fan_out.split(",")))
+    if args.model_name == "gat":
+        return SplitGAT(*dims, num_heads=args.num_heads, generator=generator)
     cls = {"sage": SplitSAGE, "gcn": SplitGCN}[args.model_name]
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
-    return cls(g.feature_dim, args.num_hidden, g.num_classes,
-               len(args.fan_out.split(",")), dtype=dtype,
-               generator=torch.Generator().manual_seed(args.seed))
+    return cls(*dims, dtype=dtype, generator=generator)
 
 
 def _gather_xs(g, batch, device: torch.device) -> torch.Tensor:

@@ -6,7 +6,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from occ_gnn_tpu_torch.models.common import masked_accuracy, masked_cross_entropy
+from occ_gnn_tpu_torch.models.common import (
+    masked_accuracy,
+    masked_cross_entropy,
+    zero_missing_grads,
+)
 from occ_gnn_tpu_torch.ops.blocks import SampledBatch
 
 
@@ -42,6 +46,7 @@ def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer):
         logits = model(batch, x0, generator)
         loss = masked_cross_entropy(logits, batch.labels)
         loss.backward()
+        zero_missing_grads(model.parameters())
         optimizer.step()
         correct, total = masked_accuracy(logits.detach(), batch.labels)
         return loss.detach(), correct, total

@@ -17,7 +17,10 @@ from torch.autograd import DeviceType
 NAMED_RANGES = ("sample", "train_step", "local_aggregate_dense",
                 "_DenseAggregateBackward", "synthesize_device_innermost",
                 "local_aggregate", "slice_owned", "shuffle_merge",
-                "_ShuffleMergeBackward", "Optimizer.step#Adam.step")
+                "_ShuffleMergeBackward", "gat_attention_dense",
+                "gat_attention_coo", "reverse_shuffle",
+                "_ReverseShuffleBackward", "shuffle_softmax_merge",
+                "_ShuffleSoftmaxMergeBackward", "Optimizer.step#Adam.step")
 
 
 def _union_ms(intervals) -> float:

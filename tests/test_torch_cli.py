@@ -37,20 +37,16 @@ def test_cli_without_cpu_and_without_gpu_fails_clearly():
     assert "no CUDA device" in proc.stderr and "--cpu" in proc.stderr
 
 
-@pytest.mark.parametrize("mode", ["split", "ddp", "pa-cache", "quiver",
-                                  "infer"])
+@pytest.mark.parametrize("mode", ["ddp", "pa-cache", "quiver", "infer"])
 def test_modes_not_ported_name_their_roadmap_item(mode):
     from occ_gnn_tpu_torch import train
 
-    # Split mode is ported at one partition with SAGE and GCN; its GAT is
-    # not.
-    extra = ["--model-name", "gat"] if mode == "split" else []
     with pytest.raises(SystemExit, match="ROADMAP.md"):
-        train.main(["--graph", "community", "--mode", mode, "--cpu", *extra])
+        train.main(["--graph", "community", "--mode", mode, "--cpu"])
 
 
 UNPORTED_FLAGS = [
-    ["--cache-per", "auto"], ["--num-heads", "2"], ["--partitions", "2"],
+    ["--cache-per", "auto"], ["--partitions", "2"],
     ["--partition-mode", "metis"], ["--sampler", "numpy"],
     ["--innermost", "host"], ["--caps-margin", "1.2"],
     ["--num-workers", "4"], ["--dtype", "bfloat16"], ["--save-dir", "ck"],

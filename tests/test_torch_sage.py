@@ -135,9 +135,3 @@ def test_jax_checkpoint_predicts_the_same_classes(tmp_path, small_graph):
     tloss, tc, tt = make_eval_step(tm)(tb, tx0)
     np.testing.assert_allclose(float(tloss), float(jloss), rtol=1e-5)
     assert (int(tc), int(tt)) == (int(jc), int(jt))
-
-
-def test_gcn_and_gat_name_their_roadmap_item():
-    for name in ("gcn", "gat"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_model(name, 8, 8, 3, 2)

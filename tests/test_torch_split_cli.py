@@ -81,8 +81,7 @@ def test_eval_accuracy_equals_jax():
 
 
 @pytest.mark.parametrize("flag", [
-    ["--cpu-devices", "4"], ["--model-name", "gat"], ["--num-heads", "2"],
-    ["--infer-nodes", "all"], ["--output", "p.npy"],
+    ["--cpu-devices", "4"], ["--infer-nodes", "all"], ["--output", "p.npy"],
 ], ids=lambda f: f[0])
 def test_split_flags_not_ported_name_their_roadmap_item(flag):
     with pytest.raises(SystemExit, match=f"{flag[0]}.* is not ported.*ROADMAP"):

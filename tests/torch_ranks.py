@@ -7,9 +7,10 @@ xdist), calls ``fn(ranks, *args)`` on each rank, and returns what every
 rank returned, in rank order. A rank that fails stops the others.
 
 The rank functions below compute one rank's part of a sliced P-way batch:
-``shuffle_rank`` the boundary shuffle and its gradient, ``split_rank`` the
-logits, loss and gradients of a step with lr 0, ``adam_rank`` the weights
-after Adam steps.
+``shuffle_rank`` the boundary shuffle and its gradient, ``gat_shuffle_rank``
+GAT's two shuffles and their gradients, ``split_rank`` the logits, loss,
+gradients and all-to-all counts of a step with lr 0, ``adam_rank`` the
+weights after Adam steps.
 """
 
 from __future__ import annotations
@@ -73,12 +74,15 @@ def _frame(g, batch):
 
 
 def _model(setup, kind, state):
-    from occ_gnn_tpu_torch.parallel.model import SplitGCN, SplitSAGE
+    from occ_gnn_tpu_torch.parallel.model import SplitGAT, SplitGCN, SplitSAGE
 
     g = setup["graph"]
-    cls = {"sage": SplitSAGE, "gcn": SplitGCN}[kind]
-    model = cls(g["feature_dim"], setup["hidden"], g["num_classes"],
-                len(setup["fanouts"]))
+    dims = (g["feature_dim"], setup["hidden"], g["num_classes"],
+            len(setup["fanouts"]))
+    if kind == "gat":
+        model = SplitGAT(*dims, num_heads=setup["heads"])
+    else:
+        model = {"sage": SplitSAGE, "gcn": SplitGCN}[kind](*dims)
     model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
     return model
 
@@ -110,6 +114,10 @@ def split_rank(ranks, setup, kind, state):
         make_split_forward,
         make_split_train_step,
     )
+    from occ_gnn_tpu_torch.parallel.split import (
+        reset_shuffle_counts,
+        shuffle_counts,
+    )
 
     g, sampler = _sampler(ranks, setup)
     batch = sampler.slice_raw(sampler._sample_raw(
@@ -119,11 +127,13 @@ def split_rank(ranks, setup, kind, state):
     logits = make_split_forward(model, ranks=ranks)(batch, x0)[0]
     step = make_split_train_step(
         model, torch.optim.SGD(model.parameters(), lr=0.0), ranks=ranks)
+    reset_shuffle_counts()
     loss, correct, count = step(batch, x0)
+    shuffles = shuffle_counts()
     grads = {n: _numpy(p.grad) for n, p in model.named_parameters()}
     return dict(logits=_numpy(logits), loss=float(loss),
                 correct=int(correct), count=int(count), grads=grads,
-                labels=_numpy(batch.labels[0]))
+                labels=_numpy(batch.labels[0]), shuffles=shuffles)
 
 
 def adam_rank(ranks, setup, kind, state, num_steps, lr):
@@ -151,3 +161,44 @@ def everything_rank(ranks, setup, neighs, weights, states, num_steps, lr):
         adam={k: adam_rank(ranks, setup, k, s, num_steps, lr)
               for k, s in states.items()},
     )
+
+
+def gat_shuffle_rank(ranks, setup, frames, mloc, sloc, vloc, weights):
+    """For each layer: ``reverse_shuffle`` of this rank's rows of
+    ``frames[l]`` (``[P, dst_cap, C]``) and the gradient of ``sum(out *
+    weights[l][0][rank])``; ``shuffle_softmax_merge`` of this rank's rows
+    of the partials ``mloc``, ``sloc``, ``vloc`` and the gradients of
+    ``sum(s * weights[l][1][rank]) + sum(v * weights[l][2][rank])`` with
+    respect to ``s`` and ``v``."""
+    from occ_gnn_tpu_torch.parallel.split import (
+        reverse_shuffle,
+        shuffle_softmax_merge,
+    )
+
+    g, sampler = _sampler(ranks, setup)
+    batch = sampler.slice_raw(sampler._sample_raw(
+        g.train_nodes()[: setup["batch"]]))
+    r = ranks.rank
+    out = []
+    for l, lyr in enumerate(batch.layers):
+        lp = lyr.partition(0)
+        w_er, w_s, w_v = (torch.from_numpy(w[r]) for w in weights[l])
+        frame = torch.from_numpy(frames[l][r]).requires_grad_()
+        er = reverse_shuffle(frame, lp.push_idx, lp.recv_idx)
+        (er * w_er).sum().backward()
+        s = torch.from_numpy(sloc[l][r]).requires_grad_()
+        v = torch.from_numpy(vloc[l][r]).requires_grad_()
+        s_out, v_out = shuffle_softmax_merge(
+            torch.from_numpy(mloc[l][r]), s, v, lp.push_idx, lp.recv_idx)
+        ((s_out * w_s).sum() + (v_out * w_v).sum()).backward()
+        out.append(dict(er=_numpy(er), frame_grad=_numpy(frame.grad),
+                        s=_numpy(s_out), v=_numpy(v_out),
+                        s_grad=_numpy(s.grad), v_grad=_numpy(v.grad)))
+    return out
+
+
+def gat_rank(ranks, setup, shuffle_inputs, state, num_steps, lr):
+    """Every GAT rank function in one process group, for one spawn."""
+    return dict(shuffle=gat_shuffle_rank(ranks, setup, *shuffle_inputs),
+                split=split_rank(ranks, setup, "gat", state),
+                adam=adam_rank(ranks, setup, "gat", state, num_steps, lr))
