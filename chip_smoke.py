@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100).
 
-    python3 chip_smoke.py [--num-nodes N] [--ranks N] [--only-ranks]
+    python3 chip_smoke.py [--num-nodes N] [--ranks N]
 
 1. Prints the card (name and power limit), torch and CUDA versions, and
    builds every hand-written kernel and the C++ sampling service from the
@@ -36,7 +36,7 @@
    refreshing cache with a COO layer 0. Checks the split-vs-single logits,
    that a step launched before a tail write reads the old tail, one
    kernel launch a step and one tail write a step. Then single GAT and
-   single GCN on the same graph (3 steps each): 6 and 3 launches a step.
+   single GCN on the same graph (3 steps each): 3 launches a step each.
 8. Split P2: split A's flags at ``--partitions 2 --partition-mode
    round_robin`` (metis took 109-123 s a rank on the products graph on
    the H100 host), two ranks spawned as the CLI's launcher spawns them,
@@ -51,9 +51,10 @@
    kernel (one launch per rank a step) and shuffles forward only (3
    forward, 2 backward a step). Split GAT P2-B: the same with GAT, whose
    layers each run the reverse shuffle and the softmax merge both ways
-   (6 forward, 6 backward a step), and the two shuffles' times. Both with
-   the P = 2 vs P = 1 check of split P2, each rank's refreshing frame
-   against the frame of every node.
+   (6 forward, 6 backward a step), and the two shuffles' times at the
+   run's own capacities. Both with the P = 2 vs P = 1 check of split P2
+   (the P = 2 sample sliced at the capacities the run trained at), each
+   rank's refreshing frame against the frame of every node.
 10. Prints the card again, one JSON line of kernel numbers, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -62,8 +63,6 @@ It also fails when torch sees no CUDA device, and outside the repository.
 ``--num-nodes`` cuts the products graph for a quick run; every width stays.
 ``--ranks N`` sets the partitions of steps 8 and 9 (default 2): on a
 machine with a card for every rank, the ranks run over NCCL.
-``--only-ranks`` runs steps 1, 2 and 8-9 alone (a multi-card machine's
-run), with no kernel line.
 """
 
 from __future__ import annotations
@@ -153,10 +152,10 @@ GAT_A_FLAGS = ["--mode", "split", "--cache-per", "auto", "--fan-out",
                "chiprun_out/split_gat_a_profile"] + COMMON_FLAGS + GAT_FLAGS
 # The single-chip GAT and GCN phases run 3 steps each on split B's graph.
 SINGLE_B_FLAGS = TRAIN_FLAGS + ["--limit-train", "3072"]
-# Sorted segment-sum launches a step: single GAT sums the softmax
-# denominators and the messages of each of its 3 layers, single GCN (and
-# SAGE) the messages; split GAT its COO layer 0 ([p, p * feat] in one).
-SINGLE_LAUNCHES = {"sage": 3, "gcn": 3, "gat": 6}
+# Sorted segment-sum launches a step: one a layer. Single SAGE and GCN
+# sum the messages; GAT (single, and split on its COO layer 0) sums the
+# softmax denominators and the weighted messages as one [p, p * feat].
+SINGLE_LAUNCHES = {"sage": 3, "gcn": 3, "gat": 3}
 # The P > 1 phases, one process per partition: split A's and split B's
 # flags at --partitions RANKS.
 RANKS = 2
@@ -178,8 +177,11 @@ GRAPH_REPS = 10
 MEMORY_RATE = {"H100 PCIe": 2.0e12, "H100 NVL": 3.9e12, "H200": 4.8e12}
 H100_SXM_RATE = 3.35e12
 F32_RATE = 67e12  # f32 outside the tensor cores, operations/s
-
-NEGATIVE_SLOPE = 0.2  # GAT's leaky ReLU
+# Links of an H100 SXM, bytes/s each way: PCIe Gen5 x16 to the host (gloo
+# moves a CUDA tensor's all-to-all through host memory) and NVLink 4
+# between cards (NCCL).
+PCIE_RATE = 64e9
+NVLINK_RATE = 450e9
 
 KERNEL_SOURCE = "occ_gnn_tpu_torch/csrc/segment_sum_sorted.cu"
 KERNEL_REPLACES = "occ_gnn_tpu/ops/pallas_spmm_blocked.py:190"
@@ -293,10 +295,10 @@ def ragged_cases(device):
     yield case("E=0", np.zeros(0, np.int32), 0, 16, 8)
     yield case("all padding", np.zeros(0, np.int32), 1000, 50, 32)
     yield case("num_segments=1", np.zeros(400, np.int32), 500, 1, 64)
-    # 4: GAT's softmax denominators (heads); 132 = 4 x (32 + 1): split
-    # GAT's COO message [p, p * feat]; 188 = 4 x 47: single GAT's last
-    # layer (the scalar path).
-    for h in (1, 3, 4, 100, 128, 132, 188):
+    # GAT's COO message [p, p * feat] a head, 4 heads: 132 = 4 x (32 + 1)
+    # on hidden layers, 192 = 4 x (47 + 1) on the last; 188 (not a
+    # multiple of 4) takes the scalar path.
+    for h in (1, 3, 4, 100, 128, 132, 188, 192):
         yield case(f"H={h}", rng.integers(0, 777, 15000), 20000, 777, h)
     # Small-integer messages: every partial sum is exact in f32, so the
     # 10000-term row is held to equality whatever the summation order
@@ -590,9 +592,9 @@ def gat_op_times(batch, syn, frames, args, num_classes, rate, device):
         leaves = 4 * K * D + xb * valid * H
         add(f"dense_attention fwd, layer {i} (K={K}, D={D}, H={H}, "
             f"heads={heads}, Dh={dh})",
-            lambda: dense_attention(x, nbr, wl, w3, er, NEGATIVE_SLOPE),
+            lambda: dense_attention(x, nbr, wl, w3, er),
             leaves + 4 * D * heads + 4 * D * heads * (2 + dh))
-        _, s, v = dense_attention(x, nbr, wl, w3, er, NEGATIVE_SLOPE)
+        _, s, v = dense_attention(x, nbr, wl, w3, er)
         grads = (torch.randn_like(s), torch.randn_like(v))
         inputs = [wl, w3, er] + ([x] if x.requires_grad else [])
         dx = 4 * F * H if x.requires_grad else 0
@@ -604,16 +606,22 @@ def gat_op_times(batch, syn, frames, args, num_classes, rate, device):
     return rows
 
 
-def gat_shuffle_times(batch, args, num_classes, rate, device,
+def gat_shuffle_times(batch, args, num_classes, rate, backend, device,
                       runs: int = 10) -> list:
     """``reverse_shuffle`` and ``shuffle_softmax_merge``, forward and
-    backward, at one P > 1 batch's shapes on this rank: host ms per call
-    (the gloo all-to-all blocks the host), every rank in the same order.
-    The byte bound counts the device bytes of the op's inputs and outputs
-    (frames, partials, gradients, index tensors), each once; the exchange
-    over the link is not in it."""
+    backward, at one P > 1 batch's shapes on this rank (sliced at the
+    capacities the run trained at): host ms per call (the gloo all-to-all
+    blocks the host), every rank in the same order. The bound is the
+    larger of the device bytes of the op's inputs and outputs (frames,
+    partials, gradients, index tensors), each once, over the memory rate,
+    and the link's: over gloo, the host copies of the all-to-all's buffer
+    (sent to the host and received from it, the two directions
+    overlapped) over PCIE_RATE, leaving out gloo's exchange through host
+    memory; over NCCL, the chunks for the other ranks over NVLINK_RATE."""
     gen = torch.Generator(device).manual_seed(9)
     heads, hidden = args.num_heads, args.num_hidden
+    link, link_rate = (("NVLink", NVLINK_RATE) if backend == "nccl"
+                       else ("host copies", PCIE_RATE))
     outs = [hidden] * (len(batch.layers) - 1) + [num_classes]
     rows = []
 
@@ -634,6 +642,10 @@ def gat_shuffle_times(batch, args, num_classes, rate, device,
         lp = lyr.partition(0)
         push, recv = lp.push_idx, lp.recv_idx
         D, dh = lp.dst_cap, outs[i]
+        P = push.shape[0]
+        # Rows of the all-to-all buffer the link carries: all of them to
+        # and from the host, the other ranks' chunks over NVLink.
+        link_rows = push.numel() * ((P - 1) / P if backend == "nccl" else 1)
         idx = 2 * 4 * push.numel()
         frame = rand(D, heads, grad=True)
         er = reverse_shuffle(frame, push, recv)
@@ -644,24 +656,30 @@ def gat_shuffle_times(batch, args, num_classes, rate, device,
         so, vo = shuffle_softmax_merge(m, s, v, push, recv)
         g_sv = (torch.randn_like(so), torch.randn_like(vo))
         sv = 4 * D * heads * (1 + dh)
-        for name, fn, nbytes in (
+        # The all-to-all buffer [P * S, width] f32: er's heads; (m, s, v)
+        # forward, (s, v) backward.
+        for name, fn, nbytes, width in (
                 ("reverse_shuffle fwd",
                  lambda: reverse_shuffle(frame, push, recv),
-                 idx + 2 * 4 * D * heads),
+                 idx + 2 * 4 * D * heads, heads),
                 ("reverse_shuffle bwd",
                  lambda: torch.autograd.grad(er, frame, g_er,
                                              retain_graph=True),
-                 idx + 2 * 4 * D * heads),
+                 idx + 2 * 4 * D * heads, heads),
                 ("shuffle_softmax_merge fwd",
                  lambda: shuffle_softmax_merge(m, s, v, push, recv),
-                 idx + 4 * D * heads + 2 * sv),
+                 idx + 4 * D * heads + 2 * sv, heads * (2 + dh)),
                 ("shuffle_softmax_merge bwd",
                  lambda: torch.autograd.grad((so, vo), (s, v), g_sv,
                                              retain_graph=True),
-                 idx + 2 * sv + 4 * (D + push.numel()) * heads)):
-            rows.append((f"{name}, layer {i} (P={push.shape[0]}, "
-                         f"S={push.shape[1]}, D={D}, heads={heads}, Dh={dh})",
-                         timed(fn), nbytes / rate * 1e3))
+                 idx + 2 * sv + 4 * (D + push.numel()) * heads,
+                 heads * (1 + dh))):
+            device_ms = 1e3 * nbytes / rate
+            link_ms = 1e3 * 4 * link_rows * width / link_rate
+            rows.append((f"{name}, layer {i} (P={P}, S={push.shape[1]}, "
+                         f"D={D}, heads={heads}, Dh={dh})",
+                         timed(fn), max(device_ms, link_ms),
+                         link if link_ms >= device_ms else "bytes"))
     return rows
 
 
@@ -739,19 +757,20 @@ def run_split(label, args, g, fanouts, device):
     return metrics, launches
 
 
-def check_vs_one_partition(ranks, g, args, fanouts, cache_pct, device):
+def check_vs_one_partition(ranks, g, args, fanouts, cache_pct, caps2,
+                           device):
     """One raw sample of the numpy SplitSampler sliced at P (this rank's
-    row, its partition map) and at P = 1, with the same weights of the
-    flags' model (SAGE or GAT): this rank's owned logits, the global loss
-    and every all-reduced gradient against the P = 1 computation, and
-    whether all are finite. Returns the errors and this rank's P batch.
-    At P the rank holds its own frame under the phase's ``cache_pct``
-    (static rows plus the tail this sample writes when the cache
-    refreshes); at P = 1 the frame holds every node. Each error is
-    relative to the largest magnitude of the P = 1 tensor it is held to."""
+    row, its partition map, the capacities ``caps2`` the run trained at)
+    and at P = 1, with the same weights of the flags' model (SAGE or GAT):
+    this rank's owned logits, the global loss and every all-reduced
+    gradient against the P = 1 computation, and whether all are finite.
+    Returns the errors and this rank's P batch. At P the rank holds its
+    own frame under the phase's ``cache_pct`` (static rows plus the tail
+    this sample writes when the cache refreshes); at P = 1 the frame holds
+    every node. Each error is relative to the largest magnitude of the
+    P = 1 tensor it is held to."""
     r, P = ranks.rank, ranks.world_size
     pmap, nodes, bs = g.partition_map, g.train_nodes(), args.batch_size
-    caps2 = plan_split_capacities(bs, fanouts, g.num_nodes, P)
     cache2 = SplitFeatureCache(
         CachePlan(g, pmap, P, cache_pct, refresh_cap=caps2["frame_caps"][0]),
         device=device, partitions=(r, r + 1))
@@ -825,11 +844,13 @@ def split_rank(rank, world, store, spec, out_dir):
                    peak_gib=torch.cuda.max_memory_allocated(device) / 2**30,
                    phase_lines=phase_lines(timers, metrics["steps"]))
         out["check"], b2 = check_vs_one_partition(
-            ranks, g, args, fanouts, metrics["cache_pct"], device)
+            ranks, g, args, fanouts, metrics["cache_pct"],
+            metrics["capacities"], device)
         if args.model_name == "gat":
             out["shuffle_ops"] = gat_shuffle_times(
                 b2, args, g.num_classes,
-                memory_rate(torch.cuda.get_device_name(device)), device)
+                memory_rate(torch.cuda.get_device_name(device)),
+                ranks.backend, device)
     finally:
         dist.close(ranks)
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
@@ -870,7 +891,7 @@ def run_ranks(label, num_ranks, name, root, flags, shuffles_per_step):
               f"{sh['backward']} ({sh['backward'] / max(steps, 1):g} a "
               f"step), bytes sent {sh['bytes_sent']} "
               f"({sh['bytes_sent'] / max(steps, 1):.0f} a step), "
-              f"shuffle_caps {m['shuffle_caps']}")
+              f"shuffle_caps {m['capacities']['shuffle_caps']}")
         phases = m["phases"]
         print(f"  rank {res['rank']}: C++ service per batch: cxx_sample "
               f"{1e3 * phases.get('cxx_sample', float('nan')):.2f} ms, "
@@ -895,9 +916,9 @@ def run_ranks(label, num_ranks, name, root, flags, shuffles_per_step):
                                         c["grad_err"]) <= LOGITS_TOL):
             raise AssertionError(f"{label}: P = {num_ranks} differs from "
                                  f"P = 1 on rank {res['rank']}: {c}")
-        for op, ms, bound in res.get("shuffle_ops", []):
+        for op, ms, bound, by in res.get("shuffle_ops", []):
             print(f"  rank {res['rank']}: op {op}: ms={ms:.4f} (host clock) "
-                  f"bound_ms={bound:.4f} (bytes)")
+                  f"bound_ms={bound:.4f} ({by})")
     agreed = {(res["metrics"]["loss"], res["metrics"]["acc"],
                res["metrics"]["steps"]) for res in results}
     if len(agreed) != 1:
@@ -967,9 +988,9 @@ def check_dense_run(label, metrics, launches):
 
 
 def single_gat_cases(g, args, rate, device):
-    """The kernel at single GAT's first batch's six shapes (each layer's
-    softmax denominators [E, heads] and messages [E, heads * Dh]), with
-    random messages: the batch ``train_single`` samples first."""
+    """The kernel at single GAT's first batch's three shapes (each layer's
+    [p, p * feat] message, [E, heads * (1 + Dh)]), with random messages:
+    the batch ``train_single`` samples first."""
     fanouts = [int(f) for f in args.fan_out.split(",")]
     nodes = g.train_nodes()[: args.limit_train]
     caps = measure_capacities(g, nodes, fanouts, args.batch_size,
@@ -982,12 +1003,10 @@ def single_gat_cases(g, args, rate, device):
     outs = [args.num_hidden] * (len(fanouts) - 1) + [g.num_classes]
     cases = []
     for i, blk in enumerate(batch.blocks):
-        for what, width in (("denominators", heads),
-                            ("messages", heads * outs[i])):
-            msgs = torch.randn(blk.edge_cap, width, generator=gen,
-                               device=device)
-            cases.append(kernel_case(f"single GAT layer {i} {what}", msgs,
-                                     blk.edge_dst, blk.dst_cap, rate))
+        msgs = torch.randn(blk.edge_cap, heads * (1 + outs[i]),
+                           generator=gen, device=device)
+        cases.append(kernel_case(f"single GAT layer {i}", msgs, blk.edge_dst,
+                                 blk.dst_cap, rate))
     return cases
 
 
@@ -1023,10 +1042,6 @@ def main(argv=None) -> int:
     cli.add_argument("--ranks", type=int, default=RANKS,
                      help="partitions (one process each) of the split P "
                           "phases")
-    cli.add_argument("--only-ranks", action="store_true",
-                     help="build, save the two graphs and run only the "
-                          "split P phases (steps 8-9), for a multi-card "
-                          "machine; prints no kernel line")
     opts = cli.parse_args(argv)
     if not torch.cuda.is_available():
         print("error: torch sees no CUDA device; chip_smoke.py runs on a GPU",
@@ -1067,21 +1082,6 @@ def main(argv=None) -> int:
     fanouts = [int(f) for f in args.fan_out.split(",")]
     nodes = g.train_nodes()[: args.limit_train]
     graphs = tempfile.TemporaryDirectory(prefix="occ_smoke_graphs_")
-    if opts.only_ranks:
-        with phase("save graphs"):
-            save_graph(g, graphs.name, "products")
-            save_graph(random_graph(SPLIT_B_NODES, AVG_DEGREE, FEATURE_DIM,
-                                    num_classes=NUM_CLASSES, seed=args.seed),
-                       graphs.name, "split_b")
-        del g
-        rank_phases(phase, graphs.name, opts.ranks)
-        graphs.cleanup()
-        print(f"total wall {time.perf_counter() - wall:.1f}s")
-        print(f"card: {card}")
-        print(json.dumps({"ok": True, "device": {
-            "platform": "gpu", "kind": name,
-            "count": torch.cuda.device_count()}}))
-        return 0
     # 3-5. The single path: the kernel at its shapes, the first batch's
     # logits, and train_single.
     with phase("single path"):
@@ -1223,13 +1223,13 @@ def main(argv=None) -> int:
         print(f"  {op}: {ms:.4f} ms, bound {bound:.4f} ms")
     print(f"GAT shuffle times (split GAT P{opts.ranks}-B, rank 0, host "
           f"clock; a step runs each once a layer):")
-    for op, ms, bound in gat_shuffle_rows:
-        print(f"  {op}: {ms:.4f} ms, bound {bound:.4f} ms")
+    for op, ms, bound, by in gat_shuffle_rows:
+        print(f"  {op}: {ms:.4f} ms, bound {bound:.4f} ms ({by})")
     for label, case in (("split B's layer 0", split_case),
                         ("split GAT B's layer 0", gat_split_case)):
         print(f"kernel at {label}: ms={case['ms']:.4f} bound_ms="
               f"{max(case['bytes_ms'], case['ops_ms']):.4f}")
-    print(f"kernel at single GAT's step (6 launches): ms="
+    print(f"kernel at single GAT's step (3 launches): ms="
           f"{sum(c['ms'] for c in gat_cases):.4f} bound_ms="
           f"{sum(max(c['bytes_ms'], c['ops_ms']) for c in gat_cases):.4f} "
           f"plain_ms={sum(c['plain_ms'] for c in gat_cases):.4f} "

@@ -9,9 +9,9 @@ averaged on the last one; ELU and dropout between layers.
 Weights are plain tensors registered as ``layer_{i}/w`` ``[in, heads *
 out]``, ``layer_{i}/attn_l`` and ``layer_{i}/attn_r`` ``[heads, out]`` and
 ``layer_{i}/b``, the keys of the JAX parameter pytree, so a JAX checkpoint
-loads through ``utils.checkpoint``. A step runs the sorted segment-sum
-twice a layer: the softmax denominators ``[E, heads]`` and the messages
-``[E, heads * out]``.
+loads through ``utils.checkpoint``. A layer runs the sorted segment-sum
+once: ``coo_attention`` sums the softmax denominators and the weighted
+messages as one ``[E, heads * (1 + out)]`` message, and the layer divides.
 """
 
 from __future__ import annotations
@@ -19,13 +19,15 @@ from __future__ import annotations
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.profiler import record_function
 
 from occ_gnn_tpu_torch.models.common import dropout, xavier_uniform
 from occ_gnn_tpu_torch.ops.blocks import Block, SampledBatch
-from occ_gnn_tpu_torch.ops.segment import segment_softmax
+from occ_gnn_tpu_torch.ops.segment import segment_max
 from occ_gnn_tpu_torch.ops.segment_sum_sorted import segment_sum_sorted
 
 GAT_LEAVES = ("w", "attn_l", "attn_r", "b")
+NEGATIVE_SLOPE = 0.2  # the attention scores' leaky ReLU
 
 
 def register_gat_params(module: nn.Module, in_dim: int, hidden: int,
@@ -48,10 +50,47 @@ def register_gat_params(module: nn.Module, in_dim: int, hidden: int,
             module.register_parameter(f"layer_{i}/{name}", nn.Parameter(value))
 
 
+def coo_attention(feat: torch.Tensor, attn_l: torch.Tensor,
+                  edge_src: torch.Tensor, edge_dst: torch.Tensor,
+                  er_frame: torch.Tensor):
+    """GAT's streaming-softmax partials over a dst-sorted COO (the JAX
+    package's ``parallel/model.py:369-392``): score each edge
+    ``leaky_relu(el[src] + er[dst])`` with ``el = feat . attn_l``, take the
+    segment max (detached; padding edges are dropped and masked to -inf
+    before the exp), and sum ``p`` and ``p * feat[src]`` per dst.
+
+    ``feat`` is the projected source frame ``[S, heads, Dh]`` in f32 and
+    ``er_frame`` the dst rows' terms ``[dst_cap, heads]``. The two sums are
+    one message per edge and head, ``[p, p * feat]``, so one sorted
+    segment-sum launch gives both. Returns f32 ``(m_loc, s_loc [dst_cap,
+    heads], v_loc [dst_cap, heads, Dh])``; the softmax output is ``v / s``.
+    A dst row with no valid edge has ``m = -inf`` and zero sums."""
+    with record_function("gat_attention_coo"):
+        k, d_out = attn_l.shape
+        dst_cap = er_frame.shape[0]
+        # SDDMM decomposes: e_uv = el_u + er_v. Gathers are index_select,
+        # whose backward is an index_add_ (advanced indexing's is a sort).
+        el = torch.einsum("skd,kd->sk", feat, attn_l)
+        valid = (edge_dst < dst_cap)[:, None]
+        safe_dst = edge_dst.clamp(max=dst_cap - 1)
+        scores = F.leaky_relu(el.index_select(0, edge_src)
+                              + er_frame.index_select(0, safe_dst),
+                              NEGATIVE_SLOPE)
+        m_loc = segment_max(scores.detach(), edge_dst, dst_cap)
+        safe_m = torch.where(torch.isfinite(m_loc), m_loc, 0.0)
+        pvals = torch.exp((scores - safe_m.index_select(0, safe_dst))
+                          .masked_fill(~valid, float("-inf")))
+        feat1 = torch.cat([feat.new_ones(feat.shape[0], k, 1), feat], dim=-1)
+        msgs = (pvals[:, :, None] * feat1.index_select(0, edge_src)).reshape(
+            edge_src.shape[0], -1)
+        sums = segment_sum_sorted(msgs, edge_dst, dst_cap)
+        sums = sums.reshape(dst_cap, k, d_out + 1)
+        return m_loc, sums[..., 0], sums[..., 1:]
+
+
 class GATModel(nn.Module):
     def __init__(self, in_dim: int, hidden: int, num_classes: int,
                  num_layers: int, num_heads: int = 4, dropout: float = 0.0,
-                 negative_slope: float = 0.2,
                  generator: torch.Generator | None = None):
         """Weights are drawn on the CPU from ``generator``; move the model
         with ``.to(device)``."""
@@ -62,7 +101,6 @@ class GATModel(nn.Module):
         self.num_layers = num_layers
         self.num_heads = num_heads
         self.dropout = dropout
-        self.negative_slope = negative_slope
         register_gat_params(self, in_dim, hidden, num_classes, num_layers,
                             num_heads, generator)
 
@@ -75,19 +113,11 @@ class GATModel(nn.Module):
         p = self.layer_params(i)
         k, d_out = p["attn_l"].shape
         n = block.dst_cap
-        src = block.edge_src
         feat = (x.float() @ p["w"]).reshape(-1, k, d_out)  # [S_cap, K, D]
-        # SDDMM decomposes: e_uv = el_u + er_v. Gathers are index_select,
-        # whose backward is an index_add_ (advanced indexing's is a sort).
-        el = torch.einsum("skd,kd->sk", feat, p["attn_l"])
         er = torch.einsum("skd,kd->sk", feat[:n], p["attn_r"])
-        scores = (el.index_select(0, src)
-                  + er.index_select(0, block.edge_dst.clamp(max=n - 1)))
-        scores = F.leaky_relu(scores, self.negative_slope)
-        alpha = segment_softmax(scores, block.edge_dst, n)  # [E, K]
-        msgs = (feat.index_select(0, src) * alpha[:, :, None]).reshape(
-            src.shape[0], -1)
-        out = segment_sum_sorted(msgs, block.edge_dst, n).reshape(n, k, d_out)
+        _, s, v = coo_attention(feat, p["attn_l"], block.edge_src,
+                                block.edge_dst, er)
+        out = v / s.clamp(min=1e-16)[..., None]  # [n, K, D]
         if is_last:
             return out.mean(dim=1)
         return out.reshape(n, k * d_out) + p["b"]

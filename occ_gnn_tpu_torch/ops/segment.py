@@ -2,12 +2,13 @@
 
 The JAX package's ``ops/segment.py``. ``spmm_mean`` is the reference's
 ``update_all(copy_u, mean)``; ``segment_softmax`` followed by a sum of
-``score * value`` is its ``attention_gather``. ``spmm_sum`` sends 2-D
+``score * value`` is its ``attention_gather`` (the GAT models fuse the two
+into one sum, ``models.gat.coo_attention``). ``spmm_sum`` sends 2-D
 messages through the sorted segment-sum kernel, as the JAX ``spmm_sum``
 sends them to its Pallas kernel, and so do the softmax denominators.
 
 Padding convention: segment ids equal to ``num_segments`` are dropped, so
-padded edges need no masks. ``segment_softmax`` and ``spmm_sym`` take a
+padded edges need no masks. ``segment_softmax`` and ``spmm_sum`` take a
 COO sorted by dst, as every block of the port is (``ops/blocks.py``).
 """
 
@@ -88,23 +89,6 @@ def spmm_sum(x_src: torch.Tensor, edge_src: torch.Tensor,
     if msgs.dim() == 2:
         return segment_sum_sorted(msgs, edge_dst, num_dst)
     return segment_sum(msgs, edge_dst, num_dst)
-
-
-def spmm_sym(x_src: torch.Tensor, edge_src: torch.Tensor,
-             edge_dst: torch.Tensor, num_dst: int,
-             num_src: int) -> torch.Tensor:
-    """Kipf-Welling symmetric normalisation over the sampled block:
-    ``out[v] = sum_{(u->v)} x[u] / sqrt(d_out(u) * d_in(v))``, degrees
-    counted within the block (the sampler's self-loop edges included).
-    Accumulates in f32; the messages go through the sorted segment-sum."""
-    valid = (edge_dst < num_dst).float()
-    deg_in = segment_sum(valid, edge_dst, num_dst)
-    deg_out = segment_sum(valid, edge_src, num_src)
-    safe_dst = edge_dst.clamp(max=num_dst - 1).long()
-    coeff = valid * torch.rsqrt(deg_out[edge_src.long()].clamp(min=1.0)
-                                * deg_in[safe_dst].clamp(min=1.0))
-    return spmm_sum(x_src.float(), edge_src, edge_dst, num_dst,
-                    edge_weight=coeff)
 
 
 def spmm_mean(x_src: torch.Tensor, edge_src: torch.Tensor,

@@ -6,8 +6,8 @@ under the keys of the JAX parameter pytree (``layer_{i}/w``,
 ``layer_{i}/b``, and GAT's ``layer_{i}/attn_l`` / ``attn_r``), so
 ``utils.checkpoint`` loads JAX weights unchanged, the device CSR for
 on-device innermost sampling, and the train step and forward.
-Weights stay f32; ``dtype`` is the storage precision of activations
-between layers, with f32 accumulation, as in the JAX models.
+Weights stay f32; SAGE's and GCN's ``dtype`` is the storage precision of
+activations between layers, with f32 accumulation, as in the JAX models.
 
 At P = 1 the step is the JAX step on a one-device mesh: no process group
 and no collective. At P > 1 each rank runs the per-device body of the JAX
@@ -36,9 +36,12 @@ from occ_gnn_tpu_torch.models.common import (
     linear_init,
     zero_missing_grads,
 )
-from occ_gnn_tpu_torch.models.gat import GAT_LEAVES, register_gat_params
-from occ_gnn_tpu_torch.ops.segment import segment_max
-from occ_gnn_tpu_torch.ops.segment_sum_sorted import segment_sum_sorted
+from occ_gnn_tpu_torch.models.gat import (
+    GAT_LEAVES,
+    NEGATIVE_SLOPE,
+    coo_attention,
+    register_gat_params,
+)
 from occ_gnn_tpu_torch.parallel.dist import DistContext, all_reduce_gradients
 from occ_gnn_tpu_torch.parallel.split import (
     SplitBatch,
@@ -168,8 +171,7 @@ class SplitGCN(SplitSAGE):
 
 
 def dense_attention(x: torch.Tensor, nbr: torch.Tensor, wl: torch.Tensor,
-                    w3: torch.Tensor, er_frame: torch.Tensor,
-                    negative_slope: float):
+                    w3: torch.Tensor, er_frame: torch.Tensor):
     """GAT's local streaming-softmax partials through the dense ``[K, D]``
     neighbour matrix, in the batched two-pass form of the JAX package
     (``parallel/model.py:294-363``, its default): gather the K leaf rows of
@@ -192,7 +194,7 @@ def dense_attention(x: torch.Tensor, nbr: torch.Tensor, wl: torch.Tensor,
         if low:
             wl = wl.to(x.dtype).float()
             xg = xg.float()
-        z = F.leaky_relu(xg @ wl + er_frame[None], negative_slope)
+        z = F.leaky_relu(xg @ wl + er_frame[None], NEGATIVE_SLOPE)
         m_loc = z.detach().masked_fill(~valid, float("-inf")).amax(dim=0)
         safe = torch.where(torch.isfinite(m_loc), m_loc, 0.0)
         pw = torch.exp((z - safe[None]).masked_fill(~valid, float("-inf")))
@@ -203,40 +205,6 @@ def dense_attention(x: torch.Tensor, nbr: torch.Tensor, wl: torch.Tensor,
         return m_loc, s_loc, torch.einsum("dch,hco->dco", agg, w3)
 
 
-def coo_attention(x: torch.Tensor, w: torch.Tensor, attn_l: torch.Tensor,
-                  edge_src: torch.Tensor, edge_dst: torch.Tensor,
-                  er_frame: torch.Tensor, negative_slope: float):
-    """GAT's local streaming-softmax partials over this partition's
-    dst-sorted COO (the JAX package's ``model.py:369-392``): project the
-    frame, score each edge ``leaky_relu(el[src] + er[dst])``, take the
-    segment max (detached; padding edges are dropped and masked to -inf
-    before the exp), and sum ``p`` and ``p * feat[src]`` per dst.
-
-    The two sums are one message per edge and head, ``[p, p * feat]``, so
-    one sorted segment-sum launch gives both. Returns f32 ``(m_loc, s_loc
-    [dst_cap, heads], v_loc [dst_cap, heads, Dh])``."""
-    with record_function("gat_attention_coo"):
-        k, d_out = attn_l.shape
-        dst_cap = er_frame.shape[0]
-        feat = (x.float() @ w).reshape(-1, k, d_out)
-        el = torch.einsum("skd,kd->sk", feat, attn_l)
-        valid = (edge_dst < dst_cap)[:, None]
-        safe_dst = edge_dst.clamp(max=dst_cap - 1)
-        scores = F.leaky_relu(el.index_select(0, edge_src)
-                              + er_frame.index_select(0, safe_dst),
-                              negative_slope)
-        m_loc = segment_max(scores.detach(), edge_dst, dst_cap)
-        safe_m = torch.where(torch.isfinite(m_loc), m_loc, 0.0)
-        pvals = torch.exp((scores - safe_m.index_select(0, safe_dst))
-                          .masked_fill(~valid, float("-inf")))
-        feat1 = torch.cat([feat.new_ones(feat.shape[0], k, 1), feat], dim=-1)
-        msgs = (pvals[:, :, None] * feat1.index_select(0, edge_src)).reshape(
-            edge_src.shape[0], -1)
-        sums = segment_sum_sorted(msgs, edge_dst, dst_cap)
-        sums = sums.reshape(dst_cap, k, d_out + 1)
-        return m_loc, sums[..., 0], sums[..., 1:]
-
-
 class SplitGAT(nn.Module):
     """Split-parallel GAT, the component the reference only stubbed
     (``dist_gatconv.py:3-6``). At P > 1 a layer runs two all-to-alls
@@ -245,14 +213,12 @@ class SplitGAT(nn.Module):
     edges, and ``shuffle_softmax_merge`` merges the partitions' (max,
     sum-exp, weighted value) partials at the owner, exactly.
 
-    Weights as ``models.gat.GATModel``'s. ``dtype`` is the storage
-    precision between layers; the CLI builds it with none (f32), as the
-    JAX trainer does, so a bf16 cache frame reaches layer 0 only."""
+    Weights as ``models.gat.GATModel``'s. It has no dropout and keeps its
+    activations f32, as the JAX trainer builds it (without ``--dropout``
+    or ``--dtype``); a bf16 cache frame still feeds layer 0."""
 
     def __init__(self, in_dim: int, hidden: int, num_classes: int,
                  num_layers: int, num_heads: int = 4,
-                 negative_slope: float = 0.2, dropout: float = 0.0,
-                 dtype: torch.dtype = torch.float32,
                  generator: torch.Generator | None = None):
         """Weights are drawn on the CPU from ``generator``; move the model
         with ``.to(device)``."""
@@ -262,9 +228,6 @@ class SplitGAT(nn.Module):
         self.num_classes = num_classes
         self.num_layers = num_layers
         self.num_heads = num_heads
-        self.negative_slope = negative_slope
-        self.dropout = dropout
-        self.dtype = dtype
         register_gat_params(self, in_dim, hidden, num_classes, num_layers,
                             num_heads, generator)
 
@@ -293,12 +256,11 @@ class SplitGAT(nn.Module):
         if multi:
             er_frame = reverse_shuffle(er_frame, lyr.push_idx, lyr.recv_idx)
         if lyr.nbr_idx is not None:
-            m_loc, s, v = dense_attention(x, lyr.nbr_idx, wl, w3, er_frame,
-                                          self.negative_slope)
+            m_loc, s, v = dense_attention(x, lyr.nbr_idx, wl, w3, er_frame)
         else:
-            m_loc, s, v = coo_attention(x, p["w"], p["attn_l"], lyr.edge_src,
-                                        lyr.edge_dst, er_frame,
-                                        self.negative_slope)
+            feat = (x.float() @ p["w"]).reshape(-1, k, d_out)
+            m_loc, s, v = coo_attention(feat, p["attn_l"], lyr.edge_src,
+                                        lyr.edge_dst, er_frame)
         if multi:
             s, v = shuffle_softmax_merge(m_loc, s, v, lyr.push_idx,
                                          lyr.recv_idx)
@@ -313,15 +275,12 @@ class SplitGAT(nn.Module):
     def forward_local(self, layers: list[SplitLayer], x: torch.Tensor,
                       generator: torch.Generator | None = None):
         """One partition's forward, as ``SplitSAGE.forward_local``, with
-        ELU between layers."""
+        ELU between layers; ``generator`` is unused (no dropout)."""
         last = len(layers) - 1
         for i, lyr in enumerate(layers):
             x = self.layer(i, lyr, x, is_last=(i == last))
             if i != last:
                 x = F.elu(x)
-                if generator is not None and self.dropout > 0.0:
-                    x = dropout(x, self.dropout, generator, True)
-                x = x.to(self.dtype)
         return x
 
 

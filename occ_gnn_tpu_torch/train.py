@@ -667,7 +667,7 @@ def train_split(args, g, fanouts, timers, device: torch.device | None = None,
            "tail_batches": cache.tail_batches if cache is not None else 0}
     if ranks is not None:
         out.update(rank=rank, backend=ranks.backend, shuffle=shuffles,
-                   shuffle_caps=caps["shuffle_caps"])
+                   capacities=caps)
     if profile:
         out["profile"] = profile
     if args.sampler == "native":

@@ -26,6 +26,7 @@ from occ_gnn_tpu.training import make_train_step as jax_train_step
 from occ_gnn_tpu_torch import train
 from occ_gnn_tpu_torch.models import GATModel, GCNModel, get_model
 from occ_gnn_tpu_torch.models.common import masked_cross_entropy
+from occ_gnn_tpu_torch.models.gat import NEGATIVE_SLOPE, coo_attention
 from occ_gnn_tpu_torch.ops import segment as tseg
 from occ_gnn_tpu_torch.sampling.neighbor import NeighborSampler
 from occ_gnn_tpu_torch.training import gather_features, make_train_step
@@ -41,7 +42,7 @@ GRAD_TOL = dict(rtol=1e-5, atol=1e-6)
 WEIGHT_TOL = dict(rtol=1e-4, atol=1e-5)
 
 FANOUTS, BATCH, HIDDEN, HEADS = [4, 3, 5], 48, 6, 2
-KINDS = ("gat", "gcn-mean", "gcn-sym")
+KINDS = ("gat", "gcn-mean")
 
 
 def _segments(rng, num_edges=80, n=12, pad=12):
@@ -86,27 +87,45 @@ def test_segment_softmax_and_gradient_match_jax(heads):
     assert np.isfinite(ts.grad.numpy()).all()
 
 
-def test_spmm_sym_and_gradient_match_jax():
-    rng = np.random.default_rng(2)
+@pytest.mark.parametrize("heads", [1, 3])
+def test_coo_attention_is_segment_softmax_then_sum(heads):
+    """The GAT layers' one-launch attention, ``v / s``, against the two
+    steps it fuses: ``segment_softmax`` of the scores, then the sum of the
+    weighted values; forward and gradients, empty segments and padding
+    edges included (these give 0 and take no gradient)."""
+    rng = np.random.default_rng(3)
     ids, n = _segments(rng)
-    num_src = 20
-    src = rng.integers(0, num_src, ids.shape[0]).astype(np.int32)
-    src[ids == n] = 0  # padding edges read row 0
-    x = rng.standard_normal((num_src, 5)).astype(np.float32)
-    w = rng.standard_normal((n, 5)).astype(np.float32)
+    num_src, d = 20, 5
+    src = torch.from_numpy(rng.integers(0, num_src, ids.shape[0]))
+    tids = torch.from_numpy(ids)
+    draw = [rng.standard_normal(s).astype(np.float32)
+            for s in ((num_src, heads, d), (heads, d), (n, heads),
+                      (n, heads, d))]
+    feat, attn_l, er, w = (torch.from_numpy(a) for a in draw)
 
-    def jfn(xx):
-        return jseg.spmm_sym(xx, jnp.asarray(src), jnp.asarray(ids), n,
-                             num_src)
+    def fused(feat, attn_l, er):
+        _, s, v = coo_attention(feat, attn_l, src, tids, er)
+        return v / s.clamp(min=1e-16)[..., None]
 
-    want = np.asarray(jfn(jnp.asarray(x)))
-    jgrad = jax.grad(lambda xx: jnp.sum(jfn(xx) * w))(jnp.asarray(x))
-    tx = torch.from_numpy(x).requires_grad_()
-    got = tseg.spmm_sym(tx, torch.from_numpy(src), torch.from_numpy(ids), n,
-                        num_src)
-    (got * torch.from_numpy(w)).sum().backward()
-    np.testing.assert_allclose(got.detach().numpy(), want, **OP_TOL)
-    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(jgrad), **OP_TOL)
+    def two_steps(feat, attn_l, er):
+        el = torch.einsum("skd,kd->sk", feat, attn_l)
+        scores = torch.nn.functional.leaky_relu(
+            el[src] + er[tids.clamp(max=n - 1).long()], NEGATIVE_SLOPE)
+        alpha = tseg.segment_softmax(scores, tids, n)
+        return tseg.segment_sum(alpha[:, :, None] * feat[src], tids, n)
+
+    outs, grads = [], []
+    for fn in (fused, two_steps):
+        leaves = [t.clone().requires_grad_() for t in (feat, attn_l, er)]
+        out = fn(*leaves)
+        (out * w).sum().backward()
+        outs.append(out.detach().numpy())
+        grads.append([t.grad.numpy() for t in leaves])
+    assert (outs[0][[3, 7]] == 0).all()  # empty segments
+    np.testing.assert_allclose(outs[0], outs[1], **OP_TOL)
+    for got, want in zip(*grads):
+        assert np.isfinite(got).all()
+        np.testing.assert_allclose(got, want, **OP_TOL)
 
 
 def _models(g, kind, seed=0):
@@ -116,11 +135,8 @@ def _models(g, kind, seed=0):
         tm = GATModel(g.feature_dim, HIDDEN, g.num_classes, len(FANOUTS),
                       num_heads=HEADS)
     else:
-        norm = kind.split("-")[1]
-        jm = JaxGCN(g.feature_dim, HIDDEN, g.num_classes, len(FANOUTS),
-                    norm=norm)
-        tm = GCNModel(g.feature_dim, HIDDEN, g.num_classes, len(FANOUTS),
-                      norm=norm)
+        jm = JaxGCN(g.feature_dim, HIDDEN, g.num_classes, len(FANOUTS))
+        tm = GCNModel(g.feature_dim, HIDDEN, g.num_classes, len(FANOUTS))
     params = jm.init(jax.random.PRNGKey(seed))
     tm.load_state_dict(params_from_jax(params))
     return jm, params, tm
@@ -147,11 +163,6 @@ def test_factory_builds_the_jax_pytree(small_graph, kind):
     assert {k: tuple(v.shape) for k, v in tm.state_dict().items()} == shapes
     with pytest.raises(ValueError, match="unknown model"):
         get_model("gin", 8, 8, 3, 2)
-
-
-def test_gcn_norm_is_checked():
-    with pytest.raises(ValueError, match="norm"):
-        GCNModel(8, 8, 3, 2, norm="both")
 
 
 @pytest.mark.parametrize("kind", KINDS)
