@@ -20,7 +20,18 @@
 5. Drives ``--mode single`` GraphSAGE training (3 layers, hidden 128,
    fan-out 10,10,25, batch 1024, 8 steps) through the port's
    ``train_single``, and checks the kernel launched 3 times a step.
-6. Split A, products scale, every width kept: checks one layer 0
+6. pa-cache: ``--mode pa-cache --cache-per 0.25`` at the single path's
+   flags (8 steps) through ``train_single``: the first assembled frame
+   bit-equal to ``gather_features``, the hit rate equal to a host recount
+   of every frame's ids, 3 launches a step, and the host-to-device
+   feature bytes a step against the single path's; the assembly's device
+   time beside its byte bound.
+7. Quiver: ``--mode quiver`` at the same widths: one batch's logits on
+   the trainer's own drawn frontiers against a plain dense forward
+   written here, 10,000 draws checked as in-neighbours, the draw, the
+   gather and the layer-0 mean timed beside their byte bounds, one steady
+   step profiled, then 8 steps through ``train_quiver`` (no launch).
+8. Split A, products scale, every width kept: checks one layer 0
    synthesized on the card from the resident CSR, and the split logits of
    a host-innermost batch against the single-chip logits of the same
    sample; times the split path's torch ops at the first batch's shapes
@@ -31,13 +42,15 @@
    --num-heads 4`` (the JAX package's GAT bench widths): split vs single
    GAT logits, the batched attention's times forward and backward beside
    their byte bounds, 8 steps with one profiled, no kernel launch.
-7. Split B, 200,000 nodes (depth cut for time, every width kept):
-   ``--cache-per 0.25 --innermost host --fan-out 10,10,-1``, the
-   refreshing cache with a COO layer 0. Checks the split-vs-single logits,
-   that a step launched before a tail write reads the old tail, one
-   kernel launch a step and one tail write a step. Then single GAT and
-   single GCN on the same graph (3 steps each): 3 launches a step each.
-8. Split P2: split A's flags at ``--partitions 2 --partition-mode
+9. Split B, 200,000 nodes (depth cut for time, every width kept):
+   ``--cache-per 0.25 --innermost host --fan-out 10,10,-1 --save-dir``,
+   the refreshing cache with a COO layer 0. Checks the split-vs-single
+   logits, that a step launched before a tail write reads the old tail,
+   one kernel launch a step and one tail write a step. Then single GAT
+   and single GCN on the same graph (3 steps each): 3 launches a step
+   each. Then ``--mode infer`` of split B's checkpoint on the test nodes
+   (worst-case capacities, no cache): one launch a batch.
+10. Split P2: split A's flags at ``--partitions 2 --partition-mode
    round_robin`` (metis took 109-123 s a rank on the products graph on
    the H100 host), two ranks spawned as the CLI's launcher spawns them,
    each running ``train_split`` on the products graph (saved once in the
@@ -46,7 +59,7 @@
    metrics on both ranks, 2 shuffles forward and 2 backward a step, and
    that one raw sample's P = 2 logits, loss and gradients equal P = 1's
    on the card.
-9. Split P2-B: split B's flags at ``--partitions 2 --partition-mode
+11. Split P2-B: split B's flags at ``--partitions 2 --partition-mode
    metis``: the cache tails refresh per rank, layer 0 is COO through the
    kernel (one launch per rank a step) and shuffles forward only (3
    forward, 2 backward a step). Split GAT P2-B: the same with GAT, whose
@@ -55,14 +68,21 @@
    run's own capacities. Both with the P = 2 vs P = 1 check of split P2
    (the P = 2 sample sliced at the capacities the run trained at), each
    rank's refreshing frame against the frame of every node.
-10. Prints the card again, one JSON line of kernel numbers, and last
+12. DDP P2 (the products graph), quiver P2 and infer P2 (split B's
+   graph, ``--partition-mode round_robin``), two ranks each: equal global
+   metrics on every rank, and equal final weights for ddp and quiver;
+   ddp 3 launches a step per rank and one step's all-reduced gradient
+   against one process summing the shard batches; infer one launch a
+   batch per rank, the P = 1 count and at least 99.9 % of its
+   predictions.
+13. Prints the card again, one JSON line of kernel numbers, and last
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result.
 It also fails when torch sees no CUDA device, and outside the repository.
 ``--num-nodes`` cuts the products graph for a quick run; every width stays.
-``--ranks N`` sets the partitions of steps 8 and 9 (default 2): on a
-machine with a card for every rank, the ranks run over NCCL.
+``--ranks N`` sets the ranks of steps 10-12 (default 2): on a machine
+with a card for every rank, the ranks run over NCCL.
 """
 
 from __future__ import annotations
@@ -83,7 +103,11 @@ from contextlib import contextmanager
 import numpy as np
 import torch
 
-from occ_gnn_tpu_torch.cache import CachePlan, SplitFeatureCache
+from occ_gnn_tpu_torch.cache import (
+    CachePlan,
+    SingleChipCache,
+    SplitFeatureCache,
+)
 from occ_gnn_tpu_torch.data import (
     edge_cut_fraction,
     load_graph,
@@ -102,6 +126,7 @@ from occ_gnn_tpu_torch.ops.segment_sum_sorted import (
     segment_sum_sorted_reference,
 )
 from occ_gnn_tpu_torch.parallel import dist
+from occ_gnn_tpu_torch.parallel.dp import make_dp_train_step
 from occ_gnn_tpu_torch.parallel.model import (
     SplitGAT,
     SplitSAGE,
@@ -119,19 +144,32 @@ from occ_gnn_tpu_torch.parallel.split import (
     slice_owned,
     synthesize_device_innermost,
 )
+from occ_gnn_tpu_torch.sampling.device_sampler import (
+    DeviceSampleTrainer,
+    sample_neighbors_dense,
+)
 from occ_gnn_tpu_torch.sampling.native import NativeSplitSampler
 from occ_gnn_tpu_torch.sampling.neighbor import (
     NeighborSampler,
     measure_capacities,
+    plan_capacities,
 )
 from occ_gnn_tpu_torch.sampling.slicer import (
     SplitSampler,
     plan_split_capacities,
     raw_to_single_batch,
 )
-from occ_gnn_tpu_torch.train import build_argparser, train_single, train_split
+from occ_gnn_tpu_torch.train import (
+    build_argparser,
+    run_infer,
+    train_ddp,
+    train_quiver,
+    train_single,
+    train_split,
+)
 from occ_gnn_tpu_torch.training import gather_features
 from occ_gnn_tpu_torch.utils import PhaseTimers
+from occ_gnn_tpu_torch.utils.profile import summarize_step
 
 PRODUCTS_NODES = 2_450_000
 SPLIT_B_NODES = 200_000
@@ -152,6 +190,21 @@ GAT_A_FLAGS = ["--mode", "split", "--cache-per", "auto", "--fan-out",
                "chiprun_out/split_gat_a_profile"] + COMMON_FLAGS + GAT_FLAGS
 # The single-chip GAT and GCN phases run 3 steps each on split B's graph.
 SINGLE_B_FLAGS = TRAIN_FLAGS + ["--limit-train", "3072"]
+# The baselines at the single path's widths: pa-cache and quiver on the
+# products graph, ddp at --partitions RANKS on it, quiver at RANKS on
+# split B's graph.
+PA_CACHE_FLAGS = ["--mode", "pa-cache", "--cache-per", "0.25", "--fan-out",
+                  "10,10,25"] + COMMON_FLAGS
+# Quiver's shapes are dense: it measures no capacities.
+QUIVER_FLAGS = ["--mode", "quiver", "--fan-out", "10,10,25"] + [
+    f for f in COMMON_FLAGS if f != "--measure-caps"]
+DDP_FLAGS = ["--mode", "ddp", "--fan-out", "10,10,25"] + COMMON_FLAGS
+# Inference of split B's checkpoint (its model flags) on the test nodes.
+INFER_FLAGS = ["--mode", "infer", "--fan-out", "10,10,-1", "--num-hidden",
+               "128", "--batch-size", "1024", "--infer-nodes", "test"]
+# P vs P = 1 predictions: equal but for near-ties of the logits.
+PRED_AGREEMENT = 0.999
+DRAW_CHECKS = 10_000
 # Sorted segment-sum launches a step: one a layer. Single SAGE and GCN
 # sum the messages; GAT (single, and split on its COO layer 0) sums the
 # softmax denominators and the weighted messages as one [p, p * feat].
@@ -1036,6 +1089,455 @@ def run_single(kind, args, g, device) -> int:
     return launches
 
 
+def start_count(device) -> None:
+    """Empty the allocator, reset the peak and set the launch count to 0,
+    just before a main-path run."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(device)
+    segment_sum_sorted.launches = 0
+
+
+def run_pa_cache(args, g, single_caps, rate, device):
+    """``--mode pa-cache`` through ``train_single``: the ids of every input
+    frame are recorded as the cache assembles it, and the first frame is
+    held to ``gather_features`` of the same ids bit for bit; afterwards
+    the hit rate must equal a recount of every recorded id against the
+    cached node set, and the kernel must have launched 3 times a step.
+    Returns the launches and the assembly's op row (device ms beside its
+    byte bound)."""
+    fanouts = [int(f) for f in args.fan_out.split(",")]
+    seen = []
+    load = SingleChipCache.load_input_frame
+    bit_equal = []
+
+    def recording(cache, input_nodes):
+        frame = load(cache, input_nodes)
+        if not seen:
+            # Held on the host, so the check adds nothing to the peak.
+            ids = input_nodes.cpu().numpy()
+            ref = gather_features(g.features, ids, "cpu")
+            got = frame.cpu()
+            bit_equal.append(got.shape == ref.shape and bool(torch.equal(
+                got.view(torch.int32), ref.view(torch.int32))))
+        seen.append((cache, input_nodes))
+        return frame
+
+    timers = StepTimers()
+    start_count(device)
+    SingleChipCache.load_input_frame = recording
+    try:
+        metrics = train_single(args, g, fanouts, timers, device,
+                               use_cache=True)
+    finally:
+        SingleChipCache.load_input_frame = load
+    launches = segment_sum_sorted.launches
+    peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
+    steps = metrics["steps"]
+    cache = seen[0][0]
+    ids = [t.cpu().numpy() for _, t in seen]
+    bit_equal = bit_equal[0]
+    cached = np.zeros(g.num_nodes, bool)
+    cached[cache.cached_nodes] = True
+    hits = sum(int(cached[i[i >= 0]].sum()) for i in ids)
+    valid = sum(int((i >= 0).sum()) for i in ids)
+    recount = hits / valid
+    frame_bytes = 4 * single_caps["frame_caps"][0] * g.feature_dim
+    sent = metrics["bytes_sent"] / steps
+    print(f"pa-cache: {steps} steps, loss {metrics['loss']:.4f}, acc "
+          f"{metrics['acc']:.4f}, cache {metrics['cache_pct']:.4f} "
+          f"({cache.num_cached} nodes), hit_rate {metrics['hit_rate']:.6f} "
+          f"(host recount {recount:.6f}), segment_sum_sorted launches "
+          f"{launches}, peak device memory {peak_gib:.3f} GiB")
+    print(f"  first frame bit-equal to gather_features: {bit_equal}")
+    print(f"  host->device feature bytes a step: pa-cache {sent:.0f} (miss "
+          f"rows and positions) against single {frame_bytes} (the padded "
+          f"frame, F0_cap {single_caps['frame_caps'][0]}): "
+          f"{sent / frame_bytes:.4f}")
+    print_phases(timers, steps, once=("capacity_plan",))
+    if not bit_equal:
+        raise AssertionError("pa-cache: the assembled frame differs from "
+                             "gather_features")
+    if metrics["hit_rate"] != recount:
+        raise AssertionError(f"pa-cache: hit rate {metrics['hit_rate']} != "
+                             f"host recount {recount}")
+    if steps == 0 or launches != SINGLE_LAUNCHES["sage"] * steps:
+        raise AssertionError(f"pa-cache: {launches} kernel launches for "
+                             f"{steps} steps; expected 3 a step")
+    if not np.isfinite(metrics["loss"]):
+        raise AssertionError(f"pa-cache: non-finite loss: {metrics}")
+    # The device half of one frame's assembly at the first batch's
+    # shapes: the zero frame, the hit rows gathered from the cache and
+    # copied in, the miss rows copied in. Bound: the index read, the hit
+    # and miss rows read, the frame written once.
+    index, rows, nh, f_rows = cache.stage(ids[0])
+    nm, H = rows.shape
+    nbytes = 8 * index.numel() + 4 * (nh + nm) * H + 4 * f_rows * H
+    ms = events_ms(lambda: cache.assemble(index, rows, nh, f_rows))
+    name = (f"pa-cache assembly (F={f_rows}, hits={nh}, misses={nm}, "
+            f"H={H})")
+    print(f"  op {name}: ms={ms:.4f} bound_ms={nbytes / rate * 1e3:.4f} "
+          f"(bytes)")
+    return launches, (name, ms, nbytes / rate * 1e3)
+
+
+def plain_dense_forward(model, features, frontiers, fanouts):
+    """The quiver forward written with the plain segment-sum over an
+    explicit COO (each self row and its K drawn rows summed into the self
+    row's segment), as a reference."""
+    x = features[frontiers[-1].long()]
+    num_layers = len(fanouts)
+    for i in range(num_layers):
+        m = num_layers - 1 - i
+        n, k = frontiers[m].shape[0], fanouts[m]
+        rows = torch.arange(n, device=x.device)
+        seg = torch.cat([rows, rows.repeat_interleave(k)]).int()
+        mean = segment_sum_sorted_reference(x.float(), seg, n) / (k + 1)
+        p = model.layer_params(i)
+        x = torch.cat([x[:n].float(), mean], dim=1) @ p["w"] + p["b"]
+        if i != num_layers - 1:
+            x = torch.relu(x)
+    return x
+
+
+def check_draws(g, frontiers, fanouts, seed: int) -> int:
+    """DRAW_CHECKS (node, drawn) pairs picked at random over every layer:
+    each must be an in-neighbour of its node, or the node itself at
+    degree 0. Returns the pairs drawn in all."""
+    parents, drawn = [], []
+    for m, k in enumerate(fanouts):
+        n = frontiers[m].shape[0]
+        parents.append(frontiers[m].repeat_interleave(k))
+        drawn.append(frontiers[m + 1][n:])
+    parents, drawn = torch.cat(parents), torch.cat(drawn)
+    pick = np.random.default_rng(seed).choice(parents.shape[0], DRAW_CHECKS,
+                                              replace=False)
+    pick_t = torch.from_numpy(pick).to(parents.device)
+    vs = parents[pick_t].cpu().numpy()
+    us = drawn[pick_t].cpu().numpy()
+    bad = 0
+    for v, u in zip(vs, us):
+        lo, hi = g.indptr[v], g.indptr[v + 1]
+        ok = (u == v) if lo == hi else bool((g.indices[lo:hi] == u).any())
+        bad += not ok
+    print(f"  {DRAW_CHECKS} of {parents.shape[0]} draws checked: "
+          f"{DRAW_CHECKS - bad} in-neighbours (or self at degree 0)")
+    if bad:
+        raise AssertionError(f"quiver: {bad} draws are no in-neighbour")
+    return parents.shape[0]
+
+
+def profile_one_step(trainer, nodes) -> dict:
+    """One steady quiver step (the second of two, each ending in a
+    synchronise) recorded by torch.profiler and summarized."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    summary = {}
+    batches = trainer.epoch_batches(nodes)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=lambda p: summary.update(summarize_step(p))
+                 ) as prof:
+        for _ in range(2):
+            trainer.step(*next(batches))
+            torch.cuda.synchronize()
+            prof.step()
+    return summary
+
+
+def check_quiver(args, g, rate, device):
+    """The quiver path's checks on its own trainer (seeded as
+    ``train_quiver``'s): one batch's logits against ``plain_dense_forward``
+    on the trainer's own drawn frontiers, the draws, the draw, gather and
+    mean times beside their byte bounds, and one profiled steady step.
+    Returns the op rows and the profile."""
+    fanouts = [int(f) for f in args.fan_out.split(",")]
+    nodes = g.train_nodes()[: args.limit_train]
+    model = get_model("sage", g.feature_dim, args.num_hidden, g.num_classes,
+                      len(fanouts),
+                      generator=torch.Generator().manual_seed(args.seed))
+    model = model.to(device)
+    trainer = DeviceSampleTrainer(
+        g, fanouts, args.batch_size, model,
+        torch.optim.Adam(model.parameters(), lr=args.lr), seed=args.seed,
+        device=device)
+    targets, _ = next(trainer.epoch_batches(nodes))
+    model.eval()
+    with torch.no_grad():
+        frontiers = trainer.sample(torch.from_numpy(targets[0]).to(device))
+        logits = trainer.forward(frontiers)
+        ref = plain_dense_forward(model, trainer.features, frontiers,
+                                  fanouts)
+    torch.cuda.synchronize()
+    scale = max(1.0, ref.abs().max().item())
+    err = (logits - ref).abs().max().item()
+    sizes = [int(f.shape[0]) for f in frontiers]
+    print(f"  frontiers {sizes}; logits {tuple(logits.shape)} vs the plain "
+          f"dense forward: max_abs_err={err:.3g} at scale {scale:.3g} (limit "
+          f"{LOGITS_TOL * scale:.3g})")
+    if not (torch.isfinite(logits).all() and logits.shape == (
+            args.batch_size, g.num_classes) and err <= LOGITS_TOL * scale):
+        raise AssertionError("quiver logits differ from the plain forward")
+    del logits, ref
+    check_draws(g, frontiers, fanouts, args.seed)
+    # Op times at this batch's shapes: the deepest draw, the gather of the
+    # deepest frontier's rows, the layer-0 mean. Bounds: each input read
+    # once, each output written once.
+    rows = []
+
+    def add(name, fn, nbytes):
+        ms = events_ms(fn)
+        rows.append((name, ms, nbytes / rate * 1e3))
+        print(f"  op {name}: ms={ms:.4f} bound_ms={nbytes / rate * 1e3:.4f} "
+              f"(bytes)")
+
+    n, k = frontiers[-2].shape[0], fanouts[-1]
+    last, deep = frontiers[-2], frontiers[-1]
+    gen = torch.Generator(device).manual_seed(11)
+    # The frontier, indptr[v] and indptr[v + 1], the drawn indices, the
+    # output.
+    add(f"quiver draw (n={n}, K={k})",
+        lambda: sample_neighbors_dense(trainer.csr, last, k, gen),
+        4 * n + 8 * n + 4 * n * k + 4 * n * k)
+    M, H = deep.shape[0], trainer.features.shape[1]
+    eb = trainer.features.element_size()
+    add(f"quiver gather (M={M}, H={H})",
+        lambda: trainer.features.index_select(0, deep),
+        4 * M + 2 * eb * M * H)
+    x = trainer.features.index_select(0, deep)
+    add(f"quiver layer-0 mean (n={n}, K={k}, H={H})",
+        lambda: (x[:n].float() + x[n:].reshape(n, k, -1).sum(
+            dim=1, dtype=torch.float32)) / (k + 1.0),
+        eb * M * H + 4 * n * H)
+    del x, frontiers
+    model.train()
+    profile = profile_one_step(trainer, nodes)
+    return rows, profile
+
+
+def run_quiver(args, g, device) -> dict:
+    """Drive ``train_quiver`` with the counts set to 0 just before; the
+    path launches no kernel."""
+    fanouts = [int(f) for f in args.fan_out.split(",")]
+    timers = StepTimers()
+    start_count(device)
+    metrics = train_quiver(args, g, fanouts, timers, device)
+    launches = segment_sum_sorted.launches
+    peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
+    steps = metrics["steps"]
+    fused = 1e3 * metrics["phases"]["fused_step"]
+    print(f"quiver: {steps} steps, loss {metrics['loss']:.4f}, acc "
+          f"{metrics['acc']:.4f}, segment_sum_sorted launches {launches}, "
+          f"peak device memory {peak_gib:.3f} GiB; fused_step {fused:.2f} "
+          f"ms for the epoch, {fused / max(steps, 1):.2f} ms a step (the "
+          f"first step's warm-up included)")
+    if steps == 0 or launches or not np.isfinite(metrics["loss"]):
+        raise AssertionError(f"quiver: {launches} launches in {steps} "
+                             f"steps, metrics {metrics}")
+    return dict(metrics=metrics, peak_gib=peak_gib)
+
+
+def ddp_grad_check(ranks, g, args, fanouts, device):
+    """One DDP step's all-reduced gradient (lr 0) on the first batch of
+    every shard, against the gradient of the global mean loss over the
+    same P batches summed in one process (rank 0). Returns the largest
+    error relative to each tensor's max |.|, on rank 0 (None on the
+    others)."""
+    P, r = ranks.world_size, ranks.rank
+    per_dev = args.batch_size // P
+    caps = plan_capacities(per_dev, fanouts, g.num_nodes)
+    shards = np.array_split(np.random.default_rng(args.seed).permutation(
+        g.train_nodes()[: args.limit_train]), P)
+
+    def shard_batch(q):
+        batch = next(iter(NeighborSampler(
+            g, shards[q], fanouts, per_dev, capacities=caps,
+            seed=args.seed + q, drop_last=True, device=device)))
+        return batch, gather_features(g.features, batch.input_nodes, device)
+
+    model = get_model("sage", g.feature_dim, args.num_hidden, g.num_classes,
+                      len(fanouts),
+                      generator=torch.Generator().manual_seed(args.seed))
+    model = model.to(device)
+    ref = copy.deepcopy(model)
+    make_dp_train_step(model, torch.optim.SGD(model.parameters(), lr=0.0),
+                       ranks)(*shard_batch(r))
+    if r != 0:
+        return None
+    nll, count = 0.0, 0
+    for q in range(P):
+        batch, x0 = shard_batch(q)
+        logits = ref(batch, x0)
+        valid = batch.labels >= 0
+        logp = torch.log_softmax(logits, dim=-1)[valid]
+        nll = nll - logp.gather(-1, batch.labels[valid, None].long()).sum()
+        count += int(valid.sum())
+    (nll / count).backward()
+    errs = [(a.grad - b.grad).abs().max().item() / b.grad.abs().max().item()
+            for a, b in zip(model.parameters(), ref.parameters())]
+    return max(errs)
+
+
+def baseline_rank(rank, world, store, spec, out_dir):
+    """One rank of a ddp, quiver or infer phase at P > 1, as the CLI's
+    launcher runs it: joins the process group, loads the saved graph and
+    drives the mode's entry point with the counts set to 0 just before
+    and read just after; ddp then runs ``ddp_grad_check``. Writes what it
+    measured to ``out_dir/rank{r}.json``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ranks = dist.init_distributed(store, world, rank, cpu=False)
+    try:
+        device = ranks.device
+        args = build_argparser().parse_args(
+            ["--graph", spec["name"], "--data-root", spec["root"]]
+            + spec["flags"])
+        fanouts = [int(f) for f in args.fan_out.split(",")]
+        g = load_graph(spec["root"], spec["name"])
+        run = {"ddp": train_ddp, "quiver": train_quiver,
+               "infer": run_infer}[args.mode]
+        timers = StepTimers()
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        segment_sum_sorted.launches = 0
+        metrics = run(args, g, fanouts, timers, device, ranks=ranks)
+        out = dict(rank=rank, metrics=metrics,
+                   launches=segment_sum_sorted.launches,
+                   peak_gib=torch.cuda.max_memory_allocated(device) / 2**30,
+                   phase_lines=phase_lines(timers, metrics.get("steps", 0),
+                                           once=("fused_step",
+                                                 "infer_step")))
+        if args.mode == "ddp":
+            out["grad_err"] = ddp_grad_check(ranks, g, args, fanouts, device)
+    finally:
+        dist.close(ranks)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def run_baseline_ranks(label, num_ranks, name, root, flags):
+    """Spawn the ranks of a ddp, quiver or infer phase and hold what they
+    report: equal global metrics (and, for ddp and quiver, equal final
+    weights) on every rank. Returns the ranks' results."""
+    spec = dict(name=name, root=root, flags=flags)
+    with tempfile.TemporaryDirectory(prefix="occ_smoke_ranks_") as out_dir:
+        dist.spawn(baseline_rank, num_ranks, spec, out_dir,
+                   timeout=RANK_TIMEOUT_S)
+        results = []
+        for r in range(num_ranks):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                results.append(json.load(f))
+    backends = {res["metrics"].get("backend") for res in results}
+    print(f"{label}: {num_ranks} ranks, backend {', '.join(backends)}, "
+          f"{torch.cuda.device_count()} card(s)"
+          + ("" if "nccl" in backends else
+             " (the ranks share cuda:0; wall times are no scaling numbers)"))
+    keys = ("loss", "acc", "steps", "weights_crc32", "count")
+    for res in results:
+        m = res["metrics"]
+        print(f"  rank {res['rank']}: "
+              + ", ".join(f"{k} {m[k]}" for k in keys if k in m)
+              + f", segment_sum_sorted launches {res['launches']}, peak "
+              f"device memory {res['peak_gib']:.3f} GiB")
+        for line in res["phase_lines"]:
+            print(f"  rank {res['rank']}: {line}")
+        if not np.isfinite(m.get("loss", 0.0)):
+            raise AssertionError(f"{label}: non-finite loss: {m}")
+    agreed = {tuple(res["metrics"].get(k) for k in keys) for res in results}
+    if len(agreed) != 1:
+        raise AssertionError(f"{label}: the ranks report different global "
+                             f"metrics or weights: {agreed}")
+    return results
+
+
+def baseline_rank_phases(phase, root: str, num_ranks: int, infer_ref):
+    """ddp on the products graph, quiver and infer on split B's graph, at
+    ``num_ranks`` ranks. ``infer_ref`` is the P = 1 inference (metrics,
+    predictions, flags). Returns the kernel's launches over every rank."""
+    parts = ["--partitions", str(num_ranks)]
+    launches = 0
+    label = f"ddp P{num_ranks}"
+    with phase(label):
+        results = run_baseline_ranks(label, num_ranks, "products", root,
+                                     DDP_FLAGS + parts)
+        for res in results:
+            steps = res["metrics"]["steps"]
+            if steps == 0 or res["launches"] != SINGLE_LAUNCHES["sage"] * (
+                    steps):
+                raise AssertionError(f"{label}: rank {res['rank']}: "
+                                     f"{res['launches']} kernel launches for "
+                                     f"{steps} steps; expected 3 a step")
+        err = results[0]["grad_err"]
+        print(f"  one step's all-reduced gradient vs one process summing the "
+              f"{num_ranks} shard batches: {err:.3g} of each tensor's scale "
+              f"(limit {LOGITS_TOL})")
+        if not err <= LOGITS_TOL:
+            raise AssertionError(f"{label}: all-reduced gradient differs "
+                                 f"from the single-process sum: {err}")
+        launches += sum(res["launches"] for res in results)
+    label = f"quiver P{num_ranks}"
+    with phase(label):
+        results = run_baseline_ranks(label, num_ranks, "split_b", root,
+                                     QUIVER_FLAGS + parts)
+        if any(res["launches"] for res in results):
+            raise AssertionError(f"{label}: the quiver path launched the "
+                                 "kernel")
+    label = f"infer P{num_ranks}"
+    ref_metrics, ref_preds, flags, batches = infer_ref
+    out = os.path.join(root, f"preds_p{num_ranks}.npy")
+    flags = flags + parts + ["--partition-mode", "round_robin", "--output",
+                             out]
+    with phase(label):
+        results = run_baseline_ranks(label, num_ranks, "split_b", root,
+                                     flags)
+        preds = np.load(out)
+        m = results[0]["metrics"]
+        predicted = ref_preds >= 0
+        same = float((preds[predicted] == ref_preds[predicted]).mean())
+        print(f"  count {m['count']} (P = 1: {ref_metrics['count']}), acc "
+              f"{m['acc']:.6f} (P = 1: {ref_metrics['acc']:.6f}); "
+              f"predictions equal to P = 1's on {same:.6f} of the nodes "
+              f"(limit {PRED_AGREEMENT})")
+        if m["count"] != ref_metrics["count"] or not (
+                (preds >= 0) == predicted).all():
+            raise AssertionError(f"{label}: another node set than P = 1's")
+        if not same >= PRED_AGREEMENT:
+            raise AssertionError(f"{label}: predictions differ from P = 1's "
+                                 f"on {1 - same:.6f} of the nodes")
+        for res in results:
+            if res["launches"] != batches:
+                raise AssertionError(f"{label}: rank {res['rank']}: "
+                                     f"{res['launches']} kernel launches for "
+                                     f"{batches} batches; expected 1 a batch")
+        launches += sum(res["launches"] for res in results)
+    return launches
+
+
+def run_infer_one(g, ck_path, out_dir, device):
+    """``--mode infer`` of split B's checkpoint at P = 1 on its test
+    nodes, with the counts set to 0 just before: one launch a batch (the
+    COO layer 0). Returns (launches, (metrics, predictions, flags,
+    batches))."""
+    out = os.path.join(out_dir, "preds_p1.npy")
+    flags = INFER_FLAGS + ["--resume", ck_path]
+    args = graph_args(SPLIT_B_NODES, flags + ["--output", out])
+    timers = StepTimers()
+    start_count(device)
+    metrics = run_infer(args, g, [int(f) for f in args.fan_out.split(",")],
+                        timers, device)
+    launches = segment_sum_sorted.launches
+    peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
+    batches = -(-int(g.test_mask.sum()) // args.batch_size)
+    print(f"infer P1: count {metrics['count']}, acc {metrics['acc']:.6f}, "
+          f"{batches} batches, segment_sum_sorted launches {launches}, peak "
+          f"device memory {peak_gib:.3f} GiB")
+    print_phases(timers, batches, once=())
+    if launches != batches or metrics["count"] != int(g.test_mask.sum()):
+        raise AssertionError(f"infer P1: {launches} launches for {batches} "
+                             f"batches, count {metrics['count']}")
+    return launches, (metrics, np.load(out), flags, batches)
+
+
 def main(argv=None) -> int:
     cli = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     cli.add_argument("--num-nodes", type=int, default=PRODUCTS_NODES)
@@ -1126,7 +1628,17 @@ def main(argv=None) -> int:
 
         single_launches = run_single("sage", args, g, device)
 
-    # 6. Split A: products scale, replicated cache, device innermost.
+    # 6-7. pa-cache and quiver on the products graph.
+    with phase("pa-cache"):
+        launches_pc, pc_row = run_pa_cache(
+            graph_args(opts.num_nodes, PA_CACHE_FLAGS), g, caps, rate, device)
+    with phase("quiver"):
+        args_q = graph_args(opts.num_nodes, QUIVER_FLAGS)
+        quiver_rows, quiver_profile = check_quiver(args_q, g, rate, device)
+        print_profile(quiver_profile)
+        quiver = run_quiver(args_q, g, device)
+
+    # 8. Split A: products scale, replicated cache, device innermost.
     with phase("split A"):
         args_a = graph_args(opts.num_nodes, SPLIT_A_FLAGS)
         fan_a = [int(f) for f in args_a.fan_out.split(",")]
@@ -1140,7 +1652,7 @@ def main(argv=None) -> int:
         check_dense_run("split A", metrics_a, launches_a)
         print_profile(metrics_a["profile"])
 
-    # 6b. Split GAT A: the same graph and flags with GAT (hidden 32, 4
+    # 8b. Split GAT A: the same graph and flags with GAT (hidden 32, 4
     # heads): the batched attention on every layer.
     with phase("split GAT A"):
         args_ga = graph_args(opts.num_nodes, GAT_A_FLAGS)
@@ -1156,9 +1668,11 @@ def main(argv=None) -> int:
         save_graph(g, graphs.name, "products")
     del g
 
-    # 7. Split B: 200,000 nodes, refreshing cache, COO layer 0.
+    # 9. Split B: 200,000 nodes, refreshing cache, COO layer 0.
     with phase("split B"):
-        args_b = graph_args(SPLIT_B_NODES, SPLIT_B_FLAGS)
+        ck_dir = os.path.join(graphs.name, "split_b_checkpoint")
+        args_b = graph_args(SPLIT_B_NODES,
+                            SPLIT_B_FLAGS + ["--save-dir", ck_dir])
         fan_b = [int(f) for f in args_b.fan_out.split(",")]
         g_b = random_graph(SPLIT_B_NODES, AVG_DEGREE, FEATURE_DIM,
                            num_classes=NUM_CLASSES, seed=args_b.seed)
@@ -1187,7 +1701,7 @@ def main(argv=None) -> int:
             raise AssertionError(f"split B: {metrics_b['tail_batches']} tail "
                                  f"writes for {steps_b} steps")
 
-    # 7b. Single GAT and single GCN on split B's graph, 3 steps each.
+    # 9b. Single GAT and single GCN on split B's graph, 3 steps each.
     with phase("single GAT and GCN"):
         args_sg = graph_args(SPLIT_B_NODES, SINGLE_B_FLAGS + GAT_FLAGS)
         gat_cases = single_gat_cases(g_b, args_sg, rate, device)
@@ -1196,17 +1710,24 @@ def main(argv=None) -> int:
                        g_b, device)
             for kind, extra in (("gat", GAT_FLAGS),
                                 ("gcn", ["--model-name", "gcn"])))
+    # 9c. Inference of split B's checkpoint at P = 1.
+    with phase("infer P1"):
+        launches_i1, infer_ref = run_infer_one(
+            g_b, os.path.join(ck_dir, "split_epoch.npz"), graphs.name, device)
     with phase("save graphs"):
         save_graph(g_b, graphs.name, "split_b")
     del g_b
 
-    # 8-9. Split P2, split P2-B and split GAT P2-B: split A and split B
+    # 10-11. Split P2, split P2-B and split GAT P2-B: split A and split B
     # (SAGE and GAT) at two partitions, one process each.
     launches_pb, gat_shuffle_rows = rank_phases(phase, graphs.name,
                                                 opts.ranks)
+    # 12. ddp, quiver and infer at the same number of ranks.
+    launches_bl = baseline_rank_phases(phase, graphs.name, opts.ranks,
+                                       infer_ref)
     graphs.cleanup()
 
-    # 10. Summary: the kernel's numbers are one single step's three forward
+    # 13. Summary: the kernel's numbers are one single step's three forward
     # shapes; its launches those of every phase's main-path run.
     def total(key):
         return sum(c[key] for c in main_cases)
@@ -1221,6 +1742,14 @@ def main(argv=None) -> int:
           "batched attention once forward and once backward):")
     for op, ms, bound in gat_rows:
         print(f"  {op}: {ms:.4f} ms, bound {bound:.4f} ms")
+    print("baseline op times (torch ops; pa-cache: the first batch's "
+          "frame, once a step; quiver: its first batch, the draw once a "
+          "layer, the gather and the layer-0 mean once a step):")
+    for op, ms, bound in [pc_row] + quiver_rows:
+        print(f"  {op}: {ms:.4f} ms, bound {bound:.4f} ms")
+    print(f"quiver: peak device memory {quiver['peak_gib']:.3f} GiB, "
+          f"profiled step idle share "
+          f"{quiver_profile['device_idle_share']:.4f}")
     print(f"GAT shuffle times (split GAT P{opts.ranks}-B, rank 0, host "
           f"clock; a step runs each once a layer):")
     for op, ms, bound, by in gat_shuffle_rows:
@@ -1239,8 +1768,9 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES,
-        "launches": (single_launches + launches_a + launches_ga
-                     + launches_b + launches_sgl + launches_pb),
+        "launches": (single_launches + launches_pc + launches_a
+                     + launches_ga + launches_b + launches_sgl + launches_i1
+                     + launches_pb + launches_bl),
         "max_abs_err": max(c["err"] for c in main_cases + ragged + gat_cases
                            + [split_case, gat_split_case]),
         "ms": total("ms"),

@@ -1,4 +1,5 @@
-"""Per-partition device feature caches (split-parallel path).
+"""Device feature caches: per partition (split-parallel path) and the
+single-chip static cache of ``--mode pa-cache`` (``SingleChipCache``).
 
 The JAX package's ``cache/feature_cache.py``: ``CachePlan`` is its numpy,
 unchanged, so both packages cache the same nodes at the same frame rows;
@@ -364,3 +365,92 @@ class SplitFeatureCache:
         if not t.is_contiguous():
             t = t.contiguous()
         self._write_tail(t)
+
+
+class SingleChipCache:
+    """PaGraph-style static cache of the single-chip path (``--mode
+    pa-cache``), the JAX package's ``SingleChipCache``: the global top-k
+    nodes by out-degree live on ``device`` as one f32 frame; each batch's
+    input frame takes the cached rows by a device gather and the missing
+    rows from the host, and the cache counts hits and misses.
+
+    JAX ships a dense zero-filled ``[F_cap, H]`` miss buffer every batch,
+    as many bytes as having no cache. Here only the miss rows and the
+    frame positions travel (``bytes_sent`` counts them), and the frame is
+    assembled on the device by copies alone, so it is bit-identical to
+    ``training.gather_features`` of the same ids. The frame cap is the
+    length of the ids, so the constructor takes none."""
+
+    def __init__(self, graph: Graph, cache_percentage: float, *,
+                 device: torch.device | str):
+        self.graph = graph
+        self.device = torch.device(device)
+        n = graph.num_nodes
+        self.num_cached = int(cache_percentage * n)
+        order = np.argsort(-graph.out_degrees(), kind="stable")
+        self.cached_nodes = order[: self.num_cached]
+        self.global_to_local = np.full(n, -1, dtype=np.int64)
+        self.global_to_local[self.cached_nodes] = np.arange(self.num_cached)
+        self.frame = torch.from_numpy(
+            np.ascontiguousarray(graph.features[self.cached_nodes],
+                                 dtype=np.float32)).to(self.device)
+        self.hits = 0
+        self.misses = 0
+        self.bytes_sent = 0
+
+    @property
+    def hit_rate(self) -> float:
+        t = self.hits + self.misses
+        return self.hits / t if t else 0.0
+
+    def load_input_frame(self, input_nodes) -> torch.Tensor:
+        """The f32 input frame ``[F_cap, H]`` of the batch's input ids
+        (-1 pads, whose rows are 0 and count as neither hit nor miss):
+        cached rows gathered on the device, missing rows copied from the
+        host in one pinned copy with their positions."""
+        return self.assemble(*self.stage(input_nodes))
+
+    def stage(self, input_nodes):
+        """The host half of ``load_input_frame``: count the batch's hits
+        and misses and send the device ``(index, miss_rows, num_hits,
+        frame_rows)``, where ``index`` holds the hit positions, their
+        cache rows and the miss positions."""
+        if isinstance(input_nodes, torch.Tensor):
+            idx = input_nodes.cpu().numpy()
+        else:
+            idx = np.asarray(input_nodes)
+        valid = idx >= 0
+        local = self.global_to_local[np.where(valid, idx, 0)]
+        hit = (local >= 0) & valid
+        miss = ~hit & valid
+        hit_pos = np.nonzero(hit)[0]
+        miss_pos = np.nonzero(miss)[0]
+        self.hits += int(hit_pos.shape[0])
+        self.misses += int(miss_pos.shape[0])
+        pin = self.device.type == "cuda"
+        # One int64 buffer: hit positions, their frame rows, miss positions.
+        nh, nm = hit_pos.shape[0], miss_pos.shape[0]
+        index = torch.empty(2 * nh + nm, dtype=torch.int64, pin_memory=pin)
+        index_np = index.numpy()
+        index_np[:nh] = hit_pos
+        index_np[nh : 2 * nh] = local[hit_pos]
+        index_np[2 * nh :] = miss_pos
+        rows = torch.empty((nm, self.graph.feature_dim), dtype=torch.float32,
+                           pin_memory=pin)
+        np.take(self.graph.features, idx[miss_pos], axis=0, out=rows.numpy())
+        self.bytes_sent += (index.numel() * index.element_size()
+                            + rows.numel() * rows.element_size())
+        return (index.to(self.device, non_blocking=True),
+                rows.to(self.device, non_blocking=True), nh, idx.shape[0])
+
+    def assemble(self, index: torch.Tensor, miss_rows: torch.Tensor,
+                 num_hits: int, frame_rows: int) -> torch.Tensor:
+        """The device half of ``load_input_frame``: a zero frame, the
+        hits copied in from the cache, the misses from ``miss_rows``."""
+        nh = num_hits
+        out = torch.zeros((frame_rows, self.graph.feature_dim),
+                          dtype=torch.float32, device=self.device)
+        out.index_copy_(0, index[:nh],
+                        self.frame.index_select(0, index[nh : 2 * nh]))
+        out.index_copy_(0, index[2 * nh :], miss_rows)
+        return out

@@ -1,9 +1,9 @@
-"""One process per partition: process groups for split training at P > 1.
+"""One process per rank: process groups for the modes that run at P > 1.
 
 The counterpart of the JAX package's ``parallel/multihost.py``. The JAX
 step is one SPMD program over a mesh of P devices; in the port rank r of a
-process group of P ranks is partition r and runs that program's
-per-device body:
+process group of P ranks runs that program's per-device body. In split
+training rank r is partition r:
 
   * every rank runs the same seeded sampler over the same train nodes and
     emits only its own partition's rows (``emit_range=(r, r + 1)``), so
@@ -13,6 +13,11 @@ per-device body:
     forward and backward (``parallel.split.shuffle_merge``), all-reduces
     the loss terms, and all-reduces the gradients (SUM, as the shard_map
     transpose does) before the optimizer step.
+
+The baselines (``--mode ddp`` and ``quiver``) and inference run the same
+way: rank r takes shard r, or row r, of every batch, drawn alike on every
+rank, and the ranks all-reduce the loss terms and gradients (or the
+predictions).
 
 Rank r runs on ``cuda:{r % device_count}``, or on the CPU with ``--cpu``.
 The backend is NCCL when every rank has a card of its own, and gloo on
@@ -51,6 +56,12 @@ class DistContext:
 def local_partition_range(ranks: DistContext) -> tuple[int, int]:
     """The partitions this process supplies: ``(rank, rank + 1)``."""
     return ranks.rank, ranks.rank + 1
+
+
+def rank_seed(seed: int, rank: int) -> int:
+    """One device-draw stream per rank, as a JAX step folds the axis
+    index into its key; rank 0 keeps ``seed``, so P = 1 is unchanged."""
+    return seed + 1_000_003 * rank
 
 
 def rank_device(rank: int, cpu: bool) -> torch.device:
@@ -126,14 +137,16 @@ def close(ranks: DistContext | None) -> None:
         dist.destroy_process_group()
 
 
-def _comm_device(ranks: DistContext) -> torch.device:
+def comm_device(ranks: DistContext) -> torch.device:
+    """Where a host value goes for a collective: the rank's card under
+    NCCL, else the CPU."""
     return ranks.device if ranks.backend == "nccl" else torch.device("cpu")
 
 
 def all_reduce_values(ranks: DistContext, values, op=dist.ReduceOp.SUM):
     """All-reduce a few host numbers in f64; returns a numpy array."""
     t = torch.tensor(np.asarray(values, dtype=np.float64),
-                     device=_comm_device(ranks))
+                     device=comm_device(ranks))
     dist.all_reduce(t, op=op)
     return t.cpu().numpy()
 
@@ -153,7 +166,9 @@ def all_reduce_gradients(params) -> None:
         offset += n
 
 
-def _checksum(value) -> int:
+def checksum(value) -> int:
+    """CRC-32 of a module's state, a numpy array or a JSON value (to
+    compare what the ranks hold)."""
     if isinstance(value, torch.nn.Module):
         data = b"".join(t.detach().cpu().numpy().tobytes()
                         for t in value.state_dict().values())
@@ -169,7 +184,7 @@ def check_agreement(ranks: DistContext, **items) -> None:
     modules, or JSON values such as capacities): one all-reduce of their
     checksums, MAX over ``[c, -c]``, so max == min on every item."""
     names = list(items)
-    sums = np.array([_checksum(items[k]) for k in names], dtype=np.float64)
+    sums = np.array([checksum(items[k]) for k in names], dtype=np.float64)
     hi_lo = all_reduce_values(ranks, np.concatenate([sums, -sums]),
                               op=dist.ReduceOp.MAX)
     n = len(names)

@@ -330,6 +330,32 @@ def _global_ce(nll, count, correct):
     return totals
 
 
+def global_update(model: nn.Module, optimizer, logits: torch.Tensor,
+                  labels: torch.Tensor, ranks: DistContext | None = None):
+    """The masked CE of this rank's ``logits``, its backward and one
+    optimizer step -> ``(loss, correct, count)``, global over ``ranks``.
+
+    At P = 1 the loss is ``nll / max(count, 1)``. At P > 1 the
+    ``[nll, count, correct]`` terms are all-reduced first, each rank
+    differentiates ``nll_local / count_global`` and the gradients are
+    SUM-all-reduced: the gradient of the global mean, as the JAX
+    ``shard_map`` transpose gives it. The optimizer's ``zero_grad`` is
+    the caller's, before the forward."""
+    nll, count, correct = _local_ce(logits, labels)
+    if ranks is None:
+        loss = nll / count.clamp(min=1)
+        loss.backward()
+        zero_missing_grads(model.parameters())
+        optimizer.step()
+        return loss.detach(), correct, count
+    totals = _global_ce(nll, count, correct)
+    count_g = totals[1].clamp(min=1)
+    (nll / count_g.float()).backward()
+    all_reduce_gradients(model.parameters())
+    optimizer.step()
+    return (totals[0] / count_g).float(), totals[2].long(), totals[1].long()
+
+
 def make_split_train_step(model: SplitSAGE, optimizer, csr=None,
                           ranks: DistContext | None = None):
     """``step(batch, x0, generator=None, sample_generator=None) -> (loss,
@@ -353,20 +379,8 @@ def make_split_train_step(model: SplitSAGE, optimizer, csr=None,
         model.train()
         optimizer.zero_grad(set_to_none=True)
         logits = model.forward_local(layers, x0[0], generator)
-        nll, count, correct = _local_ce(logits, batch.labels[0])
-        if ranks is None:
-            loss = nll / count.clamp(min=1)
-            loss.backward()
-            zero_missing_grads(model.parameters())
-            optimizer.step()
-            return loss.detach(), correct, count
-        totals = _global_ce(nll, count, correct)
-        count_g = totals[1].clamp(min=1)
-        (nll / count_g.float()).backward()
-        all_reduce_gradients(model.parameters())
-        optimizer.step()
-        return ((totals[0] / count_g).float(), totals[2].long(),
-                totals[1].long())
+        return global_update(model, optimizer, logits, batch.labels[0],
+                             ranks)
 
     return step
 

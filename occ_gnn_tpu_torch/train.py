@@ -9,14 +9,19 @@ Runs on the CUDA device; ``--cpu`` runs on the CPU instead. Without
 ``--cpu`` and without a visible GPU it stops with an error and never falls
 back to the CPU.
 
-Ported so far: ``--mode split`` (``SplitSAGE``, ``SplitGCN`` or
-``SplitGAT``, the C++ or numpy sampler, the feature cache, on-device
-innermost sampling, ``--save-dir`` / ``--resume``) at any number of
-partitions, and ``--mode single`` with every ``--model-name``. The other
-modes, and the flags no ported path reads, stop with the ROADMAP.md item
-that ports them.
+Modes, each the JAX trainer's:
+  split     split-parallel training (``SplitSAGE``, ``SplitGCN`` or
+            ``SplitGAT``; the C++ or numpy sampler, the feature cache,
+            on-device innermost sampling, ``--save-dir`` / ``--resume``)
+  single    one-chip sampled-minibatch training, every ``--model-name``
+  pa-cache  single with a PaGraph-style static cache (``--cache-per``)
+  ddp       the data-parallel baseline
+  quiver    the quiver baseline: sampling and features on the device
+  infer     predictions of a ``--resume`` checkpoint's split model
 
-Split training at P > 1 runs one process per partition
+A flag that the chosen mode does not read stops the CLI.
+
+split, ddp, quiver and infer run at P > 1 as one process per rank
 (``parallel.dist``): ``--partitions P`` spawns the P ranks itself, and
 ``--distributed`` joins a process group of ranks started elsewhere (the
 JAX flags ``--coordinator-address``, ``--num-processes``,
@@ -39,41 +44,39 @@ import time
 import numpy as np
 import torch
 
-# Where each mode that is not ported yet stands in ROADMAP.md, queue 1.
-_NOT_PORTED = {
-    "pa-cache": "item 9 (single-chip cache)",
-    "ddp": "item 10 (baselines)",
-    "quiver": "item 10 (baselines)",
-    "infer": "item 10 (inference)",
+# The flags of the JAX CLI that only some modes read, each with the modes
+# of the JAX trainer that read it. Set away from its default under any
+# other mode (the JAX CLI would accept it there and ignore it), a flag
+# stops the CLI. --cpu-devices is read by no mode of the port yet.
+_RANKS = ("split", "ddp", "quiver", "infer")
+_TRAINING = ("split", "single", "pa-cache", "ddp", "quiver")
+_MODES_READING = {
+    "num_epochs": _TRAINING,
+    "limit_train": _TRAINING,
+    "dropout": _TRAINING,
+    "measure_caps": ("split", "single", "pa-cache", "ddp"),
+    "sample_without_replacement": ("split", "single", "pa-cache", "ddp",
+                                   "infer"),
+    "cache_per": ("split", "pa-cache"),
+    "partitions": _RANKS,
+    "partition_mode": ("split", "infer"),
+    "sampler": ("split", "infer"),
+    "innermost": ("split",),
+    "caps_margin": ("split",),
+    "num_workers": ("split", "infer"),
+    "dtype": ("split", "pa-cache", "quiver", "infer"),
+    "save_dir": ("split",),
+    "resume": ("split", "infer"),
+    "eval": ("split",),
+    "profile_dir": ("split",),
+    "infer_nodes": ("infer",),
+    "output": ("infer",),
+    "cpu_devices": (),
+    "distributed": _RANKS,
+    "coordinator_address": _RANKS,
+    "num_processes": _RANKS,
+    "process_id": _RANKS,
 }
-# Flags of the JAX CLI that no ported path reads yet, by the item that
-# ports them. Set away from its default, each one stops the CLI.
-_FLAGS_NOT_PORTED = {
-    "cache_per": "item 9 (single-chip cache)",
-    "partitions": "item 7 ports it for --mode split only",
-    "partition_mode": "item 7 ports it for --mode split only",
-    "sampler": "items 1-6 port it for --mode split only",
-    "innermost": "items 1-6 port it for --mode split only",
-    "caps_margin": "items 1-6 port it for --mode split only",
-    "num_workers": "items 1-6 port it for --mode split only",
-    "dtype": "items 1-6 port it for --mode split only",
-    "save_dir": "item 7 ports it for --mode split only",
-    "resume": "item 7 ports it for --mode split only",
-    "eval": "items 1-6 port it for --mode split only",
-    "profile_dir": "items 1-6 port it for --mode split only",
-    "infer_nodes": "item 10 (inference)",
-    "output": "item 10 (inference)",
-    "cpu_devices": "item 7b (several partitions per process)",
-    "distributed": "item 7 ports it for --mode split only",
-    "coordinator_address": "item 7 ports it for --mode split only",
-    "num_processes": "item 7 ports it for --mode split only",
-    "process_id": "item 7 ports it for --mode split only",
-}
-# The flags of that table which --mode split reads.
-_SPLIT_READS = {"cache_per", "sampler", "innermost", "caps_margin",
-                "num_workers", "dtype", "eval", "profile_dir", "partitions",
-                "partition_mode", "save_dir", "resume", "distributed",
-                "coordinator_address", "num_processes", "process_id"}
 
 
 def build_argparser() -> argparse.ArgumentParser:
@@ -95,13 +98,15 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--lr", type=float, default=0.01)
     p.add_argument("--dropout", type=float, default=0.0)
     p.add_argument("--partitions", type=int, default=0,
-                   help="partitions for split mode, one process each; 0 = "
-                        "the world size with --distributed, else 1")
+                   help="partitions (split) or ranks (ddp, quiver, infer), "
+                        "one process each; 0 = the world size with "
+                        "--distributed, else 1")
     p.add_argument("--partition-mode", type=str, default="greedy",
                    choices=["greedy", "metis", "random", "round_robin"])
     p.add_argument("--sampler", type=str, default="native",
                    choices=["native", "numpy"],
-                   help="split-mode sampler backend (native = pipelined C++)")
+                   help="split and infer sampler backend (native = "
+                        "pipelined C++)")
     p.add_argument("--innermost", type=str, default="auto",
                    choices=["auto", "host", "device"],
                    help="where the innermost fanout expansion runs "
@@ -119,11 +124,12 @@ def build_argparser() -> argparse.ArgumentParser:
                         "reference slicer's with-replacement draws")
     p.add_argument("--dtype", type=str, default="float32",
                    choices=["float32", "bfloat16"],
-                   help="activation/cache storage precision (split mode)")
+                   help="activation/cache storage precision")
     p.add_argument("--save-dir", type=str, default="",
                    help="checkpoint directory (split mode)")
     p.add_argument("--resume", type=str, default="",
-                   help="checkpoint file to resume from (split mode)")
+                   help="checkpoint file to resume from (split mode) or "
+                        "to predict with (infer mode)")
     p.add_argument("--infer-nodes", type=str, default="test",
                    choices=["train", "val", "test", "all"],
                    help="node set for --mode infer")
@@ -156,8 +162,7 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--json", action="store_true",
                    help="emit one JSON line of final metrics")
     p.add_argument("--distributed", action="store_true",
-                   help="join a process group, one process per partition "
-                        "(split mode)")
+                   help="join a process group, one process per rank")
     p.add_argument("--coordinator-address", type=str, default="",
                    help="host:port of process 0, or a tcp:// or file:// "
                         "URL (empty = torchrun's environment)")
@@ -191,19 +196,21 @@ def resolve_graph(args):
                       mmap_features=args.mmap_features)
 
 
-def _check_ported(parser, args) -> None:
-    """Stop, naming the ROADMAP.md item, on what is not ported yet."""
-    if args.mode in _NOT_PORTED:
-        raise SystemExit(f"--mode {args.mode} is not ported yet: ROADMAP.md "
-                         f"queue 1, {_NOT_PORTED[args.mode]}")
-    split = args.mode == "split"
-    for dest, item in _FLAGS_NOT_PORTED.items():
-        if split and dest in _SPLIT_READS:
+def _check_flags(parser, args) -> None:
+    """Stop on a flag that ``--mode`` does not read."""
+    for dest, modes in _MODES_READING.items():
+        if args.mode in modes or getattr(args, dest) == parser.get_default(
+                dest):
             continue
-        if getattr(args, dest) != parser.get_default(dest):
-            flag = "--" + dest.replace("_", "-")
-            raise SystemExit(f"{flag} is not ported yet for --mode "
-                             f"{args.mode}: ROADMAP.md queue 1, {item}")
+        flag = "--" + dest.replace("_", "-")
+        if not modes:
+            raise SystemExit(f"{flag} is not ported yet: ROADMAP.md queue 1, "
+                             "item 7b (several partitions per process)")
+        raise SystemExit(
+            f"{flag} is not ported for --mode {args.mode}: the JAX trainer's "
+            f"{args.mode} mode does not read it, only --mode "
+            f"{' / '.join(modes)} (ROADMAP.md queue 3: the port stops on a "
+            "flag the JAX trainer would ignore)")
 
 
 def main(argv=None):
@@ -215,14 +222,13 @@ def main(argv=None):
     argv = sys.argv[1:] if argv is None else list(argv)
     parser = build_argparser()
     args = parser.parse_args(argv)
-    _check_ported(parser, args)
-    split = args.mode == "split"
+    _check_flags(parser, args)
     ranks = None
-    if split and args.distributed:
+    if args.distributed:
         ranks = dist.init_from_args(args)
         device = ranks.device
-    elif split and args.partitions > 1:
-        # One process per partition: spawn the P ranks here, once
+    elif args.partitions > 1:
+        # One process per rank: spawn the P ranks here, once
         # resolve_device has stopped a run that has no GPU and no --cpu.
         resolve_device(args)
         metrics = dist.launch(argv, args.partitions)
@@ -239,11 +245,14 @@ def main(argv=None):
         print(f"graph: {g.num_nodes} nodes, {g.num_edges} edges, "
               f"feat {g.feature_dim}, {g.num_classes} classes; device "
               f"{device}")
-        if split:
-            metrics = train_split(args, g, fanouts, PhaseTimers(), device,
-                                  ranks=ranks)
+        timers = PhaseTimers()
+        if args.mode in ("single", "pa-cache"):
+            metrics = train_single(args, g, fanouts, timers, device,
+                                   use_cache=args.mode == "pa-cache")
         else:
-            metrics = train_single(args, g, fanouts, PhaseTimers(), device)
+            run = {"split": train_split, "ddp": train_ddp,
+                   "quiver": train_quiver, "infer": run_infer}[args.mode]
+            metrics = run(args, g, fanouts, timers, device, ranks=ranks)
     finally:
         dist.close(ranks)
     if args.json:
@@ -276,9 +285,14 @@ def _synchronize(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def train_single(args, g, fanouts, timers, device: torch.device | None = None):
+def train_single(args, g, fanouts, timers, device: torch.device | None = None,
+                 use_cache: bool = False):
     """One-chip sampled-minibatch training (``--mode single``) on
-    ``device`` (by default the one ``--cpu`` selects)."""
+    ``device`` (by default the one ``--cpu`` selects); ``use_cache`` is
+    ``--mode pa-cache``: the input frames come through a ``SingleChipCache``
+    of ``--cache-per`` of the graph (0 means the reference's 0.25; ``auto``
+    sizes it to the device's free memory, its rows costed at ``--dtype``,
+    though the frame stays f32, as in JAX)."""
     from occ_gnn_tpu_torch.sampling.neighbor import (
         NeighborSampler,
         measure_capacities,
@@ -302,6 +316,19 @@ def train_single(args, g, fanouts, timers, device: torch.device | None = None):
     sampler = NeighborSampler(g, nodes, fanouts, args.batch_size,
                               capacities=caps, seed=args.seed,
                               device=device)
+    cache = None
+    if use_cache:
+        from occ_gnn_tpu_torch.cache import SingleChipCache
+        from occ_gnn_tpu_torch.cache.autosize import resolve_cache_percentage
+
+        pct = resolve_cache_percentage(
+            args.cache_per, g, np.zeros(g.num_nodes, np.int32), 1,
+            dtype_bytes=2 if args.dtype == "bfloat16" else 4,
+            refresh_cap=0, device=device,
+        )
+        if pct <= 0:
+            pct = 0.25  # the reference pa_cache default
+        cache = SingleChipCache(g, min(pct, 1.0), device=device)
     drop_gen = torch.Generator(device).manual_seed(args.seed)
     acc = loss_v = 0.0
     steps = 0
@@ -313,7 +340,11 @@ def train_single(args, g, fanouts, timers, device: torch.device | None = None):
             with timers.phase("sample"):
                 batch = sampler.sample_batch(seeds)
             with timers.phase("feature_load"):
-                x0 = gather_features(g.features, batch.input_nodes, device)
+                if cache is not None:
+                    x0 = cache.load_input_frame(batch.input_nodes)
+                else:
+                    x0 = gather_features(g.features, batch.input_nodes,
+                                         device)
                 _synchronize(device)
             with timers.phase("train_step"):
                 loss, c, t = step(batch, x0, drop_gen)
@@ -324,12 +355,17 @@ def train_single(args, g, fanouts, timers, device: torch.device | None = None):
         acc = correct / max(total, 1)
         loss_v = float(loss)
         dt = time.perf_counter() - t0
+        hit = f" hit_rate={cache.hit_rate:.3f}" if cache is not None else ""
         print(f"epoch {epoch}: loss={loss_v:.4f} acc={acc:.4f} "
-              f"time={dt:.2f}s [{timers.summary()}]")
+              f"time={dt:.2f}s{hit} [{timers.summary()}]")
         last_phases = {k: round(v, 4) for k, v in timers.as_dict().items()}
         timers.clear()
-    return {"mode": "single", "acc": acc, "loss": loss_v, "steps": steps,
-            "phases": last_phases}
+    out = {"mode": "pa-cache" if use_cache else "single", "acc": acc,
+           "loss": loss_v, "steps": steps, "phases": last_phases}
+    if cache is not None:
+        out.update(hit_rate=cache.hit_rate, cache_pct=min(pct, 1.0),
+                   bytes_sent=cache.bytes_sent)
+    return out
 
 
 def _one_partition_map(g) -> np.ndarray:
@@ -406,12 +442,6 @@ def _profile_window(steps: int, out_dir: str, summary: dict):
                    schedule=schedule(wait=target, warmup=1, active=1,
                                      repeat=1),
                    on_trace_ready=on_ready)
-
-
-def _rank_seed(seed: int, rank: int) -> int:
-    """One device-draw stream per rank, as the JAX step folds the axis
-    index into its key; rank 0 keeps ``seed``, so P = 1 is unchanged."""
-    return seed + 1_000_003 * rank
 
 
 def _num_partitions(args, ranks) -> int:
@@ -575,7 +605,7 @@ def train_split(args, g, fanouts, timers, device: torch.device | None = None,
     step = make_split_train_step(model, opt, csr=csr, ranks=ranks)
     # Device-innermost sampling stream.
     sample_gen = (torch.Generator(device).manual_seed(
-        _rank_seed(args.seed ^ 0xD0C5, rank)) if csr is not None else None)
+        dist.rank_seed(args.seed ^ 0xD0C5, rank)) if csr is not None else None)
     profile = {}
     prof = None
     if args.profile_dir:
@@ -679,7 +709,7 @@ def train_split(args, g, fanouts, timers, device: torch.device | None = None,
     if args.eval and g.val_mask is not None:
         fwd = make_split_forward(model, csr=csr, ranks=ranks)
         ev_gen = (torch.Generator(device).manual_seed(
-            _rank_seed(args.seed + 13, rank)) if csr is not None else None)
+            dist.rank_seed(args.seed + 13, rank)) if csr is not None else None)
         for split_name, mask in (("val", g.val_mask), ("test", g.test_mask)):
             nodes = np.nonzero(mask)[0]
             # Same sampler backend and seeds as the JAX trainer's eval.
@@ -701,6 +731,218 @@ def train_split(args, g, fanouts, timers, device: torch.device | None = None,
             out[f"{split_name}_acc"] = float(correct / max(total, 1))
             out[f"{split_name}_count"] = int(total)
             print(f"{split_name} accuracy: {out[f'{split_name}_acc']:.4f}")
+    return out
+
+
+def _rank_metrics(ranks, model) -> dict:
+    """What a P > 1 rank adds to its metrics: its rank, the backend and a
+    checksum of its final weights, equal on every rank of a healthy run."""
+    from occ_gnn_tpu_torch.parallel.dist import checksum
+
+    if ranks is None:
+        return {}
+    return {"rank": ranks.rank, "backend": ranks.backend,
+            "weights_crc32": checksum(model)}
+
+
+def train_ddp(args, g, fanouts, timers, device: torch.device | None = None,
+              ranks=None):
+    """The data-parallel baseline (``--mode ddp``), the JAX trainer's
+    ``train_ddp``: the train nodes are split into P shards by one seeded
+    permutation (the same on every rank), rank r samples shard r with
+    seed ``seed + r`` at ``batch_size // P`` a step, dropping the ragged
+    last batch, and every rank takes the step count of the shortest
+    shard, so each enters every all-reduce. The samplers draw with
+    replacement; ``--sample-without-replacement`` reaches only the
+    capacity measurement, as in JAX."""
+    from occ_gnn_tpu_torch.parallel import dist
+    from occ_gnn_tpu_torch.parallel.dp import make_dp_train_step
+    from occ_gnn_tpu_torch.sampling.neighbor import (
+        NeighborSampler,
+        measure_capacities,
+        plan_capacities,
+    )
+    from occ_gnn_tpu_torch.training import gather_features
+
+    device = device or resolve_device(args)
+    P = _num_partitions(args, ranks)
+    rank = ranks.rank if ranks is not None else 0
+    model = _make_model(args, g, device)
+    opt = torch.optim.Adam(model.parameters(), lr=args.lr)
+    step = make_dp_train_step(model, opt, ranks)
+    nodes = _train_nodes(args, g)
+    per_dev = args.batch_size // P
+    if args.measure_caps:
+        caps = measure_capacities(
+            g, nodes, fanouts, per_dev, seed=args.seed + 99,
+            replace=not args.sample_without_replacement,
+        )
+    else:
+        caps = plan_capacities(per_dev, fanouts, g.num_nodes)
+    shards = np.array_split(
+        np.random.default_rng(args.seed).permutation(nodes), P)
+    steps_per_epoch = min(s.shape[0] // per_dev for s in shards)
+    sampler = NeighborSampler(g, shards[rank], fanouts, per_dev,
+                              capacities=caps, seed=args.seed + rank,
+                              drop_last=True, device=device)
+    if ranks is not None:
+        dist.check_agreement(ranks, capacities=caps, weights=model,
+                             steps=steps_per_epoch)
+    drop_gen = torch.Generator(device).manual_seed(
+        dist.rank_seed(args.seed ^ 0x5EED, rank))
+    acc = loss_v = 0.0
+    steps = 0
+    last_phases = {}
+    for epoch in range(args.num_epochs):
+        t0 = time.perf_counter()
+        correct = total = 0
+        seeds = sampler.seed_batches()
+        for _ in range(steps_per_epoch):
+            with timers.phase("sample"):
+                batch = sampler.sample_batch(next(seeds))
+            with timers.phase("feature_gather"):
+                x0 = gather_features(g.features, batch.input_nodes, device)
+                _synchronize(device)
+            with timers.phase("train_step"):
+                loss, c, t = step(batch, x0, drop_gen)
+                _synchronize(device)
+            steps += 1
+            correct += int(c)
+            total += int(t)
+        acc = correct / max(total, 1)
+        loss_v = float(loss) if steps_per_epoch else 0.0
+        dt = time.perf_counter() - t0
+        print(f"epoch {epoch}: loss={loss_v:.4f} acc={acc:.4f} "
+              f"time={dt:.2f}s [{timers.summary()}]")
+        last_phases = {k: round(v, 4) for k, v in timers.as_dict().items()}
+        timers.clear()
+    return {"mode": "ddp", "acc": acc, "loss": loss_v, "partitions": P,
+            "steps": steps, "phases": last_phases,
+            **_rank_metrics(ranks, model)}
+
+
+def train_quiver(args, g, fanouts, timers, device: torch.device | None = None,
+                 ranks=None):
+    """The quiver baseline (``--mode quiver``), the JAX trainer's
+    ``train_quiver``: draws, feature gather, forward, backward and Adam on
+    the device (``sampling.device_sampler``), the features held there in
+    ``--dtype``, one shared permutation split over the ranks. SAGE only,
+    as the reference baseline; every draw takes ``fanout`` neighbours with
+    replacement, whatever the degree."""
+    from occ_gnn_tpu_torch.parallel import dist
+    from occ_gnn_tpu_torch.sampling.device_sampler import DeviceSampleTrainer
+
+    if args.model_name != "sage":
+        raise SystemExit("--mode quiver supports --model-name sage "
+                         "(the reference quiver baseline is SAGE-only)")
+    device = device or resolve_device(args)
+    P = _num_partitions(args, ranks)
+    model = _make_model(args, g, device)
+    opt = torch.optim.Adam(model.parameters(), lr=args.lr)
+    dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
+    drv = DeviceSampleTrainer(g, fanouts, args.batch_size, model, opt,
+                              seed=args.seed, dtype=dtype, device=device,
+                              ranks=ranks)
+    if ranks is not None:
+        dist.check_agreement(ranks, weights=model)
+    nodes = _train_nodes(args, g)
+    acc = loss_v = 0.0
+    last_phases = {}
+    for epoch in range(args.num_epochs):
+        t0 = time.perf_counter()
+        with timers.phase("fused_step"):
+            loss_v, correct, total = drv.train_epoch(nodes)
+        acc = correct / max(total, 1)
+        dt = time.perf_counter() - t0
+        print(f"epoch {epoch}: loss={loss_v:.4f} acc={acc:.4f} "
+              f"time={dt:.2f}s [{timers.summary()}]")
+        last_phases = {k: round(v, 4) for k, v in timers.as_dict().items()}
+        timers.clear()
+    return {"mode": "quiver", "acc": acc, "loss": loss_v, "partitions": P,
+            "steps": drv.steps, "phases": last_phases,
+            **_rank_metrics(ranks, model)}
+
+
+def run_infer(args, g, fanouts, timers, device: torch.device | None = None,
+              ranks=None):
+    """Inference (``--mode infer``), the JAX trainer's ``run_infer``: the
+    split model loads ``--resume`` (either package's checkpoint) and
+    predicts the ``--infer-nodes`` set through the split forward, fed by
+    the C++ or numpy sampler with worst-case capacities, no cache and the
+    host feature gather. Reports the accuracy and count over every rank;
+    ``--output`` gets one int32 prediction per node (-1 where none), which
+    rank 0 writes after one MAX all-reduce of the ranks' arrays."""
+    from torch.distributed import ReduceOp
+
+    from occ_gnn_tpu_torch.parallel import dist
+    from occ_gnn_tpu_torch.parallel.model import make_split_forward
+    from occ_gnn_tpu_torch.sampling.slicer import SplitSampler
+    from occ_gnn_tpu_torch.utils.checkpoint import load_checkpoint
+
+    if not args.resume:
+        raise SystemExit("--mode infer requires --resume <checkpoint>")
+    device = device or resolve_device(args)
+    P = _num_partitions(args, ranks)
+    rank = ranks.rank if ranks is not None else 0
+    emit = dist.local_partition_range(ranks) if ranks is not None else None
+    pmap = _partition_map(args, g, P)
+    model = _make_split_model(args, g)
+    epoch = load_checkpoint(args.resume, model)
+    model = model.to(device)
+    print(f"loaded {args.resume} (epoch {epoch})")
+    if ranks is not None:
+        dist.check_agreement(ranks, partition_map=pmap, weights=model)
+
+    masks = {"train": g.train_mask, "val": g.val_mask, "test": g.test_mask}
+    if args.infer_nodes == "all":
+        nodes = np.arange(g.num_nodes, dtype=np.int64)
+    else:
+        nodes = np.nonzero(masks[args.infer_nodes])[0]
+    if args.sampler == "native":
+        from occ_gnn_tpu_torch.sampling.native import NativeSplitSampler
+
+        sampler = NativeSplitSampler(
+            g, nodes, pmap, P, fanouts, args.batch_size, seed=args.seed,
+            num_workers=args.num_workers,
+            replace=not args.sample_without_replacement, emit_range=emit,
+            device=device,
+        )
+    else:
+        sampler = SplitSampler(g, nodes, pmap, P, fanouts, args.batch_size,
+                               seed=args.seed,
+                               replace=not args.sample_without_replacement,
+                               emit_range=emit, device=device)
+    fwd = make_split_forward(model, ranks=ranks)
+    preds = np.full(g.num_nodes, -1, dtype=np.int32)
+    correct = total = 0
+    try:
+        for batch in sampler:
+            with timers.phase("infer_step"):
+                logits = fwd(batch, _gather_xs(g, batch, device))[0]
+                pred = logits.argmax(-1).cpu().numpy()
+            labels = batch.labels[0].cpu().numpy()
+            tgt = batch.target_nodes[0].cpu().numpy()
+            valid = labels >= 0
+            preds[tgt[valid]] = pred[valid]
+            correct += int((pred[valid] == labels[valid]).sum())
+            total += int(valid.sum())
+    finally:
+        if hasattr(sampler, "close"):
+            sampler.close()
+    if ranks is not None:
+        correct, total = (int(v) for v in dist.all_reduce_values(
+            ranks, [correct, total]))
+        merged = torch.from_numpy(preds).to(dist.comm_device(ranks))
+        torch.distributed.all_reduce(merged, op=ReduceOp.MAX)
+        preds = merged.cpu().numpy()
+    acc = correct / max(total, 1)
+    print(f"infer accuracy ({args.infer_nodes}): {acc:.4f} over {total}")
+    out = {"mode": "infer", "acc": acc, "count": total, "partitions": P,
+           **_rank_metrics(ranks, model)}
+    if args.output:
+        if rank == 0:
+            np.save(args.output, preds)
+        out["output"] = args.output
     return out
 
 

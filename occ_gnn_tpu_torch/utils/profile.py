@@ -3,11 +3,12 @@
 ``train_split --profile-dir`` records one steady step with
 ``torch.profiler`` (the window runs from the launch of that step to the
 launch of the next, by which time the lag-1 pipeline has waited for the
-step to finish). ``summarize_step`` reads the recorded window: its wall
-time, the union of the device's kernel and copy intervals inside it (so
-the device's idle share), the top device kernels by time, and the device
-time under each named range (``record_function``) that the split path
-and its phase timers mark.
+step to finish); ``chip_smoke.py`` records one quiver step the same way.
+``summarize_step`` reads the recorded window: its wall time, the union of
+the device's kernel and copy intervals inside it (so the device's idle
+share), the top device kernels by time, and the device time under each
+named range (``record_function``) that the split and quiver paths and
+the phase timers mark.
 """
 
 from __future__ import annotations
@@ -20,7 +21,9 @@ NAMED_RANGES = ("sample", "train_step", "local_aggregate_dense",
                 "_ShuffleMergeBackward", "gat_attention_dense",
                 "gat_attention_coo", "reverse_shuffle",
                 "_ReverseShuffleBackward", "shuffle_softmax_merge",
-                "_ShuffleSoftmaxMergeBackward", "Optimizer.step#Adam.step")
+                "_ShuffleSoftmaxMergeBackward", "quiver_draw",
+                "quiver_gather", "dense_sage_forward",
+                "Optimizer.step#Adam.step")
 
 
 def _union_ms(intervals) -> float:

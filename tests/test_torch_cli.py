@@ -37,12 +37,51 @@ def test_cli_without_cpu_and_without_gpu_fails_clearly():
     assert "no CUDA device" in proc.stderr and "--cpu" in proc.stderr
 
 
-@pytest.mark.parametrize("mode", ["ddp", "pa-cache", "quiver", "infer"])
-def test_modes_not_ported_name_their_roadmap_item(mode):
+@pytest.mark.parametrize("mode", ["pa-cache", "ddp", "quiver", "infer"])
+def test_new_modes_without_cpu_and_without_gpu_fail_clearly(mode):
+    extra = ["--partitions", "2"] if mode in ("ddp", "quiver") else []
+    proc = _run(["-m", "occ_gnn_tpu_torch.train", "--graph", "community",
+                 "--mode", mode, *extra], CUDA_VISIBLE_DEVICES="")
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr and "--cpu" in proc.stderr
+
+
+# Each optional flag of the JAX CLI with a value away from its default.
+FLAG_VALUES = {
+    "num_epochs": ["--num-epochs", "3"], "limit_train": ["--limit-train", "64"],
+    "dropout": ["--dropout", "0.5"], "measure_caps": ["--measure-caps"],
+    "sample_without_replacement": ["--sample-without-replacement"],
+    "cache_per": ["--cache-per", "0.5"], "partitions": ["--partitions", "2"],
+    "partition_mode": ["--partition-mode", "metis"],
+    "sampler": ["--sampler", "numpy"], "innermost": ["--innermost", "host"],
+    "caps_margin": ["--caps-margin", "1.2"],
+    "num_workers": ["--num-workers", "4"], "dtype": ["--dtype", "bfloat16"],
+    "save_dir": ["--save-dir", "ck"], "resume": ["--resume", "ck/a.npz"],
+    "eval": ["--eval"], "profile_dir": ["--profile-dir", "tr"],
+    "infer_nodes": ["--infer-nodes", "all"], "output": ["--output", "p.npy"],
+    "cpu_devices": ["--cpu-devices", "4"], "distributed": ["--distributed"],
+    "coordinator_address": ["--coordinator-address", "localhost:1234"],
+    "num_processes": ["--num-processes", "2"],
+    "process_id": ["--process-id", "1"],
+}
+
+
+@pytest.mark.parametrize("mode", ["split", "single", "pa-cache", "ddp",
+                                  "quiver", "infer"])
+def test_flag_a_mode_does_not_read_stops_the_cli(mode):
+    """Every optional flag that the JAX trainer's ``mode`` does not read
+    stops the port's CLI under that mode, before any work."""
     from occ_gnn_tpu_torch import train
 
-    with pytest.raises(SystemExit, match="ROADMAP.md"):
-        train.main(["--graph", "community", "--mode", mode, "--cpu"])
+    assert set(FLAG_VALUES) == set(train._MODES_READING)
+    unread = [d for d, modes in train._MODES_READING.items()
+              if mode not in modes]
+    assert "cpu_devices" in unread
+    for dest in unread:
+        flag = FLAG_VALUES[dest]
+        with pytest.raises(SystemExit, match=f"{flag[0]} is not ported"):
+            train.main(["--graph", "community", "--mode", mode, "--cpu",
+                        *flag])
 
 
 UNPORTED_FLAGS = [

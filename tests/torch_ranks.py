@@ -10,7 +10,8 @@ The rank functions below compute one rank's part of a sliced P-way batch:
 ``shuffle_rank`` the boundary shuffle and its gradient, ``gat_shuffle_rank``
 GAT's two shuffles and their gradients, ``split_rank`` the logits, loss,
 gradients and all-to-all counts of a step with lr 0, ``adam_rank`` the
-weights after Adam steps.
+weights after Adam steps. ``ddp_rank`` and ``quiver_rank`` run one step of
+the data-parallel and quiver baselines on this rank's shard.
 """
 
 from __future__ import annotations
@@ -202,3 +203,70 @@ def gat_rank(ranks, setup, shuffle_inputs, state, num_steps, lr):
     return dict(shuffle=gat_shuffle_rank(ranks, setup, *shuffle_inputs),
                 split=split_rank(ranks, setup, "gat", state),
                 adam=adam_rank(ranks, setup, "gat", state, num_steps, lr))
+
+
+# -- the baselines: one rank's shard ----------------------------------------
+
+
+def _single_model(setup, kind, state):
+    from occ_gnn_tpu_torch.models import get_model
+
+    g = setup["graph"]
+    kw = {"num_heads": setup["heads"]} if kind == "gat" else {}
+    model = get_model(kind, g["feature_dim"], setup["hidden"],
+                      g["num_classes"], len(setup["fanouts"]), **kw)
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
+    return model
+
+
+def ddp_rank(ranks, setup, states, lr):
+    """For each model kind, one DDP step on the first batch of this rank's
+    shard: with lr 0 the global loss, correct and count and the
+    all-reduced gradients; with Adam at ``lr`` the weights after it."""
+    from occ_gnn_tpu_torch.data import random_graph
+    from occ_gnn_tpu_torch.parallel.dp import make_dp_train_step
+    from occ_gnn_tpu_torch.sampling.neighbor import NeighborSampler
+    from occ_gnn_tpu_torch.training import gather_features
+
+    g = random_graph(**setup["graph"])
+    r = ranks.rank
+    sampler = NeighborSampler(g, setup["shards"][r], setup["fanouts"],
+                              setup["per_dev"], capacities=setup["caps"],
+                              seed=setup["seed"] + r, drop_last=True,
+                              device="cpu")
+    batch = next(iter(sampler))
+    x0 = gather_features(g.features, batch.input_nodes, "cpu")
+    out = {}
+    for kind, state in states.items():
+        model = _single_model(setup, kind, state)
+        loss, correct, count = make_dp_train_step(
+            model, torch.optim.SGD(model.parameters(), lr=0.0), ranks)(
+                batch, x0)
+        grads = {n: _numpy(p.grad) for n, p in model.named_parameters()}
+        model = _single_model(setup, kind, state)
+        make_dp_train_step(model, torch.optim.Adam(model.parameters(), lr=lr),
+                           ranks)(batch, x0)
+        out[kind] = dict(loss=float(loss), correct=int(correct),
+                         count=int(count), grads=grads,
+                         weights={n: _numpy(p) for n, p in
+                                  model.named_parameters()})
+    return out
+
+
+def quiver_rank(ranks, setup, state, lr):
+    """One quiver step (``DeviceSampleTrainer``) on this rank's row of the
+    first batch: the global loss, correct and count and the weights after
+    Adam at ``lr``."""
+    from occ_gnn_tpu_torch.data.graph import Graph
+    from occ_gnn_tpu_torch.sampling.device_sampler import DeviceSampleTrainer
+
+    g = Graph(**setup["ring"])
+    model = _single_model(setup, "sage", state)
+    trainer = DeviceSampleTrainer(
+        g, setup["fanouts"], setup["batch"], model,
+        torch.optim.Adam(model.parameters(), lr=lr), seed=setup["seed"],
+        device="cpu", ranks=ranks)
+    loss, correct, count = trainer.step(*next(trainer.epoch_batches(
+        g.train_nodes())))
+    return dict(loss=float(loss), correct=int(correct), count=int(count),
+                weights={n: _numpy(p) for n, p in model.named_parameters()})
