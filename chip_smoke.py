@@ -20,12 +20,14 @@
 5. Drives ``--mode single`` GraphSAGE training (3 layers, hidden 128,
    fan-out 10,10,25, batch 1024, 8 steps) through the port's
    ``train_single``, and checks the kernel launched 3 times a step.
-6. pa-cache: ``--mode pa-cache --cache-per 0.25`` at the single path's
-   flags (8 steps) through ``train_single``: the first assembled frame
-   bit-equal to ``gather_features``, the hit rate equal to a host recount
-   of every frame's ids, 3 launches a step, and the host-to-device
-   feature bytes a step against the single path's; the assembly's device
-   time beside its byte bound.
+6. pa-cache: before the run, the frame of the single path's first batch
+   assembled by a cache of the same share, bit-equal to
+   ``gather_features``, and the assembly's device time beside its byte
+   bound; then ``--mode pa-cache --cache-per 0.25`` at the single path's
+   flags (8 steps) through ``train_single``: the same first batch, the
+   hit rate equal to a host recount of every frame's ids (recorded on
+   the host), 3 launches a step, and the host-to-device feature bytes a
+   step against the single path's.
 7. Quiver: ``--mode quiver`` at the same widths: one batch's logits on
    the trainer's own drawn frontiers against a plain dense forward
    written here, 10,000 draws checked as in-neighbours, the draw, the
@@ -49,7 +51,10 @@
    one kernel launch a step and one tail write a step. Then single GAT
    and single GCN on the same graph (3 steps each): 3 launches a step
    each. Then ``--mode infer`` of split B's checkpoint on the test nodes
-   (worst-case capacities, no cache): one launch a batch.
+   (worst-case capacities, no cache): first its first batch's split
+   logits against a plain forward written here with the same weights,
+   and the kernel at that batch's layer-0 COO against its plain version;
+   then the run, one launch a batch.
 10. Split P2: split A's flags at ``--partitions 2 --partition-mode
    round_robin`` (metis took 109-123 s a rank on the products graph on
    the H100 host), two ranks spawned as the CLI's launcher spawns them,
@@ -72,7 +77,8 @@
    graph, ``--partition-mode round_robin``), two ranks each: equal global
    metrics on every rank, and equal final weights for ddp and quiver;
    ddp 3 launches a step per rank and one step's all-reduced gradient
-   against one process summing the shard batches; infer one launch a
+   against one process summing the shard batches through the plain
+   forward, at the run's measured capacities; infer one launch a
    batch per rank, the P = 1 count and at least 99.9 % of its
    predictions.
 13. Prints the card again, one JSON line of kernel numbers, and last
@@ -152,7 +158,6 @@ from occ_gnn_tpu_torch.sampling.native import NativeSplitSampler
 from occ_gnn_tpu_torch.sampling.neighbor import (
     NeighborSampler,
     measure_capacities,
-    plan_capacities,
 )
 from occ_gnn_tpu_torch.sampling.slicer import (
     SplitSampler,
@@ -169,6 +174,7 @@ from occ_gnn_tpu_torch.train import (
 )
 from occ_gnn_tpu_torch.training import gather_features
 from occ_gnn_tpu_torch.utils import PhaseTimers
+from occ_gnn_tpu_torch.utils.checkpoint import load_checkpoint
 from occ_gnn_tpu_torch.utils.profile import summarize_step
 
 PRODUCTS_NODES = 2_450_000
@@ -1098,66 +1104,83 @@ def start_count(device) -> None:
     segment_sum_sorted.launches = 0
 
 
-def run_pa_cache(args, g, single_caps, rate, device):
-    """``--mode pa-cache`` through ``train_single``: the ids of every input
-    frame are recorded as the cache assembles it, and the first frame is
-    held to ``gather_features`` of the same ids bit for bit; afterwards
-    the hit rate must equal a recount of every recorded id against the
-    cached node set, and the kernel must have launched 3 times a step.
-    Returns the launches and the assembly's op row (device ms beside its
-    byte bound)."""
+def run_pa_cache(args, g, first_ids, single_caps, rate, device):
+    """``--mode pa-cache`` through ``train_single``. Before the run, a
+    cache of the same share assembles the frame of ``first_ids`` (the
+    single path's first batch: the same seeds, flags and capacities),
+    which must equal ``gather_features`` of those ids bit for bit, and
+    the assembly is timed at its shapes. During the run the ids of every
+    frame are recorded on the host, as ``stage`` reads them; afterwards
+    the first must be ``first_ids``, the hit rate must equal a recount of
+    every recorded id against the cached node set, and the kernel must
+    have launched 3 times a step. Returns the launches and the assembly's
+    op row (device ms beside its byte bound)."""
     fanouts = [int(f) for f in args.fan_out.split(",")]
+    check = SingleChipCache(g, float(args.cache_per), device=device)
+    got = check.load_input_frame(first_ids).cpu()
+    ref = gather_features(g.features, first_ids, "cpu")
+    bit_equal = got.shape == ref.shape and bool(torch.equal(
+        got.view(torch.int32), ref.view(torch.int32)))
+    # The device half of one frame's assembly: the zero frame, the hit
+    # rows gathered from the cache and copied in, the miss rows copied
+    # in. Bound: the index read, the hit and miss rows read, the frame
+    # written once.
+    index, rows, nh, f_rows = check.stage(first_ids)
+    nm, H = rows.shape
+    nbytes = 8 * index.numel() + 4 * (nh + nm) * H + 4 * f_rows * H
+    ms = events_ms(lambda: check.assemble(index, rows, nh, f_rows))
+    op_name = (f"pa-cache assembly (F={f_rows}, hits={nh}, misses={nm}, "
+               f"H={H})")
+    cached = np.zeros(g.num_nodes, bool)
+    cached[check.cached_nodes] = True
+    del check, got, ref, index, rows
+
     seen = []
-    load = SingleChipCache.load_input_frame
-    bit_equal = []
+    stage = SingleChipCache.stage
 
     def recording(cache, input_nodes):
-        frame = load(cache, input_nodes)
-        if not seen:
-            # Held on the host, so the check adds nothing to the peak.
-            ids = input_nodes.cpu().numpy()
-            ref = gather_features(g.features, ids, "cpu")
-            got = frame.cpu()
-            bit_equal.append(got.shape == ref.shape and bool(torch.equal(
-                got.view(torch.int32), ref.view(torch.int32))))
-        seen.append((cache, input_nodes))
-        return frame
+        # The copy to the host that stage makes first; stage takes ids.
+        ids = input_nodes.cpu().numpy()
+        seen.append(ids)
+        return stage(cache, ids)
 
     timers = StepTimers()
     start_count(device)
-    SingleChipCache.load_input_frame = recording
+    SingleChipCache.stage = recording
     try:
         metrics = train_single(args, g, fanouts, timers, device,
                                use_cache=True)
     finally:
-        SingleChipCache.load_input_frame = load
+        SingleChipCache.stage = stage
     launches = segment_sum_sorted.launches
     peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
     steps = metrics["steps"]
-    cache = seen[0][0]
-    ids = [t.cpu().numpy() for _, t in seen]
-    bit_equal = bit_equal[0]
-    cached = np.zeros(g.num_nodes, bool)
-    cached[cache.cached_nodes] = True
-    hits = sum(int(cached[i[i >= 0]].sum()) for i in ids)
-    valid = sum(int((i >= 0).sum()) for i in ids)
+    hits = sum(int(cached[i[i >= 0]].sum()) for i in seen)
+    valid = sum(int((i >= 0).sum()) for i in seen)
     recount = hits / valid
     frame_bytes = 4 * single_caps["frame_caps"][0] * g.feature_dim
     sent = metrics["bytes_sent"] / steps
     print(f"pa-cache: {steps} steps, loss {metrics['loss']:.4f}, acc "
           f"{metrics['acc']:.4f}, cache {metrics['cache_pct']:.4f} "
-          f"({cache.num_cached} nodes), hit_rate {metrics['hit_rate']:.6f} "
-          f"(host recount {recount:.6f}), segment_sum_sorted launches "
-          f"{launches}, peak device memory {peak_gib:.3f} GiB")
-    print(f"  first frame bit-equal to gather_features: {bit_equal}")
+          f"({int(cached.sum())} nodes), hit_rate "
+          f"{metrics['hit_rate']:.6f} (host recount {recount:.6f}), "
+          f"segment_sum_sorted launches {launches}, peak device memory "
+          f"{peak_gib:.3f} GiB")
+    print(f"  first frame (checked before the run) bit-equal to "
+          f"gather_features: {bit_equal}")
     print(f"  host->device feature bytes a step: pa-cache {sent:.0f} (miss "
           f"rows and positions) against single {frame_bytes} (the padded "
           f"frame, F0_cap {single_caps['frame_caps'][0]}): "
           f"{sent / frame_bytes:.4f}")
+    print(f"  op {op_name}: ms={ms:.4f} bound_ms="
+          f"{nbytes / rate * 1e3:.4f} (bytes)")
     print_phases(timers, steps, once=("capacity_plan",))
     if not bit_equal:
         raise AssertionError("pa-cache: the assembled frame differs from "
                              "gather_features")
+    if not np.array_equal(seen[0], first_ids):
+        raise AssertionError("pa-cache: the run's first frame has other ids "
+                             "than the checked one")
     if metrics["hit_rate"] != recount:
         raise AssertionError(f"pa-cache: hit rate {metrics['hit_rate']} != "
                              f"host recount {recount}")
@@ -1166,19 +1189,7 @@ def run_pa_cache(args, g, single_caps, rate, device):
                              f"{steps} steps; expected 3 a step")
     if not np.isfinite(metrics["loss"]):
         raise AssertionError(f"pa-cache: non-finite loss: {metrics}")
-    # The device half of one frame's assembly at the first batch's
-    # shapes: the zero frame, the hit rows gathered from the cache and
-    # copied in, the miss rows copied in. Bound: the index read, the hit
-    # and miss rows read, the frame written once.
-    index, rows, nh, f_rows = cache.stage(ids[0])
-    nm, H = rows.shape
-    nbytes = 8 * index.numel() + 4 * (nh + nm) * H + 4 * f_rows * H
-    ms = events_ms(lambda: cache.assemble(index, rows, nh, f_rows))
-    name = (f"pa-cache assembly (F={f_rows}, hits={nh}, misses={nm}, "
-            f"H={H})")
-    print(f"  op {name}: ms={ms:.4f} bound_ms={nbytes / rate * 1e3:.4f} "
-          f"(bytes)")
-    return launches, (name, ms, nbytes / rate * 1e3)
+    return launches, (op_name, ms, nbytes / rate * 1e3)
 
 
 def plain_dense_forward(model, features, frontiers, fanouts):
@@ -1339,15 +1350,19 @@ def run_quiver(args, g, device) -> dict:
 
 def ddp_grad_check(ranks, g, args, fanouts, device):
     """One DDP step's all-reduced gradient (lr 0) on the first batch of
-    every shard, against the gradient of the global mean loss over the
-    same P batches summed in one process (rank 0). Returns the largest
+    every shard, at the capacities ``train_ddp`` measured (so the kernel
+    runs at the run's shapes), against the gradient of the global mean
+    loss over the same P batches through ``plain_forward`` (the plain
+    segment-sum), summed in one process (rank 0). Returns the largest
     error relative to each tensor's max |.|, on rank 0 (None on the
     others)."""
     P, r = ranks.world_size, ranks.rank
     per_dev = args.batch_size // P
-    caps = plan_capacities(per_dev, fanouts, g.num_nodes)
+    nodes = g.train_nodes()[: args.limit_train]
+    caps = measure_capacities(g, nodes, fanouts, per_dev,
+                              seed=args.seed + 99)
     shards = np.array_split(np.random.default_rng(args.seed).permutation(
-        g.train_nodes()[: args.limit_train]), P)
+        nodes), P)
 
     def shard_batch(q):
         batch = next(iter(NeighborSampler(
@@ -1367,7 +1382,7 @@ def ddp_grad_check(ranks, g, args, fanouts, device):
     nll, count = 0.0, 0
     for q in range(P):
         batch, x0 = shard_batch(q)
-        logits = ref(batch, x0)
+        logits = plain_forward(ref, batch, x0)
         valid = batch.labels >= 0
         logp = torch.log_softmax(logits, dim=-1)[valid]
         nll = nll - logp.gather(-1, batch.labels[valid, None].long()).sum()
@@ -1513,14 +1528,55 @@ def baseline_rank_phases(phase, root: str, num_ranks: int, infer_ref):
     return launches
 
 
-def run_infer_one(g, ck_path, out_dir, device):
+def check_infer_batch(g, args, rate, device):
+    """The first test batch as ``--mode infer`` samples it at P = 1
+    (worst-case capacities, no cache, the host gather) through the split
+    forward with the checkpoint ``args.resume``, against ``plain_forward``
+    of the same weights on ``raw_to_single_batch`` of the same raw sample;
+    then the kernel at that batch's layer-0 COO against its plain version.
+    Returns the kernel case."""
+    fanouts = [int(f) for f in args.fan_out.split(",")]
+    nodes = np.nonzero(g.test_mask)[0]
+    sampler = SplitSampler(g, nodes, np.zeros(g.num_nodes, np.int32), 1,
+                           fanouts, args.batch_size, seed=args.seed,
+                           device=device)
+    raw = sampler._sample_raw(nodes[: args.batch_size])
+    batch = sampler.slice_raw(raw)
+    xs = gather_features(g.features, batch.input_nodes[0].cpu().numpy(),
+                         device)
+    model = split_model(args, g)
+    load_checkpoint(args.resume, model)
+    model = model.to(device)
+    plain = get_model("sage", g.feature_dim, args.num_hidden, g.num_classes,
+                      len(fanouts)).to(device)
+    plain.load_state_dict(model.state_dict())
+    single = raw_to_single_batch(raw, g, sampler.caps, device)
+    with torch.no_grad():
+        logits = make_split_forward(model)(batch, xs[None])[0]
+        ref = plain_forward(plain, single, gather_features(
+            g.features, single.input_nodes, device))
+    n = raw[0].frontier.shape[0]
+    scale = max(1.0, ref[:n].abs().max().item())
+    err = (logits[:n] - ref[:n]).abs().max().item()
+    print(f"  first test batch ({n} targets, worst-case capacities): split "
+          f"logits vs the plain forward: max_abs_err={err:.3g} at scale "
+          f"{scale:.3g} (limit {LOGITS_TOL * scale:.3g})")
+    if not (torch.isfinite(logits).all() and err <= LOGITS_TOL * scale):
+        raise AssertionError("infer logits differ from the plain forward")
+    lyr = batch.layers[0].partition(0)
+    return kernel_case("infer layer 0", xs[lyr.edge_src.long()],
+                       lyr.edge_dst, lyr.dst_cap, rate)
+
+
+def run_infer_one(g, ck_path, out_dir, rate, device):
     """``--mode infer`` of split B's checkpoint at P = 1 on its test
-    nodes, with the counts set to 0 just before: one launch a batch (the
-    COO layer 0). Returns (launches, (metrics, predictions, flags,
-    batches))."""
+    nodes: ``check_infer_batch`` first, then the run with the counts set
+    to 0 just before: one launch a batch (the COO layer 0). Returns
+    (launches, kernel case, (metrics, predictions, flags, batches))."""
     out = os.path.join(out_dir, "preds_p1.npy")
     flags = INFER_FLAGS + ["--resume", ck_path]
     args = graph_args(SPLIT_B_NODES, flags + ["--output", out])
+    case = check_infer_batch(g, args, rate, device)
     timers = StepTimers()
     start_count(device)
     metrics = run_infer(args, g, [int(f) for f in args.fan_out.split(",")],
@@ -1535,7 +1591,7 @@ def run_infer_one(g, ck_path, out_dir, device):
     if launches != batches or metrics["count"] != int(g.test_mask.sum()):
         raise AssertionError(f"infer P1: {launches} launches for {batches} "
                              f"batches, count {metrics['count']}")
-    return launches, (metrics, np.load(out), flags, batches)
+    return launches, case, (metrics, np.load(out), flags, batches)
 
 
 def main(argv=None) -> int:
@@ -1624,6 +1680,7 @@ def main(argv=None) -> int:
         if not logits_err <= LOGITS_TOL * scale:
             raise AssertionError("kernel-path logits differ from the plain "
                                  "forward")
+        first_ids = batch.input_nodes.cpu().numpy()
         del batch, x0, logits, ref, model
 
         single_launches = run_single("sage", args, g, device)
@@ -1631,7 +1688,8 @@ def main(argv=None) -> int:
     # 6-7. pa-cache and quiver on the products graph.
     with phase("pa-cache"):
         launches_pc, pc_row = run_pa_cache(
-            graph_args(opts.num_nodes, PA_CACHE_FLAGS), g, caps, rate, device)
+            graph_args(opts.num_nodes, PA_CACHE_FLAGS), g, first_ids, caps,
+            rate, device)
     with phase("quiver"):
         args_q = graph_args(opts.num_nodes, QUIVER_FLAGS)
         quiver_rows, quiver_profile = check_quiver(args_q, g, rate, device)
@@ -1712,8 +1770,9 @@ def main(argv=None) -> int:
                                 ("gcn", ["--model-name", "gcn"])))
     # 9c. Inference of split B's checkpoint at P = 1.
     with phase("infer P1"):
-        launches_i1, infer_ref = run_infer_one(
-            g_b, os.path.join(ck_dir, "split_epoch.npz"), graphs.name, device)
+        launches_i1, infer_case, infer_ref = run_infer_one(
+            g_b, os.path.join(ck_dir, "split_epoch.npz"), graphs.name, rate,
+            device)
     with phase("save graphs"):
         save_graph(g_b, graphs.name, "split_b")
     del g_b
@@ -1755,7 +1814,8 @@ def main(argv=None) -> int:
     for op, ms, bound, by in gat_shuffle_rows:
         print(f"  {op}: {ms:.4f} ms, bound {bound:.4f} ms ({by})")
     for label, case in (("split B's layer 0", split_case),
-                        ("split GAT B's layer 0", gat_split_case)):
+                        ("split GAT B's layer 0", gat_split_case),
+                        ("infer's layer 0", infer_case)):
         print(f"kernel at {label}: ms={case['ms']:.4f} bound_ms="
               f"{max(case['bytes_ms'], case['ops_ms']):.4f}")
     print(f"kernel at single GAT's step (3 launches): ms="
@@ -1772,7 +1832,7 @@ def main(argv=None) -> int:
                      + launches_ga + launches_b + launches_sgl + launches_i1
                      + launches_pb + launches_bl),
         "max_abs_err": max(c["err"] for c in main_cases + ragged + gat_cases
-                           + [split_case, gat_split_case]),
+                           + [split_case, gat_split_case, infer_case]),
         "ms": total("ms"),
         "plain_ms": total("plain_ms"),
         "bound_ms": max(bytes_ms, ops_ms),

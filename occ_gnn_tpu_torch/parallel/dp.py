@@ -9,7 +9,9 @@ weights.
 
 JAX stacks the P devices' batches into one array (``stack_batches``); a
 rank here holds one batch, so that function has no counterpart. At P = 1
-(``ranks=None``) the step runs no collective.
+(``ranks=None``) the step runs no collective: it is then also the
+single-chip train step (JAX ``training.make_train_step``) of
+``--mode single`` and ``pa-cache``.
 """
 
 from __future__ import annotations
@@ -28,7 +30,9 @@ def make_dp_train_step(model: torch.nn.Module, optimizer,
     masked CE with its ``[nll, count, correct]`` all-reduced, the backward
     of ``nll / global_count``, the SUM all-reduce of the gradients and one
     optimizer step of ``model`` in place. The loss, correct and count are
-    global, the same on every rank.
+    global, the same on every rank. ``torch.optim.Adam`` has
+    ``optax.adam``'s defaults (betas 0.9/0.999, eps 1e-8 outside the
+    square root).
 
     ``generator`` (a generator on the device, one stream per rank, as JAX
     folds the axis index into the dropout key) enables dropout; a model

@@ -114,17 +114,6 @@ def dense_sage_forward(model, x_deepest: torch.Tensor, fanouts: list[int],
     return x
 
 
-def dense_logits(model, csr, features: torch.Tensor, targets: torch.Tensor,
-                 fanouts: list[int], generator: torch.Generator,
-                 **fwd_kwargs) -> torch.Tensor:
-    """Draw, gather and forward for one rank's targets; -1 pads read
-    node 0 (mask their loss with labels == -1)."""
-    frontiers = dense_frontiers(csr, targets.clamp(min=0), fanouts,
-                                generator)
-    x = features.index_select(0, frontiers[-1])
-    return dense_sage_forward(model, x, fanouts, **fwd_kwargs)
-
-
 class DeviceSampleTrainer:
     """Epoch loop of the quiver baseline for this rank (rank r of
     ``ranks``, or the only one): the host hands each step the next
@@ -179,7 +168,9 @@ class DeviceSampleTrainer:
                    labels.reshape(self.num_ranks, self.per_rank))
 
     def sample(self, targets: torch.Tensor) -> list[torch.Tensor]:
-        """The dense frontiers of one rank's targets (the draws alone)."""
+        """The dense frontiers of one rank's targets (the draws alone);
+        -1 pads read node 0 (their loss is masked by label -1).
+        ``forward(sample(targets))`` is JAX's ``dense_logits``."""
         with record_function("quiver_draw"):
             return dense_frontiers(self.csr, targets.clamp(min=0),
                                    self.fanouts, self.generator)

@@ -297,12 +297,13 @@ def train_single(args, g, fanouts, timers, device: torch.device | None = None,
         NeighborSampler,
         measure_capacities,
     )
-    from occ_gnn_tpu_torch.training import gather_features, make_train_step
+    from occ_gnn_tpu_torch.parallel.dp import make_dp_train_step
+    from occ_gnn_tpu_torch.training import gather_features
 
     device = device or resolve_device(args)
     model = _make_model(args, g, device)
     opt = torch.optim.Adam(model.parameters(), lr=args.lr)
-    step = make_train_step(model, opt)
+    step = make_dp_train_step(model, opt)
     nodes = _train_nodes(args, g)
     caps = None
     if args.measure_caps:

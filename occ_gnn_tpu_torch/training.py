@@ -1,5 +1,7 @@
-"""Single-chip training and evaluation steps (the JAX package's
-``training.py``): masked cross-entropy, backward, Adam, accuracy."""
+"""The JAX package's ``training.py``: the host feature gather and the
+single-chip evaluation step. Its train step is ``parallel.dp``'s
+``make_dp_train_step`` at P = 1, one update shared with the DDP
+baseline."""
 
 from __future__ import annotations
 
@@ -9,7 +11,6 @@ import torch
 from occ_gnn_tpu_torch.models.common import (
     masked_accuracy,
     masked_cross_entropy,
-    zero_missing_grads,
 )
 from occ_gnn_tpu_torch.ops.blocks import SampledBatch
 
@@ -32,26 +33,6 @@ def gather_features(features: np.ndarray, input_nodes,
     np.take(features, np.maximum(idx, 0), axis=0, out=rows)
     rows[idx < 0] = 0.0
     return out.to(device, non_blocking=True)
-
-
-def make_train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer):
-    """``step(batch, x0, generator=None) -> (loss, correct, total)``: one
-    update of ``model`` in place. ``torch.optim.Adam`` has ``optax.adam``'s
-    defaults (betas 0.9/0.999, eps 1e-8 outside the square root)."""
-
-    def step(batch: SampledBatch, x0: torch.Tensor,
-             generator: torch.Generator | None = None):
-        model.train()
-        optimizer.zero_grad(set_to_none=True)
-        logits = model(batch, x0, generator)
-        loss = masked_cross_entropy(logits, batch.labels)
-        loss.backward()
-        zero_missing_grads(model.parameters())
-        optimizer.step()
-        correct, total = masked_accuracy(logits.detach(), batch.labels)
-        return loss.detach(), correct, total
-
-    return step
 
 
 def make_eval_step(model: torch.nn.Module):

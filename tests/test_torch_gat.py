@@ -28,8 +28,9 @@ from occ_gnn_tpu_torch.models import GATModel, GCNModel, get_model
 from occ_gnn_tpu_torch.models.common import masked_cross_entropy
 from occ_gnn_tpu_torch.models.gat import NEGATIVE_SLOPE, coo_attention
 from occ_gnn_tpu_torch.ops import segment as tseg
+from occ_gnn_tpu_torch.parallel.dp import make_dp_train_step
 from occ_gnn_tpu_torch.sampling.neighbor import NeighborSampler
-from occ_gnn_tpu_torch.training import gather_features, make_train_step
+from occ_gnn_tpu_torch.training import gather_features
 from occ_gnn_tpu_torch.utils.checkpoint import params_from_jax
 
 # f32 on the CPU in both packages: sums of a few dozen terms, exps and
@@ -199,7 +200,8 @@ def test_adam_steps_match_jax(community_graph, kind):
     opt = optax.adam(1e-2)
     opt_state = opt.init(params)
     jstep = jax_train_step(jm, opt)
-    tstep = make_train_step(tm, torch.optim.Adam(tm.parameters(), lr=1e-2))
+    tstep = make_dp_train_step(tm, torch.optim.Adam(tm.parameters(),
+                                                    lr=1e-2))
     js, ts = _samplers(g, seed=2)
     rng = jax.random.PRNGKey(0)
     for _, jb, tb in zip(range(3), js, ts):

@@ -31,7 +31,6 @@ from occ_gnn_tpu_torch.parallel.model import make_device_csr
 from occ_gnn_tpu_torch.sampling.device_sampler import (
     DeviceSampleTrainer,
     dense_frontiers,
-    dense_logits,
     sample_neighbors_dense,
 )
 from occ_gnn_tpu_torch.sampling.neighbor import NeighborSampler
@@ -83,6 +82,16 @@ def ranks(ring):
     return run_ranks(quiver_rank, P, setup, state, LR)
 
 
+def _dense_logits(model, g, targets, seed):
+    """JAX's ``dense_logits`` in the port: the trainer's draw and forward
+    of ``targets`` (its one batch, at P = 1)."""
+    trainer = DeviceSampleTrainer(g, FANOUTS, len(targets), model, None,
+                                  seed=seed, device="cpu")
+    with torch.no_grad():
+        return trainer.forward(trainer.sample(
+            torch.as_tensor(targets, dtype=torch.int32))).numpy()
+
+
 def test_dense_logits_match_jax_and_host_path(ring):
     arrays, params = ring
     g = Graph(**arrays)
@@ -93,11 +102,7 @@ def test_dense_logits_match_jax_and_host_path(ring):
     with torch.no_grad():
         host = model(batch, gather_features(g.features, batch.input_nodes,
                                             "cpu"))[: len(targets)].numpy()
-        gen = torch.Generator().manual_seed(7)
-        dev = dense_logits(model, make_device_csr(g, "cpu"),
-                           torch.from_numpy(g.features),
-                           torch.from_numpy(targets.astype(np.int32)),
-                           FANOUTS, gen).numpy()
+    dev = _dense_logits(model, g, targets, seed=7)
     jg = JaxGraph(**arrays)
     jdev = np.asarray(jds.dense_logits(
         params, jds.device_csr(jg), jnp.asarray(jg.features),
@@ -111,16 +116,8 @@ def test_pad_targets_read_node_zero(ring):
     arrays, params = ring
     g = Graph(**arrays)
     model = _port_model(params).eval()
-    csr = make_device_csr(g, "cpu")
-    feats = torch.from_numpy(g.features)
-    with torch.no_grad():
-        padded = dense_logits(model, csr, feats,
-                              torch.tensor([5, -1, 9], dtype=torch.int32),
-                              FANOUTS, torch.Generator().manual_seed(1))
-        plain = dense_logits(model, csr, feats,
-                             torch.tensor([5, 0, 9], dtype=torch.int32),
-                             FANOUTS, torch.Generator().manual_seed(1))
-    np.testing.assert_array_equal(padded.numpy(), plain.numpy())
+    np.testing.assert_array_equal(_dense_logits(model, g, [5, -1, 9], 1),
+                                  _dense_logits(model, g, [5, 0, 9], 1))
 
 
 def test_zero_degree_nodes_sample_self():

@@ -22,12 +22,9 @@ from occ_gnn_tpu.training import make_train_step as jax_train_step
 from occ_gnn_tpu.utils.checkpoint import save_checkpoint
 from occ_gnn_tpu_torch.models import SAGEModel, get_model
 from occ_gnn_tpu_torch.models.common import masked_cross_entropy
+from occ_gnn_tpu_torch.parallel.dp import make_dp_train_step
 from occ_gnn_tpu_torch.sampling.neighbor import NeighborSampler
-from occ_gnn_tpu_torch.training import (
-    gather_features,
-    make_eval_step,
-    make_train_step,
-)
+from occ_gnn_tpu_torch.training import gather_features, make_eval_step
 from occ_gnn_tpu_torch.utils.checkpoint import load_checkpoint, params_from_jax
 
 # f32 on the CPU in both packages; products and sums of a few hundred
@@ -97,7 +94,8 @@ def test_adam_steps_match_jax(community_graph, num_steps):
     opt = optax.adam(1e-2)
     opt_state = opt.init(params)
     jstep = jax_train_step(jm, opt)
-    tstep = make_train_step(tm, torch.optim.Adam(tm.parameters(), lr=1e-2))
+    tstep = make_dp_train_step(tm, torch.optim.Adam(tm.parameters(),
+                                                    lr=1e-2))
     js, ts = _samplers(g, seed=2)
     rng = jax.random.PRNGKey(0)
     for _, jb, tb in zip(range(num_steps), js, ts):
