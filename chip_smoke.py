@@ -12,9 +12,9 @@
 3. Holds each kernel against its plain PyTorch version on the card: at the
    three shapes the first batch gives it, then on ragged cases (GAT's
    widths among them). For each case it prints the max abs error, the
-   kernel's time, the plain version's, one ``index_add_`` call's (a
-   yardstick the port never calls) and the least time the card could take
-   (the bound).
+   kernel's time, the plain version's, one ``index_add_`` call's and one
+   ``torch.segment_reduce`` call's (yardsticks the port never calls) and
+   the least time the card could take (the bound).
 4. Checks that the first batch's logits through the kernel equal those of
    a plain forward written here, with the same weights.
 5. Drives ``--mode single`` GraphSAGE training (3 layers, hidden 128,
@@ -44,13 +44,27 @@
    --num-heads 4`` (the JAX package's GAT bench widths): split vs single
    GAT logits, the batched attention's times forward and backward beside
    their byte bounds, 8 steps with one profiled, no kernel launch.
+   The lowerings of ``ops/config.py`` on the same graph: layer 0 under
+   ``OCC_DEVICE_SAMPLE=bitsf32``, ``bitsf32_dk`` and ``window`` (the
+   doubled CSR) held to the sampling contract and timed; the layer-0
+   aggregation under ``OCC_DENSE_AGG=tiled`` bit-equal to the unrolled
+   one, then 3 steps of split A under it; split GAT A's first batch
+   under ``OCC_GAT_ATTENTION=online`` and ``tiled``, ``OCC_GAT_AGG=fma``
+   and ``OCC_GAT_REMAT=dots`` (logits and weight gradients within 1e-4
+   of scale of the batched form's, the attention timed each way), then
+   3 steps of each, ``train_step`` and peak beside batched's.
 9. Split B, 200,000 nodes (depth cut for time, every width kept):
    ``--cache-per 0.25 --innermost host --fan-out 10,10,-1 --save-dir``,
    the refreshing cache with a COO layer 0. Checks the split-vs-single
    logits, that a step launched before a tail write reads the old tail,
    one kernel launch a step and one tail write a step. Then single GAT
    and single GCN on the same graph (3 steps each): 3 launches a step
-   each. Then ``--mode infer`` of split B's checkpoint on the test nodes
+   each. Split B's feed unpacked (``packed=False``): its first batch
+   equal to the packed feed's field by field, then 3 steps (``sample``
+   beside packed's). Single GCN with ``norm="sym"`` (3 steps, the model
+   factory bound to it, as no flag selects it): the first batch's logits
+   against a plain forward written here, the kernel at its three
+   weighted-message shapes, 3 launches a step. Then ``--mode infer`` of split B's checkpoint on the test nodes
    (worst-case capacities, no cache): first its first batch's split
    logits against a plain forward written here with the same weights,
    and the kernel at that batch's layer-0 COO against its plain version;
@@ -77,10 +91,10 @@
    graph, ``--partition-mode round_robin``), two ranks each: equal global
    metrics on every rank, and equal final weights for ddp and quiver;
    ddp 3 launches a step per rank and one step's all-reduced gradient
-   against one process summing the shard batches through the plain
-   forward, at the run's measured capacities; infer one launch a
-   batch per rank, the P = 1 count and at least 99.9 % of its
-   predictions.
+   against one process summing the shard batches through the kernel
+   forward, and that against the plain forward's at the same ReLU masks,
+   at the run's measured capacities; infer one launch a batch per rank,
+   the P = 1 count and at least 99.9 % of its predictions.
 13. Prints the card again, one JSON line of kernel numbers, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -88,13 +102,16 @@ Any failed check raises, so the script exits non-zero and prints no result.
 It also fails when torch sees no CUDA device, and outside the repository.
 ``--num-nodes`` cuts the products graph for a quick run; every width stays.
 ``--ranks N`` sets the ranks of steps 10-12 (default 2): on a machine
-with a card for every rank, the ranks run over NCCL.
+with a card for every rank, the ranks run over NCCL. ``--baselines-only``
+runs step 12 alone (with split B's run and the P = 1 inference it
+needs) and prints no result.
 """
 
 from __future__ import annotations
 
 import argparse
 import copy
+import dataclasses
 import json
 import os
 import statistics
@@ -105,6 +122,7 @@ import time
 from collections import defaultdict
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
+from functools import partial
 
 import numpy as np
 import torch
@@ -120,7 +138,9 @@ from occ_gnn_tpu_torch.data import (
     random_graph,
     save_graph,
 )
-from occ_gnn_tpu_torch.models import get_model
+from occ_gnn_tpu_torch import models as models_pkg
+from occ_gnn_tpu_torch.models import GCNModel, get_model
+from occ_gnn_tpu_torch.ops import config as ops_config
 from occ_gnn_tpu_torch.ops.build import (
     KERNELS,
     build_kernel,
@@ -134,14 +154,17 @@ from occ_gnn_tpu_torch.ops.segment_sum_sorted import (
 from occ_gnn_tpu_torch.parallel import dist
 from occ_gnn_tpu_torch.parallel.dp import make_dp_train_step
 from occ_gnn_tpu_torch.parallel.model import (
+    ATTENTION,
     SplitGAT,
     SplitSAGE,
+    checkpoint_dots,
     dense_attention,
     make_device_csr,
     make_split_forward,
     make_split_train_step,
 )
 from occ_gnn_tpu_torch.parallel.split import (
+    DENSE_TILE,
     local_aggregate_dense,
     reset_shuffle_counts,
     reverse_shuffle,
@@ -154,6 +177,7 @@ from occ_gnn_tpu_torch.sampling.device_sampler import (
     DeviceSampleTrainer,
     sample_neighbors_dense,
 )
+from occ_gnn_tpu_torch.sampling import native as native_mod
 from occ_gnn_tpu_torch.sampling.native import NativeSplitSampler
 from occ_gnn_tpu_torch.sampling.neighbor import (
     NeighborSampler,
@@ -214,7 +238,7 @@ DRAW_CHECKS = 10_000
 # Sorted segment-sum launches a step: one a layer. Single SAGE and GCN
 # sum the messages; GAT (single, and split on its COO layer 0) sums the
 # softmax denominators and the weighted messages as one [p, p * feat].
-SINGLE_LAUNCHES = {"sage": 3, "gcn": 3, "gat": 3}
+SINGLE_LAUNCHES = {"sage": 3, "gcn": 3, "gat": 3, "gcn sym": 3}
 # The P > 1 phases, one process per partition: split A's and split B's
 # flags at --partitions RANKS.
 RANKS = 2
@@ -324,6 +348,14 @@ def kernel_case(label, msgs, edge_dst, n, rate):
         lambda: torch.zeros(n + 1, h, device=msgs.device).index_add_(
             0, dst_long, msgs))
     valid = int((edge_dst < n).sum())
+    # The second yardstick: torch.segment_reduce over the valid rows (the
+    # padding tail sorts last), with each segment's length. Timed between
+    # events, not in a CUDA graph: it is not the port's to make capturable.
+    lengths = torch.bincount(dst_long[:valid], minlength=n)
+    reduce_err = (torch.segment_reduce(msgs[:valid], "sum", lengths=lengths,
+                                       unsafe=True) - ref).abs().max().item()
+    reduce_ms = events_ms(lambda: torch.segment_reduce(
+        msgs[:valid], "sum", lengths=lengths, unsafe=True))
     # Each valid message row and its edge_dst entry read once, out written
     # once; the sum never needs the padding tail (the binary searches probe
     # only log2(E) entries a row). One add per valid element.
@@ -331,10 +363,12 @@ def kernel_case(label, msgs, edge_dst, n, rate):
     ops_ms = valid * h / F32_RATE * 1e3
     print(f"kernel {label}: E={num_edges} valid={valid} D={n} H={h} "
           f"max_abs_err={err:.3g} ms={ms:.4f} plain_ms={plain_ms:.4f} "
-          f"index_add_ms={library_ms:.4f} bound_ms={max(bytes_ms, ops_ms):.4f}"
+          f"index_add_ms={library_ms:.4f} segment_reduce_ms={reduce_ms:.4f}"
+          f" (its error {reduce_err:.3g}) "
+          f"bound_ms={max(bytes_ms, ops_ms):.4f}"
           f" ({'bytes' if bytes_ms >= ops_ms else 'operations'})")
     return dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                bytes_ms=bytes_ms, ops_ms=ops_ms)
+                reduce_ms=reduce_ms, bytes_ms=bytes_ms, ops_ms=ops_ms)
 
 
 def ragged_cases(device):
@@ -375,8 +409,10 @@ def ragged_cases(device):
     yield label, flat[1:].view(msgs.shape), dst, n
 
 
-def plain_forward(model, batch, x0):
-    """SAGE forward written with the plain segment-sum, as a reference."""
+def plain_forward(model, batch, x0, masks=None, pre=None):
+    """SAGE forward written with the plain segment-sum, as a reference.
+    ``masks`` (one bool tensor a hidden layer) stand in for the ReLU's own
+    ``x > 0``; ``pre``, a list, receives the hidden pre-activations."""
     seg_sum = segment_sum_sorted_reference
     x = x0
     for i, blk in enumerate(batch.blocks):
@@ -387,8 +423,23 @@ def plain_forward(model, batch, x0):
         p = model.layer_params(i)
         x = torch.cat([x[:n], neigh], dim=1) @ p["w"] + p["b"]
         if i != len(batch.blocks) - 1:
-            x = torch.relu(x)
+            if pre is not None:
+                pre.append(x.detach())
+            x = x * masks[i] if masks is not None else torch.relu(x)
     return x
+
+
+def kernel_preactivations(model, batch, x0):
+    """The hidden pre-activations of a SAGE model's own forward (through
+    the kernel), layer by layer: bit for bit those its training step
+    sees, as the forward is deterministic."""
+    out, x = [], x0
+    with torch.no_grad():
+        for i, blk in enumerate(batch.blocks[:-1]):
+            x = model.layer(i, blk, x)
+            out.append(x)
+            x = torch.relu(x)
+    return out
 
 
 def graph_args(num_nodes: int, flags: list[str]):
@@ -435,11 +486,13 @@ def events_ms(fn, runs: int = 20) -> float:
 
 
 def check_synthesized_layer(g, fanouts, batch_size, device):
-    """One layer 0 synthesized on the card from the resident CSR, held to
-    the sampling contract: slot 0 is the self row, every other used slot
-    a true neighbour, unused slots the zero row, rows with deg <= fanout
-    the adjacency in order, and owned_deg == take + 1. Returns the native
-    batch, its synthesized layer 0 and the CSR for the op timings."""
+    """One layer 0 synthesized on the card from the resident CSR (the
+    layout ``OCC_DEVICE_SAMPLE`` selects), held to the sampling contract
+    against the graph's own CSR: slot 0 is the self row, every other used
+    slot a true neighbour, unused slots the zero row, rows with deg <=
+    fanout the adjacency in order, and owned_deg == take + 1. Returns the
+    native batch, its synthesized layer 0 and the CSR for the op
+    timings."""
     pmap = np.zeros(g.num_nodes, np.int32)
     nodes = g.train_nodes()
     caps = plan_split_capacities(batch_size, fanouts, g.num_nodes, 1)
@@ -453,7 +506,8 @@ def check_synthesized_layer(g, fanouts, batch_size, device):
     gen = torch.Generator(device).manual_seed(5)
     l0 = batch.layers[0].partition(0)
     syn = synthesize_device_innermost(l0, csr[0], csr[1], gen)
-    indptr, indices = (t.long() for t in csr)
+    indptr, indices = (torch.from_numpy(a).to(device).long()
+                       for a in (g.indptr, g.indices))
     K, N, zero = l0.fanout, g.num_nodes, l0.src_cap - 1
     dg = l0.dst_global.long()
     valid = dg >= 0
@@ -617,8 +671,11 @@ def split_op_times(batch, syn, csr, frames, hidden, rate, device):
     return rows
 
 
-def gat_op_times(batch, syn, frames, args, num_classes, rate, device):
-    """GAT's batched attention (``dense_attention``) at split GAT A's first
+def gat_op_times(batch, syn, frames, args, num_classes, rate, device,
+                 attend=dense_attention, label="dense_attention",
+                 backward_once=False):
+    """GAT's dense attention (``attend``: the batched ``dense_attention``,
+    or another lowering of the same function) at split GAT A's first
     batch's shapes, forward and backward: device ms per call and the byte
     bound (each input read once, each output written once: the nbr matrix,
     the valid leaf rows of x, er and the (m, s, v) partials; the backward
@@ -649,18 +706,30 @@ def gat_op_times(batch, syn, frames, args, num_classes, rate, device):
         wl, w3, er = param(H, heads), param(H, heads, dh), param(D, heads)
         valid = int((nbr != F - 1).sum())
         leaves = 4 * K * D + xb * valid * H
-        add(f"dense_attention fwd, layer {i} (K={K}, D={D}, H={H}, "
+        add(f"{label} fwd, layer {i} (K={K}, D={D}, H={H}, "
             f"heads={heads}, Dh={dh})",
-            lambda: dense_attention(x, nbr, wl, w3, er),
+            lambda: attend(x, nbr, wl, w3, er),
             leaves + 4 * D * heads + 4 * D * heads * (2 + dh))
-        _, s, v = dense_attention(x, nbr, wl, w3, er)
+        fwd_ms = rows[-1][1]
+        _, s, v = attend(x, nbr, wl, w3, er)
         grads = (torch.randn_like(s), torch.randn_like(v))
         inputs = [wl, w3, er] + ([x] if x.requires_grad else [])
         dx = 4 * F * H if x.requires_grad else 0
-        add(f"dense_attention bwd, layer {i}",
-            lambda: torch.autograd.grad((s, v), inputs, grads,
-                                        retain_graph=True),
-            leaves + 4 * D * heads * (1 + dh) + 4 * D * heads + dx)
+        bwd_bytes = leaves + 4 * D * heads * (1 + dh) + 4 * D * heads + dx
+        if backward_once:
+            # A selective checkpoint runs its backward once: time forward
+            # and backward together, and count the forward's time off.
+            ms = events_ms(lambda: torch.autograd.grad(
+                attend(x, nbr, wl, w3, er)[1:], inputs, grads)) - fwd_ms
+            rows.append((f"{label} bwd, layer {i}", ms,
+                         bwd_bytes / rate * 1e3))
+            print(f"  op {label} bwd, layer {i}: ms={ms:.4f} (forward and "
+                  f"backward less the forward) bound_ms="
+                  f"{bwd_bytes / rate * 1e3:.4f} (bytes)")
+        else:
+            add(f"{label} bwd, layer {i}",
+                lambda: torch.autograd.grad((s, v), inputs, grads,
+                                            retain_graph=True), bwd_bytes)
         del s, v, grads
     return rows
 
@@ -813,6 +882,9 @@ def run_split(label, args, g, fanouts, device):
                           and np.isfinite(metrics["acc"])):
         raise AssertionError(f"{label}: no steps or non-finite loss: "
                              f"{metrics}")
+    metrics["medians"] = {phase: statistics.median(each[1:] or each)
+                          for phase, each in timers.each.items()}
+    metrics["peak_gib"] = peak_gib
     return metrics, launches
 
 
@@ -1351,11 +1423,23 @@ def run_quiver(args, g, device) -> dict:
 def ddp_grad_check(ranks, g, args, fanouts, device):
     """One DDP step's all-reduced gradient (lr 0) on the first batch of
     every shard, at the capacities ``train_ddp`` measured (so the kernel
-    runs at the run's shapes), against the gradient of the global mean
-    loss over the same P batches through ``plain_forward`` (the plain
-    segment-sum), summed in one process (rank 0). Returns the largest
-    error relative to each tensor's max |.|, on rank 0 (None on the
-    others)."""
+    runs at the run's shapes), held in one process (rank 0) against the
+    gradient of the global mean loss over the same P batches:
+
+    * ``ddp``: through the model's own forward (the kernel), what the
+      ranks and the collective add;
+    * ``plain``: the kernel forward's against ``plain_forward``'s (the
+      plain segment-sum) with the kernel forward's ReLU masks, what the
+      kernel adds.
+
+    The masks are shared because a ReLU's gradient jumps at 0: the two
+    forwards sum in other orders, so a pre-activation within rounding of
+    0 can take either sign, and the gradient of the layer below then
+    moves by that unit's whole term, far above rounding. ``own masks`` is
+    ``plain_forward`` with its own ReLU, beside the number of
+    pre-activations whose sign differs; it must pass the limit when none
+    does. Each error is relative to each tensor's max |.|. Returns the
+    readings on rank 0 (None on the others) and prints them."""
     P, r = ranks.world_size, ranks.rank
     per_dev = args.batch_size // P
     nodes = g.train_nodes()[: args.limit_train]
@@ -1374,23 +1458,48 @@ def ddp_grad_check(ranks, g, args, fanouts, device):
                       len(fanouts),
                       generator=torch.Generator().manual_seed(args.seed))
     model = model.to(device)
-    ref = copy.deepcopy(model)
+    refs = {key: copy.deepcopy(model) for key in ("ddp", "plain", "own")}
     make_dp_train_step(model, torch.optim.SGD(model.parameters(), lr=0.0),
                        ranks)(*shard_batch(r))
     if r != 0:
         return None
-    nll, count = 0.0, 0
-    for q in range(P):
-        batch, x0 = shard_batch(q)
-        logits = plain_forward(ref, batch, x0)
-        valid = batch.labels >= 0
-        logp = torch.log_softmax(logits, dim=-1)[valid]
-        nll = nll - logp.gather(-1, batch.labels[valid, None].long()).sum()
-        count += int(valid.sum())
-    (nll / count).backward()
-    errs = [(a.grad - b.grad).abs().max().item() / b.grad.abs().max().item()
-            for a, b in zip(model.parameters(), ref.parameters())]
-    return max(errs)
+    batches = [shard_batch(q) for q in range(P)]
+    count = sum(int((b.labels >= 0).sum()) for b, _ in batches)
+    flips = 0
+    for batch, x0 in batches:
+        kernel_pre, own_pre = kernel_preactivations(model, batch, x0), []
+        masks = [a > 0 for a in kernel_pre]
+        for key, m in refs.items():
+            if key == "ddp":
+                logits = m(batch, x0)
+            else:
+                logits = plain_forward(m, batch, x0, masks=(
+                    masks if key == "plain" else None), pre=(
+                    own_pre if key == "own" else None))
+            valid = batch.labels >= 0
+            logp = torch.log_softmax(logits, dim=-1)[valid]
+            (-logp.gather(-1, batch.labels[valid, None].long()).sum()
+             / count).backward()
+        flips += sum(int(((a > 0) != (b > 0)).sum())
+                     for a, b in zip(kernel_pre, own_pre))
+
+    def rel(a, b):
+        return (a.grad - b.grad).abs().max().item() / b.grad.abs().max().item()
+
+    kernel = dict(refs["ddp"].named_parameters())
+    errs = {"ddp": 0.0, "plain": 0.0, "own masks": 0.0}
+    for name, a in model.named_parameters():
+        k = kernel[name]
+        row = {"ddp": rel(a, k),
+               "plain": rel(k, dict(refs["plain"].named_parameters())[name]),
+               "own masks": rel(k, dict(refs["own"].named_parameters())[name])}
+        errs = {key: max(errs[key], v) for key, v in row.items()}
+        print(f"  ddp P{P} gradient {name}: all-reduced vs one process "
+              f"{row['ddp']:.3g}, kernel vs plain {row['plain']:.3g} "
+              f"(own masks {row['own masks']:.3g}) of scale "
+              f"{k.grad.abs().max().item():.3g}", flush=True)
+    errs["flips"] = flips
+    return errs
 
 
 def baseline_rank(rank, world, store, spec, out_dir):
@@ -1483,12 +1592,18 @@ def baseline_rank_phases(phase, root: str, num_ranks: int, infer_ref):
                                      f"{res['launches']} kernel launches for "
                                      f"{steps} steps; expected 3 a step")
         err = results[0]["grad_err"]
-        print(f"  one step's all-reduced gradient vs one process summing the "
-              f"{num_ranks} shard batches: {err:.3g} of each tensor's scale "
-              f"(limit {LOGITS_TOL})")
-        if not err <= LOGITS_TOL:
-            raise AssertionError(f"{label}: all-reduced gradient differs "
-                                 f"from the single-process sum: {err}")
+        print(f"  one step's gradient, one process summing the {num_ranks} "
+              f"shard batches: all-reduced vs the kernel forward "
+              f"{err['ddp']:.3g}, kernel vs plain forward at the kernel's "
+              f"ReLU masks {err['plain']:.3g} of each tensor's scale (limit "
+              f"{LOGITS_TOL}); the plain forward's own masks "
+              f"{err['own masks']:.3g}, {err['flips']} pre-activations of "
+              f"another sign")
+        if not (err["ddp"] <= LOGITS_TOL and err["plain"] <= LOGITS_TOL and (
+                err["flips"] or err["own masks"] <= LOGITS_TOL)):
+            raise AssertionError(f"{label}: the all-reduced gradient "
+                                 f"differs from the single-process sum: "
+                                 f"{err}")
         launches += sum(res["launches"] for res in results)
     label = f"quiver P{num_ranks}"
     with phase(label):
@@ -1594,12 +1709,391 @@ def run_infer_one(g, ck_path, out_dir, rate, device):
     return launches, case, (metrics, np.load(out), flags, batches)
 
 
+@contextmanager
+def patched(obj, name: str, value):
+    """``obj.name`` set to ``value`` inside the block, restored after."""
+    old = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, old)
+
+
+@contextmanager
+def lowering(**impls):
+    """The lowerings of ``ops/config.py`` named by keyword (``dense_agg``,
+    ``device_sample``, ``gat_attention``, ``gat_agg``, ``gat_remat``) set
+    inside the block, and back to what they were after it."""
+    old = {name: getattr(ops_config, f"{name}_impl")() for name in impls}
+    for name, value in impls.items():
+        getattr(ops_config, f"set_{name}_impl")(value)
+    try:
+        yield
+    finally:
+        for name, value in old.items():
+            getattr(ops_config, f"set_{name}_impl")(value)
+
+
+def short_run(flags: list[str]) -> list[str]:
+    """A phase's flags for a 3-step run: no profile, 3 batches."""
+    out = []
+    for f in flags:
+        if out and out[-1] == "--profile-dir":
+            out.pop()
+            continue
+        out.append(f)
+    return out + ["--limit-train", str(3 * 1024)]
+
+
+def run_sample_lowerings(g, args_a, fanouts, rate, device):
+    """Split A's layer 0 under each other ``OCC_DEVICE_SAMPLE`` lowering
+    (``randint`` ran in split A): ``check_synthesized_layer`` holds it to
+    the sampling contract, then the synthesis is timed at that batch's
+    shapes beside the byte bound of split_op_times (``window`` reads K
+    consecutive words of one row a dst in place of K scattered ones; its
+    doubled CSR's bytes are printed). Returns the op rows."""
+    rows = []
+    plain_bytes = 4 * (g.indptr.shape[0] + g.indices.shape[0])
+    for impl in ("bitsf32", "bitsf32_dk", "window"):
+        with lowering(device_sample=impl):
+            print(f"  OCC_DEVICE_SAMPLE={impl}:")
+            batch, syn, csr = check_synthesized_layer(
+                g, fanouts, args_a.batch_size, device)
+            l0 = batch.layers[0].partition(0)
+            D0, O0, K0 = l0.dst_global.shape[0], l0.out_cap, l0.fanout
+            used0 = int((syn.nbr_idx[1:] != l0.src_cap - 1).sum())
+            gen = torch.Generator(device).manual_seed(6)
+            nbytes = 4 * (D0 + 2 * D0 + used0 + (K0 + 1) * D0) + 13 * O0
+            ms = events_ms(lambda: synthesize_device_innermost(
+                l0, csr[0], csr[1], gen))
+            csr_bytes = csr[0].nbytes + csr[1].nbytes
+            name = (f"synthesize_device_innermost {impl} (D={D0}, K={K0}, "
+                    f"CSR {csr[1].csr_layout} {csr_bytes} B, plain "
+                    f"{plain_bytes} B)")
+            rows.append((name, ms, nbytes / rate * 1e3))
+            print(f"  op {name}: ms={ms:.4f} bound_ms="
+                  f"{nbytes / rate * 1e3:.4f} (bytes)")
+            del batch, syn, csr
+    return rows
+
+
+def check_dense_tiled(syn, frames, rate):
+    """``OCC_DENSE_AGG=tiled``: split A's layer-0 aggregation through it
+    must equal the unrolled one bit for bit; its forward is timed beside
+    the byte bound. Returns the op row."""
+    nbr = syn.nbr_idx
+    x = frames[0]
+    K, D = nbr.shape
+    unrolled = local_aggregate_dense(x, nbr)
+    with lowering(dense_agg="tiled"):
+        tiled = local_aggregate_dense(x, nbr)
+        equal = bool(torch.equal(tiled, unrolled))
+        print(f"  OCC_DENSE_AGG=tiled, layer 0 (K={K}, D={D}, tile "
+              f"{DENSE_TILE}): bit-equal to unrolled: {equal}")
+        if not equal:
+            raise AssertionError("tiled dense aggregation differs from the "
+                                 "unrolled one")
+        H, xb = x.shape[1], x.element_size()
+        valid = int((nbr != x.shape[0] - 1).sum())
+        nbytes = 4 * K * D + xb * valid * H + 4 * D * H
+        ms = events_ms(lambda: local_aggregate_dense(x, nbr))
+    name = f"local_aggregate_dense tiled fwd, layer 0 (K={K}, D={D}, H={H})"
+    print(f"  op {name}: ms={ms:.4f} bound_ms="
+          f"{nbytes / rate * 1e3:.4f} (bytes)")
+    return name, ms, nbytes / rate * 1e3
+
+
+def run_dense_tiled(g, fanouts, metrics_a, device):
+    """3 steps of split A through ``train_split`` under
+    ``OCC_DENSE_AGG=tiled``. Returns the launches (0: dense layers)."""
+    args_t = graph_args(g.num_nodes, short_run(SPLIT_A_FLAGS))
+    with lowering(dense_agg="tiled"):
+        metrics, launches = run_split("split A, OCC_DENSE_AGG=tiled",
+                                      args_t, g, fanouts, device)
+    check_dense_run("split A tiled", metrics, launches)
+    print(f"  train_step median {metrics['medians']['train_step']:.2f} ms, "
+          f"peak {metrics['peak_gib']:.3f} GiB, against unrolled's "
+          f"{metrics_a['medians']['train_step']:.2f} ms, "
+          f"{metrics_a['peak_gib']:.3f} GiB (split A)")
+    return launches
+
+
+GAT_VARIANTS = (("online", dict(gat_attention="online")),
+                ("tiled", dict(gat_attention="tiled")),
+                ("fma", dict(gat_agg="fma")),
+                ("remat dots", dict(gat_remat="dots")))
+
+
+def gat_variant_grads(model, layers, frames, labels):
+    """Logits and weight gradients of the masked CE on one batch."""
+    model.zero_grad(set_to_none=True)
+    logits = model.forward_local(layers, frames[0])
+    valid = labels >= 0
+    torch.nn.functional.cross_entropy(logits[valid],
+                                      labels[valid].long()).backward()
+    return logits.detach(), {n: p.grad.clone()
+                             for n, p in model.named_parameters()
+                             if p.grad is not None}
+
+
+def check_gat_variants(g, args_ga, batch, syn, frames, rate, device):
+    """Split GAT A's first batch under each lowering of GAT_VARIANTS: its
+    logits and weight gradients against the batched form's (each error
+    relative to the largest magnitude of the batched tensor, TF32 off),
+    and its layers' attention forward and backward beside their byte
+    bounds. Returns the op rows."""
+    model = split_model(args_ga, g).to(device)
+    layers = [syn] + [lyr.partition(0) for lyr in batch.layers[1:]]
+    labels = batch.labels[0]
+    ref_logits, ref_grads = gat_variant_grads(model, layers, frames, labels)
+
+    def rel(a, b):
+        return (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+
+    rows = []
+    for name, impls in GAT_VARIANTS:
+        with lowering(**impls):
+            logits, grads = gat_variant_grads(model, layers, frames, labels)
+            scale = max(1.0, ref_logits.abs().max().item())
+            lerr = (logits - ref_logits).abs().max().item() / scale
+            gerr = max(rel(grads[n], ref_grads[n]) for n in ref_grads)
+            print(f"  {name}: first batch vs batched: logits {lerr:.3g} "
+                  f"of scale, gradients {gerr:.3g} (limit {LOGITS_TOL})")
+            if not (grads.keys() == ref_grads.keys()
+                    and torch.isfinite(logits).all()
+                    and max(lerr, gerr) <= LOGITS_TOL):
+                raise AssertionError(f"split GAT {name} differs from the "
+                                     f"batched form")
+            del logits, grads
+            attend = ATTENTION[impls.get("gat_attention", "batched")]
+            if impls.get("gat_remat") == "dots":
+                attend = partial(checkpoint_dots, attend)
+            rows += gat_op_times(batch, syn, frames, args_ga, g.num_classes,
+                                 rate, device, attend=attend,
+                                 label=f"GAT attention {name}",
+                                 backward_once="gat_remat" in impls)
+    return rows
+
+
+def run_gat_variants(g, fanouts, metrics_ga, device):
+    """3 steps of split GAT A through ``train_split`` under each lowering
+    of GAT_VARIANTS, with ``train_step`` and the peak beside batched's.
+    Returns the launches (0)."""
+    args_s = graph_args(g.num_nodes, short_run(GAT_A_FLAGS))
+    launches = 0
+    for name, impls in GAT_VARIANTS:
+        with lowering(**impls):
+            metrics, n = run_split(f"split GAT A, {name}", args_s, g,
+                                   fanouts, device)
+        check_dense_run(f"split GAT A {name}", metrics, n)
+        launches += n
+        print(f"  {name}: train_step median "
+              f"{metrics['medians']['train_step']:.2f} ms, peak "
+              f"{metrics['peak_gib']:.3f} GiB; batched "
+              f"{metrics_ga['medians']['train_step']:.2f} ms, "
+              f"{metrics_ga['peak_gib']:.3f} GiB")
+    return launches
+
+
+def sym_coeff(blk):
+    """GCN ``norm="sym"``'s edge weights, written plainly: 1 / sqrt(
+    d_out(u) d_in(v)) with block-local degrees, 0 on padding edges."""
+    ref = segment_sum_sorted_reference
+    n, dst = blk.dst_cap, blk.edge_dst
+    valid = (dst < n).float()[:, None]
+    deg_in = ref(valid, dst, n)[:, 0]
+    deg_out = ref(valid, blk.edge_src, blk.src_cap)[:, 0]
+    return valid[:, 0] * torch.rsqrt(
+        deg_out[blk.edge_src.long()].clamp(min=1.0)
+        * deg_in[dst.clamp(max=n - 1).long()].clamp(min=1.0))
+
+
+def plain_gcn_sym_forward(model, batch, x0):
+    """GCN ``norm="sym"`` written with the plain segment-sum."""
+    x = x0
+    for i, blk in enumerate(batch.blocks):
+        msgs = x[blk.edge_src.long()].float() * sym_coeff(blk)[:, None]
+        p = model.layer_params(i)
+        x = segment_sum_sorted_reference(msgs, blk.edge_dst,
+                                         blk.dst_cap) @ p["w"] + p["b"]
+        if i != len(batch.blocks) - 1:
+            x = torch.relu(x)
+    return x
+
+
+def run_gcn_sym(g, rate, device):
+    """Single GCN with ``norm="sym"`` on split B's graph. No flag selects
+    it (as in JAX), so ``train_single`` runs it with the model factory
+    bound to ``norm="sym"``. First, on the batch the run samples first,
+    its logits through the kernel against ``plain_gcn_sym_forward`` and
+    the kernel at each layer's weighted-message shape; then 3 steps: 3
+    launches a step. Returns the launches and the kernel cases."""
+    args = graph_args(g.num_nodes, SINGLE_B_FLAGS + ["--model-name", "gcn"])
+    fanouts = [int(f) for f in args.fan_out.split(",")]
+    nodes = g.train_nodes()[: args.limit_train]
+    caps = measure_capacities(g, nodes, fanouts, args.batch_size,
+                              seed=args.seed + 99)
+    batch = next(iter(NeighborSampler(g, nodes, fanouts, args.batch_size,
+                                      capacities=caps, seed=args.seed,
+                                      device=device)))
+    x0 = gather_features(g.features, batch.input_nodes, device)
+    model = GCNModel(g.feature_dim, args.num_hidden, g.num_classes,
+                     len(fanouts), norm="sym",
+                     generator=torch.Generator().manual_seed(args.seed))
+    model = model.to(device).eval()
+    with torch.no_grad():
+        logits = model(batch, x0)
+        ref = plain_gcn_sym_forward(model, batch, x0)
+    scale = max(1.0, ref.abs().max().item())
+    err = (logits - ref).abs().max().item()
+    print(f"  first batch: GCN sym logits vs the plain forward: "
+          f"max_abs_err={err:.3g} at scale {scale:.3g} (limit "
+          f"{LOGITS_TOL * scale:.3g})")
+    if not (torch.isfinite(logits).all() and err <= LOGITS_TOL * scale):
+        raise AssertionError("GCN sym logits differ from the plain forward")
+    gen = torch.Generator(device).manual_seed(3)
+    cases = []
+    for i, blk in enumerate(batch.blocks):
+        x = x0 if i == 0 else torch.randn(blk.src_cap, args.num_hidden,
+                                          generator=gen, device=device)
+        msgs = (x[blk.edge_src.long()] * sym_coeff(blk)[:, None]).contiguous()
+        cases.append(kernel_case(f"GCN sym layer {i}", msgs, blk.edge_dst,
+                                 blk.dst_cap, rate))
+    del batch, x0, logits, ref, model
+
+    built, forwards = [], []
+
+    def sym_model(name, *a, **kw):
+        model = get_model(name, *a, norm="sym", **kw)
+        built.append(model)
+        model.register_forward_pre_hook(
+            lambda m, _: forwards.append(m.norm))
+        return model
+
+    with patched(models_pkg, "get_model", sym_model):
+        launches = run_single("gcn sym", args, g, device)
+    steps = launches // SINGLE_LAUNCHES["gcn sym"]
+    if not (len(built) == 1 and len(forwards) >= steps
+            and set(forwards) == {"sym"}):
+        raise AssertionError(f"single GCN sym: the run trained another "
+                             f"model: {len(built)} built, forwards "
+                             f"{forwards} for {steps} steps")
+    return launches, cases
+
+
+class UnpackedNativeSampler(NativeSplitSampler):
+    """The C++ feed with one copy a field (``packed=False``). ``popped``
+    counts the samples it takes off the service unpacked; taking one
+    packed raises."""
+
+    popped = 0
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, packed=False, **kw)
+
+    def _pop_unpacked(self):
+        UnpackedNativeSampler.popped += 1
+        return super()._pop_unpacked()
+
+    def _pop_packed(self):
+        raise AssertionError("the unpacked feed took a packed sample")
+
+
+def run_unpacked(g, metrics_b, device):
+    """Split B's feed unpacked: its first batch against the packed feed's
+    field by field (same seed, capacities and refreshing cache), then 3
+    steps through ``train_split`` on it: one launch and one tail write a
+    step. Returns the launches."""
+    args = graph_args(g.num_nodes, short_run(SPLIT_B_FLAGS))
+    fanouts = [int(f) for f in args.fan_out.split(",")]
+    nodes, bs = g.train_nodes(), args.batch_size
+    pmap = np.zeros(g.num_nodes, np.int32)
+    caps = plan_split_capacities(bs, fanouts, g.num_nodes, 1)
+    batches = []
+    for cls in (NativeSplitSampler, UnpackedNativeSampler):
+        cache = SplitFeatureCache(
+            CachePlan(g, pmap, 1, 0.25, refresh_cap=caps["frame_caps"][0]),
+            device=device)
+        sampler = cls(g, nodes, pmap, 1, fanouts, bs, capacities=caps,
+                      seed=0, cache=cache, device=device)
+        batches.append(sampler.sample_batch(nodes[:bs]))
+        sampler.close()
+        del cache
+    packed, unpacked = batches
+    fields = 0
+    for lp, lu in zip(packed.layers, unpacked.layers):
+        for f in dataclasses.fields(lp):
+            a, b = getattr(lp, f.name), getattr(lu, f.name)
+            same = (torch.equal(a, b) and a.dtype == b.dtype
+                    if isinstance(a, torch.Tensor) else a == b)
+            fields += isinstance(a, torch.Tensor)
+            if not same:
+                raise AssertionError(f"unpacked feed: field {f.name} "
+                                     f"differs from the packed feed's")
+    for f in ("labels", "target_nodes"):
+        if not torch.equal(getattr(packed, f), getattr(unpacked, f)):
+            raise AssertionError(f"unpacked feed: {f} differs")
+        fields += 1
+    print(f"  first batch: {fields} fields equal to the packed feed's")
+    del batches, packed, unpacked
+    UnpackedNativeSampler.popped = 0
+    with patched(native_mod, "NativeSplitSampler", UnpackedNativeSampler):
+        metrics, launches = run_split("split B unpacked", args, g, fanouts,
+                                      device)
+    steps = metrics["steps"]
+    if launches != steps or metrics["tail_batches"] != steps:
+        raise AssertionError(f"split B unpacked: {launches} launches and "
+                             f"{metrics['tail_batches']} tail writes for "
+                             f"{steps} steps")
+    if UnpackedNativeSampler.popped < steps:
+        raise AssertionError(f"split B unpacked: the run took "
+                             f"{UnpackedNativeSampler.popped} unpacked "
+                             f"samples for {steps} steps")
+    print(f"  sample median {metrics['medians']['sample']:.2f} ms unpacked "
+          f"against packed {metrics_b['medians']['sample']:.2f} (split B)")
+    return launches
+
+
+def baselines_only(opts, phase, rate, device) -> int:
+    """``--baselines-only``: step 12 alone at ``--ranks``, with what it
+    needs: the products graph for ddp, and split B's graph, its 8-step
+    run's checkpoint and the P = 1 inference for quiver and infer."""
+    with tempfile.TemporaryDirectory(prefix="occ_smoke_graphs_") as root:
+        with phase("graphs"):
+            args = graph_args(opts.num_nodes, TRAIN_FLAGS)
+            save_graph(random_graph(opts.num_nodes, AVG_DEGREE, FEATURE_DIM,
+                                    num_classes=NUM_CLASSES, seed=args.seed),
+                       root, "products")
+            ck_dir = os.path.join(root, "split_b_checkpoint")
+            args_b = graph_args(SPLIT_B_NODES,
+                                SPLIT_B_FLAGS + ["--save-dir", ck_dir])
+            g_b = random_graph(SPLIT_B_NODES, AVG_DEGREE, FEATURE_DIM,
+                               num_classes=NUM_CLASSES, seed=args_b.seed)
+            save_graph(g_b, root, "split_b")
+        with phase("split B"):
+            run_split("split B", args_b, g_b,
+                      [int(f) for f in args_b.fan_out.split(",")], device)
+        with phase("infer P1"):
+            _, _, infer_ref = run_infer_one(
+                g_b, os.path.join(ck_dir, "split_epoch.npz"), root, rate,
+                device)
+        del g_b
+        launches = baseline_rank_phases(phase, root, opts.ranks, infer_ref)
+    print(f"baselines at P = {opts.ranks}: every check passed, "
+          f"{launches} launches")
+    return 0
+
+
 def main(argv=None) -> int:
     cli = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     cli.add_argument("--num-nodes", type=int, default=PRODUCTS_NODES)
     cli.add_argument("--ranks", type=int, default=RANKS,
                      help="partitions (one process each) of the split P "
                           "phases")
+    cli.add_argument("--baselines-only", action="store_true",
+                     help="run only the ddp, quiver and infer phases at "
+                          "--ranks (and what they need); prints no result")
     opts = cli.parse_args(argv)
     if not torch.cuda.is_available():
         print("error: torch sees no CUDA device; chip_smoke.py runs on a GPU",
@@ -1626,6 +2120,8 @@ def main(argv=None) -> int:
     # 1. Build every kernel and the C++ service from the checkout.
     with phase("build"):
         build_all()
+    if opts.baselines_only:
+        return baselines_only(opts, phase, rate, device)
 
     # 2. The products-scale graph, shared by the single path and split A.
     args = graph_args(opts.num_nodes, TRAIN_FLAGS)
@@ -1710,6 +2206,17 @@ def main(argv=None) -> int:
         check_dense_run("split A", metrics_a, launches_a)
         print_profile(metrics_a["profile"])
 
+    # 8a. Split A's lowerings: the other device samplers, then the tiled
+    # dense aggregation (3 steps).
+    with phase("split A lowerings"):
+        sample_rows = run_sample_lowerings(g, args_a, fan_a, rate, device)
+        frames = SplitFeatureCache(
+            CachePlan(g, np.zeros(g.num_nodes, np.int32), 1, 1.0,
+                      refresh_cap=8), device=device).frames
+        tiled_row = check_dense_tiled(syn, frames, rate)
+        del frames
+        launches_dt = run_dense_tiled(g, fan_a, metrics_a, device)
+
     # 8b. Split GAT A: the same graph and flags with GAT (hidden 32, 4
     # heads): the batched attention on every layer.
     with phase("split GAT A"):
@@ -1717,11 +2224,21 @@ def main(argv=None) -> int:
         cache, _, _, _ = split_vs_single(g, args_ga, 1.0, device)
         gat_rows = gat_op_times(batch, syn, cache.frames, args_ga,
                                 g.num_classes, rate, device)
-        del batch, syn, cache
+        del cache
         metrics_ga, launches_ga = run_split("split GAT A", args_ga, g, fan_a,
                                             device)
         check_dense_run("split GAT A", metrics_ga, launches_ga)
         print_profile(metrics_ga["profile"])
+
+    # 8c. Split GAT A's lowerings: online, tiled, fma and remat dots.
+    with phase("split GAT A lowerings"):
+        frames = SplitFeatureCache(
+            CachePlan(g, np.zeros(g.num_nodes, np.int32), 1, 1.0,
+                      refresh_cap=8), device=device).frames
+        gat_variant_rows = check_gat_variants(g, args_ga, batch, syn, frames,
+                                              rate, device)
+        del batch, syn, frames
+        launches_gv = run_gat_variants(g, fan_a, metrics_ga, device)
     with phase("save graphs"):
         save_graph(g, graphs.name, "products")
     del g
@@ -1758,6 +2275,9 @@ def main(argv=None) -> int:
         if metrics_b["tail_batches"] != steps_b:
             raise AssertionError(f"split B: {metrics_b['tail_batches']} tail "
                                  f"writes for {steps_b} steps")
+    # 9a. Split B's feed unpacked (one copy a field), 3 steps.
+    with phase("split B unpacked"):
+        launches_u = run_unpacked(g_b, metrics_b, device)
 
     # 9b. Single GAT and single GCN on split B's graph, 3 steps each.
     with phase("single GAT and GCN"):
@@ -1768,6 +2288,9 @@ def main(argv=None) -> int:
                        g_b, device)
             for kind, extra in (("gat", GAT_FLAGS),
                                 ("gcn", ["--model-name", "gcn"])))
+    # 9b'. Single GCN with norm="sym": the kernel on the weighted messages.
+    with phase("single GCN sym"):
+        launches_sym, sym_cases = run_gcn_sym(g_b, rate, device)
     # 9c. Inference of split B's checkpoint at P = 1.
     with phase("infer P1"):
         launches_i1, infer_case, infer_ref = run_infer_one(
@@ -1801,6 +2324,19 @@ def main(argv=None) -> int:
           "batched attention once forward and once backward):")
     for op, ms, bound in gat_rows:
         print(f"  {op}: {ms:.4f} ms, bound {bound:.4f} ms")
+    print("lowering op times (split A's and split GAT A's first batch; a "
+          "step runs the synthesis once, the dense aggregation once a layer "
+          "forward, the attention once a layer each way):")
+    for op, ms, bound in sample_rows + [tiled_row] + gat_variant_rows:
+        print(f"  {op}: {ms:.4f} ms, bound {bound:.4f} ms")
+    print(f"kernel at GCN sym's step (3 launches): ms="
+          f"{sum(c['ms'] for c in sym_cases):.4f} bound_ms="
+          f"{sum(max(c['bytes_ms'], c['ops_ms']) for c in sym_cases):.4f} "
+          f"plain_ms={sum(c['plain_ms'] for c in sym_cases):.4f} "
+          f"index_add_ms={sum(c['library_ms'] for c in sym_cases):.4f} "
+          f"segment_reduce_ms={sum(c['reduce_ms'] for c in sym_cases):.4f}")
+    print(f"kernel at single SAGE's step: segment_reduce_ms="
+          f"{total('reduce_ms'):.4f}")
     print("baseline op times (torch ops; pa-cache: the first batch's "
           "frame, once a step; quiver: its first batch, the draw once a "
           "layer, the gather and the layer-0 mean once a step):")
@@ -1829,9 +2365,11 @@ def main(argv=None) -> int:
         "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES,
         "launches": (single_launches + launches_pc + launches_a
-                     + launches_ga + launches_b + launches_sgl + launches_i1
-                     + launches_pb + launches_bl),
+                     + launches_dt + launches_ga + launches_gv + launches_b
+                     + launches_u + launches_sgl + launches_sym
+                     + launches_i1 + launches_pb + launches_bl),
         "max_abs_err": max(c["err"] for c in main_cases + ragged + gat_cases
+                           + sym_cases
                            + [split_case, gat_split_case, infer_case]),
         "ms": total("ms"),
         "plain_ms": total("plain_ms"),

@@ -1,11 +1,14 @@
 """GCN over padded blocks (single-chip path): aggregation with the self loop,
 then a linear map.
 
-The JAX package's ``models/gcn.py`` at its default (and the CLI's)
-``norm="mean"``: the reference prototype's plain mean aggregation, one
-``[E, H]`` message through the sorted segment-sum a layer. The JAX
-package's ``norm="sym"`` is not ported: no flag selects it. Weights are
-``layer_{i}/w`` and ``layer_{i}/b``, as in SAGE.
+The JAX package's ``models/gcn.py`` (``occ_gnn_tpu/models/gcn.py:20-62``).
+``norm="mean"``, its default and the CLI's, is the reference prototype's
+plain mean aggregation; ``norm="sym"`` is the Kipf-Welling symmetric
+normalization with block-local degrees (``ops.segment.spmm_sym``). Either
+sends one ``[E, H]`` f32 message a layer through the sorted segment-sum
+(the kernel on a CUDA tensor). No CLI flag selects ``sym``, as in JAX:
+build ``GCNModel(..., norm="sym")``. Weights are ``layer_{i}/w`` and
+``layer_{i}/b``, as in SAGE, whatever the norm.
 """
 
 from __future__ import annotations
@@ -15,16 +18,20 @@ from torch import nn
 
 from occ_gnn_tpu_torch.models.common import dropout, linear, linear_init
 from occ_gnn_tpu_torch.ops.blocks import Block, SampledBatch
-from occ_gnn_tpu_torch.ops.segment import spmm_mean
+from occ_gnn_tpu_torch.ops.segment import spmm_mean, spmm_sym
 
 
 class GCNModel(nn.Module):
     def __init__(self, in_dim: int, hidden: int, num_classes: int,
                  num_layers: int, dropout: float = 0.0,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 norm: str = "mean"):
         """Weights are drawn on the CPU from ``generator``; move the model
-        with ``.to(device)``."""
+        with ``.to(device)``. ``norm`` is ``"mean"`` or ``"sym"``."""
+        if norm not in ("mean", "sym"):
+            raise ValueError(f"norm must be 'mean' or 'sym', got {norm!r}")
         super().__init__()
+        self.norm = norm
         self.in_dim = in_dim
         self.hidden = hidden
         self.num_classes = num_classes
@@ -41,7 +48,12 @@ class GCNModel(nn.Module):
         return {name: getattr(self, f"layer_{i}/{name}") for name in "wb"}
 
     def layer(self, i: int, block: Block, x: torch.Tensor) -> torch.Tensor:
-        neigh = spmm_mean(x, block.edge_src, block.edge_dst, block.dst_cap)
+        if self.norm == "sym":
+            neigh = spmm_sym(x, block.edge_src, block.edge_dst,
+                             block.dst_cap, block.src_cap)
+        else:
+            neigh = spmm_mean(x, block.edge_src, block.edge_dst,
+                              block.dst_cap)
         return linear(self.layer_params(i), neigh)
 
     def forward(self, batch: SampledBatch, x0: torch.Tensor,

@@ -4,6 +4,7 @@ from occ_gnn_tpu_torch.ops.segment import (
     segment_sum,
     spmm_mean,
     spmm_sum,
+    spmm_sym,
 )
 from occ_gnn_tpu_torch.ops.segment_sum_sorted import segment_sum_sorted
 
@@ -15,4 +16,5 @@ __all__ = [
     "segment_sum_sorted",
     "spmm_sum",
     "spmm_mean",
+    "spmm_sym",
 ]

@@ -5,7 +5,8 @@ The JAX package's ``ops/segment.py``. ``spmm_mean`` is the reference's
 ``score * value`` is its ``attention_gather`` (the GAT models fuse the two
 into one sum, ``models.gat.coo_attention``). ``spmm_sum`` sends 2-D
 messages through the sorted segment-sum kernel, as the JAX ``spmm_sum``
-sends them to its Pallas kernel, and so do the softmax denominators.
+sends them to its Pallas kernel, and so do the softmax denominators and
+``spmm_sym``'s (GCN ``norm="sym"``) weighted messages.
 
 Padding convention: segment ids equal to ``num_segments`` are dropped, so
 padded edges need no masks. ``segment_softmax`` and ``spmm_sum`` take a
@@ -89,6 +90,27 @@ def spmm_sum(x_src: torch.Tensor, edge_src: torch.Tensor,
     if msgs.dim() == 2:
         return segment_sum_sorted(msgs, edge_dst, num_dst)
     return segment_sum(msgs, edge_dst, num_dst)
+
+
+def spmm_sym(x_src: torch.Tensor, edge_src: torch.Tensor,
+             edge_dst: torch.Tensor, num_dst: int,
+             num_src: int) -> torch.Tensor:
+    """Kipf-Welling symmetric normalization over the sampled block (JAX
+    ``ops/segment.py:113-136``): ``out[v] = sum_{(u -> v)} x[u] /
+    sqrt(d_out(u) * d_in(v))``, degrees counted within the block (the
+    sampler's self loops included). The degrees are plain segment sums
+    (padding edges add 0 to ``deg_out`` and land in ``deg_in``'s sink
+    row); the weighted f32 messages go through ``spmm_sum``, so through
+    the sorted segment-sum kernel on a CUDA tensor."""
+    valid = (edge_dst < num_dst).float()
+    deg_in = segment_sum(valid, edge_dst, num_dst)
+    deg_out = segment_sum(valid, edge_src, num_src)
+    safe_dst = edge_dst.clamp(max=num_dst - 1)
+    coeff = valid * torch.rsqrt(
+        deg_out.index_select(0, edge_src).clamp(min=1.0)
+        * deg_in.index_select(0, safe_dst).clamp(min=1.0))
+    return spmm_sum(x_src.float(), edge_src, edge_dst, num_dst,
+                    edge_weight=coeff)
 
 
 def spmm_mean(x_src: torch.Tensor, edge_src: torch.Tensor,

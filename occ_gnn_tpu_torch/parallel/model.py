@@ -17,6 +17,14 @@ every layer that carries ``push_idx``, the loss terms ``[nll, count,
 correct]`` all-reduced before the backward, and one SUM all-reduce of the
 gradients before the optimizer step.
 
+Split GAT's dense attention has the JAX package's lowerings
+(``ops/config.py``): ``OCC_GAT_ATTENTION`` = ``batched``
+(``dense_attention``, with ``OCC_GAT_AGG=fma`` as the other form of its
+weighted sum), ``online`` or ``tiled``, each returning the same partials,
+and ``OCC_GAT_REMAT=dots``, which recomputes the local attention's
+elementwise chain in the backward. ``OCC_DEVICE_SAMPLE=window`` makes
+``make_device_csr`` build the doubled CSR.
+
 Only the feature frame's consumers differentiate: the frame never
 requires grad, so layer 0 builds no ``dx`` (JAX differentiates the
 params only).
@@ -24,11 +32,21 @@ params only).
 
 from __future__ import annotations
 
+import os
+import warnings
+from functools import partial
+
+import numpy as np
 import torch
 import torch.distributed as torch_dist
 from torch import nn
 from torch.nn import functional as F
 from torch.profiler import record_function
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from occ_gnn_tpu_torch.models.common import (
     dropout,
@@ -42,8 +60,16 @@ from occ_gnn_tpu_torch.models.gat import (
     coo_attention,
     register_gat_params,
 )
+from occ_gnn_tpu_torch.ops.config import (
+    device_sample_impl,
+    gat_agg_impl,
+    gat_attention_impl,
+    gat_remat_impl,
+    gat_tile,
+)
 from occ_gnn_tpu_torch.parallel.dist import DistContext, all_reduce_gradients
 from occ_gnn_tpu_torch.parallel.split import (
+    WINDOW_PAD,
     SplitBatch,
     SplitLayer,
     aggregate,
@@ -63,17 +89,45 @@ _SEVERAL_PARTITIONS = ("a batch with several partitions in one process is "
 
 def make_device_csr(graph, device) -> tuple[torch.Tensor, torch.Tensor]:
     """The graph's in-neighbour CSR on ``device`` as int32 ``(indptr,
-    indices)`` for device-innermost sampling (~255 MB at products scale)."""
+    indices)`` for device-innermost sampling (~255 MB at products scale).
+
+    Under ``OCC_DEVICE_SAMPLE=window`` the indices are the doubled layout
+    of JAX ``parallel/model.py:42-89``: each node's adjacency written twice
+    back to back, node i's span at ``[2 * indptr[i], 2 * indptr[i] + 2 *
+    deg_i)``, then ``WINDOW_PAD`` zero words (twice the bytes). The indices
+    tensor carries its layout (``csr_layout``, ``plain`` or ``doubled``),
+    and ``synthesize_device_innermost`` refuses the one its lowering does
+    not read."""
     if graph.num_edges >= 2**31 or graph.num_nodes >= 2**31:
         raise ValueError(
             "device-innermost sampling keeps the CSR on device as int32: "
             f"graph has {graph.num_edges} edges / {graph.num_nodes} nodes "
             "(>= 2^31) — use the host innermost path"
         )
-    return (
-        torch.from_numpy(graph.indptr.astype("int32")).to(device),
-        torch.from_numpy(graph.indices.astype("int32")).to(device),
-    )
+    indptr = np.asarray(graph.indptr)
+    indices = np.asarray(graph.indices, dtype=np.int32)
+    layout = "plain"
+    if device_sample_impl() == "window":
+        E = indices.shape[0]
+        if 2 * E + WINDOW_PAD >= 2**31:
+            raise ValueError(
+                "window device sampling doubles the indices array: "
+                f"2*{E} edges overflows int32 offsets — use "
+                "OCC_DEVICE_SAMPLE=randint for this graph"
+            )
+        deg = np.diff(indptr).astype(np.int64)
+        node = np.repeat(np.arange(deg.shape[0], dtype=np.int64), deg)
+        # Doubled position of edge e: indptr[node_e] + e (== 2 * off +
+        # its place in the row); the second copy deg_e further.
+        first = indptr[:-1].astype(np.int64)[node] + np.arange(
+            E, dtype=np.int64)
+        doubled = np.zeros(2 * E + WINDOW_PAD, dtype=np.int32)
+        doubled[first] = indices
+        doubled[first + deg[node]] = indices
+        indices, layout = doubled, "doubled"
+    indices_t = torch.from_numpy(indices).to(device)
+    indices_t.csr_layout = layout
+    return torch.from_numpy(indptr.astype("int32")).to(device), indices_t
 
 
 def _materialize_layers(layers, csr, generator):
@@ -177,7 +231,10 @@ def dense_attention(x: torch.Tensor, nbr: torch.Tensor, wl: torch.Tensor,
     (``parallel/model.py:294-363``, its default): gather the K leaf rows of
     ``x`` once, score them ``leaky_relu(x_leaf @ wl + er)``, take the exact
     max over K, weight, sum the weighted leaves per head in leaf space, and
-    project per head with ``w3 [H_in, heads, Dh]`` last.
+    project per head with ``w3 [H_in, heads, Dh]`` last. The weighted sum
+    is one batched product, or under ``OCC_GAT_AGG=fma`` an unrolled K-loop
+    of broadcast multiply-adds (JAX ``:345-357``). Above
+    ``OCC_GAT_RESID_WARN_GB`` of estimated residuals it warns, once a shape.
 
     Padding slots read the frame's reserved zero row ``x.shape[0] - 1`` and
     are masked to -inf before the exp, so no inf reaches the backward. The
@@ -185,9 +242,10 @@ def dense_attention(x: torch.Tensor, nbr: torch.Tensor, wl: torch.Tensor,
     v_loc [D, heads, Dh])``; a row with no valid leaf has ``m = -inf`` and
     zero sums. Under bf16 storage the products are taken in f32 on
     bf16-rounded operands, which is what JAX's bf16 dots with f32
-    accumulation compute."""
+    accumulation compute (``fma`` keeps the weights f32, as JAX does)."""
     with record_function("gat_attention_dense"):
         K, D = nbr.shape
+        _warn_residuals(K, D, x, wl.shape[1])
         xg = x.index_select(0, nbr.reshape(-1)).reshape(K, D, -1)
         valid = (nbr != x.shape[0] - 1)[..., None]
         low = x.dtype != torch.float32
@@ -199,10 +257,135 @@ def dense_attention(x: torch.Tensor, nbr: torch.Tensor, wl: torch.Tensor,
         safe = torch.where(torch.isfinite(m_loc), m_loc, 0.0)
         pw = torch.exp((z - safe[None]).masked_fill(~valid, float("-inf")))
         s_loc = pw.sum(dim=0)
-        if low:
-            pw = pw.to(x.dtype).float()
-        agg = torch.einsum("kdc,kdh->dch", pw, xg)
+        if gat_agg_impl() == "fma":
+            agg = pw[0][..., None] * xg[0][:, None, :]
+            for kk in range(1, K):
+                agg = agg + pw[kk][..., None] * xg[kk][:, None, :]
+        else:
+            if low:
+                pw = pw.to(x.dtype).float()
+            agg = torch.einsum("kdc,kdh->dch", pw, xg)
         return m_loc, s_loc, torch.einsum("dch,hco->dco", agg, w3)
+
+
+# Shapes the residual warning has fired for in this process.
+_WARNED_SHAPES: set = set()
+
+
+def _warn_residuals(K: int, D: int, x: torch.Tensor, heads: int) -> None:
+    """JAX's estimate of the batched form's residuals (``model.py:296-321``):
+    the ``[K, D, H_in]`` leaves in the storage dtype and two ``[K, D,
+    heads]`` f32 score tensors; warns above ``OCC_GAT_RESID_WARN_GB``
+    (default 4), once for each shape."""
+    res_gb = K * D * (x.shape[-1] * x.element_size() + 2 * heads * 4) / 1e9
+    shape = (K, D, x.shape[-1], x.dtype, heads)
+    if (res_gb > float(os.environ.get("OCC_GAT_RESID_WARN_GB", "4"))
+            and shape not in _WARNED_SHAPES):
+        _WARNED_SHAPES.add(shape)
+        warnings.warn(
+            f"batched GAT attention materializes ~{res_gb:.1f} GB "
+            "of residuals; if this OOMs, set "
+            "OCC_GAT_ATTENTION=online (flash-style streaming, "
+            "O(D*H) residents)", stacklevel=3)
+
+
+def _online_step(m, s, v, x, idx, w, wl, er_frame):
+    """One k of ``online_attention``: fold leaf row k of every dst into
+    the running (max, sum of exps, weighted values)."""
+    heads, d_out = v.shape[1:]
+    valid = (idx != x.shape[0] - 1)[:, None]
+    xg = x.index_select(0, idx).float()
+    zk = F.leaky_relu(xg @ wl + er_frame, NEGATIVE_SLOPE)
+    m_new = torch.maximum(m, zk.detach().masked_fill(~valid, float("-inf")))
+    safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+    scale = torch.where(torch.isfinite(m), torch.exp(m - safe), 0.0)
+    pk = torch.exp((zk - safe).masked_fill(~valid, float("-inf")))
+    fk = (xg @ w).reshape(-1, heads, d_out)
+    return (m_new, s * scale + pk,
+            v * scale[..., None] + pk[..., None] * fk)
+
+
+def online_attention(x: torch.Tensor, nbr: torch.Tensor, wl: torch.Tensor,
+                     w3: torch.Tensor, er_frame: torch.Tensor):
+    """``dense_attention``'s partials by a flash-style pass over K
+    (``OCC_GAT_ATTENTION=online``, JAX ``parallel/model.py:461-499``): k by
+    k, each dst's leaf row is scored, the running max raised, the running
+    sums rescaled by ``exp(m - m_new)`` and the projected leaf ``x_leaf @
+    W`` added with its weight. Each step runs under ``torch.utils.
+    checkpoint``, as JAX wraps it in ``jax.checkpoint``: autograd keeps the
+    ``(m, s, v)`` carries between steps and recomputes a step's gather and
+    product in the backward. The running max is detached and invalid
+    scores are -inf before the exp, so no inf or nan reaches the backward.
+    Leaves are taken in f32 under bf16 storage (JAX ``:476``)."""
+    with record_function("gat_attention_online"):
+        K, D = nbr.shape
+        H, heads, d_out = w3.shape
+        w = w3.reshape(H, heads * d_out)
+        m = er_frame.new_full((D, heads), float("-inf"))
+        s = er_frame.new_zeros((D, heads))
+        v = er_frame.new_zeros((D, heads, d_out))
+        for kk in range(K):
+            m, s, v = checkpoint(_online_step, m, s, v, x, nbr[kk], w, wl,
+                                 er_frame, use_reentrant=False)
+        return m, s, v
+
+
+def tiled_attention(x: torch.Tensor, nbr: torch.Tensor, wl: torch.Tensor,
+                    w3: torch.Tensor, er_frame: torch.Tensor):
+    """``dense_attention``'s partials over dst tiles of ``OCC_GAT_TILE``
+    rows (``OCC_GAT_ATTENTION=tiled``, JAX ``parallel/model.py:407-459``):
+    per tile one ``[K, T, H]`` leaf gather, the exact softmax over K, then
+    project-then-weight, one ``[T, H] @ [H, heads * Dh]`` product a k
+    added with its softmax weight. Same numerics as the batched form but
+    for the order of the sums."""
+    with record_function("gat_attention_tiled"):
+        T = gat_tile()
+        K, D = nbr.shape
+        H, heads, d_out = w3.shape
+        w3f = w3.reshape(H, heads * d_out)
+        sentinel = x.shape[0] - 1
+        wl_c = wl.to(x.dtype).float() if x.dtype != torch.float32 else wl
+        ms, ss, vs = [], [], []
+        for t0 in range(0, D, T):
+            nbr_t = nbr[:, t0:t0 + T]
+            xg = x.index_select(0, nbr_t.reshape(-1)).reshape(
+                K, nbr_t.shape[1], H).float()
+            valid = (nbr_t != sentinel)[..., None]
+            z = F.leaky_relu(xg @ wl_c + er_frame[None, t0:t0 + T],
+                             NEGATIVE_SLOPE)
+            m = z.detach().masked_fill(~valid, float("-inf")).amax(dim=0)
+            safe = torch.where(torch.isfinite(m), m, 0.0)
+            pw = torch.exp((z - safe[None]).masked_fill(~valid,
+                                                        float("-inf")))
+            v = None
+            for kk in range(K):
+                f = (xg[kk] @ w3f).reshape(-1, heads, d_out)
+                c = pw[kk][..., None] * f
+                v = c if v is None else v + c
+            ms.append(m)
+            ss.append(pw.sum(dim=0))
+            vs.append(v)
+        return torch.cat(ms), torch.cat(ss), torch.cat(vs)
+
+
+ATTENTION = {"batched": dense_attention, "online": online_attention,
+             "tiled": tiled_attention}
+
+
+def _save_products(ctx, op, *args, **kwargs):
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def checkpoint_dots(fn, *args):
+    """``fn(*args)`` under ``OCC_GAT_REMAT=dots`` (JAX's
+    ``dots_with_no_batch_dims_saveable``, ``model.py:501-524``): autograd
+    keeps the outputs of the matrix products (``aten.mm``,
+    ``aten.addmm``) and recomputes the rest of ``fn`` in the backward."""
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=partial(create_selective_checkpoint_contexts,
+                                         _save_products))
 
 
 class SplitGAT(nn.Module):
@@ -215,7 +398,14 @@ class SplitGAT(nn.Module):
 
     Weights as ``models.gat.GATModel``'s. It has no dropout and keeps its
     activations f32, as the JAX trainer builds it (without ``--dropout``
-    or ``--dtype``); a bf16 cache frame still feeds layer 0."""
+    or ``--dtype``); a bf16 cache frame still feeds layer 0.
+
+    A dense layer attends through the lowering ``OCC_GAT_ATTENTION``
+    names (``dense_attention``, ``online_attention``,
+    ``tiled_attention``). Under ``OCC_GAT_REMAT=dots`` the local attention
+    between the two shuffles is recomputed in the backward
+    (``checkpoint_dots``); the shuffles are not, so a step runs the same
+    all-to-alls with or without it."""
 
     def __init__(self, in_dim: int, hidden: int, num_classes: int,
                  num_layers: int, num_heads: int = 4,
@@ -255,12 +445,22 @@ class SplitGAT(nn.Module):
         multi = lyr.push_idx is not None and lyr.push_idx.shape[0] > 1
         if multi:
             er_frame = reverse_shuffle(er_frame, lyr.push_idx, lyr.recv_idx)
-        if lyr.nbr_idx is not None:
-            m_loc, s, v = dense_attention(x, lyr.nbr_idx, wl, w3, er_frame)
+
+        def attend(x, w, attn_l, wl, w3, er_frame):
+            if lyr.nbr_idx is not None:
+                return ATTENTION[gat_attention_impl()](
+                    x, lyr.nbr_idx, wl, w3, er_frame)
+            feat = (x.float() @ w).reshape(-1, k, d_out)
+            return coo_attention(feat, attn_l, lyr.edge_src, lyr.edge_dst,
+                                 er_frame)
+
+        operands = (x, p["w"], p["attn_l"], wl, w3, er_frame)
+        if gat_remat_impl() == "dots":
+            # Only the local attention, between the shuffles: recomputing
+            # an all-to-all in the backward would add exchanges.
+            m_loc, s, v = checkpoint_dots(attend, *operands)
         else:
-            feat = (x.float() @ p["w"]).reshape(-1, k, d_out)
-            m_loc, s, v = coo_attention(feat, p["attn_l"], lyr.edge_src,
-                                        lyr.edge_dst, er_frame)
+            m_loc, s, v = attend(*operands)
         if multi:
             s, v = shuffle_softmax_merge(m_loc, s, v, lyr.push_idx,
                                          lyr.recv_idx)

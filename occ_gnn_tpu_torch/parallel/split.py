@@ -39,9 +39,13 @@ row 0 and is masked, and ``recv_idx`` padding (``dst_cap``) lands in a
 sink row that is sliced off. Index tensors stay int32: ``index_select``
 and ``index_add_`` take them as they are.
 
-Not ported: the ``tiled`` lowering of ``local_aggregate_dense`` and the
-``window`` / ``bitsf32`` / ``bitsf32_dk`` lowerings of the device
-sampler; they are TPU memory and instruction choices.
+Lowerings (``ops/config.py``, as JAX ``occ_gnn_tpu/ops/config.py``):
+``OCC_DENSE_AGG=tiled`` runs ``local_aggregate_dense`` over dst tiles of
+``DENSE_TILE`` rows (JAX ``parallel/split.py:171-190``), with the same
+sums in the same order; ``OCC_DEVICE_SAMPLE`` picks the draws of
+``synthesize_device_innermost`` (JAX ``split.py:200-287``): ``randint``,
+``bitsf32``, ``bitsf32_dk`` or ``window``, the last over the doubled CSR
+of ``parallel/model.make_device_csr``.
 """
 
 from __future__ import annotations
@@ -53,7 +57,15 @@ import torch
 import torch.distributed as dist
 from torch.profiler import record_function
 
+from occ_gnn_tpu_torch.ops.config import dense_agg_impl, device_sample_impl
 from occ_gnn_tpu_torch.ops.segment_sum_sorted import segment_sum_sorted
+
+# Dst rows a tile of the ``tiled`` dense aggregation (JAX ``_DENSE_TILE``).
+DENSE_TILE = 8192
+# Sentinel words after the doubled adjacency of the ``window`` sampler
+# (``parallel/model.make_device_csr``): a K-slice that starts in the last
+# span never leaves the array, which bounds the fanout of that sampler.
+WINDOW_PAD = 1024
 
 _TENSOR_FIELDS = ("edge_src", "edge_dst", "push_idx", "recv_idx",
                   "owned_idx", "owned_deg", "self_idx", "owned_mask",
@@ -141,6 +153,16 @@ def local_aggregate(x: torch.Tensor, edge_src: torch.Tensor,
         return segment_sum_sorted(msgs, edge_dst, dst_cap)
 
 
+def _gather_sum(x: torch.Tensor, nbr: torch.Tensor,
+                out: torch.Tensor | None = None) -> torch.Tensor:
+    """``sum_k x[nbr[k]]`` in f32, k in order, into ``out`` when given."""
+    first = x.index_select(0, nbr[0])
+    acc = first.float() if out is None else out.copy_(first)
+    for k in range(1, nbr.shape[0]):
+        acc.add_(x.index_select(0, nbr[k]))
+    return acc
+
+
 class _DenseAggregate(torch.autograd.Function):
     """``out[d] = sum_k x[nbr[k, d]]`` in f32: K row-gathers, never one
     ``[K, D, H]`` gather. The backward adds ``g`` into one ``dx`` buffer
@@ -150,10 +172,16 @@ class _DenseAggregate(torch.autograd.Function):
     def forward(ctx, x, nbr):
         ctx.save_for_backward(nbr)
         ctx.x_shape, ctx.x_dtype = x.shape, x.dtype
-        acc = x.index_select(0, nbr[0]).float()
-        for k in range(1, nbr.shape[0]):
-            acc.add_(x.index_select(0, nbr[k]))
-        return acc
+        D = nbr.shape[1]
+        if dense_agg_impl() == "tiled" and D > DENSE_TILE:
+            # The same K rows added in the same order, one dst tile at a
+            # time into its slice of the output: equal bit for bit.
+            acc = x.new_empty((D, x.shape[1]), dtype=torch.float32)
+            for t0 in range(0, D, DENSE_TILE):
+                _gather_sum(x, nbr[:, t0:t0 + DENSE_TILE],
+                            acc[t0:t0 + DENSE_TILE])
+            return acc
+        return _gather_sum(x, nbr)
 
     @staticmethod
     @torch.autograd.function.once_differentiable
@@ -168,7 +196,9 @@ class _DenseAggregate(torch.autograd.Function):
 def local_aggregate_dense(x: torch.Tensor, nbr_idx: torch.Tensor):
     """Partial neighbour SUM through the dense ``[K_cap, D_cap]`` neighbour
     matrix; padding slots read the frame's reserved zero row. Returns
-    f32 ``[D_cap, H]``, as ``local_aggregate`` does."""
+    f32 ``[D_cap, H]``, as ``local_aggregate`` does. Under
+    ``OCC_DENSE_AGG=tiled`` a frame of more than ``DENSE_TILE`` dst rows
+    is summed one tile at a time; the backward is the same."""
     with record_function("local_aggregate_dense"):
         return _DenseAggregate.apply(x, nbr_idx)
 
@@ -518,15 +548,26 @@ def synthesize_device_innermost(lyr: SplitLayer, indptr: torch.Tensor,
 
     The same sample the C++ worker would build: the self slot first, then
     all neighbours in adjacency order when deg <= fanout (bit-identical
-    to the host path), else ``fanout`` draws with replacement, uniform
-    over the adjacency row. Needs a replicated identity cache (frame row
-    == global id), so every dst row is owned in rank order and the layer
-    has no shuffle.
+    to the host path, whatever the lowering), else ``fanout`` draws from
+    the adjacency row. Needs a replicated identity cache (frame row ==
+    global id), so every dst row is owned in rank order and the layer has
+    no shuffle. ``indptr`` / ``indices`` come from
+    ``parallel/model.make_device_csr``, whose layout must be the one the
+    lowering reads; another raises ``ValueError``.
 
-    ``torch.randint`` takes one upper bound, not one per dst, so each draw
-    is a 62-bit uniform integer reduced modulo the dst's degree: the
-    modulo bias of a value is below deg / 2^62 (under 1e-12 for any degree
-    below 4 million), far below what any sample can show.
+    The draws at deg > fanout, by ``OCC_DEVICE_SAMPLE``:
+    - ``randint``: K uniform draws with replacement. ``torch.randint``
+      takes one upper bound, not one per dst, so each draw is a 62-bit
+      uniform integer reduced modulo the dst's degree: the modulo bias of
+      a value is below deg / 2^62 (under 1e-12 for any degree below 4
+      million), far below what any sample can show.
+    - ``bitsf32``: K draws of 24 random bits, ``floor(bits / 2^24 *
+      deg)`` in f32, capped at deg - 1: exact for deg < 2^24.
+    - ``bitsf32_dk``: the draws of ``bitsf32`` for the same generator
+      state, the CSR read dst-major and transposed back: the same layer.
+    - ``window``: one uniform start a dst and the K neighbours from it,
+      wrapping around the adjacency through its second copy in the
+      doubled CSR: uniform marginals, no neighbour twice.
     """
     with record_function("synthesize_device_innermost"):
         return _synthesize(lyr, indptr, indices, generator)
@@ -537,19 +578,53 @@ def _synthesize(lyr, indptr, indices, generator):
     K = lyr.fanout
     if K <= 0:
         raise ValueError("device-innermost synthesis needs a bounded fanout")
+    impl = device_sample_impl()
+    want = "doubled" if impl == "window" else "plain"
+    layout = getattr(indices, "csr_layout", None)
+    if layout != want:
+        raise ValueError(
+            f"OCC_DEVICE_SAMPLE={impl} reads the {want} CSR layout, but the "
+            f"indices given are {layout or 'untagged'}: build the CSR with "
+            "make_device_csr under the same OCC_DEVICE_SAMPLE")
+    if impl == "window" and K > WINDOW_PAD:
+        raise ValueError(f"window sampling pads the doubled CSR by "
+                         f"{WINDOW_PAD}; fanout {K} would slice past it")
+    D = dg.shape[0]
     valid = dg >= 0
     g = dg.clamp(min=0)
     off = indptr.index_select(0, g)
     deg = torch.where(valid, indptr.index_select(0, g + 1) - off, 0)
     take = deg.clamp(max=K)
     kr = torch.arange(K, device=dg.device)[:, None]
-    draws = torch.randint(0, 2**62, (K, dg.shape[0]), generator=generator,
-                          device=dg.device) % deg.clamp(min=1)[None, :]
-    sel = torch.where(deg[None, :] > K, draws, kr)
-    # Slots k >= take are masked below; clamp keeps their reads in range
-    # (JAX clamps the same gather silently).
-    pos = (off[None, :] + sel).clamp_(max=indices.shape[0] - 1)
-    src = indices[pos]
+    if impl == "window":
+        # Node g's doubled span starts at 2 * off. deg <= K: the slice at
+        # the span start is the adjacency in order (slots >= take read on
+        # and are masked below); deg > K: the window [start, start + K)
+        # runs into the second copy. WINDOW_PAD keeps it in the array.
+        start = (torch.randint(0, 2**62, (D,), generator=generator,
+                               device=dg.device) % deg.clamp(min=1))
+        base = 2 * off + torch.where(deg > K, start, 0)
+        src = indices[base[None, :] + kr]
+    else:
+        if impl == "randint":
+            draws = (torch.randint(0, 2**62, (K, D), generator=generator,
+                                   device=dg.device)
+                     % deg.clamp(min=1)[None, :])
+        else:
+            bits = torch.randint(0, 1 << 24, (K, D), generator=generator,
+                                 device=dg.device)
+            u = bits.float() * (1.0 / (1 << 24))
+            draws = torch.minimum(
+                torch.floor(u * deg.float()[None, :]).long(),
+                (deg - 1).clamp(min=0)[None, :])
+        sel = torch.where(deg[None, :] > K, draws, kr)
+        # Slots k >= take are masked below; clamp keeps their reads in
+        # range (JAX clamps the same gather silently).
+        last = indices.shape[0] - 1
+        if impl == "bitsf32_dk":
+            src = indices[(off[:, None] + sel.T).clamp_(max=last)].T
+        else:
+            src = indices[(off[None, :] + sel).clamp_(max=last)]
     zero_row = lyr.src_cap - 1  # reserved zero row of the cache frame
     nbr_main = torch.where(kr < take[None, :], src, zero_row)
     return _finish_innermost(lyr, g, valid, take, nbr_main)

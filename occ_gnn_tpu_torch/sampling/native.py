@@ -27,8 +27,12 @@ rank draws the same batch and reaches the same verdict); the arena, the
 unpack and the tail buffers are sized by the emitted rows. The refresh
 list stays all-P: cache-tail bookkeeping is global.
 
-Not ported: the unpacked path (``packed=False``, one transfer per field);
-ROADMAP.md lists it.
+Unpacked transfer (``packed=False``, JAX ``sampling/native.py:392-433``
+and ``:634-712``): the service writes each field into its own pinned host
+buffer, in the same order as the arena's fields, and each crosses to the
+device in its own non-blocking copy; every buffer goes back to its own
+pool under the same event rule. The refresh list stays on the host. Both
+feeds deliver equal batches, and both apply cache tails at delivery.
 """
 
 from __future__ import annotations
@@ -130,6 +134,11 @@ _ERRORS = {
 }
 
 
+# Host dtype of a field of each kind in the unpacked feed.
+_FIELD_DTYPES = {"i32": torch.int32, "f32": torch.float32,
+                 "u8": torch.uint8}
+
+
 class _BufferPool:
     """Host buffers of one shape for copies to ``device``: pinned when the
     device is CUDA, and reused only after the copies made from them have
@@ -184,11 +193,13 @@ class NativeSplitSampler:
         emit_input: bool | None = None,
         innermost: str = "host",
         emit_range: tuple[int, int] | None = None,
+        packed: bool = True,
         *,
         device: torch.device | str,
     ):
         """``emit_range=(lo, hi)`` emits only partitions ``[lo, hi)``
-        (this process's rows); None emits all P."""
+        (this process's rows); None emits all P. ``packed=False`` moves
+        each field to the device in its own copy instead of one arena."""
         self.graph = graph
         self.device = torch.device(device)
         self.train_nodes = np.asarray(train_nodes, dtype=np.int64)
@@ -374,8 +385,17 @@ class NativeSplitSampler:
         self._next_deliver_seq = 0
         self._reorder: dict[int, SplitBatch | _SlicerError] = {}
         self._build_layout()
-        self._arena_pool = _BufferPool((self._arena_words,), torch.int32,
-                                       self.device)
+        self.packed = packed
+        if packed:
+            self._arena_pool = _BufferPool((self._arena_words,), torch.int32,
+                                           self.device)
+        else:
+            # One pool a field but the refresh list, which stays on the
+            # host; the mask is one byte an entry.
+            self._field_pools = {
+                key: _BufferPool(shape, _FIELD_DTYPES[kind], self.device)
+                for key, (_, shape, kind) in self._layout.items()
+                if key != ("refresh", None)}
         self._labels_dev = torch.from_numpy(
             graph.labels.astype(np.int32)).to(self.device)
 
@@ -427,8 +447,9 @@ class NativeSplitSampler:
         are parked until their turn."""
         want = self._next_deliver_seq
         self._next_deliver_seq += 1
+        pop = self._pop_packed if self.packed else self._pop_unpacked
         while want not in self._reorder:
-            seq, batch = self._pop_packed()
+            seq, batch = pop()
             self._reorder[seq] = batch
         batch = self._reorder.pop(want)
         if isinstance(batch, _SlicerError):
@@ -495,28 +516,30 @@ class NativeSplitSampler:
         off, shape, _ = self._layout[(name, None)]
         return arena[off : off + int(np.prod(shape))].reshape(shape).copy()
 
-    def _unpack(self, arena: torch.Tensor) -> SplitBatch:
-        """Typed views of the device arena; the mask bytes become bool and
-        the labels are looked up from the resident label table."""
+    def _arena_field(self, arena: torch.Tensor, name: str, l):
+        """Field ``(name, l)`` as a typed view of the device arena (the
+        mask bytes as bool), None when the layout has no such field."""
+        if (name, l) not in self._layout:
+            return None
+        off, shape, kind = self._layout[(name, l)]
+        count = int(np.prod(shape))
+        if kind == "i32":
+            return arena[off : off + count].view(shape)
+        if kind == "f32":
+            return arena[off : off + count].view(torch.float32).view(shape)
+        words = -(-count // 4)
+        by = arena[off : off + words].view(torch.uint8)[:count]
+        return (by != 0).view(shape)
+
+    def _unpack(self, field) -> SplitBatch:
+        """The batch from ``field(name, l)``, each field's typed device
+        tensor (None when not emitted); the labels are looked up from the
+        resident label table."""
         caps = self.caps
         L = len(self.fanouts)
         src_cap0 = (self.cache_plan.frame_cap
                     if self.cache_plan is not None
                     else caps["frame_caps"][0])
-
-        def field(name, l):
-            if (name, l) not in self._layout:
-                return None
-            off, shape, kind = self._layout[(name, l)]
-            count = int(np.prod(shape))
-            if kind == "i32":
-                return arena[off : off + count].view(shape)
-            if kind == "f32":
-                return arena[off : off + count].view(torch.float32).view(shape)
-            words = -(-count // 4)
-            by = arena[off : off + words].view(torch.uint8)[:count]
-            return (by != 0).view(shape)
-
         layers = []
         for l in range(L):
             if l == 0 and self.device_innermost:
@@ -580,9 +603,51 @@ class NativeSplitSampler:
         refresh = self._host_field(host, "refresh")
         input_host = (self._host_field(host, "input_nodes")
                       if self.emit_input else None)
-        batch = self._unpack(arena.to(self.device, non_blocking=True))
+        dev = arena.to(self.device, non_blocking=True)
+        batch = self._unpack(lambda name, l: self._arena_field(dev, name, l))
         if self._arena_pool.cuda:
             self._arena_pool.put(arena)
+        batch.input_nodes_host = input_host
+        batch._refresh_nodes = refresh
+        if tail_buf is not None:
+            batch._tail_feats = tail_buf
+        return seq.value, batch
+
+    def _pop_unpacked(self):
+        """One sample into a pinned buffer a field (the pointers in the
+        layout's order, which is JAX's), one non-blocking copy a field."""
+        bufs = {key: pool.get() for key, pool in self._field_pools.items()}
+        refresh = np.empty(self._layout[("refresh", None)][1], np.int32)
+        ptrs = [refresh.ctypes.data if key == ("refresh", None)
+                else bufs[key].data_ptr() for key in self._layout]
+        tail_buf = None
+        if self.gather_tail:
+            tail_buf = self._tail_pool.get()
+            ptrs.append(tail_buf.data_ptr())
+        arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
+        seq = ctypes.c_int64(-1)
+        err = self._lib.occ_next(self._handle, arr, ctypes.byref(seq))
+        if err != 0:
+            for key, buf in bufs.items():
+                self._field_pools[key].put(buf)
+            if tail_buf is not None:
+                self._tail_pool.put(tail_buf)
+            return seq.value, _SlicerError(err)
+        input_host = (bufs[("input_nodes", None)].numpy().copy()
+                      if self.emit_input else None)
+        dev = {key: buf.to(self.device, non_blocking=True)
+               for key, buf in bufs.items()}
+        for key, buf in bufs.items():
+            if self._field_pools[key].cuda:
+                self._field_pools[key].put(buf)
+
+        def field(name, l):
+            t = dev.get((name, l))
+            if t is None or t.dtype != torch.uint8:
+                return t
+            return t != 0
+
+        batch = self._unpack(field)
         batch.input_nodes_host = input_host
         batch._refresh_nodes = refresh
         if tail_buf is not None:

@@ -10,7 +10,8 @@ The rank functions below compute one rank's part of a sliced P-way batch:
 ``shuffle_rank`` the boundary shuffle and its gradient, ``gat_shuffle_rank``
 GAT's two shuffles and their gradients, ``split_rank`` the logits, loss,
 gradients and all-to-all counts of a step with lr 0, ``adam_rank`` the
-weights after Adam steps. ``ddp_rank`` and ``quiver_rank`` run one step of
+weights after Adam steps, ``gat_variant_rank`` split_rank of GAT under
+each attention lowering. ``ddp_rank`` and ``quiver_rank`` run one step of
 the data-parallel and quiver baselines on this rank's shard.
 """
 
@@ -270,3 +271,16 @@ def quiver_rank(ranks, setup, state, lr):
         g.train_nodes())))
     return dict(loss=float(loss), correct=int(correct), count=int(count),
                 weights={n: _numpy(p) for n, p in model.named_parameters()})
+
+
+def gat_variant_rank(ranks, setup, state, variants):
+    """``split_rank`` of GAT under each ``(attention, remat)`` lowering of
+    ``variants`` (``ops/config.py``), in one process group."""
+    from occ_gnn_tpu_torch.ops import config
+
+    out = {}
+    for attention, remat in variants:
+        config.set_gat_attention_impl(attention)
+        config.set_gat_remat_impl(remat)
+        out[attention, remat] = split_rank(ranks, setup, "gat", state)
+    return out
