@@ -18,8 +18,10 @@ single-chip GraphSAGE):
                          (csrc/occ_sampler.cpp, built with g++)
     single-chip step     occ_gnn_tpu_torch.training, models.sage
     padded block ops     occ_gnn_tpu_torch.ops.{blocks,segment}
-    Hopper kernel        occ_gnn_tpu_torch.ops.segment_sum_sorted
-                         (csrc/segment_sum_sorted.cu, built with nvcc)
+    Hopper kernel        occ_gnn_tpu_torch.ops.segment_sum_sorted:
+                         segment_sum_sorted and the fused gather,
+                         gather_segment_sum (csrc/segment_sum_sorted.cu,
+                         built with nvcc)
     host sampler         occ_gnn_tpu_torch.sampling.neighbor
     dataset layer        occ_gnn_tpu_torch.data.{graph,binary_format,synthetic}
     profile summary      occ_gnn_tpu_torch.utils.profile

@@ -6,10 +6,14 @@ from occ_gnn_tpu_torch.ops.segment import (
     spmm_sum,
     spmm_sym,
 )
-from occ_gnn_tpu_torch.ops.segment_sum_sorted import segment_sum_sorted
+from occ_gnn_tpu_torch.ops.segment_sum_sorted import (
+    gather_segment_sum,
+    segment_sum_sorted,
+)
 
 __all__ = [
     "Block",
+    "gather_segment_sum",
     "SampledBatch",
     "segment_sum",
     "segment_mean",

@@ -3,10 +3,12 @@
 The JAX package's ``ops/segment.py``. ``spmm_mean`` is the reference's
 ``update_all(copy_u, mean)``; ``segment_softmax`` followed by a sum of
 ``score * value`` is its ``attention_gather`` (the GAT models fuse the two
-into one sum, ``models.gat.coo_attention``). ``spmm_sum`` sends 2-D
-messages through the sorted segment-sum kernel, as the JAX ``spmm_sum``
-sends them to its Pallas kernel, and so do the softmax denominators and
-``spmm_sym``'s (GCN ``norm="sym"``) weighted messages.
+into one sum, ``models.gat.coo_attention``). ``spmm_sum`` sends 2-D rows
+through the fused gather and sorted segment-sum kernel
+(``gather_segment_sum``), as the JAX ``spmm_sum`` sends its messages to
+its Pallas kernel, and so do ``spmm_mean`` and ``spmm_sym`` (GCN
+``norm="sym"``, with its edge weights); the softmax denominators go
+through the messages' entry, ``segment_sum_sorted``.
 
 Padding convention: segment ids equal to ``num_segments`` are dropped, so
 padded edges need no masks. ``segment_softmax`` and ``spmm_sum`` take a
@@ -18,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from occ_gnn_tpu_torch.ops.segment_sum_sorted import (
+    gather_segment_sum,
     segment_sum_sorted,
     segment_sum_sorted_reference,
 )
@@ -82,13 +85,16 @@ def spmm_sum(x_src: torch.Tensor, edge_src: torch.Tensor,
 
     Padding edges have ``edge_src == 0``, a valid row: the gather stays in
     range (torch raises on an out-of-range index where JAX clamps), and the
-    segment-sum drops their messages by ``edge_dst``. The gather is an
-    ``index_select``, whose backward is an ``index_add_``."""
+    segment-sum drops them by ``edge_dst``. 2-D rows (f32 or bf16) go to
+    ``gather_segment_sum``, which reads ``x[u]`` inside the kernel and sums
+    in f32, so the result is f32 whatever the frame's type. Rows of higher
+    rank take an ``index_select`` and the plain segment-sum."""
+    if x_src.dim() == 2:
+        return gather_segment_sum(x_src, edge_src, edge_dst, num_dst,
+                                  edge_weight)
     msgs = x_src.index_select(0, edge_src)
     if edge_weight is not None:
         msgs = msgs * edge_weight.reshape((-1,) + (1,) * (msgs.dim() - 1))
-    if msgs.dim() == 2:
-        return segment_sum_sorted(msgs, edge_dst, num_dst)
     return segment_sum(msgs, edge_dst, num_dst)
 
 
@@ -100,8 +106,9 @@ def spmm_sym(x_src: torch.Tensor, edge_src: torch.Tensor,
     sqrt(d_out(u) * d_in(v))``, degrees counted within the block (the
     sampler's self loops included). The degrees are plain segment sums
     (padding edges add 0 to ``deg_out`` and land in ``deg_in``'s sink
-    row); the weighted f32 messages go through ``spmm_sum``, so through
-    the sorted segment-sum kernel on a CUDA tensor."""
+    row); the weighted sum goes through ``spmm_sum``, so through the fused
+    gather kernel on a CUDA tensor, which reads the frame in its own type
+    and sums in f32."""
     valid = (edge_dst < num_dst).float()
     deg_in = segment_sum(valid, edge_dst, num_dst)
     deg_out = segment_sum(valid, edge_src, num_src)
@@ -109,15 +116,15 @@ def spmm_sym(x_src: torch.Tensor, edge_src: torch.Tensor,
     coeff = valid * torch.rsqrt(
         deg_out.index_select(0, edge_src).clamp(min=1.0)
         * deg_in.index_select(0, safe_dst).clamp(min=1.0))
-    return spmm_sum(x_src.float(), edge_src, edge_dst, num_dst,
-                    edge_weight=coeff)
+    return spmm_sum(x_src, edge_src, edge_dst, num_dst, edge_weight=coeff)
 
 
 def spmm_mean(x_src: torch.Tensor, edge_src: torch.Tensor,
               edge_dst: torch.Tensor, num_dst: int) -> torch.Tensor:
     """Mean over valid in-edges; zero-degree rows give 0. Accumulates in f32
-    whatever the input dtype."""
-    total = spmm_sum(x_src.float(), edge_src, edge_dst, num_dst)
+    whatever the input dtype (the fused kernel reads a bf16 frame as it
+    is)."""
+    total = spmm_sum(x_src, edge_src, edge_dst, num_dst)
     ones = torch.ones(edge_dst.shape[:1], dtype=torch.float32,
                       device=edge_dst.device)
     count = segment_sum(ones, edge_dst, num_dst)

@@ -58,7 +58,7 @@ import torch.distributed as dist
 from torch.profiler import record_function
 
 from occ_gnn_tpu_torch.ops.config import dense_agg_impl, device_sample_impl
-from occ_gnn_tpu_torch.ops.segment_sum_sorted import segment_sum_sorted
+from occ_gnn_tpu_torch.ops.segment_sum_sorted import gather_segment_sum
 
 # Dst rows a tile of the ``tiled`` dense aggregation (JAX ``_DENSE_TILE``).
 DENSE_TILE = 8192
@@ -146,11 +146,11 @@ def count_layer_edges(lyr: SplitLayer, per_partition: bool = False):
 def local_aggregate(x: torch.Tensor, edge_src: torch.Tensor,
                     edge_dst: torch.Tensor, dst_cap: int) -> torch.Tensor:
     """Partial neighbour SUM over this partition's COO, accumulated in f32
-    by the sorted segment-sum (the Hopper kernel on a CUDA tensor).
-    Padding edges read row 0 and are dropped by ``edge_dst == dst_cap``."""
+    by the fused gather and sorted segment-sum (the Hopper kernel on a CUDA
+    tensor, which reads the frame's rows in its own type). Padding edges
+    are dropped by ``edge_dst == dst_cap``."""
     with record_function("local_aggregate"):
-        msgs = x.index_select(0, edge_src).float()
-        return segment_sum_sorted(msgs, edge_dst, dst_cap)
+        return gather_segment_sum(x, edge_src, edge_dst, dst_cap)
 
 
 def _gather_sum(x: torch.Tensor, nbr: torch.Tensor,

@@ -123,6 +123,36 @@ def test_spmm_sum_and_mean_match_jax(use_pallas):
     np.testing.assert_allclose(tmean.numpy(), np.asarray(jmean), **TOL)
 
 
+# bf16 keeps 8 significant bits (unit roundoff u = 2^-9). JAX's spmm_sum
+# adds a bf16 frame's rows in bf16 and the port in f32, so they differ by
+# JAX's rounding: for a row of k adds, at most (k + 1) * u times the sum of
+# the terms' magnitudes (the bound of recursive summation, the last
+# rounding of the result included), element by element.
+BF16_UNIT = 2.0**-9
+
+
+def test_spmm_sum_and_mean_on_a_bf16_frame_match_jax():
+    x, src, dst = _case(2000, 256, 48, 300, 2304, seed=9)
+    xb = jnp.asarray(x).astype(jnp.bfloat16)
+    x_same = np.array(xb.astype(jnp.float32))
+    xt = torch.from_numpy(x_same).to(torch.bfloat16)
+    st, dt = torch.from_numpy(src), torch.from_numpy(dst)
+    jsum = np.asarray(jseg.spmm_sum(xb, jnp.asarray(src), jnp.asarray(dst),
+                                    256), np.float32)
+    tsum = tseg.spmm_sum(xt, st, dt, 256)
+    assert tsum.dtype == torch.float32
+    magnitude = np.zeros((257, 48), np.float64)
+    np.add.at(magnitude, dst, np.abs(x_same[src]))
+    adds = np.bincount(dst, minlength=257)[:256, None]
+    bound = (adds + 1) * BF16_UNIT * magnitude[:256]
+    assert (np.abs(tsum.numpy() - jsum) <= bound).all()
+    # spmm_mean upcasts the frame first in JAX too: the same f32 sums.
+    jmean = jseg.spmm_mean(xb, jnp.asarray(src), jnp.asarray(dst), 256)
+    tmean = tseg.spmm_mean(xt, st, dt, 256)
+    np.testing.assert_allclose(tmean.numpy(), np.asarray(jmean), **TOL)
+    assert torch.equal(tmean, tseg.spmm_mean(xt.float(), st, dt, 256))
+
+
 def test_segment_sum_and_mean_match_jax():
     """The plain ops also take unsorted ids and rows of any rank."""
     rng = np.random.default_rng(8)
