@@ -79,22 +79,35 @@
    then the run, one launch a batch.
 10. Split P2: split A's flags at ``--partitions 2 --partition-mode
    round_robin`` (metis took 109-123 s a rank on the products graph on
-   the H100 host), two ranks spawned as the CLI's launcher spawns them,
-   each running ``train_split`` on the products graph (saved once in the
-   binary format and loaded by each rank): NCCL when there are two
-   cards, else both ranks on ``cuda:0`` over gloo. Checks equal global
-   metrics on both ranks, 2 shuffles forward and 2 backward a step, and
-   that one raw sample's P = 2 logits, loss and gradients equal P = 1's
-   on the card.
+   the H100 host), placed as the CLI's launcher places them: one process
+   holding both partitions on one card (one process per card on a
+   machine with more), its exchange a copy in device memory with no
+   collective. Checks 2 exchanges forward and 2 backward a step per
+   partition, and that one raw sample's P = 2 logits of each local
+   partition, the loss and the gradients equal P = 1's on the card.
 11. Split P2-B: split B's flags at ``--partitions 2 --partition-mode
-   metis``: the cache tails refresh per rank, layer 0 is COO through the
-   kernel (one launch per rank a step) and shuffles forward only (3
-   forward, 2 backward a step). Split GAT P2-B: the same with GAT, whose
-   layers each run the reverse shuffle and the softmax merge both ways
-   (6 forward, 6 backward a step), and the two shuffles' times at the
-   run's own capacities. Both with the P = 2 vs P = 1 check of split P2
-   (the P = 2 sample sliced at the capacities the run trained at), each
-   rank's refreshing frame against the frame of every node.
+   metis``, 3 steps: the cache tails refresh per partition, layer 0 is
+   COO through the kernel (one launch per partition a step) and shuffles
+   forward only (3 forward, 2 backward a step). Split GAT P2-B: the same
+   with GAT, whose layers each run the reverse shuffle and the softmax
+   merge both ways (6 forward, 6 backward a step), and the two shuffles'
+   times at the run's own capacities. Both with the P vs P = 1 check of
+   split P2 (the P = 2 sample sliced at the capacities the run trained
+   at). Split P2-B gloo: the same run as two ``--distributed`` processes
+   of one partition on one card over gloo: its global loss within 1e-5 of
+   scale of the one-process run's, its accuracy equal, and the two
+   exchanges' times a call side by side (CUDA events in one process, the
+   host clock over gloo).
+   Split P4-B local: split B at ``--partitions 4`` in one process (8
+   steps, one profiled, a checkpoint): the P vs P = 1 check, 4 fused
+   launches a step, the exchange's device time a call, and both kernel
+   entries at its layer 0 against their plain versions. Split GAT P4-B
+   local (3 steps, 4 launches of the messages' entry a step). Infer P4
+   local of that checkpoint against infer P1 of it (99.9 % of the
+   predictions). Then ``occ_gnn_tpu_torch.entry``: ``entry()``'s forward
+   on the card and ``dryrun_multichip(4)`` (three finite losses). On a
+   machine with several cards, split P(2N)-B over NCCL: N = ``--ranks``
+   processes of 2 partitions, held against P = 1.
 12. DDP P2 (the products graph), quiver P2 and infer P2 (split B's
    graph, ``--partition-mode round_robin``), two ranks each: equal global
    metrics on every rank, and equal final weights for ddp and quiver;
@@ -110,10 +123,13 @@
 Any failed check raises, so the script exits non-zero and prints no result.
 It also fails when torch sees no CUDA device, and outside the repository.
 ``--num-nodes`` cuts the products graph for a quick run; every width stays.
-``--ranks N`` sets the ranks of steps 10-12 (default 2): on a machine
-with a card for every rank, the ranks run over NCCL. ``--baselines-only``
+``--ranks N`` sets the processes of step 12 (default 2) and of the NCCL
+phase of step 11, which runs on a machine with several cards and stops
+when it has fewer than N; on a machine with a card for every rank, the
+ranks run over NCCL. ``--baselines-only``
 runs step 12 alone (with split B's run and the P = 1 inference it
-needs) and prints no result.
+needs) and prints no result; ``--split-nccl-only`` runs the NCCL phase
+of step 11 alone (on several cards) and prints no result.
 """
 
 from __future__ import annotations
@@ -178,10 +194,12 @@ from occ_gnn_tpu_torch.parallel.model import (
 )
 from occ_gnn_tpu_torch.parallel.split import (
     DENSE_TILE,
+    collective_count,
     local_aggregate_dense,
     reset_shuffle_counts,
     reverse_shuffle,
     shuffle_counts,
+    shuffle_merge,
     shuffle_softmax_merge,
     slice_owned,
     synthesize_device_innermost,
@@ -233,6 +251,8 @@ GAT_A_FLAGS = ["--mode", "split", "--cache-per", "auto", "--fan-out",
                "chiprun_out/split_gat_a_profile"] + COMMON_FLAGS + GAT_FLAGS
 # The single-chip GAT and GCN phases run 3 steps each on split B's graph.
 SINGLE_B_FLAGS = TRAIN_FLAGS + ["--limit-train", "3072"]
+# 3 steps of a batch of 1024 (the flags after COMMON_FLAGS win).
+SHORT = ["--limit-train", "3072"]
 # The baselines at the single path's widths: pa-cache and quiver on the
 # products graph, ddp at --partitions RANKS on it, quiver at RANKS on
 # split B's graph.
@@ -257,8 +277,8 @@ ENTRIES = {MSGS: segment_sum_sorted, FUSED: gather_segment_sum}
 # the weighted messages as one [p, p * feat] through the messages' entry.
 SINGLE_LAUNCHES = {"sage": 3, "gcn": 3, "gat": 3, "gcn sym": 3}
 SINGLE_ENTRY = {"sage": FUSED, "gcn": FUSED, "gat": MSGS, "gcn sym": FUSED}
-# The P > 1 phases, one process per partition: split A's and split B's
-# flags at --partitions RANKS.
+# The baselines' P > 1 phases, one process per shard, and the NCCL split
+# phase's processes.
 RANKS = 2
 # metis on the products graph took 109.12 s and 122.57 s a rank in two
 # runs on the H100 host (both ranks at once); above 120 s the products
@@ -888,18 +908,31 @@ def gat_op_times(batch, syn, frames, args, num_classes, rate, device,
     return rows
 
 
+def host_ms(fn, device, runs: int = 10) -> float:
+    """Mean host time of one call over ``runs`` calls, the device drained
+    before and after (a gloo all-to-all blocks the host)."""
+    fn()
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    for _ in range(runs):
+        fn()
+    torch.cuda.synchronize(device)
+    return 1e3 * (time.perf_counter() - t0) / runs
+
+
 def gat_shuffle_times(batch, args, num_classes, rate, backend, device,
                       runs: int = 10) -> list:
     """``reverse_shuffle`` and ``shuffle_softmax_merge``, forward and
-    backward, at one P > 1 batch's shapes on this rank (sliced at the
-    capacities the run trained at): host ms per call (the gloo all-to-all
-    blocks the host), every rank in the same order. The bound is the
-    larger of the device bytes of the op's inputs and outputs (frames,
-    partials, gradients, index tensors), each once, over the memory rate,
-    and the link's: over gloo, the host copies of the all-to-all's buffer
-    (sent to the host and received from it, the two directions
-    overlapped) over PCIE_RATE, leaving out gloo's exchange through host
-    memory; over NCCL, the chunks for the other ranks over NVLINK_RATE."""
+    backward, at one P > 1 batch's shapes in this process (its L
+    partitions, sliced at the capacities the run trained at): host ms per
+    call (a gloo all-to-all blocks the host), every process in the same
+    order. The bound is the larger of the device bytes of the op's inputs
+    and outputs (frames, partials, gradients, index tensors), each once,
+    over the memory rate, and the link's: over gloo, the host copies of
+    the all-to-all's buffer (sent to the host and received from it, the
+    two directions overlapped) over PCIE_RATE, leaving out gloo's exchange
+    through host memory; over NCCL, the chunks for the other processes
+    over NVLINK_RATE; in one process there is no link."""
     gen = torch.Generator(device).manual_seed(9)
     heads, hidden = args.num_heads, args.num_hidden
     link, link_rate = (("NVLink", NVLINK_RATE) if backend == "nccl"
@@ -907,61 +940,79 @@ def gat_shuffle_times(batch, args, num_classes, rate, backend, device,
     outs = [hidden] * (len(batch.layers) - 1) + [num_classes]
     rows = []
 
-    def timed(fn):
-        fn()
-        torch.cuda.synchronize(device)
-        t0 = time.perf_counter()
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize(device)
-        return 1e3 * (time.perf_counter() - t0) / runs
-
     def rand(*shape, grad=False):
         return torch.randn(*shape, generator=gen, device=device
                            ).requires_grad_(grad)
 
     for i, lyr in enumerate(batch.layers):
-        lp = lyr.partition(0)
-        push, recv = lp.push_idx, lp.recv_idx
-        D, dh = lp.dst_cap, outs[i]
-        P = push.shape[0]
+        push, recv = lyr.push_idx, lyr.recv_idx
+        L, P = push.shape[:2]
+        D, dh = lyr.dst_cap, outs[i]
+        W = P // L
         # Rows of the all-to-all buffer the link carries: all of them to
-        # and from the host, the other ranks' chunks over NVLink.
-        link_rows = push.numel() * ((P - 1) / P if backend == "nccl" else 1)
+        # and from the host, the other processes' chunks over NVLink.
+        link_rows = (0 if W == 1 else
+                     push.numel() * ((W - 1) / W if backend == "nccl" else 1))
         idx = 2 * 4 * push.numel()
-        frame = rand(D, heads, grad=True)
+        frame = rand(L, D, heads, grad=True)
         er = reverse_shuffle(frame, push, recv)
         g_er = torch.randn_like(er)
-        m = rand(D, heads)
-        s = rand(D, heads, grad=True)
-        v = rand(D, heads, dh, grad=True)
+        m = rand(L, D, heads)
+        s = rand(L, D, heads, grad=True)
+        v = rand(L, D, heads, dh, grad=True)
         so, vo = shuffle_softmax_merge(m, s, v, push, recv)
         g_sv = (torch.randn_like(so), torch.randn_like(vo))
-        sv = 4 * D * heads * (1 + dh)
-        # The all-to-all buffer [P * S, width] f32: er's heads; (m, s, v)
-        # forward, (s, v) backward.
+        sv = 4 * L * D * heads * (1 + dh)
+        # The all-to-all buffer [L * P * S, width] f32: er's heads;
+        # (m, s, v) forward, (s, v) backward.
         for name, fn, nbytes, width in (
                 ("reverse_shuffle fwd",
                  lambda: reverse_shuffle(frame, push, recv),
-                 idx + 2 * 4 * D * heads, heads),
+                 idx + 2 * 4 * L * D * heads, heads),
                 ("reverse_shuffle bwd",
                  lambda: torch.autograd.grad(er, frame, g_er,
                                              retain_graph=True),
-                 idx + 2 * 4 * D * heads, heads),
+                 idx + 2 * 4 * L * D * heads, heads),
                 ("shuffle_softmax_merge fwd",
                  lambda: shuffle_softmax_merge(m, s, v, push, recv),
-                 idx + 4 * D * heads + 2 * sv, heads * (2 + dh)),
+                 idx + 4 * L * D * heads + 2 * sv, heads * (2 + dh)),
                 ("shuffle_softmax_merge bwd",
                  lambda: torch.autograd.grad((so, vo), (s, v), g_sv,
                                              retain_graph=True),
-                 idx + 2 * sv + 4 * (D + push.numel()) * heads,
+                 idx + 2 * sv + 4 * (L * D + push.numel()) * heads,
                  heads * (1 + dh))):
             device_ms = 1e3 * nbytes / rate
             link_ms = 1e3 * 4 * link_rows * width / link_rate
-            rows.append((f"{name}, layer {i} (P={P}, S={push.shape[1]}, "
-                         f"D={D}, heads={heads}, Dh={dh})",
-                         timed(fn), max(device_ms, link_ms),
+            rows.append((f"{name}, layer {i} (P={P}, L={L}, "
+                         f"S={push.shape[2]}, D={D}, heads={heads}, "
+                         f"Dh={dh})", host_ms(fn, device, runs),
+                         max(device_ms, link_ms),
                          link if link_ms >= device_ms else "bytes"))
+    return rows
+
+
+def exchange_times(batch, hidden: int, feature_dim: int, grouped: bool,
+                   device) -> list:
+    """``shuffle_merge`` forward, one call, at each shuffled layer of one
+    P > 1 batch of this process (its L partitions' partial sums, random):
+    device ms per call between CUDA events in a run of one process, where
+    the exchange is a copy in device memory; host ms across processes,
+    where the all-to-all blocks the host (gloo) or the device (NCCL)."""
+    gen = torch.Generator(device).manual_seed(11)
+    rows = []
+    for i, lyr in enumerate(batch.layers):
+        if lyr.push_idx is None:
+            continue
+        L, P, S = lyr.push_idx.shape
+        h = feature_dim if i == 0 else hidden
+        neigh = torch.randn(L, lyr.dst_cap, h, generator=gen, device=device)
+
+        def fn():
+            return shuffle_merge(neigh, lyr.push_idx, lyr.recv_idx)
+
+        ms = host_ms(fn, device) if grouped else events_ms(fn)
+        rows.append(dict(layer=i, P=P, L=L, S=S, D=lyr.dst_cap, H=h, ms=ms,
+                         clock="host" if grouped else "CUDA events"))
     return rows
 
 
@@ -1042,23 +1093,24 @@ def run_split(label, args, g, fanouts, device):
 
 def check_vs_one_partition(ranks, g, args, fanouts, cache_pct, caps2,
                            device):
-    """One raw sample of the numpy SplitSampler sliced at P (this rank's
-    row, its partition map, the capacities ``caps2`` the run trained at)
-    and at P = 1, with the same weights of the flags' model (SAGE or GAT):
-    this rank's owned logits, the global loss and every all-reduced
-    gradient against the P = 1 computation, and whether all are finite.
-    Returns the errors and this rank's P batch. At P the rank holds its
-    own frame under the phase's ``cache_pct`` (static rows plus the tail
-    this sample writes when the cache refreshes); at P = 1 the frame holds
+    """One raw sample of the numpy SplitSampler sliced at P (this
+    process's rows ``[lo, hi)``, its partition map, the capacities
+    ``caps2`` the run trained at) and at P = 1, with the same weights of
+    the flags' model (SAGE or GAT): each local partition's owned logits,
+    the global loss and every all-reduced gradient against the P = 1
+    computation, and whether all are finite. Returns the errors and this
+    process's P batch. At P the process holds its partitions' frames
+    under the phase's ``cache_pct`` (static rows plus the tail this
+    sample writes when the cache refreshes); at P = 1 the frame holds
     every node. Each error is relative to the largest magnitude of the
     P = 1 tensor it is held to."""
-    r, P = ranks.rank, ranks.world_size
+    lo, hi, P = ranks.lo, ranks.hi, ranks.num_partitions
     pmap, nodes, bs = g.partition_map, g.train_nodes(), args.batch_size
     cache2 = SplitFeatureCache(
         CachePlan(g, pmap, P, cache_pct, refresh_cap=caps2["frame_caps"][0]),
-        device=device, partitions=(r, r + 1))
+        device=device, partitions=(lo, hi))
     s2 = SplitSampler(g, nodes, pmap, P, fanouts, bs, seed=0, cache=cache2,
-                      capacities=caps2, emit_range=(r, r + 1), device=device)
+                      capacities=caps2, emit_range=(lo, hi), device=device)
     raw = s2._sample_raw(nodes[:bs])
     b2 = s2.slice_raw(raw)
     zeros = np.zeros(g.num_nodes, np.int32)
@@ -1069,27 +1121,31 @@ def check_vs_one_partition(ranks, g, args, fanouts, cache_pct, caps2,
                       device=device)
     b1 = s1.slice_raw(raw)
     x2 = cache2.frames
-    x1 = (x2 if cache2.plan.replicated
+    x1 = (x2[:1] if cache2.plan.replicated
           else SplitFeatureCache(plan1, device=device).frames)
     m2 = split_model(args, g).to(device)
     m1 = copy.deepcopy(m2)
-    logits2 = make_split_forward(m2, ranks=ranks)(b2, x2)[0]
+    logits2 = make_split_forward(m2, ranks=ranks)(b2, x2)
     logits1 = make_split_forward(m1)(b1, x1)[0]
     loss2, _, count = make_split_train_step(
         m2, torch.optim.SGD(m2.parameters(), lr=0.0), ranks=ranks)(b2, x2)
     loss1, _, _ = make_split_train_step(
         m1, torch.optim.SGD(m1.parameters(), lr=0.0))(b1, x1)
-    rows = np.nonzero(pmap[raw[0].frontier] == r)[0]
-    ref = logits1[torch.from_numpy(rows).to(device)]
-    got = logits2[: rows.shape[0]]
 
     def rel(a, b):
         err = (a - b).abs().max().item()
         scale = b.abs().max().item()
         return err / scale if scale > 0 else err
 
-    check = dict(targets=int(rows.shape[0]), count=int(count),
-                 logits_err=rel(got, ref), loss_err=rel(loss2, loss1),
+    owners = pmap[raw[0].frontier]
+    targets, logits_err = 0, 0.0
+    for j, p in enumerate(range(lo, hi)):
+        rows = np.nonzero(owners == p)[0]
+        targets += int(rows.shape[0])
+        ref = logits1[torch.from_numpy(rows).to(device)]
+        logits_err = max(logits_err, rel(logits2[j, : rows.shape[0]], ref))
+    check = dict(targets=targets, count=int(count), logits_err=logits_err,
+                 loss_err=rel(loss2, loss1),
                  grad_err=max(rel(p2.grad, p1.grad) for p2, p1 in
                               zip(m2.parameters(), m1.parameters())),
                  all_finite=bool(torch.isfinite(logits2).all() and all(
@@ -1097,133 +1153,207 @@ def check_vs_one_partition(ranks, g, args, fanouts, cache_pct, caps2,
     return check, b2
 
 
+def split_process(ranks, spec) -> dict:
+    """What one process of a P > 1 phase measures, with the placement
+    ``ranks`` (``[lo, hi)`` of P): loads the saved graph and drives
+    ``train_split`` with the counts set to 0 just before and read just
+    after; then ``check_vs_one_partition`` under the phase's cache, the
+    exchange's time a call at the batch's shapes and, for GAT, the two
+    GAT shuffles' times. JSON-ready."""
+    device = ranks.device
+    args = build_argparser().parse_args(
+        ["--graph", spec["name"], "--data-root", spec["root"]]
+        + spec["flags"])
+    fanouts = [int(f) for f in args.fan_out.split(",")]
+    g = load_graph(spec["root"], spec["name"])
+    timers = StepTimers()
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launches()
+    reset_shuffle_counts()
+    metrics = train_split(args, g, fanouts, timers, device,
+                          ranks=ranks if ranks.grouped else None)
+    out = dict(rank=ranks.rank, local=[ranks.lo, ranks.hi], metrics=metrics,
+               edge_cut=edge_cut_fraction(g, g.partition_map),
+               launches=dict(read_launches()), shuffles=shuffle_counts(),
+               collectives=collective_count(),
+               peak_gib=torch.cuda.max_memory_allocated(device) / 2**30,
+               phase_lines=phase_lines(timers, metrics["steps"]),
+               medians={phase: statistics.median(each[1:] or each)
+                        for phase, each in timers.each.items()},
+               step_starts=timers.starts["train_step"])
+    out["check"], b2 = check_vs_one_partition(
+        ranks, g, args, fanouts, metrics["cache_pct"], metrics["capacities"],
+        device)
+    out["exchange"] = exchange_times(b2, args.num_hidden, g.feature_dim,
+                                     ranks.grouped, device)
+    if args.model_name == "gat":
+        out["shuffle_ops"] = gat_shuffle_times(
+            b2, args, g.num_classes,
+            memory_rate(torch.cuda.get_device_name(device)),
+            ranks.backend, device)
+    if spec.get("kernel_cases"):
+        # Both entries at the first local partition's COO layer 0.
+        lyr = b2.layers[0].partition(0)
+        frame = SplitFeatureCache(
+            CachePlan(g, g.partition_map, ranks.num_partitions,
+                      metrics["cache_pct"],
+                      refresh_cap=metrics["capacities"]["frame_caps"][0]),
+            device=device, partitions=(ranks.lo, ranks.lo + 1)).frames[0]
+        out["kernel_cases"] = kernel_cases(
+            f"{spec['label']} layer 0, partition {ranks.lo}", frame,
+            lyr.edge_src, lyr.edge_dst, lyr.dst_cap,
+            memory_rate(torch.cuda.get_device_name(device)))
+    return out
+
+
 def split_rank(rank, world, store, spec, out_dir):
-    """One rank of a P > 1 phase, as the CLI's launcher runs it: joins
-    the process group, loads the saved graph, and drives ``train_split``
-    with the counts set to 0 just before and read just after; then
-    ``check_vs_one_partition`` under the phase's cache and, for GAT, the
-    two GAT shuffles' times. Writes what it measured to
+    """One process of a P > 1 phase with several processes, as the CLI's
+    launcher runs it: joins the process group holding ``spec["local"]``
+    partitions, runs ``split_process`` and writes what it measured to
     ``out_dir/rank{r}.json``."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    ranks = dist.init_distributed(store, world, rank, cpu=False)
+    ranks = dist.init_distributed(store, world, rank, cpu=False,
+                                  local=spec["local"])
     try:
-        device = ranks.device
-        args = build_argparser().parse_args(
-            ["--graph", spec["name"], "--data-root", spec["root"]]
-            + spec["flags"])
-        fanouts = [int(f) for f in args.fan_out.split(",")]
-        g = load_graph(spec["root"], spec["name"])
-        timers = StepTimers()
-        torch.cuda.synchronize(device)
-        torch.cuda.reset_peak_memory_stats(device)
-        reset_launches()
-        reset_shuffle_counts()
-        metrics = train_split(args, g, fanouts, timers, device, ranks=ranks)
-        out = dict(rank=rank, metrics=metrics,
-                   edge_cut=edge_cut_fraction(g, g.partition_map),
-                   launches=read_launches(),
-                   shuffles=shuffle_counts(),
-                   peak_gib=torch.cuda.max_memory_allocated(device) / 2**30,
-                   phase_lines=phase_lines(timers, metrics["steps"]))
-        out["check"], b2 = check_vs_one_partition(
-            ranks, g, args, fanouts, metrics["cache_pct"],
-            metrics["capacities"], device)
-        if args.model_name == "gat":
-            out["shuffle_ops"] = gat_shuffle_times(
-                b2, args, g.num_classes,
-                memory_rate(torch.cuda.get_device_name(device)),
-                ranks.backend, device)
+        out = split_process(ranks, spec)
     finally:
         dist.close(ranks)
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
 
 
-def run_ranks(label, num_ranks, name, root, flags, shuffles_per_step):
-    """Spawn the ranks of a P > 1 phase and hold what they report: equal
-    global loss and accuracy, ``shuffles_per_step`` (forward, backward)
-    all-to-alls a step, and each rank's P vs P = 1 errors."""
-    spec = dict(name=name, root=root, flags=flags)
-    with tempfile.TemporaryDirectory(prefix="occ_smoke_ranks_") as out_dir:
-        dist.spawn(split_rank, num_ranks, spec, out_dir,
-                   timeout=RANK_TIMEOUT_S)
-        results = []
-        for r in range(num_ranks):
-            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
-                results.append(json.load(f))
+def run_ranks(label, num_procs, local, name, root, flags, shuffles_per_step,
+              kernel=False):
+    """Run a P > 1 phase as ``num_procs`` processes of ``local`` partitions
+    each: in this process when there is one (no process group), else
+    spawned. Holds what they report: equal global loss and accuracy,
+    ``shuffles_per_step`` (forward, backward) exchanges a step per
+    partition, the collectives the processes issued (none in one
+    process), and each process's P vs P = 1 errors."""
+    spec = dict(name=name, root=root, flags=flags, local=local, label=label,
+                kernel_cases=kernel)
+    P = num_procs * local
+    if num_procs == 1:
+        results = [json.loads(json.dumps(split_process(
+            dist.single_process(P, torch.device("cuda", 0)), spec)))]
+    else:
+        with tempfile.TemporaryDirectory(prefix="occ_smoke_ranks_") as out:
+            dist.spawn(split_rank, num_procs, spec, out,
+                       timeout=RANK_TIMEOUT_S)
+            results = []
+            for r in range(num_procs):
+                with open(os.path.join(out, f"rank{r}.json")) as f:
+                    results.append(json.load(f))
     backends = {res["metrics"]["backend"] for res in results}
-    print(f"{label}: {num_ranks} ranks, partition mode "
-          f"{flags[flags.index('--partition-mode') + 1]} (edge cut "
-          f"{results[0]['edge_cut']:.4f}), backend {', '.join(backends)}, "
-          f"{torch.cuda.device_count()} card(s)"
-          + ("" if "nccl" in backends else
-             " (the ranks share cuda:0; wall times are no scaling numbers)"))
+    shared = "nccl" not in backends and num_procs > 1
+    print(f"{label}: {P} partitions, {num_procs} process(es) of {local}, "
+          f"partition mode {flags[flags.index('--partition-mode') + 1]} "
+          f"(edge cut {results[0]['edge_cut']:.4f}), backend "
+          f"{', '.join(backends)}, {torch.cuda.device_count()} card(s)"
+          + (" (the processes share cuda:0; wall times are no scaling "
+             "numbers)" if shared else ""))
     fwd, bwd = shuffles_per_step
     for res in results:
         m, sh = res["metrics"], res["shuffles"]
         steps = m["steps"]
-        print(f"  rank {res['rank']}: {steps} steps, global loss "
-              f"{m['loss']:.6f}, acc {m['acc']:.6f}, cache {m['cache_pct']:.4f},"
-              f" innermost {m['innermost']}, replans {m['replans']}, tail "
-              f"writes {m['tail_batches']}, {launch_text(res['launches'])}, "
-              f"peak device memory {res['peak_gib']:.3f} GiB")
-        print(f"  rank {res['rank']}: shuffles forward {sh['forward']} "
+        who = f"  rank {res['rank']} [{res['local'][0]}, {res['local'][1]})"
+        print(f"{who}: {steps} steps, global loss {m['loss']:.6f}, acc "
+              f"{m['acc']:.6f}, cache {m['cache_pct']:.4f}, innermost "
+              f"{m['innermost']}, replans {m['replans']}, tail writes "
+              f"{m['tail_batches']}, {launch_text(res['launches'])}, peak "
+              f"device memory {res['peak_gib']:.3f} GiB")
+        print(f"{who}: exchanges per partition forward {sh['forward']} "
               f"({sh['forward'] / max(steps, 1):g} a step), backward "
               f"{sh['backward']} ({sh['backward'] / max(steps, 1):g} a "
-              f"step), bytes sent {sh['bytes_sent']} "
+              f"step), bytes sent per partition {sh['bytes_sent']} "
               f"({sh['bytes_sent'] / max(steps, 1):.0f} a step), "
-              f"shuffle_caps {m['capacities']['shuffle_caps']}")
+              f"collectives issued {res['collectives']}, shuffle_caps "
+              f"{m['capacities']['shuffle_caps']}")
         phases = m["phases"]
-        print(f"  rank {res['rank']}: C++ service per batch: cxx_sample "
+        print(f"{who}: C++ service per batch: cxx_sample "
               f"{1e3 * phases.get('cxx_sample', float('nan')):.2f} ms, "
               f"cxx_slice {1e3 * phases.get('cxx_slice', float('nan')):.2f}"
               f" ms")
         for line in res["phase_lines"]:
-            print(f"  rank {res['rank']}: {line}")
+            print(f"{who}: {line}")
         if steps == 0 or not (np.isfinite(m["loss"])
                               and np.isfinite(m["acc"])):
             raise AssertionError(f"{label}: no steps or non-finite loss: {m}")
         if (sh["forward"], sh["backward"]) != (fwd * steps, bwd * steps):
             raise AssertionError(f"{label}: rank {res['rank']} ran {sh} "
-                                 f"shuffles in {steps} steps; expected "
+                                 f"exchanges in {steps} steps; expected "
                                  f"{fwd} forward and {bwd} backward a step")
+        issued = (fwd + bwd) * steps if num_procs > 1 else 0
+        if res["collectives"] < issued or (num_procs == 1
+                                           and res["collectives"]):
+            raise AssertionError(f"{label}: rank {res['rank']} issued "
+                                 f"{res['collectives']} collectives in "
+                                 f"{steps} steps over {num_procs} "
+                                 f"process(es)")
         c = res["check"]
-        print(f"  rank {res['rank']}: P = {num_ranks} vs P = 1, one raw "
-              f"sample ({c['targets']} owned targets of {c['count']}): "
-              f"logits {c['logits_err']:.3g}, loss {c['loss_err']:.3g}, "
-              f"gradients {c['grad_err']:.3g} of each tensor's scale "
-              f"(limit {LOGITS_TOL})")
+        print(f"{who}: P = {P} vs P = 1, one raw sample ({c['targets']} "
+              f"owned targets of {c['count']}): logits "
+              f"{c['logits_err']:.3g}, loss {c['loss_err']:.3g}, gradients "
+              f"{c['grad_err']:.3g} of each tensor's scale (limit "
+              f"{LOGITS_TOL})")
         if not (c["all_finite"] and max(c["logits_err"], c["loss_err"],
                                         c["grad_err"]) <= LOGITS_TOL):
-            raise AssertionError(f"{label}: P = {num_ranks} differs from "
-                                 f"P = 1 on rank {res['rank']}: {c}")
+            raise AssertionError(f"{label}: P = {P} differs from P = 1 on "
+                                 f"rank {res['rank']}: {c}")
+        for e in res["exchange"]:
+            print(f"{who}: exchange (shuffle_merge fwd) layer {e['layer']} "
+                  f"(P={e['P']}, L={e['L']}, S={e['S']}, D={e['D']}, "
+                  f"H={e['H']}): {e['ms']:.4f} ms a call ({e['clock']})")
         for op, ms, bound, by in res.get("shuffle_ops", []):
-            print(f"  rank {res['rank']}: op {op}: ms={ms:.4f} (host clock) "
+            print(f"{who}: op {op}: ms={ms:.4f} (host clock) "
                   f"bound_ms={bound:.4f} ({by})")
     agreed = {(res["metrics"]["loss"], res["metrics"]["acc"],
                res["metrics"]["steps"]) for res in results}
     if len(agreed) != 1:
-        raise AssertionError(f"{label}: the ranks report different global "
-                             f"metrics: {agreed}")
+        raise AssertionError(f"{label}: the processes report different "
+                             f"global metrics: {agreed}")
     return results
 
 
-def rank_phases(phase, root: str, num_ranks: int):
-    """Split P, split P-B and split GAT P-B: split A's and split B's flags
-    (the latter with SAGE and with GAT) at ``num_ranks`` partitions, on the
-    graphs saved under ``root``. Returns the kernel's launches by entry
-    over every rank of the two P-B phases, and rank 0's GAT shuffle
-    times."""
-    def parts(mode):
-        return ["--partitions", str(num_ranks), "--partition-mode", mode]
+def launcher_processes(P: int) -> int:
+    """The processes the CLI's one-host launcher starts for P partitions
+    on this machine's cards."""
+    return dist.placement(P, cpu=False, cpu_devices=8)[1]
 
-    label = f"split P{num_ranks}"
+
+def expect_local_launches(label, results, entry, per_partition_step):
+    """Each process launched ``entry`` once per local partition a step
+    (the COO layer 0); returns the launches over every process."""
+    launches = Counter()
+    for res in results:
+        m = res["metrics"]
+        local = res["local"][1] - res["local"][0]
+        expect_launches(f"{label}: rank {res['rank']}", res["launches"],
+                        entry, per_partition_step * local * m["steps"],
+                        f"{m['steps']} steps of {local} partitions")
+        launches += Counter(res["launches"])
+    return launches
+
+
+def rank_phases(phase, root: str, P: int = 2):
+    """Split P, split P-B and split GAT P-B: split A's and split B's flags
+    (the latter with SAGE and with GAT) at ``P`` partitions, on the graphs
+    saved under ``root``, placed as the CLI's launcher places them (one
+    process holding both on one card). Split B's two run 3 steps. Returns
+    the kernel's launches by entry over the P-B phases, rank 0's GAT
+    shuffle times and the P-B run's results."""
+    def parts(mode):
+        return ["--partitions", str(P), "--partition-mode", mode]
+
+    W = launcher_processes(P)
+    label = f"split P{P}"
     with phase(label):
         flags = [f for f in SPLIT_A_FLAGS if f not in (
             "--profile-dir", "chiprun_out/split_a_profile")]
         flags += parts(PRODUCTS_PARTITION_MODE)
-        for res in run_ranks(label, num_ranks, "products", root, flags,
+        for res in run_ranks(label, W, P // W, "products", root, flags,
                              shuffles_per_step=(2, 2)):
             m = res["metrics"]
             if not (m["cache_pct"] >= 1.0 and m["innermost"] == "device"
@@ -1231,33 +1361,174 @@ def rank_phases(phase, root: str, num_ranks: int):
                 raise AssertionError(f"{label} must run with a replicated "
                                      f"cache, device innermost and dense "
                                      f"layers only")
-    # The cache refreshes per rank when 0.25 < 1/P.
-    refreshing = 0.25 < 1.0 / num_ranks
+    # The cache refreshes per partition when 0.25 < 1/P.
+    refreshing = 0.25 < 1.0 / P
     launches = Counter()
-    # Layer 0 is COO through the kernel (one launch a step) in both: SAGE
-    # through the fused gather, GAT through the messages' entry. SAGE
-    # shuffles it forward only (the frame takes no gradient); GAT runs the
-    # reverse shuffle and the merge on all 3 layers both ways (its layer-0
-    # er, s and v depend on W).
+    out = {}
+    # Layer 0 is COO through the kernel (one launch a partition a step) in
+    # both: SAGE through the fused gather, GAT through the messages'
+    # entry. SAGE shuffles it forward only (the frame takes no gradient);
+    # GAT runs the reverse shuffle and the merge on all 3 layers both ways
+    # (its layer-0 er, s and v depend on W).
     for name, extra, shuffles, entry in (
             (f"{label}-B", [], (3, 2), FUSED),
-            (f"split GAT P{num_ranks}-B", GAT_FLAGS, (6, 6), MSGS)):
+            (f"split GAT P{P}-B", GAT_FLAGS, (6, 6), MSGS)):
         with phase(name):
             results = run_ranks(
-                name, num_ranks, "split_b", root,
-                SPLIT_B_FLAGS + extra + parts(SPLIT_B_PARTITION_MODE),
+                name, W, P // W, "split_b", root,
+                SPLIT_B_FLAGS + SHORT + extra + parts(SPLIT_B_PARTITION_MODE),
                 shuffles_per_step=shuffles)
+        launches += expect_local_launches(name, results, entry, 1)
         for res in results:
             m = res["metrics"]
-            expect_launches(f"{name}: rank {res['rank']}", res["launches"],
-                            entry, m["steps"], f"{m['steps']} steps")
             if m["tail_batches"] != (m["steps"] if refreshing else 0):
                 raise AssertionError(f"{name}: rank {res['rank']}: "
                                      f"{m['tail_batches']} tail writes for "
                                      f"{m['steps']} steps")
-        for res in results:
-            launches += Counter(res["launches"])
-    return launches, results[0]["shuffle_ops"]
+        out[name] = results
+    return launches, out[f"split GAT P{P}-B"][0]["shuffle_ops"], \
+        out[f"{label}-B"]
+
+
+def run_gloo_p2b(root: str, one_process):
+    """Split P2-B as two ``--distributed`` processes of one partition each
+    on one card (gloo, through the host), 3 steps: its global loss within
+    1e-5 of scale of the one-process run's and its accuracy equal; the
+    two exchanges' times a call side by side."""
+    label = "split P2-B gloo"
+    flags = (SPLIT_B_FLAGS + SHORT + ["--partitions", "2", "--partition-mode",
+                                      SPLIT_B_PARTITION_MODE])
+    results = run_ranks(label, 2, 1, "split_b", root, flags,
+                        shuffles_per_step=(3, 2))
+    mine, ref = results[0]["metrics"], one_process[0]["metrics"]
+    scale = max(1.0, abs(ref["loss"]))
+    err = abs(mine["loss"] - ref["loss"])
+    print(f"  {label} vs one process: global loss {mine['loss']:.8f} vs "
+          f"{ref['loss']:.8f} (err {err:.3g}, limit {1e-5 * scale:.3g}), "
+          f"acc {mine['acc']:.6f} vs {ref['acc']:.6f}; train_step median "
+          f"{results[0]['medians']['train_step']:.2f} ms vs "
+          f"{one_process[0]['medians']['train_step']:.2f} ms")
+    for e2, e1 in zip(results[0]["exchange"], one_process[0]["exchange"]):
+        print(f"  exchange layer {e2['layer']}: two processes over gloo "
+              f"{e2['ms']:.4f} ms ({e2['clock']}), one process "
+              f"{e1['ms']:.4f} ms ({e1['clock']})")
+    if not (err <= 1e-5 * scale and mine["acc"] == ref["acc"]
+            and mine["steps"] == ref["steps"]):
+        raise AssertionError(f"{label}: differs from the one-process run: "
+                             f"{mine} vs {ref}")
+    return expect_local_launches(label, results, FUSED, 1)
+
+
+def run_local_p4(root: str, infer_flags, rate):
+    """Split P4-B local (8 steps, one profiled, a checkpoint saved), split
+    GAT P4-B local (3 steps) and infer P4 local of that checkpoint: one
+    process holding 4 partitions on cuda:0, as the launcher places
+    ``--partitions 4`` on one card. Returns the launches, the kernel
+    cases at P4-B's layer 0 and the P4-B results."""
+    P = 4
+    if launcher_processes(P) != 1:
+        print(f"split P{P}-B local: the launcher places {P} partitions on "
+              f"{launcher_processes(P)} cards here; run in one process all "
+              f"the same")
+    ck_dir = os.path.join(root, "split_p4b_checkpoint")
+    parts = ["--partitions", str(P), "--partition-mode",
+             SPLIT_B_PARTITION_MODE]
+    label = f"split P{P}-B local"
+    results = run_ranks(label, 1, P, "split_b", root,
+                        SPLIT_B_FLAGS + parts + [
+                            "--save-dir", ck_dir, "--profile-dir",
+                            "chiprun_out/split_p4b_profile"],
+                        shuffles_per_step=(3, 2), kernel=True)
+    res = results[0]
+    m = res["metrics"]
+    launches = expect_local_launches(label, results, FUSED, 1)
+    starts = res["step_starts"]
+    walls = [1e3 * (b - a) for a, b in zip(starts, starts[1:])][1:]
+    print(f"  {label}: step wall median {statistics.median(walls):.2f} ms, "
+          f"train_step median {res['medians']['train_step']:.2f} ms, peak "
+          f"device memory {res['peak_gib']:.3f} GiB, exchange at layer 0 "
+          f"{res['exchange'][0]['ms']:.4f} ms a call (CUDA events)")
+    print_profile(m["profile"])
+    label = f"split GAT P{P}-B local"
+    results_gat = run_ranks(label, 1, P, "split_b", root,
+                            SPLIT_B_FLAGS + SHORT + GAT_FLAGS + parts,
+                            shuffles_per_step=(6, 6))
+    launches += expect_local_launches(label, results_gat, MSGS, 1)
+    # Infer P4 local against infer P1 of the same checkpoint.
+    ck = os.path.join(ck_dir, "split_epoch.npz")
+    g = load_graph(root, "split_b")
+    preds = {}
+    for p in (1, P):
+        out = os.path.join(root, f"preds_p4b_{p}.npy")
+        args = graph_args(SPLIT_B_NODES, infer_flags + [
+            "--resume", ck, "--output", out, "--partitions", str(p),
+            "--partition-mode", "round_robin"])
+        timers = StepTimers()
+        start_count(torch.device("cuda", 0))
+        metrics = run_infer(args, g, [int(f) for f in args.fan_out.split(",")],
+                            timers, torch.device("cuda", 0))
+        got = read_launches()
+        batches = -(-int(g.test_mask.sum()) // args.batch_size)
+        expect_launches(f"infer P{p} local", got, FUSED, p * batches,
+                        f"{batches} batches of {p} partitions")
+        if p == P:
+            launches += got
+        preds[p] = (metrics, np.load(out))
+        print(f"infer P{p} local (split P4-B's checkpoint): count "
+              f"{metrics['count']}, acc {metrics['acc']:.6f}, backend "
+              f"{metrics['backend']}, {launch_text(got)}")
+    (m1, p1), (m4, p4) = preds[1], preds[P]
+    predicted = p1 >= 0
+    same = float((p4[predicted] == p1[predicted]).mean())
+    print(f"  infer P{P} local: predictions equal to P = 1's on {same:.6f} "
+          f"of the nodes (limit {PRED_AGREEMENT})")
+    if m4["count"] != m1["count"] or not ((p4 >= 0) == predicted).all() \
+            or not same >= PRED_AGREEMENT:
+        raise AssertionError(f"infer P{P} local differs from P = 1: "
+                             f"{m4} vs {m1}, {same}")
+    return launches, res["kernel_cases"], results
+
+
+def run_entry(device) -> Counter:
+    """``occ_gnn_tpu_torch.entry``: ``entry()``'s forward on the card
+    (finite logits of the target frame's shape, one fused launch a
+    layer) and ``dryrun_multichip(4)``, one process holding 4
+    partitions: three finite losses and counts above 0."""
+    from occ_gnn_tpu_torch import entry as entry_mod
+
+    start_count(device)
+    fn, args = entry_mod.entry(device)
+    logits = fn(*args)
+    torch.cuda.synchronize(device)
+    launches = read_launches()
+    if not (torch.isfinite(logits).all() and logits.dim() == 2
+            and logits.shape[1] == 16):
+        raise AssertionError(f"entry(): bad logits {tuple(logits.shape)}")
+    expect_launches("entry()", launches, FUSED, 3, "one forward")
+    print(f"entry(): logits {tuple(logits.shape)}, {launch_text(launches)}")
+    reset_launches()
+    losses = entry_mod.dryrun_multichip(4, device)
+    dry = read_launches()
+    print(f"dryrun_multichip(4): losses {losses}, {launch_text(dry)}")
+    return launches + dry
+
+
+def run_nccl_ranks(root: str, num_procs: int):
+    """Split B at ``2 * num_procs`` partitions as ``num_procs`` processes
+    of 2 over NCCL (one card each), held against P = 1. Stops when the
+    machine has fewer cards."""
+    cards = torch.cuda.device_count()
+    if cards < num_procs:
+        raise SystemExit(f"--ranks {num_procs} needs {num_procs} cards; "
+                         f"this machine has {cards}")
+    P = 2 * num_procs
+    label = f"split P{P}-B NCCL"
+    results = run_ranks(label, num_procs, 2, "split_b", root,
+                        SPLIT_B_FLAGS + SHORT + [
+                            "--partitions", str(P), "--partition-mode",
+                            SPLIT_B_PARTITION_MODE],
+                        shuffles_per_step=(3, 2))
+    return expect_local_launches(label, results, FUSED, 1)
 
 
 def check_dense_run(label, metrics, launches):
@@ -2211,6 +2482,23 @@ def run_unpacked(g, metrics_b, device):
     return launches
 
 
+def split_nccl_only(opts, phase) -> int:
+    """``--split-nccl-only``: the split P(2N)-B NCCL phase alone (N =
+    ``--ranks`` processes of 2 partitions, one card each), on split B's
+    graph."""
+    with tempfile.TemporaryDirectory(prefix="occ_smoke_graphs_") as root:
+        with phase("graphs"):
+            args = graph_args(SPLIT_B_NODES, SPLIT_B_FLAGS)
+            save_graph(random_graph(SPLIT_B_NODES, AVG_DEGREE, FEATURE_DIM,
+                                    num_classes=NUM_CLASSES, seed=args.seed),
+                       root, "split_b")
+        with phase(f"split P{2 * opts.ranks}-B NCCL"):
+            launches = run_nccl_ranks(root, opts.ranks)
+    print(f"split P{2 * opts.ranks}-B NCCL: every check passed, "
+          f"{launch_text(launches)}")
+    return 0
+
+
 def baselines_only(opts, phase, rate, device) -> int:
     """``--baselines-only``: step 12 alone at ``--ranks``, with what it
     needs: the products graph for ddp, and split B's graph, its 8-step
@@ -2245,8 +2533,11 @@ def main(argv=None) -> int:
     cli = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     cli.add_argument("--num-nodes", type=int, default=PRODUCTS_NODES)
     cli.add_argument("--ranks", type=int, default=RANKS,
-                     help="partitions (one process each) of the split P "
-                          "phases")
+                     help="processes of the baselines' P phases and of the "
+                          "NCCL split phase (several cards)")
+    cli.add_argument("--split-nccl-only", action="store_true",
+                     help="run only the split phase of --ranks processes "
+                          "of 2 partitions over NCCL; prints no result")
     cli.add_argument("--baselines-only", action="store_true",
                      help="run only the ddp, quiver and infer phases at "
                           "--ranks (and what they need); prints no result")
@@ -2276,6 +2567,8 @@ def main(argv=None) -> int:
     # 1. Build every kernel and the C++ service from the checkout.
     with phase("build"):
         build_all()
+    if opts.split_nccl_only:
+        return split_nccl_only(opts, phase)
     if opts.baselines_only:
         return baselines_only(opts, phase, rate, device)
 
@@ -2462,9 +2755,26 @@ def main(argv=None) -> int:
     del g_b
 
     # 10-11. Split P2, split P2-B and split GAT P2-B: split A and split B
-    # (SAGE and GAT) at two partitions, one process each.
-    launches_pb, gat_shuffle_rows = rank_phases(phase, graphs.name,
-                                                opts.ranks)
+    # (SAGE and GAT) at two partitions, one process holding both; then
+    # split P2-B as two processes over gloo on one card.
+    launches_pb, gat_shuffle_rows, p2b = rank_phases(phase, graphs.name)
+    with phase("split P2-B gloo"):
+        launches_gl = run_gloo_p2b(graphs.name, p2b)
+    # 11a. Split P4-B, split GAT P4-B and infer P4 in one process.
+    with phase("split P4-B local"):
+        launches_p4, p4_cases, _ = run_local_p4(graphs.name, INFER_FLAGS,
+                                                rate)
+    # 11b. The entry points: entry() and dryrun_multichip(4).
+    with phase("entry"):
+        launches_en = run_entry(device)
+    # 11c. Split B at 2 * --ranks partitions over NCCL, on several cards.
+    launches_nc = Counter()
+    if torch.cuda.device_count() > 1:
+        with phase(f"split P{2 * opts.ranks}-B NCCL"):
+            launches_nc = run_nccl_ranks(graphs.name, opts.ranks)
+    else:
+        print(f"split P{2 * opts.ranks}-B NCCL: needs {opts.ranks} cards, "
+              f"this machine has 1; not run")
     # 12. ddp, quiver and infer at the same number of ranks.
     launches_bl = baseline_rank_phases(phase, graphs.name, opts.ranks,
                                        infer_ref)
@@ -2500,8 +2810,8 @@ def main(argv=None) -> int:
           "layers 1-2 (once a step each):")
     for op, ms, bound in backward_rows:
         print(f"  {op}: {ms:.4f} ms, bound {bound:.4f} ms")
-    print(f"GAT shuffle times (split GAT P{opts.ranks}-B, rank 0, host "
-          f"clock; a step runs each once a layer):")
+    print("GAT shuffle times (split GAT P2-B, one process holding both "
+          "partitions, host clock; a step runs each once a layer):")
     for op, ms, bound, by in gat_shuffle_rows:
         print(f"  {op}: {ms:.4f} ms, bound {bound:.4f} ms ({by})")
 
@@ -2526,7 +2836,8 @@ def main(argv=None) -> int:
                               ("GCN sym's", sym_cases[0]),
                               ("split B's", split_case),
                               ("split GAT B's", gat_split_case),
-                              ("infer's", infer_case))
+                              ("infer's", infer_case),
+                              ("split P4-B local's", p4_cases))
          for entry in (MSGS, FUSED)] + [
         (FUSED, "split B's layer 0, bf16 frame", [split_bf16_case])]
     print("kernel times (ms; segment_reduce in the kernel's own harness; "
@@ -2538,7 +2849,7 @@ def main(argv=None) -> int:
             f"{summed(cases, k):.4f}" for k in keys if k in cases[0]))
     errs = {MSGS: [], FUSED: []}
     for cases in (main_cases + ragged + sym_cases
-                  + [split_case, gat_split_case, infer_case]):
+                  + [split_case, gat_split_case, infer_case, p4_cases]):
         for entry, c in cases.items():
             errs[entry].append(c["err"])
     errs[MSGS] += [c["err"] for c in gat_cases]
@@ -2546,6 +2857,7 @@ def main(argv=None) -> int:
     launches = sum((single_launches, launches_pc, launches_a, launches_dt,
                     launches_ga, launches_gv, launches_b, launches_u,
                     launches_sgl, launches_sym, launches_i1, launches_pb,
+                    launches_gl, launches_p4, launches_en, launches_nc,
                     launches_bl), Counter())
     kernels = []
     for entry, cases in ((MSGS, gat_cases), (FUSED, sage_step)):

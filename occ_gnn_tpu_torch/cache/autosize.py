@@ -16,9 +16,9 @@ Policy, given a free-memory budget B and headroom h:
 The headroom covers what shares the device with the frames: weights and
 optimizer state, the per-batch arena and activations, the device CSR.
 
-With one process per partition each rank reads its own device's free
-memory, which differs between ranks that share a card; the trainer has
-the ranks agree on the minimum of their percentages.
+With several processes each reads its own device's free memory, which
+differs between processes that share a card; the trainer has the
+processes agree on the minimum of their percentages.
 """
 
 from __future__ import annotations

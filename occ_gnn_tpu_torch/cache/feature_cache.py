@@ -4,8 +4,8 @@ single-chip static cache of ``--mode pa-cache`` (``SingleChipCache``).
 The JAX package's ``cache/feature_cache.py``: ``CachePlan`` is its numpy,
 unchanged, so both packages cache the same nodes at the same frame rows;
 ``SplitFeatureCache`` holds the frames as one device tensor: all P
-frames, or with one process per partition only that partition's frame
-(the JAX package's ``MultiHostFeatureCache``).
+frames, or in a process holding partitions ``[lo, hi)`` only theirs (the
+JAX package's ``MultiHostFeatureCache``).
 
   * Each partition's frame is ``[static_cap + refresh_cap + 1, H]``: a
     *static* region filled once (degree-sorted top-k of the partition when
@@ -263,10 +263,13 @@ class SplitFeatureCache:
     ``dtype`` (bf16 halves the frames and the tail traffic; the models
     upcast per gather). The frames never require grad.
 
-    With one process per partition, rank r passes ``partitions=(r, r +
-    1)``: it holds only its own frame and writes only its own tail rows,
-    while ``plan.refresh`` keeps the global bookkeeping, the same on every
-    rank. Replicated plans give every rank the identity frame."""
+    A process holding partitions ``[lo, hi)`` passes ``partitions=(lo,
+    hi)``: it holds only their frames and writes only their tail rows,
+    while ``plan.refresh`` keeps the global bookkeeping, the same in every
+    process. A replicated plan gives every partition the identity frame:
+    the process holds it once, and ``frames`` is that frame expanded over
+    its partitions with no copy (a replicated plan writes no tail, and the
+    frames take no gradient)."""
 
     def __init__(self, plan: CachePlan, dtype: torch.dtype = torch.float32,
                  *, device: torch.device | str,
@@ -281,8 +284,11 @@ class SplitFeatureCache:
                              f"{plan.P} partitions")
         # Cast on the host, so the one-time upload carries the storage
         # dtype.
+        held = self.lo + 1 if plan.replicated else self.hi
         self.frames = torch.from_numpy(
-            plan.static_features(self.lo, self.hi)).to(dtype).to(self.device)
+            plan.static_features(self.lo, held)).to(dtype).to(self.device)
+        if plan.replicated:
+            self.frames = self.frames.expand(self.hi - self.lo, -1, -1)
         # Per-batch tail-transfer accounting.
         self.tail_batches = 0
         self.tail_bytes_total = 0

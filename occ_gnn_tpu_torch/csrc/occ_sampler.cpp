@@ -183,12 +183,14 @@ template <typename T>
 class BoundedQueue {
  public:
   explicit BoundedQueue(size_t cap) : cap_(cap) {}
-  void push(T v) {
+  // False when the queue is closed: the caller still owns ``v``.
+  bool push(T v) {
     std::unique_lock<std::mutex> lk(mu_);
     not_full_.wait(lk, [&] { return q_.size() < cap_ || closed_; });
-    if (closed_) return;
+    if (closed_) return false;
     q_.push(std::move(v));
     not_empty_.notify_one();
+    return true;
   }
   bool pop(T* out) {
     std::unique_lock<std::mutex> lk(mu_);
@@ -950,7 +952,9 @@ void worker_main(Service* svc, int wid) {
     w.process(*item.nodes, s, item.seq);
     s->seq = item.seq;
     delete item.nodes;
-    svc->done->push(s);
+    // After occ_destroy closed the output queue the sample goes back to
+    // the pool, which occ_destroy frees once the workers have joined.
+    if (!svc->done->push(s)) svc->put_buffer(s);
   }
 }
 

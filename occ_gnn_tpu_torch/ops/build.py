@@ -4,7 +4,8 @@ Each hand-written CUDA kernel is one source, ``csrc/<name>.cu``, with a
 plain C interface, compiled by ``nvcc`` for Hopper (``sm_90a``). The C++
 sampling service, ``csrc/occ_sampler.cpp``, and the multilevel graph
 partitioner, ``csrc/partition.cpp``, are compiled by ``g++`` with the
-flags of the JAX package's ``csrc/Makefile``. All are built into
+flags of the JAX package's ``csrc/Makefile``, and the service's stress
+driver, ``csrc/stress_test.cpp``, with a sanitizer. All are built into
 ``occ_gnn_tpu_torch/build/`` at first use. A library's file name carries
 a hash of its source and flags, so an edited source is built anew, and
 it is written through a temporary file and ``os.replace``, so processes
@@ -30,6 +31,8 @@ SAMPLER_SOURCE = CSRC_DIR / "occ_sampler.cpp"
 PARTITIONER_SOURCE = CSRC_DIR / "partition.cpp"
 CXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-fPIC", "-Wall",
              "-pthread", "-shared")
+STRESS_SOURCE = CSRC_DIR / "stress_test.cpp"
+SANITIZERS = ("thread", "address")
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -56,19 +59,26 @@ def _cxx() -> str:
     return path
 
 
+def _digest(sources, flags) -> str:
+    data = b"".join(src.read_bytes() for src in sources)
+    return hashlib.sha256(data + " ".join(flags).encode()).hexdigest()[:12]
+
+
 def _hashed_path(source: Path, flags) -> Path:
-    digest = hashlib.sha256(
-        source.read_bytes() + " ".join(flags).encode()).hexdigest()
-    return BUILD_DIR / f"lib{source.stem}-{digest[:12]}.so"
+    return BUILD_DIR / f"lib{source.stem}-{_digest([source], flags)}.so"
 
 
-def _build(source: Path, compiler: str, flags) -> str:
-    out = _hashed_path(source, flags)
+def _build(source: Path, compiler: str, flags, out: Path | None = None,
+           extra: tuple[Path, ...] = ()) -> str:
+    """Compile ``source`` (and the ``extra`` sources) into ``out``, by
+    default the hashed library path, unless it exists already."""
+    out = out or _hashed_path(source, flags)
     if out.exists():
         return ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([compiler, *flags, "-o", str(tmp), str(source)],
+    proc = subprocess.run([compiler, *flags, "-o", str(tmp), str(source),
+                           *map(str, extra)],
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                           text=True)
     if proc.returncode != 0:
@@ -134,6 +144,23 @@ def load_partitioner() -> ctypes.CDLL:
         build_partitioner()
         _load("partition", _hashed_path(PARTITIONER_SOURCE, CXX_FLAGS))
     return _loaded["partition"]
+
+
+def build_stress(sanitizer: str) -> Path:
+    """The sampling service's stress driver: ``csrc/stress_test.cpp``
+    linked with ``csrc/occ_sampler.cpp`` into an executable under
+    ``-fsanitize=thread`` or ``address`` (``sanitizer``), with the flags
+    of the JAX Makefile's ``tsan-stress`` / ``asan-stress`` rules; built
+    unless it is built already. Returns its path."""
+    if sanitizer not in SANITIZERS:
+        raise ValueError(f"sanitizer {sanitizer!r} is not one of "
+                         f"{SANITIZERS}")
+    flags = ("-O1", "-g", f"-fsanitize={sanitizer}", "-std=c++17",
+             "-pthread")
+    sources = (STRESS_SOURCE, SAMPLER_SOURCE)
+    out = BUILD_DIR / f"stress_{sanitizer}-{_digest(sources, flags)}"
+    _build(STRESS_SOURCE, _cxx(), flags, out=out, extra=(SAMPLER_SOURCE,))
+    return out
 
 
 def check_launch(lib: ctypes.CDLL, err: int, what: str) -> None:

@@ -1,32 +1,38 @@
-"""One process per rank: process groups for the modes that run at P > 1.
+"""Processes, and the partitions each holds, for the modes that run at P > 1.
 
 The counterpart of the JAX package's ``parallel/multihost.py``. The JAX
-step is one SPMD program over a mesh of P devices; in the port rank r of a
-process group of P ranks runs that program's per-device body. In split
-training rank r is partition r:
+step is one SPMD program over a mesh of P devices, and one process
+supplies the partitions of every device it addresses. In the port W
+processes share the P partitions: process k holds the contiguous range
+``[k * L, (k + 1) * L)``, L = P / W, all on one device (its card, or the
+CPU). In split training:
 
-  * every rank runs the same seeded sampler over the same train nodes and
-    emits only its own partition's rows (``emit_range=(r, r + 1)``), so
-    the ranks agree on every batch without exchanging it;
-  * each rank holds only its own feature-cache frame;
-  * the step exchanges boundary partials with one all-to-all per layer,
-    forward and backward (``parallel.split.shuffle_merge``), all-reduces
-    the loss terms, and all-reduces the gradients (SUM, as the shard_map
-    transpose does) before the optimizer step.
+  * every process runs the same seeded sampler over the same train nodes
+    and emits only its own partitions' rows (``emit_range=(lo, hi)``), so
+    the processes agree on every batch without exchanging it;
+  * each process holds only its own partitions' feature-cache frames;
+  * the step runs its L partitions layer by layer, and the boundary
+    partials cross with one all-to-all per layer between the processes
+    (``parallel.split.shuffle_merge``), a copy in device memory between
+    the partitions of one process; the loss terms and the gradients are
+    all-reduced over the processes (SUM, as the shard_map transpose does).
 
-The baselines (``--mode ddp`` and ``quiver``) and inference run the same
-way: rank r takes shard r, or row r, of every batch, drawn alike on every
-rank, and the ranks all-reduce the loss terms and gradients (or the
-predictions).
+A run of one process (W = 1) creates no process group and issues no
+collective, whatever its P. The baselines (``--mode ddp`` and ``quiver``)
+hold one shard per process (L = 1): rank r takes shard r of every batch,
+drawn alike on every rank, and the ranks all-reduce the loss terms and
+gradients.
 
-Rank r runs on ``cuda:{r % device_count}``, or on the CPU with ``--cpu``.
-The backend is NCCL when every rank has a card of its own, and gloo on
-the CPU or when ranks share a card (NCCL refuses two ranks on one card).
-Each rank prints the choice; nothing changes it after a failure.
+Process k runs on ``cuda:{k % device_count}``, or on the CPU with
+``--cpu``. The backend is NCCL when every process has a card of its own,
+and gloo on the CPU or when processes share a card (NCCL refuses two
+ranks on one card). Each process prints the choice; nothing changes it
+after a failure.
 
-``launch`` is the one-host launcher: ``--partitions P`` without
-``--distributed`` spawns P ranks, as the JAX CLI drives P devices from one
-command.
+``launch`` is the one-host launcher and ``placement`` its rule: on the
+card one process per card the partitions land on, under ``--cpu``
+``ceil(P / --cpu-devices)`` processes, as the JAX CLI drives the devices
+of one host from one process.
 """
 
 from __future__ import annotations
@@ -44,24 +50,87 @@ import torch.distributed as dist
 
 @dataclasses.dataclass(frozen=True)
 class DistContext:
-    """This process's place in the (default) process group: rank r holds
-    partition r on ``device``."""
+    """This process's place in a run: process ``rank`` of ``world_size``
+    holds partitions ``[lo, hi)`` on ``device``. ``backend`` is the
+    process group's, or ``"none"`` for a run of one process, which has
+    no group."""
 
     rank: int
     world_size: int
     backend: str
     device: torch.device
+    lo: int
+    hi: int
+
+    @property
+    def local(self) -> int:
+        """L, the partitions this process holds."""
+        return self.hi - self.lo
+
+    @property
+    def num_partitions(self) -> int:
+        """P, the partitions of the run."""
+        return self.world_size * self.local
+
+    @property
+    def grouped(self) -> bool:
+        """Whether the run has a process group to issue collectives on."""
+        return self.world_size > 1
+
+
+def single_process(num_partitions: int, device) -> DistContext:
+    """The context of a run of one process holding every partition."""
+    return DistContext(0, 1, "none", torch.device(device), 0, num_partitions)
 
 
 def local_partition_range(ranks: DistContext) -> tuple[int, int]:
-    """The partitions this process supplies: ``(rank, rank + 1)``."""
-    return ranks.rank, ranks.rank + 1
+    """The partitions this process supplies: ``(k * L, (k + 1) * L)``."""
+    return ranks.lo, ranks.hi
 
 
-def rank_seed(seed: int, rank: int) -> int:
-    """One device-draw stream per rank, as a JAX step folds the axis
-    index into its key; rank 0 keeps ``seed``, so P = 1 is unchanged."""
-    return seed + 1_000_003 * rank
+def rank_seed(seed: int, part: int) -> int:
+    """One device-draw stream per partition (or per rank of the
+    baselines), as a JAX step folds the axis index into its key; partition
+    0 keeps ``seed``, so P = 1 is unchanged, and the draws of a run do not
+    depend on which process holds a partition."""
+    return seed + 1_000_003 * part
+
+
+def placement(partitions: int, *, cpu: bool, cpu_devices: int,
+              world: int | None = None,
+              one_per_process: bool = False) -> tuple[int, int]:
+    """``(P, W)``: the run's partitions and its processes, P / W each.
+
+    ``world`` is the process count of a group started elsewhere
+    (``--distributed``); ``None`` asks for the one-host launcher's: one
+    process per card the partitions land on (``min(P, device_count)``),
+    or ``ceil(P / cpu_devices)`` under ``cpu``. ``partitions`` 0 means
+    ``W * cpu_devices`` under ``cpu`` and W on the card (one process
+    under the launcher). ``one_per_process`` is ddp's and quiver's rule,
+    one shard a process. Stops when P is not a multiple of W."""
+    if cpu_devices < 1:
+        raise SystemExit(f"--cpu-devices {cpu_devices} must be at least 1")
+    if one_per_process:
+        W = world if world is not None else max(partitions, 1)
+        P = partitions or W
+        if P != W:
+            raise SystemExit(
+                f"--partitions {P} over {W} processes: ddp and quiver hold "
+                "one shard per process (several shards per process is "
+                "ROADMAP.md item 14b)")
+        return P, W
+    if world is not None:
+        W = world
+        P = partitions or (W * cpu_devices if cpu else W)
+    else:
+        P = partitions or (cpu_devices if cpu else 1)
+        W = (-(-P // cpu_devices) if cpu
+             else min(P, max(torch.cuda.device_count(), 1)))
+    if P % W:
+        raise SystemExit(f"--partitions {P} is not a multiple of the {W} "
+                         f"processes that hold them (--cpu-devices "
+                         f"{cpu_devices}, {'the CPU' if cpu else 'cards'})")
+    return P, W
 
 
 def rank_device(rank: int, cpu: bool) -> torch.device:
@@ -83,9 +152,10 @@ def choose_backend(world_size: int, cpu: bool) -> str:
 
 
 def init_distributed(init_method: str, world_size: int, rank: int,
-                     cpu: bool) -> DistContext:
+                     cpu: bool, local: int = 1) -> DistContext:
     """Join the process group at ``init_method`` (``tcp://host:port``,
-    ``file://path`` or ``env://``) as ``rank`` of ``world_size``."""
+    ``file://path`` or ``env://``) as ``rank`` of ``world_size``, holding
+    ``local`` partitions."""
     if not 0 <= rank < world_size:
         raise ValueError(f"process id {rank} outside [0, {world_size})")
     device = rank_device(rank, cpu)
@@ -102,17 +172,20 @@ def init_distributed(init_method: str, world_size: int, rank: int,
     shared = ("" if cpu or backend == "nccl"
               else f", {world_size} ranks on {torch.cuda.device_count()} "
                    "card(s)")
+    lo = rank * local
     print(f"distributed: rank {rank}/{world_size}, backend {backend}, "
-          f"device {device}{shared}", flush=True)
-    return DistContext(rank, world_size, backend, device)
+          f"device {device}, partitions [{lo}, {lo + local}){shared}",
+          flush=True)
+    return DistContext(rank, world_size, backend, device, lo, lo + local)
 
 
-def init_from_args(args) -> DistContext:
+def init_from_args(args, one_per_process: bool = False) -> DistContext:
     """The process group from the JAX CLI's flag names: ``--coordinator-
     address`` (``host:port``, or a ``tcp://`` / ``file://`` URL),
     ``--num-processes`` and ``--process-id``; without the address, from
     torchrun's environment (``MASTER_ADDR``, ``MASTER_PORT``, ``RANK``,
-    ``WORLD_SIZE``)."""
+    ``WORLD_SIZE``). Each process holds P / W partitions (``placement``;
+    ``one_per_process`` for ddp and quiver)."""
     addr = args.coordinator_address
     if addr:
         if args.num_processes < 1 or args.process_id < 0:
@@ -129,11 +202,15 @@ def init_from_args(args) -> DistContext:
                              "--num-processes and --process-id, or "
                              "torchrun's environment") from None
         init = "env://"
-    return init_distributed(init, world, rank, args.cpu)
+    P, W = placement(args.partitions, cpu=args.cpu,
+                     cpu_devices=args.cpu_devices, world=world,
+                     one_per_process=one_per_process)
+    return init_distributed(init, W, rank, args.cpu, local=P // W)
 
 
 def close(ranks: DistContext | None) -> None:
-    if ranks is not None and dist.is_initialized():
+    if ranks is not None and ranks.backend != "none" and \
+            dist.is_initialized():
         dist.destroy_process_group()
 
 
@@ -254,8 +331,8 @@ def _run_rank(rank: int, num_ranks: int, store: str, argv: list[str],
 
 
 def launch(argv: list[str], num_ranks: int) -> dict:
-    """Run the CLI ``argv`` as ``num_ranks`` ranks of one process group
-    (``spawn``) and return rank 0's metrics."""
+    """Run the CLI ``argv`` as ``num_ranks`` processes of one process
+    group (``spawn``) and return rank 0's metrics."""
     argv = [a for a in argv if a != "--json"]
     with tempfile.TemporaryDirectory(prefix="occ_launch_") as tmp:
         out = os.path.join(tmp, "rank0.json")

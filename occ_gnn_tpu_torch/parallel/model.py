@@ -9,13 +9,18 @@ on-device innermost sampling, and the train step and forward.
 Weights stay f32; SAGE's and GCN's ``dtype`` is the storage precision of
 activations between layers, with f32 accumulation, as in the JAX models.
 
-At P = 1 the step is the JAX step on a one-device mesh: no process group
-and no collective. At P > 1 each rank runs the per-device body of the JAX
-step (``model.py:647-744``) on its own partition's row of the batch
-(``ranks``, a ``parallel.dist.DistContext``): the boundary shuffle of
-every layer that carries ``push_idx``, the loss terms ``[nll, count,
-correct]`` all-reduced before the backward, and one SUM all-reduce of the
-gradients before the optimizer step.
+A process holds L of the P partitions (``ranks``, a
+``parallel.dist.DistContext``; without it, one process holds every
+partition of the batch) and runs the per-device body of the JAX step
+(``model.py:647-744``) for each of them, layer by layer: every
+partition's local aggregation of layer i, one boundary shuffle of the
+layer when it carries ``push_idx`` (``parallel.split``), then the owners'
+update. The loss terms ``[nll, count, correct]`` are summed over the
+local partitions, and over the processes by one all-reduce before the
+backward; autograd sums the local partitions' gradients and one SUM
+all-reduce sums the processes' before the optimizer step. A run of one
+process issues no collective: at P = 1 the step is the JAX step on a
+one-device mesh.
 
 Split GAT's dense attention has the JAX package's lowerings
 (``ops/config.py``): ``OCC_GAT_ATTENTION`` = ``batched``
@@ -81,12 +86,6 @@ from occ_gnn_tpu_torch.parallel.split import (
     synthesize_device_innermost,
 )
 
-_SEVERAL_PARTITIONS = ("a batch with several partitions in one process is "
-                       "not ported: each rank takes its own partition's row "
-                       "(ROADMAP.md queue 1, item 7b, several partitions per "
-                       "process)")
-
-
 def make_device_csr(graph, device) -> tuple[torch.Tensor, torch.Tensor]:
     """The graph's in-neighbour CSR on ``device`` as int32 ``(indptr,
     indices)`` for device-innermost sampling (~255 MB at products scale).
@@ -130,24 +129,50 @@ def make_device_csr(graph, device) -> tuple[torch.Tensor, torch.Tensor]:
     return torch.from_numpy(indptr.astype("int32")).to(device), indices_t
 
 
-def _materialize_layers(layers, csr, generator):
-    """Synthesize the device-sampled layers of one partition."""
+def _materialize_layers(parts, csr, generators):
+    """Synthesize the device-sampled layers of each local partition,
+    partition j's from ``generators[j]``: the draws of partition p do not
+    depend on which process holds it."""
     out = []
-    for lyr in layers:
-        if lyr.device_sampled:
-            if csr is None:
-                raise ValueError(
-                    "batch has a device-sampled layer but the step was "
-                    "built without csr= (make_device_csr(graph, device))"
-                )
-            if generator is None:
-                raise ValueError(
-                    "device-sampled layers need sample_generator= on every "
-                    "step call"
-                )
-            lyr = synthesize_device_innermost(lyr, csr[0], csr[1], generator)
-        out.append(lyr)
+    for j, layers in enumerate(parts):
+        mine = []
+        for lyr in layers:
+            if lyr.device_sampled:
+                if csr is None:
+                    raise ValueError(
+                        "batch has a device-sampled layer but the step was "
+                        "built without csr= (make_device_csr(graph, device))"
+                    )
+                if generators is None:
+                    raise ValueError(
+                        "device-sampled layers need sample_generator= on "
+                        "every step call"
+                    )
+                lyr = synthesize_device_innermost(lyr, csr[0], csr[1],
+                                                  generators[j])
+            mine.append(lyr)
+        out.append(mine)
     return out
+
+
+def _stack(ts: list[torch.Tensor]) -> torch.Tensor:
+    """The local partitions' tensors on one leading axis (a view for
+    one)."""
+    return ts[0][None] if len(ts) == 1 else torch.stack(ts)
+
+
+def _shuffled(lyrs: list[SplitLayer]) -> bool:
+    """Whether a layer exchanges boundary rows: it carries ``push_idx``
+    and the run has more than one partition (the device-synthesized
+    layer 0 carries none)."""
+    return lyrs[0].push_idx is not None and lyrs[0].push_idx.shape[0] > 1
+
+
+def _indices(lyrs: list[SplitLayer]):
+    """The local partitions' ``push_idx`` and ``recv_idx``, ``[L, P,
+    S_cap]`` each."""
+    return (_stack([l.push_idx for l in lyrs]),
+            _stack([l.recv_idx for l in lyrs]))
 
 
 class SplitSAGE(nn.Module):
@@ -181,34 +206,55 @@ class SplitSAGE(nn.Module):
         return {name: getattr(self, f"layer_{i}/{name}") for name in "wb"}
 
     @staticmethod
-    def _merge(neigh: torch.Tensor, lyr: SplitLayer) -> torch.Tensor:
-        """Add the boundary partials of the other partitions: a shuffle on
-        every layer that carries ``push_idx`` when there is more than one
-        partition (the device-synthesized layer 0 carries none)."""
-        if lyr.push_idx is None or lyr.push_idx.shape[0] == 1:
-            return neigh
-        return shuffle_merge(neigh, lyr.push_idx, lyr.recv_idx)
+    def _merge(neighs: list[torch.Tensor],
+               lyrs: list[SplitLayer]) -> list[torch.Tensor]:
+        """Add the boundary partials of the other partitions to each local
+        partition's sums: one shuffle over the local partitions."""
+        if not _shuffled(lyrs):
+            return neighs
+        return list(shuffle_merge(_stack(neighs), *_indices(lyrs)).unbind(0))
+
+    def layers(self, i: int, lyrs: list[SplitLayer],
+               xs: list[torch.Tensor]) -> list[torch.Tensor]:
+        """Layer ``i`` of every local partition: ``lyrs[j]`` and ``xs[j]``
+        are partition j's layer and input frame."""
+        merged = self._merge([aggregate(x, l) for x, l in zip(xs, lyrs)],
+                             lyrs)
+        out = []
+        for m, lyr, x in zip(merged, lyrs, xs):
+            self_x, mean, mask = slice_owned(m, lyr, x)
+            h = linear(self.layer_params(i), torch.cat([self_x, mean],
+                                                       dim=-1))
+            out.append(h * mask)
+        return out
 
     def layer(self, i: int, lyr: SplitLayer, x: torch.Tensor) -> torch.Tensor:
-        merged = self._merge(aggregate(x, lyr), lyr)
-        self_x, mean, mask = slice_owned(merged, lyr, x)
-        h = linear(self.layer_params(i), torch.cat([self_x, mean], dim=-1))
-        return h * mask
+        """Layer ``i`` of one partition."""
+        return self.layers(i, [lyr], [x])[0]
+
+    def forward_partitions(self, parts: list[list[SplitLayer]], xs,
+                           generator: torch.Generator | None = None):
+        """The forward of the local partitions, layer by layer: ``parts[j]``
+        and ``xs[j]`` are partition j's layers and input frame. Returns
+        each partition's logits. ``generator`` enables dropout between
+        layers (training), drawn partition by partition; ``None`` is the
+        deterministic path."""
+        xs = list(xs)
+        last = len(parts[0]) - 1
+        for i in range(last + 1):
+            xs = self.layers(i, [layers[i] for layers in parts], xs)
+            if i != last:
+                xs = [torch.relu(x) for x in xs]
+                if generator is not None and self.dropout > 0.0:
+                    xs = [dropout(x, self.dropout, generator, True)
+                          for x in xs]
+                xs = [x.to(self.dtype) for x in xs]
+        return xs
 
     def forward_local(self, layers: list[SplitLayer], x: torch.Tensor,
                       generator: torch.Generator | None = None):
-        """One partition's forward; ``generator`` enables dropout between
-        layers (training), ``None`` is the deterministic path. With more
-        than one partition the layers shuffle over the process group."""
-        last = len(layers) - 1
-        for i, lyr in enumerate(layers):
-            x = self.layer(i, lyr, x)
-            if i != last:
-                x = torch.relu(x)
-                if generator is not None and self.dropout > 0.0:
-                    x = dropout(x, self.dropout, generator, True)
-                x = x.to(self.dtype)
-        return x
+        """One partition's forward (``forward_partitions`` of one)."""
+        return self.forward_partitions([layers], [x], generator)[0]
 
 
 class SplitGCN(SplitSAGE):
@@ -218,10 +264,12 @@ class SplitGCN(SplitSAGE):
     def _fan_in(dim: int) -> int:
         return dim
 
-    def layer(self, i: int, lyr: SplitLayer, x: torch.Tensor) -> torch.Tensor:
-        merged = self._merge(aggregate(x, lyr), lyr)
-        h = linear(self.layer_params(i), neigh_mean(merged, lyr))
-        return h * lyr.owned_mask[:, None]
+    def layers(self, i: int, lyrs: list[SplitLayer],
+               xs: list[torch.Tensor]) -> list[torch.Tensor]:
+        merged = self._merge([aggregate(x, l) for x, l in zip(xs, lyrs)],
+                             lyrs)
+        return [linear(self.layer_params(i), neigh_mean(m, lyr))
+                * lyr.owned_mask[:, None] for m, lyr in zip(merged, lyrs)]
 
 
 def dense_attention(x: torch.Tensor, nbr: torch.Tensor, wl: torch.Tensor,
@@ -390,7 +438,7 @@ def checkpoint_dots(fn, *args):
 
 class SplitGAT(nn.Module):
     """Split-parallel GAT, the component the reference only stubbed
-    (``dist_gatconv.py:3-6``). At P > 1 a layer runs two all-to-alls
+    (``dist_gatconv.py:3-6``). At P > 1 a layer runs two shuffles
     forward and two backward: ``reverse_shuffle`` sends the owners'
     attention terms ``er_v = a_r . W x_v`` to the partitions holding v's
     edges, and ``shuffle_softmax_merge`` merges the partitions' (max,
@@ -405,7 +453,7 @@ class SplitGAT(nn.Module):
     ``tiled_attention``). Under ``OCC_GAT_REMAT=dots`` the local attention
     between the two shuffles is recomputed in the backward
     (``checkpoint_dots``); the shuffles are not, so a step runs the same
-    all-to-alls with or without it."""
+    exchanges with or without it."""
 
     def __init__(self, in_dim: int, hidden: int, num_classes: int,
                  num_layers: int, num_heads: int = 4,
@@ -425,63 +473,93 @@ class SplitGAT(nn.Module):
         return {name: getattr(self, f"layer_{i}/{name}")
                 for name in GAT_LEAVES}
 
-    def layer(self, i: int, lyr: SplitLayer, x: torch.Tensor,
-              is_last: bool) -> torch.Tensor:
+    def layers(self, i: int, lyrs: list[SplitLayer], xs: list[torch.Tensor],
+               is_last: bool) -> list[torch.Tensor]:
+        """Layer ``i`` of every local partition, as ``SplitSAGE.layers``:
+        each partition's er frame, one reverse shuffle, each partition's
+        local attention, one softmax merge, then the owners' rows."""
         p = self.layer_params(i)
         k, d_out = p["attn_l"].shape
-        dst_cap = lyr.dst_cap
         # The attention vectors contracted into W: el / er of a row are
         # x_row @ wl / wr, so the frame's projection is never needed whole.
-        w3 = p["w"].reshape(x.shape[-1], k, d_out)
+        w3 = p["w"].reshape(xs[0].shape[-1], k, d_out)
         wl = torch.einsum("hkd,kd->hk", w3, p["attn_l"])
         wr = torch.einsum("hkd,kd->hk", w3, p["attn_r"])
+        multi = _shuffled(lyrs)
+        if multi:
+            push, recv = _indices(lyrs)
         # er on the dst frame: the owned rows from their own features, the
         # foreign rows by the reverse shuffle from their owners.
-        x_self = x.index_select(0, lyr.self_idx).float()
-        er_own = (x_self @ wr) * lyr.owned_mask[:, None]
-        tgt = torch.where(lyr.owned_idx < 0, dst_cap, lyr.owned_idx).long()
-        er_frame = er_own.new_zeros(dst_cap + 1, k).index_copy(
-            0, tgt, er_own)[:dst_cap]
-        multi = lyr.push_idx is not None and lyr.push_idx.shape[0] > 1
+        er_frames = []
+        for lyr, x in zip(lyrs, xs):
+            x_self = x.index_select(0, lyr.self_idx).float()
+            er_own = (x_self @ wr) * lyr.owned_mask[:, None]
+            tgt = torch.where(lyr.owned_idx < 0, lyr.dst_cap,
+                              lyr.owned_idx).long()
+            er_frames.append(er_own.new_zeros(lyr.dst_cap + 1, k).index_copy(
+                0, tgt, er_own)[:lyr.dst_cap])
         if multi:
-            er_frame = reverse_shuffle(er_frame, lyr.push_idx, lyr.recv_idx)
+            er_frames = list(reverse_shuffle(_stack(er_frames), push,
+                                             recv).unbind(0))
+        partials = []
+        for lyr, x, er_frame in zip(lyrs, xs, er_frames):
 
-        def attend(x, w, attn_l, wl, w3, er_frame):
-            if lyr.nbr_idx is not None:
-                return ATTENTION[gat_attention_impl()](
-                    x, lyr.nbr_idx, wl, w3, er_frame)
-            feat = (x.float() @ w).reshape(-1, k, d_out)
-            return coo_attention(feat, attn_l, lyr.edge_src, lyr.edge_dst,
-                                 er_frame)
+            def attend(x, w, attn_l, wl, w3, er_frame, lyr=lyr):
+                if lyr.nbr_idx is not None:
+                    return ATTENTION[gat_attention_impl()](
+                        x, lyr.nbr_idx, wl, w3, er_frame)
+                feat = (x.float() @ w).reshape(-1, k, d_out)
+                return coo_attention(feat, attn_l, lyr.edge_src,
+                                     lyr.edge_dst, er_frame)
 
-        operands = (x, p["w"], p["attn_l"], wl, w3, er_frame)
-        if gat_remat_impl() == "dots":
-            # Only the local attention, between the shuffles: recomputing
-            # an all-to-all in the backward would add exchanges.
-            m_loc, s, v = checkpoint_dots(attend, *operands)
-        else:
-            m_loc, s, v = attend(*operands)
+            operands = (x, p["w"], p["attn_l"], wl, w3, er_frame)
+            if gat_remat_impl() == "dots":
+                # Only the local attention, between the shuffles:
+                # recomputing an exchange in the backward would add some.
+                partials.append(checkpoint_dots(attend, *operands))
+            else:
+                partials.append(attend(*operands))
+        ms, ss, vs = (list(t) for t in zip(*partials))
         if multi:
-            s, v = shuffle_softmax_merge(m_loc, s, v, lyr.push_idx,
-                                         lyr.recv_idx)
-        own = lyr.owned_idx.clamp(min=0)
-        s_own = s.index_select(0, own).clamp(min=1e-16)
-        out = v.index_select(0, own) / s_own[..., None]   # [O_cap, K, D]
-        out = out * lyr.owned_mask[:, None, None]
-        if is_last:
-            return out.mean(dim=1)
-        return (out.reshape(-1, k * d_out) + p["b"]) * lyr.owned_mask[:, None]
+            s_all, v_all = shuffle_softmax_merge(_stack(ms), _stack(ss),
+                                                 _stack(vs), push, recv)
+            ss, vs = list(s_all.unbind(0)), list(v_all.unbind(0))
+        out = []
+        for lyr, s, v in zip(lyrs, ss, vs):
+            own = lyr.owned_idx.clamp(min=0)
+            s_own = s.index_select(0, own).clamp(min=1e-16)
+            h = v.index_select(0, own) / s_own[..., None]   # [O_cap, K, D]
+            h = h * lyr.owned_mask[:, None, None]
+            if is_last:
+                out.append(h.mean(dim=1))
+            else:
+                out.append((h.reshape(-1, k * d_out) + p["b"])
+                           * lyr.owned_mask[:, None])
+        return out
+
+    def layer(self, i: int, lyr: SplitLayer, x: torch.Tensor,
+              is_last: bool) -> torch.Tensor:
+        """Layer ``i`` of one partition."""
+        return self.layers(i, [lyr], [x], is_last)[0]
+
+    def forward_partitions(self, parts: list[list[SplitLayer]], xs,
+                           generator: torch.Generator | None = None):
+        """The local partitions' forward, as
+        ``SplitSAGE.forward_partitions``, with ELU between layers;
+        ``generator`` is unused (no dropout)."""
+        xs = list(xs)
+        last = len(parts[0]) - 1
+        for i in range(last + 1):
+            xs = self.layers(i, [layers[i] for layers in parts], xs,
+                             is_last=(i == last))
+            if i != last:
+                xs = [F.elu(x) for x in xs]
+        return xs
 
     def forward_local(self, layers: list[SplitLayer], x: torch.Tensor,
                       generator: torch.Generator | None = None):
-        """One partition's forward, as ``SplitSAGE.forward_local``, with
-        ELU between layers; ``generator`` is unused (no dropout)."""
-        last = len(layers) - 1
-        for i, lyr in enumerate(layers):
-            x = self.layer(i, lyr, x, is_last=(i == last))
-            if i != last:
-                x = F.elu(x)
-        return x
+        """One partition's forward (``forward_partitions`` of one)."""
+        return self.forward_partitions([layers], [x], generator)[0]
 
 
 def _local_ce(logits: torch.Tensor, labels: torch.Tensor):
@@ -506,43 +584,69 @@ def _check_dropout_rng(model, generator) -> None:
 
 
 def _local_layers(batch: SplitBatch,
-                  ranks: DistContext | None) -> list[SplitLayer]:
-    """This rank's layers: the batch holds one partition's row, and its
-    P-slot axes are as wide as the process group."""
-    if batch.num_partitions != 1:
-        raise NotImplementedError(_SEVERAL_PARTITIONS)
-    layers = [lyr.partition(0) for lyr in batch.layers]
-    P = ranks.world_size if ranks is not None else 1
-    for lyr in layers:
-        if lyr.push_idx is not None and lyr.push_idx.shape[0] != P:
+                  ranks: DistContext | None) -> list[list[SplitLayer]]:
+    """This process's layers, ``[partition j][layer i]``: the batch holds
+    its L partitions' rows, and its P-slot axes span the run's P
+    partitions (without ``ranks``, one process holds them all)."""
+    L = batch.num_partitions
+    P = ranks.num_partitions if ranks is not None else L
+    if ranks is not None and L != ranks.local:
+        raise ValueError(f"the batch holds {L} partitions, this process "
+                         f"holds {ranks.local} ({ranks.lo}..{ranks.hi - 1})")
+    for lyr in batch.layers:
+        if lyr.push_idx is not None and lyr.push_idx.shape[1] != P:
             raise ValueError(f"the batch was sliced for "
-                             f"{lyr.push_idx.shape[0]} partitions, the "
-                             f"process group has {P}")
-    return layers
+                             f"{lyr.push_idx.shape[1]} partitions, the run "
+                             f"has {P}")
+    return [[lyr.partition(j) for lyr in batch.layers] for j in range(L)]
+
+
+def _check_frames(x0: torch.Tensor, L: int) -> None:
+    if x0.shape[0] != L:
+        raise ValueError(f"the batch holds {L} partitions but x0 has "
+                         f"{x0.shape[0]} input frames")
+
+
+def _generators(sample_generator, L: int):
+    """One device-draw generator per local partition: a sequence of L,
+    or at L = 1 the generator itself."""
+    if sample_generator is None or not isinstance(sample_generator,
+                                                  torch.Generator):
+        return sample_generator
+    if L != 1:
+        raise ValueError(f"{L} partitions in this process draw from one "
+                         "generator each: pass sample_generator= as a list")
+    return [sample_generator]
 
 
 def _global_ce(nll, count, correct):
-    """``[nll, count, correct]`` summed over the ranks, detached (JAX's
-    psum of the three, ``model.py:683-687``), on the device."""
+    """``[nll, count, correct]`` summed over the processes, detached
+    (JAX's psum of the three, ``model.py:683-687``), on the device."""
     totals = torch.stack([nll.detach().double(), count.double(),
                           correct.double()])
     torch_dist.all_reduce(totals)
     return totals
 
 
-def global_update(model: nn.Module, optimizer, logits: torch.Tensor,
-                  labels: torch.Tensor, ranks: DistContext | None = None):
-    """The masked CE of this rank's ``logits``, its backward and one
+def global_update(model: nn.Module, optimizer, logits, labels,
+                  ranks: DistContext | None = None):
+    """The masked CE of this process's ``logits``, its backward and one
     optimizer step -> ``(loss, correct, count)``, global over ``ranks``.
+    ``logits`` and ``labels`` are one partition's tensors, or sequences
+    of the local partitions'.
 
-    At P = 1 the loss is ``nll / max(count, 1)``. At P > 1 the
-    ``[nll, count, correct]`` terms are all-reduced first, each rank
+    ``[nll, count, correct]`` are summed over the local partitions; in a
+    run of one process the loss is ``nll / max(count, 1)``. With several
+    processes the terms are all-reduced first, each process
     differentiates ``nll_local / count_global`` and the gradients are
     SUM-all-reduced: the gradient of the global mean, as the JAX
     ``shard_map`` transpose gives it. The optimizer's ``zero_grad`` is
     the caller's, before the forward."""
-    nll, count, correct = _local_ce(logits, labels)
-    if ranks is None:
+    if isinstance(logits, torch.Tensor):
+        logits, labels = [logits], [labels]
+    terms = [_local_ce(lg, lb) for lg, lb in zip(logits, labels)]
+    nll, count, correct = (sum(t[k] for t in terms) for k in range(3))
+    if ranks is None or not ranks.grouped:
         loss = nll / count.clamp(min=1)
         loss.backward()
         zero_missing_grads(model.parameters())
@@ -560,26 +664,30 @@ def make_split_train_step(model: SplitSAGE, optimizer, csr=None,
                           ranks: DistContext | None = None):
     """``step(batch, x0, generator=None, sample_generator=None) -> (loss,
     correct, count)``: forward, masked CE, backward and one optimizer
-    update of ``model`` in place. ``x0`` is the input frame ``[1, F, H]``
-    (the cache frame or the gathered rows) and ``batch`` holds one
-    partition's row. ``ranks`` (``parallel.dist``) is the process group
-    of a P > 1 run, rank r holding partition r; the loss, correct and
-    count returned are then global, the same on every rank.
+    update of ``model`` in place. ``batch`` holds this process's L
+    partitions' rows and ``x0`` their input frames ``[L, F, H]`` (the
+    cache frames or the gathered rows). ``ranks`` (``parallel.dist``)
+    places the process in its run; without it the process holds every
+    partition of the batch. The loss, correct and count returned are
+    global, the same in every process.
 
     ``csr`` (``make_device_csr``) enables device-sampled innermost layers;
-    those steps need ``sample_generator``, a generator on the device.
+    those steps need ``sample_generator``, one generator on the device
+    per local partition (a list; at L = 1 the generator itself).
     Nothing here waits for the device: the results are device tensors."""
 
     def step(batch: SplitBatch, x0: torch.Tensor,
              generator: torch.Generator | None = None,
-             sample_generator: torch.Generator | None = None):
+             sample_generator=None):
         _check_dropout_rng(model, generator)
-        layers = _materialize_layers(_local_layers(batch, ranks), csr,
-                                     sample_generator)
+        L = batch.num_partitions
+        _check_frames(x0, L)
+        parts = _materialize_layers(_local_layers(batch, ranks), csr,
+                                    _generators(sample_generator, L))
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        logits = model.forward_local(layers, x0[0], generator)
-        return global_update(model, optimizer, logits, batch.labels[0],
+        logits = model.forward_partitions(parts, x0, generator)
+        return global_update(model, optimizer, logits, batch.labels.unbind(0),
                              ranks)
 
     return step
@@ -587,16 +695,18 @@ def make_split_train_step(model: SplitSAGE, optimizer, csr=None,
 
 def make_split_forward(model: SplitSAGE, csr=None,
                        ranks: DistContext | None = None):
-    """``fwd(batch, x0, sample_generator=None) -> logits [1, T_cap, C]``:
-    inference on this rank's partition, without dropout or gradients
-    (with the boundary shuffles when ``ranks`` holds P > 1 ranks)."""
+    """``fwd(batch, x0, sample_generator=None) -> logits [L, T_cap, C]``:
+    inference on this process's L partitions, without dropout or
+    gradients (with the boundary shuffles when the run has P > 1
+    partitions)."""
 
     @torch.no_grad()
-    def fwd(batch: SplitBatch, x0: torch.Tensor,
-            sample_generator: torch.Generator | None = None):
-        layers = _materialize_layers(_local_layers(batch, ranks), csr,
-                                     sample_generator)
+    def fwd(batch: SplitBatch, x0: torch.Tensor, sample_generator=None):
+        L = batch.num_partitions
+        _check_frames(x0, L)
+        parts = _materialize_layers(_local_layers(batch, ranks), csr,
+                                    _generators(sample_generator, L))
         model.eval()
-        return model.forward_local(layers, x0[0])[None]
+        return torch.stack(model.forward_partitions(parts, x0))
 
     return fwd

@@ -2,33 +2,37 @@
 boundary shuffle.
 
 The JAX package's ``parallel/split.py`` as torch ops. The layout is the
-same, with one difference: the JAX step holds all P partitions in one
-SPMD program, where each process of the port holds one partition, so a
-batch's leading axis is 1 (a rank's own row), and the P-slot axes of
+same. The JAX step holds all P partitions in one SPMD program; a process
+of the port holds L of them, ``[lo, hi)`` (``parallel.dist``), so a
+batch's leading axis is L (this process's rows), and the P-slot axes of
 ``push_idx`` / ``recv_idx`` stay P wide:
 
-  edge_src[P, E_cap]   local src row in partition p's input frame
-  edge_dst[P, E_cap]   local dst row in p's dst frame, sorted (pad=dst_cap)
-  push_idx[P, P, S_cap] rows of p's dst frame to send to q (pad=-1)
-  recv_idx[P, P, S_cap] where partials arriving from r land (pad=dst_cap)
-  owned_idx[P, O_cap]  rows of p's dst frame owned by p (pad=-1)
-  owned_deg[P, O_cap]  total sampled in-degree (pad=1)
-  self_idx[P, O_cap]   row of p's input frame holding the owned node's own
+  edge_src[L, E_cap]   local src row in partition p's input frame
+  edge_dst[L, E_cap]   local dst row in p's dst frame, sorted (pad=dst_cap)
+  push_idx[L, P, S_cap] rows of p's dst frame to send to q (pad=-1)
+  recv_idx[L, P, S_cap] where partials arriving from r land (pad=dst_cap)
+  owned_idx[L, O_cap]  rows of p's dst frame owned by p (pad=-1)
+  owned_deg[L, O_cap]  total sampled in-degree (pad=1)
+  self_idx[L, O_cap]   row of p's input frame holding the owned node's own
                        feature
-  nbr_idx[P, K_cap, D_cap] dense neighbour matrix; padding points at the
+  nbr_idx[L, K_cap, D_cap] dense neighbour matrix; padding points at the
                        frame's reserved zero row ``src_cap - 1``
 
 The owned output rows of layer l are layer l+1's input frame rows, so
 layers chain with no gather. Each partition aggregates partial sums and
-``shuffle_merge`` sends the boundary partials to the owner of each dst in
-one all-to-all over the process group (one rank per partition); with one
-partition they are the whole sums and nothing is shuffled. Distributed
-GAT adds two all-to-alls a layer on the same index tensors:
-``reverse_shuffle`` sends each owned dst's attention term to the
-partitions that hold its edges, and ``shuffle_softmax_merge`` merges the
-partitions' streaming-softmax partials at the owner. Each of the three is
-an autograd Function whose backward is one more all-to-all, and
-``shuffle_counts()`` counts them all.
+``shuffle_merge`` sends the boundary partials to the owner of each dst:
+the send buffer ``[L, P, S_cap, ...]`` of a process's partitions is
+regrouped by destination process and crosses in one all-to-all over the
+process group when there are several processes, and in none when one
+process holds every partition (then the exchange is a transposition in
+device memory). With one partition they are the whole sums and nothing
+is shuffled. Distributed GAT adds two shuffles a layer on the same index
+tensors: ``reverse_shuffle`` sends each owned dst's attention term to
+the partitions that hold its edges, and ``shuffle_softmax_merge`` merges
+the partitions' streaming-softmax partials at the owner. Each of the
+three is an autograd Function whose backward is one more exchange;
+``shuffle_counts()`` counts them per partition, and
+``collective_count()`` the all-to-alls this process issued.
 
 Index semantics. JAX gathers clamp out-of-range indices and its scatters
 drop them; torch raises. Every padded index is therefore made valid
@@ -211,104 +215,142 @@ def aggregate(x: torch.Tensor, lyr: SplitLayer) -> torch.Tensor:
     return local_aggregate(x, lyr.edge_src, lyr.edge_dst, lyr.dst_cap)
 
 
-def _with_sink(rows: torch.Tensor) -> torch.Tensor:
-    """``rows`` with one zero row appended: the target of padded indices
-    equal to ``rows.shape[0]`` (``index_add_`` has no drop mode)."""
-    out = rows.new_empty((rows.shape[0] + 1,) + tuple(rows.shape[1:]))
-    out[:-1].copy_(rows)
-    out[-1].zero_()
-    return out
-
-
-def _push_rows(rows: torch.Tensor, push_idx: torch.Tensor) -> torch.Tensor:
-    """``rows[push_idx]`` as ``[P * S_cap, H]``, zero where ``push_idx`` is
-    the -1 padding (torch would wrap -1 to the last row)."""
-    flat = push_idx.reshape(-1)
-    valid = (flat >= 0).to(rows.dtype)[:, None]
-    return rows.index_select(0, flat.clamp(min=0)) * valid
-
-
-# All-to-alls of this process, by direction, and the payload bytes it sent
-# to the other ranks: every shuffle below counts here.
+# Exchanges of a partition, by direction, and the payload bytes a
+# partition sent to the other partitions: every shuffle below counts here,
+# the same whichever process holds the partition. ``collectives`` counts
+# the all-to-alls this process issued (none in a run of one process).
 _SHUFFLES = {"forward": 0, "backward": 0, "bytes_sent": 0}
+_COLLECTIVES = [0]
 
 
 def reset_shuffle_counts() -> None:
     for key in _SHUFFLES:
         _SHUFFLES[key] = 0
+    _COLLECTIVES[0] = 0
 
 
 def shuffle_counts() -> dict:
     return dict(_SHUFFLES)
 
 
+def collective_count() -> int:
+    """The all-to-alls this process issued since the last reset."""
+    return _COLLECTIVES[0]
+
+
+def _world() -> int:
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
 def _exchange(send: torch.Tensor, direction: str) -> torch.Tensor:
-    """One ``all_to_all_single`` with equal splits: chunk q of ``send``
-    goes to rank q, and chunk r of the result came from rank r. Counted
-    under ``direction`` ("forward" or "backward")."""
-    recv = torch.empty_like(send)
-    dist.all_to_all_single(recv, send)
-    P = dist.get_world_size()
+    """Move ``send [L, P, S_cap, C]`` (local partition j's rows for
+    partition q) to ``recv [L, P, S_cap, C]`` (the rows partition p sent
+    to local partition j). The buffer is regrouped by destination process,
+    ``[W, L_src, L_dst, S_cap, C]``, crosses in one
+    ``all_to_all_single`` with equal splits when there are W > 1
+    processes, and is transposed into the receive layout; with one
+    process the transposition is all there is. Counted under
+    ``direction`` ("forward" or "backward")."""
+    L, P = send.shape[:2]
+    W = P // L
+    rest = tuple(send.shape[2:])
+    if W == 1:
+        recv = send.transpose(0, 1)
+    else:
+        buf = send.view(L, W, L, *rest).transpose(0, 1).contiguous()
+        out = torch.empty_like(buf)
+        dist.all_to_all_single(out, buf)
+        _COLLECTIVES[0] += 1
+        # out[k, l, j]: what partition k * L + l sent to local partition j.
+        recv = out.permute(2, 0, 1, *range(3, 3 + len(rest))).reshape(
+            L, P, *rest)
     _SHUFFLES[direction] += 1
     _SHUFFLES["bytes_sent"] += (
-        send.numel() // P * (P - 1) * send.element_size())
+        send.numel() // (L * P) * (P - 1) * send.element_size())
     return recv
 
 
 def _check_group(push_idx: torch.Tensor, name: str,
                  *f32: torch.Tensor) -> None:
-    P = push_idx.shape[0]
-    if dist.get_world_size() != P:
-        raise ValueError(f"the batch has {P} partitions but the process "
-                         f"group has {dist.get_world_size()} ranks")
+    """P == W * L: the batch's P-slot axes span every process's
+    partitions."""
+    L, P = push_idx.shape[:2]
+    W = _world()
+    if P != W * L:
+        raise ValueError(f"{name}: the batch has {L} partitions of {P} in "
+                         f"this process, but the run has {W} processes "
+                         f"(P must be W * L)")
     for t in f32:
         if t.dtype != torch.float32:
             raise TypeError(f"{name} moves f32 rows, got {t.dtype}")
 
 
-def _mask_pad(flat_push: torch.Tensor, dst_cap: int) -> torch.Tensor:
-    """``push_idx`` with its -1 padding sent to the sink row ``dst_cap``,
-    as int64 (``index_copy_`` and ``index_fill_`` take no int32)."""
-    return torch.where(flat_push < 0, dst_cap, flat_push).long()
+def _flat(idx: torch.Tensor, d: int) -> torch.Tensor:
+    """Rows of ``idx [L, P, S_cap]`` (each partition's own frame of ``d``
+    rows) in the flat ``[L * (d + 1)]`` frames with a sink row each:
+    padding, -1 (``push_idx``) or ``d`` (``recv_idx``), goes to the
+    partition's sink. int64 (``index_copy_`` and ``index_fill_`` take no
+    int32)."""
+    L = idx.shape[0]
+    base = torch.arange(L, device=idx.device, dtype=torch.int64) * (d + 1)
+    rows = torch.where(idx < 0, d, idx).long()
+    return (rows + base.view(L, *([1] * (idx.dim() - 1)))).reshape(-1)
+
+
+def _sink_frames(rows: torch.Tensor, fill: float = 0.0) -> torch.Tensor:
+    """``rows [L, d, ...]`` with one row of ``fill`` appended to each
+    partition's frame: ``[L, d + 1, ...]``, the target of padded
+    indices."""
+    L, d = rows.shape[:2]
+    out = rows.new_empty((L, d + 1) + tuple(rows.shape[2:]))
+    out[:, :d].copy_(rows)
+    out[:, d].fill_(fill)
+    return out
 
 
 class _ShuffleMerge(torch.autograd.Function):
-    """Forward: gather the push rows, all-to-all, add the received rows at
+    """Forward: gather the push rows, exchange, add the received rows at
     ``recv_idx``. Backward, the transpose: the gradient passes through to
     ``neigh``, is gathered at ``recv_idx``, crosses back in the same
-    all-to-all (its own transpose) and is added at ``push_idx``."""
+    exchange (its own transpose) and is added at ``push_idx``."""
 
     @staticmethod
     def forward(ctx, neigh, push_idx, recv_idx):
-        ctx.save_for_backward(push_idx, recv_idx)
-        recv = _exchange(_push_rows(neigh, push_idx), "forward")
-        frame = _with_sink(neigh)
-        frame.index_add_(0, recv_idx.reshape(-1), recv)
-        return frame[:-1]
+        L, d, h = neigh.shape
+        push, recv = _flat(push_idx, d), _flat(recv_idx, d)
+        ctx.save_for_backward(push, recv)
+        ctx.slots = tuple(push_idx.shape[1:])
+        frame = _sink_frames(neigh)
+        flat = frame.view(-1, h)
+        got = _exchange(flat.index_select(0, push).view(
+            push_idx.shape + (h,)), "forward")
+        flat.index_add_(0, recv, got.reshape(-1, h))
+        return frame[:, :d]
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, grad):
-        push_idx, recv_idx = ctx.saved_tensors
-        g_recv = _with_sink(grad).index_select(0, recv_idx.reshape(-1))
-        g_send = _exchange(g_recv, "backward")
-        flat = push_idx.reshape(-1)
-        valid = (flat >= 0).to(g_send.dtype)[:, None]
-        dneigh = grad.clone()
-        dneigh.index_add_(0, flat.clamp(min=0), g_send * valid)
-        return dneigh, None, None
+        push, recv = ctx.saved_tensors
+        L, d, h = grad.shape
+        dneigh = _sink_frames(grad)
+        flat = dneigh.view(-1, h)
+        back = _exchange(flat.index_select(0, recv).view(
+            (L,) + ctx.slots + (h,)), "backward")
+        flat.index_add_(0, push, back.reshape(-1, h))
+        return dneigh[:, :d], None, None
 
 
 def shuffle_merge(neigh: torch.Tensor, push_idx: torch.Tensor,
                   recv_idx: torch.Tensor) -> torch.Tensor:
-    """Send this rank's boundary partial sums to their owners and add the
-    partials that arrive into its own dst frame.
+    """Send this process's boundary partial sums to their owners and add
+    the partials that arrive into its own dst frames.
 
-    ``neigh`` is f32 ``[dst_cap, H]`` (the partial sums stay f32 under
-    bf16 storage, as in JAX); ``push_idx`` / ``recv_idx`` are this rank's
-    ``[P, S_cap]`` rows, and the default process group has P ranks, rank
-    r holding partition r. ``shuffle_counts()`` counts the all-to-alls and
-    the payload bytes sent to the other ranks."""
+    ``neigh`` is f32 ``[L, dst_cap, H]``, the partial sums of the
+    process's L partitions (they stay f32 under bf16 storage, as in JAX);
+    ``push_idx`` / ``recv_idx`` are their ``[L, P, S_cap]`` rows. The run
+    has P = W * L partitions over the W processes of the default process
+    group (or one process and no group). ``shuffle_counts()`` counts the
+    exchanges and the payload bytes each partition sends to the others."""
     _check_group(push_idx, "shuffle_merge", neigh)
     with record_function("shuffle_merge"):
         return _ShuffleMerge.apply(neigh, push_idx, recv_idx)
@@ -316,130 +358,135 @@ def shuffle_merge(neigh: torch.Tensor, push_idx: torch.Tensor,
 
 class _ReverseShuffle(torch.autograd.Function):
     """Forward: each owner gathers its rows at ``recv_idx`` (padding reads
-    the zero sink row), all-to-all, and each edge holder writes what it
+    the zero sink row), exchange, and each edge holder writes what it
     received at ``push_idx`` of a copy of its frame. Backward, the
     transpose of that write: the written rows take no gradient, the
-    gradient at ``push_idx`` crosses back in the same all-to-all and is
+    gradient at ``push_idx`` crosses back in the same exchange and is
     added at the owner's ``recv_idx`` rows."""
 
     @staticmethod
     def forward(ctx, frame, push_idx, recv_idx):
-        ctx.save_for_backward(push_idx, recv_idx)
-        d = frame.shape[0]
-        send = _with_sink(frame).index_select(0, recv_idx.reshape(-1))
-        recv = _exchange(send, "forward")
-        out = _with_sink(frame)
-        out.index_copy_(0, _mask_pad(push_idx.reshape(-1), d), recv)
-        return out[:-1]
+        L, d, c = frame.shape
+        push, recv = _flat(push_idx, d), _flat(recv_idx, d)
+        ctx.save_for_backward(push, recv)
+        ctx.slots = tuple(push_idx.shape[1:])
+        out = _sink_frames(frame)
+        flat = out.view(-1, c)
+        got = _exchange(flat.index_select(0, recv).view(
+            recv_idx.shape + (c,)), "forward")
+        flat.index_copy_(0, push, got.reshape(-1, c))
+        return out[:, :d]
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, grad):
-        push_idx, recv_idx = ctx.saved_tensors
-        d = grad.shape[0]
-        g_back = _exchange(_push_rows(grad, push_idx), "backward")
-        dframe = _with_sink(grad)
-        dframe.index_fill_(0, _mask_pad(push_idx.reshape(-1), d), 0.0)
-        dframe.index_add_(0, recv_idx.reshape(-1), g_back)
-        return dframe[:-1], None, None
+        push, recv = ctx.saved_tensors
+        L, d, c = grad.shape
+        dframe = _sink_frames(grad)
+        flat = dframe.view(-1, c)
+        back = _exchange(flat.index_select(0, push).view(
+            (L,) + ctx.slots + (c,)), "backward")
+        flat.index_fill_(0, push, 0.0)
+        flat.index_add_(0, recv, back.reshape(-1, c))
+        return dframe[:, :d], None, None
 
 
 def reverse_shuffle(frame: torch.Tensor, push_idx: torch.Tensor,
                     recv_idx: torch.Tensor) -> torch.Tensor:
     """Owner -> edge-holder shuffle, the reverse of ``shuffle_merge`` on
     the same index tensors: owner q sends the rows of its f32 dst frame
-    ``[dst_cap, C]`` listed in ``recv_idx[p]`` to rank p, which writes
-    them at ``push_idx[q]`` of its own frame. Distributed GAT sends each
-    dst's attention term to the partitions that hold its edges."""
+    (``frame [L, dst_cap, C]``, this process's partitions) listed in
+    ``recv_idx[q, p]`` to partition p, which writes them at
+    ``push_idx[p, q]`` of its own frame. Distributed GAT sends each dst's
+    attention term to the partitions that hold its edges."""
     _check_group(push_idx, "reverse_shuffle", frame)
     with record_function("reverse_shuffle"):
         return _ReverseShuffle.apply(frame, push_idx, recv_idx)
 
 
-def _merge_scales(m_loc, r_m, recv_idx):
+def _merge_scales(m_loc, r_m, recv):
     """The streaming-softmax rescaling at the owner: ``m* = max`` of the
     local and received maxima (padding is -inf and lands in the sink),
     then ``exp(m - m*)`` for the local partials and for each received one,
-    0 where a max is -inf (a row or partial with no edge)."""
-    flat = recv_idx.reshape(-1).long()
-    k = m_loc.shape[-1]
-    m_star = _with_sink(m_loc)
-    m_star[-1] = float("-inf")
-    m_star.scatter_reduce_(0, flat[:, None].expand(-1, k), r_m, "amax",
+    0 where a max is -inf (a row or partial with no edge). ``m_loc [L,
+    d, K]``, ``r_m [n, K]`` landing at the flat rows ``recv``."""
+    L, d, k = m_loc.shape
+    m_star = _sink_frames(m_loc, float("-inf")).view(-1, k)
+    m_star.scatter_reduce_(0, recv[:, None].expand(-1, k), r_m, "amax",
                            include_self=True)
     safe = torch.where(torch.isfinite(m_star), m_star, 0.0)
     scale_loc = torch.where(torch.isfinite(m_loc),
-                            torch.exp(m_loc - safe[:-1]), 0.0)
-    r_scale = torch.where(torch.isfinite(r_m), torch.exp(r_m - safe[flat]),
+                            torch.exp(m_loc - safe.view(L, d + 1, k)[:, :d]),
+                            0.0)
+    r_scale = torch.where(torch.isfinite(r_m), torch.exp(r_m - safe[recv]),
                           0.0)
     return scale_loc, r_scale
 
 
 class _ShuffleSoftmaxMerge(torch.autograd.Function):
-    """Forward: one all-to-all of the pushed ``(m, s, v)`` rows (padding
+    """Forward: one exchange of the pushed ``(m, s, v)`` rows (padding
     sends m = -inf and zero sums), then the streaming-softmax merge at the
     owner. The maxima are shifts the layer's output does not depend on, so
     they take no gradient (as in flash attention); the backward carries
     ``(s, v)`` only: scaled by ``exp(m_loc - m*)`` locally, and for the
     received rows gathered at ``recv_idx``, scaled by ``r_scale``, sent
-    back in the same all-to-all and added at ``push_idx``."""
+    back in the same exchange and added at ``push_idx``."""
 
     @staticmethod
     def forward(ctx, m_loc, s_loc, v_loc, push_idx, recv_idx):
-        d, k = s_loc.shape
-        payload = torch.cat([m_loc, s_loc, v_loc.reshape(d, -1)], dim=-1)
-        flat_push = push_idx.reshape(-1)
-        valid = (flat_push >= 0)[:, None]
-        send = payload.index_select(0, flat_push.clamp(min=0))
-        send[:, :k].masked_fill_(~valid, float("-inf"))
-        send[:, k:].masked_fill_(~valid, 0.0)
-        recv = _exchange(send, "forward")
-        r_m, r_s, r_v = recv[:, :k], recv[:, k:2 * k], recv[:, 2 * k:]
-        scale_loc, r_scale = _merge_scales(m_loc, r_m, recv_idx)
-        ctx.save_for_backward(push_idx, recv_idx, scale_loc, r_scale)
-        ctx.v_shape = v_loc.shape
-        flat_recv = recv_idx.reshape(-1)
-        s_out = _with_sink(s_loc * scale_loc)
-        s_out.index_add_(0, flat_recv, r_s * r_scale)
-        v_out = _with_sink((v_loc * scale_loc[..., None]).reshape(d, -1))
+        L, d, k = s_loc.shape
         dv = v_loc.shape[-1]
-        v_out.index_add_(0, flat_recv,
-                         (r_v.reshape(-1, k, dv) * r_scale[..., None])
-                         .reshape(r_v.shape))
-        return s_out[:-1], v_out[:-1].reshape(v_loc.shape)
+        push, recv = _flat(push_idx, d), _flat(recv_idx, d)
+        payload = torch.cat([m_loc, s_loc, v_loc.reshape(L, d, -1)], dim=-1)
+        frame = _sink_frames(payload)
+        frame[:, d, :k] = float("-inf")
+        got = _exchange(frame.view(-1, payload.shape[-1]).index_select(
+            0, push).view(push_idx.shape + (-1,)), "forward")
+        got = got.reshape(-1, payload.shape[-1])
+        r_m, r_s, r_v = got[:, :k], got[:, k:2 * k], got[:, 2 * k:]
+        scale_loc, r_scale = _merge_scales(m_loc, r_m, recv)
+        ctx.save_for_backward(push, recv, scale_loc, r_scale)
+        ctx.slots = tuple(push_idx.shape[1:])
+        s_out = _sink_frames(s_loc * scale_loc).view(-1, k)
+        s_out.index_add_(0, recv, r_s * r_scale)
+        v_out = _sink_frames((v_loc * scale_loc[..., None]).reshape(L, d, -1))
+        v_out.view(-1, k * dv).index_add_(
+            0, recv, (r_v.reshape(-1, k, dv) * r_scale[..., None])
+            .reshape(r_v.shape))
+        return (s_out.view(L, d + 1, k)[:, :d],
+                v_out[:, :d].reshape(v_loc.shape))
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g_s, g_v):
-        push_idx, recv_idx, scale_loc, r_scale = ctx.saved_tensors
-        d, k, dv = ctx.v_shape
-        flat_recv = recv_idx.reshape(-1)
-        gs_r = _with_sink(g_s).index_select(0, flat_recv) * r_scale
-        gv_r = (_with_sink(g_v.reshape(d, -1)).index_select(0, flat_recv)
-                .reshape(-1, k, dv) * r_scale[..., None])
-        back = _exchange(torch.cat([gs_r, gv_r.reshape(-1, k * dv)], -1),
-                         "backward")
-        flat_push = push_idx.reshape(-1)
-        valid = (flat_push >= 0).to(back.dtype)[:, None]
-        back = back * valid
-        rows = flat_push.clamp(min=0)
-        ds = g_s * scale_loc
-        ds.index_add_(0, rows, back[:, :k])
-        dv_loc = (g_v * scale_loc[..., None]).reshape(d, -1)
-        dv_loc.index_add_(0, rows, back[:, k:])
-        return None, ds, dv_loc.reshape(d, k, dv), None, None
+        push, recv, scale_loc, r_scale = ctx.saved_tensors
+        L, d, k, dv = g_v.shape
+        gs_r = _sink_frames(g_s).view(-1, k).index_select(0, recv) * r_scale
+        gv_r = (_sink_frames(g_v.reshape(L, d, -1)).view(-1, k * dv)
+                .index_select(0, recv).reshape(-1, k, dv)
+                * r_scale[..., None])
+        back = _exchange(
+            torch.cat([gs_r, gv_r.reshape(-1, k * dv)], -1).view(
+                (L,) + ctx.slots + (-1,)), "backward")
+        back = back.reshape(-1, k + k * dv)
+        ds = _sink_frames(g_s * scale_loc)
+        ds.view(-1, k).index_add_(0, push, back[:, :k])
+        dv_loc = _sink_frames((g_v * scale_loc[..., None]).reshape(L, d, -1))
+        dv_loc.view(-1, k * dv).index_add_(0, push, back[:, k:])
+        return (None, ds[:, :d], dv_loc[:, :d].reshape(L, d, k, dv), None,
+                None)
 
 
 def shuffle_softmax_merge(m_loc: torch.Tensor, s_loc: torch.Tensor,
                           v_loc: torch.Tensor, push_idx: torch.Tensor,
                           recv_idx: torch.Tensor):
-    """Exact distributed segment softmax in one all-to-all: this rank's
-    local max ``m_loc [dst_cap, K]`` (-inf for a row with no local edge),
-    sum of exps ``s_loc [dst_cap, K]`` and weighted values ``v_loc
-    [dst_cap, K, Dh]``, all f32, go to the owners of their rows in one
-    payload, and each owner merges them with its own: ``m* = max``, every
-    partial rescaled by ``exp(m_p - m*)``. Returns the merged ``(s, v)``;
-    ``m_loc`` takes no gradient."""
+    """Exact distributed segment softmax in one exchange: the local max
+    ``m_loc [L, dst_cap, K]`` of this process's partitions (-inf for a row
+    with no local edge), sum of exps ``s_loc [L, dst_cap, K]`` and
+    weighted values ``v_loc [L, dst_cap, K, Dh]``, all f32, go to the
+    owners of their rows in one payload, and each owner merges them with
+    its own: ``m* = max``, every partial rescaled by ``exp(m_p - m*)``.
+    Returns the merged ``(s, v)``; ``m_loc`` takes no gradient."""
     _check_group(push_idx, "shuffle_softmax_merge", m_loc, s_loc, v_loc)
     with record_function("shuffle_softmax_merge"):
         return _ShuffleSoftmaxMerge.apply(m_loc.detach(), s_loc,

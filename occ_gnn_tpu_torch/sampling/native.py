@@ -20,11 +20,11 @@ reused only once that event has completed. A batch parked in the reorder
 buffer keeps its own tail buffer until it is delivered. On the CPU the
 "device" arena is the host arena itself and is never pooled.
 
-One process per partition. With ``emit_range=(r, r + 1)`` the service
-builds only partition r's rows of every ``[P, ...]`` field (the sampling,
+Several processes. With ``emit_range=(lo, hi)`` the service builds only
+partitions ``[lo, hi)``'s rows of every ``[P, ...]`` field (the sampling,
 routing and overflow checks still run over all P partitions, so every
-rank draws the same batch and reaches the same verdict); the arena, the
-unpack and the tail buffers are sized by the emitted rows. The refresh
+process draws the same batch and reaches the same verdict); the arena,
+the unpack and the tail buffers are sized by the emitted rows. The refresh
 list stays all-P: cache-tail bookkeeping is global.
 
 Unpacked transfer (``packed=False``, JAX ``sampling/native.py:392-433``
@@ -142,7 +142,14 @@ _FIELD_DTYPES = {"i32": torch.int32, "f32": torch.float32,
 class _BufferPool:
     """Host buffers of one shape for copies to ``device``: pinned when the
     device is CUDA, and reused only after the copies made from them have
-    completed (a CUDA event recorded on the current stream at ``put``)."""
+    completed (a CUDA event recorded on the current stream at ``put``).
+
+    A buffer starts zeroed: the service fills a tail buffer only up to
+    each partition's fill, and the rows after it reach the frame as they
+    are. No batch reads them, but a layer that projects the whole frame
+    (split GAT's COO layer 0) takes their gradient term ``0 * row``,
+    which is NaN when the row is. Zeros, and later only rows of feature
+    values, keep every frame row finite."""
 
     def __init__(self, shape, dtype: torch.dtype, device: torch.device):
         self.shape, self.dtype = tuple(shape), dtype
@@ -156,7 +163,7 @@ class _BufferPool:
             self._free.append(self._in_flight.popleft()[0])
         if self._free:
             return self._free.pop()
-        return torch.empty(self.shape, dtype=self.dtype,
+        return torch.zeros(self.shape, dtype=self.dtype,
                            pin_memory=self.pinned)
 
     def put(self, buf: torch.Tensor) -> None:

@@ -2,8 +2,8 @@
 
 The numpy code of the JAX package's ``sampling/slicer.py``, unchanged, so
 one seed gives the same batches in both packages field for field; only
-the final packing into torch tensors on a device is new. With one process
-per partition, ``emit_range`` keeps only this process's rows of every
+the final packing into torch tensors on a device is new. With several
+processes, ``emit_range`` keeps only this process's rows of every
 ``[P, ...]`` field, sliced on the host before the device copy (the JAX
 package's ``MultiHostSplitSampler._assemble``).
 

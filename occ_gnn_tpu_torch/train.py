@@ -21,11 +21,14 @@ Modes, each the JAX trainer's:
 
 A flag that the chosen mode does not read stops the CLI.
 
-split, ddp, quiver and infer run at P > 1 as one process per rank
-(``parallel.dist``): ``--partitions P`` spawns the P ranks itself, and
-``--distributed`` joins a process group of ranks started elsewhere (the
-JAX flags ``--coordinator-address``, ``--num-processes``,
-``--process-id``, or torchrun's environment):
+split and infer run P partitions over W processes, P / W each
+(``parallel.dist``): ``--partitions P`` starts the processes itself, one
+per card the partitions land on, or ``ceil(P / --cpu-devices)`` under
+``--cpu`` (``--partitions 0`` is ``--cpu-devices`` partitions under
+``--cpu``, as the JAX CLI's virtual devices, and one on the card). ddp
+and quiver run one process per shard. ``--distributed`` joins a process
+group started elsewhere (the JAX flags ``--coordinator-address``,
+``--num-processes``, ``--process-id``, or torchrun's environment):
 
     python -m occ_gnn_tpu_torch.train --graph community --partitions 4 --cpu
 
@@ -47,7 +50,7 @@ import torch
 # The flags of the JAX CLI that only some modes read, each with the modes
 # of the JAX trainer that read it. Set away from its default under any
 # other mode (the JAX CLI would accept it there and ignore it), a flag
-# stops the CLI. --cpu-devices is read by no mode of the port yet.
+# stops the CLI. --cpu-devices is read under --cpu only.
 _RANKS = ("split", "ddp", "quiver", "infer")
 _TRAINING = ("split", "single", "pa-cache", "ddp", "quiver")
 _MODES_READING = {
@@ -71,7 +74,7 @@ _MODES_READING = {
     "profile_dir": ("split",),
     "infer_nodes": ("infer",),
     "output": ("infer",),
-    "cpu_devices": (),
+    "cpu_devices": ("split", "infer"),
     "distributed": _RANKS,
     "coordinator_address": _RANKS,
     "num_processes": _RANKS,
@@ -98,9 +101,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--lr", type=float, default=0.01)
     p.add_argument("--dropout", type=float, default=0.0)
     p.add_argument("--partitions", type=int, default=0,
-                   help="partitions (split) or ranks (ddp, quiver, infer), "
-                        "one process each; 0 = the world size with "
-                        "--distributed, else 1")
+                   help="partitions (split, infer) or ranks (ddp, quiver); "
+                        "0 = the processes times --cpu-devices under --cpu, "
+                        "else the processes (1 without --distributed)")
     p.add_argument("--partition-mode", type=str, default="greedy",
                    choices=["greedy", "metis", "random", "round_robin"])
     p.add_argument("--sampler", type=str, default="native",
@@ -157,8 +160,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU instead of the CUDA device")
     p.add_argument("--cpu-devices", type=int, default=8,
-                   help="virtual device count per process with --cpu "
-                        "(the port runs one partition per process)")
+                   help="partitions per process with --cpu (split, "
+                        "infer): the JAX CLI's virtual devices")
     p.add_argument("--json", action="store_true",
                    help="emit one JSON line of final metrics")
     p.add_argument("--distributed", action="store_true",
@@ -203,14 +206,33 @@ def _check_flags(parser, args) -> None:
                 dest):
             continue
         flag = "--" + dest.replace("_", "-")
-        if not modes:
-            raise SystemExit(f"{flag} is not ported yet: ROADMAP.md queue 1, "
-                             "item 7b (several partitions per process)")
+        if dest == "cpu_devices":
+            raise SystemExit(
+                f"--cpu-devices is not ported for --mode {args.mode}: only "
+                "--mode split / infer hold several partitions per process "
+                "(ROADMAP.md item 14b: several shards per process for ddp "
+                "and quiver)")
         raise SystemExit(
             f"{flag} is not ported for --mode {args.mode}: the JAX trainer's "
             f"{args.mode} mode does not read it, only --mode "
             f"{' / '.join(modes)} (ROADMAP.md queue 3: the port stops on a "
             "flag the JAX trainer would ignore)")
+    if not args.cpu and args.cpu_devices != parser.get_default("cpu_devices"):
+        raise SystemExit(
+            "--cpu-devices is not ported without --cpu: it gives the "
+            "partitions of a process on the CPU, as the JAX CLI's virtual "
+            "devices; on the card each process holds the partitions of its "
+            "card (ROADMAP.md item 14b)")
+
+
+def _placement(args, world: int | None = None) -> tuple[int, int]:
+    """``(P, W)`` of ``--mode`` (``parallel.dist.placement``): ddp and
+    quiver hold one shard per process."""
+    from occ_gnn_tpu_torch.parallel import dist
+
+    return dist.placement(args.partitions, cpu=args.cpu,
+                          cpu_devices=args.cpu_devices, world=world,
+                          one_per_process=args.mode in ("ddp", "quiver"))
 
 
 def main(argv=None):
@@ -225,18 +247,20 @@ def main(argv=None):
     _check_flags(parser, args)
     ranks = None
     if args.distributed:
-        ranks = dist.init_from_args(args)
+        ranks = dist.init_from_args(
+            args, one_per_process=args.mode in ("ddp", "quiver"))
         device = ranks.device
-    elif args.partitions > 1:
-        # One process per rank: spawn the P ranks here, once
-        # resolve_device has stopped a run that has no GPU and no --cpu.
-        resolve_device(args)
-        metrics = dist.launch(argv, args.partitions)
-        if args.json:
-            print(json.dumps(metrics))
-        return metrics
     else:
+        # resolve_device stops a run that has no GPU and no --cpu before
+        # anything starts.
         device = resolve_device(args)
+        if args.mode in _RANKS:
+            P, W = _placement(args)
+            if W > 1:
+                metrics = dist.launch(argv + ["--partitions", str(P)], W)
+                if args.json:
+                    print(json.dumps(metrics))
+                return metrics
     try:
         fanouts = [int(f) for f in args.fan_out.split(",")]
         g = resolve_graph(args)
@@ -409,13 +433,15 @@ def _make_split_model(args, g):
 
 
 def _gather_xs(g, batch, device: torch.device) -> torch.Tensor:
-    """The input frame ``[1, F0_cap, H]``, gathered on the host."""
+    """The input frames ``[L, F0_cap, H]`` of the batch's partitions,
+    gathered on the host."""
     from occ_gnn_tpu_torch.training import gather_features
 
     ids = batch.input_nodes_host
     if ids is None:
         ids = batch.input_nodes.cpu().numpy()
-    return gather_features(g.features, ids[0], device)[None]
+    return torch.stack([gather_features(g.features, row, device)
+                        for row in ids])
 
 
 def _profile_window(steps: int, out_dir: str, summary: dict):
@@ -445,18 +471,25 @@ def _profile_window(steps: int, out_dir: str, summary: dict):
                    on_trace_ready=on_ready)
 
 
-def _num_partitions(args, ranks) -> int:
+def _place(args, ranks, device):
+    """This process's place in the run: ``ranks`` when it joined a group,
+    else the one process holding every partition. Under
+    ``--distributed`` ``--partitions`` must be what the group holds."""
+    from occ_gnn_tpu_torch.parallel import dist
+
     if ranks is None:
-        if args.partitions > 1:
+        if args.mode in ("ddp", "quiver") and args.partitions > 1:
             raise ValueError(
                 f"--partitions {args.partitions} runs one process per "
-                "partition: call main(), which spawns them, or pass the "
-                "ranks= of a process group (parallel.dist)")
-        return 1
-    if args.partitions not in (0, ranks.world_size):
-        raise SystemExit(f"--partitions {args.partitions} must equal the "
-                         f"number of processes, {ranks.world_size}")
-    return ranks.world_size
+                "shard: call main(), which spawns them, or pass the ranks= "
+                "of a process group (parallel.dist)")
+        P, _ = _placement(args, world=1)
+        return dist.single_process(P, device)
+    if args.partitions not in (0, ranks.num_partitions):
+        raise SystemExit(f"--partitions {args.partitions} must be "
+                         f"{ranks.num_partitions}, what the "
+                         f"{ranks.world_size} processes hold")
+    return ranks
 
 
 def train_split(args, g, fanouts, timers, device: torch.device | None = None,
@@ -466,10 +499,12 @@ def train_split(args, g, fanouts, timers, device: torch.device | None = None,
     optional model state to start from (for instance
     ``utils.checkpoint.params_from_jax`` of JAX weights).
 
-    ``ranks`` (``parallel.dist.DistContext``) makes this process rank r of
-    a P-partition run: it partitions and plans as every other rank does,
-    holds partition r's cache frame, samples partition r's rows, and
-    reports the global loss, accuracy and evaluation counts."""
+    ``ranks`` (``parallel.dist.DistContext``) makes this process one of a
+    group that holds partitions ``[lo, hi)``: it partitions and plans as
+    every other process does, holds those partitions' cache frames,
+    samples their rows, and reports the global loss, accuracy and
+    evaluation counts. Without it the process holds all P partitions
+    (``--partitions``, or ``--cpu-devices`` under ``--cpu``)."""
     from torch.distributed import ReduceOp
 
     from occ_gnn_tpu_torch.cache import CachePlan, SplitFeatureCache
@@ -480,7 +515,10 @@ def train_split(args, g, fanouts, timers, device: torch.device | None = None,
         make_split_forward,
         make_split_train_step,
     )
-    from occ_gnn_tpu_torch.parallel.split import shuffle_counts
+    from occ_gnn_tpu_torch.parallel.split import (
+        collective_count,
+        shuffle_counts,
+    )
     from occ_gnn_tpu_torch.sampling.slicer import (
         SplitSampler,
         measure_split_capacities,
@@ -493,9 +531,9 @@ def train_split(args, g, fanouts, timers, device: torch.device | None = None,
     )
 
     device = device or resolve_device(args)
-    P = _num_partitions(args, ranks)
-    rank = ranks.rank if ranks is not None else 0
-    emit = dist.local_partition_range(ranks) if ranks is not None else None
+    ranks = _place(args, ranks, device)
+    P, rank = ranks.num_partitions, ranks.rank
+    emit = dist.local_partition_range(ranks)
     with timers.phase("partition"):
         pmap = _partition_map(args, g, P)
     with timers.phase("capacity_plan"):
@@ -506,7 +544,7 @@ def train_split(args, g, fanouts, timers, device: torch.device | None = None,
             dtype_bytes=2 if args.dtype == "bfloat16" else 4,
             refresh_cap=safe_caps["frame_caps"][0], device=device,
         )
-        if ranks is not None and args.cache_per == "auto":
+        if ranks.grouped and args.cache_per == "auto":
             # Ranks that share a card see different free memory.
             cache_pct = float(dist.all_reduce_values(
                 ranks, [cache_pct], op=ReduceOp.MIN)[0])
@@ -600,18 +638,17 @@ def train_split(args, g, fanouts, timers, device: torch.device | None = None,
     if args.resume:
         start_epoch = load_checkpoint(args.resume, model, opt)
         print(f"resumed from {args.resume} at epoch {start_epoch}")
-    if ranks is not None:
+    if ranks.grouped:
         dist.check_agreement(ranks, partition_map=pmap, capacities=caps,
                              cache_percentage=cache_pct, weights=model)
     step = make_split_train_step(model, opt, csr=csr, ranks=ranks)
-    # Device-innermost sampling stream.
-    sample_gen = (torch.Generator(device).manual_seed(
-        dist.rank_seed(args.seed ^ 0xD0C5, rank)) if csr is not None else None)
+    # Device-innermost sampling streams, one a partition.
+    sample_gen = _partition_generators(csr, ranks, args.seed ^ 0xD0C5)
     profile = {}
     prof = None
     if args.profile_dir:
         out_dir = (os.path.join(args.profile_dir, f"rank{rank}")
-                   if ranks is not None else args.profile_dir)
+                   if ranks.grouped else args.profile_dir)
         prof = _profile_window(len(sampler), out_dir, profile)
         prof.start()
 
@@ -621,6 +658,7 @@ def train_split(args, g, fanouts, timers, device: torch.device | None = None,
     epoch = start_epoch
     replans = 0
     shuffles_before = shuffle_counts()
+    collectives_before = collective_count()
     while epoch < args.num_epochs:
         t0 = time.perf_counter()
         correct = total = 0
@@ -696,9 +734,9 @@ def train_split(args, g, fanouts, timers, device: torch.device | None = None,
            "steps": steps, "replans": replans, "cache_pct": cache_pct,
            "innermost": innermost, "sampler": args.sampler,
            "tail_batches": cache.tail_batches if cache is not None else 0}
-    if ranks is not None:
-        out.update(rank=rank, backend=ranks.backend, shuffle=shuffles,
-                   capacities=caps)
+    out.update(rank=rank, backend=ranks.backend, shuffle=shuffles,
+               collectives=collective_count() - collectives_before,
+               partitions_local=[ranks.lo, ranks.hi], capacities=caps)
     if profile:
         out["profile"] = profile
     if args.sampler == "native":
@@ -709,8 +747,7 @@ def train_split(args, g, fanouts, timers, device: torch.device | None = None,
         sampler.close()
     if args.eval and g.val_mask is not None:
         fwd = make_split_forward(model, csr=csr, ranks=ranks)
-        ev_gen = (torch.Generator(device).manual_seed(
-            dist.rank_seed(args.seed + 13, rank)) if csr is not None else None)
+        ev_gen = _partition_generators(csr, ranks, args.seed + 13)
         for split_name, mask in (("val", g.val_mask), ("test", g.test_mask)):
             nodes = np.nonzero(mask)[0]
             # Same sampler backend and seeds as the JAX trainer's eval.
@@ -726,13 +763,25 @@ def train_split(args, g, fanouts, timers, device: torch.device | None = None,
                 total += int(valid.sum())
             if hasattr(ev, "close"):
                 ev.close()
-            if ranks is not None:
+            if ranks.grouped:
                 correct, total = dist.all_reduce_values(ranks,
                                                         [correct, total])
             out[f"{split_name}_acc"] = float(correct / max(total, 1))
             out[f"{split_name}_count"] = int(total)
             print(f"{split_name} accuracy: {out[f'{split_name}_acc']:.4f}")
     return out
+
+
+def _partition_generators(csr, ranks, seed: int):
+    """Device-draw generators of the local partitions, partition p's
+    seeded ``rank_seed(seed, p)`` whichever process holds it; None
+    without a device CSR."""
+    from occ_gnn_tpu_torch.parallel.dist import rank_seed
+
+    if csr is None:
+        return None
+    return [torch.Generator(ranks.device).manual_seed(rank_seed(seed, p))
+            for p in range(ranks.lo, ranks.hi)]
 
 
 def _rank_metrics(ranks, model) -> dict:
@@ -766,7 +815,7 @@ def train_ddp(args, g, fanouts, timers, device: torch.device | None = None,
     from occ_gnn_tpu_torch.training import gather_features
 
     device = device or resolve_device(args)
-    P = _num_partitions(args, ranks)
+    P = _place(args, ranks, device).num_partitions
     rank = ranks.rank if ranks is not None else 0
     model = _make_model(args, g, device)
     opt = torch.optim.Adam(model.parameters(), lr=args.lr)
@@ -837,7 +886,7 @@ def train_quiver(args, g, fanouts, timers, device: torch.device | None = None,
         raise SystemExit("--mode quiver supports --model-name sage "
                          "(the reference quiver baseline is SAGE-only)")
     device = device or resolve_device(args)
-    P = _num_partitions(args, ranks)
+    P = _place(args, ranks, device).num_partitions
     model = _make_model(args, g, device)
     opt = torch.optim.Adam(model.parameters(), lr=args.lr)
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
@@ -871,8 +920,10 @@ def run_infer(args, g, fanouts, timers, device: torch.device | None = None,
     predicts the ``--infer-nodes`` set through the split forward, fed by
     the C++ or numpy sampler with worst-case capacities, no cache and the
     host feature gather. Reports the accuracy and count over every rank;
-    ``--output`` gets one int32 prediction per node (-1 where none), which
-    rank 0 writes after one MAX all-reduce of the ranks' arrays."""
+    ``--output`` gets one int32 prediction per node (-1 where none):
+    the predictions of this process's partitions, which rank 0 writes
+    after one MAX all-reduce of the processes' arrays (directly in a run
+    of one process)."""
     from torch.distributed import ReduceOp
 
     from occ_gnn_tpu_torch.parallel import dist
@@ -883,15 +934,15 @@ def run_infer(args, g, fanouts, timers, device: torch.device | None = None,
     if not args.resume:
         raise SystemExit("--mode infer requires --resume <checkpoint>")
     device = device or resolve_device(args)
-    P = _num_partitions(args, ranks)
-    rank = ranks.rank if ranks is not None else 0
-    emit = dist.local_partition_range(ranks) if ranks is not None else None
+    ranks = _place(args, ranks, device)
+    P, rank = ranks.num_partitions, ranks.rank
+    emit = dist.local_partition_range(ranks)
     pmap = _partition_map(args, g, P)
     model = _make_split_model(args, g)
     epoch = load_checkpoint(args.resume, model)
     model = model.to(device)
     print(f"loaded {args.resume} (epoch {epoch})")
-    if ranks is not None:
+    if ranks.grouped:
         dist.check_agreement(ranks, partition_map=pmap, weights=model)
 
     masks = {"train": g.train_mask, "val": g.val_mask, "test": g.test_mask}
@@ -919,10 +970,10 @@ def run_infer(args, g, fanouts, timers, device: torch.device | None = None,
     try:
         for batch in sampler:
             with timers.phase("infer_step"):
-                logits = fwd(batch, _gather_xs(g, batch, device))[0]
+                logits = fwd(batch, _gather_xs(g, batch, device))
                 pred = logits.argmax(-1).cpu().numpy()
-            labels = batch.labels[0].cpu().numpy()
-            tgt = batch.target_nodes[0].cpu().numpy()
+            labels = batch.labels.cpu().numpy()
+            tgt = batch.target_nodes.cpu().numpy()
             valid = labels >= 0
             preds[tgt[valid]] = pred[valid]
             correct += int((pred[valid] == labels[valid]).sum())
@@ -930,7 +981,7 @@ def run_infer(args, g, fanouts, timers, device: torch.device | None = None,
     finally:
         if hasattr(sampler, "close"):
             sampler.close()
-    if ranks is not None:
+    if ranks.grouped:
         correct, total = (int(v) for v in dist.all_reduce_values(
             ranks, [correct, total]))
         merged = torch.from_numpy(preds).to(dist.comm_device(ranks))
@@ -939,6 +990,7 @@ def run_infer(args, g, fanouts, timers, device: torch.device | None = None,
     acc = correct / max(total, 1)
     print(f"infer accuracy ({args.infer_nodes}): {acc:.4f} over {total}")
     out = {"mode": "infer", "acc": acc, "count": total, "partitions": P,
+           "partitions_local": [ranks.lo, ranks.hi],
            **_rank_metrics(ranks, model)}
     if args.output:
         if rank == 0:

@@ -68,7 +68,9 @@ def _distributed(argv, tmp_path, seeds=(0, 0)):
 
 
 def test_launcher_equals_distributed_processes(tmp_path):
-    argv = SMALL + ["--partitions", "2", "--cache-per", "0.1"]  # tails on
+    # Two processes of one partition each; tails on.
+    argv = SMALL + ["--partitions", "2", "--cache-per", "0.1",
+                    "--cpu-devices", "1"]
     launched = train.main(argv)
     outs = _distributed(argv, tmp_path)
     ranks = []
@@ -92,7 +94,8 @@ def test_launcher_equals_distributed_processes(tmp_path):
 def test_converges_at_four_partitions(variant, tmp_path):
     auto = variant == ["--cache-per", "auto"]
     extra = ["--profile-dir", str(tmp_path)] if auto else ["--eval"]
-    m = train.main(SMOKE + variant + ["--partitions", "4"] + extra)
+    m = train.main(SMOKE + variant + ["--partitions", "4", "--cpu-devices",
+                                      "1"] + extra)
     assert m["partitions"] == 4 and m["steps"] == 20
     assert m["acc"] >= 0.95, m
     steps = m["steps"]

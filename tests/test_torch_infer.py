@@ -16,7 +16,8 @@ from occ_gnn_tpu_torch import train
 
 COMMON = ["--graph", "community", "--num-nodes", "1500", "--fan-out", "4,4",
           "--batch-size", "128", "--num-hidden", "16", "--num-epochs", "2",
-          "--feature-dim", "16", "--cpu", "--seed", "3"]
+          "--feature-dim", "16", "--cpu", "--cpu-devices", "1", "--seed",
+          "3"]
 
 
 @pytest.fixture(scope="module")

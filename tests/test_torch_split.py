@@ -309,11 +309,25 @@ def test_split_logits_equal_single_chip_logits(small_graph):
 
 
 def test_more_than_one_partition_names_its_roadmap_item(sliced4):
+    """ROADMAP item 14: one process holds the batch's 4 partitions and
+    steps them together; frames for another number of partitions, or a
+    process placed to hold another number, stop the step."""
+    from occ_gnn_tpu_torch.parallel import dist
+
     _, tb = sliced4
     model = SplitSAGE(16, HIDDEN, 5, 2)
     step = make_split_train_step(model, torch.optim.Adam(model.parameters()))
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 7"):
-        step(tb, torch.zeros(4, tb.layers[0].src_cap, 16))
+    x0 = torch.randn(4, tb.layers[0].src_cap, 16,
+                     generator=torch.Generator().manual_seed(0))
+    x0[:, -1] = 0.0  # the reserved zero rows
+    loss, _, count = step(tb, x0)
+    assert torch.isfinite(loss) and int(count) > 0
+    with pytest.raises(ValueError, match="4 partitions but x0 has 1"):
+        step(tb, x0[:1])
+    two = dist.DistContext(0, 2, "gloo", torch.device("cpu"), 0, 2)
+    with pytest.raises(ValueError, match="holds 4 partitions"):
+        make_split_train_step(model, torch.optim.Adam(model.parameters()),
+                              ranks=two)(tb, x0)
 
 
 def test_dropout_needs_a_generator(small_graph):

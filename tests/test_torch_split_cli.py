@@ -39,7 +39,8 @@ SMOKE = ["--graph", "community", "--mode", "split", "--fan-out", "5,5",
     ["--cache-per", "0.25", "--innermost", "host"],
 ], ids=["auto-device", "no-cache", "numpy", "refreshing-host"])
 def test_split_cli_converges(variant, capsys):
-    metrics = train.main(SMOKE + variant)
+    # One partition: --cpu-devices 1 (by default --cpu holds 8, as JAX).
+    metrics = train.main(SMOKE + variant + ["--cpu-devices", "1"])
     out = capsys.readouterr().out
     assert metrics["mode"] == "split" and metrics["partitions"] == 1
     assert metrics["steps"] == 20  # 2 epochs of 10 batches
@@ -62,7 +63,7 @@ def test_eval_accuracy_equals_jax():
     argv = ["--graph", "community", "--mode", "split", "--fan-out", "4,4",
             "--batch-size", "128", "--num-nodes", "1500", "--num-hidden",
             "16", "--num-epochs", "1", "--innermost", "host", "--eval",
-            "--cpu", "--seed", "3"]
+            "--cpu", "--cpu-devices", "1", "--seed", "3"]
     jargs = jax_train.build_argparser().parse_args(argv + ["--partitions",
                                                            "1"])
     jg = jax_block_graph(num_nodes=1500, num_blocks=8, avg_degree=10,
@@ -84,9 +85,11 @@ def test_eval_accuracy_equals_jax():
     ["--cpu-devices", "4"], ["--infer-nodes", "all"], ["--output", "p.npy"],
 ], ids=lambda f: f[0])
 def test_split_flags_not_ported_name_their_roadmap_item(flag):
+    # Split reads --cpu-devices under --cpu only: on the card each process
+    # holds the partitions of its card.
+    cpu = [] if flag[0] == "--cpu-devices" else ["--cpu"]
     with pytest.raises(SystemExit, match=f"{flag[0]}.* is not ported.*ROADMAP"):
-        train.main(["--graph", "community", "--mode", "split", "--cpu",
-                    *flag])
+        train.main(["--graph", "community", "--mode", "split", *cpu, *flag])
 
 
 @pytest.mark.parametrize("partitions", [1, 2])
@@ -94,8 +97,8 @@ def test_split_run_loads_no_jax(partitions):
     """A split run, and at 2 partitions each of the ranks it spawns, loads
     neither JAX nor the JAX package: every process reports its imports
     (PYTHONPROFILEIMPORTTIME, inherited by the spawned ranks)."""
-    argv = SMOKE[:-3] + ["--num-epochs", "1", "--cpu", "--partitions",
-                         str(partitions)]
+    argv = SMOKE[:-3] + ["--num-epochs", "1", "--cpu", "--cpu-devices", "1",
+                         "--partitions", str(partitions)]
     code = f"from occ_gnn_tpu_torch import train\ntrain.main({argv!r})\n"
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=300,
@@ -152,6 +155,7 @@ def test_single_without_replacement_samples_as_jax(monkeypatch):
 
 def test_profile_dir_records_one_steady_step(tmp_path):
     metrics = train.main(SMOKE[:-3] + ["--num-epochs", "1", "--cpu",
+                                       "--cpu-devices", "1",
                                        "--profile-dir", str(tmp_path)])
     assert (tmp_path / "trace.json").stat().st_size > 0
     prof = metrics["profile"]

@@ -364,11 +364,12 @@ def test_reverse_shuffle_matches_reference(port4, ranks):
         ref = reverse_shuffle_reference(x, lyr.push_idx, lyr.recv_idx)
         (ref * torch.from_numpy(weights[l][0])).sum().backward()
         for r in range(P):
-            got = out[r]["shuffle"][l]
-            np.testing.assert_allclose(got["er"], ref[r].detach().numpy(),
+            got = out[r]["shuffle"][l]  # rank r's [1, ...] rows
+            np.testing.assert_allclose(got["er"],
+                                       ref[r:r + 1].detach().numpy(),
                                        **OP_TOL)
-            np.testing.assert_allclose(got["frame_grad"], x.grad[r].numpy(),
-                                       **OP_TOL)
+            np.testing.assert_allclose(got["frame_grad"],
+                                       x.grad[r:r + 1].numpy(), **OP_TOL)
         # Foreign rows were written, and took no gradient through the write.
         assert not np.allclose(ref.detach().numpy(), frames[l])
 
@@ -385,9 +386,11 @@ def test_softmax_merge_matches_reference(port4, ranks):
          + (rv * torch.from_numpy(weights[l][2])).sum()).backward()
         assert np.isfinite(rs.detach().numpy()).all()
         for r in range(P):
-            got = out[r]["shuffle"][l]
-            for key, want in (("s", rs[r]), ("v", rv[r]),
-                              ("s_grad", s.grad[r]), ("v_grad", v.grad[r])):
+            got = out[r]["shuffle"][l]  # rank r's [1, ...] rows
+            mine = slice(r, r + 1)
+            for key, want in (("s", rs[mine]), ("v", rv[mine]),
+                              ("s_grad", s.grad[mine]),
+                              ("v_grad", v.grad[mine])):
                 assert np.isfinite(got[key]).all(), key
                 np.testing.assert_allclose(got[key], want.detach().numpy(),
                                            err_msg=key, **OP_TOL)
@@ -570,7 +573,8 @@ def test_four_partitions_adam_steps_match_jax(small_graph, setup, params,
 
 SMOKE = ["--graph", "community", "--mode", "split", "--model-name", "gat",
          "--num-heads", "2", "--fan-out", "5,5", "--batch-size", "256",
-         "--num-nodes", "3000", "--num-epochs", "2", "--cpu"]
+         "--num-nodes", "3000", "--num-epochs", "2", "--cpu",
+         "--cpu-devices", "1"]
 
 
 @pytest.mark.parametrize("variant,jax_acc", [

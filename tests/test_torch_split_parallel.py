@@ -144,10 +144,12 @@ def test_shuffle_merge_matches_reference(port, ranks):
         ref = shuffle_merge_reference(x, lyr.push_idx, lyr.recv_idx)
         (ref * torch.from_numpy(weights[l])).sum().backward()
         for r in range(P):
+            # Rank r holds partition r: its [1, ...] rows.
             merged, grad = out[r]["shuffle"][l]
-            np.testing.assert_allclose(merged, ref[r].detach().numpy(),
+            np.testing.assert_allclose(merged, ref[r:r + 1].detach().numpy(),
                                        **OP_TOL)
-            np.testing.assert_allclose(grad, x.grad[r].numpy(), **OP_TOL)
+            np.testing.assert_allclose(grad, x.grad[r:r + 1].numpy(),
+                                       **OP_TOL)
         # The boundary rows did move: the merge is not the identity.
         assert not np.allclose(ref.detach().numpy(), neighs[l])
 

@@ -1,18 +1,23 @@
 """Multi-process helpers for the port's P > 1 tests (no JAX here: the ranks
 import only torch and the port).
 
-``run_ranks(fn, P, *args)`` spawns P fresh processes that join one gloo
-process group through a ``file://`` store (no TCP port to race for under
-xdist), calls ``fn(ranks, *args)`` on each rank, and returns what every
-rank returned, in rank order. A rank that fails stops the others.
+``run_ranks(fn, W, *args, local=L)`` spawns W fresh processes that join
+one gloo process group through a ``file://`` store (no TCP port to race
+for under xdist), each holding L partitions (1 by default), calls
+``fn(ranks, *args)`` on each rank, and returns what every rank returned,
+in rank order. A rank that fails stops the others.
 
-The rank functions below compute one rank's part of a sliced P-way batch:
+The rank functions below compute one process's part (its partitions
+``[lo, hi)``) of a sliced P-way batch:
 ``shuffle_rank`` the boundary shuffle and its gradient, ``gat_shuffle_rank``
 GAT's two shuffles and their gradients, ``split_rank`` the logits, loss,
 gradients and all-to-all counts of a step with lr 0, ``adam_rank`` the
 weights after Adam steps, ``gat_variant_rank`` split_rank of GAT under
 each attention lowering. ``ddp_rank`` and ``quiver_rank`` run one step of
 the data-parallel and quiver baselines on this rank's shard.
+``exchange_rank`` runs the three shuffles of a process of several
+partitions, and ``device_innermost_rank`` its device-synthesized layers;
+both also run in the test process with ``dist.single_process``.
 """
 
 from __future__ import annotations
@@ -29,9 +34,10 @@ from occ_gnn_tpu_torch.parallel import dist
 TIMEOUT_S = 50
 
 
-def run_ranks(fn, world_size: int, *args) -> list:
+def run_ranks(fn, world_size: int, *args, local: int = 1) -> list:
     with tempfile.TemporaryDirectory(prefix="occ_test_ranks_") as tmp:
-        dist.spawn(_rank_entry, world_size, fn, tmp, args, timeout=TIMEOUT_S)
+        dist.spawn(_rank_entry, world_size, fn, tmp, args, local,
+                   timeout=TIMEOUT_S)
         results = []
         for r in range(world_size):
             with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
@@ -39,8 +45,9 @@ def run_ranks(fn, world_size: int, *args) -> list:
         return results
 
 
-def _rank_entry(rank, world_size, store, fn, out_dir, args):
-    ranks = dist.init_distributed(store, world_size, rank, cpu=True)
+def _rank_entry(rank, world_size, store, fn, out_dir, args, local):
+    ranks = dist.init_distributed(store, world_size, rank, cpu=True,
+                                  local=local)
     try:
         result = fn(ranks, *args)
     finally:
@@ -63,9 +70,9 @@ def _sampler(ranks, setup):
 
     g = random_graph(**setup["graph"])
     sampler = SplitSampler(
-        g, g.train_nodes(), setup["pmap"], ranks.world_size,
+        g, g.train_nodes(), setup["pmap"], ranks.num_partitions,
         setup["fanouts"], setup["batch"], seed=setup["seed"], device="cpu",
-        emit_range=(ranks.rank, ranks.rank + 1))
+        emit_range=dist.local_partition_range(ranks))
     return g, sampler
 
 
@@ -92,18 +99,19 @@ def _model(setup, kind, state):
 def shuffle_rank(ranks, setup, neighs, weights):
     """``shuffle_merge`` of this rank's rows of ``neighs[l]`` (all P
     partitions' partial sums, ``[P, dst_cap, H]``) for each layer, and the
-    gradient of ``sum(merged * weights[l][rank])`` with respect to them."""
+    gradient of ``sum(merged * weights[l][lo:hi])`` with respect to them,
+    ``[L, ...]`` each."""
     from occ_gnn_tpu_torch.parallel.split import shuffle_merge
 
     g, sampler = _sampler(ranks, setup)
     batch = sampler.slice_raw(sampler._sample_raw(
         g.train_nodes()[: setup["batch"]]))
     out = []
+    mine = slice(*dist.local_partition_range(ranks))
     for l, lyr in enumerate(batch.layers):
-        lp = lyr.partition(0)
-        neigh = torch.from_numpy(neighs[l][ranks.rank]).requires_grad_()
-        merged = shuffle_merge(neigh, lp.push_idx, lp.recv_idx)
-        (merged * torch.from_numpy(weights[l][ranks.rank])).sum().backward()
+        neigh = torch.from_numpy(neighs[l][mine]).requires_grad_()
+        merged = shuffle_merge(neigh, lyr.push_idx, lyr.recv_idx)
+        (merged * torch.from_numpy(weights[l][mine])).sum().backward()
         out.append((_numpy(merged), _numpy(neigh.grad)))
     return out
 
@@ -180,18 +188,17 @@ def gat_shuffle_rank(ranks, setup, frames, mloc, sloc, vloc, weights):
     g, sampler = _sampler(ranks, setup)
     batch = sampler.slice_raw(sampler._sample_raw(
         g.train_nodes()[: setup["batch"]]))
-    r = ranks.rank
+    r = slice(*dist.local_partition_range(ranks))
     out = []
     for l, lyr in enumerate(batch.layers):
-        lp = lyr.partition(0)
         w_er, w_s, w_v = (torch.from_numpy(w[r]) for w in weights[l])
         frame = torch.from_numpy(frames[l][r]).requires_grad_()
-        er = reverse_shuffle(frame, lp.push_idx, lp.recv_idx)
+        er = reverse_shuffle(frame, lyr.push_idx, lyr.recv_idx)
         (er * w_er).sum().backward()
         s = torch.from_numpy(sloc[l][r]).requires_grad_()
         v = torch.from_numpy(vloc[l][r]).requires_grad_()
         s_out, v_out = shuffle_softmax_merge(
-            torch.from_numpy(mloc[l][r]), s, v, lp.push_idx, lp.recv_idx)
+            torch.from_numpy(mloc[l][r]), s, v, lyr.push_idx, lyr.recv_idx)
         ((s_out * w_s).sum() + (v_out * w_v).sum()).backward()
         out.append(dict(er=_numpy(er), frame_grad=_numpy(frame.grad),
                         s=_numpy(s_out), v=_numpy(v_out),
@@ -284,3 +291,91 @@ def gat_variant_rank(ranks, setup, state, variants):
         config.set_gat_remat_impl(remat)
         out[attention, remat] = split_rank(ranks, setup, "gat", state)
     return out
+
+
+# -- several partitions per process -----------------------------------------
+
+
+def exchange_rank(ranks, setup, inputs):
+    """The three shuffles of this process's partitions ``[lo, hi)`` on the
+    first batch of ``setup``, forward and backward: for each layer,
+    ``shuffle_merge`` of ``inputs[l]["neigh"]``, ``reverse_shuffle`` of
+    ``["frame"]`` and ``shuffle_softmax_merge`` of ``["m"]``, ``["s"]``,
+    ``["v"]`` (all P partitions' rows; this process takes its own), each
+    with the gradient of its weighted sum; and the exchange counts."""
+    from occ_gnn_tpu_torch.parallel.split import (
+        collective_count,
+        reset_shuffle_counts,
+        reverse_shuffle,
+        shuffle_counts,
+        shuffle_merge,
+        shuffle_softmax_merge,
+    )
+
+    g, sampler = _sampler(ranks, setup)
+    batch = sampler.slice_raw(sampler._sample_raw(
+        g.train_nodes()[: setup["batch"]]))
+    mine = slice(*dist.local_partition_range(ranks))
+    reset_shuffle_counts()
+    out = []
+    for lyr, ins in zip(batch.layers, inputs):
+        t = {k: torch.from_numpy(v[mine]) for k, v in ins.items()}
+        push, recv = lyr.push_idx, lyr.recv_idx
+        neigh = t["neigh"].requires_grad_()
+        merged = shuffle_merge(neigh, push, recv)
+        (merged * t["w_merge"]).sum().backward()
+        frame = t["frame"].requires_grad_()
+        er = reverse_shuffle(frame, push, recv)
+        (er * t["w_er"]).sum().backward()
+        s, v = t["s"].requires_grad_(), t["v"].requires_grad_()
+        s_out, v_out = shuffle_softmax_merge(t["m"], s, v, push, recv)
+        ((s_out * t["w_s"]).sum() + (v_out * t["w_v"]).sum()).backward()
+        out.append(dict(merged=_numpy(merged), neigh_grad=_numpy(neigh.grad),
+                        er=_numpy(er), frame_grad=_numpy(frame.grad),
+                        s=_numpy(s_out), v=_numpy(v_out),
+                        s_grad=_numpy(s.grad), v_grad=_numpy(v.grad)))
+    return dict(layers=out, shuffles=shuffle_counts(),
+                collectives=collective_count())
+
+
+def device_innermost_rank(ranks, setup, state):
+    """This process's partitions' layer 0, synthesized on the device (the
+    CPU here) from the resident CSR under a replicated cache, partition p
+    from its own generator ``rank_seed(seed, p)``, and the logits of the
+    SAGE forward over them; the C++ service emits ``[lo, hi)``."""
+    from occ_gnn_tpu_torch.cache import CachePlan, SplitFeatureCache
+    from occ_gnn_tpu_torch.data import random_graph
+    from occ_gnn_tpu_torch.parallel.model import (
+        _local_layers,
+        _materialize_layers,
+        make_device_csr,
+        make_split_forward,
+    )
+    from occ_gnn_tpu_torch.sampling.native import NativeSplitSampler
+
+    g = random_graph(**setup["graph"])
+    lo, hi = dist.local_partition_range(ranks)
+    P = ranks.num_partitions
+    cache = SplitFeatureCache(CachePlan(g, setup["pmap"], P, 1.0,
+                                        refresh_cap=8),
+                              device="cpu", partitions=(lo, hi))
+    sampler = NativeSplitSampler(
+        g, g.train_nodes(), setup["pmap"], P, setup["fanouts"],
+        setup["batch"], seed=setup["seed"], cache=cache, num_workers=1,
+        innermost="device", emit_range=(lo, hi), device="cpu")
+    try:
+        batch = sampler.sample_batch(g.train_nodes()[: setup["batch"]])
+    finally:
+        sampler.close()
+    csr = make_device_csr(g, "cpu")
+
+    def gens():
+        return [torch.Generator().manual_seed(dist.rank_seed(setup["seed"], p))
+                for p in range(lo, hi)]
+
+    parts = _materialize_layers(_local_layers(batch, ranks), csr, gens())
+    model = _model(setup, "sage", state)
+    logits = make_split_forward(model, csr=csr, ranks=ranks)(
+        batch, cache.frames, sample_generator=gens())
+    return dict(nbr=[_numpy(layers[0].nbr_idx) for layers in parts],
+                logits=_numpy(logits))
