@@ -108,14 +108,24 @@
    on the card and ``dryrun_multichip(4)`` (three finite losses). On a
    machine with several cards, split P(2N)-B over NCCL: N = ``--ranks``
    processes of 2 partitions, held against P = 1.
-12. DDP P2 (the products graph), quiver P2 and infer P2 (split B's
-   graph, ``--partition-mode round_robin``), two ranks each: equal global
-   metrics on every rank, and equal final weights for ddp and quiver;
-   ddp 3 launches a step per rank and one step's all-reduced gradient
-   against one process summing the shard batches through the kernel
-   forward, and that against the plain forward's at the same ReLU masks,
-   at the run's measured capacities; infer one launch a batch per rank,
-   the P = 1 count and at least 99.9 % of its predictions.
+12. DDP P2 (the products graph) and quiver P2 (split B's graph), 3
+   steps each, placed as the CLI's launcher places them on one card: one
+   process holding both shards, no process group, no collective. ddp
+   launches the fused entry 3 times a step a shard, and one step's
+   gradient over both shards is held against one process summing the
+   shard batches through the kernel forward, and that against the plain
+   forward's at the same ReLU masks, at the run's measured capacities;
+   quiver launches no kernel. Beside each, the same flags as two
+   ``--distributed`` processes of one shard sharing the card over gloo,
+   the path this replaces: global loss within 1e-5 of scale of the
+   one-process run's, accuracy and steps equal, final weights within
+   1e-4 of scale, and the two runs' ``train_step``, step wall and peak
+   memory side by side. On a machine with several cards, ddp and quiver
+   P(2N) as N = ``--ranks`` processes of 2 shards over NCCL against one
+   process of 2N (ddp with the gradient check). Infer P2 (split B's
+   graph, ``--partition-mode round_robin``), two ranks: equal global
+   metrics on every rank, one launch a batch per rank, the P = 1 count
+   and at least 99.9 % of its predictions.
 13. Prints the kernel's times at every main-path shape, the card again,
    one JSON line of kernel numbers (one entry each for the two entries),
    and last ``{"ok": true, "device": {...}}``.
@@ -123,10 +133,10 @@
 Any failed check raises, so the script exits non-zero and prints no result.
 It also fails when torch sees no CUDA device, and outside the repository.
 ``--num-nodes`` cuts the products graph for a quick run; every width stays.
-``--ranks N`` sets the processes of step 12 (default 2) and of the NCCL
-phase of step 11, which runs on a machine with several cards and stops
-when it has fewer than N; on a machine with a card for every rank, the
-ranks run over NCCL. ``--baselines-only``
+``--ranks N`` sets the processes of infer's step-12 phase (default 2)
+and of the NCCL phases of steps 11 and 12, which run on a machine with
+several cards and stop when it has fewer than N; on a machine with a
+card for every rank, the ranks run over NCCL. ``--baselines-only``
 runs step 12 alone (with split B's run and the P = 1 inference it
 needs) and prints no result; ``--split-nccl-only`` runs the NCCL phase
 of step 11 alone (on several cards) and prints no result.
@@ -254,8 +264,8 @@ SINGLE_B_FLAGS = TRAIN_FLAGS + ["--limit-train", "3072"]
 # 3 steps of a batch of 1024 (the flags after COMMON_FLAGS win).
 SHORT = ["--limit-train", "3072"]
 # The baselines at the single path's widths: pa-cache and quiver on the
-# products graph, ddp at --partitions RANKS on it, quiver at RANKS on
-# split B's graph.
+# products graph, ddp at --partitions 2 on it, quiver at 2 on split B's
+# graph.
 PA_CACHE_FLAGS = ["--mode", "pa-cache", "--cache-per", "0.25", "--fan-out",
                   "10,10,25"] + COMMON_FLAGS
 # Quiver's shapes are dense: it measures no capacities.
@@ -277,8 +287,7 @@ ENTRIES = {MSGS: segment_sum_sorted, FUSED: gather_segment_sum}
 # the weighted messages as one [p, p * feat] through the messages' entry.
 SINGLE_LAUNCHES = {"sage": 3, "gcn": 3, "gat": 3, "gcn sym": 3}
 SINGLE_ENTRY = {"sage": FUSED, "gcn": FUSED, "gat": MSGS, "gcn sym": FUSED}
-# The baselines' P > 1 phases, one process per shard, and the NCCL split
-# phase's processes.
+# The processes of infer's P > 1 phase and of the NCCL phases.
 RANKS = 2
 # metis on the products graph took 109.12 s and 122.57 s a rank in two
 # runs on the H100 host (both ranks at once); above 120 s the products
@@ -1846,13 +1855,15 @@ def run_quiver(args, g, device) -> dict:
 
 
 def ddp_grad_check(ranks, g, args, fanouts, device):
-    """One DDP step's all-reduced gradient (lr 0) on the first batch of
-    every shard, at the capacities ``train_ddp`` measured (so the kernel
-    runs at the run's shapes), held in one process (rank 0) against the
+    """One DDP step's gradient (lr 0) on the first batch of this process's
+    shards ``[lo, hi)`` of P, at the capacities ``train_ddp`` measured (so
+    the kernel runs at the run's shapes), all-reduced over the processes
+    when there are several, held in one process (rank 0) against the
     gradient of the global mean loss over the same P batches:
 
-    * ``ddp``: through the model's own forward (the kernel), what the
-      ranks and the collective add;
+    * ``ddp``: the step's against the model's own forward (the kernel) of
+      each batch summed here, what the step's sum over the local shards
+      and the collective add;
     * ``plain``: the kernel forward's against ``plain_forward``'s (the
       plain segment-sum) with the kernel forward's ReLU masks, what the
       kernel adds.
@@ -1865,7 +1876,7 @@ def ddp_grad_check(ranks, g, args, fanouts, device):
     pre-activations whose sign differs; it must pass the limit when none
     does. Each error is relative to each tensor's max |.|. Returns the
     readings on rank 0 (None on the others) and prints them."""
-    P, r = ranks.world_size, ranks.rank
+    P = ranks.num_partitions
     per_dev = args.batch_size // P
     nodes = g.train_nodes()[: args.limit_train]
     caps = measure_capacities(g, nodes, fanouts, per_dev,
@@ -1884,11 +1895,12 @@ def ddp_grad_check(ranks, g, args, fanouts, device):
                       generator=torch.Generator().manual_seed(args.seed))
     model = model.to(device)
     refs = {key: copy.deepcopy(model) for key in ("ddp", "plain", "own")}
+    mine = [shard_batch(q) for q in range(ranks.lo, ranks.hi)]
     make_dp_train_step(model, torch.optim.SGD(model.parameters(), lr=0.0),
-                       ranks)(*shard_batch(r))
-    if r != 0:
+                       ranks)([b for b, _ in mine], [x for _, x in mine])
+    if ranks.rank != 0:
         return None
-    batches = [shard_batch(q) for q in range(P)]
+    batches = mine + [shard_batch(q) for q in range(ranks.hi, P)]
     count = sum(int((b.labels >= 0).sum()) for b, _ in batches)
     flips = 0
     for batch, x0 in batches:
@@ -1919,134 +1931,249 @@ def ddp_grad_check(ranks, g, args, fanouts, device):
                "plain": rel(k, dict(refs["plain"].named_parameters())[name]),
                "own masks": rel(k, dict(refs["own"].named_parameters())[name])}
         errs = {key: max(errs[key], v) for key, v in row.items()}
-        print(f"  ddp P{P} gradient {name}: all-reduced vs one process "
-              f"{row['ddp']:.3g}, kernel vs plain {row['plain']:.3g} "
+        print(f"  ddp P{P} gradient {name}: the step's vs one forward a "
+              f"shard {row['ddp']:.3g}, kernel vs plain {row['plain']:.3g} "
               f"(own masks {row['own masks']:.3g}) of scale "
               f"{k.grad.abs().max().item():.3g}", flush=True)
     errs["flips"] = flips
     return errs
 
 
+def baseline_process(ranks, spec):
+    """What one process of a ddp, quiver or infer phase measures, with the
+    placement ``ranks`` (shards ``[lo, hi)`` of P): loads the saved graph
+    and drives the mode's entry point with the counts set to 0 just before
+    and read just after; ddp then runs ``ddp_grad_check`` when
+    ``spec["grad_check"]``. Returns what it measured (JSON-ready) and the
+    final weights of the model the entry point built."""
+    device = ranks.device
+    args = build_argparser().parse_args(
+        ["--graph", spec["name"], "--data-root", spec["root"]]
+        + spec["flags"])
+    fanouts = [int(f) for f in args.fan_out.split(",")]
+    g = load_graph(spec["root"], spec["name"])
+    run = {"ddp": train_ddp, "quiver": train_quiver,
+           "infer": run_infer}[args.mode]
+    built = []
+
+    def capture(*a, **kw):
+        built.append(get_model(*a, **kw))
+        return built[-1]
+
+    timers = StepTimers()
+    torch.cuda.synchronize(device)
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_launches()
+    with patched(models_pkg, "get_model", capture):
+        metrics = run(args, g, fanouts, timers, device,
+                      ranks=ranks if ranks.grouped else None)
+    out = dict(rank=ranks.rank, local=[ranks.lo, ranks.hi], metrics=metrics,
+               launches=dict(read_launches()),
+               peak_gib=torch.cuda.max_memory_allocated(device) / 2**30,
+               phase_lines=phase_lines(timers, metrics.get("steps", 0),
+                                       once=("fused_step", "infer_step")),
+               medians={phase: statistics.median(each[1:] or each)
+                        for phase, each in timers.each.items()},
+               step_starts=timers.starts["train_step"])
+    if args.mode == "ddp" and spec.get("grad_check"):
+        out["grad_err"] = ddp_grad_check(ranks, g, args, fanouts, device)
+    weights = ({n: p.detach().cpu().numpy()
+                for n, p in built[-1].named_parameters()}
+               if built else {})
+    return out, weights
+
+
 def baseline_rank(rank, world, store, spec, out_dir):
-    """One rank of a ddp, quiver or infer phase at P > 1, as the CLI's
-    launcher runs it: joins the process group, loads the saved graph and
-    drives the mode's entry point with the counts set to 0 just before
-    and read just after; ddp then runs ``ddp_grad_check``. Writes what it
-    measured to ``out_dir/rank{r}.json``."""
+    """One process of a ddp, quiver or infer phase with several processes,
+    as the CLI's launcher runs it: joins the process group holding
+    ``spec["local"]`` shards, runs ``baseline_process`` and writes what it
+    measured to ``out_dir/rank{r}.json`` and its weights beside it."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    ranks = dist.init_distributed(store, world, rank, cpu=False)
+    ranks = dist.init_distributed(store, world, rank, cpu=False,
+                                  local=spec["local"])
     try:
-        device = ranks.device
-        args = build_argparser().parse_args(
-            ["--graph", spec["name"], "--data-root", spec["root"]]
-            + spec["flags"])
-        fanouts = [int(f) for f in args.fan_out.split(",")]
-        g = load_graph(spec["root"], spec["name"])
-        run = {"ddp": train_ddp, "quiver": train_quiver,
-               "infer": run_infer}[args.mode]
-        timers = StepTimers()
-        torch.cuda.synchronize(device)
-        torch.cuda.reset_peak_memory_stats(device)
-        reset_launches()
-        metrics = run(args, g, fanouts, timers, device, ranks=ranks)
-        out = dict(rank=rank, metrics=metrics,
-                   launches=read_launches(),
-                   peak_gib=torch.cuda.max_memory_allocated(device) / 2**30,
-                   phase_lines=phase_lines(timers, metrics.get("steps", 0),
-                                           once=("fused_step",
-                                                 "infer_step")))
-        if args.mode == "ddp":
-            out["grad_err"] = ddp_grad_check(ranks, g, args, fanouts, device)
+        out, weights = baseline_process(ranks, spec)
     finally:
         dist.close(ranks)
+    np.savez(os.path.join(out_dir, f"weights{rank}.npz"), **weights)
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
 
 
-def run_baseline_ranks(label, num_ranks, name, root, flags):
-    """Spawn the ranks of a ddp, quiver or infer phase and hold what they
-    report: equal global metrics (and, for ddp and quiver, equal final
-    weights) on every rank. Returns the ranks' results."""
-    spec = dict(name=name, root=root, flags=flags)
-    with tempfile.TemporaryDirectory(prefix="occ_smoke_ranks_") as out_dir:
-        dist.spawn(baseline_rank, num_ranks, spec, out_dir,
-                   timeout=RANK_TIMEOUT_S)
-        results = []
-        for r in range(num_ranks):
-            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
-                results.append(json.load(f))
-    backends = {res["metrics"].get("backend") for res in results}
-    print(f"{label}: {num_ranks} ranks, backend {', '.join(backends)}, "
-          f"{torch.cuda.device_count()} card(s)"
-          + ("" if "nccl" in backends else
-             " (the ranks share cuda:0; wall times are no scaling numbers)"))
-    keys = ("loss", "acc", "steps", "weights_crc32", "count")
+def run_baselines(label, num_procs, local, name, root, flags,
+                  grad_check=False):
+    """Run a ddp, quiver or infer phase as ``num_procs`` processes of
+    ``local`` shards each: in this process when there is one (no process
+    group), else spawned. Holds what they report: equal global metrics,
+    and for ddp and quiver equal final weights, in every process; no
+    collective in a run of one process. Returns each process's results,
+    its weights under ``"weights"``."""
+    spec = dict(name=name, root=root, flags=flags, local=local,
+                grad_check=grad_check)
+    P = num_procs * local
+    if num_procs == 1:
+        out, weights = baseline_process(
+            dist.single_process(P, torch.device("cuda", 0)), spec)
+        results = [dict(json.loads(json.dumps(out)), weights=weights)]
+    else:
+        with tempfile.TemporaryDirectory(prefix="occ_smoke_ranks_") as tmp:
+            dist.spawn(baseline_rank, num_procs, spec, tmp,
+                       timeout=RANK_TIMEOUT_S)
+            results = []
+            for r in range(num_procs):
+                with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                    res = json.load(f)
+                with np.load(os.path.join(tmp, f"weights{r}.npz")) as w:
+                    res["weights"] = dict(w)
+                results.append(res)
+    backends = {res["metrics"].get("backend", "none") for res in results}
+    shared = "nccl" not in backends and num_procs > 1
+    print(f"{label}: {P} shards, {num_procs} process(es) of {local}, "
+          f"backend {', '.join(backends)}, {torch.cuda.device_count()} "
+          f"card(s)" + (" (the processes share cuda:0; wall times are no "
+                        "scaling numbers)" if shared else ""))
+    keys = ("loss", "acc", "steps", "weights_crc32", "count", "collectives")
     for res in results:
         m = res["metrics"]
-        print(f"  rank {res['rank']}: "
-              + ", ".join(f"{k} {m[k]}" for k in keys if k in m)
-              + f", {launch_text(res['launches'])}, peak "
-              f"device memory {res['peak_gib']:.3f} GiB")
+        who = f"  rank {res['rank']} [{res['local'][0]}, {res['local'][1]})"
+        print(f"{who}: " + ", ".join(f"{k} {m[k]}" for k in keys if k in m)
+              + f", {launch_text(res['launches'])}, peak device memory "
+              f"{res['peak_gib']:.3f} GiB")
         for line in res["phase_lines"]:
-            print(f"  rank {res['rank']}: {line}")
+            print(f"{who}: {line}")
         if not np.isfinite(m.get("loss", 0.0)):
             raise AssertionError(f"{label}: non-finite loss: {m}")
-    agreed = {tuple(res["metrics"].get(k) for k in keys) for res in results}
+        if num_procs == 1 and (m.get("collectives", 0)
+                               or torch.distributed.is_initialized()):
+            raise AssertionError(f"{label}: one process made a process "
+                                 f"group or issued {m['collectives']} "
+                                 f"collectives")
+    agreed = {tuple(res["metrics"].get(k) for k in keys[:5])
+              for res in results}
     if len(agreed) != 1:
-        raise AssertionError(f"{label}: the ranks report different global "
-                             f"metrics or weights: {agreed}")
+        raise AssertionError(f"{label}: the processes report different "
+                             f"global metrics or weights: {agreed}")
     return results
 
 
-def baseline_rank_phases(phase, root: str, num_ranks: int, infer_ref):
-    """ddp on the products graph, quiver and infer on split B's graph, at
-    ``num_ranks`` ranks. ``infer_ref`` is the P = 1 inference (metrics,
-    predictions, flags). Returns the kernel's launches by entry over every
-    rank."""
-    parts = ["--partitions", str(num_ranks)]
+def expect_shard_launches(label, results):
+    """ddp: the fused entry 3 times a step a local shard (one a layer);
+    quiver: no launch. Returns the launches over every process."""
     launches = Counter()
-    label = f"ddp P{num_ranks}"
-    with phase(label):
-        results = run_baseline_ranks(label, num_ranks, "products", root,
-                                     DDP_FLAGS + parts)
-        for res in results:
-            steps = res["metrics"]["steps"]
-            if steps == 0:
-                raise AssertionError(f"{label}: rank {res['rank']}: no steps")
+    for res in results:
+        m = res["metrics"]
+        steps, local = m["steps"], res["local"][1] - res["local"][0]
+        if steps == 0:
+            raise AssertionError(f"{label}: rank {res['rank']}: no steps")
+        if m["mode"] == "ddp":
             expect_launches(f"{label}: rank {res['rank']}", res["launches"],
-                            FUSED, SINGLE_LAUNCHES["sage"] * steps,
-                            f"{steps} steps")
-        err = results[0]["grad_err"]
-        print(f"  one step's gradient, one process summing the {num_ranks} "
-              f"shard batches: all-reduced vs the kernel forward "
-              f"{err['ddp']:.3g}, kernel vs plain forward at the kernel's "
-              f"ReLU masks {err['plain']:.3g} of each tensor's scale (limit "
-              f"{LOGITS_TOL}); the plain forward's own masks "
-              f"{err['own masks']:.3g}, {err['flips']} pre-activations of "
-              f"another sign")
-        if not (err["ddp"] <= LOGITS_TOL and err["plain"] <= LOGITS_TOL and (
-                err["flips"] or err["own masks"] <= LOGITS_TOL)):
-            raise AssertionError(f"{label}: the all-reduced gradient "
-                                 f"differs from the single-process sum: "
-                                 f"{err}")
-        for res in results:
-            launches += Counter(res["launches"])
-    label = f"quiver P{num_ranks}"
-    with phase(label):
-        results = run_baseline_ranks(label, num_ranks, "split_b", root,
-                                     QUIVER_FLAGS + parts)
-        if any(any(res["launches"].values()) for res in results):
+                            FUSED, SINGLE_LAUNCHES["sage"] * local * steps,
+                            f"{steps} steps of {local} shards")
+        elif any(res["launches"].values()):
             raise AssertionError(f"{label}: the quiver path launched the "
-                                 "kernel")
+                                 f"kernel: {res['launches']}")
+        launches += Counter(res["launches"])
+    return launches
+
+
+def check_grad_err(label, results):
+    """``ddp_grad_check``'s readings (rank 0's) within ``LOGITS_TOL``."""
+    err = results[0]["grad_err"]
+    print(f"  one step's gradient, one process summing the shard batches: "
+          f"the step's vs the kernel forward's {err['ddp']:.3g}, kernel vs "
+          f"plain forward at the kernel's ReLU masks {err['plain']:.3g} of "
+          f"each tensor's scale (limit {LOGITS_TOL}); the plain forward's "
+          f"own masks {err['own masks']:.3g}, {err['flips']} "
+          f"pre-activations of another sign")
+    if not (err["ddp"] <= LOGITS_TOL and err["plain"] <= LOGITS_TOL and (
+            err["flips"] or err["own masks"] <= LOGITS_TOL)):
+        raise AssertionError(f"{label}: the step's gradient differs from "
+                             f"the one-process sum: {err}")
+
+
+def step_readings(res) -> str:
+    """A process's step readings: ddp's median ``train_step`` and step wall
+    (launch to launch, steps 2 on), quiver's ``fused_step`` a step; the
+    peak device memory."""
+    m = res["metrics"]
+    if m["mode"] == "quiver":
+        text = (f"fused_step {1e3 * m['phases']['fused_step'] / m['steps']:.2f}"
+                f" ms a step (warm-up in)")
+    else:
+        starts = res["step_starts"]
+        walls = [1e3 * (b - a) for a, b in zip(starts, starts[1:])]
+        text = (f"train_step {res['medians']['train_step']:.2f} ms, step wall "
+                f"{statistics.median(walls[1:] or walls):.2f} ms")
+    return f"{text}, peak {res['peak_gib']:.3f} GiB"
+
+
+def compare_baselines(label, got, ref):
+    """``got`` (several processes) against ``ref`` (one process of every
+    shard), the same flags: the global loss within 1e-5 of scale, the
+    accuracy and the steps equal, the final weights within 1e-4 of each
+    tensor's scale; the step readings side by side."""
+    mine, want = got[0]["metrics"], ref[0]["metrics"]
+    scale = max(1.0, abs(want["loss"]))
+    err = abs(mine["loss"] - want["loss"])
+    w_err = max(np.abs(w - ref[0]["weights"][n]).max()
+                / max(1.0, np.abs(ref[0]["weights"][n]).max())
+                for n, w in got[0]["weights"].items())
+    print(f"  {label} vs one process: global loss {mine['loss']:.8f} vs "
+          f"{want['loss']:.8f} (err {err:.3g}, limit {1e-5 * scale:.3g}), "
+          f"acc {mine['acc']:.6f} vs {want['acc']:.6f}, steps "
+          f"{mine['steps']} vs {want['steps']}, weights {w_err:.3g} of "
+          f"scale (limit 1e-4)")
+    for res in got:
+        print(f"  rank {res['rank']}: {step_readings(res)}")
+    print(f"  one process: {step_readings(ref[0])}")
+    if not (err <= 1e-5 * scale and mine["acc"] == want["acc"]
+            and mine["steps"] == want["steps"] and w_err <= 1e-4):
+        raise AssertionError(f"{label}: differs from the one-process run: "
+                             f"{mine} vs {want}, weights {w_err:.3g}")
+
+
+# ddp on the products graph, quiver on split B's, 3 steps each.
+BASELINES = (("ddp", DDP_FLAGS, "products"), ("quiver", QUIVER_FLAGS,
+                                              "split_b"))
+
+
+def baseline_rank_phases(phase, root: str, num_ranks: int, infer_ref):
+    """ddp P2 and quiver P2 (3 steps) in one process holding both shards,
+    as the CLI's launcher places them on one card, each beside the same
+    run as two processes of one shard (gloo, sharing the card); on a
+    machine with several cards, ddp and quiver P(2N) as N = ``num_ranks``
+    processes of 2 over NCCL against one process of 2N; infer at
+    ``num_ranks`` processes. ``infer_ref`` is the P = 1 inference
+    (metrics, predictions, flags). Returns the kernel's launches by entry
+    over every main-path run."""
+    launches = Counter()
+    for mode, flags, graph in BASELINES:
+        flags = flags + SHORT + ["--partitions", "2"]
+        label = f"{mode} P2"
+        with phase(label):
+            one = run_baselines(label, 1, 2, graph, root, flags,
+                                grad_check=mode == "ddp")
+            launches += expect_shard_launches(label, one)
+            if mode == "ddp":
+                check_grad_err(label, one)
+        label = f"{mode} P2 gloo"
+        with phase(label):
+            two = run_baselines(label, 2, 1, graph, root, flags)
+            launches += expect_shard_launches(label, two)
+            compare_baselines(label, two, one)
+    if torch.cuda.device_count() > 1:
+        launches += run_nccl_baselines(phase, root, num_ranks)
+    else:
+        print(f"ddp and quiver P{2 * num_ranks} NCCL: need {num_ranks} "
+              f"cards, this machine has 1; not run")
     label = f"infer P{num_ranks}"
     ref_metrics, ref_preds, flags, batches = infer_ref
     out = os.path.join(root, f"preds_p{num_ranks}.npy")
-    flags = flags + parts + ["--partition-mode", "round_robin", "--output",
-                             out]
+    flags = flags + ["--partitions", str(num_ranks), "--partition-mode",
+                     "round_robin", "--output", out]
     with phase(label):
-        results = run_baseline_ranks(label, num_ranks, "split_b", root,
-                                     flags)
+        results = run_baselines(label, num_ranks, 1, "split_b", root, flags)
         preds = np.load(out)
         m = results[0]["metrics"]
         predicted = ref_preds >= 0
@@ -2065,6 +2192,32 @@ def baseline_rank_phases(phase, root: str, num_ranks: int, infer_ref):
             expect_launches(f"{label}: rank {res['rank']}", res["launches"],
                             FUSED, batches, f"{batches} batches")
             launches += Counter(res["launches"])
+    return launches
+
+
+def run_nccl_baselines(phase, root: str, num_procs: int) -> Counter:
+    """ddp and quiver at ``2 * num_procs`` shards as ``num_procs`` processes
+    of 2 over NCCL (one card each; ddp with the gradient check), held
+    against one process of every shard. Stops when the machine has fewer
+    cards."""
+    cards = torch.cuda.device_count()
+    if cards < num_procs:
+        raise SystemExit(f"--ranks {num_procs} needs {num_procs} cards; "
+                         f"this machine has {cards}")
+    P = 2 * num_procs
+    launches = Counter()
+    for mode, flags, graph in BASELINES:
+        flags = flags + SHORT + ["--partitions", str(P)]
+        label = f"{mode} P{P} NCCL"
+        with phase(label):
+            one = run_baselines(f"{mode} P{P}", 1, P, graph, root, flags)
+            launches += expect_shard_launches(label, one)
+            got = run_baselines(label, num_procs, 2, graph, root, flags,
+                                grad_check=mode == "ddp")
+            launches += expect_shard_launches(label, got)
+            if mode == "ddp":
+                check_grad_err(label, got)
+            compare_baselines(label, got, one)
     return launches
 
 
@@ -2533,8 +2686,8 @@ def main(argv=None) -> int:
     cli = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     cli.add_argument("--num-nodes", type=int, default=PRODUCTS_NODES)
     cli.add_argument("--ranks", type=int, default=RANKS,
-                     help="processes of the baselines' P phases and of the "
-                          "NCCL split phase (several cards)")
+                     help="processes of infer's P phase and of the NCCL "
+                          "phases (several cards)")
     cli.add_argument("--split-nccl-only", action="store_true",
                      help="run only the split phase of --ranks processes "
                           "of 2 partitions over NCCL; prints no result")
@@ -2775,7 +2928,8 @@ def main(argv=None) -> int:
     else:
         print(f"split P{2 * opts.ranks}-B NCCL: needs {opts.ranks} cards, "
               f"this machine has 1; not run")
-    # 12. ddp, quiver and infer at the same number of ranks.
+    # 12. ddp and quiver P2 in one process and over gloo, at P(2N) over
+    # NCCL on several cards; infer at --ranks processes.
     launches_bl = baseline_rank_phases(phase, graphs.name, opts.ranks,
                                        infer_ref)
     graphs.cleanup()

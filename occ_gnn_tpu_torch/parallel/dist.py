@@ -17,11 +17,14 @@ CPU). In split training:
     the partitions of one process; the loss terms and the gradients are
     all-reduced over the processes (SUM, as the shard_map transpose does).
 
+The baselines (``--mode ddp`` and ``quiver``) place their P shards the
+same way: process k holds shards ``[lo, hi)``, samples (ddp) or draws
+(quiver) each from its own seeded stream, runs the single-chip model
+once per shard, sums the shards' loss terms and gradients locally and
+all-reduces them over the processes.
+
 A run of one process (W = 1) creates no process group and issues no
-collective, whatever its P. The baselines (``--mode ddp`` and ``quiver``)
-hold one shard per process (L = 1): rank r takes shard r of every batch,
-drawn alike on every rank, and the ranks all-reduce the loss terms and
-gradients.
+collective, whatever its P.
 
 Process k runs on ``cuda:{k % device_count}``, or on the CPU with
 ``--cpu``. The backend is NCCL when every process has a card of its own,
@@ -89,7 +92,7 @@ def local_partition_range(ranks: DistContext) -> tuple[int, int]:
 
 
 def rank_seed(seed: int, part: int) -> int:
-    """One device-draw stream per partition (or per rank of the
+    """One device-draw stream per partition (or per shard of the
     baselines), as a JAX step folds the axis index into its key; partition
     0 keeps ``seed``, so P = 1 is unchanged, and the draws of a run do not
     depend on which process holds a partition."""
@@ -97,28 +100,18 @@ def rank_seed(seed: int, part: int) -> int:
 
 
 def placement(partitions: int, *, cpu: bool, cpu_devices: int,
-              world: int | None = None,
-              one_per_process: bool = False) -> tuple[int, int]:
-    """``(P, W)``: the run's partitions and its processes, P / W each.
+              world: int | None = None) -> tuple[int, int]:
+    """``(P, W)``: the run's partitions (or the baselines' shards) and its
+    processes, P / W each.
 
     ``world`` is the process count of a group started elsewhere
     (``--distributed``); ``None`` asks for the one-host launcher's: one
     process per card the partitions land on (``min(P, device_count)``),
     or ``ceil(P / cpu_devices)`` under ``cpu``. ``partitions`` 0 means
     ``W * cpu_devices`` under ``cpu`` and W on the card (one process
-    under the launcher). ``one_per_process`` is ddp's and quiver's rule,
-    one shard a process. Stops when P is not a multiple of W."""
+    under the launcher). Stops when P is not a multiple of W."""
     if cpu_devices < 1:
         raise SystemExit(f"--cpu-devices {cpu_devices} must be at least 1")
-    if one_per_process:
-        W = world if world is not None else max(partitions, 1)
-        P = partitions or W
-        if P != W:
-            raise SystemExit(
-                f"--partitions {P} over {W} processes: ddp and quiver hold "
-                "one shard per process (several shards per process is "
-                "ROADMAP.md item 14b)")
-        return P, W
     if world is not None:
         W = world
         P = partitions or (W * cpu_devices if cpu else W)
@@ -179,13 +172,13 @@ def init_distributed(init_method: str, world_size: int, rank: int,
     return DistContext(rank, world_size, backend, device, lo, lo + local)
 
 
-def init_from_args(args, one_per_process: bool = False) -> DistContext:
+def init_from_args(args) -> DistContext:
     """The process group from the JAX CLI's flag names: ``--coordinator-
     address`` (``host:port``, or a ``tcp://`` / ``file://`` URL),
     ``--num-processes`` and ``--process-id``; without the address, from
     torchrun's environment (``MASTER_ADDR``, ``MASTER_PORT``, ``RANK``,
-    ``WORLD_SIZE``). Each process holds P / W partitions (``placement``;
-    ``one_per_process`` for ddp and quiver)."""
+    ``WORLD_SIZE``). Each process holds P / W partitions or shards
+    (``placement``)."""
     addr = args.coordinator_address
     if addr:
         if args.num_processes < 1 or args.process_id < 0:
@@ -203,8 +196,7 @@ def init_from_args(args, one_per_process: bool = False) -> DistContext:
                              "torchrun's environment") from None
         init = "env://"
     P, W = placement(args.partitions, cpu=args.cpu,
-                     cpu_devices=args.cpu_devices, world=world,
-                     one_per_process=one_per_process)
+                     cpu_devices=args.cpu_devices, world=world)
     return init_distributed(init, W, rank, args.cpu, local=P // W)
 
 

@@ -619,12 +619,24 @@ def _generators(sample_generator, L: int):
     return [sample_generator]
 
 
+# The all-reduces ``global_update`` has issued in this process: two an
+# update with a process group (the loss terms, then the gradients), none
+# in a run of one process.
+_UPDATE_COLLECTIVES = [0]
+
+
+def update_collective_count() -> int:
+    """The all-reduces of the updates this process issued."""
+    return _UPDATE_COLLECTIVES[0]
+
+
 def _global_ce(nll, count, correct):
     """``[nll, count, correct]`` summed over the processes, detached
     (JAX's psum of the three, ``model.py:683-687``), on the device."""
     totals = torch.stack([nll.detach().double(), count.double(),
                           correct.double()])
     torch_dist.all_reduce(totals)
+    _UPDATE_COLLECTIVES[0] += 1
     return totals
 
 
@@ -656,6 +668,7 @@ def global_update(model: nn.Module, optimizer, logits, labels,
     count_g = totals[1].clamp(min=1)
     (nll / count_g.float()).backward()
     all_reduce_gradients(model.parameters())
+    _UPDATE_COLLECTIVES[0] += 1
     optimizer.step()
     return (totals[0] / count_g).float(), totals[2].long(), totals[1].long()
 

@@ -19,10 +19,14 @@ run on the device.
   * Aggregation is a dense mean over the fan-out axis, ``(x_self + sum_K
     x_nbr) / (K + 1)``: the mean-with-self-loop of the padded COO path
     without a scatter, so the path launches no segment-sum.
-  * Data parallelism: rank r takes row r of each ``[P, B / P]`` batch of
-    one permutation drawn alike on every rank, draws from its own stream
-    and all-reduces the loss terms and gradients
-    (``parallel.model.global_update``).
+  * Data parallelism over P shards: every process draws one permutation
+    alike and cuts each batch into ``[P, B / P]`` rows; a process holding
+    shards ``[lo, hi)`` (``parallel.dist``) takes those rows, draws and
+    drops out each from the shard's own streams, runs the forward once a
+    shard, and sums the shards' loss terms and gradients locally and over
+    the processes (``parallel.model.global_update``). It holds one CSR
+    and one feature table, whatever its number of shards, as the JAX
+    mesh replicates them.
 
 The draws use torch's Philox generator where JAX uses threefry, so they
 cannot match JAX's; ``sample`` and ``forward`` are kept apart so that both
@@ -36,7 +40,11 @@ import torch
 from torch.profiler import record_function
 
 from occ_gnn_tpu_torch.models.common import dropout, linear
-from occ_gnn_tpu_torch.parallel.dist import DistContext, rank_seed
+from occ_gnn_tpu_torch.parallel.dist import (
+    DistContext,
+    rank_seed,
+    single_process,
+)
 from occ_gnn_tpu_torch.parallel.model import global_update, make_device_csr
 
 _DRAW_HIGH = 2**31 - 1  # JAX draws in [0, int32 max)
@@ -115,13 +123,15 @@ def dense_sage_forward(model, x_deepest: torch.Tensor, fanouts: list[int],
 
 
 class DeviceSampleTrainer:
-    """Epoch loop of the quiver baseline for this rank (rank r of
-    ``ranks``, or the only one): the host hands each step the next
-    shuffled target and label ids; the rest runs on ``device``.
+    """Epoch loop of the quiver baseline for this process, which holds
+    shards ``[lo, hi)`` of ``ranks`` (or, without it, the only shard):
+    the host hands each step the next shuffled target and label ids; the
+    rest runs on ``device``.
 
     The features are held on the device in ``dtype`` and take no
-    gradient; the draws come from a generator seeded
-    ``rank_seed(seed, rank)``, dropout from another."""
+    gradient; shard p draws from a generator seeded ``rank_seed(seed,
+    p)`` and drops out from one seeded ``rank_seed(seed ^ 0x5EED, p)``,
+    whichever process holds it."""
 
     def __init__(self, graph, fanouts: list[int], batch_size: int, model,
                  optimizer, *, seed: int = 0,
@@ -132,71 +142,79 @@ class DeviceSampleTrainer:
         self.fanouts = list(fanouts)
         self.model = model
         self.optimizer = optimizer
-        self.ranks = ranks
-        self.num_ranks = ranks.world_size if ranks is not None else 1
-        self.rank = ranks.rank if ranks is not None else 0
-        if batch_size % self.num_ranks:
-            raise ValueError(f"batch_size {batch_size} must be divisible by "
-                             f"the {self.num_ranks} ranks")
-        self.per_rank = batch_size // self.num_ranks
         self.device = torch.device(device)
+        self.ranks = (ranks if ranks is not None
+                      else single_process(1, self.device))
+        self.num_shards = self.ranks.num_partitions
+        if batch_size % self.num_shards:
+            raise ValueError(f"batch_size {batch_size} must be divisible by "
+                             f"the {self.num_shards} shards")
+        self.per_shard = batch_size // self.num_shards
         self.dtype = dtype
         self.csr = make_device_csr(graph, self.device)
         # Cast on the host, so the one upload carries the storage dtype.
         self.features = torch.from_numpy(np.ascontiguousarray(
             graph.features, dtype=np.float32)).to(dtype).to(self.device)
         self.rng = np.random.default_rng(seed)
-        self.generator = torch.Generator(self.device).manual_seed(
-            rank_seed(seed, self.rank))
-        self.dropout_generator = torch.Generator(self.device).manual_seed(
-            rank_seed(seed ^ 0x5EED, self.rank))
+        shards = range(self.ranks.lo, self.ranks.hi)
+        self.generators = [torch.Generator(self.device).manual_seed(
+            rank_seed(seed, p)) for p in shards]
+        self.dropout_generators = [torch.Generator(self.device).manual_seed(
+            rank_seed(seed ^ 0x5EED, p)) for p in shards]
         self.steps = 0
 
     def epoch_batches(self, nodes: np.ndarray):
         """One epoch's ``(targets, labels)``, int32 ``[P, B / P]`` each,
-        the same on every rank; the last batch's missing rows have target
-        0 and label -1."""
+        the same in every process; the last batch's missing rows (in the
+        last shards' rows, whatever the placement) have target 0 and
+        label -1."""
         nodes = nodes[self.rng.permutation(nodes.shape[0])]
-        bs = self.per_rank * self.num_ranks
+        bs = self.per_shard * self.num_shards
         for i in range(0, nodes.shape[0], bs):
             chunk = nodes[i : i + bs]
             targets = np.zeros(bs, dtype=np.int32)
             labels = np.full(bs, -1, dtype=np.int32)
             targets[: chunk.shape[0]] = chunk
             labels[: chunk.shape[0]] = self.graph.labels[chunk]
-            yield (targets.reshape(self.num_ranks, self.per_rank),
-                   labels.reshape(self.num_ranks, self.per_rank))
+            yield (targets.reshape(self.num_shards, self.per_shard),
+                   labels.reshape(self.num_shards, self.per_shard))
 
-    def sample(self, targets: torch.Tensor) -> list[torch.Tensor]:
-        """The dense frontiers of one rank's targets (the draws alone);
-        -1 pads read node 0 (their loss is masked by label -1).
+    def sample(self, targets: torch.Tensor, local: int = 0
+               ) -> list[torch.Tensor]:
+        """The dense frontiers of one shard's targets (the draws alone),
+        drawn from the stream of local shard ``local`` (shard ``lo +
+        local``); -1 pads read node 0 (their loss is masked by label -1).
         ``forward(sample(targets))`` is JAX's ``dense_logits``."""
         with record_function("quiver_draw"):
             return dense_frontiers(self.csr, targets.clamp(min=0),
-                                   self.fanouts, self.generator)
+                                   self.fanouts, self.generators[local])
 
-    def forward(self, frontiers: list[torch.Tensor]) -> torch.Tensor:
+    def forward(self, frontiers: list[torch.Tensor], local: int = 0
+                ) -> torch.Tensor:
         """The logits of the targets ``frontiers[0]``: the gather of the
-        deepest frontier's rows and the dense forward."""
+        deepest frontier's rows and the dense forward, dropping out from
+        local shard ``local``'s stream."""
         with record_function("quiver_gather"):
             x = self.features.index_select(0, frontiers[-1])
         with record_function("dense_sage_forward"):
-            return dense_sage_forward(self.model, x, self.fanouts,
-                                      dtype=self.dtype,
-                                      generator=self.dropout_generator)
+            return dense_sage_forward(
+                self.model, x, self.fanouts, dtype=self.dtype,
+                generator=self.dropout_generators[local])
 
     def step(self, targets: np.ndarray, labels: np.ndarray):
-        """One update on this rank's row of ``[P, B / P]`` ids ->
-        ``(loss, correct, count)``, global over the ranks, on the
+        """One update on this process's rows ``[lo, hi)`` of ``[P, B / P]``
+        ids -> ``(loss, correct, count)``, global over the shards, on the
         device."""
-        t = torch.from_numpy(targets[self.rank]).to(self.device)
-        lab = torch.from_numpy(labels[self.rank]).to(self.device)
+        lo, hi = self.ranks.lo, self.ranks.hi
+        t = torch.from_numpy(targets[lo:hi]).to(self.device)
+        lab = torch.from_numpy(labels[lo:hi]).to(self.device)
         self.model.train()
         self.optimizer.zero_grad(set_to_none=True)
-        logits = self.forward(self.sample(t))
+        logits = [self.forward(self.sample(t[j], j), j)
+                  for j in range(hi - lo)]
         self.steps += 1
-        return global_update(self.model, self.optimizer, logits, lab,
-                             self.ranks)
+        return global_update(self.model, self.optimizer, logits,
+                             list(lab.unbind(0)), self.ranks)
 
     def train_epoch(self, nodes: np.ndarray):
         """One epoch over ``nodes`` -> ``(last loss, correct, total)``; the

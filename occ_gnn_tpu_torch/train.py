@@ -21,13 +21,13 @@ Modes, each the JAX trainer's:
 
 A flag that the chosen mode does not read stops the CLI.
 
-split and infer run P partitions over W processes, P / W each
-(``parallel.dist``): ``--partitions P`` starts the processes itself, one
-per card the partitions land on, or ``ceil(P / --cpu-devices)`` under
-``--cpu`` (``--partitions 0`` is ``--cpu-devices`` partitions under
-``--cpu``, as the JAX CLI's virtual devices, and one on the card). ddp
-and quiver run one process per shard. ``--distributed`` joins a process
-group started elsewhere (the JAX flags ``--coordinator-address``,
+split and infer run P partitions over W processes, P / W each, and ddp
+and quiver P shards the same way (``parallel.dist``): ``--partitions P``
+starts the processes itself, one per card the partitions land on, or
+``ceil(P / --cpu-devices)`` under ``--cpu`` (``--partitions 0`` is
+``--cpu-devices`` partitions under ``--cpu``, as the JAX CLI's virtual
+devices, and one on the card). ``--distributed`` joins a process group
+started elsewhere (the JAX flags ``--coordinator-address``,
 ``--num-processes``, ``--process-id``, or torchrun's environment):
 
     python -m occ_gnn_tpu_torch.train --graph community --partitions 4 --cpu
@@ -74,7 +74,7 @@ _MODES_READING = {
     "profile_dir": ("split",),
     "infer_nodes": ("infer",),
     "output": ("infer",),
-    "cpu_devices": ("split", "infer"),
+    "cpu_devices": _RANKS,
     "distributed": _RANKS,
     "coordinator_address": _RANKS,
     "num_processes": _RANKS,
@@ -101,7 +101,7 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--lr", type=float, default=0.01)
     p.add_argument("--dropout", type=float, default=0.0)
     p.add_argument("--partitions", type=int, default=0,
-                   help="partitions (split, infer) or ranks (ddp, quiver); "
+                   help="partitions (split, infer) or shards (ddp, quiver); "
                         "0 = the processes times --cpu-devices under --cpu, "
                         "else the processes (1 without --distributed)")
     p.add_argument("--partition-mode", type=str, default="greedy",
@@ -160,8 +160,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU instead of the CUDA device")
     p.add_argument("--cpu-devices", type=int, default=8,
-                   help="partitions per process with --cpu (split, "
-                        "infer): the JAX CLI's virtual devices")
+                   help="partitions or shards per process with --cpu: "
+                        "the JAX CLI's virtual devices")
     p.add_argument("--json", action="store_true",
                    help="emit one JSON line of final metrics")
     p.add_argument("--distributed", action="store_true",
@@ -206,12 +206,6 @@ def _check_flags(parser, args) -> None:
                 dest):
             continue
         flag = "--" + dest.replace("_", "-")
-        if dest == "cpu_devices":
-            raise SystemExit(
-                f"--cpu-devices is not ported for --mode {args.mode}: only "
-                "--mode split / infer hold several partitions per process "
-                "(ROADMAP.md item 14b: several shards per process for ddp "
-                "and quiver)")
         raise SystemExit(
             f"{flag} is not ported for --mode {args.mode}: the JAX trainer's "
             f"{args.mode} mode does not read it, only --mode "
@@ -220,19 +214,18 @@ def _check_flags(parser, args) -> None:
     if not args.cpu and args.cpu_devices != parser.get_default("cpu_devices"):
         raise SystemExit(
             "--cpu-devices is not ported without --cpu: it gives the "
-            "partitions of a process on the CPU, as the JAX CLI's virtual "
-            "devices; on the card each process holds the partitions of its "
-            "card (ROADMAP.md item 14b)")
+            "partitions or shards of a process on the CPU, as the JAX "
+            "CLI's virtual devices; on the card each process holds those "
+            "of its card (ROADMAP.md queue 3: the port stops on a flag the "
+            "JAX trainer would ignore)")
 
 
 def _placement(args, world: int | None = None) -> tuple[int, int]:
-    """``(P, W)`` of ``--mode`` (``parallel.dist.placement``): ddp and
-    quiver hold one shard per process."""
+    """``(P, W)`` of the flags (``parallel.dist.placement``)."""
     from occ_gnn_tpu_torch.parallel import dist
 
     return dist.placement(args.partitions, cpu=args.cpu,
-                          cpu_devices=args.cpu_devices, world=world,
-                          one_per_process=args.mode in ("ddp", "quiver"))
+                          cpu_devices=args.cpu_devices, world=world)
 
 
 def main(argv=None):
@@ -247,8 +240,7 @@ def main(argv=None):
     _check_flags(parser, args)
     ranks = None
     if args.distributed:
-        ranks = dist.init_from_args(
-            args, one_per_process=args.mode in ("ddp", "quiver"))
+        ranks = dist.init_from_args(args)
         device = ranks.device
     else:
         # resolve_device stops a run that has no GPU and no --cpu before
@@ -473,16 +465,11 @@ def _profile_window(steps: int, out_dir: str, summary: dict):
 
 def _place(args, ranks, device):
     """This process's place in the run: ``ranks`` when it joined a group,
-    else the one process holding every partition. Under
+    else the one process holding every partition or shard. Under
     ``--distributed`` ``--partitions`` must be what the group holds."""
     from occ_gnn_tpu_torch.parallel import dist
 
     if ranks is None:
-        if args.mode in ("ddp", "quiver") and args.partitions > 1:
-            raise ValueError(
-                f"--partitions {args.partitions} runs one process per "
-                "shard: call main(), which spawns them, or pass the ranks= "
-                "of a process group (parallel.dist)")
         P, _ = _placement(args, world=1)
         return dist.single_process(P, device)
     if args.partitions not in (0, ranks.num_partitions):
@@ -785,28 +772,37 @@ def _partition_generators(csr, ranks, seed: int):
 
 
 def _rank_metrics(ranks, model) -> dict:
-    """What a P > 1 rank adds to its metrics: its rank, the backend and a
-    checksum of its final weights, equal on every rank of a healthy run."""
+    """What a ddp or quiver process adds to its metrics: its shards
+    ``[lo, hi)``, a checksum of its final weights (equal in every process
+    of a healthy run) and, in a run with a process group, its rank and
+    the backend."""
     from occ_gnn_tpu_torch.parallel.dist import checksum
 
-    if ranks is None:
-        return {}
-    return {"rank": ranks.rank, "backend": ranks.backend,
-            "weights_crc32": checksum(model)}
+    out = {"partitions_local": [ranks.lo, ranks.hi],
+           "weights_crc32": checksum(model)}
+    if ranks.grouped:
+        out.update(rank=ranks.rank, backend=ranks.backend)
+    return out
 
 
 def train_ddp(args, g, fanouts, timers, device: torch.device | None = None,
               ranks=None):
     """The data-parallel baseline (``--mode ddp``), the JAX trainer's
     ``train_ddp``: the train nodes are split into P shards by one seeded
-    permutation (the same on every rank), rank r samples shard r with
-    seed ``seed + r`` at ``batch_size // P`` a step, dropping the ragged
-    last batch, and every rank takes the step count of the shortest
-    shard, so each enters every all-reduce. The samplers draw with
-    replacement; ``--sample-without-replacement`` reaches only the
-    capacity measurement, as in JAX."""
+    permutation (the same in every process), shard p is sampled with
+    seed ``seed + p`` at ``batch_size // P`` a step, dropping the ragged
+    last batch, and every process takes the step count of the shortest
+    of all P shards, so each enters every all-reduce. ``ranks``
+    (``parallel.dist.DistContext``) makes this process one of a group
+    holding shards ``[lo, hi)``; without it the process holds all P
+    (``--partitions``, or ``--cpu-devices`` under ``--cpu``). A step
+    samples and gathers the local shards one after the other, then runs
+    one update over them. The samplers draw with replacement;
+    ``--sample-without-replacement`` reaches only the capacity
+    measurement, as in JAX."""
     from occ_gnn_tpu_torch.parallel import dist
     from occ_gnn_tpu_torch.parallel.dp import make_dp_train_step
+    from occ_gnn_tpu_torch.parallel.model import update_collective_count
     from occ_gnn_tpu_torch.sampling.neighbor import (
         NeighborSampler,
         measure_capacities,
@@ -815,8 +811,8 @@ def train_ddp(args, g, fanouts, timers, device: torch.device | None = None,
     from occ_gnn_tpu_torch.training import gather_features
 
     device = device or resolve_device(args)
-    P = _place(args, ranks, device).num_partitions
-    rank = ranks.rank if ranks is not None else 0
+    ranks = _place(args, ranks, device)
+    P = ranks.num_partitions
     model = _make_model(args, g, device)
     opt = torch.optim.Adam(model.parameters(), lr=args.lr)
     step = make_dp_train_step(model, opt, ranks)
@@ -832,29 +828,34 @@ def train_ddp(args, g, fanouts, timers, device: torch.device | None = None,
     shards = np.array_split(
         np.random.default_rng(args.seed).permutation(nodes), P)
     steps_per_epoch = min(s.shape[0] // per_dev for s in shards)
-    sampler = NeighborSampler(g, shards[rank], fanouts, per_dev,
-                              capacities=caps, seed=args.seed + rank,
-                              drop_last=True, device=device)
-    if ranks is not None:
+    local = range(ranks.lo, ranks.hi)
+    samplers = [NeighborSampler(g, shards[p], fanouts, per_dev,
+                                capacities=caps, seed=args.seed + p,
+                                drop_last=True, device=device)
+                for p in local]
+    if ranks.grouped:
         dist.check_agreement(ranks, capacities=caps, weights=model,
                              steps=steps_per_epoch)
-    drop_gen = torch.Generator(device).manual_seed(
-        dist.rank_seed(args.seed ^ 0x5EED, rank))
+    drop_gens = [torch.Generator(device).manual_seed(
+        dist.rank_seed(args.seed ^ 0x5EED, p)) for p in local]
     acc = loss_v = 0.0
     steps = 0
     last_phases = {}
+    collectives_before = update_collective_count()
     for epoch in range(args.num_epochs):
         t0 = time.perf_counter()
         correct = total = 0
-        seeds = sampler.seed_batches()
+        seeds = [s.seed_batches() for s in samplers]
         for _ in range(steps_per_epoch):
             with timers.phase("sample"):
-                batch = sampler.sample_batch(next(seeds))
+                batches = [s.sample_batch(next(it))
+                           for s, it in zip(samplers, seeds)]
             with timers.phase("feature_gather"):
-                x0 = gather_features(g.features, batch.input_nodes, device)
+                x0s = [gather_features(g.features, b.input_nodes, device)
+                       for b in batches]
                 _synchronize(device)
             with timers.phase("train_step"):
-                loss, c, t = step(batch, x0, drop_gen)
+                loss, c, t = step(batches, x0s, drop_gens)
                 _synchronize(device)
             steps += 1
             correct += int(c)
@@ -868,6 +869,7 @@ def train_ddp(args, g, fanouts, timers, device: torch.device | None = None,
         timers.clear()
     return {"mode": "ddp", "acc": acc, "loss": loss_v, "partitions": P,
             "steps": steps, "phases": last_phases,
+            "collectives": update_collective_count() - collectives_before,
             **_rank_metrics(ranks, model)}
 
 
@@ -876,28 +878,31 @@ def train_quiver(args, g, fanouts, timers, device: torch.device | None = None,
     """The quiver baseline (``--mode quiver``), the JAX trainer's
     ``train_quiver``: draws, feature gather, forward, backward and Adam on
     the device (``sampling.device_sampler``), the features held there in
-    ``--dtype``, one shared permutation split over the ranks. SAGE only,
-    as the reference baseline; every draw takes ``fanout`` neighbours with
-    replacement, whatever the degree."""
+    ``--dtype`` once a process, one shared permutation cut into P shards'
+    rows, this process's ``[lo, hi)`` of them (``ranks``, as
+    ``train_ddp``'s). SAGE only, as the reference baseline; every draw
+    takes ``fanout`` neighbours with replacement, whatever the degree."""
     from occ_gnn_tpu_torch.parallel import dist
+    from occ_gnn_tpu_torch.parallel.model import update_collective_count
     from occ_gnn_tpu_torch.sampling.device_sampler import DeviceSampleTrainer
 
     if args.model_name != "sage":
         raise SystemExit("--mode quiver supports --model-name sage "
                          "(the reference quiver baseline is SAGE-only)")
     device = device or resolve_device(args)
-    P = _place(args, ranks, device).num_partitions
+    ranks = _place(args, ranks, device)
     model = _make_model(args, g, device)
     opt = torch.optim.Adam(model.parameters(), lr=args.lr)
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     drv = DeviceSampleTrainer(g, fanouts, args.batch_size, model, opt,
                               seed=args.seed, dtype=dtype, device=device,
                               ranks=ranks)
-    if ranks is not None:
+    if ranks.grouped:
         dist.check_agreement(ranks, weights=model)
     nodes = _train_nodes(args, g)
     acc = loss_v = 0.0
     last_phases = {}
+    collectives_before = update_collective_count()
     for epoch in range(args.num_epochs):
         t0 = time.perf_counter()
         with timers.phase("fused_step"):
@@ -908,8 +913,10 @@ def train_quiver(args, g, fanouts, timers, device: torch.device | None = None,
               f"time={dt:.2f}s [{timers.summary()}]")
         last_phases = {k: round(v, 4) for k, v in timers.as_dict().items()}
         timers.clear()
-    return {"mode": "quiver", "acc": acc, "loss": loss_v, "partitions": P,
-            "steps": drv.steps, "phases": last_phases,
+    return {"mode": "quiver", "acc": acc, "loss": loss_v,
+            "partitions": ranks.num_partitions, "steps": drv.steps,
+            "phases": last_phases,
+            "collectives": update_collective_count() - collectives_before,
             **_rank_metrics(ranks, model)}
 
 
@@ -990,8 +997,8 @@ def run_infer(args, g, fanouts, timers, device: torch.device | None = None,
     acc = correct / max(total, 1)
     print(f"infer accuracy ({args.infer_nodes}): {acc:.4f} over {total}")
     out = {"mode": "infer", "acc": acc, "count": total, "partitions": P,
-           "partitions_local": [ranks.lo, ranks.hi],
-           **_rank_metrics(ranks, model)}
+           "partitions_local": [ranks.lo, ranks.hi], "rank": rank,
+           "backend": ranks.backend, "weights_crc32": dist.checksum(model)}
     if args.output:
         if rank == 0:
             np.save(args.output, preds)

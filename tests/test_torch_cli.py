@@ -76,8 +76,9 @@ def test_flag_a_mode_does_not_read_stops_the_cli(mode):
     assert set(FLAG_VALUES) == set(train._MODES_READING)
     unread = [d for d, modes in train._MODES_READING.items()
               if mode not in modes]
-    # --cpu-devices gives the partitions of a process under --cpu.
-    assert ("cpu_devices" in unread) == (mode not in ("split", "infer"))
+    # --cpu-devices gives the partitions or shards of a process under
+    # --cpu.
+    assert ("cpu_devices" in unread) == (mode in ("single", "pa-cache"))
     for dest in unread:
         flag = FLAG_VALUES[dest]
         with pytest.raises(SystemExit, match=f"{flag[0]} is not ported"):

@@ -44,7 +44,8 @@ GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
 WEIGHT_TOL = dict(rtol=1e-5, atol=1e-5)
 CLI = ["--graph", "community", "--num-nodes", "1500", "--fan-out", "4,4",
        "--batch-size", "128", "--num-hidden", "16", "--num-epochs", "2",
-       "--feature-dim", "16", "--cpu", "--mode", "ddp"]
+       "--feature-dim", "16", "--cpu", "--cpu-devices", "1", "--mode",
+       "ddp"]
 
 
 def _kw(kind):

@@ -418,23 +418,29 @@ def test_placement_rules(monkeypatch):
     assert place(8, cpu=False, cpu_devices=8) == (8, 4)
     assert place(2, cpu=False, cpu_devices=8) == (2, 2)
     assert place(0, cpu=False, cpu_devices=8, world=4) == (4, 4)
-    # ddp and quiver: one shard a process.
-    assert place(2, cpu=True, cpu_devices=8, one_per_process=True) == (2, 2)
+    # ddp and quiver place their shards by the same rule, through the
+    # CLI's placement whatever the mode.
+    for mode in ("split", "ddp", "quiver", "infer"):
+        args = train.build_argparser().parse_args(
+            ["--graph", "g", "--mode", mode, "--partitions", "4", "--cpu",
+             "--cpu-devices", "2"])
+        assert train._placement(args) == (4, 2)
+        assert train._placement(args, world=4) == (4, 4)
     with pytest.raises(SystemExit, match="not a multiple"):
         place(6, cpu=False, cpu_devices=8)
-    with pytest.raises(SystemExit, match="item 14b"):
-        place(4, cpu=True, cpu_devices=8, world=2, one_per_process=True)
+    with pytest.raises(SystemExit, match="not a multiple"):
+        place(4, cpu=True, cpu_devices=8, world=3)
 
 
 @pytest.mark.parametrize("argv,message", [
-    (["--mode", "ddp", "--cpu", "--cpu-devices", "2"],
-     "--cpu-devices is not ported for --mode ddp.*item 14b"),
-    (["--mode", "quiver", "--cpu", "--cpu-devices", "2"],
-     "--cpu-devices is not ported for --mode quiver.*item 14b"),
+    (["--mode", "ddp", "--cpu-devices", "2"],
+     "--cpu-devices is not ported without --cpu"),
+    (["--mode", "quiver", "--cpu-devices", "2"],
+     "--cpu-devices is not ported without --cpu"),
     (["--mode", "split", "--cpu-devices", "2"],
-     "--cpu-devices is not ported without --cpu.*item 14b"),
+     "--cpu-devices is not ported without --cpu"),
     (["--mode", "infer", "--cpu-devices", "2"],
-     "--cpu-devices is not ported without --cpu.*item 14b"),
+     "--cpu-devices is not ported without --cpu"),
     (["--mode", "split", "--cpu", "--partitions", "3", "--cpu-devices", "2"],
      "--partitions 3 is not a multiple of the 2 processes"),
 ], ids=["ddp", "quiver", "split-on-card", "infer-on-card", "not-a-multiple"])

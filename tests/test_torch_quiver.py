@@ -27,6 +27,7 @@ from occ_gnn_tpu_torch import train
 from occ_gnn_tpu_torch.data import random_graph
 from occ_gnn_tpu_torch.data.graph import Graph
 from occ_gnn_tpu_torch.models import SAGEModel
+from occ_gnn_tpu_torch.parallel.dist import DistContext
 from occ_gnn_tpu_torch.parallel.model import make_device_csr
 from occ_gnn_tpu_torch.sampling.device_sampler import (
     DeviceSampleTrainer,
@@ -44,7 +45,8 @@ LOGIT_TOL = dict(rtol=1e-5, atol=1e-6)
 WEIGHT_TOL = dict(rtol=1e-5, atol=1e-5)
 CLI = ["--graph", "community", "--num-nodes", "1500", "--fan-out", "4,4",
        "--batch-size", "128", "--num-hidden", "16", "--num-epochs", "2",
-       "--feature-dim", "16", "--cpu", "--mode", "quiver"]
+       "--feature-dim", "16", "--cpu", "--cpu-devices", "1", "--mode",
+       "quiver"]
 
 
 def _ring(n=RING_N, feature_dim=8, num_classes=4, seed=0) -> dict:
@@ -228,11 +230,9 @@ def test_epoch_batches_split_one_permutation():
     model = SAGEModel(8, HIDDEN, 4, 2)
     opt = torch.optim.Adam(model.parameters())
 
-    class Ranks:
-        world_size, rank = P, 0
-
+    ranks = DistContext(0, P, "gloo", torch.device("cpu"), 0, 1)
     trainer = DeviceSampleTrainer(g, FANOUTS, BATCH, model, opt, seed=SEED,
-                                  device="cpu", ranks=Ranks())
+                                  device="cpu", ranks=ranks)
     batches = list(trainer.epoch_batches(g.train_nodes()))
     assert len(batches) == 3 and batches[0][0].shape == (P, BATCH // P)
     targets = np.concatenate([t.reshape(-1) for t, _ in batches])
@@ -242,7 +242,7 @@ def test_epoch_batches_split_one_permutation():
     assert (labels[70:] == -1).all() and (targets[70:] == 0).all()
     with pytest.raises(ValueError, match="divisible"):
         DeviceSampleTrainer(g, FANOUTS, 30, model, opt, device="cpu",
-                            ranks=Ranks())
+                            ranks=ranks)
 
 
 def test_bfloat16_runs_finite():

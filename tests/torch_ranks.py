@@ -18,6 +18,10 @@ the data-parallel and quiver baselines on this rank's shard.
 ``exchange_rank`` runs the three shuffles of a process of several
 partitions, and ``device_innermost_rank`` its device-synthesized layers;
 both also run in the test process with ``dist.single_process``.
+
+``run_cli(argv, W)`` runs ``train.main(argv)`` as W ``--distributed``
+processes, as the CLI's launcher does (in the test process when W = 1),
+and returns each process's metrics and final weights.
 """
 
 from __future__ import annotations
@@ -379,3 +383,49 @@ def device_innermost_rank(ranks, setup, state):
         batch, cache.frames, sample_generator=gens())
     return dict(nbr=[_numpy(layers[0].nbr_idx) for layers in parts],
                 logits=_numpy(logits))
+
+
+# -- the CLI, as its launcher runs it ----------------------------------------
+
+
+def run_cli(argv: list[str], world_size: int) -> list[dict]:
+    """``train.main(argv)`` as ``world_size`` processes joined by
+    ``--distributed`` at a ``file://`` store, as ``dist.launch`` runs them
+    (in this process when there is one): each process's ``metrics`` and
+    the final ``weights`` of the model its mode built, in rank order."""
+    if world_size == 1:
+        return [_cli_process(argv)]
+    with tempfile.TemporaryDirectory(prefix="occ_test_cli_") as tmp:
+        dist.spawn(_cli_rank, world_size, argv, tmp, timeout=TIMEOUT_S)
+        results = []
+        for r in range(world_size):
+            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+                results.append(pickle.load(f))
+        return results
+
+
+def _cli_process(argv: list[str]) -> dict:
+    from occ_gnn_tpu_torch import models, train
+
+    built = []
+    real = models.get_model
+
+    def get_model(*args, **kwargs):
+        built.append(real(*args, **kwargs))
+        return built[-1]
+
+    models.get_model = get_model
+    try:
+        metrics = train.main(argv)
+    finally:
+        models.get_model = real
+    return dict(metrics=metrics, weights={
+        n: _numpy(p) for n, p in built[-1].named_parameters()})
+
+
+def _cli_rank(rank, world_size, store, argv, out_dir):
+    out = _cli_process(argv + [
+        "--distributed", "--coordinator-address", store,
+        "--num-processes", str(world_size), "--process-id", str(rank)])
+    with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
