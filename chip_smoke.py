@@ -4,7 +4,8 @@
     python3 chip_smoke.py [--num-nodes N] [--ranks N]
 
 1. Prints the card (name and power limit), torch and CUDA versions, and
-   builds every hand-written kernel and the C++ sampling service from the
+   builds every hand-written kernel (``csrc/segment_sum_sorted.cu`` and
+   ``csrc/dense_gather_sum.cu``) and the C++ sampling service from the
    sources in the checkout, one compiler for each, all at once.
 2. Builds the products-scale graph (2.45 M nodes, degree 25, 100 features,
    47 classes) once for the single path, split A and split GAT A, and
@@ -43,10 +44,16 @@
 8. Split A, products scale, every width kept: checks one layer 0
    synthesized on the card from the resident CSR, and the split logits of
    a host-innermost batch against the single-chip logits of the same
-   sample; times the split path's torch ops at the first batch's shapes
-   beside their byte bounds; then drives ``--mode split --cache-per auto``
-   (replicated cache, device innermost, C++ sampler; 8 steps) through
-   ``train_split`` with one steady step profiled.
+   sample; times the split path's ops at the first batch's shapes beside
+   their byte bounds; holds the dense gather-sum's two kernels,
+   ``dense_gather_sum`` (forward) and ``dense_scatter_add`` (backward),
+   against their plain versions at each layer of that batch (the forward
+   bit-equal, also on the frame in bf16; the backward within 1e-4 of max
+   |dx|), timed beside ``embedding_bag`` and the bound; then drives
+   ``--mode split --cache-per auto`` (replicated cache, device innermost,
+   C++ sampler; 8 steps) through ``train_split`` with one steady step
+   profiled: the dense kernels 3 times forward and 2 times backward a
+   step, no segment-sum.
    Split GAT A: the same with ``--model-name gat --num-hidden 32
    --num-heads 4`` (the JAX package's GAT bench widths): split vs single
    GAT logits, the batched attention's times forward and backward beside
@@ -64,8 +71,9 @@
    ``--cache-per 0.25 --innermost host --fan-out 10,10,-1 --save-dir``,
    the refreshing cache with a COO layer 0. Checks the split-vs-single
    logits, that a step launched before a tail write reads the old tail,
-   both entries at its layer 0 (and the fused one on a bf16 frame), one
-   kernel launch a step and one tail write a step. Then single GAT
+   both entries at its layer 0 (and the fused one on a bf16 frame) and
+   the dense kernels at its layers 1-2, one fused launch and two of each
+   dense kernel a step, and one tail write a step. Then single GAT
    and single GCN on the same graph (3 steps each): 3 launches a step
    each. Split B's feed unpacked (``packed=False``): its first batch
    equal to the packed feed's field by field, then 3 steps (``sample``
@@ -100,8 +108,9 @@
    host clock over gloo).
    Split P4-B local: split B at ``--partitions 4`` in one process (8
    steps, one profiled, a checkpoint): the P vs P = 1 check, 4 fused
-   launches a step, the exchange's device time a call, and both kernel
-   entries at its layer 0 against their plain versions. Split GAT P4-B
+   launches a step (and 8 of each dense kernel), the exchange's device
+   time a call, both kernel entries at its layer 0 and the dense kernels
+   at its layers 1-2 against their plain versions. Split GAT P4-B
    local (3 steps, 4 launches of the messages' entry a step). Infer P4
    local of that checkpoint against infer P1 of it (99.9 % of the
    predictions). Then ``occ_gnn_tpu_torch.entry``: ``entry()``'s forward
@@ -126,9 +135,14 @@
    graph, ``--partition-mode round_robin``), two ranks: equal global
    metrics on every rank, one launch a batch per rank, the P = 1 count
    and at least 99.9 % of its predictions.
-13. Prints the kernel's times at every main-path shape, the card again,
-   one JSON line of kernel numbers (one entry each for the two entries),
-   and last ``{"ok": true, "device": {...}}``.
+13. Prints the kernels' times at every main-path shape, the card again,
+   one JSON line of kernel numbers (one object each for the segment-sum's
+   two entries and the two dense kernels), and last ``{"ok": true,
+   "device": {...}}``. Every phase's run checks the launches of each
+   kernel its path calls: a split SAGE or GCN step launches the dense
+   kernels once a dense layer forward and once a dense layer past layer 0
+   backward, per partition (``SPLIT_A_STEP``, ``SPLIT_B_STEP``), an
+   inference batch once a dense layer (``INFER_BATCH``).
 
 Any failed check raises, so the script exits non-zero and prints no result.
 It also fails when torch sees no CUDA device, and outside the repository.
@@ -181,6 +195,12 @@ from occ_gnn_tpu_torch.ops.build import (
     build_kernel,
     build_partitioner,
     build_sampler,
+)
+from occ_gnn_tpu_torch.ops.dense_gather_sum import (
+    dense_gather_sum,
+    dense_gather_sum_reference,
+    dense_scatter_add,
+    dense_scatter_add_reference,
 )
 from occ_gnn_tpu_torch.ops.segment_sum_sorted import (
     TILE_EDGES,
@@ -278,15 +298,28 @@ INFER_FLAGS = ["--mode", "infer", "--fan-out", "10,10,-1", "--num-hidden",
 # P vs P = 1 predictions: equal but for near-ties of the logits.
 PRED_AGREEMENT = 0.999
 DRAW_CHECKS = 10_000
-# The kernel's two entries, each with its own launch count.
+# The sorted segment-sum's two entries and the dense gather-sum's two
+# kernels, each with its own launch count.
 MSGS, FUSED = "segment_sum_sorted", "gather_segment_sum"
-ENTRIES = {MSGS: segment_sum_sorted, FUSED: gather_segment_sum}
+DENSE_FWD, DENSE_BWD = "dense_gather_sum", "dense_scatter_add"
+ENTRIES = {MSGS: segment_sum_sorted, FUSED: gather_segment_sum,
+           DENSE_FWD: dense_gather_sum, DENSE_BWD: dense_scatter_add}
 # Sorted segment-sum launches a step: one a layer. Single SAGE and GCN
 # (either norm) sum the rows of their frame through the fused gather; GAT
 # (single, and split on its COO layer 0) sums the softmax denominators and
 # the weighted messages as one [p, p * feat] through the messages' entry.
 SINGLE_LAUNCHES = {"sage": 3, "gcn": 3, "gat": 3, "gcn sym": 3}
 SINGLE_ENTRY = {"sage": FUSED, "gcn": FUSED, "gat": MSGS, "gcn sym": FUSED}
+# Launches of the split paths a step per partition (inference: a batch
+# per partition). Every dense layer (a finite fan-out) runs the dense
+# gather-sum once forward and its scatter-add once backward, but layer 0,
+# whose frame takes no gradient; a COO layer 0 (fan-out -1) runs the fused
+# entry (SAGE) or the messages' entry (GAT, whose dense layers run its
+# attention, no kernel).
+SPLIT_A_STEP = {DENSE_FWD: 3, DENSE_BWD: 2}
+SPLIT_B_STEP = {FUSED: 1, DENSE_FWD: 2, DENSE_BWD: 2}
+GAT_B_STEP = {MSGS: 1}
+INFER_BATCH = {FUSED: 1, DENSE_FWD: 2}
 # The processes of infer's P > 1 phase and of the NCCL phases.
 RANKS = 2
 # metis on the products graph took 109.12 s and 122.57 s a rank in two
@@ -298,6 +331,11 @@ SPLIT_B_PARTITION_MODE = "metis"
 RANK_TIMEOUT_S = 600
 # f32 sums taken in another order than the plain version's atomics.
 KERNEL_TOL = 1e-4
+# The dense scatter-add against its plain version, relative to max |dx|
+# (at least 1): both add with atomics in an order that changes from run to
+# run, and the zero row sums every padding slot's gradient row (tens of
+# thousands at layer 1), whose rounding grows with their count.
+DENSE_BWD_TOL = 1e-4
 # Logits: the same sums followed by three layers of f32 matmuls; the
 # limit is 1e-4 of the logits' scale (at least 1).
 LOGITS_TOL = 1e-4
@@ -313,10 +351,19 @@ F32_RATE = 67e12  # f32 outside the tensor cores, operations/s
 PCIE_RATE = 64e9
 NVLINK_RATE = 450e9
 
-KERNEL_SOURCE = "occ_gnn_tpu_torch/csrc/segment_sum_sorted.cu"
+KERNEL_SOURCE = {
+    MSGS: "occ_gnn_tpu_torch/csrc/segment_sum_sorted.cu",
+    FUSED: "occ_gnn_tpu_torch/csrc/segment_sum_sorted.cu",
+    DENSE_FWD: "occ_gnn_tpu_torch/csrc/dense_gather_sum.cu",
+    DENSE_BWD: "occ_gnn_tpu_torch/csrc/dense_gather_sum.cu",
+}
+DENSE_REPLACES = ("occ_gnn_tpu/parallel/split.py:161-197 (XLA fusion, no "
+                  "pallas_call)")
 KERNEL_REPLACES = {
     MSGS: "occ_gnn_tpu/ops/pallas_spmm_blocked.py:190",
     FUSED: "occ_gnn_tpu/ops/pallas_spmm_blocked.py:190 and :213",
+    DENSE_FWD: DENSE_REPLACES,
+    DENSE_BWD: DENSE_REPLACES,
 }
 
 
@@ -334,12 +381,17 @@ def launch_text(launches) -> str:
                      for name in ENTRIES)
 
 
-def expect_launches(label, launches, entry, count, what) -> None:
-    """Raise unless ``entry`` launched ``count`` times in the run and the
-    other entry never."""
-    if Counter(launches) != Counter({entry: count}):
+def scaled(per, n: int) -> dict:
+    """Launches ``per`` (entry -> count) ``n`` times over."""
+    return {entry: count * n for entry, count in per.items()}
+
+
+def expect_launches(label, launches, want, what) -> None:
+    """Raise unless every kernel launched as many times in the run as
+    ``want`` (entry -> count) says, and the others never."""
+    if +Counter(launches) != +Counter(want):
         raise AssertionError(f"{label}: {launch_text(launches)} for {what}; "
-                             f"expected {count} of {entry} and no other")
+                             f"expected {launch_text(want)}")
 
 
 def card_line() -> str:
@@ -520,6 +572,110 @@ def backward_case(label, blk, h, rate, gen):
           f"valid={valid} D={blk.dst_cap} S={blk.src_cap} H={h} ms={ms:.4f} "
           f"bound_ms={bound:.4f} (bytes)")
     return label, ms, bound
+
+
+def dense_cases(label, x, nbr, rate, gen, backward=True):
+    """The dense gather-sum's two kernels on one layer's shape against
+    their plain versions: the forward bit-equal to its plain version and
+    over two launches; the backward (``backward``) within DENSE_BWD_TOL of
+    max |dx| of its plain version, and two launches within the same bound
+    of each other (atomics). Each is timed in the CUDA-graph harness
+    (``median_ms``; the plain versions, 2K and K launches, one call a
+    graph) beside ``embedding_bag`` (f32 frames: the same sums, its
+    ``[D, K]`` index transposed ahead of the timing; its backward through
+    ``torch.autograd.grad``, timed with its forward in one graph, less the
+    forward's time) and the byte bound. Returns {kernel: case}."""
+    K, D = nbr.shape
+    S, H = x.shape
+    xb = x.element_size()
+    valid = int((nbr != S - 1).sum())
+    rows = torch.unique(nbr).numel()
+    out, again = dense_gather_sum(x, nbr), dense_gather_sum(x, nbr)
+    ref = dense_gather_sum_reference(x, nbr)
+    torch.cuda.synchronize()
+    if out.shape != (D, H) or not torch.isfinite(out).all():
+        raise AssertionError(f"{label}: bad {DENSE_FWD} output "
+                             f"{tuple(out.shape)}")
+    err = (out - ref).abs().max().item() if out.numel() else 0.0
+    if not torch.equal(out, ref):
+        raise AssertionError(f"{label}: {DENSE_FWD} differs from its plain "
+                             f"version (max abs {err}); it must be "
+                             f"bit-equal")
+    if not torch.equal(out, again):
+        raise AssertionError(f"{label}: two launches of {DENSE_FWD} differ")
+    f32 = x.dtype == torch.float32
+    bags = nbr.t().contiguous().long() if f32 else None
+    # nbr read once, each x row it names once in its own type (padding
+    # slots name the one zero row), out written once; one add a valid
+    # slot's element.
+    cases = {DENSE_FWD: dict(
+        err=err, ms=median_ms(lambda: dense_gather_sum(x, nbr)),
+        plain_ms=yardstick_ms(lambda: dense_gather_sum_reference(x, nbr)),
+        library_ms=median_ms(lambda: torch.nn.functional.embedding_bag(
+            bags, x, mode="sum")) if f32 else None,
+        bytes_ms=(4 * K * D + xb * rows * H + 4 * D * H) / rate * 1e3,
+        ops_ms=valid * H / F32_RATE * 1e3)}
+    if backward:
+        g = torch.randn(D, H, generator=gen, device=x.device)
+        dx, dx2 = dense_scatter_add(g, nbr, S), dense_scatter_add(g, nbr, S)
+        ref_dx = dense_scatter_add_reference(g, nbr, S)
+        torch.cuda.synchronize()
+        scale = max(1.0, ref_dx.abs().max().item())
+        err = (dx - ref_dx).abs().max().item()
+        again = (dx - dx2).abs().max().item()
+        if not (torch.isfinite(dx).all() and err <= DENSE_BWD_TOL * scale
+                and again <= DENSE_BWD_TOL * scale):
+            raise AssertionError(f"{label}: {DENSE_BWD} differs from its "
+                                 f"plain version by {err} (two launches by "
+                                 f"{again}) at scale {scale}")
+        library = None
+        if f32:
+            # Autograd runs a backward on its forward's stream, so both go
+            # into the graph; the forward's own time is taken off.
+            xr = x.detach().clone().requires_grad_()
+            library = median_ms(lambda: torch.autograd.grad(
+                torch.nn.functional.embedding_bag(bags, xr, mode="sum"), xr,
+                g)) - cases[DENSE_FWD]["library_ms"]
+        # g and nbr read once, dx written once; one add a slot's element.
+        cases[DENSE_BWD] = dict(
+            err=err, scale=scale, ms=median_ms(
+                lambda: dense_scatter_add(g, nbr, S)),
+            plain_ms=yardstick_ms(
+                lambda: dense_scatter_add_reference(g, nbr, S)),
+            library_ms=library,
+            bytes_ms=(4 * K * D + 4 * D * H + 4 * S * H) / rate * 1e3,
+            ops_ms=K * D * H / F32_RATE * 1e3)
+    for name, c in cases.items():
+        bound = max(c["bytes_ms"], c["ops_ms"])
+        by = "bytes" if c["bytes_ms"] >= c["ops_ms"] else "operations"
+        lib = ("n/a (bf16 frame)" if c["library_ms"] is None
+               else f"{c['library_ms']:.4f}")
+        check = ("bit-equal" if name == DENSE_FWD else
+                 f"(limit {DENSE_BWD_TOL * c['scale']:.3g})")
+        print(f"kernel {name} {label}: K={K} D={D} S={S} H={H} x "
+              f"{str(x.dtype)[6:]} valid={valid} x_rows_read={rows} "
+              f"max_abs_err={c['err']:.3g} "
+              f"{check} ms={c['ms']:.4f} plain_ms={c['plain_ms']:.4f} "
+              f"embedding_bag_ms={lib} bound_ms={bound:.4f} ({by}, "
+              f"{100 * bound / c['ms']:.1f} % of it)")
+    return cases
+
+
+def split_dense_cases(label, layers, x0, hidden, rate, device):
+    """``dense_cases`` at every dense layer of one partition's batch:
+    ``layers[i]`` with an ``nbr_idx``; layer 0 reads ``x0`` (a frame: no
+    backward), later layers a random f32 frame of ``hidden`` columns.
+    Returns {layer: cases}."""
+    gen = torch.Generator(device).manual_seed(9)
+    out = {}
+    for i, lyr in enumerate(layers):
+        if lyr.nbr_idx is None:
+            continue
+        x = x0 if i == 0 else torch.randn(lyr.src_cap, hidden, generator=gen,
+                                          device=device)
+        out[i] = dense_cases(f"{label} layer {i}", x, lyr.nbr_idx, rate, gen,
+                             backward=i > 0)
+    return out
 
 
 def ragged_cases(device):
@@ -808,10 +964,11 @@ def check_tail_order(cache, sampler, fwd, batch, nodes, batch_size):
 
 
 def split_op_times(batch, syn, csr, frames, hidden, rate, device):
-    """The split path's torch ops at the first batch's shapes: device ms
-    per call, calls a step, and the byte bound (each input read once,
-    each output written once; padding slots of nbr read the one zero
-    row). Layer 0 reads the frame, which takes no gradient."""
+    """The split path's ops at the first batch's shapes: device ms per
+    call, calls a step, and the byte bound (each input read once, each
+    output written once: each frame row nbr names once, padding slots
+    naming the one zero row). Layer 0 reads the frame, which takes no
+    gradient."""
     gen = torch.Generator(device).manual_seed(6)
     layers = [syn] + [lyr.partition(0) for lyr in batch.layers[1:]]
     l0 = batch.layers[0].partition(0)
@@ -837,10 +994,10 @@ def split_op_times(batch, syn, csr, frames, hidden, rate, device):
             x = torch.randn(lyr.src_cap, hidden, device=device,
                             requires_grad=True)
         H, xb = x.shape[1], x.element_size()
-        valid = int((nbr != lyr.src_cap - 1).sum())
+        x_rows = torch.unique(nbr).numel()
         add(f"local_aggregate_dense fwd, layer {i} (K={K}, D={D}, H={H})",
             lambda: local_aggregate_dense(x, nbr),
-            4 * K * D + xb * valid * H + 4 * D * H)
+            4 * K * D + xb * x_rows * H + 4 * D * H)
         merged = local_aggregate_dense(x, nbr)
         if x.requires_grad:
             g = torch.randn_like(merged)
@@ -1209,10 +1366,15 @@ def split_process(ranks, spec) -> dict:
                       metrics["cache_pct"],
                       refresh_cap=metrics["capacities"]["frame_caps"][0]),
             device=device, partitions=(ranks.lo, ranks.lo + 1)).frames[0]
+        rate = memory_rate(torch.cuda.get_device_name(device))
         out["kernel_cases"] = kernel_cases(
             f"{spec['label']} layer 0, partition {ranks.lo}", frame,
-            lyr.edge_src, lyr.edge_dst, lyr.dst_cap,
-            memory_rate(torch.cuda.get_device_name(device)))
+            lyr.edge_src, lyr.edge_dst, lyr.dst_cap, rate)
+        # The dense kernels at its layers 1-2.
+        out["dense_cases"] = split_dense_cases(
+            f"{spec['label']}, partition {ranks.lo},",
+            [layer.partition(0) for layer in b2.layers], frame,
+            args.num_hidden, rate, device)
     return out
 
 
@@ -1332,15 +1494,16 @@ def launcher_processes(P: int) -> int:
     return dist.placement(P, cpu=False, cpu_devices=8)[1]
 
 
-def expect_local_launches(label, results, entry, per_partition_step):
-    """Each process launched ``entry`` once per local partition a step
-    (the COO layer 0); returns the launches over every process."""
+def expect_local_launches(label, results, per_partition_step):
+    """Each process launched every kernel ``per_partition_step`` (entry
+    -> count) times per local partition a step; returns the launches over
+    every process."""
     launches = Counter()
     for res in results:
         m = res["metrics"]
         local = res["local"][1] - res["local"][0]
         expect_launches(f"{label}: rank {res['rank']}", res["launches"],
-                        entry, per_partition_step * local * m["steps"],
+                        scaled(per_partition_step, local * m["steps"]),
                         f"{m['steps']} steps of {local} partitions")
         launches += Counter(res["launches"])
     return launches
@@ -1351,8 +1514,8 @@ def rank_phases(phase, root: str, P: int = 2):
     (the latter with SAGE and with GAT) at ``P`` partitions, on the graphs
     saved under ``root``, placed as the CLI's launcher places them (one
     process holding both on one card). Split B's two run 3 steps. Returns
-    the kernel's launches by entry over the P-B phases, rank 0's GAT
-    shuffle times and the P-B run's results."""
+    the kernels' launches by entry over the three, rank 0's GAT shuffle
+    times and the P-B run's results."""
     def parts(mode):
         return ["--partitions", str(P), "--partition-mode", mode]
 
@@ -1362,32 +1525,32 @@ def rank_phases(phase, root: str, P: int = 2):
         flags = [f for f in SPLIT_A_FLAGS if f not in (
             "--profile-dir", "chiprun_out/split_a_profile")]
         flags += parts(PRODUCTS_PARTITION_MODE)
-        for res in run_ranks(label, W, P // W, "products", root, flags,
-                             shuffles_per_step=(2, 2)):
+        results = run_ranks(label, W, P // W, "products", root, flags,
+                            shuffles_per_step=(2, 2))
+        for res in results:
             m = res["metrics"]
-            if not (m["cache_pct"] >= 1.0 and m["innermost"] == "device"
-                    and not any(res["launches"].values())):
+            if not (m["cache_pct"] >= 1.0 and m["innermost"] == "device"):
                 raise AssertionError(f"{label} must run with a replicated "
-                                     f"cache, device innermost and dense "
-                                     f"layers only")
+                                     f"cache and device innermost")
+        launches = expect_local_launches(label, results, SPLIT_A_STEP)
     # The cache refreshes per partition when 0.25 < 1/P.
     refreshing = 0.25 < 1.0 / P
-    launches = Counter()
     out = {}
     # Layer 0 is COO through the kernel (one launch a partition a step) in
     # both: SAGE through the fused gather, GAT through the messages'
-    # entry. SAGE shuffles it forward only (the frame takes no gradient);
-    # GAT runs the reverse shuffle and the merge on all 3 layers both ways
-    # (its layer-0 er, s and v depend on W).
-    for name, extra, shuffles, entry in (
-            (f"{label}-B", [], (3, 2), FUSED),
-            (f"split GAT P{P}-B", GAT_FLAGS, (6, 6), MSGS)):
+    # entry; SAGE's layers 1-2 through the dense kernels. SAGE shuffles
+    # layer 0 forward only (the frame takes no gradient); GAT runs the
+    # reverse shuffle and the merge on all 3 layers both ways (its layer-0
+    # er, s and v depend on W).
+    for name, extra, shuffles, per_step in (
+            (f"{label}-B", [], (3, 2), SPLIT_B_STEP),
+            (f"split GAT P{P}-B", GAT_FLAGS, (6, 6), GAT_B_STEP)):
         with phase(name):
             results = run_ranks(
                 name, W, P // W, "split_b", root,
                 SPLIT_B_FLAGS + SHORT + extra + parts(SPLIT_B_PARTITION_MODE),
                 shuffles_per_step=shuffles)
-        launches += expect_local_launches(name, results, entry, 1)
+        launches += expect_local_launches(name, results, per_step)
         for res in results:
             m = res["metrics"]
             if m["tail_batches"] != (m["steps"] if refreshing else 0):
@@ -1425,7 +1588,7 @@ def run_gloo_p2b(root: str, one_process):
             and mine["steps"] == ref["steps"]):
         raise AssertionError(f"{label}: differs from the one-process run: "
                              f"{mine} vs {ref}")
-    return expect_local_launches(label, results, FUSED, 1)
+    return expect_local_launches(label, results, SPLIT_B_STEP)
 
 
 def run_local_p4(root: str, infer_flags, rate):
@@ -1450,7 +1613,7 @@ def run_local_p4(root: str, infer_flags, rate):
                         shuffles_per_step=(3, 2), kernel=True)
     res = results[0]
     m = res["metrics"]
-    launches = expect_local_launches(label, results, FUSED, 1)
+    launches = expect_local_launches(label, results, SPLIT_B_STEP)
     starts = res["step_starts"]
     walls = [1e3 * (b - a) for a, b in zip(starts, starts[1:])][1:]
     print(f"  {label}: step wall median {statistics.median(walls):.2f} ms, "
@@ -1462,7 +1625,7 @@ def run_local_p4(root: str, infer_flags, rate):
     results_gat = run_ranks(label, 1, P, "split_b", root,
                             SPLIT_B_FLAGS + SHORT + GAT_FLAGS + parts,
                             shuffles_per_step=(6, 6))
-    launches += expect_local_launches(label, results_gat, MSGS, 1)
+    launches += expect_local_launches(label, results_gat, GAT_B_STEP)
     # Infer P4 local against infer P1 of the same checkpoint.
     ck = os.path.join(ck_dir, "split_epoch.npz")
     g = load_graph(root, "split_b")
@@ -1478,7 +1641,8 @@ def run_local_p4(root: str, infer_flags, rate):
                             timers, torch.device("cuda", 0))
         got = read_launches()
         batches = -(-int(g.test_mask.sum()) // args.batch_size)
-        expect_launches(f"infer P{p} local", got, FUSED, p * batches,
+        expect_launches(f"infer P{p} local", got,
+                        scaled(INFER_BATCH, p * batches),
                         f"{batches} batches of {p} partitions")
         if p == P:
             launches += got
@@ -1502,7 +1666,9 @@ def run_entry(device) -> Counter:
     """``occ_gnn_tpu_torch.entry``: ``entry()``'s forward on the card
     (finite logits of the target frame's shape, one fused launch a
     layer) and ``dryrun_multichip(4)``, one process holding 4
-    partitions: three finite losses and counts above 0."""
+    partitions: three finite losses, and the dense kernels of its two
+    SAGE steps (every layer dense: once a layer a partition forward, once
+    a layer past layer 0 backward; GAT's attention launches none)."""
     from occ_gnn_tpu_torch import entry as entry_mod
 
     start_count(device)
@@ -1513,12 +1679,18 @@ def run_entry(device) -> Counter:
     if not (torch.isfinite(logits).all() and logits.dim() == 2
             and logits.shape[1] == 16):
         raise AssertionError(f"entry(): bad logits {tuple(logits.shape)}")
-    expect_launches("entry()", launches, FUSED, 3, "one forward")
+    expect_launches("entry()", launches, {FUSED: 3}, "one forward")
     print(f"entry(): logits {tuple(logits.shape)}, {launch_text(launches)}")
     reset_launches()
     losses = entry_mod.dryrun_multichip(4, device)
     dry = read_launches()
     print(f"dryrun_multichip(4): losses {losses}, {launch_text(dry)}")
+    if len(losses) != 3 or not np.isfinite(losses).all():
+        raise AssertionError(f"dryrun_multichip(4): losses {losses}")
+    layers = len(entry_mod.DRYRUN_FANOUTS)
+    expect_launches("dryrun_multichip(4)", dry,
+                    scaled({DENSE_FWD: layers, DENSE_BWD: layers - 1}, 2 * 4),
+                    "two SAGE steps of 4 partitions")
     return launches + dry
 
 
@@ -1537,17 +1709,21 @@ def run_nccl_ranks(root: str, num_procs: int):
                             "--partitions", str(P), "--partition-mode",
                             SPLIT_B_PARTITION_MODE],
                         shuffles_per_step=(3, 2))
-    return expect_local_launches(label, results, FUSED, 1)
+    return expect_local_launches(label, results, SPLIT_B_STEP)
 
 
-def check_dense_run(label, metrics, launches):
+def check_dense_run(label, metrics, launches, per_step):
     """Split A and split GAT A: replicated cache, device innermost, the C++
-    sampler, and dense layers only (no segment-sum launch)."""
+    sampler, and dense layers only: the launches ``per_step`` (entry ->
+    count) a step, no segment-sum launch (SAGE: SPLIT_A_STEP; GAT, whose
+    dense layers run its attention: none)."""
     if not (metrics["cache_pct"] >= 1.0 and metrics["innermost"] == "device"
-            and metrics["sampler"] == "native" and not any(launches.values())):
+            and metrics["sampler"] == "native"):
         raise AssertionError(f"{label} must run with a replicated cache, "
-                             f"device innermost, the native sampler and "
-                             f"dense layers only")
+                             f"device innermost and the native sampler")
+    steps = metrics["steps"]
+    expect_launches(label, launches, scaled(per_step, steps),
+                    f"{steps} steps of dense layers only")
 
 
 def single_gat_cases(g, args, rate, device):
@@ -1592,8 +1768,9 @@ def run_single(kind, args, g, device) -> int:
     print_phases(timers, steps, once=("capacity_plan",))
     if steps == 0:
         raise AssertionError(f"single {kind}: no steps")
-    expect_launches(f"single {kind}", launches, SINGLE_ENTRY[kind],
-                    SINGLE_LAUNCHES[kind] * steps, f"{steps} steps")
+    expect_launches(f"single {kind}", launches,
+                    {SINGLE_ENTRY[kind]: SINGLE_LAUNCHES[kind] * steps},
+                    f"{steps} steps")
     if not (np.isfinite(metrics["loss"]) and np.isfinite(metrics["acc"])):
         raise AssertionError(f"single {kind}: non-finite loss: {metrics}")
     return launches
@@ -1690,8 +1867,8 @@ def run_pa_cache(args, g, first_ids, single_caps, rate, device):
                              f"host recount {recount}")
     if steps == 0:
         raise AssertionError("pa-cache: no steps")
-    expect_launches("pa-cache", launches, FUSED,
-                    SINGLE_LAUNCHES["sage"] * steps, f"{steps} steps")
+    expect_launches("pa-cache", launches,
+                    {FUSED: SINGLE_LAUNCHES["sage"] * steps}, f"{steps} steps")
     if not np.isfinite(metrics["loss"]):
         raise AssertionError(f"pa-cache: non-finite loss: {metrics}")
     return launches, (op_name, ms, nbytes / rate * 1e3)
@@ -2068,7 +2245,7 @@ def expect_shard_launches(label, results):
             raise AssertionError(f"{label}: rank {res['rank']}: no steps")
         if m["mode"] == "ddp":
             expect_launches(f"{label}: rank {res['rank']}", res["launches"],
-                            FUSED, SINGLE_LAUNCHES["sage"] * local * steps,
+                            {FUSED: SINGLE_LAUNCHES["sage"] * local * steps},
                             f"{steps} steps of {local} shards")
         elif any(res["launches"].values()):
             raise AssertionError(f"{label}: the quiver path launched the "
@@ -2190,7 +2367,8 @@ def baseline_rank_phases(phase, root: str, num_ranks: int, infer_ref):
                                  f"on {1 - same:.6f} of the nodes")
         for res in results:
             expect_launches(f"{label}: rank {res['rank']}", res["launches"],
-                            FUSED, batches, f"{batches} batches")
+                            scaled(INFER_BATCH, batches),
+                            f"{batches} batches")
             launches += Counter(res["launches"])
     return launches
 
@@ -2281,7 +2459,8 @@ def run_infer_one(g, ck_path, out_dir, rate, device):
           f"{batches} batches, {launch_text(launches)}, peak "
           f"device memory {peak_gib:.3f} GiB")
     print_phases(timers, batches, once=())
-    expect_launches("infer P1", launches, FUSED, batches, f"{batches} batches")
+    expect_launches("infer P1", launches, scaled(INFER_BATCH, batches),
+                    f"{batches} batches")
     if metrics["count"] != int(g.test_mask.sum()):
         raise AssertionError(f"infer P1: count {metrics['count']}")
     return launches, case, (metrics, np.load(out), flags, batches)
@@ -2373,8 +2552,8 @@ def check_dense_tiled(syn, frames, rate):
             raise AssertionError("tiled dense aggregation differs from the "
                                  "unrolled one")
         H, xb = x.shape[1], x.element_size()
-        valid = int((nbr != x.shape[0] - 1).sum())
-        nbytes = 4 * K * D + xb * valid * H + 4 * D * H
+        rows = torch.unique(nbr).numel()
+        nbytes = 4 * K * D + xb * rows * H + 4 * D * H
         ms = events_ms(lambda: local_aggregate_dense(x, nbr))
     name = f"local_aggregate_dense tiled fwd, layer 0 (K={K}, D={D}, H={H})"
     print(f"  op {name}: ms={ms:.4f} bound_ms="
@@ -2384,12 +2563,19 @@ def check_dense_tiled(syn, frames, rate):
 
 def run_dense_tiled(g, fanouts, metrics_a, device):
     """3 steps of split A through ``train_split`` under
-    ``OCC_DENSE_AGG=tiled``. Returns the launches (none: dense layers)."""
+    ``OCC_DENSE_AGG=tiled``: the forward kernel once a dst tile of
+    ``DENSE_TILE`` rows (once a layer of at most that many), the backward
+    once a layer past layer 0. Returns the launches."""
     args_t = graph_args(g.num_nodes, short_run(SPLIT_A_FLAGS))
     with lowering(dense_agg="tiled"):
         metrics, launches = run_split("split A, OCC_DENSE_AGG=tiled",
                                       args_t, g, fanouts, device)
-    check_dense_run("split A tiled", metrics, launches)
+    tiles = [-(-d // DENSE_TILE)
+             for d in metrics["capacities"]["dst_caps"]]
+    print(f"  dst tiles a layer: {tiles} (dst_caps "
+          f"{metrics['capacities']['dst_caps']})")
+    check_dense_run("split A tiled", metrics, launches,
+                    {DENSE_FWD: sum(tiles), DENSE_BWD: len(tiles) - 1})
     print(f"  train_step median {metrics['medians']['train_step']:.2f} ms, "
           f"peak {metrics['peak_gib']:.3f} GiB, against unrolled's "
           f"{metrics_a['medians']['train_step']:.2f} ms, "
@@ -2464,7 +2650,7 @@ def run_gat_variants(g, fanouts, metrics_ga, device):
         with lowering(**impls):
             metrics, n = run_split(f"split GAT A, {name}", args_s, g,
                                    fanouts, device)
-        check_dense_run(f"split GAT A {name}", metrics, n)
+        check_dense_run(f"split GAT A {name}", metrics, n, {})
         launches += n
         print(f"  {name}: train_step median "
               f"{metrics['medians']['train_step']:.2f} ms, peak "
@@ -2621,7 +2807,7 @@ def run_unpacked(g, metrics_b, device):
         metrics, launches = run_split("split B unpacked", args, g, fanouts,
                                       device)
     steps = metrics["steps"]
-    expect_launches("split B unpacked", launches, FUSED, steps,
+    expect_launches("split B unpacked", launches, scaled(SPLIT_B_STEP, steps),
                     f"{steps} steps")
     if metrics["tail_batches"] != steps:
         raise AssertionError(f"split B unpacked: {metrics['tail_batches']} "
@@ -2804,9 +2990,18 @@ def main(argv=None) -> int:
         cache, _, _, _ = split_vs_single(g, args_a, 1.0, device)
         op_rows = split_op_times(batch, syn, csr, cache.frames,
                                  args_a.num_hidden, rate, device)
+        # The dense kernels at every layer of that batch, and at layer 0
+        # on the frame in bf16 (``--dtype bfloat16``).
+        dense_a = split_dense_cases(
+            "split A", [syn] + [lyr.partition(0) for lyr in batch.layers[1:]],
+            cache.frames[0], args_a.num_hidden, rate, device)
+        dense_a_bf16 = dense_cases(
+            "split A layer 0, bf16 frame", cache.frames[0].to(torch.bfloat16),
+            syn.nbr_idx, rate, torch.Generator(device).manual_seed(10),
+            backward=False)[DENSE_FWD]
         del csr, cache
         metrics_a, launches_a = run_split("split A", args_a, g, fan_a, device)
-        check_dense_run("split A", metrics_a, launches_a)
+        check_dense_run("split A", metrics_a, launches_a, SPLIT_A_STEP)
         print_profile(metrics_a["profile"])
 
     # 8a. Split A's lowerings: the other device samplers, then the tiled
@@ -2830,7 +3025,7 @@ def main(argv=None) -> int:
         del cache
         metrics_ga, launches_ga = run_split("split GAT A", args_ga, g, fan_a,
                                             device)
-        check_dense_run("split GAT A", metrics_ga, launches_ga)
+        check_dense_run("split GAT A", metrics_ga, launches_ga, {})
         print_profile(metrics_ga["profile"])
 
     # 8c. Split GAT A's lowerings: online, tiled, fma and remat dots.
@@ -2872,11 +3067,14 @@ def main(argv=None) -> int:
             "split GAT B layer 0", torch.randn(
                 frame.shape[0], 4 * 33, device=device), lyr.edge_src,
             lyr.edge_dst, lyr.dst_cap, rate)
+        dense_b = split_dense_cases(
+            "split B", [lyr.partition(0) for lyr in batch.layers], frame,
+            args_b.num_hidden, rate, device)
         del cache, sampler, fwd, batch, lyr, frame
         metrics_b, launches_b = run_split("split B", args_b, g_b, fan_b,
                                           device)
         steps_b = metrics_b["steps"]
-        expect_launches("split B", launches_b, FUSED, steps_b,
+        expect_launches("split B", launches_b, scaled(SPLIT_B_STEP, steps_b),
                         f"{steps_b} steps")
         if metrics_b["tail_batches"] != steps_b:
             raise AssertionError(f"split B: {metrics_b['tail_batches']} tail "
@@ -2915,8 +3113,10 @@ def main(argv=None) -> int:
         launches_gl = run_gloo_p2b(graphs.name, p2b)
     # 11a. Split P4-B, split GAT P4-B and infer P4 in one process.
     with phase("split P4-B local"):
-        launches_p4, p4_cases, _ = run_local_p4(graphs.name, INFER_FLAGS,
-                                                rate)
+        launches_p4, p4_cases, p4_results = run_local_p4(
+            graphs.name, INFER_FLAGS, rate)
+        dense_p4 = {int(i): c
+                    for i, c in p4_results[0]["dense_cases"].items()}
     # 11b. The entry points: entry() and dryrun_multichip(4).
     with phase("entry"):
         launches_en = run_entry(device)
@@ -2938,7 +3138,9 @@ def main(argv=None) -> int:
     # single SAGE step's three forward shapes, the messages' entry's one
     # single GAT step's; the launches are those of every phase's main-path
     # run, by entry.
-    print("split op times (torch ops, split A's first batch; a step runs "
+    print("split op times (split A's first batch, CUDA events over 20 "
+          "eager calls; the dense aggregation through its kernels, the rest "
+          "torch ops; a step runs "
           "the synthesis once, the dense aggregation 3 times forward and "
           "2 times backward, slice_owned 3 times):")
     for op, ms, bound in op_rows:
@@ -3001,9 +3203,27 @@ def main(argv=None) -> int:
         print(f"  {entry} at {label}: " + " ".join(
             f"{'segment_reduce_ms' if k == 'reduce_ms' else k}="
             f"{summed(cases, k):.4f}" for k in keys if k in cases[0]))
-    errs = {MSGS: [], FUSED: []}
+    print("dense kernel times (ms; CUDA-graph harness; embedding_bag the "
+          "library call on f32 frames, its index transposed ahead of the "
+          "timing, its backward through torch.autograd.grad with its "
+          "forward in the graph, less the forward):")
+    dense_rows = [(f"split A layer {i}", c) for i, c in dense_a.items()]
+    dense_rows += [("split A layer 0, bf16 frame",
+                    {DENSE_FWD: dense_a_bf16})]
+    dense_rows += [(f"split B layer {i}", c) for i, c in dense_b.items()]
+    dense_rows += [(f"split P4-B local layer {i}, one partition", c)
+                   for i, c in dense_p4.items()]
+    for label, cases in dense_rows:
+        for entry, c in cases.items():
+            lib = c["library_ms"]
+            print(f"  {entry} at {label}: ms={c['ms']:.4f} bound_ms="
+                  f"{bound(c):.4f} plain_ms={c['plain_ms']:.4f} "
+                  f"library_ms={'null' if lib is None else f'{lib:.4f}'} "
+                  f"max_abs_err={c['err']:.3g}")
+    errs = {entry: [] for entry in ENTRIES}
     for cases in (main_cases + ragged + sym_cases
-                  + [split_case, gat_split_case, infer_case, p4_cases]):
+                  + [split_case, gat_split_case, infer_case, p4_cases]
+                  + [c for _, c in dense_rows]):
         for entry, c in cases.items():
             errs[entry].append(c["err"])
     errs[MSGS] += [c["err"] for c in gat_cases]
@@ -3013,13 +3233,19 @@ def main(argv=None) -> int:
                     launches_sgl, launches_sym, launches_i1, launches_pb,
                     launches_gl, launches_p4, launches_en, launches_nc,
                     launches_bl), Counter())
+    # The dense kernels' numbers are one split A step's: the forward at
+    # its three layers, the backward at layers 1-2.
     kernels = []
-    for entry, cases in ((MSGS, gat_cases), (FUSED, sage_step)):
+    for entry, cases in (
+            (MSGS, gat_cases), (FUSED, sage_step),
+            (DENSE_FWD, [dense_a[i][DENSE_FWD] for i in sorted(dense_a)]),
+            (DENSE_BWD, [c[DENSE_BWD] for _, c in sorted(dense_a.items())
+                         if DENSE_BWD in c])):
         by_bytes = summed(cases, "bytes_ms") >= summed(cases, "ops_ms")
         kernels.append({
             "name": entry,
             "route": "cuda",
-            "source": KERNEL_SOURCE,
+            "source": KERNEL_SOURCE[entry],
             "replaces": KERNEL_REPLACES[entry],
             "launches": launches[entry],
             "max_abs_err": max(errs[entry]),

@@ -24,7 +24,7 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
-KERNELS = ("segment_sum_sorted",)
+KERNELS = ("segment_sum_sorted", "dense_gather_sum")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SAMPLER_SOURCE = CSRC_DIR / "occ_sampler.cpp"
@@ -33,6 +33,9 @@ CXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-fPIC", "-Wall",
              "-pthread", "-shared")
 STRESS_SOURCE = CSRC_DIR / "stress_test.cpp"
 SANITIZERS = ("thread", "address")
+
+# Every kernel library's error-text entry, cuda_error_string(int).
+ERROR_STRING_ARGTYPES = [ctypes.c_int]
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -113,7 +116,7 @@ def load_kernel(name: str) -> ctypes.CDLL:
     if name not in _loaded:
         build_kernel(name)
         lib = _load(name, library_path(name))
-        lib.cuda_error_string.argtypes = [ctypes.c_int]
+        lib.cuda_error_string.argtypes = ERROR_STRING_ARGTYPES
         lib.cuda_error_string.restype = ctypes.c_char_p
     return _loaded[name]
 

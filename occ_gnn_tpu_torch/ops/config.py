@@ -9,7 +9,8 @@ when it traces a step; the port reads them each time an op runs, so a
 setter takes effect at the next call.
 
 - ``OCC_DENSE_AGG``: ``unrolled`` (default) or ``tiled``, the dense
-  fanout-K aggregation (``parallel/split.local_aggregate_dense``).
+  fanout-K aggregation (``parallel/split.local_aggregate_dense``): one
+  launch of the ``dense_gather_sum`` kernel a layer, or one a dst tile.
 - ``OCC_GAT_ATTENTION``: ``batched`` (default), ``online`` or ``tiled``,
   split GAT's dense attention (``parallel/model.py``); ``tiled`` reads
   its tile height from ``OCC_GAT_TILE`` (default 4096) at each call.
@@ -67,8 +68,9 @@ def _set(name: str, value: str) -> None:
 
 
 def dense_agg_impl() -> str:
-    """``unrolled``: one gather per k into one f32 accumulator; ``tiled``:
-    the same sums over dst tiles of ``parallel.split.DENSE_TILE`` rows."""
+    """``unrolled``: the K gathers summed into one f32 accumulator (one
+    kernel launch on the card); ``tiled``: the same sums over dst tiles of
+    ``parallel.split.DENSE_TILE`` rows, one launch a tile."""
     return _read("dense_agg")
 
 

@@ -43,13 +43,21 @@ row 0 and is masked, and ``recv_idx`` padding (``dst_cap``) lands in a
 sink row that is sliced off. Index tensors stay int32: ``index_select``
 and ``index_add_`` take them as they are.
 
+Aggregation. A COO layer goes through the fused gather and sorted
+segment-sum kernel (``ops/segment_sum_sorted.gather_segment_sum``); a
+dense layer through the ``dense_gather_sum`` kernel, one launch a layer
+forward and one of ``dense_scatter_add`` backward
+(``ops/dense_gather_sum.py``, the port's counterpart of the fusion XLA
+makes of JAX ``parallel/split.py:161-197``).
+
 Lowerings (``ops/config.py``, as JAX ``occ_gnn_tpu/ops/config.py``):
 ``OCC_DENSE_AGG=tiled`` runs ``local_aggregate_dense`` over dst tiles of
-``DENSE_TILE`` rows (JAX ``parallel/split.py:171-190``), with the same
-sums in the same order; ``OCC_DEVICE_SAMPLE`` picks the draws of
-``synthesize_device_innermost`` (JAX ``split.py:200-287``): ``randint``,
-``bitsf32``, ``bitsf32_dk`` or ``window``, the last over the doubled CSR
-of ``parallel/model.make_device_csr``.
+``DENSE_TILE`` rows (JAX ``parallel/split.py:171-190``), one kernel
+launch a tile, with the same sums in the same order;
+``OCC_DEVICE_SAMPLE`` picks the draws of ``synthesize_device_innermost``
+(JAX ``split.py:200-287``): ``randint``, ``bitsf32``, ``bitsf32_dk`` or
+``window``, the last over the doubled CSR of
+``parallel/model.make_device_csr``.
 """
 
 from __future__ import annotations
@@ -62,6 +70,7 @@ import torch.distributed as dist
 from torch.profiler import record_function
 
 from occ_gnn_tpu_torch.ops.config import dense_agg_impl, device_sample_impl
+from occ_gnn_tpu_torch.ops.dense_gather_sum import dense_gather_sum
 from occ_gnn_tpu_torch.ops.segment_sum_sorted import gather_segment_sum
 
 # Dst rows a tile of the ``tiled`` dense aggregation (JAX ``_DENSE_TILE``).
@@ -157,54 +166,17 @@ def local_aggregate(x: torch.Tensor, edge_src: torch.Tensor,
         return gather_segment_sum(x, edge_src, edge_dst, dst_cap)
 
 
-def _gather_sum(x: torch.Tensor, nbr: torch.Tensor,
-                out: torch.Tensor | None = None) -> torch.Tensor:
-    """``sum_k x[nbr[k]]`` in f32, k in order, into ``out`` when given."""
-    first = x.index_select(0, nbr[0])
-    acc = first.float() if out is None else out.copy_(first)
-    for k in range(1, nbr.shape[0]):
-        acc.add_(x.index_select(0, nbr[k]))
-    return acc
-
-
-class _DenseAggregate(torch.autograd.Function):
-    """``out[d] = sum_k x[nbr[k, d]]`` in f32: K row-gathers, never one
-    ``[K, D, H]`` gather. The backward adds ``g`` into one ``dx`` buffer
-    K times, where autograd of K gathers would build K full ``dx``."""
-
-    @staticmethod
-    def forward(ctx, x, nbr):
-        ctx.save_for_backward(nbr)
-        ctx.x_shape, ctx.x_dtype = x.shape, x.dtype
-        D = nbr.shape[1]
-        if dense_agg_impl() == "tiled" and D > DENSE_TILE:
-            # The same K rows added in the same order, one dst tile at a
-            # time into its slice of the output: equal bit for bit.
-            acc = x.new_empty((D, x.shape[1]), dtype=torch.float32)
-            for t0 in range(0, D, DENSE_TILE):
-                _gather_sum(x, nbr[:, t0:t0 + DENSE_TILE],
-                            acc[t0:t0 + DENSE_TILE])
-            return acc
-        return _gather_sum(x, nbr)
-
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, grad):
-        (nbr,) = ctx.saved_tensors
-        dx = grad.new_zeros(ctx.x_shape)
-        for k in range(nbr.shape[0]):
-            dx.index_add_(0, nbr[k], grad)
-        return dx.to(ctx.x_dtype), None
-
-
 def local_aggregate_dense(x: torch.Tensor, nbr_idx: torch.Tensor):
     """Partial neighbour SUM through the dense ``[K_cap, D_cap]`` neighbour
     matrix; padding slots read the frame's reserved zero row. Returns
-    f32 ``[D_cap, H]``, as ``local_aggregate`` does. Under
-    ``OCC_DENSE_AGG=tiled`` a frame of more than ``DENSE_TILE`` dst rows
-    is summed one tile at a time; the backward is the same."""
+    f32 ``[D_cap, H]``, as ``local_aggregate`` does: one launch of the
+    ``dense_gather_sum`` kernel on a CUDA tensor (its backward one launch
+    of ``dense_scatter_add``). Under ``OCC_DENSE_AGG=tiled`` a frame of
+    more than ``DENSE_TILE`` dst rows is summed one tile at a time, one
+    launch a tile; the backward is the same."""
+    tile = DENSE_TILE if dense_agg_impl() == "tiled" else None
     with record_function("local_aggregate_dense"):
-        return _DenseAggregate.apply(x, nbr_idx)
+        return dense_gather_sum(x, nbr_idx, tile)
 
 
 def aggregate(x: torch.Tensor, lyr: SplitLayer) -> torch.Tensor:
