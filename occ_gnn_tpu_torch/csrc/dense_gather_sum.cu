@@ -3,12 +3,14 @@
 //
 //   dense_gather_sum:   out[d, :] = sum over k = 0..K-1, in order, of
 //                                   float(x[nbr[k, d], :])
-//   dense_scatter_add:  dx[nbr[k, d], :] += g[d, :]  for every slot
+//   dense_scatter_add:  dx[s, :]  = sum of g[d, :] over the slots (k, d)
+//                                   with nbr[k, d] == s
 //
 // x is f32 or bf16 [S, H] row-major, and its last row S - 1 is the frame's
 // reserved zero row that every padding slot names; nbr is int32 [K, D],
 // k-major, row k at nbr + k * ld (ld >= D: a dst tile of a wider matrix
 // is passed as a column slice); out and g are f32 [D, H], dx f32 [S, H].
+// A slot's id is k * D + d.
 //
 // Replaces: occ_gnn_tpu/parallel/split.py:161-197 (local_aggregate_dense),
 // its default unrolled branch at :191-197, which XLA compiles into one
@@ -17,53 +19,86 @@
 //
 // Bound: device-memory bytes. The forward reads K rows of x for each dst
 // and writes one f32 row; the backward reads one g row for each dst and
-// adds it into K rows of dx. Each element read or written costs one add,
-// far below the card's arithmetic rate, so the design is about bytes and
-// loads in flight.
+// writes every row of dx once. One add an element read, far below the
+// card's arithmetic rate, so the design is about bytes and loads in flight.
 //
-// Design:
-//   * A team of threads for each dst row, one thread for each 16-byte
-//     (f32) or 8-byte (bf16) column group: 25 threads at H = 100 f32, 32
-//     at H = 128. A block holds as many teams as fit in 256 threads (10 at
-//     H = 100, 8 at H = 128) and takes that many consecutive dst rows.
-//   * The block copies its dst rows' K indices into shared memory with
-//     coalesced loads, each nbr entry read once from device memory; a team
-//     then reads its index from shared memory as one broadcast. An index
-//     outside [0, S) stops the kernel with a device-side assert, as
-//     torch.index_select does on the card (JAX clamps it silently).
-//   * Forward: each thread keeps its column group's sum in f32 registers
-//     and walks k = 0..K-1 in order, with kUnroll row loads in flight
-//     before the adds that consume them; it writes its row once. Only adds
-//     in the order of k, from the first row on: the result equals the plain
-//     version (the first gathered row in f32, then add_ of each later k)
-//     bit for bit.
-//   * Backward: each thread reads its g row's column group once into
-//     registers and adds it into dx[nbr[k, d]] for each k with f32 atomics
-//     (four-wide on sm_90), as index_add_ does on the card. The slots that
-//     name the zero row (every padding slot, and every slot of a padding
-//     dst column) would serialise on one row of dx: a team sums its share
-//     in registers, the block sums the teams' in shared memory, and the
-//     block adds that with one atomic a column group. The order of the
-//     atomics differs from run to run, so the sums do too, within f32
-//     rounding.
-//   * Vector loads where the rows allow them: float4 for f32 rows when
-//     H % 4 == 0 and the pointers are 16-byte aligned; 8-byte loads of 4
-//     bf16 when H % 4 == 0 and x is 8-byte aligned (a bf16 row of H = 100
-//     is 200 B, so only every other row starts on 16 B); one element a
-//     thread otherwise.
-//   * Row offsets are 64-bit: row * H passes 2^31 on larger graphs.
+// Forward. A warp for each dst row (a block takes 8 consecutive dst rows
+// and stages their K indices in shared memory with coalesced loads; an
+// index outside [0, S) stops the kernel with a device-side assert, as
+// torch.index_select does on the card, where JAX clamps it silently).
+// Each lane keeps one column group's sum in f32 registers and adds the K
+// rows in the order of k, from the first row on, so the result equals the
+// plain version (the first gathered row in f32, then add_ of each later k)
+// bit for bit. A padding slot adds the zero row, which the warp loads once
+// into registers: padding slots read nothing (38 % of split A's layer-0
+// slots, 58 % of layer 1's), and the zero row need not be zero.
+//   * f32 rows (H % 4 == 0, 16-byte aligned): one float4 load a lane,
+//     kUnroll rows in flight a lane.
+//   * bf16 rows of H % 8 == 4 (200 B at H = 100): only every other row
+//     starts on 16 bytes. Lane j loads bytes [16 j, 16 j + 16) of the
+//     16-byte-aligned window around the row (208 B: from 200 r, or from
+//     200 r - 8 for odd r), and an odd row is realigned with one shuffle,
+//     so that lane j sums columns 8 j .. 8 j + 7: 13 16-byte loads a row
+//     where 8-byte loads took 25. The window of an even row runs 8 bytes
+//     past it, inside the next row: the zero row is never loaded so.
+//   * bf16 rows of H % 8 == 0 (256 B at H = 128) are always aligned: the
+//     same 16-byte loads, no shuffle.
+//   * Any other width or alignment: one element a lane.
+// Row offsets are 64-bit: row * H passes 2^31 on larger graphs.
+//
+// Backward: one cooperative launch, no memset, no atomics on rows, and
+// the same bits from every launch. It transposes nbr into a plan in the
+// caller's workspace and then writes every row of dx once, in phases
+// separated by grid-wide barriers:
+//   0. the per-row slot counts to zero;
+//   1. each slot naming a row s < S - 1 takes its place in s's list
+//      (an integer atomic on s's count), and each column d counts its
+//      padding slots c_d (those naming S - 1);
+//   2. the counts are scanned in fixed chunks, each into offsets within
+//      its chunk and a chunk total; the zero row's first level: each
+//      warp sums c_d * g[d] over 32 consecutive columns, in order;
+//   3. every block scans the chunk totals into shared memory; each slot
+//      is written into its row's list; the zero row's second level sums
+//      32 first-level partials each, in order;
+//   4. a warp for each row s sorts its list by slot id (the fill's order
+//      is the atomics', so it is sorted before it is summed), sums the g
+//      rows in slot order in f32 registers and writes dx[s] once (zeros
+//      for a row no slot names); one warp sums the second-level partials
+//      in order into dx[S - 1].
+// The zero row's tree is fixed by D alone, the row sums by nbr alone, so
+// two launches give the same bits. g (11.5 MB at split A's layer 1)
+// stays in L2; dx is written with streaming stores.
 
 #include <assert.h>
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 256;  // at most, a block
-constexpr int kUnroll = 8;     // row loads in flight a thread
+constexpr int kThreads = 256;  // a block
+constexpr int kWarps = kThreads / 32;
+constexpr int kUnroll = 8;     // row loads in flight a lane
+constexpr int kStages = 8;     // TMA ring stages a warp
+constexpr unsigned kFull = 0xffffffffu;
 // Shared memory a block may take without opting in to more.
 constexpr size_t kSmemBytes = 48 * 1024;
+// The backward's plan: counts a thread scans (at least), chunk totals a
+// block keeps in shared memory (at most), slots a thread takes at a time;
+// the zero row's tree: kZeroCols columns a first-level partial, kZeroFan
+// partials a partial of each level above; rows a warp sums at a time, and
+// their slots it sorts in shared memory at once (at most).
+constexpr int kScanItems = 8;
+constexpr int kMaxChunks = 8192;
+constexpr int kBatch = 4;
+constexpr int kZeroCols = 8;
+constexpr int kZeroFan = 16;
+constexpr int kGroup = 16;
+constexpr int kSpan = 256;
 
 // Column groups: float4 sums of 4 columns, or one float.
 __device__ __forceinline__ void add(float& acc, float v) { acc += v; }
@@ -77,31 +112,27 @@ __device__ __forceinline__ void zero(float& v) { v = 0.f; }
 __device__ __forceinline__ void zero(float4& v) {
   v = make_float4(0.f, 0.f, 0.f, 0.f);
 }
+// acc + m * v with two roundings (no contraction into an fma), as the
+// zero row's model in the tests computes it.
+__device__ __forceinline__ void add_times(float& acc, float m, float v) {
+  acc = __fadd_rn(acc, __fmul_rn(m, v));
+}
+__device__ __forceinline__ void add_times(float4& acc, float m,
+                                          const float4& v) {
+  add_times(acc.x, m, v.x);
+  add_times(acc.y, m, v.y);
+  add_times(acc.z, m, v.z);
+  add_times(acc.w, m, v.w);
+}
+__device__ __forceinline__ void store_streaming(float* p, float v) {
+  __stcs(p, v);
+}
+__device__ __forceinline__ void store_streaming(float4* p, const float4& v) {
+  __stcs(p, v);
+}
 
-__device__ __forceinline__ void atomic_add(float* p, float v) {
-  atomicAdd(p, v);
-}
-__device__ __forceinline__ void atomic_add(float4* p, const float4& v) {
-#if defined(__CUDA_ARCH__) && __CUDA_ARCH__ >= 900
-  atomicAdd(p, v);
-#else
-  float* q = reinterpret_cast<float*>(p);
-  atomicAdd(q, v.x);
-  atomicAdd(q + 1, v.y);
-  atomicAdd(q + 2, v.z);
-  atomicAdd(q + 3, v.w);
-#endif
-}
-// Shared memory has no four-wide float atomic.
-__device__ __forceinline__ void shared_add(float* p, float v) {
-  atomicAdd(p, v);
-}
-__device__ __forceinline__ void shared_add(float4* p, const float4& v) {
-  float* q = reinterpret_cast<float*>(p);
-  atomicAdd(q, v.x);
-  atomicAdd(q + 1, v.y);
-  atomicAdd(q + 2, v.z);
-  atomicAdd(q + 3, v.w);
+__device__ __forceinline__ float2 bf16x2(uint32_t raw) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw));
 }
 
 // Load column group c of row r of a row-major [*, width groups] array as
@@ -133,10 +164,7 @@ struct Rows<__nv_bfloat16, 4> {
   static __device__ __forceinline__ float4 load(const __nv_bfloat16* x,
                                                 long long r, int width, int c) {
     const uint2 raw = __ldg(reinterpret_cast<const uint2*>(x) + r * width + c);
-    const float2 lo = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-    const float2 hi = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+    const float2 lo = bf16x2(raw.x), hi = bf16x2(raw.y);
     return make_float4(lo.x, lo.y, hi.x, hi.y);
   }
 };
@@ -149,12 +177,6 @@ struct Rows<__nv_bfloat16, 1> {
     return __bfloat162float(x[r * width + c]);
   }
 };
-
-// Words of shared memory a block's staged indices take, rounded up to 16
-// bytes so that what follows them is aligned for float4.
-__host__ __device__ __forceinline__ int staged_words(int K, int teams) {
-  return (K * teams + 3) / 4 * 4;
-}
 
 // The block's dst rows [d0, d0 + teams) and their K indices, staged k-major
 // in s_nbr[k * teams + j]; columns past D get row 0 and are never used.
@@ -173,6 +195,8 @@ __device__ __forceinline__ void stage_indices(
   }
 }
 
+// f32 rows, or bf16 rows one element a lane: a team of lanes for each dst
+// row, a lane for each column group.
 template <typename In, int VEC>
 __global__ void __launch_bounds__(kThreads)
 gather_sum(const In* __restrict__ x, long long x_rows,
@@ -189,14 +213,18 @@ gather_sum(const In* __restrict__ x, long long x_rows,
   const long long d = d0 + team;
   if (team >= teams || d >= D) return;
   const int* idx = s_nbr + team;  // idx[k * teams]
+  const long long zero_row = x_rows - 1;
   for (int c = col0; c < width; c += team_threads) {
-    Acc acc = Rows<In, VEC>::load(x, idx[0], width, c);
+    const Acc z = Rows<In, VEC>::load(x, zero_row, width, c);
+    const int r0 = idx[0];
+    Acc acc = r0 == zero_row ? z : Rows<In, VEC>::load(x, r0, width, c);
     for (int k0 = 1; k0 < K; k0 += kUnroll) {
       Acc v[kUnroll];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         if (k0 + u < K) {
-          v[u] = Rows<In, VEC>::load(x, idx[(k0 + u) * teams], width, c);
+          const int r = idx[(k0 + u) * teams];
+          v[u] = r == zero_row ? z : Rows<In, VEC>::load(x, r, width, c);
         }
       }
 #pragma unroll
@@ -208,53 +236,715 @@ gather_sum(const In* __restrict__ x, long long x_rows,
   }
 }
 
-template <typename Acc>
+// Eight bf16 of a 16-byte word as f32, added into acc[0..7].
+__device__ __forceinline__ void add8(float (&acc)[8], const uint4& w) {
+  const float2 a = bf16x2(w.x), b = bf16x2(w.y), c = bf16x2(w.z),
+               e = bf16x2(w.w);
+  acc[0] += a.x;
+  acc[1] += a.y;
+  acc[2] += b.x;
+  acc[3] += b.y;
+  acc[4] += c.x;
+  acc[5] += c.y;
+  acc[6] += e.x;
+  acc[7] += e.y;
+}
+
+__device__ __forceinline__ void set8(float (&acc)[8], const uint4& w) {
+  const float2 a = bf16x2(w.x), b = bf16x2(w.y), c = bf16x2(w.z),
+               e = bf16x2(w.w);
+  acc[0] = a.x;
+  acc[1] = a.y;
+  acc[2] = b.x;
+  acc[3] = b.y;
+  acc[4] = c.x;
+  acc[5] = c.y;
+  acc[6] = e.x;
+  acc[7] = e.y;
+}
+
+// bf16 rows of H % 4 == 0 and 2 H + 8 <= 512 bytes, x 16-byte aligned: a
+// warp for each dst row, lane j sums columns 8 j .. 8 j + 7 (lanes of
+// 8 j >= H idle). Row r's bytes start at 2 H r; lane j loads the 16-byte
+// word j of the aligned window at 2 H r - off (off = 2 H r mod 16, 0 or
+// 8), and for off == 8 takes its upper half and the next lane's lower half.
+// The zero row is read in 8-byte halves (its window could pass the end of
+// x), once, and its columns added from registers for every padding slot.
 __global__ void __launch_bounds__(kThreads)
-scatter_add(const Acc* __restrict__ g, const int* __restrict__ nbr,
-            long long ld, int K, long long D, long long x_rows, int width,
-            int team_threads, int teams, Acc* __restrict__ dx) {
+gather_sum_bf16(const __nv_bfloat16* __restrict__ x, long long x_rows, int h,
+                const int* __restrict__ nbr, long long ld, int K, long long D,
+                float* __restrict__ out) {
   extern __shared__ int s_nbr[];
-  // The block's sum of its zero-row slots, a row of width column groups,
-  // 16-byte aligned after the indices.
-  Acc* s_zero = reinterpret_cast<Acc*>(s_nbr + staged_words(K, teams));
-  const long long d0 = static_cast<long long>(blockIdx.x) * teams;
-  stage_indices(nbr, ld, K, D, x_rows, teams, d0, s_nbr);
-  Acc z;
-  zero(z);
-  for (int c = threadIdx.x; c < width; c += blockDim.x) s_zero[c] = z;
+  const long long d0 = static_cast<long long>(blockIdx.x) * kWarps;
+  stage_indices(nbr, ld, K, D, x_rows, kWarps, d0, s_nbr);
   __syncthreads();
-  const int team = threadIdx.x / team_threads;
-  const int col0 = threadIdx.x - team * team_threads;
-  const long long d = d0 + team;
-  const int zero_row = static_cast<int>(x_rows - 1);
-  bool any_zero = false;
-  if (team < teams && d < D) {
-    const int* idx = s_nbr + team;  // idx[k * teams]
-    for (int c = col0; c < width; c += team_threads) {
-      const Acc gv = __ldg(g + d * width + c);
-      Acc zsum = z;
-      bool hit = false;
-      for (int k = 0; k < K; ++k) {
-        const int r = idx[k * teams];
-        if (r == zero_row) {
-          add(zsum, gv);
-          hit = true;
-        } else {
-          atomic_add(dx + static_cast<long long>(r) * width + c, gv);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const long long d = d0 + warp;
+  if (d >= D) return;
+  const int* idx = s_nbr + warp;  // idx[k * kWarps]
+  const long long zero_row = x_rows - 1;
+  const long long row_bytes = 2LL * h;
+  const int cols = h - 8 * lane;  // this lane's columns: min(cols, 8)
+  const char* base = reinterpret_cast<const char*>(x);
+  uint4 z = make_uint4(0, 0, 0, 0);
+  if (cols > 0) {
+    const uint2* zr = reinterpret_cast<const uint2*>(
+        base + zero_row * row_bytes + 16 * lane);
+    const uint2 lo = __ldg(zr);
+    const uint2 hi = cols > 4 ? __ldg(zr + 1) : make_uint2(0, 0);
+    z = make_uint4(lo.x, lo.y, hi.x, hi.y);
+  }
+  // Lanes that load a word of the window: 2 H / 16, or (2 H + 8) / 16.
+  const bool loads =
+      16 * lane < (row_bytes % 16 ? row_bytes + 8 : row_bytes);
+  // The 16 bytes of row r that lane j sums, from every lane's word w.
+  auto realign = [&](long long r, const uint4& w) {
+    const uint32_t nx = __shfl_down_sync(kFull, w.x, 1);
+    const uint32_t ny = __shfl_down_sync(kFull, w.y, 1);
+    return ((r * row_bytes) & 15) ? make_uint4(w.z, w.w, nx, ny) : w;
+  };
+  auto word = [&](long long r) {
+    const long long start = r * row_bytes;
+    const uint4* win = reinterpret_cast<const uint4*>(base + (start & ~15LL));
+    return loads ? __ldg(win + lane) : make_uint4(0, 0, 0, 0);
+  };
+  float acc[8];
+  {
+    const int r = idx[0];
+    set8(acc, r == zero_row ? z : realign(r, word(r)));
+  }
+  for (int k0 = 1; k0 < K; k0 += kUnroll) {
+    uint4 w[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (k0 + u < K) {
+        const int r = idx[(k0 + u) * kWarps];
+        if (r != zero_row) w[u] = word(r);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (k0 + u < K) {
+        const int r = idx[(k0 + u) * kWarps];  // uniform across the warp
+        add8(acc, r == zero_row ? z : realign(r, w[u]));
+      }
+    }
+  }
+  if (cols > 0) {
+    float4* o = reinterpret_cast<float4*>(out + d * h + 8 * lane);
+    o[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+    if (cols > 4) o[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
+  }
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void wait_phase(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// Four columns of a staged row as f32: lane c's column group.
+__device__ __forceinline__ float4 staged(const unsigned char* stage, int off,
+                                         int c, float) {
+  return *reinterpret_cast<const float4*>(stage + 16 * c);
+}
+__device__ __forceinline__ float4 staged(const unsigned char* stage, int off,
+                                         int c, __nv_bfloat16) {
+  const uint2 raw = *reinterpret_cast<const uint2*>(stage + off + 8 * c);
+  const float2 lo = bf16x2(raw.x), hi = bf16x2(raw.y);
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+// The TMA ring: a warp for each dst row, a lane for each 4-column group
+// (H % 4 == 0, H / 4 <= 32, x 16-byte aligned). Lane 0 keeps the next
+// kStages valid slots' rows in flight, each a cp.async.bulk of the row's
+// 16-byte-aligned window into a stage of the warp's ring in shared memory,
+// completing on the stage's mbarrier; the warp adds each from shared
+// memory in the order of k (padding slots from the zero row in
+// registers), and lane 0 refills the stage it freed.
+template <typename In>
+__global__ void __launch_bounds__(kThreads)
+gather_sum_ring(const In* __restrict__ x, long long x_rows, int h,
+                const int* __restrict__ nbr, long long ld, int K, long long D,
+                int stage_bytes, float4* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* ring = smem;  // [kWarps][kStages][stage_bytes]
+  uint64_t* bars =
+      reinterpret_cast<uint64_t*>(ring + kWarps * kStages * stage_bytes);
+  int* s_nbr = reinterpret_cast<int*>(bars + kWarps * kStages);
+  const long long d0 = static_cast<long long>(blockIdx.x) * kWarps;
+  stage_indices(nbr, ld, K, D, x_rows, kWarps, d0, s_nbr);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  uint64_t* bar = bars + warp * kStages;
+  if (lane == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                       smem_u32(bar + i))
+                   : "memory");
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const long long d = d0 + warp;
+  if (d >= D) return;
+  const int* idx = s_nbr + warp;  // idx[k * kWarps]
+  const long long zero_row = x_rows - 1;
+  const int width = h / 4;
+  const bool active = lane < width;
+  unsigned char* st = ring + warp * kStages * stage_bytes;
+  const long long rb = static_cast<long long>(h) * sizeof(In);
+  const char* base = reinterpret_cast<const char*>(x);
+  float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (active) z = Rows<In, 4>::load(x, zero_row, width, lane);
+  auto issue = [&](int stage, long long r) {
+    assert(r < zero_row);  // the window of row S - 1 could pass x's end
+    const long long start = r * rb;
+    const uint32_t off = static_cast<uint32_t>(start & 15);
+    const uint32_t bytes = static_cast<uint32_t>((off + rb + 15) & ~15LL);
+    const uint32_t b = smem_u32(bar + stage);
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+                 ::"r"(b), "r"(bytes)
+                 : "memory");
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(st + stage * stage_bytes)),
+        "l"(base + start - off), "r"(bytes), "r"(b)
+        : "memory");
+  };
+  auto next_valid = [&](int k) {
+    while (k < K && idx[k * kWarps] == zero_row) ++k;
+    return k;
+  };
+  int kp = 0;  // the next k whose row lane 0 stages
+  for (int i = 0; i < kStages; ++i) {
+    kp = next_valid(kp);
+    if (kp >= K) break;
+    if (lane == 0) issue(i, idx[kp * kWarps]);
+    ++kp;
+  }
+  float4 acc = z;
+  int v = 0;  // valid slots consumed
+  for (int k = 0; k < K; ++k) {
+    const int r = idx[k * kWarps];
+    float4 val = z;
+    if (r != zero_row) {
+      const int s = v % kStages;
+      wait_phase(bar + s, (v / kStages) & 1);
+      if (active) {
+        val = staged(st + s * stage_bytes,
+                     static_cast<int>((static_cast<long long>(r) * rb) & 15),
+                     lane, In());
+      }
+      __syncwarp();
+      kp = next_valid(kp);
+      if (kp < K) {
+        if (lane == 0) {
+          // The warp's reads of the stage before the copy's writes.
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+          issue(s, idx[kp * kWarps]);
+        }
+        ++kp;
+      }
+      ++v;
+    }
+    if (k == 0) {
+      acc = val;
+    } else {
+      add(acc, val);
+    }
+  }
+  if (active) out[d * width + lane] = acc;
+}
+
+// ---------------------------------------------------------------- backward
+
+#ifdef DENSE_TRACE
+__device__ unsigned long long g_trace[16];
+__device__ __forceinline__ void trace_fine(int i) {
+  if (threadIdx.x == 0 && blockIdx.x == 0 && g_trace[8 + i] == 0) {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    g_trace[8 + i] = t;
+  }
+}
+__device__ __forceinline__ void trace(int i) {
+  if (threadIdx.x == 0) {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    if (blockIdx.x == 0 && i < 6) g_trace[i] = t;
+    if (i == 6) atomicMax(&g_trace[6], t);
+  }
+}
+#else
+__device__ __forceinline__ void trace(int) {}
+__device__ __forceinline__ void trace_fine(int) {}
+#endif
+int g_blocks_per_sm = 0;  // 0: as many as fit
+
+// The backward's plan in the caller's workspace (int32 unless noted).
+struct Plan {
+  int* counts;     // [S - 1] slots naming each row
+  int* local;      // [S - 1] exclusive scan of counts within its chunk
+  int* totals;     // [chunks] each chunk's sum
+  int* rank;       // [K * D] a slot's place in its row's list; then the
+                   // sorted lists of rows of more than kSpan slots
+  int* list;       // [K * D] slot ids by row
+  float* zero[3];  // [nz[i], H] the zero row's partials, level by level
+  int nz[3];
+  int chunk;       // counts a chunk (kThreads * items)
+  int items;       // counts a thread of a chunk
+  int chunks;
+};
+
+struct Layout {
+  Plan plan;
+  size_t bytes;
+};
+
+size_t align16(size_t n) { return (n + 15) / 16 * 16; }
+
+// Where each array of the plan lies in a workspace at `base` (nullptr to
+// size it), for K slots a column, D columns, S rows of h floats.
+Layout layout(int K, long long D, long long S, int h, char* base) {
+  Layout out;
+  Plan& p = out.plan;
+  const long long rows = S - 1;
+  p.items = kScanItems;
+  while (static_cast<long long>(kMaxChunks) * kThreads * p.items < rows) {
+    p.items *= 2;
+  }
+  p.chunk = kThreads * p.items;
+  p.chunks = static_cast<int>((rows + p.chunk - 1) / p.chunk);
+  p.nz[0] = static_cast<int>((D + kZeroCols - 1) / kZeroCols);
+  p.nz[1] = (p.nz[0] + kZeroFan - 1) / kZeroFan;
+  p.nz[2] = (p.nz[1] + kZeroFan - 1) / kZeroFan;
+  const long long slots = static_cast<long long>(K) * D;
+  size_t at = 0;
+  auto take = [&](size_t bytes) {
+    char* ptr = base ? base + at : nullptr;
+    at += align16(bytes);
+    return ptr;
+  };
+  p.counts = reinterpret_cast<int*>(take(sizeof(int) * rows));
+  p.local = reinterpret_cast<int*>(take(sizeof(int) * rows));
+  p.totals = reinterpret_cast<int*>(take(sizeof(int) * p.chunks));
+  p.rank = reinterpret_cast<int*>(take(sizeof(int) * slots));
+  p.list = reinterpret_cast<int*>(take(sizeof(int) * slots));
+  for (int i = 0; i < 3; ++i) {
+    p.zero[i] = reinterpret_cast<float*>(take(sizeof(float) * p.nz[i] * h));
+  }
+  out.bytes = at;
+  return out;
+}
+
+// Exclusive scan of one value a thread across the block; returns the
+// block's total in *total. Uses s_warp[kWarps]; ends synchronised.
+__device__ __forceinline__ int block_exclusive_scan(int v, int* s_warp,
+                                                    int* total) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  int incl = v;
+#pragma unroll
+  for (int o = 1; o < 32; o *= 2) {
+    const int t = __shfl_up_sync(kFull, incl, o);
+    if (lane >= o) incl += t;
+  }
+  if (lane == 31) s_warp[warp] = incl;
+  __syncthreads();
+  int before = 0, sum = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    const int t = s_warp[w];
+    if (w < warp) before += t;
+    sum += t;
+  }
+  __syncthreads();
+  *total = sum;
+  return before + incl - v;
+}
+
+// One level of the zero row's tree, by warp `j` of `warps`: partial i of
+// `out` is the sum, in order from 0, of the `fan` rows of f32 [*, width]
+// `src` from row i * fan on (of n in all), for column group c.
+template <typename Acc>
+__device__ __forceinline__ void zero_level(const Acc* src, long long n,
+                                           int fan, Acc* out, long long j,
+                                           long long warps, int width) {
+  const int lane = threadIdx.x % 32;
+  for (long long i = j; i * fan < n; i += warps) {
+    const long long first = i * fan;
+    const int m = static_cast<int>(n - first < fan ? n - first : fan);
+    for (int c = lane; c < width; c += 32) {
+      Acc acc;
+      zero(acc);
+      for (int t0 = 0; t0 < m; t0 += kZeroFan) {
+        Acc v[kZeroFan];
+#pragma unroll
+        for (int u = 0; u < kZeroFan; ++u) {
+          if (t0 + u < m) v[u] = src[(first + t0 + u) * width + c];
+        }
+#pragma unroll
+        for (int u = 0; u < kZeroFan; ++u) {
+          if (t0 + u < m) add(acc, v[u]);
         }
       }
-      if (hit) {
-        shared_add(s_zero + c, zsum);
-        any_zero = true;
+      out[i * width + c] = acc;
+    }
+  }
+}
+
+// Metadata of a slot at place t of a span: its output row and whether it
+// is its row's first or last.
+constexpr int kFirst = 1 << 8, kLast = 1 << 9;
+
+// The rows of one span of the lists, by one warp: at place t < span, d[t]
+// is the g row of a slot and meta[t] its output row (a row's slots
+// consecutive and in slot order) with kFirst / kLast. Sums each row's g
+// rows in that order, in f32 from its first, and writes it to out + row *
+// width: kUnroll loads in flight across row ends.
+template <typename Acc>
+__device__ __forceinline__ void stream_span(const int* d, const int* meta,
+                                            int span,
+                                            const Acc* __restrict__ g,
+                                            int width, Acc* out) {
+  const int lane = threadIdx.x % 32;
+  for (int c = lane; c < width; c += 32) {
+    Acc acc;
+    zero(acc);
+    for (int t0 = 0; t0 < span; t0 += kUnroll) {
+      Acc v[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        if (t0 + u < span) {
+          v[u] = __ldg(g + static_cast<long long>(d[t0 + u]) * width + c);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        if (t0 + u < span) {
+          const int m = meta[t0 + u];
+          if (m & kFirst) {
+            acc = v[u];
+          } else {
+            add(acc, v[u]);
+          }
+          if (m & kLast) store_streaming(out + (m & 0xff) * width + c, acc);
+        }
       }
     }
   }
-  if (__syncthreads_or(any_zero)) {
-    for (int c = threadIdx.x; c < width; c += blockDim.x) {
-      atomic_add(dx + static_cast<long long>(zero_row) * width + c,
-                 s_zero[c]);
+  __syncwarp();  // the shared arrays are the next span's
+}
+
+// One span of the lists by one warp: `rows` rows, row i's slots at
+// [row_at[i], row_at[i + 1]) of list[0 .. span) (row_at[rows] == span),
+// copied into shared memory, each row's sorted by slot id (a slot's place
+// is its rank among its row's), then streamed. span <= kSpan.
+template <typename Acc>
+__device__ __forceinline__ void sum_span(const int* list, int span, int rows,
+                                         const int* row_at, int* ent,
+                                         int* d_at, int* meta,
+                                         const Acc* __restrict__ g, int D,
+                                         int width, Acc* out) {
+  const int lane = threadIdx.x % 32;
+  for (int q = lane; q < span; q += 32) ent[q] = list[q];
+  __syncwarp();
+  for (int q = lane; q < span; q += 32) {
+    // The row of place q: the last whose start is at most q.
+    int lo = 0, hi = rows;
+    while (hi - lo > 1) {
+      const int mid = (lo + hi) / 2;
+      if (row_at[mid] <= q) {
+        lo = mid;
+      } else {
+        hi = mid;
+      }
+    }
+    const int a = row_at[lo], b = row_at[lo + 1];
+    const int slot = ent[q];
+    int r = 0;
+    for (int j = a; j < b; ++j) r += ent[j] < slot;
+    d_at[a + r] = slot % D;
+    meta[a + r] = lo | (r == 0 ? kFirst : 0) | (a + r == b - 1 ? kLast : 0);
+  }
+  __syncwarp();
+  stream_span(d_at, meta, span, g, width, out);
+}
+
+template <typename Acc>
+__global__ void __launch_bounds__(kThreads)
+scatter_rows(const Acc* __restrict__ g, const int* __restrict__ nbr, int K,
+             int D, int S, int width, Plan p, Acc* __restrict__ dx) {
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ int s_base[];  // [p.chunks] each chunk's first offset
+  __shared__ int s_warp[kWarps];
+  // Each warp's span of the lists: as filled, then each place's g row and
+  // metadata; and its rows' starts.
+  __shared__ int s_ent[kWarps][kSpan];
+  __shared__ int s_d[kWarps][kSpan];
+  __shared__ int s_meta[kWarps][kSpan];
+  __shared__ int s_row[kWarps][kGroup + 1];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const long long tid = static_cast<long long>(blockIdx.x) * kThreads +
+                        threadIdx.x;
+  const long long threads = static_cast<long long>(gridDim.x) * kThreads;
+  const long long gwarp = tid / 32, warps = threads / 32;
+  const int zero_row = S - 1;
+  const long long slots = static_cast<long long>(K) * D;
+  trace(0);
+
+  // 0. Counts to zero.
+  for (long long s = tid; s < zero_row; s += threads) p.counts[s] = 0;
+  grid.sync();
+  trace(1);
+
+  // 1. Each slot's place in its row's list (kBatch slots a thread at a
+  // time, their loads and atomics in flight together).
+  for (long long i0 = tid; i0 < slots; i0 += threads * kBatch) {
+    int r[kBatch], q[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const long long i = i0 + u * threads;
+      r[u] = i < slots ? __ldg(nbr + i) : zero_row;
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      assert(r[u] >= 0 && r[u] < S);
+      if (r[u] != zero_row) q[u] = atomicAdd(p.counts + r[u], 1);
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      if (r[u] != zero_row) p.rank[i0 + u * threads] = q[u];
     }
   }
+  // The zero row's first level: a warp for kZeroCols consecutive columns,
+  // lane j counting column d0 + j's padding slots c_d, then c_d * g[d]
+  // summed over the columns in order.
+  for (long long j = gwarp; j < p.nz[0]; j += warps) {
+    const long long d0 = j * kZeroCols;
+    const int n = static_cast<int>(D - d0 < kZeroCols ? D - d0 : kZeroCols);
+    int c = 0;
+    for (int k0 = 0; k0 < K; k0 += 2 * kUnroll) {
+      int v[2 * kUnroll];
+#pragma unroll
+      for (int u = 0; u < 2 * kUnroll; ++u) {
+        v[u] = k0 + u < K && lane < n ? __ldg(nbr + (k0 + u) * D + d0 + lane)
+                                      : 0;
+      }
+#pragma unroll
+      for (int u = 0; u < 2 * kUnroll; ++u) {
+        c += k0 + u < K && lane < n && v[u] == zero_row;
+      }
+    }
+    float m[kZeroCols];
+#pragma unroll
+    for (int u = 0; u < kZeroCols; ++u) {
+      m[u] = static_cast<float>(__shfl_sync(kFull, c, u));
+    }
+    Acc* out = reinterpret_cast<Acc*>(p.zero[0]) + j * width;
+    for (int col = lane; col < width; col += 32) {
+      Acc v[kZeroCols], acc;
+      zero(acc);
+#pragma unroll
+      for (int u = 0; u < kZeroCols; ++u) {
+        if (u < n && m[u] != 0.f) v[u] = __ldg(g + (d0 + u) * width + col);
+      }
+#pragma unroll
+      for (int u = 0; u < kZeroCols; ++u) {
+        if (u < n && m[u] != 0.f) add_times(acc, m[u], v[u]);
+      }
+      out[col] = acc;
+    }
+  }
+  grid.sync();
+  trace(2);
+
+  // 2. Chunk scans of the counts; the zero row's second level; the rows
+  // no slot names written as zeros.
+  for (int c = blockIdx.x; c < p.chunks; c += gridDim.x) {
+    const long long first =
+        static_cast<long long>(c) * p.chunk +
+        static_cast<long long>(threadIdx.x) * p.items;
+    int sum = 0;
+    for (int i0 = 0; i0 < p.items; i0 += kScanItems) {
+      int v[kScanItems];
+#pragma unroll
+      for (int u = 0; u < kScanItems; ++u) {
+        v[u] = first + i0 + u < zero_row ? p.counts[first + i0 + u] : 0;
+      }
+#pragma unroll
+      for (int u = 0; u < kScanItems; ++u) sum += v[u];
+    }
+    int total;
+    int run = block_exclusive_scan(sum, s_warp, &total);
+    for (int i0 = 0; i0 < p.items; i0 += kScanItems) {
+      int v[kScanItems];
+#pragma unroll
+      for (int u = 0; u < kScanItems; ++u) {
+        v[u] = first + i0 + u < zero_row ? p.counts[first + i0 + u] : 0;
+      }
+#pragma unroll
+      for (int u = 0; u < kScanItems; ++u) {
+        if (first + i0 + u < zero_row) p.local[first + i0 + u] = run;
+        run += v[u];
+      }
+    }
+    if (threadIdx.x == 0) p.totals[c] = total;
+  }
+  zero_level(reinterpret_cast<const Acc*>(p.zero[0]), p.nz[0], kZeroFan,
+             reinterpret_cast<Acc*>(p.zero[1]), gwarp, warps, width);
+  {
+    Acc z;
+    zero(z);
+    for (long long s0 = gwarp * 32; s0 < zero_row; s0 += warps * 32) {
+      const long long mine = s0 + lane;
+      unsigned empty =
+          __ballot_sync(kFull, mine < zero_row && p.counts[mine] == 0);
+      while (empty) {
+        const int b = __ffs(empty) - 1;
+        empty &= empty - 1;
+        Acc* o = dx + (s0 + b) * width;
+        for (int c = lane; c < width; c += 32) store_streaming(o + c, z);
+      }
+    }
+  }
+  grid.sync();
+  trace(3);
+
+  // 3. Chunk bases (every block); the zero row's third level; the lists.
+  {
+    const int per = (p.chunks + kThreads - 1) / kThreads;
+    const int first = threadIdx.x * per;
+    int sum = 0;
+    for (int i = 0; i < per; ++i) {
+      if (first + i < p.chunks) sum += p.totals[first + i];
+    }
+    int total;
+    int run = block_exclusive_scan(sum, s_warp, &total);
+    for (int i = 0; i < per; ++i) {
+      if (first + i < p.chunks) {
+        s_base[first + i] = run;
+        run += p.totals[first + i];
+      }
+    }
+    __syncthreads();
+  }
+  zero_level(reinterpret_cast<const Acc*>(p.zero[1]), p.nz[1], kZeroFan,
+             reinterpret_cast<Acc*>(p.zero[2]), gwarp, warps, width);
+  for (long long i0 = tid; i0 < slots; i0 += threads * kBatch) {
+    int r[kBatch], at[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const long long i = i0 + u * threads;
+      r[u] = i < slots ? __ldg(nbr + i) : zero_row;
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      if (r[u] != zero_row) {
+        at[u] = p.local[r[u]] + p.rank[i0 + u * threads];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      if (r[u] != zero_row) {
+        p.list[at[u] + s_base[r[u] / p.chunk]] =
+            static_cast<int>(i0 + u * threads);
+      }
+    }
+  }
+  grid.sync();
+  trace(4);
+
+  // 4. The zero row: the last level, by the last warp. Every other row: a
+  // warp takes kGroup rows at a time, lane i < kGroup reading row s0 + i's
+  // count and offset; their slots lie in one span of the lists, which the
+  // warp sorts row by row in shared memory and then streams (empty rows,
+  // written in phase 2, have no slot in it).
+  if (gwarp == warps - 1) {
+    const Acc* src = reinterpret_cast<const Acc*>(p.zero[2]);
+    for (int c = lane; c < width; c += 32) {
+      Acc acc;
+      zero(acc);
+      for (int t = 0; t < p.nz[2]; ++t) add(acc, src[t * width + c]);
+      store_streaming(dx + static_cast<long long>(zero_row) * width + c, acc);
+    }
+  }
+  for (long long s0 = gwarp * kGroup; s0 < zero_row;
+       s0 += warps * kGroup) {
+    trace_fine(0);
+    const long long mine = s0 + lane;
+    const bool real = lane < kGroup && mine < zero_row;
+    const int n = real ? p.counts[mine] : 0;
+    const int start = real ? p.local[mine] + s_base[mine / p.chunk] : 0;
+    const int rows = static_cast<int>(
+        zero_row - s0 < kGroup ? zero_row - s0 : kGroup);
+    const int first = __shfl_sync(kFull, start, 0);
+    const int span = __shfl_sync(kFull, start + n, rows - 1) - first;
+    trace_fine(1);
+    if (span <= kSpan) {
+      // Row i's slots at [row_at[i], row_at[i + 1]) of the span.
+      if (lane < kGroup) s_row[warp][lane] = real ? start - first : span;
+      if (lane == 0) s_row[warp][kGroup] = span;
+      sum_span(p.list + first, span, kGroup, s_row[warp], s_ent[warp],
+               s_d[warp], s_meta[warp], g, D, width, dx + s0 * width);
+      trace_fine(4);
+      continue;
+    }
+    // A span too long for shared memory: row by row.
+    unsigned left = __ballot_sync(kFull, n > 0);
+    while (left) {
+      const int b = __ffs(left) - 1;
+      left &= left - 1;
+      const int rn = __shfl_sync(kFull, n, b);
+      const int roff = __shfl_sync(kFull, start, b);
+      Acc* out = dx + (s0 + b) * width;
+      if (rn <= kSpan) {
+        if (lane == 0) {
+          s_row[warp][0] = 0;
+          s_row[warp][1] = rn;
+        }
+        sum_span(p.list + roff, rn, 1, s_row[warp], s_ent[warp], s_d[warp],
+                 s_meta[warp], g, D, width, out);
+        continue;
+      }
+      // Longer than shared memory: each slot's rank by a count over the
+      // row, into the rank array's span of the row (free since the fill),
+      // then summed from there.
+      for (int i = lane; i < rn; i += 32) {
+        const int slot = p.list[roff + i];
+        int r = 0;
+        for (int j = 0; j < rn; ++j) r += p.list[roff + j] < slot;
+        p.rank[roff + r] = slot;
+      }
+      __syncwarp();
+      const int* sorted = p.rank + roff;
+      for (int c = lane; c < width; c += 32) {
+        Acc acc =
+            __ldg(g + static_cast<long long>(sorted[0] % D) * width + c);
+        for (int t = 1; t < rn; ++t) {
+          add(acc, __ldg(g + static_cast<long long>(sorted[t] % D) * width +
+                         c));
+        }
+        store_streaming(out + c, acc);
+      }
+      __syncwarp();
+    }
+  }
+#ifdef DENSE_TRACE
+  __syncthreads();
+  trace(5);
+  trace(6);
+#endif
 }
 
 bool aligned(const void* p, uintptr_t bytes) {
@@ -262,26 +952,22 @@ bool aligned(const void* p, uintptr_t bytes) {
 }
 
 // A block's teams and threads for rows of `width` column groups, with K
-// indices a dst staged in shared memory (and `extra` bytes beside them);
-// 0 teams when even one dst's indices do not fit.
+// indices a dst staged in shared memory; 0 teams when even one dst's
+// indices do not fit.
 struct Geometry {
   int team_threads, teams, threads;
   size_t smem;
 };
 
-Geometry geometry(int width, int K, size_t extra) {
+Geometry geometry(int width, int K) {
   Geometry geo;
   geo.team_threads = width < kThreads ? width : kThreads;
   geo.teams = kThreads / geo.team_threads;
-  // Leave 16 bytes for the rounding of staged_words.
   const long long fit =
-      extra + 16 >= kSmemBytes
-          ? 0
-          : static_cast<long long>((kSmemBytes - extra - 16) /
-                                   (sizeof(int) * K));
+      static_cast<long long>(kSmemBytes / (sizeof(int) * K));
   if (fit < geo.teams) geo.teams = static_cast<int>(fit);
   geo.threads = (geo.teams * geo.team_threads + 31) / 32 * 32;
-  geo.smem = sizeof(int) * staged_words(K, geo.teams) + extra;
+  geo.smem = sizeof(int) * K * geo.teams;
   return geo;
 }
 
@@ -291,7 +977,7 @@ cudaError_t launch_gather(const void* x, long long x_rows, int h,
                           void* out, cudaStream_t stream) {
   using Acc = typename Rows<In, VEC>::Acc;
   const int width = h / VEC;
-  const Geometry geo = geometry(width, K, 0);
+  const Geometry geo = geometry(width, K);
   if (geo.teams < 1) return cudaErrorInvalidValue;
   const long long blocks = (D + geo.teams - 1) / geo.teams;
   gather_sum<In, VEC><<<static_cast<unsigned>(blocks), geo.threads, geo.smem,
@@ -301,20 +987,97 @@ cudaError_t launch_gather(const void* x, long long x_rows, int h,
   return cudaGetLastError();
 }
 
+cudaError_t launch_gather_bf16(const void* x, long long x_rows, int h,
+                               const void* nbr, long long ld, int K,
+                               long long D, void* out, cudaStream_t stream) {
+  const size_t smem = sizeof(int) * K * kWarps;
+  if (smem > kSmemBytes) return cudaErrorInvalidValue;
+  const long long blocks = (D + kWarps - 1) / kWarps;
+  gather_sum_bf16<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(x), x_rows, h,
+      static_cast<const int*>(nbr), ld, K, D, static_cast<float*>(out));
+  return cudaGetLastError();
+}
+
+template <typename In>
+cudaError_t launch_gather_ring(const void* x, long long x_rows, int h,
+                               const void* nbr, long long ld, int K,
+                               long long D, void* out, cudaStream_t stream) {
+  const long long rb = static_cast<long long>(h) * sizeof(In);
+  const int stage_bytes =
+      static_cast<int>((rb % 16 ? rb + 8 : rb + 15) / 16 * 16);
+  const size_t smem = static_cast<size_t>(kWarps) * kStages *
+                          (stage_bytes + sizeof(uint64_t)) +
+                      sizeof(int) * K * kWarps;
+  if (smem > kSmemBytes) return cudaErrorInvalidValue;
+  const long long blocks = (D + kWarps - 1) / kWarps;
+  gather_sum_ring<In><<<static_cast<unsigned>(blocks), kThreads, smem,
+                        stream>>>(
+      static_cast<const In*>(x), x_rows, h, static_cast<const int*>(nbr), ld,
+      K, D, stage_bytes, static_cast<float4*>(out));
+  return cudaGetLastError();
+}
+
+// The forward's design, for measuring them against each other: 0 the
+// default, 1 registers (8-byte bf16 loads), 2 the TMA ring, 3 bf16
+// 16-byte words.
+int g_variant = 0;
+
+// The cooperative grid of scatter_rows<Acc> with `smem` bytes of dynamic
+// shared memory: as many blocks as fit on the card at once, and no more
+// than the work asks for.
+template <typename Acc>
+cudaError_t scatter_grid(int device, size_t smem, long long work,
+                         int* blocks) {
+  auto kernel = scatter_rows<Acc>;
+  cudaError_t err;
+  if (smem > kSmemBytes) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  int sms = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kThreads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  if (g_blocks_per_sm > 0 && g_blocks_per_sm < per_sm) {
+    per_sm = g_blocks_per_sm;
+  }
+  const long long need = (work + kThreads - 1) / kThreads;
+  const long long most = static_cast<long long>(per_sm) * sms;
+  *blocks = static_cast<int>(need < most ? (need < 1 ? 1 : need) : most);
+  return cudaSuccess;
+}
+
 template <int VEC>
 cudaError_t launch_scatter(const void* g, const void* nbr, long long ld,
                            int K, long long D, int h, long long x_rows,
-                           void* dx, cudaStream_t stream) {
+                           void* dx, void* workspace, int device,
+                           cudaStream_t stream) {
   using Acc = typename Rows<float, VEC>::Acc;
-  const int width = h / VEC;
-  const Geometry geo = geometry(width, K, sizeof(float) * h);
-  if (geo.teams < 1) return cudaErrorInvalidValue;
-  const long long blocks = (D + geo.teams - 1) / geo.teams;
-  scatter_add<Acc><<<static_cast<unsigned>(blocks), geo.threads, geo.smem,
-                     stream>>>(
-      static_cast<const Acc*>(g), static_cast<const int*>(nbr), ld, K, D,
-      x_rows, width, geo.team_threads, geo.teams, static_cast<Acc*>(dx));
-  return cudaGetLastError();
+  int width = h / VEC;
+  Plan plan = layout(K, D, x_rows, h, static_cast<char*>(workspace)).plan;
+  const size_t smem = sizeof(int) * plan.chunks;
+  const long long slots = static_cast<long long>(K) * D;
+  // Every phase strides over its work: kBatch slots a thread, or kGroup
+  // rows a warp.
+  const long long rows = x_rows * 32 / kGroup;
+  const long long work = slots / kBatch > rows ? slots / kBatch : rows;
+  int blocks = 0;
+  cudaError_t err = scatter_grid<Acc>(device, smem, work, &blocks);
+  if (err != cudaSuccess) return err;
+  const Acc* g_ = static_cast<const Acc*>(g);
+  const int* nbr_ = static_cast<const int*>(nbr);
+  int K_ = K, D_ = static_cast<int>(D), S_ = static_cast<int>(x_rows);
+  Acc* dx_ = static_cast<Acc*>(dx);
+  void* args[] = {&g_, &nbr_, &K_, &D_, &S_, &width, &plan, &dx_};
+  return cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(scatter_rows<Acc>), blocks, kThreads,
+      args, smem, stream);
 }
 
 // What both entries check before a launch: the device, the shapes, and
@@ -325,7 +1088,8 @@ int prologue(int h, int K, long long D, long long x_rows, long long ld,
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   // A block takes one dst row at least, and a grid at most 2^31 - 1.
-  if (h < 0 || K < 1 || D < 0 || D > 2147483647LL || ld < D || x_rows < 1) {
+  if (h < 0 || K < 1 || D < 0 || D > 2147483647LL || ld < D || x_rows < 1 ||
+      x_rows > 2147483647LL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (D == 0 || h == 0) return 0;
@@ -335,7 +1099,7 @@ int prologue(int h, int K, long long D, long long x_rows, long long ld,
 
 }  // namespace
 
-// Both entries launch on `stream` (a cudaStream_t) on device `device`,
+// The entries launch on `stream` (a cudaStream_t) on device `device`,
 // return the cudaError_t of the launch, 0 on success, and do not
 // synchronise. nbr is int32 [K, D] with row stride ld (in elements).
 
@@ -349,34 +1113,92 @@ extern "C" int dense_gather_sum(const void* x, int x_bf16, long long x_rows,
   bool done = false;
   const int early = prologue(h, k, d, x_rows, ld, device, &done);
   if (done) return early;
-  const bool vec = h % 4 == 0 && aligned(x, x_bf16 ? 8 : 16) &&
-                   aligned(out, 16);
   cudaError_t err;
+  const bool ring = h % 4 == 0 && h / 4 <= 32 && aligned(x, 16) &&
+                    aligned(out, 16);
   if (x_bf16) {
-    err = vec ? launch_gather<__nv_bfloat16, 4>(x, x_rows, h, nbr, ld, k, d,
-                                                out, s)
-              : launch_gather<__nv_bfloat16, 1>(x, x_rows, h, nbr, ld, k, d,
-                                                out, s);
+    // 16-byte words of a row's aligned window, one a lane.
+    const bool words = h % 4 == 0 && 2 * h + 8 <= 16 * 32 && aligned(x, 16) &&
+                       aligned(out, 16);
+    const bool vec = h % 4 == 0 && aligned(x, 8) && aligned(out, 16);
+    if (g_variant == 2 && ring) {
+      err = launch_gather_ring<__nv_bfloat16>(x, x_rows, h, nbr, ld, k, d,
+                                              out, s);
+    } else if (g_variant == 1 && vec) {
+      err = launch_gather<__nv_bfloat16, 4>(x, x_rows, h, nbr, ld, k, d, out,
+                                            s);
+    } else if (words) {
+      err = launch_gather_bf16(x, x_rows, h, nbr, ld, k, d, out, s);
+    } else {
+      err = launch_gather<__nv_bfloat16, 1>(x, x_rows, h, nbr, ld, k, d, out,
+                                            s);
+    }
   } else {
-    err = vec ? launch_gather<float, 4>(x, x_rows, h, nbr, ld, k, d, out, s)
-              : launch_gather<float, 1>(x, x_rows, h, nbr, ld, k, d, out, s);
+    const bool vec = h % 4 == 0 && aligned(x, 16) && aligned(out, 16);
+    if (g_variant == 2 && ring) {
+      err = launch_gather_ring<float>(x, x_rows, h, nbr, ld, k, d, out, s);
+    } else if (vec) {
+      err = launch_gather<float, 4>(x, x_rows, h, nbr, ld, k, d, out, s);
+    } else {
+      err = launch_gather<float, 1>(x, x_rows, h, nbr, ld, k, d, out, s);
+    }
   }
   return static_cast<int>(err);
 }
 
-// dx[nbr[k, d]] += g[d] for every slot; g f32 [D, h], dx f32 [x_rows, h],
-// both contiguous, dx zeroed by the caller.
+#ifdef DENSE_TRACE
+extern "C" int dense_scatter_trace(unsigned long long* out) {
+  const int err = static_cast<int>(
+      cudaMemcpyFromSymbol(out, g_trace, sizeof(g_trace)));
+  const unsigned long long zeros[16] = {0};
+  cudaMemcpyToSymbol(g_trace, zeros, sizeof(zeros));
+  return err;
+}
+#endif
+
+// The backward's blocks a multiprocessor, at most (0: as many as fit);
+// returns the previous value.
+extern "C" int dense_scatter_blocks_per_sm(int blocks) {
+  const int old = g_blocks_per_sm;
+  g_blocks_per_sm = blocks;
+  return old;
+}
+
+// Selects the forward's design (see g_variant); returns the previous one.
+extern "C" int dense_gather_variant(int variant) {
+  const int old = g_variant;
+  g_variant = variant;
+  return old;
+}
+
+// Bytes of workspace dense_scatter_add takes for these shapes.
+extern "C" long long dense_scatter_workspace_bytes(int k, long long d, int h,
+                                                   long long x_rows) {
+  return static_cast<long long>(layout(k, d, x_rows, h, nullptr).bytes);
+}
+
+// dx[s] = sum of g[d] over the slots (k, d) naming s, in slot order; g f32
+// [D, h], dx f32 [x_rows, h], both contiguous, and nbr too (ld == d);
+// every row of dx is written. workspace: dense_scatter_workspace_bytes(k,
+// d, h, x_rows) bytes, 16-byte aligned, uninitialised. k * d < 2^31.
 extern "C" int dense_scatter_add(const void* g, const void* nbr, long long ld,
                                  int k, long long d, int h, long long x_rows,
-                                 void* dx, int device, void* stream) {
+                                 void* dx, void* workspace, int device,
+                                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   bool done = false;
   const int early = prologue(h, k, d, x_rows, ld, device, &done);
   if (done) return early;
+  if (ld != d || static_cast<long long>(k) * d > 2147483647LL ||
+      !aligned(workspace, 16)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const bool vec = h % 4 == 0 && aligned(g, 16) && aligned(dx, 16);
   const cudaError_t err =
-      vec ? launch_scatter<4>(g, nbr, ld, k, d, h, x_rows, dx, s)
-          : launch_scatter<1>(g, nbr, ld, k, d, h, x_rows, dx, s);
+      vec ? launch_scatter<4>(g, nbr, ld, k, d, h, x_rows, dx, workspace,
+                              device, s)
+          : launch_scatter<1>(g, nbr, ld, k, d, h, x_rows, dx, workspace,
+                              device, s);
   return static_cast<int>(err);
 }
 

@@ -16,10 +16,20 @@ unrolled branch (``:191-197``) compiles into one add fusion of K gathers,
 and its transpose into the backward's scatter. There is no ``pallas_call``
 to port; the port's counterpart of the fusion is one kernel a layer each
 way, on one source, ``csrc/dense_gather_sum.cu``, bound by device-memory
-bytes. A team of threads sums a dst row in f32 registers, adding the K
-rows in the order of k, so the forward equals its plain version bit for
-bit; the backward adds each ``g`` row into its K targets with f32 atomics
-and sums the zero row's share within a block first.
+bytes. The forward sums a dst row in f32 registers, adding the K rows in
+the order of k (padding slots from the zero row held in registers), so it
+equals its plain version bit for bit. The backward is one cooperative
+launch that transposes ``nbr`` into a plan (``dense_scatter_plan`` is its
+plain version: each row's slots in slot order, and each column's padding
+slots) in a workspace the wrapper allocates, then writes every row of
+``dx`` once, summing its slots' gradient rows in slot order; no memset,
+no atomics on rows, the same bits from every launch. The zero row is
+``sum over d of c_d * g[d]``, reduced in a fixed tree over blocks of 32
+columns.
+
+The gradient to a bf16 frame is summed in f32 and rounded to bf16 once;
+JAX rounds every partial sum to bf16. The port's is the nearer to the
+exact sum (``tests/test_torch_dense_gather.py``).
 
 Under ``tile`` (``OCC_DENSE_AGG=tiled``) each dst tile of ``tile`` columns
 goes through the forward on its own, into its slice of the output: the
@@ -39,13 +49,19 @@ import torch
 from occ_gnn_tpu_torch.ops.build import check_launch, load_kernel
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# The C entries of csrc/dense_gather_sum.cu, argument for argument.
+# The C entries of csrc/dense_gather_sum.cu, argument for argument, and
+# what they return.
 ARGTYPES = {
     # x, x_bf16, x_rows, h, nbr, ld, k, d, out, device, stream
     "dense_gather_sum": [_P, _I, _L, _I, _P, _L, _I, _L, _P, _I, _P],
-    # g, nbr, ld, k, d, h, x_rows, dx, device, stream
-    "dense_scatter_add": [_P, _P, _L, _I, _L, _I, _L, _P, _I, _P],
+    # k, d, h, x_rows
+    "dense_scatter_workspace_bytes": [_I, _L, _I, _L],
+    # g, nbr, ld, k, d, h, x_rows, dx, workspace, device, stream
+    "dense_scatter_add": [_P, _P, _L, _I, _L, _I, _L, _P, _P, _I, _P],
+    # variant
+    "dense_gather_variant": [_I],
 }
+RESTYPES = {"dense_scatter_workspace_bytes": _L}
 
 
 def dense_gather_sum_reference(x: torch.Tensor, nbr: torch.Tensor,
@@ -71,14 +87,43 @@ def dense_scatter_add_reference(grad: torch.Tensor, nbr: torch.Tensor,
     return dx
 
 
+def dense_scatter_plan(nbr: torch.Tensor, num_rows: int):
+    """Plain version of the backward kernel's plan: the transpose of
+    ``nbr [K, D]`` by source row. Returns ``(counts, offsets, slots,
+    pad)``: ``counts [S - 1]`` the slots naming each row ``s < S - 1``,
+    ``offsets [S]`` their exclusive scan, ``slots`` the slot ids ``k * D
+    + d`` of row ``s`` at ``offsets[s]:offsets[s + 1]`` in slot order, and
+    ``pad [D]`` each column's padding slots (naming row ``S - 1``), all
+    int64 on ``nbr``'s device."""
+    K, D = nbr.shape
+    flat = nbr.reshape(-1).long()
+    ids = torch.arange(K * D, device=nbr.device)
+    valid = flat != num_rows - 1
+    # A stable sort by row keeps each row's slots in slot order.
+    rows, order = torch.sort(flat[valid], stable=True)
+    slots = ids[valid][order]
+    counts = torch.bincount(rows, minlength=num_rows - 1)
+    offsets = torch.zeros(num_rows, dtype=torch.long, device=nbr.device)
+    offsets[1:] = torch.cumsum(counts, 0)
+    pad = (~valid).reshape(K, D).sum(0)
+    return counts, offsets, slots, pad
+
+
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = load_kernel("dense_gather_sum")
     for name, argtypes in ARGTYPES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = RESTYPES.get(name, ctypes.c_int)
     return lib
+
+
+def set_gather_variant(variant: int) -> int:
+    """The forward's design on the card (0 the default, 1 registers, 2 the
+    TMA ring, 3 bf16 16-byte words), for measuring them against each
+    other; returns the previous one."""
+    return _library().dense_gather_variant(variant)
 
 
 def _on_cuda(what: str, t: torch.Tensor) -> None:
@@ -107,16 +152,24 @@ def _launch_gather(x: torch.Tensor, nbr: torch.Tensor,
 
 def _launch_scatter(grad: torch.Tensor, nbr: torch.Tensor,
                     num_rows: int) -> torch.Tensor:
+    """One backward launch; it writes every row of ``dx`` and builds its
+    plan in a workspace allocated here."""
     _on_cuda("dense_scatter_add", grad)
     K, D = nbr.shape
     h = grad.shape[1]
-    dx = torch.zeros((num_rows, h), dtype=torch.float32, device=grad.device)
     if D == 0 or h == 0:
-        return dx
+        return torch.zeros((num_rows, h), dtype=torch.float32,
+                           device=grad.device)
+    if K * D >= 2**31:
+        raise ValueError(f"{K} x {D} slots: slot ids past int32")
+    dx = torch.empty((num_rows, h), dtype=torch.float32, device=grad.device)
     lib = _library()
+    workspace = torch.empty(
+        lib.dense_scatter_workspace_bytes(K, D, h, num_rows),
+        dtype=torch.uint8, device=grad.device)
     err = lib.dense_scatter_add(
         grad.data_ptr(), nbr.data_ptr(), nbr.stride(0), K, D, h, num_rows,
-        dx.data_ptr(), grad.device.index,
+        dx.data_ptr(), workspace.data_ptr(), grad.device.index,
         torch.cuda.current_stream(grad.device).cuda_stream,
     )
     check_launch(lib, err, "dense_scatter_add")

@@ -17,9 +17,15 @@ sums in f32 and rounds once; with cotangents of small integers whose
 partial sums stay below 256 in magnitude every partial sum is exact in
 both, so the bf16 gradients are held to the same bound.
 
-The last tests hold a numpy model of the backward kernel's blocks (the
-zero row's share summed within each block, then added once) against the
-plain scatter-add, and the ctypes argument lists against the C entries.
+That difference is declared, not repaired: at generic (normal)
+cotangents the port's bf16 gradient is held to a float64 sum of the same
+terms within one bf16 rounding (2^-8 of it, per element, beside the f32
+sum's own rounding bound), and JAX's distance from the same sum is
+reported; the port must be no farther from it than JAX.
+
+The last tests hold the ctypes argument lists against the C entries
+(``tests/test_torch_dense_plan.py`` has the numpy models of the kernels'
+summation orders).
 """
 
 import ctypes
@@ -220,50 +226,52 @@ def test_scatter_wrapper_rejects_mismatched_shapes():
         dgs.dense_scatter_add(torch.zeros(5, 8), nbr, 0)
 
 
-def _block_teams(h, K):
-    """The backward kernel's dst rows a block (``geometry`` in the
-    source): one thread a 4-float column group (one float when H % 4),
-    as many teams as fit in 256 threads and in 48 KB of staged indices
-    beside the block's zero-row sum."""
-    width = h // 4 if h % 4 == 0 else h
-    teams = 256 // min(width, 256)
-    return min(teams, (48 * 1024 - 4 * h - 16) // (4 * K))
+# Generic cotangents: (S, K, D, H) of CASES with slots, and one frame of
+# about 220 slots a row (the zero row takes some 1,300).
+BF16_CASES = [c for c in CASES if c[2] > 0] + [(200, 11, 4000, 64)]
 
 
-def _model_scatter(g, nbr, S, teams):
-    """The backward kernel in numpy: each block of ``teams`` dst rows adds
-    a row's gradient straight into every non-zero target, sums each
-    team's zero-row slots in registers, the teams' sums in shared memory,
-    and adds the block's sum into the zero row once."""
+def _exact_grad(g, nbr, S):
+    """The float64 sum of every slot's cotangent row into its source row,
+    the sums of their magnitudes, and each row's count of terms."""
     K, D = nbr.shape
-    dx = np.zeros((S, g.shape[1]), np.float32)
-    zero = S - 1
-    for d0 in range(0, D, teams):
-        block = np.zeros(g.shape[1], np.float32)
-        for d in range(d0, min(d0 + teams, D)):
-            team = np.zeros(g.shape[1], np.float32)
-            for k in range(K):
-                if nbr[k, d] == zero:
-                    team += g[d]
-                else:
-                    dx[nbr[k, d]] += g[d]
-            block += team
-        dx[zero] += block
-    return dx
+    exact = np.zeros((S, g.shape[1]))
+    mags = np.zeros((S, g.shape[1]))
+    for k in range(K):
+        np.add.at(exact, nbr[k], g.astype(np.float64))
+        np.add.at(mags, nbr[k], np.abs(g).astype(np.float64))
+    terms = np.bincount(nbr.reshape(-1), minlength=S)[:, None]
+    return exact, mags, terms
 
 
-@pytest.mark.parametrize("S,K,D,H", [(300, 26, 80, 100), (120, 11, 64, 128),
-                                     (50, 5, 33, 3)])
-def test_block_zero_row_model_matches_plain_scatter(S, K, D, H):
-    x, nbr = _case(S, K, D, H, seed=5)
-    g = _cotangent(D, H, "float32", seed=6)
-    teams = _block_teams(H, K)
-    assert teams == {100: 10, 128: 8, 3: 85}[H]
-    model = _model_scatter(g, nbr, S, teams)
-    plain = dgs.dense_scatter_add_reference(
-        torch.from_numpy(g), torch.from_numpy(nbr), S).numpy()
-    np.testing.assert_allclose(model, plain, **OP_TOL)
-    assert np.abs(model[S - 1]).max() > 0  # the zero row took a share
+@pytest.mark.parametrize("S,K,D,H", BF16_CASES)
+def test_bf16_grad_within_one_rounding_of_the_exact_sum(S, K, D, H):
+    """The declared difference: the port sums the gradient to a bf16 frame
+    in f32 and rounds it once, so each element is within 2^-8 of the
+    exact (float64) sum, beside the f32 sum's own bound (terms x 2^-24 of
+    the terms' magnitudes, twice); JAX, which rounds each partial sum to
+    bf16, is reported beside it and may be no nearer."""
+    x, nbr = _case(S, K, D, H, seed=7)
+    g = np.random.default_rng(8).standard_normal((D, H)).astype(np.float32)
+    jx, tx = _frame(x, "bfloat16")
+    tx.requires_grad_()
+    dgs.dense_gather_sum(tx, torch.from_numpy(nbr)).backward(
+        torch.from_numpy(g))
+    port = tx.grad.float().numpy().astype(np.float64)
+    _, vjp = jax.vjp(lambda xx: jsplit.local_aggregate_dense(
+        xx, jnp.asarray(nbr)), jx)
+    (jgrad,) = vjp(jnp.asarray(g))
+    jgrad = np.asarray(jgrad.astype(jnp.float32)).astype(np.float64)
+    exact, mags, terms = _exact_grad(g, nbr, S)
+    limit = 2.0**-8 * np.abs(exact) + 2 * terms * 2.0**-24 * mags
+    scale = max(1.0, float(np.abs(exact).max()))
+    port_err = np.abs(port - exact).max()
+    jax_err = np.abs(jgrad - exact).max()
+    print(f"S={S} K={K} D={D} H={H}, at most {terms.max()} terms a row: "
+          f"port {port_err / scale:.3g}, JAX {jax_err / scale:.3g} of scale "
+          f"{scale:.3g} from the float64 sum")
+    assert (np.abs(port - exact) <= limit).all()
+    assert port_err <= jax_err
 
 
 def _extern_c_arities(text):
