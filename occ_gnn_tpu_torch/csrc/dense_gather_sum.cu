@@ -83,7 +83,6 @@ namespace {
 constexpr int kThreads = 256;  // a block
 constexpr int kWarps = kThreads / 32;
 constexpr int kUnroll = 8;     // row loads in flight a lane
-constexpr int kStages = 8;     // TMA ring stages a warp
 constexpr unsigned kFull = 0xffffffffu;
 // Shared memory a block may take without opting in to more.
 constexpr size_t kSmemBytes = 48 * 1024;
@@ -213,18 +212,14 @@ gather_sum(const In* __restrict__ x, long long x_rows,
   const long long d = d0 + team;
   if (team >= teams || d >= D) return;
   const int* idx = s_nbr + team;  // idx[k * teams]
-  const long long zero_row = x_rows - 1;
   for (int c = col0; c < width; c += team_threads) {
-    const Acc z = Rows<In, VEC>::load(x, zero_row, width, c);
-    const int r0 = idx[0];
-    Acc acc = r0 == zero_row ? z : Rows<In, VEC>::load(x, r0, width, c);
+    Acc acc = Rows<In, VEC>::load(x, idx[0], width, c);
     for (int k0 = 1; k0 < K; k0 += kUnroll) {
       Acc v[kUnroll];
 #pragma unroll
       for (int u = 0; u < kUnroll; ++u) {
         if (k0 + u < K) {
-          const int r = idx[(k0 + u) * teams];
-          v[u] = r == zero_row ? z : Rows<In, VEC>::load(x, r, width, c);
+          v[u] = Rows<In, VEC>::load(x, idx[(k0 + u) * teams], width, c);
         }
       }
 #pragma unroll
@@ -264,207 +259,84 @@ __device__ __forceinline__ void set8(float (&acc)[8], const uint4& w) {
 }
 
 // bf16 rows of H % 4 == 0 and 2 H + 8 <= 512 bytes, x 16-byte aligned: a
-// warp for each dst row, lane j sums columns 8 j .. 8 j + 7 (lanes of
-// 8 j >= H idle). Row r's bytes start at 2 H r; lane j loads the 16-byte
-// word j of the aligned window at 2 H r - off (off = 2 H r mod 16, 0 or
-// 8), and for off == 8 takes its upper half and the next lane's lower half.
-// The zero row is read in 8-byte halves (its window could pass the end of
-// x), once, and its columns added from registers for every padding slot.
+// team of `lanes` lanes (16 when a row's window is at most 256 bytes, so
+// that a warp takes two dst rows; else 32) for each dst row, lane j
+// summing columns 8 j .. 8 j + 7 (lanes of 8 j >= H idle). Row r's bytes
+// start at 2 H r; lane j loads the 16-byte word j of the aligned window at
+// 2 H r - off (off = 2 H r mod 16, 0 or 8), and for off == 8 takes its
+// upper half and the next lane's lower half. The zero row is read in
+// 8-byte halves (its window could pass the end of x).
+template <int LANES>
 __global__ void __launch_bounds__(kThreads)
 gather_sum_bf16(const __nv_bfloat16* __restrict__ x, long long x_rows, int h,
                 const int* __restrict__ nbr, long long ld, int K, long long D,
                 float* __restrict__ out) {
+  constexpr int kTeams = kThreads / LANES;
   extern __shared__ int s_nbr[];
-  const long long d0 = static_cast<long long>(blockIdx.x) * kWarps;
-  stage_indices(nbr, ld, K, D, x_rows, kWarps, d0, s_nbr);
+  const long long d0 = static_cast<long long>(blockIdx.x) * kTeams;
+  stage_indices(nbr, ld, K, D, x_rows, kTeams, d0, s_nbr);
   __syncthreads();
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const long long d = d0 + warp;
-  if (d >= D) return;
-  const int* idx = s_nbr + warp;  // idx[k * kWarps]
+  const int team = threadIdx.x / LANES, lane = threadIdx.x % LANES;
+  const long long d = d0 + team;
+  // Both teams of a warp stay to the end: the shuffles take every lane.
+  const bool real = d < D;
+  if (__all_sync(kFull, !real)) return;
+  const int* idx = s_nbr + team;  // idx[k * kTeams]
   const long long zero_row = x_rows - 1;
   const long long row_bytes = 2LL * h;
   const int cols = h - 8 * lane;  // this lane's columns: min(cols, 8)
   const char* base = reinterpret_cast<const char*>(x);
-  uint4 z = make_uint4(0, 0, 0, 0);
-  if (cols > 0) {
-    const uint2* zr = reinterpret_cast<const uint2*>(
-        base + zero_row * row_bytes + 16 * lane);
-    const uint2 lo = __ldg(zr);
-    const uint2 hi = cols > 4 ? __ldg(zr + 1) : make_uint2(0, 0);
-    z = make_uint4(lo.x, lo.y, hi.x, hi.y);
-  }
   // Lanes that load a word of the window: 2 H / 16, or (2 H + 8) / 16.
   const bool loads =
       16 * lane < (row_bytes % 16 ? row_bytes + 8 : row_bytes);
-  // The 16 bytes of row r that lane j sums, from every lane's word w.
-  auto realign = [&](long long r, const uint4& w) {
-    const uint32_t nx = __shfl_down_sync(kFull, w.x, 1);
-    const uint32_t ny = __shfl_down_sync(kFull, w.y, 1);
-    return ((r * row_bytes) & 15) ? make_uint4(w.z, w.w, nx, ny) : w;
+  // Lane j's 16-byte word of row r's window, or its columns of the zero
+  // row in two 8-byte halves.
+  auto word = [&](int r) {
+    uint4 w = make_uint4(0, 0, 0, 0);
+    if (r == zero_row) {
+      if (cols > 0) {
+        const uint2* zr = reinterpret_cast<const uint2*>(
+            base + zero_row * row_bytes + 16 * lane);
+        const uint2 lo = __ldg(zr);
+        const uint2 hi = cols > 4 ? __ldg(zr + 1) : make_uint2(0, 0);
+        w = make_uint4(lo.x, lo.y, hi.x, hi.y);
+      }
+    } else if (loads) {
+      const long long start = r * row_bytes;
+      w = __ldg(reinterpret_cast<const uint4*>(base + (start & ~15LL)) +
+                lane);
+    }
+    return w;
   };
-  auto word = [&](long long r) {
-    const long long start = r * row_bytes;
-    const uint4* win = reinterpret_cast<const uint4*>(base + (start & ~15LL));
-    return loads ? __ldg(win + lane) : make_uint4(0, 0, 0, 0);
+  // The 16 bytes of row r that lane j sums, from every lane's word w.
+  auto realign = [&](int r, const uint4& w) {
+    const uint32_t nx = __shfl_down_sync(kFull, w.x, 1, LANES);
+    const uint32_t ny = __shfl_down_sync(kFull, w.y, 1, LANES);
+    const bool shift = r != zero_row && (r * row_bytes) & 15;
+    return shift ? make_uint4(w.z, w.w, nx, ny) : w;
   };
   float acc[8];
-  {
-    const int r = idx[0];
-    set8(acc, r == zero_row ? z : realign(r, word(r)));
-  }
+  const int r0 = real ? idx[0] : static_cast<int>(zero_row);
+  set8(acc, realign(r0, word(r0)));
   for (int k0 = 1; k0 < K; k0 += kUnroll) {
+    int r[kUnroll];
     uint4 w[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
-      if (k0 + u < K) {
-        const int r = idx[(k0 + u) * kWarps];
-        if (r != zero_row) w[u] = word(r);
-      }
+      r[u] = real && k0 + u < K ? idx[(k0 + u) * kTeams]
+                                : static_cast<int>(zero_row);
+      if (k0 + u < K) w[u] = word(r[u]);
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
-      if (k0 + u < K) {
-        const int r = idx[(k0 + u) * kWarps];  // uniform across the warp
-        add8(acc, r == zero_row ? z : realign(r, w[u]));
-      }
+      if (k0 + u < K) add8(acc, realign(r[u], w[u]));
     }
   }
-  if (cols > 0) {
+  if (real && cols > 0) {
     float4* o = reinterpret_cast<float4*>(out + d * h + 8 * lane);
     o[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
     if (cols > 4) o[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
   }
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void wait_phase(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// Four columns of a staged row as f32: lane c's column group.
-__device__ __forceinline__ float4 staged(const unsigned char* stage, int off,
-                                         int c, float) {
-  return *reinterpret_cast<const float4*>(stage + 16 * c);
-}
-__device__ __forceinline__ float4 staged(const unsigned char* stage, int off,
-                                         int c, __nv_bfloat16) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(stage + off + 8 * c);
-  const float2 lo = bf16x2(raw.x), hi = bf16x2(raw.y);
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
-}
-
-// The TMA ring: a warp for each dst row, a lane for each 4-column group
-// (H % 4 == 0, H / 4 <= 32, x 16-byte aligned). Lane 0 keeps the next
-// kStages valid slots' rows in flight, each a cp.async.bulk of the row's
-// 16-byte-aligned window into a stage of the warp's ring in shared memory,
-// completing on the stage's mbarrier; the warp adds each from shared
-// memory in the order of k (padding slots from the zero row in
-// registers), and lane 0 refills the stage it freed.
-template <typename In>
-__global__ void __launch_bounds__(kThreads)
-gather_sum_ring(const In* __restrict__ x, long long x_rows, int h,
-                const int* __restrict__ nbr, long long ld, int K, long long D,
-                int stage_bytes, float4* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  unsigned char* ring = smem;  // [kWarps][kStages][stage_bytes]
-  uint64_t* bars =
-      reinterpret_cast<uint64_t*>(ring + kWarps * kStages * stage_bytes);
-  int* s_nbr = reinterpret_cast<int*>(bars + kWarps * kStages);
-  const long long d0 = static_cast<long long>(blockIdx.x) * kWarps;
-  stage_indices(nbr, ld, K, D, x_rows, kWarps, d0, s_nbr);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  uint64_t* bar = bars + warp * kStages;
-  if (lane == 0) {
-    for (int i = 0; i < kStages; ++i) {
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
-                       smem_u32(bar + i))
-                   : "memory");
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-  const long long d = d0 + warp;
-  if (d >= D) return;
-  const int* idx = s_nbr + warp;  // idx[k * kWarps]
-  const long long zero_row = x_rows - 1;
-  const int width = h / 4;
-  const bool active = lane < width;
-  unsigned char* st = ring + warp * kStages * stage_bytes;
-  const long long rb = static_cast<long long>(h) * sizeof(In);
-  const char* base = reinterpret_cast<const char*>(x);
-  float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (active) z = Rows<In, 4>::load(x, zero_row, width, lane);
-  auto issue = [&](int stage, long long r) {
-    assert(r < zero_row);  // the window of row S - 1 could pass x's end
-    const long long start = r * rb;
-    const uint32_t off = static_cast<uint32_t>(start & 15);
-    const uint32_t bytes = static_cast<uint32_t>((off + rb + 15) & ~15LL);
-    const uint32_t b = smem_u32(bar + stage);
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-                 ::"r"(b), "r"(bytes)
-                 : "memory");
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-        "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(st + stage * stage_bytes)),
-        "l"(base + start - off), "r"(bytes), "r"(b)
-        : "memory");
-  };
-  auto next_valid = [&](int k) {
-    while (k < K && idx[k * kWarps] == zero_row) ++k;
-    return k;
-  };
-  int kp = 0;  // the next k whose row lane 0 stages
-  for (int i = 0; i < kStages; ++i) {
-    kp = next_valid(kp);
-    if (kp >= K) break;
-    if (lane == 0) issue(i, idx[kp * kWarps]);
-    ++kp;
-  }
-  float4 acc = z;
-  int v = 0;  // valid slots consumed
-  for (int k = 0; k < K; ++k) {
-    const int r = idx[k * kWarps];
-    float4 val = z;
-    if (r != zero_row) {
-      const int s = v % kStages;
-      wait_phase(bar + s, (v / kStages) & 1);
-      if (active) {
-        val = staged(st + s * stage_bytes,
-                     static_cast<int>((static_cast<long long>(r) * rb) & 15),
-                     lane, In());
-      }
-      __syncwarp();
-      kp = next_valid(kp);
-      if (kp < K) {
-        if (lane == 0) {
-          // The warp's reads of the stage before the copy's writes.
-          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-          issue(s, idx[kp * kWarps]);
-        }
-        ++kp;
-      }
-      ++v;
-    }
-    if (k == 0) {
-      acc = val;
-    } else {
-      add(acc, val);
-    }
-  }
-  if (active) out[d * width + lane] = acc;
 }
 
 // ---------------------------------------------------------------- backward
@@ -727,10 +599,11 @@ scatter_rows(const Acc* __restrict__ g, const int* __restrict__ nbr, int K,
       if (r[u] != zero_row) p.rank[i0 + u * threads] = q[u];
     }
   }
-  // The zero row's first level: a warp for kZeroCols consecutive columns,
+  // The zero row's first level, from the last warp down (the slots above
+  // take the first threads): a warp for kZeroCols consecutive columns,
   // lane j counting column d0 + j's padding slots c_d, then c_d * g[d]
   // summed over the columns in order.
-  for (long long j = gwarp; j < p.nz[0]; j += warps) {
+  for (long long j = warps - 1 - gwarp; j < p.nz[0]; j += warps) {
     const long long d0 = j * kZeroCols;
     const int n = static_cast<int>(D - d0 < kZeroCols ? D - d0 : kZeroCols);
     int c = 0;
@@ -769,8 +642,14 @@ scatter_rows(const Acc* __restrict__ g, const int* __restrict__ nbr, int K,
   grid.sync();
   trace(2);
 
-  // 2. Chunk scans of the counts; the zero row's second level; the rows
-  // no slot names written as zeros.
+  // 2. Chunk scans of the counts (the first blocks); the zero row's second
+  // level and the rows no slot names written as zeros (the warps of the
+  // other blocks, or of all when there are no others).
+  const long long scanning =
+      kWarps * static_cast<long long>(p.chunks < gridDim.x ? p.chunks
+                                                             : gridDim.x);
+  const long long helper = warps > scanning ? gwarp - scanning : gwarp;
+  const long long helpers = warps > scanning ? warps - scanning : warps;
   for (int c = blockIdx.x; c < p.chunks; c += gridDim.x) {
     const long long first =
         static_cast<long long>(c) * p.chunk +
@@ -801,12 +680,12 @@ scatter_rows(const Acc* __restrict__ g, const int* __restrict__ nbr, int K,
     }
     if (threadIdx.x == 0) p.totals[c] = total;
   }
-  zero_level(reinterpret_cast<const Acc*>(p.zero[0]), p.nz[0], kZeroFan,
-             reinterpret_cast<Acc*>(p.zero[1]), gwarp, warps, width);
-  {
+  if (helper >= 0) {
+    zero_level(reinterpret_cast<const Acc*>(p.zero[0]), p.nz[0], kZeroFan,
+               reinterpret_cast<Acc*>(p.zero[1]), helper, helpers, width);
     Acc z;
     zero(z);
-    for (long long s0 = gwarp * 32; s0 < zero_row; s0 += warps * 32) {
+    for (long long s0 = helper * 32; s0 < zero_row; s0 += helpers * 32) {
       const long long mine = s0 + lane;
       unsigned empty =
           __ballot_sync(kFull, mine < zero_row && p.counts[mine] == 0);
@@ -840,7 +719,8 @@ scatter_rows(const Acc* __restrict__ g, const int* __restrict__ nbr, int K,
     __syncthreads();
   }
   zero_level(reinterpret_cast<const Acc*>(p.zero[1]), p.nz[1], kZeroFan,
-             reinterpret_cast<Acc*>(p.zero[2]), gwarp, warps, width);
+             reinterpret_cast<Acc*>(p.zero[2]), warps - 1 - gwarp, warps,
+             width);
   for (long long i0 = tid; i0 < slots; i0 += threads * kBatch) {
     int r[kBatch], at[kBatch];
 #pragma unroll
@@ -987,40 +867,23 @@ cudaError_t launch_gather(const void* x, long long x_rows, int h,
   return cudaGetLastError();
 }
 
+template <int LANES>
 cudaError_t launch_gather_bf16(const void* x, long long x_rows, int h,
                                const void* nbr, long long ld, int K,
                                long long D, void* out, cudaStream_t stream) {
-  const size_t smem = sizeof(int) * K * kWarps;
+  constexpr int kTeams = kThreads / LANES;
+  const size_t smem = sizeof(int) * K * kTeams;
   if (smem > kSmemBytes) return cudaErrorInvalidValue;
-  const long long blocks = (D + kWarps - 1) / kWarps;
-  gather_sum_bf16<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
+  const long long blocks = (D + kTeams - 1) / kTeams;
+  gather_sum_bf16<LANES><<<static_cast<unsigned>(blocks), kThreads, smem,
+                           stream>>>(
       static_cast<const __nv_bfloat16*>(x), x_rows, h,
       static_cast<const int*>(nbr), ld, K, D, static_cast<float*>(out));
   return cudaGetLastError();
 }
 
-template <typename In>
-cudaError_t launch_gather_ring(const void* x, long long x_rows, int h,
-                               const void* nbr, long long ld, int K,
-                               long long D, void* out, cudaStream_t stream) {
-  const long long rb = static_cast<long long>(h) * sizeof(In);
-  const int stage_bytes =
-      static_cast<int>((rb % 16 ? rb + 8 : rb + 15) / 16 * 16);
-  const size_t smem = static_cast<size_t>(kWarps) * kStages *
-                          (stage_bytes + sizeof(uint64_t)) +
-                      sizeof(int) * K * kWarps;
-  if (smem > kSmemBytes) return cudaErrorInvalidValue;
-  const long long blocks = (D + kWarps - 1) / kWarps;
-  gather_sum_ring<In><<<static_cast<unsigned>(blocks), kThreads, smem,
-                        stream>>>(
-      static_cast<const In*>(x), x_rows, h, static_cast<const int*>(nbr), ld,
-      K, D, stage_bytes, static_cast<float4*>(out));
-  return cudaGetLastError();
-}
-
-// The forward's design, for measuring them against each other: 0 the
-// default, 1 registers (8-byte bf16 loads), 2 the TMA ring, 3 bf16
-// 16-byte words.
+// The forward's design for bf16 frames, for measuring them against each
+// other: 0 the default (16-byte words), 1 8-byte loads.
 int g_variant = 0;
 
 // The cooperative grid of scatter_rows<Acc> with `smem` bytes of dynamic
@@ -1114,34 +977,27 @@ extern "C" int dense_gather_sum(const void* x, int x_bf16, long long x_rows,
   const int early = prologue(h, k, d, x_rows, ld, device, &done);
   if (done) return early;
   cudaError_t err;
-  const bool ring = h % 4 == 0 && h / 4 <= 32 && aligned(x, 16) &&
-                    aligned(out, 16);
   if (x_bf16) {
     // 16-byte words of a row's aligned window, one a lane.
-    const bool words = h % 4 == 0 && 2 * h + 8 <= 16 * 32 && aligned(x, 16) &&
+    const long long window = 2LL * h + (2 * h % 16 ? 8 : 0);
+    const bool words = h % 4 == 0 && window <= 16 * 32 && aligned(x, 16) &&
                        aligned(out, 16);
     const bool vec = h % 4 == 0 && aligned(x, 8) && aligned(out, 16);
-    if (g_variant == 2 && ring) {
-      err = launch_gather_ring<__nv_bfloat16>(x, x_rows, h, nbr, ld, k, d,
-                                              out, s);
-    } else if (g_variant == 1 && vec) {
+    if (g_variant == 1 && vec) {
       err = launch_gather<__nv_bfloat16, 4>(x, x_rows, h, nbr, ld, k, d, out,
                                             s);
+    } else if (words && window <= 16 * 16) {
+      err = launch_gather_bf16<16>(x, x_rows, h, nbr, ld, k, d, out, s);
     } else if (words) {
-      err = launch_gather_bf16(x, x_rows, h, nbr, ld, k, d, out, s);
+      err = launch_gather_bf16<32>(x, x_rows, h, nbr, ld, k, d, out, s);
     } else {
       err = launch_gather<__nv_bfloat16, 1>(x, x_rows, h, nbr, ld, k, d, out,
                                             s);
     }
   } else {
     const bool vec = h % 4 == 0 && aligned(x, 16) && aligned(out, 16);
-    if (g_variant == 2 && ring) {
-      err = launch_gather_ring<float>(x, x_rows, h, nbr, ld, k, d, out, s);
-    } else if (vec) {
-      err = launch_gather<float, 4>(x, x_rows, h, nbr, ld, k, d, out, s);
-    } else {
-      err = launch_gather<float, 1>(x, x_rows, h, nbr, ld, k, d, out, s);
-    }
+    err = vec ? launch_gather<float, 4>(x, x_rows, h, nbr, ld, k, d, out, s)
+              : launch_gather<float, 1>(x, x_rows, h, nbr, ld, k, d, out, s);
   }
   return static_cast<int>(err);
 }

@@ -120,8 +120,8 @@ def _library() -> ctypes.CDLL:
 
 
 def set_gather_variant(variant: int) -> int:
-    """The forward's design on the card (0 the default, 1 registers, 2 the
-    TMA ring, 3 bf16 16-byte words), for measuring them against each
+    """The forward's design for bf16 frames on the card (0 the default,
+    16-byte words; 1 8-byte loads), for measuring them against each
     other; returns the previous one."""
     return _library().dense_gather_variant(variant)
 

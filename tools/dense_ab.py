@@ -34,8 +34,8 @@ import time
 from pathlib import Path
 
 CHANGE = Path(__file__).resolve().parent.parent
-FORWARD_VARIANTS = {"float32": {"registers": 0, "ring": 2},
-                    "bfloat16": {"words": 3, "bytes8": 1, "ring": 2}}
+FORWARD_VARIANTS = {"float32": {"registers": 0},
+                    "bfloat16": {"words": 0, "bytes8": 1}}
 
 
 def make_inputs(root: str, num_nodes: int, device_name: str) -> None:
