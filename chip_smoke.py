@@ -53,7 +53,9 @@
    ``--mode split --cache-per auto`` (replicated cache, device innermost,
    C++ sampler; 8 steps) through ``train_split`` with one steady step
    profiled: the dense kernels 3 times forward and 2 times backward a
-   step, no segment-sum.
+   step, no segment-sum. Split A bf16: the same flags at ``--dtype
+   bfloat16`` (the bench's default), 6 steps, the fifth profiled: finite
+   loss, the same dense launches a step, its kernels beside f32's.
    Split GAT A: the same with ``--model-name gat --num-hidden 32
    --num-heads 4`` (the JAX package's GAT bench widths): split vs single
    GAT logits, the batched attention's times forward and backward beside
@@ -279,6 +281,8 @@ GAT_FLAGS = ["--model-name", "gat", "--num-hidden", "32", "--num-heads", "4"]
 GAT_A_FLAGS = ["--mode", "split", "--cache-per", "auto", "--fan-out",
                "10,10,25", "--profile-dir",
                "chiprun_out/split_gat_a_profile"] + COMMON_FLAGS + GAT_FLAGS
+# Split A at the bench's default storage dtype (bench.py:185): 3 steps,
+# the third profiled.
 # The single-chip GAT and GCN phases run 3 steps each on split B's graph.
 SINGLE_B_FLAGS = TRAIN_FLAGS + ["--limit-train", "3072"]
 # 3 steps of a batch of 1024 (the flags after COMMON_FLAGS win).
@@ -593,6 +597,7 @@ def dense_cases(label, x, nbr, rate, gen, backward=True):
     xb = x.element_size()
     valid = int((nbr != S - 1).sum())
     rows = torch.unique(nbr).numel()
+    last = "zero" if not x[S - 1].any() else "not zero"
     out, again = dense_gather_sum(x, nbr), dense_gather_sum(x, nbr)
     ref = dense_gather_sum_reference(x, nbr)
     torch.cuda.synchronize()
@@ -660,7 +665,8 @@ def dense_cases(label, x, nbr, rate, gen, backward=True):
                  f"(limit {DENSE_BWD_TOL * c['scale']:.3g}), two launches "
                  f"bit-equal")
         print(f"kernel {name} {label}: K={K} D={D} S={S} H={H} x "
-              f"{str(x.dtype)[6:]} valid={valid} x_rows_read={rows} "
+              f"{str(x.dtype)[6:]} (last row {last}) valid={valid} "
+              f"x_rows_read={rows} "
               f"max_abs_err={c['err']:.3g} "
               f"{check} ms={c['ms']:.4f} plain_ms={c['plain_ms']:.4f} "
               f"embedding_bag_ms={lib} bound_ms={bound:.4f} ({by}, "
@@ -2512,6 +2518,27 @@ def short_run(flags: list[str]) -> list[str]:
     return out + ["--limit-train", str(3 * 1024)]
 
 
+def run_split_a_bf16(g, fanouts, metrics_a, device):
+    """Split A's flags at ``--dtype bfloat16`` (bf16 frames and dense
+    layers, the gradient to them summed in f32 and rounded once), 6 steps
+    with the fifth profiled (the CLI profiles the last step of a shorter
+    run, whose window closes before its forward's kernels are recorded):
+    finite loss, the dense kernels as in f32 split A (SPLIT_A_STEP a
+    step), and the profiled step's kernels beside f32 split A's. Returns
+    the launches. The later flags win over SPLIT_A_FLAGS'."""
+    args = graph_args(g.num_nodes, SPLIT_A_FLAGS + [
+        "--dtype", "bfloat16", "--limit-train", str(6 * 1024),
+        "--profile-dir", "chiprun_out/split_a_bf16_profile"])
+    metrics, launches = run_split("split A bf16", args, g, fanouts, device)
+    check_dense_run("split A bf16", metrics, launches, SPLIT_A_STEP)
+    print_profile(metrics["profile"])
+    print(f"  kernels a step: {metrics['profile']['device_kernels']} (bf16), "
+          f"{metrics_a['profile']['device_kernels']} (f32 split A); "
+          f"train_step median {metrics['medians']['train_step']:.2f} ms "
+          f"(f32 {metrics_a['medians']['train_step']:.2f})")
+    return launches
+
+
 def run_sample_lowerings(g, args_a, fanouts, rate, device):
     """Split A's layer 0 under each other ``OCC_DEVICE_SAMPLE`` lowering
     (``randint`` ran in split A): ``check_synthesized_layer`` holds it to
@@ -2999,19 +3026,31 @@ def main(argv=None) -> int:
         cache, _, _, _ = split_vs_single(g, args_a, 1.0, device)
         op_rows = split_op_times(batch, syn, csr, cache.frames,
                                  args_a.num_hidden, rate, device)
-        # The dense kernels at every layer of that batch, and at layer 0
-        # on the frame in bf16 (``--dtype bfloat16``).
-        dense_a = split_dense_cases(
-            "split A", [syn] + [lyr.partition(0) for lyr in batch.layers[1:]],
-            cache.frames[0], args_a.num_hidden, rate, device)
-        dense_a_bf16 = dense_cases(
+        # The dense kernels at every layer of that batch, and the forward
+        # at every layer on frames in bf16 (``--dtype bfloat16``; layers
+        # 1-2 random, their last rows not zero).
+        layers_a = [syn] + [lyr.partition(0) for lyr in batch.layers[1:]]
+        dense_a = split_dense_cases("split A", layers_a, cache.frames[0],
+                                    args_a.num_hidden, rate, device)
+        gen_bf16 = torch.Generator(device).manual_seed(10)
+        dense_a_bf16 = {0: dense_cases(
             "split A layer 0, bf16 frame", cache.frames[0].to(torch.bfloat16),
-            syn.nbr_idx, rate, torch.Generator(device).manual_seed(10),
-            backward=False)[DENSE_FWD]
+            syn.nbr_idx, rate, gen_bf16, backward=False)[DENSE_FWD]}
+        for i, lyr in enumerate(layers_a[1:], 1):
+            x = torch.randn(lyr.src_cap, args_a.num_hidden, generator=gen_bf16,
+                            device=device).to(torch.bfloat16)
+            dense_a_bf16[i] = dense_cases(
+                f"split A layer {i}, bf16 frame", x, lyr.nbr_idx, rate,
+                gen_bf16, backward=False)[DENSE_FWD]
+            del x
         del csr, cache
         metrics_a, launches_a = run_split("split A", args_a, g, fan_a, device)
         check_dense_run("split A", metrics_a, launches_a, SPLIT_A_STEP)
         print_profile(metrics_a["profile"])
+
+    # 8'. Split A at --dtype bfloat16, the bench's default: 6 steps.
+    with phase("split A bf16"):
+        launches_ab = run_split_a_bf16(g, fan_a, metrics_a, device)
 
     # 8a. Split A's lowerings: the other device samplers, then the tiled
     # dense aggregation (3 steps).
@@ -3217,8 +3256,8 @@ def main(argv=None) -> int:
           "timing, its backward through torch.autograd.grad with its "
           "forward in the graph, less the forward):")
     dense_rows = [(f"split A layer {i}", c) for i, c in dense_a.items()]
-    dense_rows += [("split A layer 0, bf16 frame",
-                    {DENSE_FWD: dense_a_bf16})]
+    dense_rows += [(f"split A layer {i}, bf16 frame", {DENSE_FWD: c})
+                   for i, c in dense_a_bf16.items()]
     dense_rows += [(f"split B layer {i}", c) for i, c in dense_b.items()]
     dense_rows += [(f"split P4-B local layer {i}, one partition", c)
                    for i, c in dense_p4.items()]
@@ -3226,7 +3265,8 @@ def main(argv=None) -> int:
         for entry, c in cases.items():
             lib = c["library_ms"]
             print(f"  {entry} at {label}: ms={c['ms']:.4f} bound_ms="
-                  f"{bound(c):.4f} plain_ms={c['plain_ms']:.4f} "
+                  f"{bound(c):.4f} no_reuse_floor_ms={c['floor_ms']:.4f} "
+                  f"plain_ms={c['plain_ms']:.4f} "
                   f"library_ms={'null' if lib is None else f'{lib:.4f}'} "
                   f"max_abs_err={c['err']:.3g}")
     errs = {entry: [] for entry in ENTRIES}
@@ -3237,7 +3277,8 @@ def main(argv=None) -> int:
             errs[entry].append(c["err"])
     errs[MSGS] += [c["err"] for c in gat_cases]
     errs[FUSED].append(split_bf16_case["err"])
-    launches = sum((single_launches, launches_pc, launches_a, launches_dt,
+    launches = sum((single_launches, launches_pc, launches_a, launches_ab,
+                    launches_dt,
                     launches_ga, launches_gv, launches_b, launches_u,
                     launches_sgl, launches_sym, launches_i1, launches_pb,
                     launches_gl, launches_p4, launches_en, launches_nc,

@@ -17,15 +17,15 @@ and its transpose into the backward's scatter. There is no ``pallas_call``
 to port; the port's counterpart of the fusion is one kernel a layer each
 way, on one source, ``csrc/dense_gather_sum.cu``, bound by device-memory
 bytes. The forward sums a dst row in f32 registers, adding the K rows in
-the order of k (padding slots from the zero row held in registers), so it
-equals its plain version bit for bit. The backward is one cooperative
-launch that transposes ``nbr`` into a plan (``dense_scatter_plan`` is its
-plain version: each row's slots in slot order, and each column's padding
-slots) in a workspace the wrapper allocates, then writes every row of
-``dx`` once, summing its slots' gradient rows in slot order; no memset,
-no atomics on rows, the same bits from every launch. The zero row is
-``sum over d of c_d * g[d]``, reduced in a fixed tree over blocks of 32
-columns.
+the order of k, so it equals its plain version bit for bit (a bf16 frame's
+rows read as 16-byte words of their aligned window on large layers). The
+backward is one cooperative launch that transposes ``nbr`` into a plan
+(``dense_scatter_plan`` is its plain version: each row's slots in slot
+order, and each column's padding slots) in a workspace the wrapper
+allocates, then writes every row of ``dx`` once, summing its slots'
+gradient rows in slot order; no memset, no atomics on rows, the same bits
+from every launch. The zero row is ``sum over d of c_d * g[d]``, reduced
+in a tree fixed by D.
 
 The gradient to a bf16 frame is summed in f32 and rounded to bf16 once;
 JAX rounds every partial sum to bf16. The port's is the nearer to the
@@ -58,8 +58,6 @@ ARGTYPES = {
     "dense_scatter_workspace_bytes": [_I, _L, _I, _L],
     # g, nbr, ld, k, d, h, x_rows, dx, workspace, device, stream
     "dense_scatter_add": [_P, _P, _L, _I, _L, _I, _L, _P, _P, _I, _P],
-    # variant
-    "dense_gather_variant": [_I],
 }
 RESTYPES = {"dense_scatter_workspace_bytes": _L}
 
@@ -117,13 +115,6 @@ def _library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = RESTYPES.get(name, ctypes.c_int)
     return lib
-
-
-def set_gather_variant(variant: int) -> int:
-    """The forward's design for bf16 frames on the card (0 the default,
-    16-byte words; 1 8-byte loads), for measuring them against each
-    other; returns the previous one."""
-    return _library().dense_gather_variant(variant)
 
 
 def _on_cuda(what: str, t: torch.Tensor) -> None:

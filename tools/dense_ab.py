@@ -1,10 +1,9 @@
 #!/usr/bin/env python3
 """Time the dense gather-sum kernels of two checkouts on one card, in turns.
 
-    python3 tools/dense_ab.py run [--parent DIR] [--variants]
-        [--kernels-only] [--out DIR]
+    python3 tools/dense_ab.py run --parent DIR [--out DIR]
     python3 tools/dense_ab.py inputs ROOT [--num-nodes N] [--cpu]
-    python3 tools/dense_ab.py cases ROOT --label L [--variants]
+    python3 tools/dense_ab.py cases ROOT --label L
 
 ``inputs`` builds the products-scale graph of ``chip_smoke.py`` (saved
 under ROOT for the CLI) and the main path's dense neighbour matrices:
@@ -13,9 +12,8 @@ the first batch of split B at P = 1 and of split P4-B's partition 0
 (layers 1-2); it writes them to ``ROOT/inputs.pt``. ``cases``, run from
 the root of a checkout, holds that checkout's kernels at every matrix
 through its own ``chip_smoke.dense_cases`` (random frames from a seed:
-f32, and bf16 for the forward), and prints one JSON line of times a case;
-``--variants`` also times each forward design of ``set_gather_variant``
-at every shape, in turns. ``run`` does ``inputs`` once, then in turns
+f32, and bf16 for split A's forward), and prints one JSON line of times
+a case. ``run`` does ``inputs`` once, then in turns
 (parent, change, change, parent) ``cases`` and split A's CLI run
 (``--num-epochs 2 --json --profile-dir``) in each checkout, the change
 being the checkout this script lies in, and prints both sides' numbers.
@@ -34,8 +32,6 @@ import time
 from pathlib import Path
 
 CHANGE = Path(__file__).resolve().parent.parent
-FORWARD_VARIANTS = {"float32": {"registers": 0},
-                    "bfloat16": {"words": 0, "bytes8": 1}}
 
 
 def make_inputs(root: str, num_nodes: int, device_name: str) -> None:
@@ -108,14 +104,13 @@ def make_inputs(root: str, num_nodes: int, device_name: str) -> None:
               f"valid={int((n != s - 1).sum())}", flush=True)
 
 
-def run_cases(root: str, label: str, variants: bool) -> None:
+def run_cases(root: str, label: str) -> None:
     """In the checkout at the working directory: its dense_cases at every
     matrix, one JSON line each."""
     sys.path.insert(0, os.getcwd())
     import torch
 
     import chip_smoke as cs
-    from occ_gnn_tpu_torch.ops import dense_gather_sum as dgs
 
     device = torch.device("cuda")
     cs.build_all()
@@ -141,31 +136,20 @@ def run_cases(root: str, label: str, variants: bool) -> None:
                 row[kernel] = {k: c.get(k) for k in
                                ("ms", "plain_ms", "library_ms", "bytes_ms",
                                 "floor_ms", "err")}
-            if variants:
-                times = {}
-                names = FORWARD_VARIANTS[str(dtype)[6:]]
-                order = list(names.items())
-                for vname, v in order + order[::-1]:
-                    dgs.set_gather_variant(v)
-                    times.setdefault(vname, []).append(cs.median_ms(
-                        lambda: dgs.dense_gather_sum(xd, nbr)))
-                dgs.set_gather_variant(0)
-                row["variants"] = times
             print("AB " + json.dumps(row), flush=True)
         del x
 
 
-def run_all(parent: str, out: str, variants: bool, num_nodes: int,
-            train: bool) -> int:
+def run_all(parent: str, out: str) -> int:
     os.makedirs(out, exist_ok=True)
     root = tempfile.mkdtemp(prefix="dense_ab_")  # the graph: ~1.3 GB
     try:
-        return _turns(parent, out, variants, num_nodes, root, train)
+        return _turns(parent, out, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
 
-def _turns(parent, out, variants, num_nodes, root, train) -> int:
+def _turns(parent, out, root) -> int:
     me = str(Path(__file__).resolve())
     env = dict(os.environ, PYTHONUNBUFFERED="1")
 
@@ -185,28 +169,23 @@ def _turns(parent, out, variants, num_nodes, root, train) -> int:
     import chip_smoke as cs
 
     print(f"card: {cs.card_line()}", flush=True)
-    call([sys.executable, me, "inputs", root, "--num-nodes", str(num_nodes)],
-         str(CHANGE), os.path.join(out, "inputs.log"))
-    turns = ([("change", str(CHANGE))] * 2 if parent is None else
-             [("parent", parent), ("change", str(CHANGE)),
-              ("change", str(CHANGE)), ("parent", parent)])
+    call([sys.executable, me, "inputs", root], str(CHANGE),
+         os.path.join(out, "inputs.log"))
+    turns = [("parent", parent), ("change", str(CHANGE)),
+             ("change", str(CHANGE)), ("parent", parent)]
     for i, (side, cwd) in enumerate(turns):
         tag = f"{side}{i}"
-        text = call([sys.executable, me, "cases", root, "--label", tag]
-                    + (["--variants"] if variants and side == "change"
-                       else []), cwd, os.path.join(out, f"cases_{tag}.log"))
+        text = call([sys.executable, me, "cases", root, "--label", tag], cwd,
+                    os.path.join(out, f"cases_{tag}.log"))
         for line in text.splitlines():
             if line.startswith("AB "):
                 print(line)
-        if parent is None or not train:
-            continue
-        flags = [f for f in cs.SPLIT_A_FLAGS if f != cs.SPLIT_A_FLAGS[
-            cs.SPLIT_A_FLAGS.index("--profile-dir") + 1]]
-        flags.remove("--profile-dir")
+        # The later flags win over SPLIT_A_FLAGS'.
         text = call([sys.executable, "-m", "occ_gnn_tpu_torch.train",
-                     "--graph", "products", "--data-root", root] + flags
-                    + ["--num-epochs", "2", "--json", "--profile-dir",
-                       os.path.join(out, tag)], cwd,
+                     "--graph", "products", "--data-root", root]
+                    + cs.SPLIT_A_FLAGS + ["--num-epochs", "2", "--json",
+                                          "--profile-dir",
+                                          os.path.join(out, tag)], cwd,
                     os.path.join(out, f"train_{tag}.log"))
         metrics = json.loads(text.strip().splitlines()[-1])
         prof = metrics["profile"]
@@ -229,14 +208,9 @@ def main(argv=None) -> int:
     cli = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     sub = cli.add_subparsers(dest="cmd", required=True)
     r = sub.add_parser("run")
-    r.add_argument("--parent", default=None,
-                   help="root of the parent's checkout (none: the change "
-                        "twice, e.g. with --variants)")
+    r.add_argument("--parent", required=True,
+                   help="root of the parent's checkout")
     r.add_argument("--out", default="chiprun_out/ab")
-    r.add_argument("--variants", action="store_true")
-    r.add_argument("--num-nodes", type=int, default=2_450_000)
-    r.add_argument("--kernels-only", action="store_true",
-                   help="no CLI run of split A")
     i = sub.add_parser("inputs")
     i.add_argument("root")
     i.add_argument("--num-nodes", type=int, default=2_450_000)
@@ -244,17 +218,14 @@ def main(argv=None) -> int:
     c = sub.add_parser("cases")
     c.add_argument("root")
     c.add_argument("--label", required=True)
-    c.add_argument("--variants", action="store_true")
     a = cli.parse_args(argv)
     if a.cmd == "inputs":
         make_inputs(a.root, a.num_nodes, "cpu" if a.cpu else "cuda")
         return 0
     if a.cmd == "cases":
-        run_cases(a.root, a.label, a.variants)
+        run_cases(a.root, a.label)
         return 0
-    return run_all(a.parent and os.path.abspath(a.parent),
-                   os.path.abspath(a.out), a.variants, a.num_nodes,
-                   not a.kernels_only)
+    return run_all(os.path.abspath(a.parent), os.path.abspath(a.out))
 
 
 if __name__ == "__main__":
