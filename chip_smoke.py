@@ -3278,11 +3278,10 @@ def main(argv=None) -> int:
     errs[MSGS] += [c["err"] for c in gat_cases]
     errs[FUSED].append(split_bf16_case["err"])
     launches = sum((single_launches, launches_pc, launches_a, launches_ab,
-                    launches_dt,
-                    launches_ga, launches_gv, launches_b, launches_u,
-                    launches_sgl, launches_sym, launches_i1, launches_pb,
-                    launches_gl, launches_p4, launches_en, launches_nc,
-                    launches_bl), Counter())
+                    launches_dt, launches_ga, launches_gv, launches_b,
+                    launches_u, launches_sgl, launches_sym, launches_i1,
+                    launches_pb, launches_gl, launches_p4, launches_en,
+                    launches_nc, launches_bl), Counter())
     # The dense kernels' numbers are one split A step's: the forward at
     # its three layers, the backward at layers 1-2.
     kernels = []

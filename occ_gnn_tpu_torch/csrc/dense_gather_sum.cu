@@ -45,31 +45,33 @@
 //   * Any other width or alignment: one element a lane.
 // Row offsets are 64-bit: row * H passes 2^31 on larger graphs.
 //
-// Backward: one launch of thread-block clusters, no memset, no atomics on
-// rows, no barrier across clusters, and the same bits from every launch.
-// Cluster c of kRowClusters (or more) owns a range of dx's rows and its
-// kCluster blocks a part each; it builds their plan in distributed shared
-// memory with cluster barriers only:
-//   0. its blocks zero their rows' slot counts;
-//   1. it reads every slot: each naming one of its rows takes a place in
-//      that row's list (an integer atomic on the count, in the owning
-//      block's shared memory; kBatch slots a thread in flight), and the
-//      slots naming lower rows are counted;
-//   2. each block scans its counts into offsets in the global lists, past
-//      the lower rows' slots and its cluster's lower blocks';
-//   3. it reads every slot again and writes each of its rows' slots into
-//      the lists;
-//   4. a warp for each kGroup of a block's rows copies their lists into
-//      shared memory, sorts each by slot id (the fill's order is the
-//      atomics'), and sums each row's g rows in slot order in f32
-//      registers, kUnroll loads in flight across row ends, writing each
-//      row once (zeros for a row no slot names).
-// The last cluster sums the zero row, sum over d of c_d * g[d] (c_d the
-// padding slots of column d, those naming S - 1), in a tree fixed by D:
-// each of its warps over a run of columns in order, each block over its
-// warps, block 0 over the blocks. The row sums depend on nbr alone, so
-// two launches give the same bits. g (11.5 MB at split A's layer 1) stays
-// in L2; dx is written with streaming stores; each cluster reads nbr twice.
+// Backward: one cooperative launch, no memset, no atomics on rows, and
+// the same bits from every launch. It transposes nbr into a plan in the
+// caller's workspace and then writes every row of dx once, in phases
+// separated by grid-wide barriers:
+//   0. the per-row slot counts to zero;
+//   1. each slot naming a row s < S - 1 takes a place in s's list (an
+//      integer atomic on s's count, kBatch slots a thread in flight); the
+//      zero row's first level: a warp for kZeroCols columns counts their
+//      padding slots c_d (those naming S - 1) and sums c_d * g[d] in order;
+//   2. the counts are scanned in fixed chunks, each into offsets within
+//      its chunk and a chunk total; the zero row's second level (kZeroFan
+//      partials each, in order); rows no slot names written as zeros;
+//   3. every block scans the chunk totals into shared memory; each slot
+//      is written into its row's list; the zero row's third level;
+//   4. a warp for each kGroup rows copies their lists into shared memory,
+//      sorts each by slot id (the fill's order is the atomics'), and sums
+//      each row's g rows in slot order in f32 registers, kUnroll loads in
+//      flight across row ends, writing each row once; one warp sums the
+//      third-level partials in order into dx[S - 1].
+// The zero row's tree is fixed by D alone, the row sums by nbr alone, so
+// two launches give the same bits. g (11.5 MB at split A's layer 1)
+// stays in L2; dx is written with streaming stores. Each phase is a chain
+// of dependent loads behind a barrier, about 17 us at the smallest layers
+// (PERF.md); from split A's layer 1 up it is faster than atomics. One
+// cluster of blocks a range of rows, building its plan in distributed
+// shared memory with cluster barriers only, was measured slower
+// (PERF.md).
 
 #include <assert.h>
 #include <cooperative_groups.h>
@@ -79,6 +81,7 @@
 
 #include <map>
 #include <mutex>
+#include <utility>
 
 namespace cg = cooperative_groups;
 
@@ -93,19 +96,18 @@ constexpr long long kWordsMinRows = 8192;
 constexpr unsigned kFull = 0xffffffffu;
 // Shared memory a block may take without opting in to more.
 constexpr size_t kSmemBytes = 48 * 1024;
-// The backward: threads a block, blocks a cluster, row clusters at least
-// (with the zero row's, 16 clusters of 8 take 128 of the card's 132
-// multiprocessors), rows a block owns at most, slots a thread takes at a
-// time, rows a warp sums at a time and their slots it sorts in shared
-// memory at once (at most).
-constexpr int kCThreads = 1024;
-constexpr int kCWarps = kCThreads / 32;
-constexpr int kCluster = 8;
-constexpr int kRowClusters = 15;
-constexpr int kBlockRows = 4096;
+// The backward's plan: counts a thread scans (at least), chunk totals a
+// block keeps in shared memory (at most), slots a thread takes at a time;
+// the zero row's tree: kZeroCols columns a first-level partial, kZeroFan
+// partials a partial of each level above; rows a warp sums at a time, and
+// their slots it sorts in shared memory at once (at most).
+constexpr int kScanItems = 8;
+constexpr int kMaxChunks = 8192;
 constexpr int kBatch = 4;
+constexpr int kZeroCols = 8;
+constexpr int kZeroFan = 16;
 constexpr int kGroup = 16;
-constexpr int kSpan = 128;
+constexpr int kSpan = 256;
 
 // Column groups: float4 sums of 4 columns, or one float.
 __device__ __forceinline__ void add(float& acc, float v) { acc += v; }
@@ -350,31 +352,64 @@ gather_sum_bf16(const __nv_bfloat16* __restrict__ x, long long x_rows, int h,
 // ---------------------------------------------------------------- backward
 
 
-// The backward's workspace (int32 arrays of K * D): a slot's place in its
-// row's list; the lists of every row, row by row, by slot id once each is
-// sorted; and the sorted copies of rows too long for shared memory.
-struct Workspace {
-  int* rank;
-  int* list;
-  int* sorted;
+// The backward's plan in the caller's workspace (int32 unless noted).
+struct Plan {
+  int* counts;     // [S - 1] slots naming each row
+  int* local;      // [S - 1] exclusive scan of counts within its chunk
+  int* totals;     // [chunks] each chunk's sum
+  int* rank;       // [K * D] a slot's place in its row's list; then the
+                   // sorted lists of rows of more than kSpan slots
+  int* list;       // [K * D] slot ids by row
+  float* zero[3];  // [nz[i], H] the zero row's partials, level by level
+  int nz[3];
+  int chunk;       // counts a chunk (kThreads * items)
+  int items;       // counts a thread of a chunk
+  int chunks;
+};
+
+struct Layout {
+  Plan plan;
+  size_t bytes;
 };
 
 size_t align16(size_t n) { return (n + 15) / 16 * 16; }
 
-size_t workspace_bytes(long long slots) {
-  return 3 * align16(sizeof(int) * static_cast<size_t>(slots));
+// Where each array of the plan lies in a workspace at `base` (nullptr to
+// size it), for K slots a column, D columns, S rows of h floats.
+Layout layout(int K, long long D, long long S, int h, char* base) {
+  Layout out;
+  Plan& p = out.plan;
+  const long long rows = S - 1;
+  p.items = kScanItems;
+  while (static_cast<long long>(kMaxChunks) * kThreads * p.items < rows) {
+    p.items *= 2;
+  }
+  p.chunk = kThreads * p.items;
+  p.chunks = static_cast<int>((rows + p.chunk - 1) / p.chunk);
+  p.nz[0] = static_cast<int>((D + kZeroCols - 1) / kZeroCols);
+  p.nz[1] = (p.nz[0] + kZeroFan - 1) / kZeroFan;
+  p.nz[2] = (p.nz[1] + kZeroFan - 1) / kZeroFan;
+  const long long slots = static_cast<long long>(K) * D;
+  size_t at = 0;
+  auto take = [&](size_t bytes) {
+    char* ptr = base ? base + at : nullptr;
+    at += align16(bytes);
+    return ptr;
+  };
+  p.counts = reinterpret_cast<int*>(take(sizeof(int) * rows));
+  p.local = reinterpret_cast<int*>(take(sizeof(int) * rows));
+  p.totals = reinterpret_cast<int*>(take(sizeof(int) * p.chunks));
+  p.rank = reinterpret_cast<int*>(take(sizeof(int) * slots));
+  p.list = reinterpret_cast<int*>(take(sizeof(int) * slots));
+  for (int i = 0; i < 3; ++i) {
+    p.zero[i] = reinterpret_cast<float*>(take(sizeof(float) * p.nz[i] * h));
+  }
+  out.bytes = at;
+  return out;
 }
 
-Workspace workspace_at(char* base, long long slots) {
-  const size_t part = align16(sizeof(int) * static_cast<size_t>(slots));
-  return {reinterpret_cast<int*>(base), reinterpret_cast<int*>(base + part),
-          reinterpret_cast<int*>(base + 2 * part)};
-}
-
-// Exclusive scan of one value a thread across a block of WARPS warps;
-// returns the block's total in *total. Uses s_warp[WARPS]; ends
-// synchronised.
-template <int WARPS>
+// Exclusive scan of one value a thread across the block; returns the
+// block's total in *total. Uses s_warp[kWarps]; ends synchronised.
 __device__ __forceinline__ int block_exclusive_scan(int v, int* s_warp,
                                                     int* total) {
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
@@ -387,7 +422,8 @@ __device__ __forceinline__ int block_exclusive_scan(int v, int* s_warp,
   if (lane == 31) s_warp[warp] = incl;
   __syncthreads();
   int before = 0, sum = 0;
-  for (int w = 0; w < WARPS; ++w) {
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
     const int t = s_warp[w];
     if (w < warp) before += t;
     sum += t;
@@ -395,6 +431,36 @@ __device__ __forceinline__ int block_exclusive_scan(int v, int* s_warp,
   __syncthreads();
   *total = sum;
   return before + incl - v;
+}
+
+// One level of the zero row's tree, by warp `j` of `warps`: partial i of
+// `out` is the sum, in order from 0, of the `fan` rows of f32 [*, width]
+// `src` from row i * fan on (of n in all), for column group c.
+template <typename Acc>
+__device__ __forceinline__ void zero_level(const Acc* src, long long n,
+                                           int fan, Acc* out, long long j,
+                                           long long warps, int width) {
+  const int lane = threadIdx.x % 32;
+  for (long long i = j; i * fan < n; i += warps) {
+    const long long first = i * fan;
+    const int m = static_cast<int>(n - first < fan ? n - first : fan);
+    for (int c = lane; c < width; c += 32) {
+      Acc acc;
+      zero(acc);
+      for (int t0 = 0; t0 < m; t0 += kZeroFan) {
+        Acc v[kZeroFan];
+#pragma unroll
+        for (int u = 0; u < kZeroFan; ++u) {
+          if (t0 + u < m) v[u] = src[(first + t0 + u) * width + c];
+        }
+#pragma unroll
+        for (int u = 0; u < kZeroFan; ++u) {
+          if (t0 + u < m) add(acc, v[u]);
+        }
+      }
+      out[i * width + c] = acc;
+    }
+  }
 }
 
 // Metadata of a slot at place t of a span: its output row and whether it
@@ -475,271 +541,223 @@ __device__ __forceinline__ void sum_span(const int* list, int span, int rows,
   stream_span(d_at, meta, span, g, width, out);
 }
 
-// The shared memory of a backward block, after its rows' counts and
-// offsets: each warp's span as filled, each place's g row and metadata,
-// and its rows' starts; the zero row's cluster keeps its warps' partial
-// sums there instead.
-__host__ __device__ __forceinline__ size_t span_words(int width,
-                                                      int acc_words) {
-  const size_t spans = 3 * kCWarps * kSpan + kCWarps * (kGroup + 1);
-  const size_t partials = static_cast<size_t>(kCWarps + 1) * width *
-                          acc_words;
-  return spans > partials ? spans : partials;
-}
-
-// The zero row: cluster warp zw of kCluster * kCWarps sums c_d * g[d]
-// (c_d the padding slots of column d) over columns [zw * per, (zw + 1) *
-// per) in order; each block sums its warps' partials in order; block 0
-// sums the blocks' partials in order into dx[S - 1].
 template <typename Acc>
-__device__ void zero_row_sum(const Acc* __restrict__ g,
-                             const int* __restrict__ nbr, int K, int D,
-                             int zero_row, int width, Acc* s_part,
-                             int* s_pads, Acc* __restrict__ dx) {
-  cg::cluster_group cluster = cg::this_cluster();
+__global__ void __launch_bounds__(kThreads)
+scatter_rows(const Acc* __restrict__ g, const int* __restrict__ nbr, int K,
+             int D, int S, int width, Plan p, Acc* __restrict__ dx) {
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ int s_base[];  // [p.chunks] each chunk's first offset
+  __shared__ int s_warp[kWarps];
+  // Each warp's span of the lists: as filled, then each place's g row and
+  // metadata; and its rows' starts.
+  __shared__ int s_ent[kWarps][kSpan];
+  __shared__ int s_d[kWarps][kSpan];
+  __shared__ int s_meta[kWarps][kSpan];
+  __shared__ int s_row[kWarps][kGroup + 1];
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int block = static_cast<int>(cluster.block_rank());
-  const int warps = kCluster * kCWarps;
-  const int per = (D + warps - 1) / warps;
-  const int first = (block * kCWarps + warp) * per;
-  const int end = first + per < D ? first + per : D;
-  Acc* mine = s_part + warp * width;
-  for (int c = lane; c < width; c += 32) zero(mine[c]);
-  for (int d0 = first; d0 < end; d0 += 32) {
-    const int n = end - d0 < 32 ? end - d0 : 32;
-    int pad = 0;
-    for (int k0 = 0; k0 < K; k0 += 2 * kUnroll) {
-      int v[2 * kUnroll];
-#pragma unroll
-      for (int u = 0; u < 2 * kUnroll; ++u) {
-        v[u] = k0 + u < K && lane < n
-                   ? __ldg(nbr + static_cast<long long>(k0 + u) * D + d0 +
-                           lane)
-                   : 0;
-      }
-#pragma unroll
-      for (int u = 0; u < 2 * kUnroll; ++u) {
-        pad += k0 + u < K && lane < n && v[u] == zero_row;
-      }
-    }
-    int* pads = s_pads + warp * 32;
-    pads[lane] = pad;
-    __syncwarp();
-    for (int c = lane; c < width; c += 32) {
-      Acc acc = mine[c];
-      for (int u0 = 0; u0 < n; u0 += kUnroll) {
-        Acc v[kUnroll];
-        float m[kUnroll];
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-          m[u] = u0 + u < n ? static_cast<float>(pads[u0 + u]) : 0.f;
-          if (m[u] != 0.f) {
-            v[u] = __ldg(g + static_cast<long long>(d0 + u0 + u) * width + c);
-          }
-        }
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u) {
-          if (m[u] != 0.f) add_times(acc, m[u], v[u]);
-        }
-      }
-      mine[c] = acc;
-    }
-    __syncwarp();  // pads is the next columns'
-  }
-  __syncthreads();
-  Acc* block_sum = s_part + kCWarps * width;
-  for (int c = threadIdx.x; c < width; c += kCThreads) {
-    Acc acc;
-    zero(acc);
-    for (int w = 0; w < kCWarps; ++w) add(acc, s_part[w * width + c]);
-    block_sum[c] = acc;
-  }
-  cluster.sync();
-  if (block == 0) {
-    for (int c = threadIdx.x; c < width; c += kCThreads) {
-      Acc acc;
-      zero(acc);
-      for (int b = 0; b < kCluster; ++b) {
-        add(acc, cluster.map_shared_rank(block_sum, b)[c]);
-      }
-      store_streaming(dx + static_cast<long long>(zero_row) * width + c, acc);
-    }
-  }
-  cluster.sync();  // the blocks' sums stay readable until block 0 is done
-}
-
-// The backward. Cluster c < gridDim.x / kCluster - 1 owns rows [c * kCluster
-// * rows_per_block, ...) of dx, block b of it rows_per_block of them; the
-// last cluster computes the zero row. A row cluster, with cluster barriers
-// only: (0) zeroes its blocks' row counts; (1) reads every slot, and each
-// slot naming one of its rows takes a place in that row's list (an
-// integer atomic on the count in the owning block's shared memory), while
-// the slots naming lower rows are counted; (2) scans its counts into
-// offsets in the global lists (the lower rows' slots come first); (3)
-// reads every slot again and writes each of its rows' slots into the
-// lists; (4) a warp for each kGroup of the block's rows sorts their lists
-// by slot id in shared memory and sums each row's g rows in that order,
-// writing every row once (zeros for a row no slot names).
-template <typename Acc>
-__global__ void __cluster_dims__(kCluster, 1, 1)
-    __launch_bounds__(kCThreads, 1)
-    scatter_rows(const Acc* __restrict__ g, const int* __restrict__ nbr,
-                 int K, int D, int S, int width, int rows_per_block,
-                 Workspace w, Acc* __restrict__ dx) {
-  cg::cluster_group cluster = cg::this_cluster();
-  extern __shared__ __align__(16) int smem[];
-  __shared__ int s_warp[kCWarps];
-  __shared__ int s_pads[kCWarps * 32];
-  __shared__ int s_total, s_below, s_base;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int block = static_cast<int>(cluster.block_rank());
-  const int clusters = static_cast<int>(gridDim.x) / kCluster;
-  const int c = static_cast<int>(blockIdx.x) / kCluster;
+  const long long tid = static_cast<long long>(blockIdx.x) * kThreads +
+                        threadIdx.x;
+  const long long threads = static_cast<long long>(gridDim.x) * kThreads;
+  const long long gwarp = tid / 32, warps = threads / 32;
   const int zero_row = S - 1;
-  int* counts = smem;                     // [rows_per_block]
-  int* offs = smem + rows_per_block;      // [rows_per_block]
-  int* spans = smem + 2 * rows_per_block;
-  if (c == clusters - 1) {
-    zero_row_sum(g, nbr, K, D, zero_row, width,
-                 reinterpret_cast<Acc*>(spans), s_pads, dx);
-    return;
-  }
-  const long long r0 = static_cast<long long>(c) * kCluster * rows_per_block;
-  const long long r1_ = r0 + static_cast<long long>(kCluster) *
-                                 rows_per_block;
-  const long long r1 = r1_ < zero_row ? r1_ : zero_row;
-  const long long mine0 = r0 + static_cast<long long>(block) * rows_per_block;
-  const int rows = static_cast<int>(
-      r1 - mine0 < rows_per_block ? (r1 > mine0 ? r1 - mine0 : 0)
-                                  : rows_per_block);
   const long long slots = static_cast<long long>(K) * D;
-  const long long stride = static_cast<long long>(kCluster) * kCThreads;
-  const long long ctid = static_cast<long long>(block) * kCThreads +
-                         threadIdx.x;
 
   // 0. Counts to zero.
-  for (int i = threadIdx.x; i < rows_per_block; i += kCThreads) counts[i] = 0;
-  if (threadIdx.x == 0) s_below = 0;
-  cluster.sync();
+  for (long long s = tid; s < zero_row; s += threads) p.counts[s] = 0;
+  grid.sync();
 
-  // 1. Places in the lists (kBatch slots a thread in flight); the slots
-  // naming rows below r0 counted.
-  int below = 0;
-  for (long long i0 = ctid; i0 < slots; i0 += stride * kBatch) {
+  // 1. Each slot's place in its row's list (kBatch slots a thread at a
+  // time, their loads and atomics in flight together).
+  for (long long i0 = tid; i0 < slots; i0 += threads * kBatch) {
     int r[kBatch], q[kBatch];
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
-      const long long i = i0 + u * stride;
+      const long long i = i0 + u * threads;
       r[u] = i < slots ? __ldg(nbr + i) : zero_row;
     }
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
       assert(r[u] >= 0 && r[u] < S);
-      below += r[u] < r0 && r[u] != zero_row;
-      if (r[u] >= r0 && r[u] < r1) {
-        const int owner = static_cast<int>((r[u] - r0) / rows_per_block);
-        const int at = static_cast<int>(r[u] - r0) - owner * rows_per_block;
-        q[u] = atomicAdd(cluster.map_shared_rank(counts, owner) + at, 1);
-      }
+      if (r[u] != zero_row) q[u] = atomicAdd(p.counts + r[u], 1);
     }
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
-      if (r[u] >= r0 && r[u] < r1) w.rank[i0 + u * stride] = q[u];
+      if (r[u] != zero_row) p.rank[i0 + u * threads] = q[u];
     }
   }
+  // The zero row's first level, from the last warp down (the slots above
+  // start from the first thread): a warp for kZeroCols consecutive columns,
+  // lane j counting column d0 + j's padding slots c_d, then c_d * g[d]
+  // summed over the columns in order.
+  for (long long j = warps - 1 - gwarp; j < p.nz[0]; j += warps) {
+    const long long d0 = j * kZeroCols;
+    const int n = static_cast<int>(D - d0 < kZeroCols ? D - d0 : kZeroCols);
+    int c = 0;
+    for (int k0 = 0; k0 < K; k0 += 2 * kUnroll) {
+      int v[2 * kUnroll];
 #pragma unroll
-  for (int o = 16; o > 0; o /= 2) below += __shfl_down_sync(kFull, below, o);
-  if (lane == 0) atomicAdd(&s_below, below);
-  cluster.sync();
+      for (int u = 0; u < 2 * kUnroll; ++u) {
+        v[u] = k0 + u < K && lane < n ? __ldg(nbr + (k0 + u) * D + d0 + lane)
+                                      : 0;
+      }
+#pragma unroll
+      for (int u = 0; u < 2 * kUnroll; ++u) {
+        c += k0 + u < K && lane < n && v[u] == zero_row;
+      }
+    }
+    float m[kZeroCols];
+#pragma unroll
+    for (int u = 0; u < kZeroCols; ++u) {
+      m[u] = static_cast<float>(__shfl_sync(kFull, c, u));
+    }
+    Acc* out = reinterpret_cast<Acc*>(p.zero[0]) + j * width;
+    for (int col = lane; col < width; col += 32) {
+      Acc v[kZeroCols], acc;
+      zero(acc);
+#pragma unroll
+      for (int u = 0; u < kZeroCols; ++u) {
+        if (u < n && m[u] != 0.f) v[u] = __ldg(g + (d0 + u) * width + col);
+      }
+#pragma unroll
+      for (int u = 0; u < kZeroCols; ++u) {
+        if (u < n && m[u] != 0.f) add_times(acc, m[u], v[u]);
+      }
+      out[col] = acc;
+    }
+  }
+  grid.sync();
 
-  // 2. Offsets: each block scans its counts; its base is the slots of
-  // the rows below r0 and of the cluster's lower blocks.
+  // 2. Chunk scans of the counts (the first blocks); the zero row's second
+  // level and the rows no slot names written as zeros (the warps of the
+  // other blocks, or of all when there are no others).
+  const long long scanning =
+      kWarps * static_cast<long long>(p.chunks < gridDim.x ? p.chunks
+                                                             : gridDim.x);
+  const long long helper = warps > scanning ? gwarp - scanning : gwarp;
+  const long long helpers = warps > scanning ? warps - scanning : warps;
+  for (int c = blockIdx.x; c < p.chunks; c += gridDim.x) {
+    const long long first =
+        static_cast<long long>(c) * p.chunk +
+        static_cast<long long>(threadIdx.x) * p.items;
+    int sum = 0;
+    for (int i0 = 0; i0 < p.items; i0 += kScanItems) {
+      int v[kScanItems];
+#pragma unroll
+      for (int u = 0; u < kScanItems; ++u) {
+        v[u] = first + i0 + u < zero_row ? p.counts[first + i0 + u] : 0;
+      }
+#pragma unroll
+      for (int u = 0; u < kScanItems; ++u) sum += v[u];
+    }
+    int total;
+    int run = block_exclusive_scan(sum, s_warp, &total);
+    for (int i0 = 0; i0 < p.items; i0 += kScanItems) {
+      int v[kScanItems];
+#pragma unroll
+      for (int u = 0; u < kScanItems; ++u) {
+        v[u] = first + i0 + u < zero_row ? p.counts[first + i0 + u] : 0;
+      }
+#pragma unroll
+      for (int u = 0; u < kScanItems; ++u) {
+        if (first + i0 + u < zero_row) p.local[first + i0 + u] = run;
+        run += v[u];
+      }
+    }
+    if (threadIdx.x == 0) p.totals[c] = total;
+  }
+  if (helper >= 0) {
+    zero_level(reinterpret_cast<const Acc*>(p.zero[0]), p.nz[0], kZeroFan,
+               reinterpret_cast<Acc*>(p.zero[1]), helper, helpers, width);
+    Acc z;
+    zero(z);
+    for (long long s0 = helper * 32; s0 < zero_row; s0 += helpers * 32) {
+      const long long mine = s0 + lane;
+      unsigned empty =
+          __ballot_sync(kFull, mine < zero_row && p.counts[mine] == 0);
+      while (empty) {
+        const int b = __ffs(empty) - 1;
+        empty &= empty - 1;
+        Acc* o = dx + (s0 + b) * width;
+        for (int c = lane; c < width; c += 32) store_streaming(o + c, z);
+      }
+    }
+  }
+  grid.sync();
+
+  // 3. Chunk bases (every block); the zero row's third level; the lists.
   {
-    const int per = (rows_per_block + kCThreads - 1) / kCThreads;
+    const int per = (p.chunks + kThreads - 1) / kThreads;
     const int first = threadIdx.x * per;
     int sum = 0;
     for (int i = 0; i < per; ++i) {
-      if (first + i < rows) sum += counts[first + i];
+      if (first + i < p.chunks) sum += p.totals[first + i];
     }
     int total;
-    int run = block_exclusive_scan<kCWarps>(sum, s_warp, &total);
-    if (threadIdx.x == 0) s_total = total;
-    cluster.sync();
-    if (threadIdx.x == 0) {
-      int base = 0;
-      for (int b = 0; b < kCluster; ++b) {
-        base += *cluster.map_shared_rank(&s_below, b);
-        if (b < block) base += *cluster.map_shared_rank(&s_total, b);
+    int run = block_exclusive_scan(sum, s_warp, &total);
+    for (int i = 0; i < per; ++i) {
+      if (first + i < p.chunks) {
+        s_base[first + i] = run;
+        run += p.totals[first + i];
       }
-      s_base = base;
     }
     __syncthreads();
-    run += s_base;
-    for (int i = 0; i < per; ++i) {
-      if (first + i < rows) {
-        offs[first + i] = run;
-        run += counts[first + i];
-      }
-    }
   }
-  cluster.sync();
-
-  // 3. The lists.
-  for (long long i0 = ctid; i0 < slots; i0 += stride * kBatch) {
+  zero_level(reinterpret_cast<const Acc*>(p.zero[1]), p.nz[1], kZeroFan,
+             reinterpret_cast<Acc*>(p.zero[2]), warps - 1 - gwarp, warps,
+             width);
+  for (long long i0 = tid; i0 < slots; i0 += threads * kBatch) {
     int r[kBatch], at[kBatch];
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
-      const long long i = i0 + u * stride;
+      const long long i = i0 + u * threads;
       r[u] = i < slots ? __ldg(nbr + i) : zero_row;
     }
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
-      if (r[u] >= r0 && r[u] < r1) {
-        const int owner = static_cast<int>((r[u] - r0) / rows_per_block);
-        const int lr = static_cast<int>(r[u] - r0) - owner * rows_per_block;
-        at[u] = *(cluster.map_shared_rank(offs, owner) + lr) +
-                w.rank[i0 + u * stride];
+      if (r[u] != zero_row) {
+        at[u] = p.local[r[u]] + p.rank[i0 + u * threads];
       }
     }
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
-      if (r[u] >= r0 && r[u] < r1) {
-        w.list[at[u]] = static_cast<int>(i0 + u * stride);
+      if (r[u] != zero_row) {
+        p.list[at[u] + s_base[r[u] / p.chunk]] =
+            static_cast<int>(i0 + u * threads);
       }
     }
   }
-  cluster.sync();  // the lists written; no block reads another's memory now
+  grid.sync();
 
-  // 4. The block's rows, kGroup a warp at a time.
-  int* ent = spans + warp * kSpan;
-  int* d_at = spans + (kCWarps + warp) * kSpan;
-  int* meta = spans + (2 * kCWarps + warp) * kSpan;
-  int* row_at = spans + 3 * kCWarps * kSpan + warp * (kGroup + 1);
-  Acc z;
-  zero(z);
-  for (int g0 = warp * kGroup; g0 < rows; g0 += kCWarps * kGroup) {
-    const int i = g0 + lane;
-    const bool real = lane < kGroup && i < rows;
-    const int n = real ? counts[i] : 0;
-    const int start = real ? offs[i] : 0;
-    const int in_group = rows - g0 < kGroup ? rows - g0 : kGroup;
-    const int first = __shfl_sync(kFull, start, 0);
-    const int span = __shfl_sync(kFull, start + n, in_group - 1) - first;
-    Acc* out = dx + (mine0 + g0) * width;
-    unsigned empty = __ballot_sync(kFull, real && n == 0);
-    while (empty) {
-      const int b = __ffs(empty) - 1;
-      empty &= empty - 1;
-      for (int col = lane; col < width; col += 32) {
-        store_streaming(out + b * width + col, z);
-      }
+  // 4. The zero row: the last level, by the last warp. Every other row: a
+  // warp takes kGroup rows at a time, lane i < kGroup reading row s0 + i's
+  // count and offset; their slots lie in one span of the lists, which the
+  // warp sorts row by row in shared memory and then streams (empty rows,
+  // written in phase 2, have no slot in it).
+  if (gwarp == warps - 1) {
+    const Acc* src = reinterpret_cast<const Acc*>(p.zero[2]);
+    for (int c = lane; c < width; c += 32) {
+      Acc acc;
+      zero(acc);
+      for (int t = 0; t < p.nz[2]; ++t) add(acc, src[t * width + c]);
+      store_streaming(dx + static_cast<long long>(zero_row) * width + c, acc);
     }
+  }
+  for (long long s0 = gwarp * kGroup; s0 < zero_row;
+       s0 += warps * kGroup) {
+    const long long mine = s0 + lane;
+    const bool real = lane < kGroup && mine < zero_row;
+    const int n = real ? p.counts[mine] : 0;
+    const int start = real ? p.local[mine] + s_base[mine / p.chunk] : 0;
+    const int rows = static_cast<int>(
+        zero_row - s0 < kGroup ? zero_row - s0 : kGroup);
+    const int first = __shfl_sync(kFull, start, 0);
+    const int span = __shfl_sync(kFull, start + n, rows - 1) - first;
     if (span <= kSpan) {
       // Row i's slots at [row_at[i], row_at[i + 1]) of the span.
-      if (lane < kGroup) row_at[lane] = real ? start - first : span;
-      if (lane == 0) row_at[kGroup] = span;
-      sum_span(w.list + first, span, kGroup, row_at, ent, d_at, meta, g, D,
-               width, out);
+      if (lane < kGroup) s_row[warp][lane] = real ? start - first : span;
+      if (lane == 0) s_row[warp][kGroup] = span;
+      sum_span(p.list + first, span, kGroup, s_row[warp], s_ent[warp],
+               s_d[warp], s_meta[warp], g, D, width, dx + s0 * width);
       continue;
     }
     // A span too long for shared memory: row by row.
@@ -749,33 +767,35 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
       left &= left - 1;
       const int rn = __shfl_sync(kFull, n, b);
       const int roff = __shfl_sync(kFull, start, b);
+      Acc* out = dx + (s0 + b) * width;
       if (rn <= kSpan) {
         if (lane == 0) {
-          row_at[0] = 0;
-          row_at[1] = rn;
+          s_row[warp][0] = 0;
+          s_row[warp][1] = rn;
         }
-        sum_span(w.list + roff, rn, 1, row_at, ent, d_at, meta, g, D, width,
-                 out + b * width);
+        sum_span(p.list + roff, rn, 1, s_row[warp], s_ent[warp], s_d[warp],
+                 s_meta[warp], g, D, width, out);
         continue;
       }
       // Longer than shared memory: each slot's rank by a count over the
-      // row, into the row's span of the sorted copies, then summed.
-      for (int q = lane; q < rn; q += 32) {
-        const int slot = w.list[roff + q];
+      // row, into the rank array's span of the row (free since the fill),
+      // then summed from there.
+      for (int i = lane; i < rn; i += 32) {
+        const int slot = p.list[roff + i];
         int r = 0;
-        for (int j = 0; j < rn; ++j) r += w.list[roff + j] < slot;
-        w.sorted[roff + r] = slot;
+        for (int j = 0; j < rn; ++j) r += p.list[roff + j] < slot;
+        p.rank[roff + r] = slot;
       }
       __syncwarp();
-      const int* sorted = w.sorted + roff;
-      for (int col = lane; col < width; col += 32) {
+      const int* sorted = p.rank + roff;
+      for (int c = lane; c < width; c += 32) {
         Acc acc =
-            __ldg(g + static_cast<long long>(sorted[0] % D) * width + col);
+            __ldg(g + static_cast<long long>(sorted[0] % D) * width + c);
         for (int t = 1; t < rn; ++t) {
           add(acc, __ldg(g + static_cast<long long>(sorted[t] % D) * width +
-                         col));
+                         c));
         }
-        store_streaming(out + b * width + col, acc);
+        store_streaming(out + c, acc);
       }
       __syncwarp();
     }
@@ -837,61 +857,71 @@ cudaError_t launch_gather_bf16(const void* x, long long x_rows, int h,
   return cudaGetLastError();
 }
 
-// The backward's grid: kRowClusters clusters of rows at least (more when
-// a block would own more than kBlockRows rows), and the zero row's.
-struct ScatterGrid {
-  int clusters, rows_per_block;
-};
-
-ScatterGrid scatter_grid(long long x_rows) {
-  const long long rows = x_rows - 1;
-  const long long per_cluster = static_cast<long long>(kCluster) *
-                                kBlockRows;
-  long long row_clusters = (rows + per_cluster - 1) / per_cluster;
-  if (row_clusters < kRowClusters) row_clusters = kRowClusters;
-  const long long per = (rows + row_clusters - 1) / row_clusters;
-  // A multiple of 4, so that what follows the counts and offsets in shared
-  // memory is 16-byte aligned.
-  const long long per_block = (per + kCluster - 1) / kCluster;
-  return {static_cast<int>(row_clusters + 1),
-          static_cast<int>((per_block + 3) / 4 * 4)};
-}
-
-// Raises (never lowers) the dynamic shared memory scatter_rows<Acc> may
-// take on `device` to `smem`, once for each size.
+// The cooperative grid of scatter_rows<Acc> with `smem` bytes of dynamic
+// shared memory: as many blocks as fit on the card at once, and no more
+// than the work asks for. The card's answer is kept for each device and
+// size, so a launch queries nothing; the kernel's dynamic shared memory
+// limit is raised (never lowered) to the largest size asked for.
 template <typename Acc>
-cudaError_t allow_smem(int device, size_t smem) {
+cudaError_t scatter_grid(int device, size_t smem, long long work,
+                         int* blocks) {
   static std::mutex mu;
-  static std::map<int, size_t> limit;
+  static std::map<std::pair<int, size_t>, long long> most_blocks;
+  static std::map<int, size_t> smem_limit;
   std::lock_guard<std::mutex> lock(mu);
-  if (smem <= limit[device]) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      scatter_rows<Acc>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err == cudaSuccess) limit[device] = smem;
-  return err;
+  auto it = most_blocks.find({device, smem});
+  if (it == most_blocks.end()) {
+    auto kernel = scatter_rows<Acc>;
+    cudaError_t err;
+    if (smem > smem_limit[device]) {
+      err = cudaFuncSetAttribute(kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(smem));
+      if (err != cudaSuccess) return err;
+      smem_limit[device] = smem;
+    }
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+    if (err != cudaSuccess) return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kThreads, smem);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    it = most_blocks.emplace(std::make_pair(device, smem),
+                             static_cast<long long>(per_sm) * sms).first;
+  }
+  const long long need = (work + kThreads - 1) / kThreads;
+  *blocks = static_cast<int>(need < it->second ? (need < 1 ? 1 : need)
+                                               : it->second);
+  return cudaSuccess;
 }
 
 template <int VEC>
-cudaError_t launch_scatter(const void* g, const void* nbr, int K,
-                           long long D, int h, long long x_rows, void* dx,
-                           void* workspace, int device, cudaStream_t stream) {
+cudaError_t launch_scatter(const void* g, const void* nbr, long long ld,
+                           int K, long long D, int h, long long x_rows,
+                           void* dx, void* workspace, int device,
+                           cudaStream_t stream) {
   using Acc = typename Rows<float, VEC>::Acc;
-  const int width = h / VEC;
-  const ScatterGrid grid = scatter_grid(x_rows);
-  const size_t smem =
-      sizeof(int) * (2 * static_cast<size_t>(grid.rows_per_block) +
-                     span_words(width, sizeof(Acc) / sizeof(int)));
-  const cudaError_t err = allow_smem<Acc>(device, smem);
+  int width = h / VEC;
+  Plan plan = layout(K, D, x_rows, h, static_cast<char*>(workspace)).plan;
+  const size_t smem = sizeof(int) * plan.chunks;
+  const long long slots = static_cast<long long>(K) * D;
+  // Every phase strides over its work: kBatch slots a thread, or kGroup
+  // rows a warp.
+  const long long rows = x_rows * 32 / kGroup;
+  const long long work = slots / kBatch > rows ? slots / kBatch : rows;
+  int blocks = 0;
+  cudaError_t err = scatter_grid<Acc>(device, smem, work, &blocks);
   if (err != cudaSuccess) return err;
-  scatter_rows<Acc><<<grid.clusters * kCluster, kCThreads, smem, stream>>>(
-      static_cast<const Acc*>(g), static_cast<const int*>(nbr), K,
-      static_cast<int>(D), static_cast<int>(x_rows), width,
-      grid.rows_per_block,
-      workspace_at(static_cast<char*>(workspace),
-                   static_cast<long long>(K) * D),
-      static_cast<Acc*>(dx));
-  return cudaGetLastError();
+  const Acc* g_ = static_cast<const Acc*>(g);
+  const int* nbr_ = static_cast<const int*>(nbr);
+  int K_ = K, D_ = static_cast<int>(D), S_ = static_cast<int>(x_rows);
+  Acc* dx_ = static_cast<Acc*>(dx);
+  void* args[] = {&g_, &nbr_, &K_, &D_, &S_, &width, &plan, &dx_};
+  return cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(scatter_rows<Acc>), blocks, kThreads,
+      args, smem, stream);
 }
 
 // What both entries check before a launch: the device, the shapes, and
@@ -956,10 +986,7 @@ extern "C" int dense_gather_sum(const void* x, int x_bf16, long long x_rows,
 // Bytes of workspace dense_scatter_add takes for these shapes.
 extern "C" long long dense_scatter_workspace_bytes(int k, long long d, int h,
                                                    long long x_rows) {
-  (void)h;
-  (void)x_rows;
-  return static_cast<long long>(
-      workspace_bytes(static_cast<long long>(k) * d));
+  return static_cast<long long>(layout(k, d, x_rows, h, nullptr).bytes);
 }
 
 // dx[s] = sum of g[d] over the slots (k, d) naming s, in slot order; g f32
@@ -980,10 +1007,10 @@ extern "C" int dense_scatter_add(const void* g, const void* nbr, long long ld,
   }
   const bool vec = h % 4 == 0 && aligned(g, 16) && aligned(dx, 16);
   const cudaError_t err =
-      vec ? launch_scatter<4>(g, nbr, k, d, h, x_rows, dx, workspace, device,
-                              s)
-          : launch_scatter<1>(g, nbr, k, d, h, x_rows, dx, workspace, device,
-                              s);
+      vec ? launch_scatter<4>(g, nbr, ld, k, d, h, x_rows, dx, workspace,
+                              device, s)
+          : launch_scatter<1>(g, nbr, ld, k, d, h, x_rows, dx, workspace,
+                              device, s);
   return static_cast<int>(err);
 }
 

@@ -10,10 +10,10 @@ and its index work must be is held here against the plain versions of
 - the backward's summation order: each row's slots sorted by slot id
   (whatever order the fill left them in) and summed in f32 in that order,
   and the zero row as ``sum over d of c_d * g[d]`` through a fixed tree
-  (256 warps over runs of columns, 8 blocks over 32 warps, one over the
-  8 blocks), each level summed in order: within 1e-5 of the plain
-  scatter-add (another order of the same f32 adds) and bit-equal to itself
-  under a shuffled fill;
+  (8 columns, then two levels of 16 partials, then all that are left),
+  each level summed in order: within 1e-5 of the plain scatter-add
+  (another order of the same f32 adds) and bit-equal to itself under a
+  shuffled fill;
 - the bf16 forward's 16-byte words: the aligned window around each row,
   realigned by one shuffle, gives each lane its 8 columns, and never
   reads past the frame for a row other than the zero row; the zero row
@@ -29,8 +29,7 @@ from occ_gnn_tpu_torch.ops import dense_gather_sum as dgs
 from test_torch_dense_gather import CASES, _case
 
 OP_TOL = 1e-5
-# The zero row's cluster in the source: kCluster blocks of kCWarps warps.
-ZERO_BLOCKS, ZERO_WARPS = 8, 32
+ZERO_COLS, ZERO_FAN = 8, 16  # kZeroCols and kZeroFan in the source
 SLOT_CASES = [c for c in CASES if c[2] > 0]
 
 
@@ -85,11 +84,10 @@ def _model_backward(g, nbr, S, fill=None):
     """The backward kernel in numpy. ``fill`` is the order in which the
     fill placed the slots in their rows' lists (the atomics' order; slot
     order by default); each list is sorted by slot id before it is summed
-    in f32, from its first row on. The zero row: each of 256 warps sums
-    ``f32(c_d) * g[d]`` (one rounding each, then the add) over its run of
-    ceil(D / 256) columns in order from 0; each of 8 blocks sums its 32
-    warps' sums in order from 0; the 8 blocks' sums are added in order
-    from 0."""
+    in f32, from its first row on. The zero row: 8-column blocks of
+    ``f32(c_d) * g[d]`` (one rounding each, then the add), summed in
+    order from 0; blocks of 16 of those, twice; then all that are left,
+    in order."""
     K, D = nbr.shape
     H = g.shape[1]
     flat = nbr.reshape(-1)
@@ -107,22 +105,20 @@ def _model_backward(g, nbr, S, fill=None):
             dx[s] = acc
     pad = (nbr == S - 1).sum(axis=0)
 
-    warps = ZERO_BLOCKS * ZERO_WARPS
-    per = -(-D // warps)
-    warp_sums = []
-    for w in range(warps):
-        acc = np.zeros(H, np.float32)
-        for d in range(w * per, min((w + 1) * per, D)):
-            if pad[d]:
-                acc = acc + np.float32(pad[d]) * g[d]
-        warp_sums.append(acc)
-    top = np.zeros(H, np.float32)
-    for b in range(ZERO_BLOCKS):
-        block = np.zeros(H, np.float32)
-        for w in range(b * ZERO_WARPS, (b + 1) * ZERO_WARPS):
-            block = block + warp_sums[w]
-        top = top + block
-    dx[S - 1] = top
+    def level(parts, fan, mult=None):
+        out = []
+        for j0 in range(0, len(parts), fan):
+            acc = np.zeros(H, np.float32)
+            for j in range(j0, min(j0 + fan, len(parts))):
+                if mult is None:
+                    acc = acc + parts[j]
+                elif mult[j]:
+                    acc = acc + np.float32(mult[j]) * parts[j]
+            out.append(acc)
+        return out
+
+    third = level(level(level(list(g), ZERO_COLS, pad), ZERO_FAN), ZERO_FAN)
+    dx[S - 1] = level(third, max(len(third), 1))[0]
     return dx
 
 
