@@ -281,8 +281,6 @@ GAT_FLAGS = ["--model-name", "gat", "--num-hidden", "32", "--num-heads", "4"]
 GAT_A_FLAGS = ["--mode", "split", "--cache-per", "auto", "--fan-out",
                "10,10,25", "--profile-dir",
                "chiprun_out/split_gat_a_profile"] + COMMON_FLAGS + GAT_FLAGS
-# Split A at the bench's default storage dtype (bench.py:185): 3 steps,
-# the third profiled.
 # The single-chip GAT and GCN phases run 3 steps each on split B's graph.
 SINGLE_B_FLAGS = TRAIN_FLAGS + ["--limit-train", "3072"]
 # 3 steps of a batch of 1024 (the flags after COMMON_FLAGS win).
@@ -691,6 +689,33 @@ def split_dense_cases(label, layers, x0, hidden, rate, device):
         out[i] = dense_cases(f"{label} layer {i}", x, lyr.nbr_idx, rate, gen,
                              backward=i > 0)
     return out
+
+
+def hot_row_cases(lyr, hidden, rate, device):
+    """``dense_cases`` at one layer's shape on matrices with the rows that
+    the backward's short path cannot take: row 7 named by 5,000 slots and
+    row 9 by 257 (more than the kernel's 256 a sort in shared memory), and
+    rows 1000-1015, a group of 16, by 20 each (more than 256 in the group);
+    the other slots random, 40 % of them padding, all in random places.
+    Then a frame of 500 rows for the same slots: every row past 256, more
+    rows than the grid has blocks."""
+    gen = torch.Generator(device).manual_seed(12)
+    K, D = lyr.nbr_idx.shape
+    S = lyr.src_cap
+    nbr = torch.randint(0, S - 1, (K, D), generator=gen, device=device,
+                        dtype=torch.int32)
+    pad = torch.rand(K, D, generator=gen, device=device) < 0.4
+    nbr[pad] = S - 1
+    hot = torch.cat([torch.full((5000,), 7), torch.full((257,), 9),
+                     torch.arange(1000, 1016).repeat_interleave(20)])
+    at = torch.randperm(K * D, generator=gen, device=device)[:hot.numel()]
+    nbr.view(-1)[at] = hot.to(device=device, dtype=torch.int32)
+    x = torch.randn(S, hidden, generator=gen, device=device)
+    dense_cases("split A layer 1, hot rows", x, nbr, rate, gen)
+    nbr = torch.randint(0, 500, (K, D), generator=gen, device=device,
+                        dtype=torch.int32)
+    x = torch.randn(500, hidden, generator=gen, device=device)
+    dense_cases("split A layer 1's slots, 500 rows", x, nbr, rate, gen)
 
 
 def ragged_cases(device):
@@ -3026,9 +3051,10 @@ def main(argv=None) -> int:
         cache, _, _, _ = split_vs_single(g, args_a, 1.0, device)
         op_rows = split_op_times(batch, syn, csr, cache.frames,
                                  args_a.num_hidden, rate, device)
-        # The dense kernels at every layer of that batch, and the forward
-        # at every layer on frames in bf16 (``--dtype bfloat16``; layers
-        # 1-2 random, their last rows not zero).
+        # The dense kernels at every layer of that batch, the forward at
+        # every layer on frames in bf16 (``--dtype bfloat16``; layers 1-2
+        # random, their last rows not zero), and both at layer 1's shape
+        # with hot rows.
         layers_a = [syn] + [lyr.partition(0) for lyr in batch.layers[1:]]
         dense_a = split_dense_cases("split A", layers_a, cache.frames[0],
                                     args_a.num_hidden, rate, device)
@@ -3043,6 +3069,7 @@ def main(argv=None) -> int:
                 f"split A layer {i}, bf16 frame", x, lyr.nbr_idx, rate,
                 gen_bf16, backward=False)[DENSE_FWD]
             del x
+        hot_row_cases(layers_a[1], args_a.num_hidden, rate, device)
         del csr, cache
         metrics_a, launches_a = run_split("split A", args_a, g, fan_a, device)
         check_dense_run("split A", metrics_a, launches_a, SPLIT_A_STEP)

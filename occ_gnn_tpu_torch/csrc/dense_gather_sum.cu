@@ -34,9 +34,10 @@
 // measured slower (tools/dense_ab.py).
 //   * f32 rows (H % 4 == 0, 16-byte aligned): one float4 a lane, kUnroll
 //     rows in flight a lane, teams of H / 4 lanes packed into the block.
-//   * bf16 rows, H % 4 == 0, D >= kWordsMinRows: a row's 16-byte-aligned
-//     window (208 B at H = 100: from 200 r, or from 200 r - 8 for odd r;
-//     only every other row starts on 16 bytes) as one 16-byte word a lane,
+//   * bf16 rows, H % 4 == 0, a window of at most 256 B, D >=
+//     kWordsMinRows: a row's 16-byte-aligned window (208 B at H = 100:
+//     from 200 r, or from 200 r - 8 for odd r; only every other row
+//     starts on 16 bytes) as one 16-byte word a lane,
 //     an odd row realigned with one shuffle, so that lane j sums columns
 //     8 j .. 8 j + 7: 13 loads a row where 8-byte loads take 25, and teams
 //     of 16 lanes, two dst rows a warp. The window of an even row runs 8
@@ -62,7 +63,10 @@
 //   4. a warp for each kGroup rows copies their lists into shared memory,
 //      sorts each by slot id (the fill's order is the atomics'), and sums
 //      each row's g rows in slot order in f32 registers, kUnroll loads in
-//      flight across row ends, writing each row once; one warp sums the
+//      flight across row ends, writing each row once (a group of more than
+//      kSpan slots row by row); a row of more than kSpan slots (listed in
+//      phase 2) by a block, merge-sorted in global memory and summed in
+//      kWarps contiguous parts, added in order; one warp sums the
 //      third-level partials in order into dx[S - 1].
 // The zero row's tree is fixed by D alone, the row sums by nbr alone, so
 // two launches give the same bits. g (11.5 MB at split A's layer 1)
@@ -268,25 +272,25 @@ __device__ __forceinline__ void set8(float (&acc)[8], const uint4& w) {
   acc[7] = e.y;
 }
 
-// bf16 rows of H % 4 == 0 and 2 H + 8 <= 512 bytes, x 16-byte aligned: a
-// team of `lanes` lanes (16 when a row's window is at most 256 bytes, so
-// that a warp takes two dst rows; else 32) for each dst row, lane j
-// summing columns 8 j .. 8 j + 7 (lanes of 8 j >= H idle). Row r's bytes
+// bf16 rows of H % 4 == 0 whose aligned window is at most 256 bytes, x
+// 16-byte aligned: a team of kLanes lanes for each dst row, two a warp,
+// lane j summing columns 8 j .. 8 j + 7 (lanes of 8 j >= H idle). Row r's bytes
 // start at 2 H r; lane j loads the 16-byte word j of the aligned window at
 // 2 H r - off (off = 2 H r mod 16, 0 or 8), and for off == 8 takes its
 // upper half and the next lane's lower half. The zero row is read in
 // 8-byte halves (its window could pass the end of x).
-template <int LANES>
+constexpr int kLanes = 16;
+
 __global__ void __launch_bounds__(kThreads)
 gather_sum_bf16(const __nv_bfloat16* __restrict__ x, long long x_rows, int h,
                 const int* __restrict__ nbr, long long ld, int K, long long D,
                 float* __restrict__ out) {
-  constexpr int kTeams = kThreads / LANES;
+  constexpr int kTeams = kThreads / kLanes;
   extern __shared__ int s_nbr[];
   const long long d0 = static_cast<long long>(blockIdx.x) * kTeams;
   stage_indices(nbr, ld, K, D, x_rows, kTeams, d0, s_nbr);
   __syncthreads();
-  const int team = threadIdx.x / LANES, lane = threadIdx.x % LANES;
+  const int team = threadIdx.x / kLanes, lane = threadIdx.x % kLanes;
   const long long d = d0 + team;
   // Both teams of a warp stay to the end: the shuffles take every lane.
   const bool real = d < D;
@@ -320,8 +324,8 @@ gather_sum_bf16(const __nv_bfloat16* __restrict__ x, long long x_rows, int h,
   };
   // The 16 bytes of row r that lane j sums, from every lane's word w.
   auto realign = [&](int r, const uint4& w) {
-    const uint32_t nx = __shfl_down_sync(kFull, w.x, 1, LANES);
-    const uint32_t ny = __shfl_down_sync(kFull, w.y, 1, LANES);
+    const uint32_t nx = __shfl_down_sync(kFull, w.x, 1, kLanes);
+    const uint32_t ny = __shfl_down_sync(kFull, w.y, 1, kLanes);
     const bool shift = r != zero_row && (r * row_bytes) & 15;
     return shift ? make_uint4(w.z, w.w, nx, ny) : w;
   };
@@ -358,8 +362,12 @@ struct Plan {
   int* local;      // [S - 1] exclusive scan of counts within its chunk
   int* totals;     // [chunks] each chunk's sum
   int* rank;       // [K * D] a slot's place in its row's list; then the
-                   // sorted lists of rows of more than kSpan slots
+                   // merge sort's second buffer for rows of more than
+                   // kSpan slots
   int* list;       // [K * D] slot ids by row
+  int* longs;      // [K * D / (kSpan + 1) + 1] the rows of more than kSpan
+                   // slots, in any order
+  int* n_long;     // [1] their number
   float* zero[3];  // [nz[i], H] the zero row's partials, level by level
   int nz[3];
   int chunk;       // counts a chunk (kThreads * items)
@@ -401,6 +409,9 @@ Layout layout(int K, long long D, long long S, int h, char* base) {
   p.totals = reinterpret_cast<int*>(take(sizeof(int) * p.chunks));
   p.rank = reinterpret_cast<int*>(take(sizeof(int) * slots));
   p.list = reinterpret_cast<int*>(take(sizeof(int) * slots));
+  p.longs =
+      reinterpret_cast<int*>(take(sizeof(int) * (slots / (kSpan + 1) + 1)));
+  p.n_long = reinterpret_cast<int*>(take(sizeof(int)));
   for (int i = 0; i < 3; ++i) {
     p.zero[i] = reinterpret_cast<float*>(take(sizeof(float) * p.nz[i] * h));
   }
@@ -541,6 +552,94 @@ __device__ __forceinline__ void sum_span(const int* list, int span, int rows,
   stream_span(d_at, meta, span, g, width, out);
 }
 
+// A row of n > kSpan slots by the whole block: its list at a (in the
+// fill's order), b a second buffer as long. Runs of kSpan are sorted in
+// shared memory (a slot's place is its rank among its run's; warp w
+// takes runs w, w + kWarps, ...) from a into b, then merged pairwise
+// between b and a, a slot's place in the merged run its place in its own
+// plus the count of the other run's slots below it (a binary search):
+// O(n log^2 n) loads, spread over the block. Then warp w sums places
+// [w n / kWarps, (w + 1) n / kWarps) of the sorted list in f32 from its
+// first, and the kWarps partials are added in order into out. `part`
+// holds kWarps * 32 column groups in shared memory.
+template <typename Acc>
+__device__ __forceinline__ void sum_long_row(int* a, int* b, int n,
+                                             const Acc* __restrict__ g,
+                                             int D, int width, Acc* out,
+                                             int (*ent)[kSpan], Acc* part) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  for (int r0 = warp * kSpan; r0 < n; r0 += kWarps * kSpan) {
+    const int m = n - r0 < kSpan ? n - r0 : kSpan;
+    int* e = ent[warp];
+    for (int q = lane; q < m; q += 32) e[q] = a[r0 + q];
+    __syncwarp();
+    for (int q = lane; q < m; q += 32) {
+      const int slot = e[q];
+      int r = 0;
+      for (int j = 0; j < m; ++j) r += e[j] < slot;
+      b[r0 + r] = slot;
+    }
+    __syncwarp();
+  }
+  __syncthreads();
+  int* src = b;
+  int* dst = a;
+  for (int w = kSpan; w < n; w *= 2) {
+    for (int i = threadIdx.x; i < n; i += kThreads) {
+      const int run = i / w;
+      const int mine = run * w, other = (run ^ 1) * w;
+      const int slot = src[i];
+      // The other run's slots below this one: lo of them.
+      const int end = other + w < n ? other + w : n;
+      int lo = 0, hi = other < n ? end - other : 0;
+      while (lo < hi) {
+        const int mid = (lo + hi) / 2;
+        if (src[other + mid] < slot) {
+          lo = mid + 1;
+        } else {
+          hi = mid;
+        }
+      }
+      dst[(mine < other ? mine : other) + (i - mine) + lo] = slot;
+    }
+    __syncthreads();
+    int* t = src;
+    src = dst;
+    dst = t;
+  }
+  const int t0 = static_cast<int>(static_cast<long long>(warp) * n / kWarps);
+  const int t1 =
+      static_cast<int>(static_cast<long long>(warp + 1) * n / kWarps);
+  for (int c0 = 0; c0 < width; c0 += 32) {
+    const int c = c0 + lane;
+    if (c < width) {
+      Acc acc = __ldg(g + static_cast<long long>(src[t0] % D) * width + c);
+      for (int t = t0 + 1; t < t1; t += kUnroll) {
+        Acc v[kUnroll];
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          if (t + u < t1) {
+            v[u] = __ldg(g + static_cast<long long>(src[t + u] % D) * width +
+                         c);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          if (t + u < t1) add(acc, v[u]);
+        }
+      }
+      part[warp * 32 + lane] = acc;
+    }
+    __syncthreads();
+    if (warp == 0 && c < width) {
+      Acc acc = part[lane];
+      for (int w = 1; w < kWarps; ++w) add(acc, part[w * 32 + lane]);
+      store_streaming(out + c, acc);
+    }
+    __syncthreads();
+  }
+}
+
 template <typename Acc>
 __global__ void __launch_bounds__(kThreads)
 scatter_rows(const Acc* __restrict__ g, const int* __restrict__ nbr, int K,
@@ -551,7 +650,7 @@ scatter_rows(const Acc* __restrict__ g, const int* __restrict__ nbr, int K,
   // Each warp's span of the lists: as filled, then each place's g row and
   // metadata; and its rows' starts.
   __shared__ int s_ent[kWarps][kSpan];
-  __shared__ int s_d[kWarps][kSpan];
+  __shared__ __align__(16) int s_d[kWarps][kSpan];
   __shared__ int s_meta[kWarps][kSpan];
   __shared__ int s_row[kWarps][kGroup + 1];
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
@@ -564,6 +663,7 @@ scatter_rows(const Acc* __restrict__ g, const int* __restrict__ nbr, int K,
 
   // 0. Counts to zero.
   for (long long s = tid; s < zero_row; s += threads) p.counts[s] = 0;
+  if (tid == 0) *p.n_long = 0;
   grid.sync();
 
   // 1. Each slot's place in its row's list (kBatch slots a thread at a
@@ -627,7 +727,8 @@ scatter_rows(const Acc* __restrict__ g, const int* __restrict__ nbr, int K,
   }
   grid.sync();
 
-  // 2. Chunk scans of the counts (the first blocks); the zero row's second
+  // 2. Chunk scans of the counts (the first blocks), which also list the
+  // rows of more than kSpan slots; the zero row's second
   // level and the rows no slot names written as zeros (the warps of the
   // other blocks, or of all when there are no others).
   const long long scanning =
@@ -660,6 +761,9 @@ scatter_rows(const Acc* __restrict__ g, const int* __restrict__ nbr, int K,
 #pragma unroll
       for (int u = 0; u < kScanItems; ++u) {
         if (first + i0 + u < zero_row) p.local[first + i0 + u] = run;
+        if (v[u] > kSpan) {
+          p.longs[atomicAdd(p.n_long, 1)] = static_cast<int>(first + i0 + u);
+        }
         run += v[u];
       }
     }
@@ -728,11 +832,20 @@ scatter_rows(const Acc* __restrict__ g, const int* __restrict__ nbr, int K,
   }
   grid.sync();
 
-  // 4. The zero row: the last level, by the last warp. Every other row: a
-  // warp takes kGroup rows at a time, lane i < kGroup reading row s0 + i's
-  // count and offset; their slots lie in one span of the lists, which the
-  // warp sorts row by row in shared memory and then streams (empty rows,
-  // written in phase 2, have no slot in it).
+  // 4. Rows of more than kSpan slots: a block each. The zero row: the last
+  // level, by the last warp. Every other row: a warp takes kGroup rows at
+  // a time, lane i < kGroup reading row s0 + i's count and offset; their
+  // slots lie in one span of the lists, which the warp sorts row by row in
+  // shared memory and then streams (empty rows, written in phase 2, have
+  // no slot in it).
+  const int n_long = *p.n_long;
+  for (int i = blockIdx.x; i < n_long; i += gridDim.x) {
+    const int s = p.longs[i];
+    const int at = p.local[s] + s_base[s / p.chunk];
+    sum_long_row(p.list + at, p.rank + at, p.counts[s], g, D, width,
+                 dx + static_cast<long long>(s) * width, s_ent,
+                 reinterpret_cast<Acc*>(&s_d[0][0]));
+  }
   if (gwarp == warps - 1) {
     const Acc* src = reinterpret_cast<const Acc*>(p.zero[2]);
     for (int c = lane; c < width; c += 32) {
@@ -767,37 +880,13 @@ scatter_rows(const Acc* __restrict__ g, const int* __restrict__ nbr, int K,
       left &= left - 1;
       const int rn = __shfl_sync(kFull, n, b);
       const int roff = __shfl_sync(kFull, start, b);
-      Acc* out = dx + (s0 + b) * width;
-      if (rn <= kSpan) {
-        if (lane == 0) {
-          s_row[warp][0] = 0;
-          s_row[warp][1] = rn;
-        }
-        sum_span(p.list + roff, rn, 1, s_row[warp], s_ent[warp], s_d[warp],
-                 s_meta[warp], g, D, width, out);
-        continue;
+      if (rn > kSpan) continue;  // a block's, above
+      if (lane == 0) {
+        s_row[warp][0] = 0;
+        s_row[warp][1] = rn;
       }
-      // Longer than shared memory: each slot's rank by a count over the
-      // row, into the rank array's span of the row (free since the fill),
-      // then summed from there.
-      for (int i = lane; i < rn; i += 32) {
-        const int slot = p.list[roff + i];
-        int r = 0;
-        for (int j = 0; j < rn; ++j) r += p.list[roff + j] < slot;
-        p.rank[roff + r] = slot;
-      }
-      __syncwarp();
-      const int* sorted = p.rank + roff;
-      for (int c = lane; c < width; c += 32) {
-        Acc acc =
-            __ldg(g + static_cast<long long>(sorted[0] % D) * width + c);
-        for (int t = 1; t < rn; ++t) {
-          add(acc, __ldg(g + static_cast<long long>(sorted[t] % D) * width +
-                         c));
-        }
-        store_streaming(out + c, acc);
-      }
-      __syncwarp();
+      sum_span(p.list + roff, rn, 1, s_row[warp], s_ent[warp], s_d[warp],
+               s_meta[warp], g, D, width, dx + (s0 + b) * width);
     }
   }
 }
@@ -842,16 +931,15 @@ cudaError_t launch_gather(const void* x, long long x_rows, int h,
   return cudaGetLastError();
 }
 
-template <int LANES>
 cudaError_t launch_gather_bf16(const void* x, long long x_rows, int h,
                                const void* nbr, long long ld, int K,
                                long long D, void* out, cudaStream_t stream) {
-  constexpr int kTeams = kThreads / LANES;
+  constexpr int kTeams = kThreads / kLanes;
   const size_t smem = sizeof(int) * K * kTeams;
   if (smem > kSmemBytes) return cudaErrorInvalidValue;
   const long long blocks = (D + kTeams - 1) / kTeams;
-  gather_sum_bf16<LANES><<<static_cast<unsigned>(blocks), kThreads, smem,
-                           stream>>>(
+  gather_sum_bf16<<<static_cast<unsigned>(blocks), kThreads, smem,
+                    stream>>>(
       static_cast<const __nv_bfloat16*>(x), x_rows, h,
       static_cast<const int*>(nbr), ld, K, D, static_cast<float*>(out));
   return cudaGetLastError();
@@ -961,13 +1049,11 @@ extern "C" int dense_gather_sum(const void* x, int x_bf16, long long x_rows,
   if (x_bf16) {
     // 16-byte words of a row's aligned window, one a lane.
     const long long window = 2LL * h + (2 * h % 16 ? 8 : 0);
-    const bool words = h % 4 == 0 && window <= 16 * 32 && aligned(x, 16) &&
-                       aligned(out, 16);
+    const bool words = h % 4 == 0 && window <= 16 * kLanes &&
+                       aligned(x, 16) && aligned(out, 16);
     const bool vec = h % 4 == 0 && aligned(x, 8) && aligned(out, 16);
     if (words && d >= kWordsMinRows) {
-      err = window <= 16 * 16
-                ? launch_gather_bf16<16>(x, x_rows, h, nbr, ld, k, d, out, s)
-                : launch_gather_bf16<32>(x, x_rows, h, nbr, ld, k, d, out, s);
+      err = launch_gather_bf16(x, x_rows, h, nbr, ld, k, d, out, s);
     } else if (vec) {
       err = launch_gather<__nv_bfloat16, 4>(x, x_rows, h, nbr, ld, k, d, out,
                                             s);

@@ -23,8 +23,9 @@ backward is one cooperative launch that transposes ``nbr`` into a plan
 (``dense_scatter_plan`` is its plain version: each row's slots in slot
 order, and each column's padding slots) in a workspace the wrapper
 allocates, then writes every row of ``dx`` once, summing its slots'
-gradient rows in slot order; no memset, no atomics on rows, the same bits
-from every launch. The zero row is ``sum over d of c_d * g[d]``, reduced
+gradient rows in slot order (a row of more than 256 slots in 8
+contiguous parts, added in order); no memset, no atomics on rows, the
+same bits from every launch. The zero row is ``sum over d of c_d * g[d]``, reduced
 in a tree fixed by D.
 
 The gradient to a bf16 frame is summed in f32 and rounded to bf16 once;

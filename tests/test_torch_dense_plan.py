@@ -8,7 +8,8 @@ and its index work must be is held here against the plain versions of
   column's padding slots) against a numpy transpose of ``nbr``, on the
   shapes of ``CASES`` and on a row named by 200 slots;
 - the backward's summation order: each row's slots sorted by slot id
-  (whatever order the fill left them in) and summed in f32 in that order,
+  (whatever order the fill left them in) and summed in f32 in that order
+  (a row of more than 256 slots in 8 contiguous parts, added in order),
   and the zero row as ``sum over d of c_d * g[d]`` through a fixed tree
   (8 columns, then two levels of 16 partials, then all that are left),
   each level summed in order: within 1e-5 of the plain scatter-add
@@ -30,16 +31,17 @@ from test_torch_dense_gather import CASES, _case
 
 OP_TOL = 1e-5
 ZERO_COLS, ZERO_FAN = 8, 16  # kZeroCols and kZeroFan in the source
+SPAN, WARPS = 256, 8  # kSpan and kWarps in the source
 SLOT_CASES = [c for c in CASES if c[2] > 0]
 
 
-def _hot_row_case():
-    """A frame of 500 rows whose row 7 is named by 200 slots, among
+def _hot_row_case(n=200, K=10, D=60):
+    """A frame of 500 rows whose row 7 is named by ``n`` slots, among
     padding and other rows."""
-    S, K, D, H = 500, 10, 60, 16
+    S, H = 500, 16
     x, nbr = _case(S, K, D, H, seed=11)
     flat = nbr.reshape(-1)
-    flat[np.random.default_rng(12).choice(K * D, 200, replace=False)] = 7
+    flat[np.random.default_rng(12).choice(K * D, n, replace=False)] = 7
     return S, x, flat.reshape(K, D)
 
 
@@ -84,7 +86,9 @@ def _model_backward(g, nbr, S, fill=None):
     """The backward kernel in numpy. ``fill`` is the order in which the
     fill placed the slots in their rows' lists (the atomics' order; slot
     order by default); each list is sorted by slot id before it is summed
-    in f32, from its first row on. The zero row: 8-column blocks of
+    in f32, from its first row on; a list of more than SPAN slots in WARPS
+    contiguous parts (part w from place w n // WARPS), each summed so,
+    the parts then added in order. The zero row: 8-column blocks of
     ``f32(c_d) * g[d]`` (one rounding each, then the add), summed in
     order from 0; blocks of 16 of those, twice; then all that are left,
     in order."""
@@ -96,13 +100,21 @@ def _model_backward(g, nbr, S, fill=None):
         if flat[i] != S - 1:
             lists[flat[i]].append(i)
     dx = np.zeros((S, H), np.float32)
+    def run(slots):
+        acc = g[slots[0] % D].copy()
+        for i in slots[1:]:
+            acc = acc + g[i % D]
+        return acc
+
     for s, slots in enumerate(lists):
-        slots = sorted(slots)
-        if slots:
-            acc = g[slots[0] % D].copy()
-            for i in slots[1:]:
-                acc = acc + g[i % D]
+        slots, n = sorted(slots), len(slots)
+        if n > SPAN:
+            acc = run(slots[:n // WARPS])
+            for w in range(1, WARPS):
+                acc = acc + run(slots[w * n // WARPS:(w + 1) * n // WARPS])
             dx[s] = acc
+        elif slots:
+            dx[s] = run(slots)
     pad = (nbr == S - 1).sum(axis=0)
 
     def level(parts, fan, mult=None):
@@ -154,6 +166,22 @@ def test_slot_order_model_on_a_hot_row():
     np.testing.assert_array_equal(_model_backward(g, nbr, S, fill), model)
 
 
+@pytest.mark.parametrize("n", [257, 700])
+def test_slot_order_model_on_a_row_past_the_span(n):
+    """A row of more than SPAN slots, summed in parts: within OP_TOL of the
+    plain scatter-add, and bit-equal under a shuffled fill."""
+    S, _, nbr = _hot_row_case(n, K=20, D=80)
+    K, D = nbr.shape
+    g = np.random.default_rng(18).standard_normal((D, 16)).astype(np.float32)
+    model = _model_backward(g, nbr, S)
+    plain = dgs.dense_scatter_add_reference(
+        torch.from_numpy(g), torch.from_numpy(nbr), S).numpy()
+    np.testing.assert_allclose(model, plain, rtol=OP_TOL,
+                               atol=OP_TOL * float(np.abs(plain).max()))
+    fill = np.random.default_rng(19).permutation(K * D)
+    np.testing.assert_array_equal(_model_backward(g, nbr, S, fill), model)
+
+
 def _bf16_bytes(S, H, seed):
     x = np.random.default_rng(seed).standard_normal((S, H)).astype(np.float32)
     t = torch.from_numpy(x).to(torch.bfloat16)
@@ -186,10 +214,11 @@ def _lane_columns(buf, r, S, H):
     return cols[:H].numpy()
 
 
-@pytest.mark.parametrize("H", [4, 12, 100, 128, 252])
+@pytest.mark.parametrize("H", [4, 12, 100, 124, 128, 252])
 def test_bf16_words_realign_each_lane_to_its_columns(H):
     """Each lane's 8 columns must be the row's, for every row, and no
-    window may pass the frame's end."""
+    window may pass the frame's end. The kernel takes windows of up to
+    256 bytes (H = 124 the widest), the model up to 512."""
     S = 9
     buf, rows = _bf16_bytes(S, H, seed=H)
     for r in range(S):

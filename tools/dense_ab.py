@@ -2,7 +2,7 @@
 """Time the dense gather-sum kernels of two checkouts on one card, in turns.
 
     python3 tools/dense_ab.py run --parent DIR [--out DIR]
-    python3 tools/dense_ab.py inputs ROOT [--num-nodes N] [--cpu]
+    python3 tools/dense_ab.py inputs ROOT
     python3 tools/dense_ab.py cases ROOT --label L
 
 ``inputs`` builds the products-scale graph of ``chip_smoke.py`` (saved
@@ -34,7 +34,7 @@ from pathlib import Path
 CHANGE = Path(__file__).resolve().parent.parent
 
 
-def make_inputs(root: str, num_nodes: int, device_name: str) -> None:
+def make_inputs(root: str) -> None:
     sys.path.insert(0, os.getcwd())
     import numpy as np
     import torch
@@ -49,7 +49,8 @@ def make_inputs(root: str, num_nodes: int, device_name: str) -> None:
         plan_split_capacities,
     )
 
-    device = torch.device(device_name)
+    device = torch.device("cuda")
+    num_nodes = 2_450_000
     args = cs.graph_args(num_nodes, cs.SPLIT_A_FLAGS)
     t0 = time.perf_counter()
     g = random_graph(num_nodes, cs.AVG_DEGREE, cs.FEATURE_DIM,
@@ -213,14 +214,12 @@ def main(argv=None) -> int:
     r.add_argument("--out", default="chiprun_out/ab")
     i = sub.add_parser("inputs")
     i.add_argument("root")
-    i.add_argument("--num-nodes", type=int, default=2_450_000)
-    i.add_argument("--cpu", action="store_true")
     c = sub.add_parser("cases")
     c.add_argument("root")
     c.add_argument("--label", required=True)
     a = cli.parse_args(argv)
     if a.cmd == "inputs":
-        make_inputs(a.root, a.num_nodes, "cpu" if a.cpu else "cuda")
+        make_inputs(a.root)
         return 0
     if a.cmd == "cases":
         run_cases(a.root, a.label)
