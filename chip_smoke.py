@@ -59,7 +59,16 @@
    Split GAT A: the same with ``--model-name gat --num-hidden 32
    --num-heads 4`` (the JAX package's GAT bench widths): split vs single
    GAT logits, the batched attention's times forward and backward beside
-   their byte bounds, 8 steps with one profiled, no kernel launch.
+   their byte bounds; the attention's kernels (``gat_attention_fwd``,
+   ``gat_attention_bwd`` and the scatter's per-slot mode
+   ``dense_scatter_slots``) against their plain versions at each layer of
+   the first batch (layer 0 on the frame in bf16 too) and on ragged cases
+   (columns no slot names, K = 1, H = 100, 128, 200, Dh = 47, 2 to 5
+   heads, bf16 frames, a 5,000-slot row): forward within 1e-5 of scale,
+   gradients within 1e-4 of max |.| (two bf16 rounding steps on a bf16
+   frame), two launches bit-equal, timed beside the byte bound and the
+   plain version; 8 steps with one profiled: 3 forward, 3 backward and 2
+   per-slot launches a step.
    The lowerings of ``ops/config.py`` on the same graph: layer 0 under
    ``OCC_DEVICE_SAMPLE=bitsf32``, ``bitsf32_dk`` and ``window`` (the
    doubled CSR) held to the sampling contract and timed; the layer-0
@@ -68,7 +77,8 @@
    under ``OCC_GAT_ATTENTION=online`` and ``tiled``, ``OCC_GAT_AGG=fma``
    and ``OCC_GAT_REMAT=dots`` (logits and weight gradients within 1e-4
    of scale of the batched form's, the attention timed each way), then
-   3 steps of each, ``train_step`` and peak beside batched's.
+   3 steps of each, ``train_step`` and peak beside batched's (remat dots
+   runs the kernels, the forward once more a layer in the backward).
 9. Split B, 200,000 nodes (depth cut for time, every width kept):
    ``--cache-per 0.25 --innermost host --fan-out 10,10,-1 --save-dir``,
    the refreshing cache with a COO layer 0. Checks the split-vs-single
@@ -94,7 +104,8 @@
    machine with more), its exchange a copy in device memory with no
    collective. Checks 2 exchanges forward and 2 backward a step per
    partition, and that one raw sample's P = 2 logits of each local
-   partition, the loss and the gradients equal P = 1's on the card.
+   partition, the loss and the gradients equal P = 1's on the card (SAGE
+   at the P forward's ReLU masks, its own masks reported beside them).
 11. Split P2-B: split B's flags at ``--partitions 2 --partition-mode
    metis``, 3 steps: the cache tails refresh per partition, layer 0 is
    COO through the kernel (one launch per partition a step) and shuffles
@@ -113,7 +124,9 @@
    launches a step (and 8 of each dense kernel), the exchange's device
    time a call, both kernel entries at its layer 0 and the dense kernels
    at its layers 1-2 against their plain versions. Split GAT P4-B
-   local (3 steps, 4 launches of the messages' entry a step). Infer P4
+   local (3 steps, 4 launches of the messages' entry and 8 of each
+   attention kernel a step; the attention kernels at partition 0's
+   layers 1-2 against their plain versions). Infer P4
    local of that checkpoint against infer P1 of it (99.9 % of the
    predictions). Then ``occ_gnn_tpu_torch.entry``: ``entry()``'s forward
    on the card and ``dryrun_multichip(4)`` (three finite losses). On a
@@ -139,11 +152,14 @@
    and at least 99.9 % of its predictions.
 13. Prints the kernels' times at every main-path shape, the card again,
    one JSON line of kernel numbers (one object each for the segment-sum's
-   two entries and the two dense kernels), and last ``{"ok": true,
-   "device": {...}}``. Every phase's run checks the launches of each
-   kernel its path calls: a split SAGE or GCN step launches the dense
-   kernels once a dense layer forward and once a dense layer past layer 0
-   backward, per partition (``SPLIT_A_STEP``, ``SPLIT_B_STEP``), an
+   two entries, the two dense kernels and the attention's three), and
+   last ``{"ok": true, "device": {...}}``. Every phase's run checks the
+   launches of each kernel its path calls: a split SAGE or GCN step
+   launches the dense kernels once a dense layer forward and once a dense
+   layer past layer 0 backward, per partition (``SPLIT_A_STEP``,
+   ``SPLIT_B_STEP``), a split GAT step the attention's forward and
+   backward once a dense layer and the per-slot scatter once a dense
+   layer past layer 0 (``SPLIT_GAT_A_STEP``, ``GAT_B_STEP``), an
    inference batch once a dense layer (``INFER_BATCH``).
 
 Any failed check raises, so the script exits non-zero and prints no result.
@@ -191,6 +207,7 @@ from occ_gnn_tpu_torch.data import (
 )
 from occ_gnn_tpu_torch import models as models_pkg
 from occ_gnn_tpu_torch.models import GCNModel, get_model
+from occ_gnn_tpu_torch.models.gat import NEGATIVE_SLOPE
 from occ_gnn_tpu_torch.ops import config as ops_config
 from occ_gnn_tpu_torch.ops.build import (
     KERNELS,
@@ -203,6 +220,16 @@ from occ_gnn_tpu_torch.ops.dense_gather_sum import (
     dense_gather_sum_reference,
     dense_scatter_add,
     dense_scatter_add_reference,
+    dense_scatter_slots,
+    dense_scatter_slots_reference,
+)
+from occ_gnn_tpu_torch.ops import gat_attention as gat_ops
+from occ_gnn_tpu_torch.ops.gat_attention import (
+    gat_attention,
+    gat_attention_backward_reference,
+    gat_attention_bwd,
+    gat_attention_fwd,
+    gat_attention_reference,
 )
 from occ_gnn_tpu_torch.ops.segment_sum_sorted import (
     TILE_EDGES,
@@ -220,6 +247,7 @@ from occ_gnn_tpu_torch.parallel.model import (
     SplitSAGE,
     checkpoint_dots,
     dense_attention,
+    global_update,
     make_device_csr,
     make_split_forward,
     make_split_train_step,
@@ -304,8 +332,14 @@ DRAW_CHECKS = 10_000
 # kernels, each with its own launch count.
 MSGS, FUSED = "segment_sum_sorted", "gather_segment_sum"
 DENSE_FWD, DENSE_BWD = "dense_gather_sum", "dense_scatter_add"
+# GAT's dense attention: its two kernels and the scatter's per-slot mode
+# that sums their dx rows.
+GAT_FWD, GAT_BWD, SLOTS = ("gat_attention_fwd", "gat_attention_bwd",
+                           "dense_scatter_slots")
 ENTRIES = {MSGS: segment_sum_sorted, FUSED: gather_segment_sum,
-           DENSE_FWD: dense_gather_sum, DENSE_BWD: dense_scatter_add}
+           DENSE_FWD: dense_gather_sum, DENSE_BWD: dense_scatter_add,
+           GAT_FWD: gat_attention_fwd, GAT_BWD: gat_attention_bwd,
+           SLOTS: dense_scatter_slots}
 # Sorted segment-sum launches a step: one a layer. Single SAGE and GCN
 # (either norm) sum the rows of their frame through the fused gather; GAT
 # (single, and split on its COO layer 0) sums the softmax denominators and
@@ -316,11 +350,15 @@ SINGLE_ENTRY = {"sage": FUSED, "gcn": FUSED, "gat": MSGS, "gcn sym": FUSED}
 # per partition). Every dense layer (a finite fan-out) runs the dense
 # gather-sum once forward and its scatter-add once backward, but layer 0,
 # whose frame takes no gradient; a COO layer 0 (fan-out -1) runs the fused
-# entry (SAGE) or the messages' entry (GAT, whose dense layers run its
-# attention, no kernel).
+# entry (SAGE) or the messages' entry (GAT). GAT's dense layers run its
+# attention kernels once each way, and the per-slot scatter once a layer
+# past layer 0 backward; under OCC_GAT_REMAT=dots the backward runs the
+# attention's forward once more a layer (the recomputation).
 SPLIT_A_STEP = {DENSE_FWD: 3, DENSE_BWD: 2}
 SPLIT_B_STEP = {FUSED: 1, DENSE_FWD: 2, DENSE_BWD: 2}
-GAT_B_STEP = {MSGS: 1}
+SPLIT_GAT_A_STEP = {GAT_FWD: 3, GAT_BWD: 3, SLOTS: 2}
+GAT_B_STEP = {MSGS: 1, GAT_FWD: 2, GAT_BWD: 2, SLOTS: 2}
+GAT_REMAT_STEP = {GAT_FWD: 6, GAT_BWD: 3, SLOTS: 2}
 INFER_BATCH = {FUSED: 1, DENSE_FWD: 2}
 # The processes of infer's P > 1 phase and of the NCCL phases.
 RANKS = 2
@@ -342,6 +380,20 @@ DENSE_BWD_TOL = 1e-4
 # Logits: the same sums followed by three layers of f32 matmuls; the
 # limit is 1e-4 of the logits' scale (at least 1).
 LOGITS_TOL = 1e-4
+# GAT's attention kernels against their plain version: the forward's (m,
+# s, v) within 1e-5 of each one's scale (at least 1: exps, products and
+# sums of up to K leaves in another order), every gradient within 1e-4 of
+# its max |.| (sums over every slot of a layer, in another order).
+GAT_FWD_TOL = 1e-5
+GAT_GRAD_TOL = 1e-4
+# On a bf16 frame the weights pw that multiply a leaf, the gradient term
+# dagg . leaf and the summed dwl are rounded to bf16 (as the plain
+# version's casts round them); the kernel's f32 values differ from the
+# plain version's in the last bits (other summation orders), and a value
+# next to a rounding boundary lands on the neighbouring bf16 number, 2^-8
+# of it away. v and every gradient are held within two such steps of
+# their max |.|; m and s, which no rounding touches, to GAT_FWD_TOL.
+GAT_BF16_TOL = 2.0**-7
 TIMED_RUNS = 30
 GRAPH_REPS = 10
 # Peak device-memory rate by card (NVIDIA data sheets), bytes/s.
@@ -359,14 +411,22 @@ KERNEL_SOURCE = {
     FUSED: "occ_gnn_tpu_torch/csrc/segment_sum_sorted.cu",
     DENSE_FWD: "occ_gnn_tpu_torch/csrc/dense_gather_sum.cu",
     DENSE_BWD: "occ_gnn_tpu_torch/csrc/dense_gather_sum.cu",
+    GAT_FWD: "occ_gnn_tpu_torch/csrc/gat_attention.cu",
+    GAT_BWD: "occ_gnn_tpu_torch/csrc/gat_attention.cu",
+    SLOTS: "occ_gnn_tpu_torch/csrc/dense_gather_sum.cu",
 }
 DENSE_REPLACES = ("occ_gnn_tpu/parallel/split.py:161-197 (XLA fusion, no "
                   "pallas_call)")
+GAT_REPLACES = ("occ_gnn_tpu/parallel/model.py:294-363 (XLA, no "
+                "pallas_call)")
 KERNEL_REPLACES = {
     MSGS: "occ_gnn_tpu/ops/pallas_spmm_blocked.py:190",
     FUSED: "occ_gnn_tpu/ops/pallas_spmm_blocked.py:190 and :213",
     DENSE_FWD: DENSE_REPLACES,
     DENSE_BWD: DENSE_REPLACES,
+    GAT_FWD: GAT_REPLACES,
+    GAT_BWD: GAT_REPLACES,
+    SLOTS: GAT_REPLACES,
 }
 
 
@@ -584,8 +644,9 @@ def dense_cases(label, x, nbr, rate, gen, backward=True):
     max |dx| of its plain version (whose ``index_add_`` sums in another
     order) and bit-equal over two launches. Each is timed in the
     CUDA-graph harness (``median_ms``; the plain versions, 2K and K
-    launches, one call a graph) beside ``embedding_bag`` (f32 frames: the
-    same sums, its ``[D, K]`` index transposed ahead of the timing; its
+    launches, one call a graph) beside ``embedding_bag`` (the same sums,
+    its ``[D, K]`` index transposed ahead of the timing; on a bf16 frame
+    it adds in f32 and returns the sums rounded to bf16; its f32
     backward through ``torch.autograd.grad``, timed with its forward in
     one graph, less the forward's time), the byte bound (each distinct row
     read once) and the no-reuse floor (each valid slot's row read once).
@@ -610,7 +671,7 @@ def dense_cases(label, x, nbr, rate, gen, backward=True):
     if not torch.equal(out, again):
         raise AssertionError(f"{label}: two launches of {DENSE_FWD} differ")
     f32 = x.dtype == torch.float32
-    bags = nbr.t().contiguous().long() if f32 else None
+    bags = nbr.t().contiguous().long()
     # nbr read once, each x row it names once in its own type (padding
     # slots name the one zero row), out written once; one add a valid
     # slot's element. The floor reads each valid slot's row.
@@ -618,7 +679,7 @@ def dense_cases(label, x, nbr, rate, gen, backward=True):
         err=err, ms=median_ms(lambda: dense_gather_sum(x, nbr)),
         plain_ms=yardstick_ms(lambda: dense_gather_sum_reference(x, nbr)),
         library_ms=median_ms(lambda: torch.nn.functional.embedding_bag(
-            bags, x, mode="sum")) if f32 else None,
+            bags, x, mode="sum")),
         bytes_ms=(4 * K * D + xb * rows * H + 4 * D * H) / rate * 1e3,
         floor_ms=(4 * K * D + xb * valid * H + 4 * D * H) / rate * 1e3,
         ops_ms=valid * H / F32_RATE * 1e3)}
@@ -657,8 +718,9 @@ def dense_cases(label, x, nbr, rate, gen, backward=True):
     for name, c in cases.items():
         bound = max(c["bytes_ms"], c["ops_ms"])
         by = "bytes" if c["bytes_ms"] >= c["ops_ms"] else "operations"
-        lib = ("n/a (bf16 frame)" if c["library_ms"] is None
-               else f"{c['library_ms']:.4f}")
+        lib = ("n/a" if c["library_ms"] is None
+               else f"{c['library_ms']:.4f}"
+               + ("" if f32 else " (bf16 sums out)"))
         check = ("bit-equal" if name == DENSE_FWD else
                  f"(limit {DENSE_BWD_TOL * c['scale']:.3g}), two launches "
                  f"bit-equal")
@@ -716,6 +778,272 @@ def hot_row_cases(lyr, hidden, rate, device):
                         dtype=torch.int32)
     x = torch.randn(500, hidden, generator=gen, device=device)
     dense_cases("split A layer 1's slots, 500 rows", x, nbr, rate, gen)
+
+
+def rel_err(got, ref):
+    """Max |got - ref| and that over max(1, max |ref|), over the finite
+    entries of ``ref``; raises unless both hold -inf in the same places."""
+    if not torch.equal(torch.isneginf(got), torch.isneginf(ref)):
+        raise AssertionError("-inf in other places")
+    fin = torch.isfinite(ref)
+    if not torch.isfinite(got[fin]).all():
+        raise AssertionError("not finite")
+    if not fin.any():
+        return 0.0, 0.0
+    err = (got[fin] - ref[fin]).abs().max().item()
+    return err, err / max(1.0, ref[fin].abs().max().item())
+
+
+def slope_flip_bounds(x, nbr, wl, er, m, ds, dagg):
+    """How far a gradient of the attention may move, element by element,
+    through the leaky ReLU's slope at scores within rounding of 0: the
+    kernel and the plain version sum a score ``x_leaf . wl + er`` in
+    other orders, each within (H + 2) * 2^-24 of the magnitudes' sum of
+    the exact one, so a score within twice that of 0 may fall on either
+    side, and its ``dz = pw * (ds + dagg . leaf)`` then takes slope 1 in
+    one and 0.2 in the other. The same discontinuity as a ReLU's sign at
+    0 (``ddp_grad_check``), bounded here from the plain version's own
+    values: ``(1 - slope) |dz|`` at each such slot, carried to ``der``
+    (its sum over k), ``dwl`` (times |leaf|), a slot's ``dx`` row (times
+    |wl|) and ``dx`` (summed by row). Returns the number of such
+    (slot, head) pairs and the bounds by gradient name."""
+    K, D = nbr.shape
+    S, H = x.shape
+    low = x.dtype != torch.float32
+    xg = x.index_select(0, nbr.reshape(-1)).reshape(K, D, H).float()
+    wl_c = wl.to(x.dtype).float() if low else wl
+    valid = (nbr != S - 1)[..., None]
+    pre = xg @ wl_c + er[None]
+    near = valid & (pre.abs() <= 2 * (H + 2) * 2.0**-24 * (
+        xg.abs() @ wl_c.abs() + er.abs()[None]))
+    z = torch.where(pre > 0, pre, NEGATIVE_SLOPE * pre)
+    pw = torch.exp(z - torch.where(torch.isfinite(m), m, 0.0)[None])
+    t = torch.einsum("dch,kdh->kdc", dagg, xg)
+    dz = torch.where(near, (1 - NEGATIVE_SLOPE) * (pw * (ds[None] + t)).abs(),
+                     0.0)
+    dxg = (dz @ wl_c.abs().t()).reshape(K * D, H)
+    bounds = dict(der=dz.sum(0), dwl=torch.einsum("kdh,kdc->hc", xg.abs(), dz),
+                  dxg=dxg, dx=torch.zeros(S, H, device=x.device).index_add_(
+                      0, nbr.reshape(-1), dxg))
+    return int(near.sum()), bounds
+
+
+def gat_attention_cases(label, x, nbr, heads, dh, rate, gen, grad_x,
+                        timed=True):
+    """GAT's attention kernels on one layer's shape, against their plain
+    versions on the same inputs (random weights, cotangents and, past
+    layer 0, frame): the forward's ``(m, s, v)`` within GAT_FWD_TOL of
+    scale; the backward kernel's ``der``, ``dwl`` and ``dxg``, the
+    per-slot scatter's ``dx`` and the op's gradients to x (``grad_x``),
+    wl, w3 and er through autograd, each within GAT_GRAD_TOL of its max
+    |.| beyond ``slope_flip_bounds`` (the leaky ReLU's slope at scores
+    within rounding of 0); each kernel bit-equal over two launches.
+    ``timed``: each kernel and its plain version in the CUDA-graph harness
+    beside the byte bound
+    (each input read once: the x rows nbr names, in their own type;
+    each output written once: agg, and past layer 0 the dxg workspace) and
+    the operation bound; the per-slot scatter beside ``index_add_`` (one
+    library call of the same sum). The attention has no library call:
+    ``scaled_dot_product_attention`` scores by a dot product, not GAT's
+    additive ``leaky_relu(el + er)``. Returns {kernel: case}."""
+    K, D = nbr.shape
+    S, H = x.shape
+    dev = x.device
+    xb = x.element_size()
+    valid = int((nbr != S - 1).sum())
+    rows = torch.unique(nbr).numel()
+
+    def rnd(*shape, scale=1.0):
+        return scale * torch.randn(*shape, generator=gen, device=dev)
+
+    wl, w3, er = rnd(H, heads, scale=0.1), rnd(H, heads, dh, scale=0.1), \
+        rnd(D, heads)
+    ds, dagg = rnd(D, heads), rnd(D, heads, H)
+    # The forward: (m, s, v) against the plain version's.
+    outs = [gat_attention_fwd(x, nbr, wl, er) for _ in range(2)]
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        ref = gat_attention_reference(x, nbr, wl, w3, er)
+    if not all(torch.equal(a, b) for a, b in zip(*outs)):
+        raise AssertionError(f"{label}: two launches of {GAT_FWD} differ")
+    m, s, agg = outs[0]
+    got = (m, s, torch.einsum("dch,hco->dco", agg, w3))
+    fwd = [rel_err(a, b) for a, b in zip(got, ref)]
+    f32 = x.dtype == torch.float32
+    limits = (GAT_FWD_TOL, GAT_FWD_TOL, GAT_FWD_TOL if f32 else GAT_BF16_TOL)
+    if not all(r <= lim for (_, r), lim in zip(fwd, limits)):
+        raise AssertionError(f"{label}: {GAT_FWD} differs from its plain "
+                             f"version: (m, s, v) {fwd} (abs, of scale; "
+                             f"limits {limits})")
+    # The backward kernel and the per-slot scatter, term by term.
+    bwds = [gat_attention_bwd(x, nbr, wl, er, m, ds, dagg, grad_x)
+            for _ in range(2)]
+    ref_b = gat_attention_backward_reference(x, nbr, wl, er, m, ds, dagg,
+                                             grad_x)
+    names = ("dxg", "dwl", "der")
+    pairs = [(n, a, b) for n, a, b in zip(names, bwds[0], ref_b)
+             if a is not None]
+    if grad_x:
+        dxs = [dense_scatter_slots(bwds[0][0], nbr, S) for _ in range(2)]
+        pairs.append(("dx", dxs[0], dense_scatter_slots_reference(
+            ref_b[0], nbr, S)))
+        if not torch.equal(*dxs):
+            raise AssertionError(f"{label}: two launches of {SLOTS} differ")
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(*bwds) if a is not None):
+        raise AssertionError(f"{label}: two launches of {GAT_BWD} differ")
+    # The op's gradients through autograd, kernels against plain.
+    leaves = [wl, w3, er] + ([x] if grad_x else [])
+    for t in leaves:
+        t.requires_grad_()
+    cot = (rnd(D, heads), rnd(D, heads, dh))
+    with torch.no_grad():
+        near, flips = slope_flip_bounds(x, nbr, wl, er, m, ds, dagg)
+        _, flips_op = slope_flip_bounds(
+            x, nbr, wl, er, m, cot[0],
+            torch.einsum("dco,hco->dch", cot[1], w3))
+    grads = torch.autograd.grad(gat_attention(x, nbr, wl, w3, er)[1:],
+                                leaves, cot)
+    ref_g = torch.autograd.grad(gat_attention_reference(x, nbr, wl, w3,
+                                                        er)[1:], leaves, cot)
+    for t in leaves:
+        t.requires_grad_(False)
+    pairs += [(f"grad {n}", a, b) for n, a, b in zip(
+        ("wl", "w3", "er", "x"), grads, ref_g)]
+    flips.update({"grad wl": flips_op["dwl"], "grad er": flips_op["der"],
+                  "grad x": flips_op["dx"]})
+    bwd = {}
+    for name, a, b in pairs:
+        diff = (a.float() - b.float()).abs()
+        scale = b.float().abs().max().item()
+        scale = scale if scale > 0 else 1.0
+        beyond = diff - flips[name] if name in flips else diff
+        bwd[name] = (diff.max().item(), diff.max().item() / scale,
+                     max(beyond.max().item(), 0.0) / scale)
+    grad_tol = GAT_GRAD_TOL if f32 else GAT_BF16_TOL
+    if not max(r for _, _, r in bwd.values()) <= grad_tol:
+        raise AssertionError(f"{label}: the attention's backward differs "
+                             f"from its plain version: {bwd} (abs, of max, "
+                             f"beyond the slope bound of {near} scores at "
+                             f"0, of max; limit {grad_tol})")
+    del ref, ref_b, grads, ref_g, pairs, flips, flips_op
+    cases = {GAT_FWD: dict(err=max(e for e, _ in fwd),
+                           rel=max(r for _, r in fwd)),
+             GAT_BWD: dict(err=max(bwd[n][0] for n in names if n in bwd),
+                           rel=max(bwd[n][1] for n in names if n in bwd),
+                           near_zero_scores=near)}
+    if grad_x:
+        cases[SLOTS] = dict(err=bwd["dx"][0], rel=bwd["dx"][1])
+    print(f"kernel GAT attention {label}: K={K} D={D} S={S} H={H} "
+          f"heads={heads} Dh={dh} x {str(x.dtype)[6:]} valid={valid} "
+          f"x_rows_read={rows}: forward (m, s, v) "
+          f"{', '.join(f'{r:.3g}' for _, r in fwd)} of scale (limits "
+          f"{', '.join(f'{lim:.3g}' for lim in limits)}); backward "
+          + ", ".join(f"{n} {r:.3g} ({b:.3g})" for n, (_, r, b) in
+                      bwd.items())
+          + f" of max |.| (in brackets: beyond the slope bound of {near} "
+          f"scores within rounding of 0; limit {grad_tol:.3g}); two "
+          f"launches bit-equal")
+    if not timed:
+        return cases
+    hb = heads * H
+    # Inputs once, outputs once; the operations a valid slot needs: the
+    # score's and the weighted sum's multiply-adds forward; the score's,
+    # dagg . leaf's and dwl's backward, and dxg's (2 a head) past layer 0.
+    cases[GAT_FWD].update(
+        ms=median_ms(lambda: gat_attention_fwd(x, nbr, wl, er)),
+        plain_ms=yardstick_ms(lambda: gat_ops._partials_reference(
+            x, nbr, wl, er)),
+        library_ms=None,
+        bytes_ms=(4 * K * D + xb * rows * H + 4 * hb + 4 * D * heads
+                  + 8 * D * heads + 4 * D * hb) / rate * 1e3,
+        ops_ms=4 * valid * hb / F32_RATE * 1e3)
+    dxg_rows = bwds[0][0]
+    del bwds, outs
+    cases[GAT_BWD].update(
+        ms=median_ms(lambda: gat_attention_bwd(x, nbr, wl, er, m, ds, dagg,
+                                               grad_x)),
+        plain_ms=yardstick_ms(lambda: gat_attention_backward_reference(
+            x, nbr, wl, er, m, ds, dagg, grad_x)),
+        library_ms=None,
+        bytes_ms=(4 * K * D + xb * rows * H + 4 * hb + 4 * D * heads * 4
+                  + 4 * D * hb + (4 * K * D * H if grad_x else 0))
+        / rate * 1e3,
+        ops_ms=(6 + (4 if grad_x else 0)) * valid * hb / F32_RATE * 1e3)
+    if grad_x:
+        flat = nbr.reshape(-1)
+        cases[SLOTS].update(
+            ms=median_ms(lambda: dense_scatter_slots(dxg_rows, nbr, S)),
+            plain_ms=yardstick_ms(lambda: dense_scatter_slots_reference(
+                dxg_rows, nbr, S)),
+            library_ms=median_ms(lambda: torch.zeros(
+                S, H, device=dev).index_add_(0, flat, dxg_rows)),
+            bytes_ms=(4 * K * D + 4 * K * D * H + 4 * S * H) / rate * 1e3,
+            ops_ms=K * D * H / F32_RATE * 1e3)
+    for name, c in cases.items():
+        bound = max(c["bytes_ms"], c["ops_ms"])
+        by = "bytes" if c["bytes_ms"] >= c["ops_ms"] else "operations"
+        lib = ("none (no PyTorch call computes it)" if c["library_ms"] is None
+               else f"{c['library_ms']:.4f} (index_add_)")
+        print(f"kernel {name} {label}: ms={c['ms']:.4f} plain_ms="
+              f"{c['plain_ms']:.4f} library_ms={lib} bound_ms={bound:.4f} "
+              f"({by}, {100 * bound / c['ms']:.1f} % of it) max_abs_err="
+              f"{c['err']:.3g}")
+    return cases
+
+
+def gat_ragged_cases(device):
+    """``gat_attention_cases`` arguments at the kernels' edges: columns
+    that no slot names (K = 1 and K = 26), H = 100 and 128 (and 200, with
+    5 heads: the kernels' wider instantiation), Dh = 47, 2 and 4 heads,
+    bf16 frames, and 200 columns whose 25 slots all name row 7 (5,000
+    slots: the per-slot scatter's long-row path)."""
+    gen = torch.Generator(device).manual_seed(13)
+
+    def case(label, S, K, D, H, heads, dh, dtype=torch.float32, edit=None):
+        nbr = torch.randint(0, S - 1, (K, D), generator=gen, device=device,
+                            dtype=torch.int32)
+        nbr[torch.rand(K, D, generator=gen, device=device) < 0.3] = S - 1
+        if edit is not None:
+            edit(nbr)
+        x = torch.randn(S, H, generator=gen, device=device)
+        x[S - 1] = 0.0
+        return dict(label=label, x=x.to(dtype), nbr=nbr, heads=heads, dh=dh,
+                    grad_x=dtype == torch.float32, gen=gen)
+
+    yield case("K=1, columns 100-149 all padding", 500, 1, 300, 128, 4, 32,
+               edit=lambda n: n[:, 100:150].fill_(499))
+    yield case("K=26, the last 64 columns all padding", 2000, 26, 1000, 100,
+               4, 32, edit=lambda n: n[:, -64:].fill_(1999))
+    yield case("H=100, 2 heads, Dh=47", 2000, 11, 1500, 100, 2, 47)
+    yield case("H=128, 4 heads, Dh=47", 3000, 11, 2048, 128, 4, 47)
+    yield case("H=200, 5 heads, Dh=7", 1000, 11, 700, 200, 5, 7)
+    yield case("bf16 frame, H=100, 4 heads", 3000, 26, 2000, 100, 4, 32,
+               dtype=torch.bfloat16)
+    yield case("bf16 frame, H=128, 2 heads, Dh=47", 3000, 11, 2000, 128, 2,
+               47, dtype=torch.bfloat16)
+    yield case("200 columns of 25 slots naming row 7 (5,000 slots)", 3000,
+               25, 400, 128, 4, 32, edit=lambda n: n[:, :200].fill_(7))
+
+
+def split_gat_cases(label, layers, x0, hidden, heads, num_classes, rate,
+                    device):
+    """``gat_attention_cases`` at every dense layer of one partition's
+    batch (``layers[i]`` with an ``nbr_idx``): layer 0 reads ``x0`` (a
+    frame: no gradient to it), later layers a random f32 frame of
+    ``hidden * heads`` columns that takes one; the last layer's heads are
+    ``num_classes`` wide. Returns {layer: cases}."""
+    gen = torch.Generator(device).manual_seed(14)
+    out = {}
+    for i, lyr in enumerate(layers):
+        if lyr.nbr_idx is None:
+            continue
+        x = x0 if i == 0 else torch.randn(lyr.src_cap, hidden * heads,
+                                          generator=gen, device=device)
+        dh = num_classes if i == len(layers) - 1 else hidden
+        out[i] = gat_attention_cases(f"{label} layer {i}", x, lyr.nbr_idx,
+                                     heads, dh, rate, gen, grad_x=i > 0)
+    return out
 
 
 def ragged_cases(device):
@@ -1297,6 +1625,55 @@ def run_split(label, args, g, fanouts, device):
     return metrics, launches
 
 
+def split_preactivations(model, layers, xs):
+    """The hidden pre-activations of a split SAGE model's forward, as
+    ``forward_partitions`` runs it without dropout: ``[layer i][partition
+    j]``, partition j's layers ``layers[j]`` and frame ``xs[j]``. It runs
+    the forward's exchanges, so every process of a run calls it."""
+    out, xs = [], list(xs)
+    with torch.no_grad():
+        for i in range(len(layers[0]) - 1):
+            xs = model.layers(i, [lyrs[i] for lyrs in layers], xs)
+            out.append(xs)
+            xs = [torch.relu(x).to(model.dtype) for x in xs]
+    return out
+
+
+def masked_split_logits(model, layers, x, masks):
+    """One partition's SAGE forward with ``masks[i]`` (bool, the shape of
+    the layer's output) standing in for the ReLU's own ``x > 0`` after
+    hidden layer i."""
+    for i, lyr in enumerate(layers):
+        x = model.layers(i, [lyr], [x])[0]
+        if i != len(layers) - 1:
+            x = (x * masks[i]).to(model.dtype)
+    return x
+
+
+def masks_at_one_partition(ranks, raw, pmap, pre2, shapes1, device):
+    """The P run's ReLU masks (``pre2[i][j] > 0``, local partition j's
+    owned rows at hidden layer i) on the P = 1 rows: a layer's owned rows
+    are its frontier's nodes that the partition owns, in frontier order,
+    and at P = 1 the whole frontier (an output of shape ``shapes1[i]``,
+    padded). The processes of a run exchange theirs first."""
+    local = {ranks.lo + j: [(pre[j] > 0).cpu().numpy() for pre in pre2]
+             for j in range(ranks.hi - ranks.lo)}
+    if ranks.grouped:
+        every = [None] * torch.distributed.get_world_size()
+        torch.distributed.all_gather_object(every, local)
+        local = {p: m for part in every for p, m in part.items()}
+    masks = []
+    for i in range(len(pre2)):
+        frontier = raw[len(raw) - 1 - i].frontier
+        owners = pmap[frontier]
+        mask = np.zeros(shapes1[i], bool)
+        for p, ms in local.items():
+            at = np.nonzero(owners == p)[0]
+            mask[at] = ms[i][: at.shape[0]]
+        masks.append(torch.from_numpy(mask).to(device))
+    return masks
+
+
 def check_vs_one_partition(ranks, g, args, fanouts, cache_pct, caps2,
                            device):
     """One raw sample of the numpy SplitSampler sliced at P (this
@@ -1309,7 +1686,16 @@ def check_vs_one_partition(ranks, g, args, fanouts, cache_pct, caps2,
     under the phase's ``cache_pct`` (static rows plus the tail this
     sample writes when the cache refreshes); at P = 1 the frame holds
     every node. Each error is relative to the largest magnitude of the
-    P = 1 tensor it is held to."""
+    P = 1 tensor it is held to.
+
+    SAGE's gradients are held at the P forward's ReLU masks, as
+    ``ddp_grad_check`` holds ddp's: the two forwards sum in other orders,
+    so a pre-activation within rounding of 0 can take either sign, and
+    the gradient of the layer below then moves by that unit's whole term.
+    The P = 1 gradient with its own ReLU (``grad_err_own``) is reported
+    beside it with the number of pre-activations whose sign differs
+    (``flips``), and must pass the limit when none does. GAT's ELU has
+    no such jump."""
     lo, hi, P = ranks.lo, ranks.hi, ranks.num_partitions
     pmap, nodes, bs = g.partition_map, g.train_nodes(), args.batch_size
     cache2 = SplitFeatureCache(
@@ -1331,12 +1717,35 @@ def check_vs_one_partition(ranks, g, args, fanouts, cache_pct, caps2,
           else SplitFeatureCache(plan1, device=device).frames)
     m2 = split_model(args, g).to(device)
     m1 = copy.deepcopy(m2)
+    masked = copy.deepcopy(m2)
     logits2 = make_split_forward(m2, ranks=ranks)(b2, x2)
     logits1 = make_split_forward(m1)(b1, x1)[0]
+    flips = 0
+    relu = not isinstance(m2, SplitGAT)
+    if relu:
+        layers2 = [[lyr.partition(j) for lyr in b2.layers]
+                   for j in range(b2.num_partitions)]
+        layers1 = [lyr.partition(0) for lyr in b1.layers]
+        m2.eval()
+        m1.eval()
+        pre2 = split_preactivations(m2, layers2, x2)
+        own = [pre[0] > 0 for pre in split_preactivations(m1, [layers1],
+                                                          x1)]
+        masks = masks_at_one_partition(ranks, raw, pmap, pre2,
+                                       [tuple(m.shape) for m in own],
+                                       device)
+        flips = sum(int((a != b).sum()) for a, b in zip(masks, own))
     loss2, _, count = make_split_train_step(
         m2, torch.optim.SGD(m2.parameters(), lr=0.0), ranks=ranks)(b2, x2)
     loss1, _, _ = make_split_train_step(
         m1, torch.optim.SGD(m1.parameters(), lr=0.0))(b1, x1)
+    if relu:
+        masked.train()
+        global_update(masked, torch.optim.SGD(masked.parameters(), lr=0.0),
+                      masked_split_logits(masked, layers1, x1[0], masks),
+                      b1.labels[0])
+    else:
+        masked = m1
 
     def rel(a, b):
         err = (a - b).abs().max().item()
@@ -1353,7 +1762,10 @@ def check_vs_one_partition(ranks, g, args, fanouts, cache_pct, caps2,
     check = dict(targets=targets, count=int(count), logits_err=logits_err,
                  loss_err=rel(loss2, loss1),
                  grad_err=max(rel(p2.grad, p1.grad) for p2, p1 in
-                              zip(m2.parameters(), m1.parameters())),
+                              zip(m2.parameters(), masked.parameters())),
+                 grad_err_own=max(rel(p2.grad, p1.grad) for p2, p1 in
+                                  zip(m2.parameters(), m1.parameters())),
+                 flips=flips, relu=relu,
                  all_finite=bool(torch.isfinite(logits2).all() and all(
                      torch.isfinite(p.grad).all() for p in m2.parameters())))
     return check, b2
@@ -1398,7 +1810,15 @@ def split_process(ranks, spec) -> dict:
             b2, args, g.num_classes,
             memory_rate(torch.cuda.get_device_name(device)),
             ranks.backend, device)
-    if spec.get("kernel_cases"):
+    if spec.get("kernel_cases") and args.model_name == "gat":
+        # The attention kernels at the first local partition's dense
+        # layers 1-2 (its layer 0 is COO).
+        out["gat_cases"] = split_gat_cases(
+            f"{spec['label']}, partition {ranks.lo},",
+            [layer.partition(0) for layer in b2.layers], None,
+            args.num_hidden, args.num_heads, g.num_classes,
+            memory_rate(torch.cuda.get_device_name(device)), device)
+    elif spec.get("kernel_cases"):
         # Both entries at the first local partition's COO layer 0.
         lyr = b2.layers[0].partition(0)
         frame = SplitFeatureCache(
@@ -1504,15 +1924,22 @@ def run_ranks(label, num_procs, local, name, root, flags, shuffles_per_step,
                                  f"{steps} steps over {num_procs} "
                                  f"process(es)")
         c = res["check"]
+        masks = (f" at the P forward's ReLU masks (own masks "
+                 f"{c['grad_err_own']:.3g}, {c['flips']} pre-activations "
+                 f"of another sign)" if c["relu"] else " (ELU: no masks)")
         print(f"{who}: P = {P} vs P = 1, one raw sample ({c['targets']} "
               f"owned targets of {c['count']}): logits "
               f"{c['logits_err']:.3g}, loss {c['loss_err']:.3g}, gradients "
-              f"{c['grad_err']:.3g} of each tensor's scale (limit "
+              f"{c['grad_err']:.3g}{masks} of each tensor's scale (limit "
               f"{LOGITS_TOL})")
         if not (c["all_finite"] and max(c["logits_err"], c["loss_err"],
                                         c["grad_err"]) <= LOGITS_TOL):
             raise AssertionError(f"{label}: P = {P} differs from P = 1 on "
                                  f"rank {res['rank']}: {c}")
+        if c["flips"] == 0 and not c["grad_err_own"] <= LOGITS_TOL:
+            raise AssertionError(f"{label}: P = {P} differs from P = 1 on "
+                                 f"rank {res['rank']} with no sign "
+                                 f"flipped: {c}")
         for e in res["exchange"]:
             print(f"{who}: exchange (shuffle_merge fwd) layer {e['layer']} "
                   f"(P={e['P']}, L={e['L']}, S={e['S']}, D={e['D']}, "
@@ -1636,7 +2063,8 @@ def run_local_p4(root: str, infer_flags, rate):
     GAT P4-B local (3 steps) and infer P4 local of that checkpoint: one
     process holding 4 partitions on cuda:0, as the launcher places
     ``--partitions 4`` on one card. Returns the launches, the kernel
-    cases at P4-B's layer 0 and the P4-B results."""
+    cases at P4-B's layer 0, the P4-B results and the attention kernels'
+    cases at GAT P4-B partition 0's layers 1-2."""
     P = 4
     if launcher_processes(P) != 1:
         print(f"split P{P}-B local: the launcher places {P} partitions on "
@@ -1664,8 +2092,9 @@ def run_local_p4(root: str, infer_flags, rate):
     label = f"split GAT P{P}-B local"
     results_gat = run_ranks(label, 1, P, "split_b", root,
                             SPLIT_B_FLAGS + SHORT + GAT_FLAGS + parts,
-                            shuffles_per_step=(6, 6))
+                            shuffles_per_step=(6, 6), kernel=True)
     launches += expect_local_launches(label, results_gat, GAT_B_STEP)
+    gat_cases = {int(i): c for i, c in results_gat[0]["gat_cases"].items()}
     # Infer P4 local against infer P1 of the same checkpoint.
     ck = os.path.join(ck_dir, "split_epoch.npz")
     g = load_graph(root, "split_b")
@@ -1699,16 +2128,17 @@ def run_local_p4(root: str, infer_flags, rate):
             or not same >= PRED_AGREEMENT:
         raise AssertionError(f"infer P{P} local differs from P = 1: "
                              f"{m4} vs {m1}, {same}")
-    return launches, res["kernel_cases"], results
+    return launches, res["kernel_cases"], results, gat_cases
 
 
 def run_entry(device) -> Counter:
     """``occ_gnn_tpu_torch.entry``: ``entry()``'s forward on the card
     (finite logits of the target frame's shape, one fused launch a
     layer) and ``dryrun_multichip(4)``, one process holding 4
-    partitions: three finite losses, and the dense kernels of its two
-    SAGE steps (every layer dense: once a layer a partition forward, once
-    a layer past layer 0 backward; GAT's attention launches none)."""
+    partitions: three finite losses, the dense kernels of its two SAGE
+    steps and the attention kernels of its GAT step (every layer dense:
+    once a layer a partition forward, once a layer backward, and the
+    dense or per-slot scatter once a layer past layer 0)."""
     from occ_gnn_tpu_torch import entry as entry_mod
 
     start_count(device)
@@ -1729,8 +2159,10 @@ def run_entry(device) -> Counter:
         raise AssertionError(f"dryrun_multichip(4): losses {losses}")
     layers = len(entry_mod.DRYRUN_FANOUTS)
     expect_launches("dryrun_multichip(4)", dry,
-                    scaled({DENSE_FWD: layers, DENSE_BWD: layers - 1}, 2 * 4),
-                    "two SAGE steps of 4 partitions")
+                    scaled({DENSE_FWD: layers, DENSE_BWD: layers - 1}, 2 * 4)
+                    | scaled({GAT_FWD: layers, GAT_BWD: layers,
+                              SLOTS: layers - 1}, 4),
+                    "two SAGE steps and one GAT step of 4 partitions")
     return launches + dry
 
 
@@ -2664,10 +3096,10 @@ def gat_variant_grads(model, layers, frames, labels):
 
 def check_gat_variants(g, args_ga, batch, syn, frames, rate, device):
     """Split GAT A's first batch under each lowering of GAT_VARIANTS: its
-    logits and weight gradients against the batched form's (each error
-    relative to the largest magnitude of the batched tensor, TF32 off),
-    and its layers' attention forward and backward beside their byte
-    bounds. Returns the op rows."""
+    logits and weight gradients against the batched form's, which runs
+    the attention kernels (each error relative to the largest magnitude of
+    the batched tensor, TF32 off), and its layers' attention forward and
+    backward beside their byte bounds. Returns the op rows."""
     model = split_model(args_ga, g).to(device)
     layers = [syn] + [lyr.partition(0) for lyr in batch.layers[1:]]
     labels = batch.labels[0]
@@ -2704,14 +3136,17 @@ def check_gat_variants(g, args_ga, batch, syn, frames, rate, device):
 def run_gat_variants(g, fanouts, metrics_ga, device):
     """3 steps of split GAT A through ``train_split`` under each lowering
     of GAT_VARIANTS, with ``train_step`` and the peak beside batched's.
-    Returns the launches (none)."""
+    The online, tiled and fma lowerings are torch ops (no launch); remat
+    dots runs the kernels, with the forward once more a layer in the
+    backward (GAT_REMAT_STEP). Returns the launches."""
     args_s = graph_args(g.num_nodes, short_run(GAT_A_FLAGS))
     launches = Counter()
     for name, impls in GAT_VARIANTS:
         with lowering(**impls):
             metrics, n = run_split(f"split GAT A, {name}", args_s, g,
                                    fanouts, device)
-        check_dense_run(f"split GAT A {name}", metrics, n, {})
+        check_dense_run(f"split GAT A {name}", metrics, n,
+                        GAT_REMAT_STEP if "gat_remat" in impls else {})
         launches += n
         print(f"  {name}: train_step median "
               f"{metrics['medians']['train_step']:.2f} ms, peak "
@@ -3091,16 +3526,31 @@ def main(argv=None) -> int:
         launches_dt = run_dense_tiled(g, fan_a, metrics_a, device)
 
     # 8b. Split GAT A: the same graph and flags with GAT (hidden 32, 4
-    # heads): the batched attention on every layer.
+    # heads): the batched attention on every layer, through its kernels.
     with phase("split GAT A"):
         args_ga = graph_args(opts.num_nodes, GAT_A_FLAGS)
+        heads, hidden = args_ga.num_heads, args_ga.num_hidden
         cache, _, _, _ = split_vs_single(g, args_ga, 1.0, device)
         gat_rows = gat_op_times(batch, syn, cache.frames, args_ga,
                                 g.num_classes, rate, device)
+        # The attention kernels at every layer of that batch, at layer 0
+        # on the frame in bf16 too, and on ragged cases.
+        gat_a = split_gat_cases("split GAT A", layers_a, cache.frames[0],
+                                hidden, heads, g.num_classes, rate, device)
+        gat_a_bf16 = gat_attention_cases(
+            "split GAT A layer 0, bf16 frame",
+            cache.frames[0].to(torch.bfloat16), syn.nbr_idx, heads, hidden,
+            rate, torch.Generator(device).manual_seed(15), grad_x=False)
+        gat_ragged = [gat_attention_cases(rate=rate, timed=False, **c)
+                      for c in gat_ragged_cases(device)]
         del cache
         metrics_ga, launches_ga = run_split("split GAT A", args_ga, g, fan_a,
                                             device)
-        check_dense_run("split GAT A", metrics_ga, launches_ga, {})
+        check_dense_run("split GAT A", metrics_ga, launches_ga,
+                        SPLIT_GAT_A_STEP)
+        print(f"split GAT A: train_step median "
+              f"{metrics_ga['medians']['train_step']:.2f} ms, peak "
+              f"{metrics_ga['peak_gib']:.3f} GiB")
         print_profile(metrics_ga["profile"])
 
     # 8c. Split GAT A's lowerings: online, tiled, fma and remat dots.
@@ -3188,7 +3638,7 @@ def main(argv=None) -> int:
         launches_gl = run_gloo_p2b(graphs.name, p2b)
     # 11a. Split P4-B, split GAT P4-B and infer P4 in one process.
     with phase("split P4-B local"):
-        launches_p4, p4_cases, p4_results = run_local_p4(
+        launches_p4, p4_cases, p4_results, gat_p4 = run_local_p4(
             graphs.name, INFER_FLAGS, rate)
         dense_p4 = {int(i): c
                     for i, c in p4_results[0]["dense_cases"].items()}
@@ -3279,9 +3729,10 @@ def main(argv=None) -> int:
             f"{'segment_reduce_ms' if k == 'reduce_ms' else k}="
             f"{summed(cases, k):.4f}" for k in keys if k in cases[0]))
     print("dense kernel times (ms; CUDA-graph harness; embedding_bag the "
-          "library call on f32 frames, its index transposed ahead of the "
-          "timing, its backward through torch.autograd.grad with its "
-          "forward in the graph, less the forward):")
+          "library call, its index transposed ahead of the timing, on a "
+          "bf16 frame summed in f32 and returned in bf16, its f32 backward "
+          "through torch.autograd.grad with its forward in the graph, less "
+          "the forward):")
     dense_rows = [(f"split A layer {i}", c) for i, c in dense_a.items()]
     dense_rows += [(f"split A layer {i}, bf16 frame", {DENSE_FWD: c})
                    for i, c in dense_a_bf16.items()]
@@ -3296,10 +3747,27 @@ def main(argv=None) -> int:
                   f"plain_ms={c['plain_ms']:.4f} "
                   f"library_ms={'null' if lib is None else f'{lib:.4f}'} "
                   f"max_abs_err={c['err']:.3g}")
+    print("GAT attention kernel times (ms; CUDA-graph harness; a split GAT "
+          "A step runs the forward and the backward once a layer, the "
+          "per-slot scatter once a layer past layer 0; no library call "
+          "computes the attention, index_add_ the per-slot sum):")
+    gat_kernel_rows = [(f"split GAT A layer {i}", c)
+                       for i, c in gat_a.items()]
+    gat_kernel_rows += [("split GAT A layer 0, bf16 frame", gat_a_bf16)]
+    gat_kernel_rows += [(f"split GAT P4-B local layer {i}, partition 0", c)
+                        for i, c in gat_p4.items()]
+    for label, cases in gat_kernel_rows:
+        for entry, c in cases.items():
+            lib = c["library_ms"]
+            print(f"  {entry} at {label}: ms={c['ms']:.4f} bound_ms="
+                  f"{bound(c):.4f} plain_ms={c['plain_ms']:.4f} "
+                  f"library_ms={'null' if lib is None else f'{lib:.4f}'} "
+                  f"max_abs_err={c['err']:.3g}")
     errs = {entry: [] for entry in ENTRIES}
     for cases in (main_cases + ragged + sym_cases
                   + [split_case, gat_split_case, infer_case, p4_cases]
-                  + [c for _, c in dense_rows]):
+                  + [c for _, c in dense_rows]
+                  + [c for _, c in gat_kernel_rows] + gat_ragged):
         for entry, c in cases.items():
             errs[entry].append(c["err"])
     errs[MSGS] += [c["err"] for c in gat_cases]
@@ -3310,13 +3778,17 @@ def main(argv=None) -> int:
                     launches_pb, launches_gl, launches_p4, launches_en,
                     launches_nc, launches_bl), Counter())
     # The dense kernels' numbers are one split A step's: the forward at
-    # its three layers, the backward at layers 1-2.
+    # its three layers, the backward at layers 1-2; the attention's one
+    # split GAT A step's: forward and backward at its three layers, the
+    # per-slot scatter at layers 1-2.
     kernels = []
     for entry, cases in (
             (MSGS, gat_cases), (FUSED, sage_step),
             (DENSE_FWD, [dense_a[i][DENSE_FWD] for i in sorted(dense_a)]),
             (DENSE_BWD, [c[DENSE_BWD] for _, c in sorted(dense_a.items())
-                         if DENSE_BWD in c])):
+                         if DENSE_BWD in c])) + tuple(
+            (entry, [c[entry] for _, c in sorted(gat_a.items())
+                     if entry in c]) for entry in (GAT_FWD, GAT_BWD, SLOTS)):
         by_bytes = summed(cases, "bytes_ms") >= summed(cases, "ops_ms")
         kernels.append({
             "name": entry,
@@ -3329,7 +3801,9 @@ def main(argv=None) -> int:
             "plain_ms": summed(cases, "plain_ms"),
             "bound_ms": summed(cases, "bound_ms"),
             "bound_by": "bytes" if by_bytes else "operations",
-            "library_ms": summed(cases, "library_ms"),
+            "library_ms": (None if any(c["library_ms"] is None
+                                       for c in cases)
+                           else summed(cases, "library_ms")),
         })
     print(f"total wall {time.perf_counter() - wall:.1f}s")
     print(f"card: {card}")

@@ -5,6 +5,8 @@
 //                                   float(x[nbr[k, d], :])
 //   dense_scatter_add:  dx[s, :]  = sum of g[d, :] over the slots (k, d)
 //                                   with nbr[k, d] == s
+//   dense_scatter_slots: the same with each slot's own row,
+//                        g[k * D + d, :] in place of g[d, :]
 //
 // x is f32 or bf16 [S, H] row-major, and its last row S - 1 is the frame's
 // reserved zero row that every padding slot names; nbr is int32 [K, D],
@@ -15,7 +17,8 @@
 // Replaces: occ_gnn_tpu/parallel/split.py:161-197 (local_aggregate_dense),
 // its default unrolled branch at :191-197, which XLA compiles into one
 // 26-way add fusion (no pallas_call), and the transpose of that gather
-// that XLA derives for the backward.
+// that XLA derives for the backward. The per-slot mode sums the rows that
+// GAT's attention backward (csrc/gat_attention.cu) writes a slot each.
 //
 // Bound: device-memory bytes. The forward reads K rows of x for each dst
 // and writes one f32 row; the backward reads one g row for each dst and
@@ -69,7 +72,9 @@
 //      kWarps contiguous parts, added in order; one warp sums the
 //      third-level partials in order into dx[S - 1].
 // The zero row's tree is fixed by D alone, the row sums by nbr alone, so
-// two launches give the same bits. g (11.5 MB at split A's layer 1)
+// two launches give the same bits. The per-slot mode reads the row of slot
+// i at i where the other reads i % D (the lists hold slot ids either way),
+// and its zero row's first level adds each padding slot's own row, k by k. g (11.5 MB at split A's layer 1)
 // stays in L2; dx is written with streaming stores. Each phase is a chain
 // of dependent loads behind a barrier, about 17 us at the smallest layers
 // (PERF.md); from split A's layer 1 up it is faster than atomics. One
@@ -525,7 +530,7 @@ template <typename Acc>
 __device__ __forceinline__ void sum_span(const int* list, int span, int rows,
                                          const int* row_at, int* ent,
                                          int* d_at, int* meta,
-                                         const Acc* __restrict__ g, int D,
+                                         const Acc* __restrict__ g, int mod,
                                          int width, Acc* out) {
   const int lane = threadIdx.x % 32;
   for (int q = lane; q < span; q += 32) ent[q] = list[q];
@@ -545,7 +550,7 @@ __device__ __forceinline__ void sum_span(const int* list, int span, int rows,
     const int slot = ent[q];
     int r = 0;
     for (int j = a; j < b; ++j) r += ent[j] < slot;
-    d_at[a + r] = slot % D;
+    d_at[a + r] = slot % mod;
     meta[a + r] = lo | (r == 0 ? kFirst : 0) | (a + r == b - 1 ? kLast : 0);
   }
   __syncwarp();
@@ -561,11 +566,12 @@ __device__ __forceinline__ void sum_span(const int* list, int span, int rows,
 // O(n log^2 n) loads, spread over the block. Then warp w sums places
 // [w n / kWarps, (w + 1) n / kWarps) of the sorted list in f32 from its
 // first, and the kWarps partials are added in order into out. `part`
-// holds kWarps * 32 column groups in shared memory.
+// holds kWarps * 32 column groups in shared memory. A slot's g row is its
+// id modulo `mod`.
 template <typename Acc>
 __device__ __forceinline__ void sum_long_row(int* a, int* b, int n,
                                              const Acc* __restrict__ g,
-                                             int D, int width, Acc* out,
+                                             int mod, int width, Acc* out,
                                              int (*ent)[kSpan], Acc* part) {
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   for (int r0 = warp * kSpan; r0 < n; r0 += kWarps * kSpan) {
@@ -613,13 +619,14 @@ __device__ __forceinline__ void sum_long_row(int* a, int* b, int n,
   for (int c0 = 0; c0 < width; c0 += 32) {
     const int c = c0 + lane;
     if (c < width) {
-      Acc acc = __ldg(g + static_cast<long long>(src[t0] % D) * width + c);
+      Acc acc =
+          __ldg(g + static_cast<long long>(src[t0] % mod) * width + c);
       for (int t = t0 + 1; t < t1; t += kUnroll) {
         Acc v[kUnroll];
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u) {
           if (t + u < t1) {
-            v[u] = __ldg(g + static_cast<long long>(src[t + u] % D) * width +
+            v[u] = __ldg(g + static_cast<long long>(src[t + u] % mod) * width +
                          c);
           }
         }
@@ -643,7 +650,8 @@ __device__ __forceinline__ void sum_long_row(int* a, int* b, int n,
 template <typename Acc>
 __global__ void __launch_bounds__(kThreads)
 scatter_rows(const Acc* __restrict__ g, const int* __restrict__ nbr, int K,
-             int D, int S, int width, Plan p, Acc* __restrict__ dx) {
+             int D, int S, int width, Plan p, Acc* __restrict__ dx,
+             int per_slot) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ int s_base[];  // [p.chunks] each chunk's first offset
   __shared__ int s_warp[kWarps];
@@ -660,6 +668,8 @@ scatter_rows(const Acc* __restrict__ g, const int* __restrict__ nbr, int K,
   const long long gwarp = tid / 32, warps = threads / 32;
   const int zero_row = S - 1;
   const long long slots = static_cast<long long>(K) * D;
+  // A slot id modulo `mod` is its g row (slot ids are below 2^31 - 1).
+  const int mod = per_slot ? 0x7fffffff : D;
 
   // 0. Counts to zero.
   for (long long s = tid; s < zero_row; s += threads) p.counts[s] = 0;
@@ -688,10 +698,28 @@ scatter_rows(const Acc* __restrict__ g, const int* __restrict__ nbr, int K,
   // The zero row's first level, from the last warp down (the slots above
   // start from the first thread): a warp for kZeroCols consecutive columns,
   // lane j counting column d0 + j's padding slots c_d, then c_d * g[d]
-  // summed over the columns in order.
+  // summed over the columns in order; per slot, the padding slots' own
+  // rows, column by column and k by k.
   for (long long j = warps - 1 - gwarp; j < p.nz[0]; j += warps) {
     const long long d0 = j * kZeroCols;
     const int n = static_cast<int>(D - d0 < kZeroCols ? D - d0 : kZeroCols);
+    if (per_slot) {
+      Acc* out = reinterpret_cast<Acc*>(p.zero[0]) + j * width;
+      for (int col = lane; col < width; col += 32) {
+        Acc acc;
+        zero(acc);
+        for (int u = 0; u < n; ++u) {
+          for (int k = 0; k < K; ++k) {
+            const long long slot = static_cast<long long>(k) * D + d0 + u;
+            if (__ldg(nbr + slot) == zero_row) {
+              add(acc, __ldg(g + slot * width + col));
+            }
+          }
+        }
+        out[col] = acc;
+      }
+      continue;
+    }
     int c = 0;
     for (int k0 = 0; k0 < K; k0 += 2 * kUnroll) {
       int v[2 * kUnroll];
@@ -842,7 +870,7 @@ scatter_rows(const Acc* __restrict__ g, const int* __restrict__ nbr, int K,
   for (int i = blockIdx.x; i < n_long; i += gridDim.x) {
     const int s = p.longs[i];
     const int at = p.local[s] + s_base[s / p.chunk];
-    sum_long_row(p.list + at, p.rank + at, p.counts[s], g, D, width,
+    sum_long_row(p.list + at, p.rank + at, p.counts[s], g, mod, width,
                  dx + static_cast<long long>(s) * width, s_ent,
                  reinterpret_cast<Acc*>(&s_d[0][0]));
   }
@@ -870,7 +898,7 @@ scatter_rows(const Acc* __restrict__ g, const int* __restrict__ nbr, int K,
       if (lane < kGroup) s_row[warp][lane] = real ? start - first : span;
       if (lane == 0) s_row[warp][kGroup] = span;
       sum_span(p.list + first, span, kGroup, s_row[warp], s_ent[warp],
-               s_d[warp], s_meta[warp], g, D, width, dx + s0 * width);
+               s_d[warp], s_meta[warp], g, mod, width, dx + s0 * width);
       continue;
     }
     // A span too long for shared memory: row by row.
@@ -886,7 +914,7 @@ scatter_rows(const Acc* __restrict__ g, const int* __restrict__ nbr, int K,
         s_row[warp][1] = rn;
       }
       sum_span(p.list + roff, rn, 1, s_row[warp], s_ent[warp], s_d[warp],
-               s_meta[warp], g, D, width, dx + (s0 + b) * width);
+               s_meta[warp], g, mod, width, dx + (s0 + b) * width);
     }
   }
 }
@@ -988,8 +1016,8 @@ cudaError_t scatter_grid(int device, size_t smem, long long work,
 template <int VEC>
 cudaError_t launch_scatter(const void* g, const void* nbr, long long ld,
                            int K, long long D, int h, long long x_rows,
-                           void* dx, void* workspace, int device,
-                           cudaStream_t stream) {
+                           void* dx, void* workspace, int per_slot,
+                           int device, cudaStream_t stream) {
   using Acc = typename Rows<float, VEC>::Acc;
   int width = h / VEC;
   Plan plan = layout(K, D, x_rows, h, static_cast<char*>(workspace)).plan;
@@ -1006,7 +1034,8 @@ cudaError_t launch_scatter(const void* g, const void* nbr, long long ld,
   const int* nbr_ = static_cast<const int*>(nbr);
   int K_ = K, D_ = static_cast<int>(D), S_ = static_cast<int>(x_rows);
   Acc* dx_ = static_cast<Acc*>(dx);
-  void* args[] = {&g_, &nbr_, &K_, &D_, &S_, &width, &plan, &dx_};
+  void* args[] = {&g_,    &nbr_, &K_,  &D_,      &S_,
+                  &width, &plan, &dx_, &per_slot};
   return cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(scatter_rows<Acc>), blocks, kThreads,
       args, smem, stream);
@@ -1075,14 +1104,13 @@ extern "C" long long dense_scatter_workspace_bytes(int k, long long d, int h,
   return static_cast<long long>(layout(k, d, x_rows, h, nullptr).bytes);
 }
 
-// dx[s] = sum of g[d] over the slots (k, d) naming s, in slot order; g f32
-// [D, h], dx f32 [x_rows, h], both contiguous, and nbr too (ld == d);
-// every row of dx is written. workspace: dense_scatter_workspace_bytes(k,
-// d, h, x_rows) bytes, 16-byte aligned, uninitialised. k * d < 2^31.
-extern "C" int dense_scatter_add(const void* g, const void* nbr, long long ld,
-                                 int k, long long d, int h, long long x_rows,
-                                 void* dx, void* workspace, int device,
-                                 void* stream) {
+namespace {
+
+// Both scatter entries: g holds a row a column (per_slot == 0) or a row a
+// slot.
+int scatter(const void* g, const void* nbr, long long ld, int k, long long d,
+            int h, long long x_rows, void* dx, void* workspace, int per_slot,
+            int device, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   bool done = false;
   const int early = prologue(h, k, d, x_rows, ld, device, &done);
@@ -1094,10 +1122,35 @@ extern "C" int dense_scatter_add(const void* g, const void* nbr, long long ld,
   const bool vec = h % 4 == 0 && aligned(g, 16) && aligned(dx, 16);
   const cudaError_t err =
       vec ? launch_scatter<4>(g, nbr, ld, k, d, h, x_rows, dx, workspace,
-                              device, s)
+                              per_slot, device, s)
           : launch_scatter<1>(g, nbr, ld, k, d, h, x_rows, dx, workspace,
-                              device, s);
+                              per_slot, device, s);
   return static_cast<int>(err);
+}
+
+}  // namespace
+
+// dx[s] = sum of g[d] over the slots (k, d) naming s, in slot order; g f32
+// [D, h], dx f32 [x_rows, h], both contiguous, and nbr too (ld == d);
+// every row of dx is written. workspace: dense_scatter_workspace_bytes(k,
+// d, h, x_rows) bytes, 16-byte aligned, uninitialised. k * d < 2^31.
+extern "C" int dense_scatter_add(const void* g, const void* nbr, long long ld,
+                                 int k, long long d, int h, long long x_rows,
+                                 void* dx, void* workspace, int device,
+                                 void* stream) {
+  return scatter(g, nbr, ld, k, d, h, x_rows, dx, workspace, 0, device,
+                 stream);
+}
+
+// dense_scatter_add with a row a slot: dx[s] = sum of rows[k * d + j] over
+// the slots (k, j) naming s, in slot order; rows f32 [k * d, h].
+extern "C" int dense_scatter_slots(const void* rows, const void* nbr,
+                                   long long ld, int k, long long d, int h,
+                                   long long x_rows, void* dx,
+                                   void* workspace, int device,
+                                   void* stream) {
+  return scatter(rows, nbr, ld, k, d, h, x_rows, dx, workspace, 1, device,
+                 stream);
 }
 
 extern "C" const char* cuda_error_string(int err) {

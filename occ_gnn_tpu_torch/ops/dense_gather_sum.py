@@ -28,6 +28,11 @@ contiguous parts, added in order); no memset, no atomics on rows, the
 same bits from every launch. The zero row is ``sum over d of c_d * g[d]``, reduced
 in a tree fixed by D.
 
+``dense_scatter_slots(rows, nbr, num_rows)`` is the backward's per-slot
+mode: the same plan and order, each slot adding its own row ``rows[k * D
++ d]`` (GAT's attention backward writes one a slot) in place of
+``g[d]``.
+
 The gradient to a bf16 frame is summed in f32 and rounded to bf16 once;
 JAX rounds every partial sum to bf16. The port's is the nearer to the
 exact sum (``tests/test_torch_dense_gather.py``).
@@ -59,6 +64,8 @@ ARGTYPES = {
     "dense_scatter_workspace_bytes": [_I, _L, _I, _L],
     # g, nbr, ld, k, d, h, x_rows, dx, workspace, device, stream
     "dense_scatter_add": [_P, _P, _L, _I, _L, _I, _L, _P, _P, _I, _P],
+    # rows, nbr, ld, k, d, h, x_rows, dx, workspace, device, stream
+    "dense_scatter_slots": [_P, _P, _L, _I, _L, _I, _L, _P, _P, _I, _P],
 }
 RESTYPES = {"dense_scatter_workspace_bytes": _L}
 
@@ -84,6 +91,14 @@ def dense_scatter_add_reference(grad: torch.Tensor, nbr: torch.Tensor,
     for k in range(nbr.shape[0]):
         dx.index_add_(0, nbr[k], grad)
     return dx
+
+
+def dense_scatter_slots_reference(rows: torch.Tensor, nbr: torch.Tensor,
+                                  num_rows: int) -> torch.Tensor:
+    """Plain version of the per-slot mode: each slot's own row ``rows[k *
+    D + d]`` added into ``dx[nbr[k, d]]`` (one ``index_add_``)."""
+    dx = rows.new_zeros((num_rows, rows.shape[1]))
+    return dx.index_add_(0, nbr.reshape(-1), rows)
 
 
 def dense_scatter_plan(nbr: torch.Tensor, num_rows: int):
@@ -143,10 +158,12 @@ def _launch_gather(x: torch.Tensor, nbr: torch.Tensor,
 
 
 def _launch_scatter(grad: torch.Tensor, nbr: torch.Tensor,
-                    num_rows: int) -> torch.Tensor:
-    """One backward launch; it writes every row of ``dx`` and builds its
-    plan in a workspace allocated here."""
-    _on_cuda("dense_scatter_add", grad)
+                    num_rows: int, entry: str = "dense_scatter_add"
+                    ) -> torch.Tensor:
+    """One launch of the backward kernel (``entry``: the C entry of a
+    gradient row a column, or of a row a slot); it writes every row of
+    ``dx`` and builds its plan in a workspace allocated here."""
+    _on_cuda(entry, grad)
     K, D = nbr.shape
     h = grad.shape[1]
     if D == 0 or h == 0:
@@ -159,13 +176,13 @@ def _launch_scatter(grad: torch.Tensor, nbr: torch.Tensor,
     workspace = torch.empty(
         lib.dense_scatter_workspace_bytes(K, D, h, num_rows),
         dtype=torch.uint8, device=grad.device)
-    err = lib.dense_scatter_add(
+    err = getattr(lib, entry)(
         grad.data_ptr(), nbr.data_ptr(), nbr.stride(0), K, D, h, num_rows,
         dx.data_ptr(), workspace.data_ptr(), grad.device.index,
         torch.cuda.current_stream(grad.device).cuda_stream,
     )
-    check_launch(lib, err, "dense_scatter_add")
-    dense_scatter_add.launches += 1
+    check_launch(lib, err, entry)
+    globals()[entry].launches += 1  # the wrapper of the C entry's name
     return dx
 
 
@@ -266,3 +283,31 @@ def dense_scatter_add(grad: torch.Tensor, nbr: torch.Tensor,
 
 
 dense_scatter_add.launches = 0
+
+
+def dense_scatter_slots(rows: torch.Tensor, nbr: torch.Tensor,
+                        num_rows: int) -> torch.Tensor:
+    """The per-slot mode of ``dense_scatter_add``: ``dx[nbr[k, d]] +=
+    rows[k * D + d]`` for every slot of int32 ``nbr [K, D]`` -> f32
+    ``[num_rows, H]``, for f32 ``rows [K * D, H]`` (a gradient row a slot,
+    as GAT's attention backward writes them). The same plan and order as
+    ``dense_scatter_add``: each row's slots summed in slot order, every row
+    of ``dx`` written once, the zero row the sum of its slots' rows.
+    ``dense_scatter_slots.launches`` counts the kernel's launches."""
+    if rows.dtype != torch.float32 or rows.dim() != 2:
+        raise TypeError(f"rows must be 2-D float32, got {rows.dim()}-D "
+                        f"{rows.dtype}")
+    if not rows.is_contiguous():
+        raise ValueError("rows must be contiguous")
+    _check_nbr(nbr, rows)
+    if nbr.shape[0] * nbr.shape[1] != rows.shape[0]:
+        raise ValueError(f"nbr has {nbr.shape[0]} x {nbr.shape[1]} slots, "
+                         f"rows {rows.shape[0]} rows")
+    if not 1 <= num_rows < 2**31:
+        raise ValueError(f"num_rows {num_rows} out of [1, 2^31)")
+    if rows.device.type == "cpu":
+        return dense_scatter_slots_reference(rows, nbr, num_rows)
+    return _launch_scatter(rows, nbr, num_rows, "dense_scatter_slots")
+
+
+dense_scatter_slots.launches = 0

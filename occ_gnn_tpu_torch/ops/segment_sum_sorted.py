@@ -187,11 +187,20 @@ class _SegmentSumSorted(torch.autograd.Function):
 
 
 class _GatherSegmentSum(torch.autograd.Function):
+    """The forward: the plain version on the CPU, the kernel on the card.
+    The backward is ``gather_segment_sum_backward`` on both: the gradient
+    summed in f32 and cast to ``x``'s type once (autograd of the plain
+    version would round each edge's row of a bf16 frame's gradient and
+    add them in bf16)."""
+
     @staticmethod
     def forward(ctx, x, edge_src, edge_dst, edge_weight, num_segments):
         ctx.save_for_backward(edge_src, edge_dst, edge_weight)
         ctx.num_segments = num_segments
         ctx.num_src, ctx.x_dtype = x.shape[0], x.dtype
+        if x.device.type == "cpu":
+            return gather_segment_sum_reference(x, edge_src, edge_dst,
+                                                num_segments, edge_weight)
         return _launch_gather(x, edge_src, edge_dst, edge_weight,
                               num_segments)
 
@@ -283,16 +292,14 @@ def gather_segment_sum(x: torch.Tensor, edge_src: torch.Tensor,
     float(x[edge_src[e]])`` over a dst-sorted COO (padding dst ==
     ``num_segments``) -> f32 ``[num_segments, H]``. ``x`` is f32 or bf16
     ``[S, H]``; ``edge_weight``, f32 ``[E]``, takes no gradient. The
-    gradient to ``x`` comes back in ``x``'s type.
+    gradient to ``x`` is summed in f32 and comes back in ``x``'s type,
+    rounded once, on the CPU as on the card.
 
     Every ``edge_src`` entry must be a row of ``x``, as ``index_select``
     requires; on the card only valid edges' entries are read, and one out
     of range stops the kernel with a device-side assert.
     ``gather_segment_sum.launches`` counts the kernel's launches."""
     _check_gather(x, edge_src, edge_dst, num_segments, edge_weight)
-    if x.device.type == "cpu":
-        return gather_segment_sum_reference(x, edge_src, edge_dst,
-                                            num_segments, edge_weight)
     return _GatherSegmentSum.apply(x, edge_src, edge_dst, edge_weight,
                                    num_segments)
 

@@ -24,11 +24,14 @@ one-device mesh.
 
 Split GAT's dense attention has the JAX package's lowerings
 (``ops/config.py``): ``OCC_GAT_ATTENTION`` = ``batched``
-(``dense_attention``, with ``OCC_GAT_AGG=fma`` as the other form of its
-weighted sum), ``online`` or ``tiled``, each returning the same partials,
-and ``OCC_GAT_REMAT=dots``, which recomputes the local attention's
-elementwise chain in the backward. ``OCC_DEVICE_SAMPLE=window`` makes
-``make_device_csr`` build the doubled CSR.
+(``dense_attention``: by default ``ops.gat_attention``, hand-written
+kernels on the card; ``OCC_GAT_AGG=fma`` is the other form of its
+weighted sum, in torch ops), ``online`` or ``tiled`` (torch ops), each
+returning the same partials, and ``OCC_GAT_REMAT=dots``, which recomputes
+the local attention's elementwise chain in the backward (on the card,
+the attention's forward kernel once more a layer).
+``OCC_DEVICE_SAMPLE=window`` makes ``make_device_csr`` build the doubled
+CSR.
 
 Only the feature frame's consumers differentiate: the frame never
 requires grad, so layer 0 builds no ``dx`` (JAX differentiates the
@@ -71,6 +74,10 @@ from occ_gnn_tpu_torch.ops.config import (
     gat_attention_impl,
     gat_remat_impl,
     gat_tile,
+)
+from occ_gnn_tpu_torch.ops.gat_attention import (
+    attention_scores,
+    gat_attention,
 )
 from occ_gnn_tpu_torch.parallel.dist import DistContext, all_reduce_gradients
 from occ_gnn_tpu_torch.parallel.split import (
@@ -276,13 +283,16 @@ def dense_attention(x: torch.Tensor, nbr: torch.Tensor, wl: torch.Tensor,
                     w3: torch.Tensor, er_frame: torch.Tensor):
     """GAT's local streaming-softmax partials through the dense ``[K, D]``
     neighbour matrix, in the batched two-pass form of the JAX package
-    (``parallel/model.py:294-363``, its default): gather the K leaf rows of
-    ``x`` once, score them ``leaky_relu(x_leaf @ wl + er)``, take the exact
-    max over K, weight, sum the weighted leaves per head in leaf space, and
-    project per head with ``w3 [H_in, heads, Dh]`` last. The weighted sum
-    is one batched product, or under ``OCC_GAT_AGG=fma`` an unrolled K-loop
-    of broadcast multiply-adds (JAX ``:345-357``). Above
-    ``OCC_GAT_RESID_WARN_GB`` of estimated residuals it warns, once a shape.
+    (``parallel/model.py:294-363``, its default): score each leaf row of
+    ``x`` ``leaky_relu(x_leaf @ wl + er)``, take the exact max over K,
+    weight, sum the weighted leaves per head in leaf space, and project per
+    head with ``w3 [H_in, heads, Dh]`` last. By default that is
+    ``ops.gat_attention``: on the card its hand-written kernels, which
+    never write the ``[K, D, H_in]`` leaves. Under ``OCC_GAT_AGG=fma`` the
+    leaves are gathered whole and the weighted sum is an unrolled K-loop
+    of broadcast multiply-adds in torch ops (JAX ``:345-357``). Above
+    ``OCC_GAT_RESID_WARN_GB`` of residuals, as JAX estimates them for its
+    gathered leaves, it warns, once a shape.
 
     Padding slots read the frame's reserved zero row ``x.shape[0] - 1`` and
     are masked to -inf before the exp, so no inf reaches the backward. The
@@ -294,26 +304,14 @@ def dense_attention(x: torch.Tensor, nbr: torch.Tensor, wl: torch.Tensor,
     with record_function("gat_attention_dense"):
         K, D = nbr.shape
         _warn_residuals(K, D, x, wl.shape[1])
-        xg = x.index_select(0, nbr.reshape(-1)).reshape(K, D, -1)
-        valid = (nbr != x.shape[0] - 1)[..., None]
-        low = x.dtype != torch.float32
-        if low:
-            wl = wl.to(x.dtype).float()
-            xg = xg.float()
-        z = F.leaky_relu(xg @ wl + er_frame[None], NEGATIVE_SLOPE)
-        m_loc = z.detach().masked_fill(~valid, float("-inf")).amax(dim=0)
-        safe = torch.where(torch.isfinite(m_loc), m_loc, 0.0)
-        pw = torch.exp((z - safe[None]).masked_fill(~valid, float("-inf")))
-        s_loc = pw.sum(dim=0)
-        if gat_agg_impl() == "fma":
-            agg = pw[0][..., None] * xg[0][:, None, :]
-            for kk in range(1, K):
-                agg = agg + pw[kk][..., None] * xg[kk][:, None, :]
-        else:
-            if low:
-                pw = pw.to(x.dtype).float()
-            agg = torch.einsum("kdc,kdh->dch", pw, xg)
-        return m_loc, s_loc, torch.einsum("dch,hco->dco", agg, w3)
+        if gat_agg_impl() != "fma":
+            return gat_attention(x, nbr, wl, w3, er_frame)
+        xg, pw, m_loc = attention_scores(x, nbr, wl, er_frame)
+        agg = pw[0][..., None] * xg[0][:, None, :]
+        for kk in range(1, K):
+            agg = agg + pw[kk][..., None] * xg[kk][:, None, :]
+        return (m_loc, pw.sum(dim=0),
+                torch.einsum("dch,hco->dco", agg, w3))
 
 
 # Shapes the residual warning has fired for in this process.

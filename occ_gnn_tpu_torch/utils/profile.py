@@ -19,6 +19,7 @@ NAMED_RANGES = ("sample", "train_step", "local_aggregate_dense",
                 "_DenseAggregateBackward", "synthesize_device_innermost",
                 "local_aggregate", "slice_owned", "shuffle_merge",
                 "_ShuffleMergeBackward", "gat_attention_dense",
+                "_GatAttentionBackward",
                 "gat_attention_coo", "reverse_shuffle",
                 "_ReverseShuffleBackward", "shuffle_softmax_merge",
                 "_ShuffleSoftmaxMergeBackward", "quiver_draw",

@@ -172,6 +172,60 @@ def test_bf16_grad_comes_back_in_bf16():
                                   np.repeat(deg[:, None], 16, axis=1))
 
 
+# CASES with edges, and a frame of 40 rows under 20,000 edges (some 500
+# terms a row).
+BF16_GRAD_CASES = CASES[:3] + CASES[4:] + [(20000, 50, 16, 40, 20480)]
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("E,D,H,S,cap", BF16_GRAD_CASES)
+def test_bf16_grad_within_one_rounding_of_the_exact_sum(E, D, H, S, cap,
+                                                        weighted):
+    """The gradient to a bf16 frame, on the CPU as on the card, is summed
+    in f32 and rounded to bf16 once: each element within 2^-8 of the
+    float64 sum of its edges' terms, beside the f32 sum's own bound
+    (terms x 2^-24 of the terms' magnitudes, twice). JAX's gradient in
+    the frame's type is no nearer: its unweighted path returns the f32
+    sum for the bf16 frame, which a bf16 tensor's gradient holds rounded
+    once; its weighted path rounds each edge's row and adds in bf16."""
+    x, src, dst, w = _case(E, D, H, S, cap, seed=9)
+    cot = np.random.default_rng(10).standard_normal((D, H)).astype(
+        np.float32)
+    xb = jnp.asarray(x).astype(jnp.bfloat16)
+    xt = torch.from_numpy(np.array(xb.astype(jnp.float32))).to(
+        torch.bfloat16).requires_grad_()
+    gather_segment_sum(xt, *_torch(src, dst), D,
+                       edge_weight=torch.from_numpy(w) if weighted
+                       else None).backward(torch.from_numpy(cot))
+    assert xt.grad.dtype == torch.bfloat16
+    port = xt.grad.float().numpy().astype(np.float64)
+    if weighted:
+        fn = functools.partial(jseg.spmm_sum, edge_src=jnp.asarray(src),
+                               edge_dst=jnp.asarray(dst), num_dst=D,
+                               edge_weight=jnp.asarray(w))
+    else:
+        fn = functools.partial(jax_spmm_sum_blocked,
+                               edge_src=jnp.asarray(src),
+                               edge_dst=jnp.asarray(dst), num_dst=D)
+    _, vjp = jax.vjp(fn, xb)
+    (gj,) = vjp(jnp.asarray(cot))
+    jgrad = np.asarray(gj.astype(jnp.bfloat16).astype(jnp.float32)).astype(
+        np.float64)
+    ww = w[:E].astype(np.float64) if weighted else np.ones(E)
+    terms_e = cot[dst[:E]].astype(np.float64) * ww[:, None]
+    exact, mags = np.zeros((S, H)), np.zeros((S, H))
+    np.add.at(exact, src[:E], terms_e)
+    np.add.at(mags, src[:E], np.abs(terms_e))
+    terms = np.bincount(src[:E], minlength=S)[:, None]
+    limit = 2.0**-8 * np.abs(exact) + 2 * terms * 2.0**-24 * mags
+    port_err = np.abs(port - exact).max()
+    jax_err = np.abs(jgrad - exact).max()
+    print(f"E={E} S={S} weighted={weighted}: port {port_err:.3g}, JAX "
+          f"{jax_err:.3g} from the float64 sum")
+    assert (np.abs(port - exact) <= limit).all()
+    assert port_err <= jax_err
+
+
 def test_weight_requiring_grad_raises():
     x, src, dst, w = _case(100, 10, 8, 50, 256)
     wt = torch.from_numpy(w).requires_grad_()
