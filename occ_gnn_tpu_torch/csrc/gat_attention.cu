@@ -37,9 +37,12 @@
 // agg (heads f32 rows a column), the backward reads dagg and, past layer 0,
 // writes a row a slot. Design: a warp for each dst column, lane j holding
 // columns j + 32 i of a row (i < J), so each load of a row is one
-// contiguous 128-byte (f32) or 64-byte (bf16) access and a score is a warp
-// sum (a butterfly, whose result every lane holds bit for bit, so the
-// warp's branches stay uniform). The leaves never reach device memory.
+// contiguous 128-byte (f32) or 64-byte (bf16) access. A score's products
+// and sums are taken in f64 and rounded to f32 once (`score`), as the plain
+// version's are, so both take the same leaky ReLU slope at scores near 0;
+// the heads' sums are folded into one across the lanes, every lane of a
+// head holding the same bits, so the warp's branches stay uniform. The
+// leaves never reach device memory.
 // A warp walks its column's slots kBatch at a time, their rows' loads in
 // flight together: one row at a time left a warp waiting on each load's
 // latency, several times the bytes' time.
@@ -49,10 +52,9 @@
 //     or L2, read microseconds before) and adds pw * leaf into registers,
 //     heads x J of them, written once as agg. A column no slot names still
 //     writes m = -inf and zeros, so every column of the grid is written.
-//     wl sits in registers, J x heads a lane, rounded once.
 //   * backward: the same walk over columns, strided over a grid of two
 //     blocks an SM; each valid leaf read once; wl and the column's dagg in
-//     shared memory (registers for them held one block an SM); dwl summed
+//     shared memory (in registers they held one block an SM); dwl summed
 //     in registers over the warp's columns, then over the block's warps in
 //     warp order into shared memory and written as the block's partial (no
 //     float atomics; the wrapper adds the partials in a fixed order). der
@@ -127,28 +129,15 @@ struct Frame<__nv_bfloat16> {
   }
 };
 
-// The warp's sum, in every lane (a butterfly: each lane adds the same
-// values in the same tree, so all hold the same bits).
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(kFull, v, o);
-  return v;
-}
-
-// This lane's columns of wl, rounded as the frame's type: w[i][c] =
-// wl[lane + 32 i, c], zero past h and past heads.
-template <typename In, int J, int HEADS>
-__device__ __forceinline__ void load_weights(const Args& a, int lane,
-                                             float (&w)[J][HEADS]) {
-#pragma unroll
-  for (int i = 0; i < J; ++i) {
-    const int col = lane + 32 * i;
-#pragma unroll
-    for (int c = 0; c < HEADS; ++c) {
-      w[i][c] = col < a.h && c < a.heads
-                    ? Frame<In>::round(__ldg(a.wl + col * a.heads + c))
-                    : 0.f;
-    }
+// wl rounded as the frame's type, into shared memory as s_wd[c * h + col]
+// (f64, zero past heads), by the whole block.
+template <typename In, int HEADS>
+__device__ __forceinline__ void stage_weights(const Args& a, double* s_wd) {
+  for (int t = threadIdx.x; t < HEADS * a.h; t += kThreads) {
+    const int c = t / a.h, col = t - c * a.h;
+    s_wd[t] = c < a.heads
+                  ? Frame<In>::round(__ldg(a.wl + col * a.heads + c))
+                  : 0.0;
   }
 }
 
@@ -181,22 +170,48 @@ __device__ __forceinline__ void stage_slots(const Args& a, long long d,
 // still holds that its partner keeps (log2 HEADS steps of HEADS / 2, ...,
 // 1 shuffles), then a butterfly over the lanes of a head. Every lane of a
 // head holds the same bits. t is overwritten.
-template <int HEADS>
-__device__ __forceinline__ float head_sums(float (&t)[HEADS], int lane) {
+template <typename T, int HEADS>
+__device__ __forceinline__ T head_sums(T (&t)[HEADS], int lane) {
 #pragma unroll
   for (int n = HEADS, o = 16; n > 1; n /= 2, o /= 2) {
     const bool upper = lane & o;
 #pragma unroll
     for (int j = 0; j < n / 2; ++j) {
-      const float send = upper ? t[j] : t[j + n / 2];
-      const float keep = upper ? t[j + n / 2] : t[j];
+      const T send = upper ? t[j] : t[j + n / 2];
+      const T keep = upper ? t[j + n / 2] : t[j];
       t[j] = keep + __shfl_xor_sync(kFull, send, o);
     }
   }
-  float v = t[0];
+  T v = t[0];
 #pragma unroll
   for (int o = 16 / HEADS; o > 0; o /= 2) v += __shfl_xor_sync(kFull, v, o);
   return v;
+}
+
+// The score's pre-activation leaf . wl[:, c] + e of this lane's head: the
+// products and sums in f64 (a lane's columns, then the folded warp sum),
+// rounded to f32 once. Any order of f64 sums rounds to the same f32 but
+// for a value within about 2^-40 of its size of a rounding boundary, so
+// the plain version, which sums in f64 too, takes the same leaky ReLU
+// slope; sums in f32 in two orders may not, at scores within rounding of
+// 0.
+template <int J, int HEADS>
+__device__ __forceinline__ float score(const float (&v)[J],
+                                       const double* s_wd, int h, float e,
+                                       int lane) {
+  double t[HEADS];
+#pragma unroll
+  for (int c = 0; c < HEADS; ++c) {
+    t[c] = 0.0;
+#pragma unroll
+    for (int i = 0; i < J; ++i) {
+      const int col = lane + 32 * i;
+      if (col < h) {
+        t[c] = fma(static_cast<double>(v[i]), s_wd[c * h + col], t[c]);
+      }
+    }
+  }
+  return static_cast<float>(head_sums(t, lane) + static_cast<double>(e));
 }
 
 // Head c's value of a [D, heads] array at column d (zero past heads).
@@ -226,19 +241,22 @@ __device__ __forceinline__ void load_batch(const Args& a, const int* s_idx,
 template <typename In, int J, int HEADS>
 __global__ void __launch_bounds__(kThreads) attention_fwd(Args a) {
   constexpr int kGroup = 32 / HEADS;  // lanes a head
-  extern __shared__ float s_mem[];
+  extern __shared__ double s_dmem[];
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int mine = lane / kGroup;  // this lane's head in the folded sums
-  // [K][HEADS] the scores, then the weights; [HEADS] the max.
+  // wl [HEADS][h] in f64; a warp's [K][HEADS] scores, then weights, and
+  // [HEADS] maxima; its slot ids.
+  double* s_wd = s_dmem;
+  float* s_mem = reinterpret_cast<float*>(s_wd + HEADS * a.h);
   float* s_z = s_mem + warp * (a.K + 1) * HEADS;
   float* s_m = s_z + a.K * HEADS;
   int* s_idx =
       reinterpret_cast<int*>(s_mem + kWarps * (a.K + 1) * HEADS) + warp * a.K;
+  stage_weights<In, HEADS>(a, s_wd);
+  __syncthreads();
   const long long d = static_cast<long long>(blockIdx.x) * kWarps + warp;
   if (d >= a.D) return;
   const int zero_row = static_cast<int>(a.x_rows - 1);
-  float w[J][HEADS];
-  load_weights<In>(a, lane, w);
   const float e = head_value(a.er, a, d, mine);
   stage_slots(a, d, lane, s_idx);
   __syncwarp();
@@ -251,14 +269,8 @@ __global__ void __launch_bounds__(kThreads) attention_fwd(Args a) {
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
       if (r[u] == zero_row) continue;
-      float t[HEADS];
-#pragma unroll
-      for (int c = 0; c < HEADS; ++c) {
-        t[c] = 0.f;
-#pragma unroll
-        for (int i = 0; i < J; ++i) t[c] = fmaf(v[u][i], w[i][c], t[c]);
-      }
-      const float z = leaky(head_sums(t, lane) + e, a.slope);
+      const float z =
+          leaky(score<J, HEADS>(v[u], s_wd, a.h, e, lane), a.slope);
       mx = fmaxf(mx, z);
       if (lane % kGroup == 0) s_z[(k0 + u) * HEADS + mine] = z;
     }
@@ -317,10 +329,12 @@ __global__ void __launch_bounds__(kThreads) attention_fwd(Args a) {
 template <typename In, int J, int HEADS>
 __global__ void __launch_bounds__(kThreads, 2) attention_bwd(Args a) {
   constexpr int kGroup = 32 / HEADS;  // lanes a head
-  extern __shared__ float s_mem[];
+  extern __shared__ double s_dmem[];
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int mine = lane / kGroup;  // this lane's head in the folded sums
   const int hh = HEADS * a.h;
+  double* s_wd = s_dmem;                           // wl in f64, the scores'
+  float* s_mem = reinterpret_cast<float*>(s_wd + hh);
   float* s_w = s_mem;                              // wl
   float* s_dwl = s_mem + hh;                       // the block's partial
   float* s_ga = s_mem + (2 + warp) * hh;           // this warp's dagg
@@ -333,6 +347,7 @@ __global__ void __launch_bounds__(kThreads, 2) attention_bwd(Args a) {
                  ? Frame<In>::round(__ldg(a.wl + col * a.heads + c))
                  : 0.f;
   }
+  stage_weights<In, HEADS>(a, s_wd);
   __syncthreads();
   float gw[HEADS][J];
 #pragma unroll
@@ -374,22 +389,18 @@ __global__ void __launch_bounds__(kThreads, 2) attention_bwd(Args a) {
           }
           continue;
         }
-        // The score's and dagg . leaf's sums, a head's in its lanes.
-        float tl[HEADS], ta[HEADS];
+        // The score and dagg . leaf, a head's in its lanes.
+        float ta[HEADS];
 #pragma unroll
         for (int c = 0; c < HEADS; ++c) {
-          tl[c] = 0.f;
           ta[c] = 0.f;
 #pragma unroll
           for (int i = 0; i < J; ++i) {
             const int col = lane + 32 * i;
-            if (col < a.h) {
-              tl[c] = fmaf(v[u][i], s_w[c * a.h + col], tl[c]);
-              ta[c] = fmaf(v[u][i], s_ga[c * a.h + col], ta[c]);
-            }
+            if (col < a.h) ta[c] = fmaf(v[u][i], s_ga[c * a.h + col], ta[c]);
           }
         }
-        const float pre = head_sums(tl, lane) + e;
+        const float pre = score<J, HEADS>(v[u], s_wd, a.h, e, lane);
         const float t = Frame<In>::round(head_sums(ta, lane));
         const float p = expf(leaky(pre, a.slope) - m);
         const float dpre_mine = p * (ds + t) * (pre > 0.f ? 1.f : a.slope);
@@ -466,7 +477,8 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
 template <typename In, int J, int HEADS>
 cudaError_t launch(const Args& a, int blocks, cudaStream_t stream) {
   if (blocks == 0) {  // the forward: a warp a column
-    const size_t smem = (sizeof(float) * HEADS * (a.K + 1) +
+    const size_t smem = sizeof(double) * HEADS * a.h +
+                        (sizeof(float) * HEADS * (a.K + 1) +
                          sizeof(int) * a.K) * kWarps;
     auto kernel = attention_fwd<In, J, HEADS>;
     cudaError_t err = allow_smem(kernel, smem);
@@ -475,7 +487,8 @@ cudaError_t launch(const Args& a, int blocks, cudaStream_t stream) {
     attention_fwd<In, J, HEADS>
         <<<static_cast<unsigned>(grid), kThreads, smem, stream>>>(a);
   } else {
-    const size_t smem = sizeof(float) * (2 + kWarps) * HEADS * a.h +
+    const size_t smem = sizeof(double) * HEADS * a.h +
+                        sizeof(float) * (2 + kWarps) * HEADS * a.h +
                         sizeof(int) * kWarps * a.K;
     auto kernel = attention_bwd<In, J, HEADS>;
     cudaError_t err = allow_smem(kernel, smem);

@@ -8,7 +8,8 @@ reserved zero row that padding slots name, int32 ``nbr [K, D]``, f32
 ``w3 [H, heads, Dh]`` and ``er [D, heads]``, ``gat_attention`` computes
 for each dst column ``d`` and head ``c``:
 
-* ``z[k, d, c] = leaky_relu(x[nbr[k, d]] . wl[:, c] + er[d, c], 0.2)``,
+* ``z[k, d, c] = leaky_relu(x[nbr[k, d]] . wl[:, c] + er[d, c], 0.2)``
+  (the dot and the sum in f64, rounded to f32 once: ``attention_pre``),
   and -inf on padding slots;
 * ``m[d, c]``, the max over k (detached), ``pw = exp(z - m)`` (0 on
   padding) and ``s[d, c] = sum_k pw``;
@@ -98,6 +99,19 @@ BWD_BLOCKS_AN_SM = 2
 PROJECTION_CHUNKS = 64
 
 
+def attention_pre(xg: torch.Tensor, wl: torch.Tensor,
+                  er: torch.Tensor) -> torch.Tensor:
+    """The scores' pre-activations ``xg @ wl + er`` (``er`` broadcast to
+    the product), their products and sums in f64, rounded to f32 once.
+    Every form of the attention in the port (the kernels, the plain
+    version, the lowerings) computes them so, and so takes the same leaky
+    ReLU slope at a score near 0, where f32 sums in two orders can fall on
+    either side of it; any two f64 orders round to the same f32 but within
+    about 2^-40 of a value of a rounding boundary. JAX sums in f32: the
+    scores differ from its by that rounding."""
+    return (xg.double() @ wl.double() + er.double()).float()
+
+
 def attention_scores(x: torch.Tensor, nbr: torch.Tensor, wl: torch.Tensor,
                      er: torch.Tensor):
     """The batched form's leaves and softmax weights, differentiable: the
@@ -110,7 +124,7 @@ def attention_scores(x: torch.Tensor, nbr: torch.Tensor, wl: torch.Tensor,
     if x.dtype != torch.float32:
         wl = wl.to(x.dtype).float()
         xg = xg.float()
-    z = F.leaky_relu(xg @ wl + er[None], NEGATIVE_SLOPE)
+    z = F.leaky_relu(attention_pre(xg, wl, er[None]), NEGATIVE_SLOPE)
     m = z.detach().masked_fill(~valid, float("-inf")).amax(dim=0)
     safe = torch.where(torch.isfinite(m), m, 0.0)
     pw = torch.exp((z - safe[None]).masked_fill(~valid, float("-inf")))
@@ -152,7 +166,7 @@ def gat_attention_backward_reference(x: torch.Tensor, nbr: torch.Tensor,
     xg = x.index_select(0, nbr.reshape(-1)).reshape(K, D, H).float()
     valid = (nbr != S - 1)[..., None]
     wl_c = wl.to(x.dtype).float() if low else wl
-    pre = xg @ wl_c + er[None]                          # [K, D, heads]
+    pre = attention_pre(xg, wl_c, er[None])             # [K, D, heads]
     z = torch.where(pre > 0, pre, NEGATIVE_SLOPE * pre)
     safe = torch.where(torch.isfinite(m), m, 0.0)
     pw = torch.exp((z - safe[None]).masked_fill(~valid, float("-inf")))

@@ -76,6 +76,7 @@ from occ_gnn_tpu_torch.ops.config import (
     gat_tile,
 )
 from occ_gnn_tpu_torch.ops.gat_attention import (
+    attention_pre,
     attention_scores,
     gat_attention,
 )
@@ -341,7 +342,7 @@ def _online_step(m, s, v, x, idx, w, wl, er_frame):
     heads, d_out = v.shape[1:]
     valid = (idx != x.shape[0] - 1)[:, None]
     xg = x.index_select(0, idx).float()
-    zk = F.leaky_relu(xg @ wl + er_frame, NEGATIVE_SLOPE)
+    zk = F.leaky_relu(attention_pre(xg, wl, er_frame), NEGATIVE_SLOPE)
     m_new = torch.maximum(m, zk.detach().masked_fill(~valid, float("-inf")))
     safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
     scale = torch.where(torch.isfinite(m), torch.exp(m - safe), 0.0)
@@ -397,7 +398,8 @@ def tiled_attention(x: torch.Tensor, nbr: torch.Tensor, wl: torch.Tensor,
             xg = x.index_select(0, nbr_t.reshape(-1)).reshape(
                 K, nbr_t.shape[1], H).float()
             valid = (nbr_t != sentinel)[..., None]
-            z = F.leaky_relu(xg @ wl_c + er_frame[None, t0:t0 + T],
+            z = F.leaky_relu(attention_pre(xg, wl_c,
+                                           er_frame[None, t0:t0 + T]),
                              NEGATIVE_SLOPE)
             m = z.detach().masked_fill(~valid, float("-inf")).amax(dim=0)
             safe = torch.where(torch.isfinite(m), m, 0.0)
