@@ -798,14 +798,16 @@ def gat_attention_cases(label, x, nbr, heads, dh, rate, gen, grad_x,
     """GAT's attention kernels on one layer's shape, against their plain
     versions on the same inputs (random weights, cotangents and, past
     layer 0, frame): the forward's ``(m, s, v)`` within GAT_FWD_TOL of
-    scale; the backward kernel's ``der``, ``dwl`` and ``dxg``, the
-    per-slot scatter's ``dx`` and the op's gradients to x (``grad_x``),
-    wl, w3 and er through autograd, each within GAT_GRAD_TOL of its max
-    |.|; each kernel bit-equal over two launches.
+    scale; the backward kernel's ``der``, ``dwl`` and ``dxg`` (the rows of
+    valid slots: padding slots' rows are not written), the per-slot
+    scatter's ``dx`` and the op's gradients to x (``grad_x``), wl, w3 and
+    er through autograd, each within GAT_GRAD_TOL of its max |.|; each
+    kernel bit-equal over two launches.
     ``timed``: each kernel and its plain version in the CUDA-graph harness
     beside the byte bound
     (each input read once: the x rows nbr names, in their own type;
-    each output written once: agg, and past layer 0 the dxg workspace) and
+    each output written once: agg, and past layer 0 the dxg workspace's
+    rows of valid slots) and
     the operation bound; the per-slot scatter beside ``index_add_`` (one
     library call of the same sum). The attention has no library call:
     ``scaled_dot_product_attention`` scores by a dot product, not GAT's
@@ -844,13 +846,19 @@ def gat_attention_cases(label, x, nbr, heads, dh, rate, gen, grad_x,
             for _ in range(2)]
     ref_b = gat_attention_backward_reference(x, nbr, wl, er, m, ds, dagg,
                                              grad_x)
+    dxg_rows = bwds[0][0]
+    if grad_x:
+        dxs = [dense_scatter_slots(dxg_rows, nbr, S) for _ in range(2)]
+        ref_dx = dense_scatter_slots_reference(ref_b[0], nbr, S)
+        # dxg's rows of valid slots: the kernel leaves padding slots' rows.
+        at = (nbr != S - 1).reshape(-1)
+        bwds = [(b[0][at],) + tuple(b[1:]) for b in bwds]
+        ref_b = (ref_b[0][at],) + tuple(ref_b[1:])
     names = ("dxg", "dwl", "der")
     pairs = [(n, a, b) for n, a, b in zip(names, bwds[0], ref_b)
              if a is not None]
     if grad_x:
-        dxs = [dense_scatter_slots(bwds[0][0], nbr, S) for _ in range(2)]
-        pairs.append(("dx", dxs[0], dense_scatter_slots_reference(
-            ref_b[0], nbr, S)))
+        pairs.append(("dx", dxs[0], ref_dx))
         if not torch.equal(*dxs):
             raise AssertionError(f"{label}: two launches of {SLOTS} differ")
     torch.cuda.synchronize()
@@ -907,7 +915,6 @@ def gat_attention_cases(label, x, nbr, heads, dh, rate, gen, grad_x,
         bytes_ms=(4 * K * D + xb * rows * H + 4 * hb + 4 * D * heads
                   + 8 * D * heads + 4 * D * hb) / rate * 1e3,
         ops_ms=4 * valid * hb / F32_RATE * 1e3)
-    dxg_rows = bwds[0][0]
     del bwds, outs
     cases[GAT_BWD].update(
         ms=median_ms(lambda: gat_attention_bwd(x, nbr, wl, er, m, ds, dagg,
@@ -916,7 +923,7 @@ def gat_attention_cases(label, x, nbr, heads, dh, rate, gen, grad_x,
             x, nbr, wl, er, m, ds, dagg, grad_x)),
         library_ms=None,
         bytes_ms=(4 * K * D + xb * rows * H + 4 * hb + 4 * D * heads * 4
-                  + 4 * D * hb + (4 * K * D * H if grad_x else 0))
+                  + 4 * D * hb + (4 * valid * H if grad_x else 0))
         / rate * 1e3,
         ops_ms=(6 + (4 if grad_x else 0)) * valid * hb / F32_RATE * 1e3)
     if grad_x:
@@ -927,8 +934,8 @@ def gat_attention_cases(label, x, nbr, heads, dh, rate, gen, grad_x,
                 dxg_rows, nbr, S)),
             library_ms=median_ms(lambda: torch.zeros(
                 S, H, device=dev).index_add_(0, flat, dxg_rows)),
-            bytes_ms=(4 * K * D + 4 * K * D * H + 4 * S * H) / rate * 1e3,
-            ops_ms=K * D * H / F32_RATE * 1e3)
+            bytes_ms=(4 * K * D + 4 * valid * H + 4 * S * H) / rate * 1e3,
+            ops_ms=valid * H / F32_RATE * 1e3)
     for name, c in cases.items():
         bound = max(c["bytes_ms"], c["ops_ms"])
         by = "bytes" if c["bytes_ms"] >= c["ops_ms"] else "operations"
@@ -945,11 +952,15 @@ def gat_ragged_cases(device):
     """``gat_attention_cases`` arguments at the kernels' edges: columns
     that no slot names (K = 1 and K = 26), H = 100 and 128 (and 200, with
     5 heads: the kernels' wider instantiation), Dh = 47, 2 and 4 heads,
-    bf16 frames, and 200 columns whose 25 slots all name row 7 (5,000
-    slots: the per-slot scatter's long-row path)."""
+    bf16 frames, 200 columns whose 25 slots all name row 7 (5,000 slots:
+    the per-slot scatter's long-row path), and the kernels that take a row
+    a tile at a time: H = 1024 with 4 heads (the CLI's default hidden
+    layers, 256 x 4; timed), 9 heads on H = 300 (more than 8, tails of a
+    tile and of a head group) and a bf16 frame of H = 602."""
     gen = torch.Generator(device).manual_seed(13)
 
-    def case(label, S, K, D, H, heads, dh, dtype=torch.float32, edit=None):
+    def case(label, S, K, D, H, heads, dh, dtype=torch.float32, edit=None,
+             timed=False):
         nbr = torch.randint(0, S - 1, (K, D), generator=gen, device=device,
                             dtype=torch.int32)
         nbr[torch.rand(K, D, generator=gen, device=device) < 0.3] = S - 1
@@ -958,7 +969,7 @@ def gat_ragged_cases(device):
         x = torch.randn(S, H, generator=gen, device=device)
         x[S - 1] = 0.0
         return dict(label=label, x=x.to(dtype), nbr=nbr, heads=heads, dh=dh,
-                    grad_x=dtype == torch.float32, gen=gen)
+                    grad_x=dtype == torch.float32, gen=gen, timed=timed)
 
     yield case("K=1, columns 100-149 all padding", 500, 1, 300, 128, 4, 32,
                edit=lambda n: n[:, 100:150].fill_(499))
@@ -973,6 +984,11 @@ def gat_ragged_cases(device):
                47, dtype=torch.bfloat16)
     yield case("200 columns of 25 slots naming row 7 (5,000 slots)", 3000,
                25, 400, 128, 4, 32, edit=lambda n: n[:, :200].fill_(7))
+    yield case("H=1024, 4 heads, Dh=256", 20000, 11, 8192, 1024, 4, 256,
+               timed=True)
+    yield case("H=300, 9 heads, Dh=5", 2000, 11, 1500, 300, 9, 5)
+    yield case("bf16 frame, H=602, 8 heads, Dh=16", 3000, 26, 800, 602, 8,
+               16, dtype=torch.bfloat16)
 
 
 def split_gat_cases(label, layers, x0, hidden, heads, num_classes, rate,
@@ -3490,7 +3506,7 @@ def main(argv=None) -> int:
             "split GAT A layer 0, bf16 frame",
             cache.frames[0].to(torch.bfloat16), syn.nbr_idx, heads, hidden,
             rate, torch.Generator(device).manual_seed(15), grad_x=False)
-        gat_ragged = [gat_attention_cases(rate=rate, timed=False, **c)
+        gat_ragged = [gat_attention_cases(rate=rate, **c)
                       for c in gat_ragged_cases(device)]
         del cache
         metrics_ga, launches_ga = run_split("split GAT A", args_ga, g, fan_a,

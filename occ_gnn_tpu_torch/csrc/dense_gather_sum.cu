@@ -6,7 +6,8 @@
 //   dense_scatter_add:  dx[s, :]  = sum of g[d, :] over the slots (k, d)
 //                                   with nbr[k, d] == s
 //   dense_scatter_slots: the same with each slot's own row,
-//                        g[k * D + d, :] in place of g[d, :]
+//                        g[k * D + d, :] in place of g[d, :], and
+//                        dx[S - 1, :] = 0 (padding slots' rows unread)
 //
 // x is f32 or bf16 [S, H] row-major, and its last row S - 1 is the frame's
 // reserved zero row that every padding slot names; nbr is int32 [K, D],
@@ -74,7 +75,9 @@
 // The zero row's tree is fixed by D alone, the row sums by nbr alone, so
 // two launches give the same bits. The per-slot mode reads the row of slot
 // i at i where the other reads i % D (the lists hold slot ids either way),
-// and its zero row's first level adds each padding slot's own row, k by k. g (11.5 MB at split A's layer 1)
+// and builds no zero-row tree: it writes the zero row as zeros, since GAT's
+// attention backward gives padding slots no gradient and writes no row for
+// them. g (11.5 MB at split A's layer 1)
 // stays in L2; dx is written with streaming stores. Each phase is a chain
 // of dependent loads behind a barrier, about 17 us at the smallest layers
 // (PERF.md); from split A's layer 1 up it is faster than atomics. One
@@ -698,28 +701,11 @@ scatter_rows(const Acc* __restrict__ g, const int* __restrict__ nbr, int K,
   // The zero row's first level, from the last warp down (the slots above
   // start from the first thread): a warp for kZeroCols consecutive columns,
   // lane j counting column d0 + j's padding slots c_d, then c_d * g[d]
-  // summed over the columns in order; per slot, the padding slots' own
-  // rows, column by column and k by k.
-  for (long long j = warps - 1 - gwarp; j < p.nz[0]; j += warps) {
+  // summed over the columns in order. None per slot.
+  const long long zero_groups = per_slot ? 0 : p.nz[0];
+  for (long long j = warps - 1 - gwarp; j < zero_groups; j += warps) {
     const long long d0 = j * kZeroCols;
     const int n = static_cast<int>(D - d0 < kZeroCols ? D - d0 : kZeroCols);
-    if (per_slot) {
-      Acc* out = reinterpret_cast<Acc*>(p.zero[0]) + j * width;
-      for (int col = lane; col < width; col += 32) {
-        Acc acc;
-        zero(acc);
-        for (int u = 0; u < n; ++u) {
-          for (int k = 0; k < K; ++k) {
-            const long long slot = static_cast<long long>(k) * D + d0 + u;
-            if (__ldg(nbr + slot) == zero_row) {
-              add(acc, __ldg(g + slot * width + col));
-            }
-          }
-        }
-        out[col] = acc;
-      }
-      continue;
-    }
     int c = 0;
     for (int k0 = 0; k0 < K; k0 += 2 * kUnroll) {
       int v[2 * kUnroll];
@@ -798,8 +784,10 @@ scatter_rows(const Acc* __restrict__ g, const int* __restrict__ nbr, int K,
     if (threadIdx.x == 0) p.totals[c] = total;
   }
   if (helper >= 0) {
-    zero_level(reinterpret_cast<const Acc*>(p.zero[0]), p.nz[0], kZeroFan,
-               reinterpret_cast<Acc*>(p.zero[1]), helper, helpers, width);
+    if (!per_slot) {
+      zero_level(reinterpret_cast<const Acc*>(p.zero[0]), p.nz[0], kZeroFan,
+                 reinterpret_cast<Acc*>(p.zero[1]), helper, helpers, width);
+    }
     Acc z;
     zero(z);
     for (long long s0 = helper * 32; s0 < zero_row; s0 += helpers * 32) {
@@ -834,9 +822,11 @@ scatter_rows(const Acc* __restrict__ g, const int* __restrict__ nbr, int K,
     }
     __syncthreads();
   }
-  zero_level(reinterpret_cast<const Acc*>(p.zero[1]), p.nz[1], kZeroFan,
-             reinterpret_cast<Acc*>(p.zero[2]), warps - 1 - gwarp, warps,
-             width);
+  if (!per_slot) {
+    zero_level(reinterpret_cast<const Acc*>(p.zero[1]), p.nz[1], kZeroFan,
+               reinterpret_cast<Acc*>(p.zero[2]), warps - 1 - gwarp, warps,
+               width);
+  }
   for (long long i0 = tid; i0 < slots; i0 += threads * kBatch) {
     int r[kBatch], at[kBatch];
 #pragma unroll
@@ -879,7 +869,9 @@ scatter_rows(const Acc* __restrict__ g, const int* __restrict__ nbr, int K,
     for (int c = lane; c < width; c += 32) {
       Acc acc;
       zero(acc);
-      for (int t = 0; t < p.nz[2]; ++t) add(acc, src[t * width + c]);
+      for (int t = 0; !per_slot && t < p.nz[2]; ++t) {
+        add(acc, src[t * width + c]);
+      }
       store_streaming(dx + static_cast<long long>(zero_row) * width + c, acc);
     }
   }
@@ -1143,7 +1135,9 @@ extern "C" int dense_scatter_add(const void* g, const void* nbr, long long ld,
 }
 
 // dense_scatter_add with a row a slot: dx[s] = sum of rows[k * d + j] over
-// the slots (k, j) naming s, in slot order; rows f32 [k * d, h].
+// the slots (k, j) naming s, in slot order, for s < x_rows - 1, and
+// dx[x_rows - 1] = 0 (the padding slots' rows are not read); rows f32
+// [k * d, h].
 extern "C" int dense_scatter_slots(const void* rows, const void* nbr,
                                    long long ld, int k, long long d, int h,
                                    long long x_rows, void* dx,

@@ -30,8 +30,9 @@ in a tree fixed by D.
 
 ``dense_scatter_slots(rows, nbr, num_rows)`` is the backward's per-slot
 mode: the same plan and order, each slot adding its own row ``rows[k * D
-+ d]`` (GAT's attention backward writes one a slot) in place of
-``g[d]``.
++ d]`` (GAT's attention backward writes one a valid slot) in place of
+``g[d]``; the zero row is written as zeros and padding slots' rows are not
+read.
 
 The gradient to a bf16 frame is summed in f32 and rounded to bf16 once;
 JAX rounds every partial sum to bf16. The port's is the nearer to the
@@ -96,9 +97,13 @@ def dense_scatter_add_reference(grad: torch.Tensor, nbr: torch.Tensor,
 def dense_scatter_slots_reference(rows: torch.Tensor, nbr: torch.Tensor,
                                   num_rows: int) -> torch.Tensor:
     """Plain version of the per-slot mode: each slot's own row ``rows[k *
-    D + d]`` added into ``dx[nbr[k, d]]`` (one ``index_add_``)."""
+    D + d]`` added into ``dx[nbr[k, d]]`` (one ``index_add_``), then the
+    zero row ``num_rows - 1`` set to 0, whatever its padding slots' rows
+    hold."""
     dx = rows.new_zeros((num_rows, rows.shape[1]))
-    return dx.index_add_(0, nbr.reshape(-1), rows)
+    dx.index_add_(0, nbr.reshape(-1), rows)
+    dx[num_rows - 1] = 0.0
+    return dx
 
 
 def dense_scatter_plan(nbr: torch.Tensor, num_rows: int):
@@ -292,7 +297,8 @@ def dense_scatter_slots(rows: torch.Tensor, nbr: torch.Tensor,
     ``[num_rows, H]``, for f32 ``rows [K * D, H]`` (a gradient row a slot,
     as GAT's attention backward writes them). The same plan and order as
     ``dense_scatter_add``: each row's slots summed in slot order, every row
-    of ``dx`` written once, the zero row the sum of its slots' rows.
+    of ``dx`` written once, the zero row ``num_rows - 1`` as zeros (its
+    slots are padding, whose rows are not read and may hold anything).
     ``dense_scatter_slots.launches`` counts the kernel's launches."""
     if rows.dtype != torch.float32 or rows.dim() != 2:
         raise TypeError(f"rows must be 2-D float32, got {rows.dim()}-D "

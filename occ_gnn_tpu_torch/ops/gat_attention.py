@@ -33,10 +33,16 @@ backward (1.29 GB at split GAT A's layer 0). The kernels,
   ``s`` and ``agg [D, heads, H]``; the per-head projection ``v = agg @
   w3`` is ``torch.einsum`` beside it (JAX's own einsum, a large product);
 * ``gat_attention_bwd`` walks the same columns again, recomputes ``z`` and
-  ``pw`` from the saved ``m``, and writes ``der``, per-block partials of
+  ``pw`` from the saved ``m``, and writes ``der``, per-warp partials of
   ``dwl`` (summed here in a fixed order) and, when ``x`` takes a gradient,
-  each slot's row of ``dx`` into an f32 ``[K * D, H]`` workspace, which
-  ``dense_scatter_slots`` sums into ``dx`` in slot order.
+  each valid slot's row of ``dx`` into an f32 ``[K * D, H]`` workspace,
+  which ``dense_scatter_slots`` sums into ``dx`` in slot order (padding
+  slots' rows are neither written nor read).
+
+The kernels take any row width and head count: up to ``H = 512`` and 8
+heads a warp keeps a row's columns and the heads' sums in registers; wider
+rows or more heads go through the same walk a tile of 128 columns and a
+group of 4 heads at a time.
 
 The autograd Function saves ``x``, ``nbr``, ``wl``, ``er`` and ``m``; the
 projection of ``agg`` (``_Projection``) keeps ``agg`` and ``w3`` and gives
@@ -83,12 +89,8 @@ ARGTYPES = {
     "gat_attention_bwd": [_P, _I, _L, _I, _P, _I, _L, _P, _P, _I, _F, _P,
                           _P, _P, _P, _P, _I, _P, _I, _P],
 }
-# What the kernels take: a warp for each dst column, a lane holding
-# columns lane + 32 j of a row for j < 16, and heads in groups of 8.
-MAX_H = 512
-MAX_HEADS = 8
 # The backward's grid: its blocks walk the columns 8 at a time (a warp
-# each), at most this many blocks an SM; each writes one dwl partial.
+# each), at most this many blocks an SM; each warp writes one dwl partial.
 BWD_COLUMNS_A_BLOCK = 8
 BWD_BLOCKS_AN_SM = 2
 # The dst columns' chunks (at most) that the projection's weight gradient
@@ -97,6 +99,42 @@ BWD_BLOCKS_AN_SM = 2
 # step on the H100, chip_smoke.py's profiled step), a product a chunk and
 # head fills the card.
 PROJECTION_CHUNKS = 64
+# Leaf rows (at least one leading index of the leaves) a chunk of
+# attention_pre's transient f64 product: 105 MB of f64 at H = 100.
+PRE_CHUNK_LEAVES = 1 << 17
+
+
+class _AttentionPre(torch.autograd.Function):
+    """``attention_pre``: the f64 product about ``PRE_CHUNK_LEAVES`` leaf
+    rows at a time, so no f64 copy of the leaves is kept, and f32
+    gradients from the f32 inputs it saves."""
+
+    @staticmethod
+    def forward(ctx, xg, wl, er):
+        ctx.save_for_backward(xg, wl)
+        ctx.er_shape = er.shape
+        shape = xg.shape[:-1] + wl.shape[1:]
+        er = er.expand(shape)
+        wl64 = wl.double()
+        out = xg.new_empty(shape, dtype=torch.float32)
+        step = max(1, PRE_CHUNK_LEAVES // max(1, math.prod(shape[1:-1])))
+        for i in range(0, shape[0], step):
+            j = i + step
+            out[i:j] = (xg[i:j].double() @ wl64 + er[i:j].double()).float()
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        xg, wl = ctx.saved_tensors
+        dxg = dwl = der = None
+        if ctx.needs_input_grad[0]:
+            dxg = g @ wl.t()
+        if ctx.needs_input_grad[1]:
+            dwl = xg.reshape(-1, xg.shape[-1]).t() @ g.reshape(-1, g.shape[-1])
+        if ctx.needs_input_grad[2]:
+            der = g.sum_to_size(ctx.er_shape)
+        return dxg, dwl, der
 
 
 def attention_pre(xg: torch.Tensor, wl: torch.Tensor,
@@ -108,8 +146,10 @@ def attention_pre(xg: torch.Tensor, wl: torch.Tensor,
     ReLU slope at a score near 0, where f32 sums in two orders can fall on
     either side of it; any two f64 orders round to the same f32 but within
     about 2^-40 of a value of a rounding boundary. JAX sums in f32: the
-    scores differ from its by that rounding."""
-    return (xg.double() @ wl.double() + er.double()).float()
+    scores differ from its by that rounding. The f64 product is transient
+    (``PRE_CHUNK_LEAVES`` leaf rows at a time); the gradients are f32
+    products, as autograd of the f32 form computes them."""
+    return _AttentionPre.apply(xg, wl, er)
 
 
 def attention_scores(x: torch.Tensor, nbr: torch.Tensor, wl: torch.Tensor,
@@ -158,8 +198,8 @@ def gat_attention_backward_reference(x: torch.Tensor, nbr: torch.Tensor,
     forward's inputs, its max ``m`` and the gradients ``ds [D, heads]``
     and ``dagg [D, heads, H]``, returns ``(dxg, dwl, der)``: each slot's
     gradient row ``dxg [K * D, H]`` at ``k * D + d`` (zero on padding
-    slots; None unless ``need_dx``), ``dwl [H, heads]`` and ``der [D,
-    heads]``, all f32."""
+    slots here, where the kernel leaves them unwritten; None unless
+    ``need_dx``), ``dwl [H, heads]`` and ``der [D, heads]``, all f32."""
     K, D = nbr.shape
     S, H = x.shape
     low = x.dtype != torch.float32
@@ -201,14 +241,10 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _check_kernel_shapes(x: torch.Tensor, heads: int) -> None:
+def _on_cuda(x: torch.Tensor) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"the gat_attention kernels run on CUDA tensors, "
                          f"got {x.device}")
-    if x.shape[1] > MAX_H or heads > MAX_HEADS:
-        raise ValueError(f"the gat_attention kernels take H <= {MAX_H} and "
-                         f"heads <= {MAX_HEADS}, got H = {x.shape[1]}, "
-                         f"heads = {heads}")
 
 
 def gat_attention_fwd(x: torch.Tensor, nbr: torch.Tensor, wl: torch.Tensor,
@@ -222,7 +258,7 @@ def gat_attention_fwd(x: torch.Tensor, nbr: torch.Tensor, wl: torch.Tensor,
             return _partials_reference(x, nbr, wl, er)
     K, D = nbr.shape
     H, heads = wl.shape
-    _check_kernel_shapes(x, heads)
+    _on_cuda(x)
     m = torch.empty((D, heads), dtype=torch.float32, device=x.device)
     s = torch.empty_like(m)
     agg = torch.empty((D, heads, H), dtype=torch.float32, device=x.device)
@@ -248,14 +284,14 @@ def gat_attention_bwd(x: torch.Tensor, nbr: torch.Tensor, wl: torch.Tensor,
     """The backward's ``(dxg, dwl, der)`` as
     ``gat_attention_backward_reference`` returns them: the plain version on
     the CPU, one kernel launch on the card (its ``dwl`` partials, one a
-    block, summed here). ``gat_attention_bwd.launches`` counts the
-    launches."""
+    warp, summed here; ``dxg``'s rows of padding slots left unwritten).
+    ``gat_attention_bwd.launches`` counts the launches."""
     if x.device.type == "cpu":
         return gat_attention_backward_reference(x, nbr, wl, er, m, ds, dagg,
                                                 need_dx)
     K, D = nbr.shape
     H, heads = wl.shape
-    _check_kernel_shapes(x, heads)
+    _on_cuda(x)
     der = torch.empty((D, heads), dtype=torch.float32, device=x.device)
     dxg = (torch.empty((K * D, H), dtype=torch.float32, device=x.device)
            if need_dx else None)
@@ -267,8 +303,8 @@ def gat_attention_bwd(x: torch.Tensor, nbr: torch.Tensor, wl: torch.Tensor,
         raise ValueError(f"{K} x {D} slots: slot ids past int32")
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     blocks = min(-(-D // BWD_COLUMNS_A_BLOCK), BWD_BLOCKS_AN_SM * sms)
-    part = torch.empty((blocks, H, heads), dtype=torch.float32,
-                       device=x.device)
+    part = torch.empty((blocks * BWD_COLUMNS_A_BLOCK, H, heads),
+                       dtype=torch.float32, device=x.device)
     lib = _library()
     err = lib.gat_attention_bwd(
         x.data_ptr(), int(x.dtype == torch.bfloat16), x.shape[0], H,

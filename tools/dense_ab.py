@@ -14,9 +14,10 @@ the root of a checkout, holds that checkout's kernels at every matrix
 through its own ``chip_smoke.dense_cases`` (random frames from a seed:
 f32, and bf16 for split A's forward), and prints one JSON line of times
 a case. ``run`` does ``inputs`` once, then in turns
-(parent, change, change, parent) ``cases`` and split A's CLI run
-(``--num-epochs 2 --json --profile-dir``) in each checkout, the change
-being the checkout this script lies in, and prints both sides' numbers.
+(``tools/ab_turns.py``: parent, change, change, parent, the change being
+the checkout this script lies in) ``cases`` and split A's CLI run
+(``--num-epochs 2 --json --profile-dir``) in each checkout, and prints
+both sides' numbers.
 """
 
 from __future__ import annotations
@@ -24,14 +25,11 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import shutil
-import subprocess
 import sys
-import tempfile
 import time
 from pathlib import Path
 
-CHANGE = Path(__file__).resolve().parent.parent
+from ab_turns import CHANGE, call, in_turns, print_tagged
 
 
 def make_inputs(root: str) -> None:
@@ -142,45 +140,17 @@ def run_cases(root: str, label: str) -> None:
 
 
 def run_all(parent: str, out: str) -> int:
-    os.makedirs(out, exist_ok=True)
-    root = tempfile.mkdtemp(prefix="dense_ab_")  # the graph: ~1.3 GB
-    try:
-        return _turns(parent, out, root)
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
-
-
-def _turns(parent, out, root) -> int:
     me = str(Path(__file__).resolve())
-    env = dict(os.environ, PYTHONUNBUFFERED="1")
-
-    def call(argv, cwd, log):
-        t0 = time.perf_counter()
-        with open(log, "w") as f:
-            rc = subprocess.run(argv, cwd=cwd, stdout=f,
-                                stderr=subprocess.STDOUT, env=env).returncode
-        print(f"{' '.join(argv[:3])} in {cwd}: rc {rc}, "
-              f"{time.perf_counter() - t0:.1f}s", flush=True)
-        if rc != 0:
-            print(open(log).read()[-4000:])
-            raise SystemExit(rc)
-        return open(log).read()
-
     sys.path.insert(0, str(CHANGE))
     import chip_smoke as cs
 
-    print(f"card: {cs.card_line()}", flush=True)
-    call([sys.executable, me, "inputs", root], str(CHANGE),
-         os.path.join(out, "inputs.log"))
-    turns = [("parent", parent), ("change", str(CHANGE)),
-             ("change", str(CHANGE)), ("parent", parent)]
-    for i, (side, cwd) in enumerate(turns):
-        tag = f"{side}{i}"
-        text = call([sys.executable, me, "cases", root, "--label", tag], cwd,
-                    os.path.join(out, f"cases_{tag}.log"))
-        for line in text.splitlines():
-            if line.startswith("AB "):
-                print(line)
+    def setup(root):
+        call([sys.executable, me, "inputs", root], str(CHANGE),
+             os.path.join(out, "inputs.log"))
+
+    def turn(cwd, root, tag):
+        print_tagged(call([sys.executable, me, "cases", root, "--label", tag],
+                          cwd, os.path.join(out, f"cases_{tag}.log")), "AB")
         # The later flags win over SPLIT_A_FLAGS'.
         text = call([sys.executable, "-m", "occ_gnn_tpu_torch.train",
                      "--graph", "products", "--data-root", root]
@@ -202,7 +172,8 @@ def _turns(parent, out, root) -> int:
             "dense_bwd_ms": prof["named_ms"].get(
                 "_DenseAggregateBackward", {}).get("device_ms")}),
             flush=True)
-    return 0
+
+    return in_turns(parent, out, "dense_ab_", setup, turn)
 
 
 def main(argv=None) -> int:

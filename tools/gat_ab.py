@@ -14,8 +14,9 @@ one JSON line: the medians of steps 2-8 of ``train_step`` and of the step
 wall (one step's launch to the next's), the peak device memory, the
 launches by kernel, and the profiled step's kernels, device busy, window,
 idle share and the attention's named ranges. ``run`` does ``graph`` once,
-then ``step`` in turns (parent, change, change, parent), the change being
-the checkout this script lies in, and prints both sides' lines.
+then ``step`` in turns (``tools/ab_turns.py``: parent, change, change,
+parent, the change being the checkout this script lies in), and prints
+both sides' lines.
 """
 
 from __future__ import annotations
@@ -23,15 +24,12 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import shutil
 import statistics
-import subprocess
 import sys
-import tempfile
 import time
 from pathlib import Path
 
-CHANGE = Path(__file__).resolve().parent.parent
+from ab_turns import CHANGE, call, in_turns, print_tagged
 
 
 def make_graph(root: str) -> None:
@@ -84,46 +82,18 @@ def run_step(root: str, label: str, out: str) -> None:
 
 
 def run_all(parent: str, out: str) -> int:
-    os.makedirs(out, exist_ok=True)
-    root = tempfile.mkdtemp(prefix="gat_ab_")  # the graph: ~1.3 GB
-    try:
-        return _turns(parent, out, root)
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
-
-
-def _turns(parent, out, root) -> int:
     me = str(Path(__file__).resolve())
-    env = dict(os.environ, PYTHONUNBUFFERED="1")
 
-    def call(argv, cwd, log):
-        t0 = time.perf_counter()
-        with open(log, "w") as f:
-            rc = subprocess.run(argv, cwd=cwd, stdout=f,
-                                stderr=subprocess.STDOUT, env=env).returncode
-        print(f"{' '.join(argv[1:3])} in {cwd}: rc {rc}, "
-              f"{time.perf_counter() - t0:.1f}s", flush=True)
-        if rc != 0:
-            print(open(log).read()[-4000:])
-            raise SystemExit(rc)
-        return open(log).read()
+    def setup(root):
+        call([sys.executable, me, "graph", root], str(CHANGE),
+             os.path.join(out, "graph.log"))
 
-    sys.path.insert(0, str(CHANGE))
-    import chip_smoke as cs
+    def turn(cwd, root, tag):
+        print_tagged(call([sys.executable, me, "step", root, "--label", tag,
+                           "--out", out], cwd,
+                          os.path.join(out, f"step_{tag}.log")), "AB")
 
-    print(f"card: {cs.card_line()}", flush=True)
-    call([sys.executable, me, "graph", root], str(CHANGE),
-         os.path.join(out, "graph.log"))
-    turns = [("parent", parent), ("change", str(CHANGE)),
-             ("change", str(CHANGE)), ("parent", parent)]
-    for i, (side, cwd) in enumerate(turns):
-        tag = f"{side}{i}"
-        text = call([sys.executable, me, "step", root, "--label", tag,
-                     "--out", out], cwd, os.path.join(out, f"step_{tag}.log"))
-        for line in text.splitlines():
-            if line.startswith("AB "):
-                print(line, flush=True)
-    return 0
+    return in_turns(parent, out, "gat_ab_", setup, turn)
 
 
 def main(argv=None) -> int:
