@@ -803,11 +803,15 @@ def gat_attention_cases(label, x, nbr, heads, dh, rate, gen, grad_x,
     scatter's ``dx`` and the op's gradients to x (``grad_x``), wl, w3 and
     er through autograd, each within GAT_GRAD_TOL of its max |.|; each
     kernel bit-equal over two launches.
+    The host's plan of each kernel takes the shared memory that the
+    kernel's own layout gives (``gat_attention_smem_bytes``), and the card
+    holds the blocks an SM that it counts on.
     ``timed``: each kernel and its plain version in the CUDA-graph harness
     beside the byte bound
     (each input read once: the x rows nbr names, in their own type;
     each output written once: agg, and past layer 0 the dxg workspace's
-    rows of valid slots) and
+    rows of valid slots), the no-reuse floor (the same, each valid slot's
+    leaf row read once) and
     the operation bound; the per-slot scatter beside ``index_add_`` (one
     library call of the same sum). The attention has no library call:
     ``scaled_dot_product_attention`` scores by a dot product, not GAT's
@@ -822,6 +826,22 @@ def gat_attention_cases(label, x, nbr, heads, dh, rate, gen, grad_x,
     def rnd(*shape, scale=1.0):
         return scale * torch.randn(*shape, generator=gen, device=dev)
 
+    plans = {}
+    for backward, name in ((False, GAT_FWD), (True, GAT_BWD)):
+        plan = gat_ops._plan(x, nbr, heads, backward)
+        smem = gat_ops._library().gat_attention_smem_bytes(
+            x.data_ptr(), int(x.dtype == torch.bfloat16), H, K, heads,
+            plan.tile, int(backward))
+        if smem != plan.smem:
+            raise AssertionError(f"{label}: {name}'s plan takes {plan.smem} "
+                                 f"bytes of shared memory, its kernel's "
+                                 f"layout {smem}")
+        held = gat_ops.blocks_an_sm(x, nbr, heads, backward, plan)
+        if held < plan.per_sm:
+            raise AssertionError(f"{label}: {name}'s plan counts on "
+                                 f"{plan.per_sm} blocks an SM, the card "
+                                 f"holds {held}")
+        plans[name] = plan
     wl, w3, er = rnd(H, heads, scale=0.1), rnd(H, heads, dh, scale=0.1), \
         rnd(D, heads)
     ds, dagg = rnd(D, heads), rnd(D, heads, H)
@@ -900,7 +920,10 @@ def gat_attention_cases(label, x, nbr, heads, dh, rate, gen, grad_x,
           f"{', '.join(f'{r:.3g}' for _, r in fwd)} of scale (limits "
           f"{', '.join(f'{lim:.3g}' for lim in limits)}); backward "
           + ", ".join(f"{n} {r:.3g}" for n, (_, r) in bwd.items())
-          + f" of max |.| (limit {grad_tol:.3g}); two launches bit-equal")
+          + f" of max |.| (limit {grad_tol:.3g}); two launches bit-equal; "
+          + "; ".join(f"{n} plan tile {p.tile}, {p.per_sm} blocks an SM, "
+                      f"grid {p.grid}, {p.smem} bytes"
+                      for n, p in plans.items()))
     if not timed:
         return cases
     hb = heads * H
@@ -914,6 +937,8 @@ def gat_attention_cases(label, x, nbr, heads, dh, rate, gen, grad_x,
         library_ms=None,
         bytes_ms=(4 * K * D + xb * rows * H + 4 * hb + 4 * D * heads
                   + 8 * D * heads + 4 * D * hb) / rate * 1e3,
+        floor_ms=(4 * K * D + xb * valid * H + 4 * hb + 4 * D * heads
+                  + 8 * D * heads + 4 * D * hb) / rate * 1e3,
         ops_ms=4 * valid * hb / F32_RATE * 1e3)
     del bwds, outs
     cases[GAT_BWD].update(
@@ -923,6 +948,9 @@ def gat_attention_cases(label, x, nbr, heads, dh, rate, gen, grad_x,
             x, nbr, wl, er, m, ds, dagg, grad_x)),
         library_ms=None,
         bytes_ms=(4 * K * D + xb * rows * H + 4 * hb + 4 * D * heads * 4
+                  + 4 * D * hb + (4 * valid * H if grad_x else 0))
+        / rate * 1e3,
+        floor_ms=(4 * K * D + xb * valid * H + 4 * hb + 4 * D * heads * 4
                   + 4 * D * hb + (4 * valid * H if grad_x else 0))
         / rate * 1e3,
         ops_ms=(6 + (4 if grad_x else 0)) * valid * hb / F32_RATE * 1e3)
@@ -941,22 +969,26 @@ def gat_attention_cases(label, x, nbr, heads, dh, rate, gen, grad_x,
         by = "bytes" if c["bytes_ms"] >= c["ops_ms"] else "operations"
         lib = ("none (no PyTorch call computes it)" if c["library_ms"] is None
                else f"{c['library_ms']:.4f} (index_add_)")
+        floor = ("" if "floor_ms" not in c else
+                 f" no_reuse_floor_ms={c['floor_ms']:.4f} "
+                 f"({100 * c['floor_ms'] / c['ms']:.1f} % of it)")
         print(f"kernel {name} {label}: ms={c['ms']:.4f} plain_ms="
               f"{c['plain_ms']:.4f} library_ms={lib} bound_ms={bound:.4f} "
-              f"({by}, {100 * bound / c['ms']:.1f} % of it) max_abs_err="
-              f"{c['err']:.3g}")
+              f"({by}, {100 * bound / c['ms']:.1f} % of it){floor} "
+              f"max_abs_err={c['err']:.3g}")
     return cases
 
 
 def gat_ragged_cases(device):
     """``gat_attention_cases`` arguments at the kernels' edges: columns
     that no slot names (K = 1 and K = 26), H = 100 and 128 (and 200, with
-    5 heads: the kernels' wider instantiation), Dh = 47, 2 and 4 heads,
-    bf16 frames, 200 columns whose 25 slots all name row 7 (5,000 slots:
-    the per-slot scatter's long-row path), and the kernels that take a row
-    a tile at a time: H = 1024 with 4 heads (the CLI's default hidden
-    layers, 256 x 4; timed), 9 heads on H = 300 (more than 8, tails of a
-    tile and of a head group) and a bf16 frame of H = 602."""
+    5 heads: two head groups), Dh = 47, 2 and 4 heads, bf16 frames (rows
+    of 200 bytes: staged as 16-byte windows read 8 bytes at a time), 200
+    columns whose 25 slots all name row 7 (5,000 slots: the per-slot
+    scatter's long-row path), H = 1024 with 4 heads (the CLI's default
+    hidden layers, 256 x 4; one column fills most of a block's shared
+    memory; timed), 9 heads on H = 300 (three head groups, the last of
+    one head) and a bf16 frame of H = 602 (rows 4-byte aligned)."""
     gen = torch.Generator(device).manual_seed(13)
 
     def case(label, S, K, D, H, heads, dh, dtype=torch.float32, edit=None,
@@ -3724,8 +3756,10 @@ def main(argv=None) -> int:
     for label, cases in gat_kernel_rows:
         for entry, c in cases.items():
             lib = c["library_ms"]
+            floor = ("" if "floor_ms" not in c
+                     else f" no_reuse_floor_ms={c['floor_ms']:.4f}")
             print(f"  {entry} at {label}: ms={c['ms']:.4f} bound_ms="
-                  f"{bound(c):.4f} plain_ms={c['plain_ms']:.4f} "
+                  f"{bound(c):.4f}{floor} plain_ms={c['plain_ms']:.4f} "
                   f"library_ms={'null' if lib is None else f'{lib:.4f}'} "
                   f"max_abs_err={c['err']:.3g}")
     errs = {entry: [] for entry in ENTRIES}

@@ -26,23 +26,30 @@ branch of ``SplitGAT.layer`` (its default), which XLA lowers; there is no
 ``pallas_call`` to port. The plain version, ``gat_attention_reference``,
 materialises the ``[K, D, H]`` leaves ``x[nbr]`` and keeps them for the
 backward (1.29 GB at split GAT A's layer 0). The kernels,
-``csrc/gat_attention.cu``, never write them:
+``csrc/gat_attention.cu``, never write them. Each block of a persistent
+grid takes tiles of ``tile`` consecutive dst columns in a static order,
+a warp a column; a warp copies every valid slot's leaf row of its column
+into shared memory once, by bulk copies (TMA), its next column's copies
+in flight while it computes:
 
-* ``gat_attention_fwd`` streams each valid leaf row once per pass (a warp
-  for each dst column), scores it, takes the exact max, and writes ``m``,
-  ``s`` and ``agg [D, heads, H]``; the per-head projection ``v = agg @
-  w3`` is ``torch.einsum`` beside it (JAX's own einsum, a large product);
-* ``gat_attention_bwd`` walks the same columns again, recomputes ``z`` and
-  ``pw`` from the saved ``m``, and writes ``der``, per-warp partials of
-  ``dwl`` (summed here in a fixed order) and, when ``x`` takes a gradient,
-  each valid slot's row of ``dx`` into an f32 ``[K * D, H]`` workspace,
-  which ``dense_scatter_slots`` sums into ``dx`` in slot order (padding
-  slots' rows are neither written nor read).
+* ``gat_attention_fwd`` scores the staged rows (f64 sums, rounded once),
+  takes the exact max, the weights and their sum, and writes ``m``, ``s``
+  and ``agg [D, heads, H]``, reading each leaf from device memory once;
+  the per-head projection ``v = agg @ w3`` is ``torch.einsum`` beside it
+  (JAX's own einsum, a large product);
+* ``gat_attention_bwd`` stages the leaves and the column's ``dagg`` rows,
+  recomputes ``z`` and ``pw`` from the saved ``m``, and writes ``der``,
+  one partial of ``dwl`` a block (summed here in a fixed order) and, when
+  ``x`` takes a gradient, each valid slot's row of ``dx`` into an f32
+  ``[K * D, H]`` workspace, which ``dense_scatter_slots`` sums into
+  ``dx`` in slot order (padding slots' rows are neither written nor
+  read).
 
-The kernels take any row width and head count: up to ``H = 512`` and 8
-heads a warp keeps a row's columns and the heads' sums in registers; wider
-rows or more heads go through the same walk a tile of 128 columns and a
-group of 4 heads at a time.
+The tile (a warp a column), the blocks an SM and the grid are the host's
+plan (``attention_plan``): the most warps an SM that the blocks' shared
+memory (``smem_bytes``, the kernel's own layout) allows, with a tile that
+still gives every SM one. Any row width and head count: heads go through
+the kernels in groups of 4.
 
 The autograd Function saves ``x``, ``nbr``, ``wl``, ``er`` and ``m``; the
 projection of ``agg`` (``_Projection``) keeps ``agg`` and ``w3`` and gives
@@ -66,6 +73,7 @@ it launches the kernel or raises. There is no fallback between the two.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 import math
 
@@ -80,19 +88,34 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_float)
 # The C entries of csrc/gat_attention.cu, argument for argument.
 ARGTYPES = {
-    # x, x_bf16, x_rows, h, nbr, k, d, wl, er, heads, slope, m, s, agg,
-    # device, stream
-    "gat_attention_fwd": [_P, _I, _L, _I, _P, _I, _L, _P, _P, _I, _F, _P,
-                          _P, _P, _I, _P],
-    # x, x_bf16, x_rows, h, nbr, k, d, wl, er, heads, slope, m, ds, dagg,
-    # der, dwl_part, blocks, dxg, device, stream
-    "gat_attention_bwd": [_P, _I, _L, _I, _P, _I, _L, _P, _P, _I, _F, _P,
-                          _P, _P, _P, _P, _I, _P, _I, _P],
+    # x, x_bf16, x_rows, h, nbr, k, d, wl, er, heads, slope, tile, grid,
+    # m, s, agg, device, stream
+    "gat_attention_fwd": [_P, _I, _L, _I, _P, _I, _L, _P, _P, _I, _F, _I,
+                          _I, _P, _P, _P, _I, _P],
+    # x, x_bf16, x_rows, h, nbr, k, d, wl, er, heads, slope, tile, grid,
+    # m, ds, dagg, der, dwl_part, dxg, device, stream
+    "gat_attention_bwd": [_P, _I, _L, _I, _P, _I, _L, _P, _P, _I, _F, _I,
+                          _I, _P, _P, _P, _P, _P, _P, _I, _P],
+    # x, x_bf16, h, k, heads, tile, backward
+    "gat_attention_smem_bytes": [_P, _I, _I, _I, _I, _I, _I],
+    # x, x_bf16, x_rows, h, k, d, heads, tile, backward, device, per_sm
+    "gat_attention_occupancy": [_P, _I, _L, _I, _I, _L, _I, _I, _I, _I,
+                                _P],
 }
-# The backward's grid: its blocks walk the columns 8 at a time (a warp
-# each), at most this many blocks an SM; each warp writes one dwl partial.
-BWD_COLUMNS_A_BLOCK = 8
-BWD_BLOCKS_AN_SM = 2
+SMEM_ENTRY = "gat_attention_smem_bytes"
+# The kernels' plan, as csrc/gat_attention.cu lays out a block's shared
+# memory: its warps (a dst column of a tile each) at most, the head group,
+# the stages of a warp's ring of staged columns (one more of slot ids; a
+# deeper ring, fewer warps, was slower), the warps an SM the kernels'
+# registers allow, and a block's (and an SM's, less 1 KB a resident block)
+# shared memory on sm_90.
+MAX_WARPS = 8
+HEAD_GROUP = 4
+STAGES = 2
+WARPS_AN_SM = 16
+SMEM_BLOCK = 232_448
+SMEM_SM = 233_472
+SMEM_RESERVED = 1024
 # The dst columns' chunks (at most) that the projection's weight gradient
 # dw3 = agg^T dv is summed over: one [H, D] @ [D, Dh] product a head ran
 # on a handful of thread blocks (3.88 ms of split GAT A's 8.35 ms busy
@@ -227,13 +250,135 @@ def gat_attention_backward_reference(x: torch.Tensor, nbr: torch.Tensor,
     return dxg, dwl, der
 
 
+def _a16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def row_layout(H: int, elt: int, x_align: int = 16):
+    """How the kernels stage a leaf row: ``(read, bulk, stride, nvec)``,
+    the read unit (the widest of 16, 8, 4 and 2 bytes that divides the
+    row's bytes and the frame's address alignment ``x_align``), whether
+    rows go by bulk copies of their 16-byte-aligned windows (rows of 16
+    bytes or more; such a window starts up to ``16 - read`` bytes before
+    its row), the bytes between staged rows (an odd number of 16 bytes:
+    lanes reading one 16-byte unit of different rows hit different banks)
+    and the read units a row."""
+    rowbytes = H * elt
+    read = 16
+    while read > 2 and (rowbytes % read or x_align % read):
+        read //= 2
+    bulk = rowbytes >= 16
+    window = _a16(rowbytes + (16 - read if bulk and read < 16 else 0))
+    return read, bulk, ((window // 16) | 1) * 16, rowbytes // read
+
+
+def smem_bytes(K: int, H: int, heads: int, elt: int, tile: int,
+               backward: bool, x_align: int = 16) -> int:
+    """A block's shared memory for a tile of ``tile`` columns, as the
+    kernel lays it out (``make_layout``): wl in f64 a head group, padded
+    16 bytes a read unit (backward: and in f32), then for each of the
+    tile's warps its ring of staged rows (and, backward, of its column's
+    dagg), its ring of slot ids, its scores (backward: dpre and pw),
+    backward its dwl partial, and the mbarriers of its bulk copies."""
+    read, _, stride, nvec = row_layout(H, elt, x_align)
+    groups = -(-heads // HEAD_GROUP)
+    groups_h = groups * H * HEAD_GROUP
+    per_warp = _a16(STAGES * K * stride)
+    if backward:
+        per_warp += STAGES * _a16(4 * heads * H)
+    per_warp += _a16(4 * (STAGES + 1) * K)
+    per_warp += _a16(4 * K * groups * HEAD_GROUP) * (2 if backward else 1)
+    if backward:
+        per_warp += _a16(4 * groups_h)
+    per_warp += _a16(8 * STAGES)
+    # wl in f64: a read unit's elements' heads and 16 bytes, a unit.
+    wunit = read // elt * HEAD_GROUP + 2
+    block = _a16(8 * groups * nvec * wunit) + (_a16(4 * groups_h)
+                                                if backward else 0)
+    return block + tile * per_warp
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """A launch's plan: ``tile`` columns a tile (a warp each), ``per_sm``
+    blocks an SM that its shared memory allows, ``grid`` blocks (block b
+    takes tiles b, b + grid, ...) and ``smem`` bytes a block."""
+    tile: int
+    per_sm: int
+    grid: int
+    smem: int
+
+
+@functools.cache
+def attention_plan(K: int, H: int, heads: int, elt: int, D: int, sms: int,
+                   backward: bool, x_align: int = 16) -> Plan:
+    """The most warps an SM (at most ``WARPS_AN_SM``), then the widest
+    tile, whose blocks' shared memory fits the SM, with a tile of at most
+    ``MAX_WARPS`` columns and at most ``D // sms``, so that every SM gets
+    a tile. Raises if one column does not fit a block. Cached: a training
+    run plans the same few shapes every step."""
+    cap = max(1, min(MAX_WARPS, D // sms))
+    best, key = None, None
+    for per_sm in range(1, WARPS_AN_SM + 1):
+        limit = min(SMEM_BLOCK, SMEM_SM // per_sm - SMEM_RESERVED)
+        for tile in range(min(cap, WARPS_AN_SM // per_sm), 0, -1):
+            smem = smem_bytes(K, H, heads, elt, tile, backward, x_align)
+            if smem <= limit:
+                if key is None or (per_sm * tile, tile) > key:
+                    key = (per_sm * tile, tile)
+                    best = Plan(tile, per_sm,
+                                min(-(-D // tile), per_sm * sms), smem)
+                break
+    if best is None:
+        raise ValueError(
+            f"a column of {K} slots of {H} x {elt}-byte rows and {heads} "
+            f"heads takes "
+            f"{smem_bytes(K, H, heads, elt, 1, backward, x_align)} bytes of "
+            f"shared memory, more than a block's {SMEM_BLOCK}")
+    return best
+
+
+def _align(t: torch.Tensor) -> int:
+    p = t.data_ptr() % 16
+    return 16 if p == 0 else p & -p
+
+
+@functools.cache
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _plan(x: torch.Tensor, nbr: torch.Tensor, heads: int,
+          backward: bool) -> Plan:
+    K, D = nbr.shape
+    return attention_plan(K, x.shape[1], heads, x.element_size(), D,
+                          _sms(x.device), backward, _align(x))
+
+
+def blocks_an_sm(x: torch.Tensor, nbr: torch.Tensor, heads: int,
+                 backward: bool, plan: Plan) -> int:
+    """The blocks of the plan's kernel that one SM of x's card holds at
+    once (its shared memory, registers and threads), as the runtime
+    counts them; the plan counts on ``plan.per_sm``."""
+    _on_cuda(x)
+    K, D = nbr.shape
+    lib = _library()
+    out = ctypes.c_int(0)
+    err = lib.gat_attention_occupancy(
+        x.data_ptr(), int(x.dtype == torch.bfloat16), x.shape[0], x.shape[1],
+        K, D, heads, plan.tile, int(backward), x.device.index,
+        ctypes.addressof(out))
+    check_launch(lib, err, "gat_attention_occupancy")
+    return out.value
+
+
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = load_kernel("gat_attention")
     for name, argtypes in ARGTYPES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = ctypes.c_longlong if name == SMEM_ENTRY else ctypes.c_int
     return lib
 
 
@@ -264,12 +409,13 @@ def gat_attention_fwd(x: torch.Tensor, nbr: torch.Tensor, wl: torch.Tensor,
     agg = torch.empty((D, heads, H), dtype=torch.float32, device=x.device)
     if D == 0:
         return m, s, agg
+    plan = _plan(x, nbr, heads, False)
     lib = _library()
     err = lib.gat_attention_fwd(
         x.data_ptr(), int(x.dtype == torch.bfloat16), x.shape[0], H,
         nbr.data_ptr(), K, D, wl.data_ptr(), er.data_ptr(), heads,
-        NEGATIVE_SLOPE, m.data_ptr(), s.data_ptr(), agg.data_ptr(),
-        x.device.index, _stream(x))
+        NEGATIVE_SLOPE, plan.tile, plan.grid, m.data_ptr(), s.data_ptr(),
+        agg.data_ptr(), x.device.index, _stream(x))
     check_launch(lib, err, "gat_attention_fwd")
     gat_attention_fwd.launches += 1
     return m, s, agg
@@ -284,7 +430,7 @@ def gat_attention_bwd(x: torch.Tensor, nbr: torch.Tensor, wl: torch.Tensor,
     """The backward's ``(dxg, dwl, der)`` as
     ``gat_attention_backward_reference`` returns them: the plain version on
     the CPU, one kernel launch on the card (its ``dwl`` partials, one a
-    warp, summed here; ``dxg``'s rows of padding slots left unwritten).
+    block, summed here; ``dxg``'s rows of padding slots left unwritten).
     ``gat_attention_bwd.launches`` counts the launches."""
     if x.device.type == "cpu":
         return gat_attention_backward_reference(x, nbr, wl, er, m, ds, dagg,
@@ -301,16 +447,15 @@ def gat_attention_bwd(x: torch.Tensor, nbr: torch.Tensor, wl: torch.Tensor,
         return dxg, wl.new_zeros((H, heads)), der
     if K * D >= 2**31:
         raise ValueError(f"{K} x {D} slots: slot ids past int32")
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    blocks = min(-(-D // BWD_COLUMNS_A_BLOCK), BWD_BLOCKS_AN_SM * sms)
-    part = torch.empty((blocks * BWD_COLUMNS_A_BLOCK, H, heads),
-                       dtype=torch.float32, device=x.device)
+    plan = _plan(x, nbr, heads, True)
+    part = torch.empty((plan.grid, H, heads), dtype=torch.float32,
+                       device=x.device)
     lib = _library()
     err = lib.gat_attention_bwd(
         x.data_ptr(), int(x.dtype == torch.bfloat16), x.shape[0], H,
         nbr.data_ptr(), K, D, wl.data_ptr(), er.data_ptr(), heads,
-        NEGATIVE_SLOPE, m.data_ptr(), ds.data_ptr(), dagg.data_ptr(),
-        der.data_ptr(), part.data_ptr(), blocks,
+        NEGATIVE_SLOPE, plan.tile, plan.grid, m.data_ptr(), ds.data_ptr(),
+        dagg.data_ptr(), der.data_ptr(), part.data_ptr(),
         None if dxg is None else dxg.data_ptr(), x.device.index, _stream(x))
     check_launch(lib, err, "gat_attention_bwd")
     gat_attention_bwd.launches += 1

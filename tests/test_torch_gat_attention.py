@@ -419,10 +419,20 @@ def test_ctypes_argtypes_match_the_c_entries():
     for argtypes in ga.ARGTYPES.values():
         assert all(t in (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                          ctypes.c_float) for t in argtypes)
-    # The wrapper sizes the backward's dwl partials, one a warp, by the
-    # kernel's warps a block; no limit on the width or the heads.
+    # The wrapper sizes the backward's dwl partials, one a block of its
+    # plan's grid, and plans the kernels' shared memory with the kernel's
+    # own constants; no limit on the width or the heads.
     text = SOURCE.read_text()
-    assert f"kWarps = {ga.BWD_COLUMNS_A_BLOCK};" in text
+    assert "dwl_part [grid, h, heads] (a block's partial each)" in text
+    for name, value in (("kMaxWarps", ga.MAX_WARPS),
+                        ("kHeadGroup", ga.HEAD_GROUP),
+                        ("kStages", ga.STAGES),
+                        ("kSmemBlock", ga.SMEM_BLOCK)):
+        assert re.search(rf"constexpr \w+ {name} = {value};", text), name
+    # Two blocks of kMaxWarps warps an SM at most, as its launch bounds
+    # give each thread registers for.
+    assert "__launch_bounds__(32 * kMaxWarps, 2)" in text
+    assert ga.WARPS_AN_SM == 2 * ga.MAX_WARPS
     assert not hasattr(ga, "MAX_H") and not hasattr(ga, "MAX_HEADS")
 
 
@@ -430,3 +440,77 @@ def test_kernel_is_built_from_its_source():
     assert "gat_attention" in build.KERNELS
     assert build.library_path("gat_attention").name.startswith(
         "libgat_attention-")
+
+
+# (K, D, H, heads, element bytes): every shape the smoke's attention cases
+# and main path give the kernels: split GAT A's layers 0-2 (layer 0 in
+# bf16 too), GAT P4-B partition 0's layers 1-2, the CLI's hidden width,
+# and the ragged cases; and a bf16 row of odd width.
+PLAN_SHAPES = [
+    (26, 123_904, 100, 4, 4), (26, 123_904, 100, 4, 2),
+    (11, 22_528, 128, 4, 4), (11, 2_048, 128, 4, 4),
+    (11, 11_576, 128, 4, 4), (11, 1_280, 128, 4, 4),
+    (11, 8_192, 1024, 4, 4),
+    (1, 300, 128, 4, 4), (26, 1_000, 100, 4, 4), (11, 1_500, 100, 2, 4),
+    (11, 2_048, 128, 4, 4), (11, 700, 200, 5, 4), (26, 2_000, 100, 4, 2),
+    (11, 2_000, 128, 2, 2), (25, 400, 128, 4, 4), (11, 1_500, 300, 9, 4),
+    (26, 800, 602, 8, 2), (11, 64, 20, 12, 4), (26, 5_000, 301, 4, 2),
+]
+SMS = 132
+
+
+@pytest.mark.parametrize("backward", [False, True], ids=["fwd", "bwd"])
+@pytest.mark.parametrize("K,D,H,heads,elt", PLAN_SHAPES)
+def test_plan_fits_a_block_fills_the_sms_and_covers_each_column_once(
+        K, D, H, heads, elt, backward):
+    """The host's plan at every shape the kernels run: a block's shared
+    memory within sm_90's 232,448 bytes (and the blocks it puts on an SM
+    within the SM's, their warps within what the registers allow), every
+    SM a tile from 1,280 columns on, a grid of at most the tiles, and
+    block b's tiles b, b + grid, ... (a column a warp) covering every
+    column exactly once."""
+    for x_align in ((16, 2) if elt == 2 else (16, 4)):
+        plan = ga.attention_plan(K, H, heads, elt, D, SMS, backward, x_align)
+        assert plan.smem == ga.smem_bytes(K, H, heads, elt, plan.tile,
+                                          backward, x_align)
+        assert plan.smem <= ga.SMEM_BLOCK
+        assert plan.per_sm * (plan.smem + ga.SMEM_RESERVED) <= ga.SMEM_SM
+        assert 1 <= plan.tile <= ga.MAX_WARPS
+        assert plan.per_sm * plan.tile <= ga.WARPS_AN_SM
+        tiles = -(-D // plan.tile)
+        if D >= 1280:
+            assert tiles >= SMS
+        assert 1 <= plan.grid <= min(tiles, plan.per_sm * SMS)
+        seen = np.zeros(D, np.int64)
+        for b in range(plan.grid):
+            for t in range(b, tiles, plan.grid):
+                seen[t * plan.tile:(t + 1) * plan.tile] += 1
+        assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("H,elt,x_align", [
+    (100, 4, 16), (128, 4, 16), (200, 4, 8), (300, 4, 16), (1024, 4, 16),
+    (13, 4, 4), (100, 2, 16), (128, 2, 16), (602, 2, 16), (301, 2, 16),
+    (301, 2, 2), (100, 4, 4), (3, 2, 16)])
+def test_staged_rows_cover_the_row_and_read_without_bank_conflicts(
+        H, elt, x_align):
+    """A staged row's room holds the row's 16-byte-aligned window wherever
+    the row starts (a multiple of the read unit past 16 bytes), rows are an
+    odd number of 16 bytes apart, and where rows are whole 16-byte units on
+    16-byte boundaries a warp reading one unit of 32 consecutive staged
+    rows touches each bank once per memory phase (8 lanes of 16 bytes)."""
+    read, bulk, stride, nvec = ga.row_layout(H, elt, x_align)
+    rowbytes = H * elt
+    assert read in (2, 4, 8, 16) and nvec * read == rowbytes
+    assert rowbytes % read == 0 and x_align % read == 0
+    assert stride % 16 == 0 and (stride // 16) % 2 == 1
+    assert bulk == (rowbytes >= 16)
+    for shift in (range(0, 16, read) if bulk else [0]):
+        start = shift
+        window = (start + rowbytes + 15) // 16 * 16
+        assert window <= stride
+    if read == 16:
+        for j in range(nvec):
+            banks = [(q * stride + j * 16) // 16 % 8 for q in range(32)]
+            for p in range(0, 32, 8):
+                assert len(set(banks[p:p + 8])) == 8

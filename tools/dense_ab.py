@@ -32,7 +32,8 @@ from pathlib import Path
 from ab_turns import CHANGE, call, in_turns, print_tagged
 
 
-def make_inputs(root: str) -> None:
+def make_inputs(root: str, split_b: bool = True) -> None:
+    """The graph and the matrices (``split_b``: split B's at P = 1 too)."""
     sys.path.insert(0, os.getcwd())
     import numpy as np
     import torch
@@ -74,6 +75,8 @@ def make_inputs(root: str) -> None:
     # Split B's planned capacities, as chip_smoke.split_vs_single takes
     # them; P4-B's measured, as its run trains at them.
     for P, label in ((1, "split B"), (4, "split P4-B partition 0")):
+        if P == 1 and not split_b:
+            continue
         pmap = (np.zeros(g_b.num_nodes, np.int32) if P == 1
                 else partition_graph(g_b, P, mode="metis"))
         safe = plan_split_capacities(bs, fan_b, g_b.num_nodes, P)

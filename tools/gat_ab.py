@@ -1,20 +1,31 @@
 #!/usr/bin/env python3
-"""Split GAT A in two checkouts on one card, in turns.
+"""GAT's attention kernels and split GAT A in two checkouts on one card,
+in turns.
 
     python3 tools/gat_ab.py run --parent DIR [--out DIR]
-    python3 tools/gat_ab.py graph ROOT
+    python3 tools/gat_ab.py inputs ROOT
+    python3 tools/gat_ab.py cases ROOT --label L
     python3 tools/gat_ab.py step ROOT --label L --out DIR
 
-``graph`` builds the products-scale graph of ``chip_smoke.py`` and saves
-it under ROOT. ``step``, run from the root of a checkout, builds that
-checkout's kernels and drives split GAT A (``chip_smoke.GAT_A_FLAGS``:
-hidden 32, 4 heads, replicated cache, layer 0 synthesized on the card, 8
-steps, the fifth profiled) through its own ``train_split``, and prints
-one JSON line: the medians of steps 2-8 of ``train_step`` and of the step
-wall (one step's launch to the next's), the peak device memory, the
-launches by kernel, and the profiled step's kernels, device busy, window,
-idle share and the attention's named ranges. ``run`` does ``graph`` once,
-then ``step`` in turns (``tools/ab_turns.py``: parent, change, change,
+``inputs`` builds the products-scale graph of ``chip_smoke.py`` (saved
+under ROOT) and the main path's dense neighbour matrices
+(``tools/dense_ab.py``'s: split GAT A's first batch, layer 0 synthesized
+on the card, layers 1-2, which split A's sampler gives alike, and GAT
+P4-B partition 0's layers 1-2, split P4-B's), into ``ROOT/inputs.pt``.
+``cases``, run from the root of a checkout, holds that checkout's
+attention kernels and ``dense_scatter_slots`` at every matrix through its
+own ``chip_smoke.gat_attention_cases`` (random f32 frames from a seed, 4
+heads, Dh 32 and 47 at the last layer; layer 0 in bf16 too; and the
+smoke's timed ragged case, the CLI's hidden width) and prints one JSON
+line of times a case. ``step`` builds that checkout's kernels and drives
+split GAT A (``chip_smoke.GAT_A_FLAGS``: hidden 32, 4 heads, replicated
+cache, layer 0 synthesized on the card, 8 steps, the fifth profiled)
+through its own ``train_split``, and prints one JSON line: the medians of
+steps 2-8 of ``train_step`` and of the step wall (one step's launch to
+the next's), the peak device memory, the launches by kernel, and the
+profiled step's kernels, device busy, window, idle share and the
+attention's named ranges. ``run`` does ``inputs`` once, then ``cases``
+and ``step`` in turns (``tools/ab_turns.py``: parent, change, change,
 parent, the change being the checkout this script lies in), and prints
 both sides' lines.
 """
@@ -26,24 +37,62 @@ import json
 import os
 import statistics
 import sys
-import time
 from pathlib import Path
 
 from ab_turns import CHANGE, call, in_turns, print_tagged
+from dense_ab import make_inputs
+
+HEADS = 4
 
 
-def make_graph(root: str) -> None:
+def run_cases(root: str, label: str) -> None:
+    """In the checkout at the working directory: its attention cases at
+    every matrix, one JSON line each."""
     sys.path.insert(0, os.getcwd())
-    import chip_smoke as cs
-    from occ_gnn_tpu_torch.data import random_graph, save_graph
+    import torch
 
+    import chip_smoke as cs
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device("cuda")
+    cs.build_all()
+    rate = cs.memory_rate(torch.cuda.get_device_name(0))
+    mats = torch.load(os.path.join(root, "inputs.pt"))
+    gen = torch.Generator(device).manual_seed(21)
     args = cs.graph_args(cs.PRODUCTS_NODES, cs.GAT_A_FLAGS)
-    t0 = time.perf_counter()
-    g = random_graph(cs.PRODUCTS_NODES, cs.AVG_DEGREE, cs.FEATURE_DIM,
-                     num_classes=cs.NUM_CLASSES, seed=args.seed)
-    save_graph(g, root, "products")
-    print(f"graph {g.num_nodes} nodes in {time.perf_counter() - t0:.1f}s",
-          flush=True)
+    runs = []
+    for name, (nbr, S, _) in mats.items():
+        if name.startswith("split B"):
+            continue
+        layer = int(name[-1])
+        name = name.replace("split A", "split GAT A").replace(
+            "split P4-B", "GAT P4-B")
+        H = cs.FEATURE_DIM if layer == 0 else args.num_hidden * HEADS
+        dh = cs.NUM_CLASSES if layer == 2 else args.num_hidden
+        x = torch.randn(S, H, generator=gen, device=device)
+        x[S - 1] = 0.0
+        nbr = nbr.to(device)
+        dtypes = [torch.float32] + ([torch.bfloat16] if layer == 0 else [])
+        for dtype in dtypes:
+            runs.append(dict(label=name, x=x.to(dtype), nbr=nbr, heads=HEADS,
+                             dh=dh, gen=gen,
+                             grad_x=layer > 0 and dtype == torch.float32))
+    runs += [c for c in cs.gat_ragged_cases(device) if c["timed"]]
+    for run in runs:
+        x, nbr = run["x"], run["nbr"]
+        cases = cs.gat_attention_cases(
+            f"{label}: {run['label']}", x, nbr, run["heads"], run["dh"],
+            rate, run["gen"], run["grad_x"])
+        row = {"label": label, "case": run["label"],
+               "dtype": str(x.dtype)[6:], "K": nbr.shape[0],
+               "D": nbr.shape[1], "S": x.shape[0], "H": x.shape[1],
+               "valid": int((nbr != x.shape[0] - 1).sum())}
+        for kernel, c in cases.items():
+            row[kernel] = {k: c.get(k) for k in
+                           ("ms", "plain_ms", "library_ms", "bytes_ms",
+                            "ops_ms", "floor_ms", "err")}
+        print("AB " + json.dumps(row), flush=True)
+        del run["x"]
 
 
 def run_step(root: str, label: str, out: str) -> None:
@@ -71,7 +120,7 @@ def run_step(root: str, label: str, out: str) -> None:
     prof = metrics["profile"]
     named = {k: v["device_ms"] for k, v in prof["named_ms"].items()
              if "gat" in k.lower() or "Gat" in k}
-    print("AB " + json.dumps({
+    print("STEP " + json.dumps({
         "label": label, "steps": metrics["steps"], "loss": metrics["loss"],
         "train_step_ms": statistics.median(timers.each["train_step"][1:]),
         "step_wall_ms": statistics.median(walls),
@@ -85,13 +134,15 @@ def run_all(parent: str, out: str) -> int:
     me = str(Path(__file__).resolve())
 
     def setup(root):
-        call([sys.executable, me, "graph", root], str(CHANGE),
-             os.path.join(out, "graph.log"))
+        call([sys.executable, me, "inputs", root], str(CHANGE),
+             os.path.join(out, "inputs.log"))
 
     def turn(cwd, root, tag):
+        print_tagged(call([sys.executable, me, "cases", root, "--label", tag],
+                          cwd, os.path.join(out, f"cases_{tag}.log")), "AB")
         print_tagged(call([sys.executable, me, "step", root, "--label", tag,
                            "--out", out], cwd,
-                          os.path.join(out, f"step_{tag}.log")), "AB")
+                          os.path.join(out, f"step_{tag}.log")), "STEP")
 
     return in_turns(parent, out, "gat_ab_", setup, turn)
 
@@ -103,15 +154,21 @@ def main(argv=None) -> int:
     r.add_argument("--parent", required=True,
                    help="root of the parent's checkout")
     r.add_argument("--out", default="chiprun_out/gat_ab")
-    g = sub.add_parser("graph")
-    g.add_argument("root")
+    i = sub.add_parser("inputs")
+    i.add_argument("root")
+    c = sub.add_parser("cases")
+    c.add_argument("root")
+    c.add_argument("--label", required=True)
     s = sub.add_parser("step")
     s.add_argument("root")
     s.add_argument("--label", required=True)
     s.add_argument("--out", required=True)
     a = cli.parse_args(argv)
-    if a.cmd == "graph":
-        make_graph(a.root)
+    if a.cmd == "inputs":
+        make_inputs(a.root, split_b=False)
+        return 0
+    if a.cmd == "cases":
+        run_cases(a.root, a.label)
         return 0
     if a.cmd == "step":
         run_step(a.root, a.label, os.path.abspath(a.out))
