@@ -63,8 +63,9 @@
    ``gat_attention_bwd`` and the scatter's per-slot mode
    ``dense_scatter_slots``) against their plain versions at each layer of
    the first batch (layer 0 on the frame in bf16 too) and on ragged cases
-   (columns no slot names, K = 1, H = 100, 128, 200, Dh = 47, 2 to 5
-   heads, bf16 frames, a 5,000-slot row): forward within 1e-5 of scale,
+   (columns no slot names, K = 1 and 40, H = 100 to 2048, Dh = 47, 2 to
+   9 heads, bf16 frames, a 5,000-slot row; the wide rows on the ``_any``
+   kernels): forward within 1e-5 of scale,
    gradients within 1e-4 of max |.| (two bf16 rounding steps on a bf16
    frame), two launches bit-equal, timed beside the byte bound and the
    plain version; 8 steps with one profiled: 3 forward, 3 backward and 2
@@ -803,9 +804,8 @@ def gat_attention_cases(label, x, nbr, heads, dh, rate, gen, grad_x,
     scatter's ``dx`` and the op's gradients to x (``grad_x``), wl, w3 and
     er through autograd, each within GAT_GRAD_TOL of its max |.|; each
     kernel bit-equal over two launches.
-    The host's plan of each kernel takes the shared memory that the
-    kernel's own layout gives (``gat_attention_smem_bytes``), and the card
-    holds the blocks an SM that it counts on.
+    Where the host's plan takes the staged kernels, the card holds the
+    blocks an SM that it counts on.
     ``timed``: each kernel and its plain version in the CUDA-graph harness
     beside the byte bound
     (each input read once: the x rows nbr names, in their own type;
@@ -829,14 +829,8 @@ def gat_attention_cases(label, x, nbr, heads, dh, rate, gen, grad_x,
     plans = {}
     for backward, name in ((False, GAT_FWD), (True, GAT_BWD)):
         plan = gat_ops._plan(x, nbr, heads, backward)
-        smem = gat_ops._library().gat_attention_smem_bytes(
-            x.data_ptr(), int(x.dtype == torch.bfloat16), H, K, heads,
-            plan.tile, int(backward))
-        if smem != plan.smem:
-            raise AssertionError(f"{label}: {name}'s plan takes {plan.smem} "
-                                 f"bytes of shared memory, its kernel's "
-                                 f"layout {smem}")
-        held = gat_ops.blocks_an_sm(x, nbr, heads, backward, plan)
+        held = (gat_ops.blocks_an_sm(x, nbr, heads, backward, plan)
+                if plan.layout is not None else plan.per_sm)
         if held < plan.per_sm:
             raise AssertionError(f"{label}: {name}'s plan counts on "
                                  f"{plan.per_sm} blocks an SM, the card "
@@ -921,9 +915,7 @@ def gat_attention_cases(label, x, nbr, heads, dh, rate, gen, grad_x,
           f"{', '.join(f'{lim:.3g}' for lim in limits)}); backward "
           + ", ".join(f"{n} {r:.3g}" for n, (_, r) in bwd.items())
           + f" of max |.| (limit {grad_tol:.3g}); two launches bit-equal; "
-          + "; ".join(f"{n} plan tile {p.tile}, {p.per_sm} blocks an SM, "
-                      f"grid {p.grid}, {p.smem} bytes"
-                      for n, p in plans.items()))
+          + "; ".join(f"{n} plan {plan_text(p)}" for n, p in plans.items()))
     if not timed:
         return cases
     hb = heads * H
@@ -979,6 +971,14 @@ def gat_attention_cases(label, x, nbr, heads, dh, rate, gen, grad_x,
     return cases
 
 
+def plan_text(plan):
+    """A launch plan of the attention kernels, in words."""
+    if plan.layout is None:
+        return f"_any, {plan.grid} blocks of {plan.tile} warps"
+    return (f"staged, tile {plan.tile}, {plan.per_sm} blocks an SM, grid "
+            f"{plan.grid}, {plan.layout.total} bytes")
+
+
 def gat_ragged_cases(device):
     """``gat_attention_cases`` arguments at the kernels' edges: columns
     that no slot names (K = 1 and K = 26), H = 100 and 128 (and 200, with
@@ -986,9 +986,13 @@ def gat_ragged_cases(device):
     of 200 bytes: staged as 16-byte windows read 8 bytes at a time), 200
     columns whose 25 slots all name row 7 (5,000 slots: the per-slot
     scatter's long-row path), H = 1024 with 4 heads (the CLI's default
-    hidden layers, 256 x 4; one column fills most of a block's shared
-    memory; timed), 9 heads on H = 300 (three head groups, the last of
-    one head) and a bf16 frame of H = 602 (rows 4-byte aligned)."""
+    hidden layers, 256 x 4; the `_any` kernels: one staged column would
+    fill most of a block's shared memory; timed), 9 heads on H = 300
+    (three head groups, the last of one head), a bf16 frame of H = 602
+    (rows 4-byte aligned), K = 40 slots (the staged kernels past a warp's
+    32 lanes, 50 columns all padding), and columns no block could stage:
+    H = 1024 with K = 26 (the CLI width at layer 0's fan-out) and H =
+    2048 with 8 heads (``--num-heads 8`` at the default hidden width)."""
     gen = torch.Generator(device).manual_seed(13)
 
     def case(label, S, K, D, H, heads, dh, dtype=torch.float32, edit=None,
@@ -1021,6 +1025,12 @@ def gat_ragged_cases(device):
     yield case("H=300, 9 heads, Dh=5", 2000, 11, 1500, 300, 9, 5)
     yield case("bf16 frame, H=602, 8 heads, Dh=16", 3000, 26, 800, 602, 8,
                16, dtype=torch.bfloat16)
+    yield case("K=40, H=64, the first 50 columns all padding", 4000, 40,
+               2000, 64, 4, 32, edit=lambda n: n[:, :50].fill_(3999))
+    yield case("H=1024, 4 heads, K=26, Dh=256", 8000, 26, 2048, 1024, 4,
+               256)
+    yield case("H=2048, 8 heads, K=11, Dh=256", 4000, 11, 1024, 2048, 8,
+               256)
 
 
 def split_gat_cases(label, layers, x0, hidden, heads, num_classes, rate,

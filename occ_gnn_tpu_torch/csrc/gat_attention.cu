@@ -14,7 +14,8 @@
 //       dpw[k, c] = ds[d, c] + dagg[d, c, :] . x[nbr[k, d], :]
 //       dpre[k, c] = pw[k, c] * dpw[k, c] * (pre > 0 ? 1 : slope)
 //       der[d, c] = sum over k of dpre[k, c], in slot order
-//       dwl[:, c] += x[nbr[k, d], :] * dpre[k, c]  (a partial a block)
+//       dwl[:, c] += x[nbr[k, d], :] * dpre[k, c]  (a partial a block, or
+//                                                   a warp: `_any`)
 //       dxg[k * D + d, :] = sum over c of pw[k, c] * dagg[d, c, :]
 //                          + sum over c of dpre[k, c] * wl[:, c]
 //     (dxg only where asked for, and only for valid slots: a padding
@@ -23,7 +24,7 @@
 // x is f32 or bf16 [S, H] row-major, its last row the frame's reserved zero
 // row that padding slots name; nbr int32 [K, D] k-major; wl f32 [H, heads];
 // er, m, s, ds, der f32 [D, heads]; agg, dagg f32 [D, heads, H]; dxg f32
-// [K * D, H]; dwl_part f32 [grid, H, heads]. Under a bf16 frame wl and the
+// [K * D, H]; dwl_part f32 [partials, H, heads]. Under a bf16 frame wl and the
 // pw that multiplies a leaf are rounded to bf16 (and dagg . leaf in dpw, as
 // autograd rounds a gradient through a bf16 tensor), and every sum is f32:
 // what the plain version (ops/gat_attention.py) computes.
@@ -53,8 +54,8 @@
 // start and the end. Staged rows are an odd number of 16 bytes apart, so
 // that lanes reading one 16-byte unit of different rows hit different
 // banks. Bulk copies, not per-lane cp.async, carry the rows: with the
-// latter the copies' issue held the forward back by a third (PERF.md,
-// PR 13); 4-byte cp.async carry the slot ids and an unaligned dagg. A
+// latter the copies' issue held the forward back by a third (PERF.md
+// §6); 4-byte cp.async carry the slot ids and an unaligned dagg. A
 // deeper ring (fewer warps in the same shared memory) was slower.
 //   * forward: lanes take the valid slots (as many lanes a slot as fit,
 //     their partial sums added in a fixed order) and sum the scores over
@@ -75,10 +76,26 @@
 //     shared memory once a column, are added over the warps in order at
 //     the end and written once a block (no float atomics; the wrapper adds
 //     the blocks' partials in a fixed order).
-// Any row width and head count: heads go in groups of 4 (the unused ones of
-// the last group never written; past the first group a lane adds its
-// group's part of a dx row into the row it wrote). Rows shorter than 16
-// bytes are copied by the lanes.
+// Any head count: heads go in groups of 4 (the unused ones of the last
+// group never written; past the first group a lane adds its group's part
+// of a dx row into the row it wrote). Rows shorter than 16 bytes are
+// copied by the lanes. Where a whole column does not fit shared memory, or
+// fits it with too few warps an SM to hide the shared-memory and f64
+// latencies (wide rows, many heads or slots: the wrapper's plan decides,
+// and passes a null layout), the `_any` kernels take it: a warp a column,
+// 8 warps a block, walking the slots kBatch at a time with their rows'
+// loads in flight together, the row in tiles of 128 columns and the heads
+// in groups of 4, a leaf read once a tile and group in each pass (L1 or L2
+// after the first), wl and dagg read through L1, the scores' maxima and
+// sums taken from shared memory; the same sums in the same orders. Their
+// backward keeps a column's dpre in shared memory, adds dwl's sums over
+// the column's slots into the warp's partial in dwl_part a tile and group
+// at a time (a partial a warp), and walks the columns strided over its
+// grid.
+//
+// The staged kernels' shared memory is laid out by the wrapper
+// (ops/gat_attention.py, `layout`), which passes the Layout below; the
+// entries check that it fits a block and matches the frame.
 
 #include <assert.h>
 #include <cuda_bf16.h>
@@ -92,16 +109,27 @@ namespace {
 
 constexpr int kMaxWarps = 8;  // a block: one dst column of a tile a warp
 constexpr int kHeadGroup = 4;
-constexpr int kStages = 2;  // a warp's ring: staged columns, and one more
-                            // of slot ids
+// A warp's ring: staged columns, and one more of slot ids (the layout's
+// `stages`, checked; a compile-time count keeps the ring's index
+// arithmetic to shifts and masks).
+constexpr unsigned kStages = 2;
 constexpr unsigned kSmemBlock = 232448;  // a block's most on sm_90
 // Shared memory a block may take without opting in to more.
 constexpr unsigned kSmemDefault = 48 * 1024;
 constexpr unsigned kFull = 0xffffffffu;
+// The `_any` kernels: a block's warps (a dst column each), its row tile
+// (32 * kAnyJ columns), its head group, and the slots a warp loads at
+// once, their rows in flight together.
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kAnyJ = 4;
+constexpr int kTile = 32 * kAnyJ;
+constexpr int kAnyHeads = 4;
+constexpr int kBatch = 4;
 
-// Where everything sits in a block's shared memory (bytes), and how a
-// staged row is laid out; the wrapper (ops/gat_attention.py,
-// `smem_bytes`) computes the same sizes.
+// Where everything sits in a staged kernel's shared memory (bytes), and
+// how a staged row is laid out, as the wrapper (ops/gat_attention.py,
+// `layout`, its LAYOUT_FIELDS in this order) plans it.
 struct Layout {
   int read;    // read unit, bytes: the widest of 16, 8, 4, 2 dividing the
                // row's bytes and the frame's address alignment
@@ -112,71 +140,20 @@ struct Layout {
   int wunit;   // doubles of wl64 a read unit: its E elements' 4 heads and
                // 16 bytes, so that lanes reading wl for units j, j + 1,
                // ... at once hit different banks
-  unsigned wl64;  // block: wl in f64 [groups][nvec][wunit]
-  unsigned wl32;  // backward, block: wl in f32 [groups * 4][h]
+  int stages;  // a warp's ring's stages: kStages
+  int wl64;    // block: wl in f64 [groups][nvec][wunit]
+  int wl32;    // backward, block: wl in f32 [groups * 4][h]
   // a warp's, from `warp` on, `per_warp` bytes each:
-  unsigned rows;  // [kStages][K][stride]
-  unsigned dagg;  // backward: [kStages][heads][h] f32, 16-byte stages
-  unsigned ids;   // [kStages + 1][K] int32
-  unsigned z;     // [K][groups][4] f32: scores, then weights (bwd: dpre)
-  unsigned pw;    // backward: [K][groups][4] f32 rounded weights
-  unsigned dwl;   // backward: [groups][h][4] f32 partial
-  unsigned bar;   // [kStages] mbarriers of the bulk copies
-  unsigned dstage;  // backward: bytes a dagg stage
-  unsigned warp, per_warp, total;
+  int rows;    // [stages][K][stride]
+  int dagg;    // backward: [stages][heads][h] f32, 16-byte stages
+  int ids;     // [stages + 1][K] int32
+  int z;       // [K][groups][4] f32: scores, then weights (bwd: dpre)
+  int pw;      // backward: [K][groups][4] f32 rounded weights
+  int dwl;     // backward: [groups][h][4] f32 partial
+  int bar;     // [stages] mbarriers of the bulk copies
+  int dstage;  // backward: bytes a dagg stage
+  int warp, per_warp, total;
 };
-
-__host__ __device__ inline unsigned long long align16(unsigned long long v) {
-  return (v + 15) & ~15ull;
-}
-
-__host__ __device__ inline Layout make_layout(int K, int h, int heads,
-                                              int elt, int x_align, int tile,
-                                              bool backward) {
-  Layout L;
-  const int rowbytes = h * elt;
-  L.read = 16;
-  while (L.read > 2 && (rowbytes % L.read != 0 || x_align % L.read != 0)) {
-    L.read /= 2;
-  }
-  L.bulk = rowbytes >= 16;
-  // A bulk copy takes a row's 16-byte-aligned window, which starts up to
-  // 16 - read bytes before the row.
-  const unsigned long long window =
-      align16(rowbytes + (L.bulk && L.read < 16 ? 16 - L.read : 0));
-  L.stride = static_cast<int>(((window / 16) | 1) * 16);
-  L.nvec = rowbytes / L.read;
-  L.groups = (heads + kHeadGroup - 1) / kHeadGroup;
-  const unsigned long long groups_h = 1ull * L.groups * h * kHeadGroup;
-  L.dstage = static_cast<unsigned>(align16(4ull * heads * h));
-  unsigned long long off = 0;
-  L.rows = off;
-  off += align16(1ull * kStages * K * L.stride);
-  L.dagg = off;
-  if (backward) off += 1ull * kStages * L.dstage;
-  L.ids = off;
-  off += align16(4ull * (kStages + 1) * K);
-  L.z = off;
-  off += align16(4ull * K * L.groups * kHeadGroup);
-  L.pw = off;
-  if (backward) off += align16(4ull * K * L.groups * kHeadGroup);
-  L.dwl = off;
-  if (backward) off += align16(4 * groups_h);
-  L.bar = off;
-  off += align16(8ull * kStages);
-  const unsigned long long per_warp = off;
-  L.wl64 = 0;
-  L.wunit = (rowbytes / L.nvec / elt) * kHeadGroup + 2;
-  L.wl32 = static_cast<unsigned>(
-      align16(8ull * L.groups * L.nvec * L.wunit));
-  L.warp = L.wl32 + (backward ? static_cast<unsigned>(align16(4 * groups_h))
-                              : 0u);
-  const unsigned long long total = L.warp + per_warp * tile;
-  L.per_warp = static_cast<unsigned>(per_warp);
-  L.total = total > 0xffffffffull ? 0xffffffffu
-                                  : static_cast<unsigned>(total);
-  return L;
-}
 
 // Both kernels' arguments.
 struct Args {
@@ -207,14 +184,29 @@ struct Args {
   float* dxg;  // nullptr: no gradient to x
 };
 
+// A frame element as f32, and an f32 rounded as the frame's type.
 template <typename In>
-__device__ __forceinline__ float round_as(float v) {
-  if constexpr (std::is_same<In, float>::value) {
-    return v;
-  } else {
+struct Frame;
+
+template <>
+struct Frame<float> {
+  static __device__ __forceinline__ float load(const void* x, long long i) {
+    return __ldg(static_cast<const float*>(x) + i);
+  }
+  static __device__ __forceinline__ float round(float v) { return v; }
+};
+
+template <>
+struct Frame<__nv_bfloat16> {
+  static __device__ __forceinline__ float load(const void* x, long long i) {
+    const unsigned short raw =
+        __ldg(static_cast<const unsigned short*>(x) + i);
+    return __bfloat162float(__ushort_as_bfloat16(raw));
+  }
+  static __device__ __forceinline__ float round(float v) {
     return __bfloat162float(__float2bfloat16_rn(v));
   }
-}
+};
 
 __device__ __forceinline__ float leaky(float pre, float slope) {
   return pre > 0.f ? pre : slope * pre;
@@ -399,7 +391,7 @@ __device__ __forceinline__ void stage_weights(const Args& a, double* wl64,
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     const int c = i / a.h, col = i - c * a.h;
     const float w =
-        c < a.heads ? round_as<In>(__ldg(a.wl + col * a.heads + c)) : 0.f;
+        c < a.heads ? Frame<In>::round(__ldg(a.wl + col * a.heads + c)) : 0.f;
     const int j = col / E, e = col - j * E;
     wl64[(c / kHeadGroup * a.L.nvec + j) * a.L.wunit + e * kHeadGroup +
          c % kHeadGroup] = w;
@@ -691,7 +683,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 2) attention_fwd(Args a) {
   Warp sm(smem, L, warp);
   stage_weights<In>(a, wl64, nullptr);
   if (lane == 0) {
-    for (int i = 0; i < kStages; ++i) bar_init(sm.bar + i);
+    for (unsigned i = 0; i < kStages; ++i) bar_init(sm.bar + i);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -777,8 +769,8 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 2) attention_fwd(Args a) {
                   v);
           const float4 p = load4(zg + k * L.groups * 4);
           if (j == lane) s[0] += p.x, s[1] += p.y, s[2] += p.z, s[3] += p.w;
-          const float pc[4] = {round_as<In>(p.x), round_as<In>(p.y),
-                               round_as<In>(p.z), round_as<In>(p.w)};
+          const float pc[4] = {Frame<In>::round(p.x), Frame<In>::round(p.y),
+                               Frame<In>::round(p.z), Frame<In>::round(p.w)};
 #pragma unroll
           for (int c = 0; c < 4; ++c) {
 #pragma unroll
@@ -824,11 +816,11 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 2) attention_bwd(Args a) {
   stage_weights<In>(a, wl64, wl32);
   for (int i = lane; i < L.groups * a.h * 4; i += 32) sm.dwl[i] = 0.f;
   if (lane == 0) {
-    for (int i = 0; i < kStages; ++i) bar_init(sm.bar + i);
+    for (unsigned i = 0; i < kStages; ++i) bar_init(sm.bar + i);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  const Ring ring{sm, a.K, L.stride, static_cast<int>(L.dstage / 4)};
+  const Ring ring{sm, a.K, L.stride, L.dstage / 4};
   fill<In>(a, ring, warp, lane, true);
   long long d;
   for (unsigned n = 0; (d = column(a, warp, n)) >= 0; ++n) {
@@ -871,9 +863,9 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 2) attention_bwd(Args a) {
               const float pre =
                   static_cast<float>(tp[c] + static_cast<double>(er[c]));
               const float pe = expf(leaky(pre, a.slope) - mm[c]);
-              dp[c] = pe * (ds[c] + round_as<In>(ta[c])) *
+              dp[c] = pe * (ds[c] + Frame<In>::round(ta[c])) *
                       (pre > 0.f ? 1.f : a.slope);
-              pc[c] = round_as<In>(pe);
+              pc[c] = Frame<In>::round(pe);
             }
           }
           *reinterpret_cast<float4*>(dg + k * L.groups * 4) =
@@ -977,18 +969,405 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 2) attention_bwd(Args a) {
   }
 }
 
+// The `_any` kernels (see the top of the file).
+
+// This lane's columns h0 + lane + 32 i of leaf row r, as f32 (zero past
+// h).
+template <typename In, int J>
+__device__ __forceinline__ void load_leaf(const Args& a, int r, int h0,
+                                          int lane, float (&v)[J]) {
+  const long long base = static_cast<long long>(r) * a.h;
+#pragma unroll
+  for (int i = 0; i < J; ++i) {
+    const int col = h0 + lane + 32 * i;
+    v[i] = col < a.h ? Frame<In>::load(a.x, base + col) : 0.f;
+  }
+}
+
+// Column d's K slot ids into s_idx (an id outside [0, S) stops the kernel
+// with a device-side assert, as torch.index_select does on the card).
+__device__ __forceinline__ void stage_slots(const Args& a, long long d,
+                                            int lane, int* s_idx) {
+  for (int k = lane; k < a.K; k += 32) {
+    const int r = __ldg(a.nbr + static_cast<long long>(k) * a.D + d);
+    assert(r >= 0 && r < a.x_rows);
+    s_idx[k] = r;
+  }
+}
+
+// The warp's sums of the HEADS values t[0 .. HEADS) (HEADS a power of two
+// up to 32), folded so that lane l ends with the sum of value l / (32 /
+// HEADS), its head: each halving step sends the half of the values a lane
+// still holds that its partner keeps (log2 HEADS steps of HEADS / 2, ...,
+// 1 shuffles), then a butterfly over the lanes of a head. Every lane of a
+// head holds the same bits. t is overwritten.
+template <typename T, int HEADS>
+__device__ __forceinline__ T head_sums(T (&t)[HEADS], int lane) {
+#pragma unroll
+  for (int n = HEADS, o = 16; n > 1; n /= 2, o /= 2) {
+    const bool upper = lane & o;
+#pragma unroll
+    for (int j = 0; j < n / 2; ++j) {
+      const T send = upper ? t[j] : t[j + n / 2];
+      const T keep = upper ? t[j + n / 2] : t[j];
+      t[j] = keep + __shfl_xor_sync(kFull, send, o);
+    }
+  }
+  T v = t[0];
+#pragma unroll
+  for (int o = 16 / HEADS; o > 0; o /= 2) v += __shfl_xor_sync(kFull, v, o);
+  return v;
+}
+
+// Head c's value of a [D, heads] array at column d (zero past heads).
+__device__ __forceinline__ float head_value(const float* p, const Args& a,
+                                            long long d, int c) {
+  return c < a.heads ? __ldg(p + d * a.heads + c) : 0.f;
+}
+
+// The rows of kBatch slots from k0 on, their columns from h0, loaded
+// together (a padding slot's, or one past K, not at all: r[u] is then the
+// zero row).
+template <typename In, int J>
+__device__ __forceinline__ void load_batch(const Args& a, const int* s_idx,
+                                           int k0, int h0, int zero_row,
+                                           int lane, int (&r)[kBatch],
+                                           float (&v)[kBatch][J]) {
+#pragma unroll
+  for (int u = 0; u < kBatch; ++u) {
+    r[u] = k0 + u < a.K ? s_idx[k0 + u] : zero_row;
+    if (r[u] != zero_row) load_leaf<In>(a, r[u], h0, lane, v[u]);
+  }
+}
+
+// wl[col, c] rounded as the frame's type (zero past heads).
+template <typename In>
+__device__ __forceinline__ float weight(const Args& a, int c, int col) {
+  return c < a.heads ? Frame<In>::round(__ldg(a.wl + col * a.heads + c))
+                     : 0.f;
+}
+
+// The `_any` forward.
+template <typename In>
+__global__ void __launch_bounds__(kThreads) attention_fwd_any(Args a) {
+  constexpr int J = kAnyJ, HG = kAnyHeads, kGroup = 32 / HG;
+  extern __shared__ float s_fmem[];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int mine = lane / kGroup;  // this lane's head in a group's sums
+  const int nh = a.heads;
+  // A warp's [K][heads] scores, then weights, and [heads] maxima; its slot
+  // ids.
+  float* s_z = s_fmem + warp * (a.K + 1) * nh;
+  float* s_m = s_z + a.K * nh;
+  int* s_idx =
+      reinterpret_cast<int*>(s_fmem + kWarps * (a.K + 1) * nh) + warp * a.K;
+  const long long d = static_cast<long long>(blockIdx.x) * kWarps + warp;
+  if (d >= a.D) return;
+  const int zero_row = static_cast<int>(a.x_rows - 1);
+  stage_slots(a, d, lane, s_idx);
+  __syncwarp();
+  // Pass 1: each (slot, head)'s score, -inf on padding; a group's products
+  // summed over the row's tiles in f64, then folded across the lanes.
+  for (int k0 = 0; k0 < a.K; k0 += kBatch) {
+    for (int c0 = 0; c0 < nh; c0 += HG) {
+      double t[kBatch][HG];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+#pragma unroll
+        for (int c = 0; c < HG; ++c) t[u][c] = 0.0;
+      }
+      for (int h0 = 0; h0 < a.h; h0 += kTile) {
+        double w[HG][J];
+#pragma unroll
+        for (int c = 0; c < HG; ++c) {
+#pragma unroll
+          for (int i = 0; i < J; ++i) {
+            const int col = h0 + lane + 32 * i;
+            w[c][i] = col < a.h ? weight<In>(a, c0 + c, col) : 0.0;
+          }
+        }
+        int r[kBatch];
+        float v[kBatch][J];
+        load_batch<In>(a, s_idx, k0, h0, zero_row, lane, r, v);
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          if (r[u] == zero_row) continue;
+#pragma unroll
+          for (int i = 0; i < J; ++i) {
+            if (h0 + lane + 32 * i >= a.h) break;
+#pragma unroll
+            for (int c = 0; c < HG; ++c) {
+              t[u][c] = fma(static_cast<double>(v[u][i]), w[c][i], t[u][c]);
+            }
+          }
+        }
+      }
+      const int c = c0 + mine;
+      const double e = head_value(a.er, a, d, c);
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        if (k0 + u >= a.K) break;
+        float z = -INFINITY;
+        if (s_idx[k0 + u] != zero_row) {
+          z = leaky(static_cast<float>(head_sums(t[u], lane) + e), a.slope);
+        }
+        if (lane % kGroup == 0 && c < nh) s_z[(k0 + u) * nh + c] = z;
+      }
+    }
+  }
+  __syncwarp();
+  for (int c = lane; c < nh; c += 32) {
+    float mx = -INFINITY;
+    for (int k = 0; k < a.K; ++k) mx = fmaxf(mx, s_z[k * nh + c]);
+    s_m[c] = mx;
+  }
+  __syncwarp();
+  for (int t = lane; t < a.K * nh; t += 32) {
+    const int k = t / nh;
+    s_z[t] = s_idx[k] == zero_row ? 0.f : expf(s_z[t] - s_m[t - k * nh]);
+  }
+  __syncwarp();
+  for (int c = lane; c < nh; c += 32) {
+    float s = 0.f;
+    for (int k = 0; k < a.K; ++k) s += s_z[k * nh + c];
+    a.m_out[d * nh + c] = s_m[c];
+    a.s_out[d * nh + c] = s;
+  }
+  // Pass 2: the weighted leaves, a group and a tile at a time, k in order.
+  for (int c0 = 0; c0 < nh; c0 += HG) {
+    for (int h0 = 0; h0 < a.h; h0 += kTile) {
+      float acc[HG][J];
+#pragma unroll
+      for (int c = 0; c < HG; ++c) {
+#pragma unroll
+        for (int i = 0; i < J; ++i) acc[c][i] = 0.f;
+      }
+      for (int k0 = 0; k0 < a.K; k0 += kBatch) {
+        int r[kBatch];
+        float v[kBatch][J];
+        load_batch<In>(a, s_idx, k0, h0, zero_row, lane, r, v);
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          if (r[u] == zero_row) continue;
+#pragma unroll
+          for (int c = 0; c < HG; ++c) {
+            const float pc =
+                c0 + c < nh ? Frame<In>::round(s_z[(k0 + u) * nh + c0 + c])
+                            : 0.f;
+#pragma unroll
+            for (int i = 0; i < J; ++i) {
+              acc[c][i] = fmaf(pc, v[u][i], acc[c][i]);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < HG; ++c) {
+        if (c0 + c >= nh) break;
+        float* out = a.agg + (d * nh + c0 + c) * a.h;
+#pragma unroll
+        for (int i = 0; i < J; ++i) {
+          const int col = h0 + lane + 32 * i;
+          if (col < a.h) out[col] = acc[c][i];
+        }
+      }
+    }
+  }
+}
+
+// The `_any` backward.
+// A column's dpre and rounded pw for all its slots go to shared memory
+// first; then, a tile and a head group at a time, dwl's sums run over the
+// column's slots in registers and are added into the warp's partial once.
+template <typename In>
+__global__ void __launch_bounds__(kThreads) attention_bwd_any(Args a) {
+  constexpr int J = kAnyJ, HG = kAnyHeads, kGroup = 32 / HG;
+  extern __shared__ float s_fmem[];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int mine = lane / kGroup;  // this lane's head in a group's sums
+  const int nh = a.heads;
+  // A warp's dpre and rounded pw [K][heads], its column's der [heads] and
+  // its slot ids.
+  float* s_dp = s_fmem + warp * (2 * a.K + 1) * nh;
+  float* s_pc = s_dp + a.K * nh;
+  float* s_der = s_pc + a.K * nh;
+  int* s_idx =
+      reinterpret_cast<int*>(s_fmem + kWarps * (2 * a.K + 1) * nh) +
+      warp * a.K;
+  const int zero_row = static_cast<int>(a.x_rows - 1);
+  // The warp's dwl partial [h][heads], a lane's columns its own.
+  float* gw = a.dwl_part +
+              (static_cast<long long>(blockIdx.x) * kWarps + warp) * a.h * nh;
+  for (int col = lane; col < a.h; col += 32) {
+    for (int c = 0; c < nh; ++c) gw[col * nh + c] = 0.f;
+  }
+  for (long long d = static_cast<long long>(blockIdx.x) * kWarps + warp;
+       d < a.D; d += static_cast<long long>(gridDim.x) * kWarps) {
+    __syncwarp();  // the shared arrays hold the last column's until here
+    stage_slots(a, d, lane, s_idx);
+    for (int c = lane; c < nh; c += 32) s_der[c] = 0.f;
+    __syncwarp();
+    const float* ga = a.dagg + d * nh * a.h;
+    // Each slot's dpre and rounded pw, a group of heads at a time: the
+    // score and dagg . leaf summed over the row's tiles, then folded.
+    for (int k0 = 0; k0 < a.K; k0 += kBatch) {
+      for (int c0 = 0; c0 < nh; c0 += HG) {
+        double tp[kBatch][HG];
+        float ta[kBatch][HG];
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+#pragma unroll
+          for (int c = 0; c < HG; ++c) {
+            tp[u][c] = 0.0;
+            ta[u][c] = 0.f;
+          }
+        }
+        for (int h0 = 0; h0 < a.h; h0 += kTile) {
+          float w[HG][J], g[HG][J];
+#pragma unroll
+          for (int c = 0; c < HG; ++c) {
+#pragma unroll
+            for (int i = 0; i < J; ++i) {
+              const int col = h0 + lane + 32 * i;
+              const bool real = c0 + c < nh && col < a.h;
+              w[c][i] = real ? weight<In>(a, c0 + c, col) : 0.f;
+              g[c][i] = real ? __ldg(ga + (c0 + c) * a.h + col) : 0.f;
+            }
+          }
+          int r[kBatch];
+          float v[kBatch][J];
+          load_batch<In>(a, s_idx, k0, h0, zero_row, lane, r, v);
+#pragma unroll
+          for (int u = 0; u < kBatch; ++u) {
+            if (r[u] == zero_row) continue;
+#pragma unroll
+            for (int i = 0; i < J; ++i) {
+              if (h0 + lane + 32 * i >= a.h) break;
+#pragma unroll
+              for (int c = 0; c < HG; ++c) {
+                tp[u][c] = fma(static_cast<double>(v[u][i]),
+                               static_cast<double>(w[c][i]), tp[u][c]);
+                ta[u][c] = fmaf(v[u][i], g[c][i], ta[u][c]);
+              }
+            }
+          }
+        }
+        const int c = c0 + mine;
+        const double e = head_value(a.er, a, d, c);
+        const float m = head_value(a.m, a, d, c);
+        const float ds = head_value(a.ds, a, d, c);
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          if (k0 + u >= a.K) break;
+          if (s_idx[k0 + u] == zero_row) continue;
+          const float pre = static_cast<float>(head_sums(tp[u], lane) + e);
+          const float t = Frame<In>::round(head_sums(ta[u], lane));
+          const float p = expf(leaky(pre, a.slope) - m);
+          const float dpre = p * (ds + t) * (pre > 0.f ? 1.f : a.slope);
+          if (lane % kGroup == 0 && c < nh) {
+            s_dp[(k0 + u) * nh + c] = dpre;
+            s_pc[(k0 + u) * nh + c] = Frame<In>::round(p);
+            s_der[c] += dpre;
+          }
+        }
+      }
+    }
+    __syncwarp();
+    for (int c = lane; c < nh; c += 32) a.der[d * nh + c] = s_der[c];
+    for (int h0 = 0; h0 < a.h; h0 += kTile) {
+      // dwl: a group's sums over the column's slots in registers, k in
+      // order, added into the warp's partial.
+      for (int c0 = 0; c0 < nh; c0 += HG) {
+        float acc[HG][J];
+#pragma unroll
+        for (int c = 0; c < HG; ++c) {
+#pragma unroll
+          for (int i = 0; i < J; ++i) {
+            const int col = h0 + lane + 32 * i;
+            acc[c][i] = c0 + c < nh && col < a.h ? gw[col * nh + c0 + c]
+                                                 : 0.f;
+          }
+        }
+        for (int k0 = 0; k0 < a.K; k0 += kBatch) {
+          int r[kBatch];
+          float v[kBatch][J];
+          load_batch<In>(a, s_idx, k0, h0, zero_row, lane, r, v);
+#pragma unroll
+          for (int u = 0; u < kBatch; ++u) {
+            if (r[u] == zero_row) continue;
+#pragma unroll
+            for (int c = 0; c < HG; ++c) {
+              const float dp = c0 + c < nh ? s_dp[(k0 + u) * nh + c0 + c]
+                                           : 0.f;
+#pragma unroll
+              for (int i = 0; i < J; ++i) {
+                acc[c][i] = fmaf(v[u][i], dp, acc[c][i]);
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int c = 0; c < HG; ++c) {
+#pragma unroll
+          for (int i = 0; i < J; ++i) {
+            const int col = h0 + lane + 32 * i;
+            if (c0 + c < nh && col < a.h) gw[col * nh + c0 + c] = acc[c][i];
+          }
+        }
+      }
+      if (a.dxg == nullptr) continue;
+      // The valid slots' dx rows: sum over c of pw * dagg, then of dpre *
+      // wl, each dagg and wl element read once for the batch's slots.
+      for (int k0 = 0; k0 < a.K; k0 += kBatch) {
+#pragma unroll
+        for (int i = 0; i < J; ++i) {
+          const int col = h0 + lane + 32 * i;
+          if (col >= a.h) break;
+          float o[kBatch];
+#pragma unroll
+          for (int u = 0; u < kBatch; ++u) o[u] = 0.f;
+          const int n = a.K - k0 < kBatch ? a.K - k0 : kBatch;
+          for (int c = 0; c < nh; ++c) {
+            const float g = __ldg(ga + c * a.h + col);
+#pragma unroll
+            for (int u = 0; u < kBatch; ++u) {
+              if (u < n) o[u] = fmaf(s_pc[(k0 + u) * nh + c], g, o[u]);
+            }
+          }
+          for (int c = 0; c < nh; ++c) {
+            const float w = weight<In>(a, c, col);
+#pragma unroll
+            for (int u = 0; u < kBatch; ++u) {
+              if (u < n) o[u] = fmaf(s_dp[(k0 + u) * nh + c], w, o[u]);
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < kBatch; ++u) {
+            if (u < n && s_idx[k0 + u] != zero_row) {
+              a.dxg[(static_cast<long long>(k0 + u) * a.D + d) * a.h + col] =
+                  o[u];
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
 // Let the kernel take the layout's shared memory, and the SM give shared
-// memory all it can (its split with L1 is otherwise the driver's choice,
-// which may hold fewer blocks an SM than the plan counts on).
+// memory all it can (its split with L1 is otherwise left to the CUDA
+// runtime, which may hold fewer blocks an SM than the plan counts on).
 template <typename Kernel>
 cudaError_t prepare(Kernel kernel, const Layout& L) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
       cudaSharedmemCarveoutMaxShared);
-  if (err != cudaSuccess || L.total <= kSmemDefault) return err;
+  if (err != cudaSuccess || static_cast<unsigned>(L.total) <= kSmemDefault) {
+    return err;
+  }
   return cudaFuncSetAttribute(kernel,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(L.total));
+                              L.total);
 }
 
 template <typename Kernel>
@@ -1031,35 +1410,98 @@ cudaError_t by_read(const Args& a, bool backward, int grid,
   }
 }
 
+// Raise a kernel's dynamic shared memory limit where it needs more than
+// the default (never lowered).
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= kSmemDefault) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+template <typename In>
+cudaError_t launch_any(const Args& a, bool backward, int grid,
+                       cudaStream_t stream) {
+  if (!backward) {
+    const size_t smem =
+        (sizeof(float) * a.heads * (a.K + 1) + sizeof(int) * a.K) * kWarps;
+    cudaError_t err = allow_smem(attention_fwd_any<In>, smem);
+    if (err != cudaSuccess) return err;
+    attention_fwd_any<In><<<grid, kThreads, smem, stream>>>(a);
+  } else {
+    const size_t smem = (sizeof(float) * a.heads * (2 * a.K + 1) +
+                         sizeof(int) * a.K) * kWarps;
+    cudaError_t err = allow_smem(attention_bwd_any<In>, smem);
+    if (err != cudaSuccess) return err;
+    attention_bwd_any<In><<<grid, kThreads, smem, stream>>>(a);
+  }
+  return cudaGetLastError();
+}
+
 int x_align(const void* x) {
   const uintptr_t p = reinterpret_cast<uintptr_t>(x);
   return p % 16 == 0 ? 16 : static_cast<int>(p & (~p + 1));
 }
 
-// The checks both entries make, then the launch.
-int run(Args& a, int x_bf16, int grid, bool backward, int device,
-        void* stream, int* per_sm = nullptr) {
+// Whether a staged layout can serve this launch: its read unit divides the
+// row's bytes and the frame's alignment, its head groups are the heads',
+// a staged row holds the row's window, and its warps fit a block.
+bool layout_fits(const Layout& L, const Args& a, int elt) {
+  const int rowbytes = a.h * elt;
+  const bool read_ok = (L.read == 16 || L.read == 8 || L.read == 4 ||
+                        (L.read == 2 && elt == 2)) &&
+                       rowbytes % L.read == 0 &&
+                       x_align(a.x) % L.read == 0 &&
+                       L.nvec * L.read == rowbytes;
+  return read_ok && L.bulk == (rowbytes >= 16) &&
+         L.groups == (a.heads + kHeadGroup - 1) / kHeadGroup &&
+         L.stages == static_cast<int>(kStages) && L.stride % 16 == 0 &&
+         L.stride >= ((rowbytes + (L.bulk && L.read < 16 ? 16 - L.read : 0) +
+                       15) & ~15) &&
+         L.per_warp > 0 && L.warp >= 0 &&
+         static_cast<long long>(L.warp) +
+                 static_cast<long long>(L.per_warp) * a.tile ==
+             L.total &&
+         static_cast<unsigned>(L.total) <= kSmemBlock;
+}
+
+// The checks both entries make, then the launch: the staged kernels with
+// `layout`, or the `_any` kernels where it is null (`grid` blocks of
+// kWarps warps, a dst column each; the forward's must reach every column).
+int run(Args& a, int x_bf16, int grid, const Layout* layout, bool backward,
+        int device, void* stream, int* per_sm = nullptr) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (a.h < 1 || a.heads < 1 || a.K < 1 || a.D < 0 || a.x_rows < 1 ||
-      a.x_rows > 2147483647LL || a.tile < 1 || a.tile > kMaxWarps ||
-      grid < 1) {
+      a.x_rows > 2147483647LL || grid < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (a.D == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (layout == nullptr) {
+    if (per_sm != nullptr ||
+        (!backward && static_cast<long long>(grid) * kWarps < a.D)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    err = x_bf16 ? launch_any<__nv_bfloat16>(a, backward, grid, s)
+                 : launch_any<float>(a, backward, grid, s);
+    return static_cast<int>(err);
+  }
+  if (a.tile < 1 || a.tile > kMaxWarps) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   a.tiles = (a.D + a.tile - 1) / a.tile;
-  const int elt = x_bf16 ? 2 : 4;
-  a.L = make_layout(a.K, a.h, a.heads, elt, x_align(a.x), a.tile, backward);
+  a.L = *layout;
   // Every block takes a tile (so every dwl partial is written), and the
-  // plan fits a block.
-  if (grid > a.tiles || a.L.total > kSmemBlock) {
+  // layout fits a block and the frame.
+  if (grid > a.tiles || !layout_fits(a.L, a, x_bf16 ? 2 : 4)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (backward) {
     a.dagg_bulk = (a.heads * a.h) % 4 == 0 &&
                   reinterpret_cast<uintptr_t>(a.dagg) % 16 == 0;
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   err = x_bf16 ? by_read<__nv_bfloat16>(a, backward, grid, s, per_sm)
                : by_read<float>(a, backward, grid, s, per_sm);
   return static_cast<int>(err);
@@ -1088,32 +1530,36 @@ Args common(const void* x, long long x_rows, int h, const void* nbr, int k,
 // The entries launch on `stream` (a cudaStream_t) on device `device`,
 // return the cudaError_t of the launch, 0 on success, and do not
 // synchronise. Every array is contiguous; x is f32 (x_bf16 == 0) or bf16
-// [x_rows, h], its row x_rows - 1 the zero row. `tile` columns a tile (a
-// warp each, at most 8) and `grid` blocks (at most the tiles) are the
-// wrapper's plan.
+// [x_rows, h], its row x_rows - 1 the zero row. The wrapper's plan gives
+// `layout` (a host array of the Layout's ints, in its order), `tile`
+// columns a tile (a warp each, at most 8) and `grid` blocks (at most the
+// tiles); a null layout takes the `_any` kernels, `grid` blocks of 8
+// warps (`tile` unread).
 
 // m, s [d, heads] and agg [d, heads, h], every column written.
 extern "C" int gat_attention_fwd(const void* x, int x_bf16, long long x_rows,
                                  int h, const void* nbr, int k, long long d,
                                  const void* wl, const void* er, int heads,
-                                 float slope, int tile, int grid, void* m,
-                                 void* s, void* agg, int device,
-                                 void* stream) {
+                                 float slope, const void* layout, int tile,
+                                 int grid, void* m, void* s, void* agg,
+                                 int device, void* stream) {
   Args a = common(x, x_rows, h, nbr, k, d, wl, er, heads, slope, tile);
   a.m_out = static_cast<float*>(m);
   a.s_out = static_cast<float*>(s);
   a.agg = static_cast<float*>(agg);
-  return run(a, x_bf16, grid, false, device, stream);
+  return run(a, x_bf16, grid, static_cast<const Layout*>(layout), false,
+             device, stream);
 }
 
-// der [d, heads], dwl_part [grid, h, heads] (a block's partial each) and,
-// unless dxg is null, dxg [k * d, h] (the rows of valid slots; padding
-// slots' rows are left as they were).
+// der [d, heads], dwl_part [partials, h, heads] (a block's partial each,
+// `grid` of them; the `_any` kernel's a warp's, 8 * grid) and, unless dxg
+// is null, dxg [k * d, h] (the rows of valid slots; padding slots' rows
+// are left as they were).
 extern "C" int gat_attention_bwd(const void* x, int x_bf16, long long x_rows,
                                  int h, const void* nbr, int k, long long d,
                                  const void* wl, const void* er, int heads,
-                                 float slope, int tile, int grid,
-                                 const void* m, const void* ds,
+                                 float slope, const void* layout, int tile,
+                                 int grid, const void* m, const void* ds,
                                  const void* dagg, void* der, void* dwl_part,
                                  void* dxg, int device, void* stream) {
   Args a = common(x, x_rows, h, nbr, k, d, wl, er, heads, slope, tile);
@@ -1123,30 +1569,22 @@ extern "C" int gat_attention_bwd(const void* x, int x_bf16, long long x_rows,
   a.der = static_cast<float*>(der);
   a.dwl_part = static_cast<float*>(dwl_part);
   a.dxg = static_cast<float*>(dxg);
-  return run(a, x_bf16, grid, true, device, stream);
+  return run(a, x_bf16, grid, static_cast<const Layout*>(layout), true,
+             device, stream);
 }
 
-// The shared memory bytes a block of either kernel takes for this frame
-// (its address sets the copy unit), width, slots, heads and tile.
-extern "C" long long gat_attention_smem_bytes(const void* x, int x_bf16,
-                                              int h, int k, int heads,
-                                              int tile, int backward) {
-  return make_layout(k, h, heads, x_bf16 ? 2 : 4, x_align(x), tile,
-                     backward != 0)
-      .total;
-}
-
-// The blocks of the plan's kernel that an SM holds at once, into *per_sm
-// (the arrays are not read: no launch).
+// The blocks of a staged kernel with this layout and tile that an SM
+// holds at once, into *per_sm (the arrays are not read: no launch).
 extern "C" int gat_attention_occupancy(const void* x, int x_bf16,
                                        long long x_rows, int h, int k,
-                                       long long d, int heads, int tile,
+                                       long long d, int heads,
+                                       const void* layout, int tile,
                                        int backward, int device,
                                        int* per_sm) {
   Args a = common(x, x_rows, h, nullptr, k, d, nullptr, nullptr, heads,
                   0.f, tile);
-  a.dagg = nullptr;
-  return run(a, x_bf16, 1, backward != 0, device, nullptr, per_sm);
+  return run(a, x_bf16, 1, static_cast<const Layout*>(layout),
+             backward != 0, device, nullptr, per_sm);
 }
 
 extern "C" const char* cuda_error_string(int err) {

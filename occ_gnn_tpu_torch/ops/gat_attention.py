@@ -45,11 +45,16 @@ in flight while it computes:
   ``dx`` in slot order (padding slots' rows are neither written nor
   read).
 
-The tile (a warp a column), the blocks an SM and the grid are the host's
-plan (``attention_plan``): the most warps an SM that the blocks' shared
-memory (``smem_bytes``, the kernel's own layout) allows, with a tile that
-still gives every SM one. Any row width and head count: heads go through
-the kernels in groups of 4.
+The host plans each launch (``attention_plan``) and owns the staged
+kernels' shared-memory layout (``layout``), which it passes to them: the
+most warps an SM that the blocks' shared memory allows, with a tile that
+still gives every SM one. A shape whose column leaves too few warps an
+SM (``MIN_STAGED_WARPS``), or does not fit a block at all (wide rows,
+many heads or slots), or whose rows are read less than 8 bytes at a time,
+takes the ``_any`` kernels: a warp a column
+reading its leaves through L1 and L2, the row in tiles of 128 columns,
+one ``dwl`` partial a warp. Any row width and head count: heads go
+through both in groups of 4.
 
 The autograd Function saves ``x``, ``nbr``, ``wl``, ``er`` and ``m``; the
 projection of ``agg`` (``_Projection``) keeps ``agg`` and ``w3`` and gives
@@ -72,6 +77,7 @@ it launches the kernel or raises. There is no fallback between the two.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 import functools
@@ -88,27 +94,31 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_float)
 # The C entries of csrc/gat_attention.cu, argument for argument.
 ARGTYPES = {
-    # x, x_bf16, x_rows, h, nbr, k, d, wl, er, heads, slope, tile, grid,
-    # m, s, agg, device, stream
-    "gat_attention_fwd": [_P, _I, _L, _I, _P, _I, _L, _P, _P, _I, _F, _I,
-                          _I, _P, _P, _P, _I, _P],
-    # x, x_bf16, x_rows, h, nbr, k, d, wl, er, heads, slope, tile, grid,
-    # m, ds, dagg, der, dwl_part, dxg, device, stream
-    "gat_attention_bwd": [_P, _I, _L, _I, _P, _I, _L, _P, _P, _I, _F, _I,
-                          _I, _P, _P, _P, _P, _P, _P, _I, _P],
-    # x, x_bf16, h, k, heads, tile, backward
-    "gat_attention_smem_bytes": [_P, _I, _I, _I, _I, _I, _I],
-    # x, x_bf16, x_rows, h, k, d, heads, tile, backward, device, per_sm
-    "gat_attention_occupancy": [_P, _I, _L, _I, _I, _L, _I, _I, _I, _I,
+    # x, x_bf16, x_rows, h, nbr, k, d, wl, er, heads, slope, layout, tile,
+    # grid, m, s, agg, device, stream
+    "gat_attention_fwd": [_P, _I, _L, _I, _P, _I, _L, _P, _P, _I, _F, _P,
+                          _I, _I, _P, _P, _P, _I, _P],
+    # x, x_bf16, x_rows, h, nbr, k, d, wl, er, heads, slope, layout, tile,
+    # grid, m, ds, dagg, der, dwl_part, dxg, device, stream
+    "gat_attention_bwd": [_P, _I, _L, _I, _P, _I, _L, _P, _P, _I, _F, _P,
+                          _I, _I, _P, _P, _P, _P, _P, _P, _I, _P],
+    # x, x_bf16, x_rows, h, k, d, heads, layout, tile, backward, device,
+    # per_sm
+    "gat_attention_occupancy": [_P, _I, _L, _I, _I, _L, _I, _P, _I, _I, _I,
                                 _P],
 }
-SMEM_ENTRY = "gat_attention_smem_bytes"
-# The kernels' plan, as csrc/gat_attention.cu lays out a block's shared
-# memory: its warps (a dst column of a tile each) at most, the head group,
-# the stages of a warp's ring of staged columns (one more of slot ids; a
-# deeper ring, fewer warps, was slower), the warps an SM the kernels'
-# registers allow, and a block's (and an SM's, less 1 KB a resident block)
-# shared memory on sm_90.
+# The staged kernels' shared memory, as `layout` plans it and the kernels
+# take it (csrc/gat_attention.cu's `Layout`: an int each, in this order).
+LAYOUT_FIELDS = ("read", "bulk", "stride", "nvec", "groups", "wunit",
+                 "stages", "wl64", "wl32", "rows", "dagg", "ids", "z", "pw",
+                 "dwl", "bar", "dstage", "warp", "per_warp", "total")
+Layout = collections.namedtuple("Layout", LAYOUT_FIELDS)
+# The staged kernels' plan: a block's warps (a dst column of a tile each)
+# at most, as the kernels' launch bounds take them; the heads a group (the
+# kernels' 4-wide registers); the stages of a warp's ring of staged columns
+# (one more of slot ids; a deeper ring, fewer warps, was slower); the warps
+# an SM the kernels' registers allow; and a block's (and an SM's, less 1 KB
+# a resident block) shared memory on sm_90.
 MAX_WARPS = 8
 HEAD_GROUP = 4
 STAGES = 2
@@ -116,6 +126,18 @@ WARPS_AN_SM = 16
 SMEM_BLOCK = 232_448
 SMEM_SM = 233_472
 SMEM_RESERVED = 1024
+# Where the staged kernels beat the `_any` kernels (`tools/gat_ab.py
+# routes` on an H100, PERF.md §6): at least this many warps an SM,
+# forward and backward (fewer hide too little of a column's shared-memory
+# and f64 latencies: H = 1024 leaves 2 and 1), and a read unit of at least
+# this many bytes (bf16 rows of odd width, read 2 or 4 bytes at a time,
+# were slower). Any other shape, and one whose column does not fit a
+# block, takes the `_any` kernels: 8 warps a block (a column each) and,
+# backward, 2 blocks an SM.
+MIN_STAGED_WARPS = (4, 2)
+MIN_STAGED_READ = 8
+ANY_WARPS = 8
+ANY_BLOCKS_AN_SM = 2
 # The dst columns' chunks (at most) that the projection's weight gradient
 # dw3 = agg^T dv is summed over: one [H, D] @ [D, Dh] product a head ran
 # on a handful of thread blocks (3.88 ms of split GAT A's 8.35 ms busy
@@ -255,9 +277,9 @@ def _a16(n: int) -> int:
 
 
 def row_layout(H: int, elt: int, x_align: int = 16):
-    """How the kernels stage a leaf row: ``(read, bulk, stride, nvec)``,
-    the read unit (the widest of 16, 8, 4 and 2 bytes that divides the
-    row's bytes and the frame's address alignment ``x_align``), whether
+    """How the staged kernels stage a leaf row: ``(read, bulk, stride,
+    nvec)``, the read unit (the widest of 16, 8, 4 and 2 bytes that divides
+    the row's bytes and the frame's address alignment ``x_align``), whether
     rows go by bulk copies of their 16-byte-aligned windows (rows of 16
     bytes or more; such a window starts up to ``16 - read`` bytes before
     its row), the bytes between staged rows (an odd number of 16 bytes:
@@ -272,70 +294,103 @@ def row_layout(H: int, elt: int, x_align: int = 16):
     return read, bulk, ((window // 16) | 1) * 16, rowbytes // read
 
 
-def smem_bytes(K: int, H: int, heads: int, elt: int, tile: int,
-               backward: bool, x_align: int = 16) -> int:
-    """A block's shared memory for a tile of ``tile`` columns, as the
-    kernel lays it out (``make_layout``): wl in f64 a head group, padded
-    16 bytes a read unit (backward: and in f32), then for each of the
-    tile's warps its ring of staged rows (and, backward, of its column's
+def layout(K: int, H: int, heads: int, elt: int, tile: int, backward: bool,
+           x_align: int = 16) -> Layout:
+    """A staged kernel's shared memory for a tile of ``tile`` columns, in
+    bytes from its start: wl in f64 a head group, a read unit's elements'
+    heads padded by 16 bytes (``wunit`` doubles a unit), and backward wl
+    in f32 too; then for each of the tile's warps (``per_warp`` bytes from
+    ``warp`` on) its ring of staged rows (and, backward, of its column's
     dagg), its ring of slot ids, its scores (backward: dpre and pw),
     backward its dwl partial, and the mbarriers of its bulk copies."""
-    read, _, stride, nvec = row_layout(H, elt, x_align)
+    read, bulk, stride, nvec = row_layout(H, elt, x_align)
     groups = -(-heads // HEAD_GROUP)
-    groups_h = groups * H * HEAD_GROUP
-    per_warp = _a16(STAGES * K * stride)
-    if backward:
-        per_warp += STAGES * _a16(4 * heads * H)
-    per_warp += _a16(4 * (STAGES + 1) * K)
-    per_warp += _a16(4 * K * groups * HEAD_GROUP) * (2 if backward else 1)
-    if backward:
-        per_warp += _a16(4 * groups_h)
-    per_warp += _a16(8 * STAGES)
-    # wl in f64: a read unit's elements' heads and 16 bytes, a unit.
+    groups_h = _a16(4 * groups * H * HEAD_GROUP)
+    slots = _a16(4 * K * groups * HEAD_GROUP)
+    dstage = _a16(4 * heads * H)
+    rows = 0
+    dagg = rows + _a16(STAGES * K * stride)
+    ids = dagg + (STAGES * dstage if backward else 0)
+    z = ids + _a16(4 * (STAGES + 1) * K)
+    pw = z + slots
+    dwl = pw + (slots if backward else 0)
+    bar = dwl + (groups_h if backward else 0)
+    per_warp = bar + _a16(8 * STAGES)
     wunit = read // elt * HEAD_GROUP + 2
-    block = _a16(8 * groups * nvec * wunit) + (_a16(4 * groups_h)
-                                                if backward else 0)
-    return block + tile * per_warp
+    wl32 = _a16(8 * groups * nvec * wunit)
+    warp = wl32 + (groups_h if backward else 0)
+    return Layout(read, int(bulk), stride, nvec, groups, wunit, STAGES, 0,
+                  wl32, rows, dagg, ids, z, pw, dwl, bar, dstage, warp,
+                  per_warp, warp + tile * per_warp)
 
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
-    """A launch's plan: ``tile`` columns a tile (a warp each), ``per_sm``
-    blocks an SM that its shared memory allows, ``grid`` blocks (block b
-    takes tiles b, b + grid, ...) and ``smem`` bytes a block."""
+    """A launch's plan. The staged kernels (``layout`` set): ``tile``
+    columns a tile (a warp each), ``per_sm`` blocks an SM that their shared
+    memory allows, ``grid`` blocks (block b takes tiles b, b + grid, ...),
+    a dwl partial a block. The ``_any`` kernels (``layout`` None): ``grid``
+    blocks of ``tile`` warps, a column each (block b takes tiles b, b +
+    grid, ...: the forward's a tile each), a dwl partial a warp."""
     tile: int
     per_sm: int
     grid: int
-    smem: int
+    layout: Layout | None
+
+    @property
+    def partials(self) -> int:
+        return self.grid if self.layout is not None else self.grid * self.tile
+
+    @property
+    def warps_an_sm(self) -> int:
+        return self.per_sm * self.tile
+
+
+def staged_plan(K: int, H: int, heads: int, elt: int, D: int, sms: int,
+                backward: bool, x_align: int = 16) -> Plan | None:
+    """The staged kernels' plan: the most warps an SM (at most
+    ``WARPS_AN_SM``), then the widest tile, whose blocks' shared memory
+    fits the SM, with a tile of at most ``MAX_WARPS`` columns and at most
+    ``D // sms``, so that every SM gets a tile; None if one column does not
+    fit a block."""
+    cap = max(1, min(MAX_WARPS, D // sms))
+    best = None
+    for per_sm in range(1, WARPS_AN_SM + 1):
+        limit = min(SMEM_BLOCK, SMEM_SM // per_sm - SMEM_RESERVED)
+        for tile in range(min(cap, WARPS_AN_SM // per_sm), 0, -1):
+            lay = layout(K, H, heads, elt, tile, backward, x_align)
+            if lay.total <= limit:
+                plan = Plan(tile, per_sm, min(-(-D // tile), per_sm * sms),
+                            lay)
+                if best is None or ((plan.warps_an_sm, tile)
+                                    > (best.warps_an_sm, best.tile)):
+                    best = plan
+                break
+    return best
 
 
 @functools.cache
 def attention_plan(K: int, H: int, heads: int, elt: int, D: int, sms: int,
                    backward: bool, x_align: int = 16) -> Plan:
-    """The most warps an SM (at most ``WARPS_AN_SM``), then the widest
-    tile, whose blocks' shared memory fits the SM, with a tile of at most
-    ``MAX_WARPS`` columns and at most ``D // sms``, so that every SM gets
-    a tile. Raises if one column does not fit a block. Cached: a training
-    run plans the same few shapes every step."""
-    cap = max(1, min(MAX_WARPS, D // sms))
-    best, key = None, None
-    for per_sm in range(1, WARPS_AN_SM + 1):
-        limit = min(SMEM_BLOCK, SMEM_SM // per_sm - SMEM_RESERVED)
-        for tile in range(min(cap, WARPS_AN_SM // per_sm), 0, -1):
-            smem = smem_bytes(K, H, heads, elt, tile, backward, x_align)
-            if smem <= limit:
-                if key is None or (per_sm * tile, tile) > key:
-                    key = (per_sm * tile, tile)
-                    best = Plan(tile, per_sm,
-                                min(-(-D // tile), per_sm * sms), smem)
-                break
-    if best is None:
-        raise ValueError(
-            f"a column of {K} slots of {H} x {elt}-byte rows and {heads} "
-            f"heads takes "
-            f"{smem_bytes(K, H, heads, elt, 1, backward, x_align)} bytes of "
-            f"shared memory, more than a block's {SMEM_BLOCK}")
-    return best
+    """The staged kernels' plan where it puts ``MIN_STAGED_WARPS`` warps on
+    an SM and reads ``MIN_STAGED_READ`` bytes at a time, else the ``_any``
+    kernels'. Cached: a training run plans the same few shapes every
+    step."""
+    plan = staged_plan(K, H, heads, elt, D, sms, backward, x_align)
+    if (plan is not None and plan.warps_an_sm >= MIN_STAGED_WARPS[backward]
+            and plan.layout.read >= MIN_STAGED_READ):
+        return plan
+    return any_plan(D, sms, backward)
+
+
+def any_plan(D: int, sms: int, backward: bool) -> Plan:
+    """The ``_any`` kernels' plan: the forward a block for each
+    ``ANY_WARPS`` columns, the backward at most ``ANY_BLOCKS_AN_SM`` blocks
+    an SM, strided over the columns."""
+    tiles = -(-D // ANY_WARPS)
+    return Plan(ANY_WARPS, ANY_BLOCKS_AN_SM,
+                min(tiles, ANY_BLOCKS_AN_SM * sms) if backward else tiles,
+                None)
 
 
 def _align(t: torch.Tensor) -> int:
@@ -355,10 +410,18 @@ def _plan(x: torch.Tensor, nbr: torch.Tensor, heads: int,
                           _sms(x.device), backward, _align(x))
 
 
+@functools.cache
+def _c_layout(lay: Layout | None):
+    """The layout as the C entries take it: a host array of its ints, in
+    LAYOUT_FIELDS' order (None: the ``_any`` kernels). Cached, so that the
+    array outlives the launch."""
+    return None if lay is None else (ctypes.c_int * len(lay))(*lay)
+
+
 def blocks_an_sm(x: torch.Tensor, nbr: torch.Tensor, heads: int,
                  backward: bool, plan: Plan) -> int:
-    """The blocks of the plan's kernel that one SM of x's card holds at
-    once (its shared memory, registers and threads), as the runtime
+    """The blocks of a staged plan's kernel that one SM of x's card holds
+    at once (its shared memory, registers and threads), as the runtime
     counts them; the plan counts on ``plan.per_sm``."""
     _on_cuda(x)
     K, D = nbr.shape
@@ -366,8 +429,8 @@ def blocks_an_sm(x: torch.Tensor, nbr: torch.Tensor, heads: int,
     out = ctypes.c_int(0)
     err = lib.gat_attention_occupancy(
         x.data_ptr(), int(x.dtype == torch.bfloat16), x.shape[0], x.shape[1],
-        K, D, heads, plan.tile, int(backward), x.device.index,
-        ctypes.addressof(out))
+        K, D, heads, _c_layout(plan.layout), plan.tile, int(backward),
+        x.device.index, ctypes.addressof(out))
     check_launch(lib, err, "gat_attention_occupancy")
     return out.value
 
@@ -378,7 +441,7 @@ def _library() -> ctypes.CDLL:
     for name, argtypes in ARGTYPES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_longlong if name == SMEM_ENTRY else ctypes.c_int
+        fn.restype = ctypes.c_int
     return lib
 
 
@@ -414,7 +477,8 @@ def gat_attention_fwd(x: torch.Tensor, nbr: torch.Tensor, wl: torch.Tensor,
     err = lib.gat_attention_fwd(
         x.data_ptr(), int(x.dtype == torch.bfloat16), x.shape[0], H,
         nbr.data_ptr(), K, D, wl.data_ptr(), er.data_ptr(), heads,
-        NEGATIVE_SLOPE, plan.tile, plan.grid, m.data_ptr(), s.data_ptr(),
+        NEGATIVE_SLOPE, _c_layout(plan.layout), plan.tile, plan.grid,
+        m.data_ptr(), s.data_ptr(),
         agg.data_ptr(), x.device.index, _stream(x))
     check_launch(lib, err, "gat_attention_fwd")
     gat_attention_fwd.launches += 1
@@ -430,7 +494,7 @@ def gat_attention_bwd(x: torch.Tensor, nbr: torch.Tensor, wl: torch.Tensor,
     """The backward's ``(dxg, dwl, der)`` as
     ``gat_attention_backward_reference`` returns them: the plain version on
     the CPU, one kernel launch on the card (its ``dwl`` partials, one a
-    block, summed here; ``dxg``'s rows of padding slots left unwritten).
+    block or a warp, summed here; ``dxg``'s rows of padding slots left unwritten).
     ``gat_attention_bwd.launches`` counts the launches."""
     if x.device.type == "cpu":
         return gat_attention_backward_reference(x, nbr, wl, er, m, ds, dagg,
@@ -448,13 +512,14 @@ def gat_attention_bwd(x: torch.Tensor, nbr: torch.Tensor, wl: torch.Tensor,
     if K * D >= 2**31:
         raise ValueError(f"{K} x {D} slots: slot ids past int32")
     plan = _plan(x, nbr, heads, True)
-    part = torch.empty((plan.grid, H, heads), dtype=torch.float32,
+    part = torch.empty((plan.partials, H, heads), dtype=torch.float32,
                        device=x.device)
     lib = _library()
     err = lib.gat_attention_bwd(
         x.data_ptr(), int(x.dtype == torch.bfloat16), x.shape[0], H,
         nbr.data_ptr(), K, D, wl.data_ptr(), er.data_ptr(), heads,
-        NEGATIVE_SLOPE, plan.tile, plan.grid, m.data_ptr(), ds.data_ptr(),
+        NEGATIVE_SLOPE, _c_layout(plan.layout), plan.tile, plan.grid,
+        m.data_ptr(), ds.data_ptr(),
         dagg.data_ptr(), der.data_ptr(), part.data_ptr(),
         None if dxg is None else dxg.data_ptr(), x.device.index, _stream(x))
     check_launch(lib, err, "gat_attention_bwd")

@@ -420,17 +420,28 @@ def test_ctypes_argtypes_match_the_c_entries():
         assert all(t in (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                          ctypes.c_float) for t in argtypes)
     # The wrapper sizes the backward's dwl partials, one a block of its
-    # plan's grid, and plans the kernels' shared memory with the kernel's
-    # own constants; no limit on the width or the heads.
+    # plan's grid (the `_any` kernel's, one a warp), and passes the staged
+    # kernels the layout it plans: the C struct's ints, in its order.
     text = SOURCE.read_text()
-    assert "dwl_part [grid, h, heads] (a block's partial each)" in text
-    for name, value in (("kMaxWarps", ga.MAX_WARPS),
-                        ("kHeadGroup", ga.HEAD_GROUP),
-                        ("kStages", ga.STAGES),
-                        ("kSmemBlock", ga.SMEM_BLOCK)):
-        assert re.search(rf"constexpr \w+ {name} = {value};", text), name
-    # Two blocks of kMaxWarps warps an SM at most, as its launch bounds
-    # give each thread registers for.
+    assert ("dwl_part [partials, h, heads] (a block's partial each,\n"
+            "// `grid` of them; the `_any` kernel's a warp's, 8 * grid)"
+            in text)
+    body = re.search(r"struct Layout \{(.*?)\n\};", text, re.S).group(1)
+    body = re.sub(r"//[^\n]*", "", body)
+    fields = []
+    for decl in body.split(";"):
+        decl = decl.strip()
+        if decl:
+            kind, names = decl.split(None, 1)
+            assert kind == "int", decl
+            fields += [n.strip() for n in names.split(",")]
+    assert tuple(fields) == ga.LAYOUT_FIELDS
+    assert ga.Plan(8, 2, 5, None).partials == 40
+    # Two blocks of MAX_WARPS warps an SM at most, as the staged kernels'
+    # launch bounds give each thread registers for; the `_any` kernels'
+    # blocks are ANY_WARPS warps.
+    assert re.search(rf"constexpr int kMaxWarps = {ga.MAX_WARPS};", text)
+    assert re.search(rf"constexpr int kWarps = {ga.ANY_WARPS};", text)
     assert "__launch_bounds__(32 * kMaxWarps, 2)" in text
     assert ga.WARPS_AN_SM == 2 * ga.MAX_WARPS
     assert not hasattr(ga, "MAX_H") and not hasattr(ga, "MAX_HEADS")
@@ -445,7 +456,9 @@ def test_kernel_is_built_from_its_source():
 # (K, D, H, heads, element bytes): every shape the smoke's attention cases
 # and main path give the kernels: split GAT A's layers 0-2 (layer 0 in
 # bf16 too), GAT P4-B partition 0's layers 1-2, the CLI's hidden width,
-# and the ragged cases; and a bf16 row of odd width.
+# and the ragged cases; a bf16 row of odd width; and the CLI's wider
+# options, whose columns no block can stage (K = 16 and 26 at H = 1024,
+# H = 2048 with 4 and 8 heads).
 PLAN_SHAPES = [
     (26, 123_904, 100, 4, 4), (26, 123_904, 100, 4, 2),
     (11, 22_528, 128, 4, 4), (11, 2_048, 128, 4, 4),
@@ -455,7 +468,18 @@ PLAN_SHAPES = [
     (11, 2_048, 128, 4, 4), (11, 700, 200, 5, 4), (26, 2_000, 100, 4, 2),
     (11, 2_000, 128, 2, 2), (25, 400, 128, 4, 4), (11, 1_500, 300, 9, 4),
     (26, 800, 602, 8, 2), (11, 64, 20, 12, 4), (26, 5_000, 301, 4, 2),
+    (40, 2_000, 64, 4, 4), (26, 2_048, 1024, 4, 4), (11, 1_024, 2048, 8, 4),
+    (16, 123_904, 1024, 4, 4), (26, 123_904, 1024, 4, 4),
+    (11, 123_904, 2048, 8, 4), (11, 123_904, 2048, 4, 4),
 ]
+# The main path's shapes and the ragged cases' narrower rows, which the
+# staged kernels take, and the CLI's wide rows, whose columns no block can
+# stage, or stage with few warps.
+STAGED_SHAPES = PLAN_SHAPES[:6] + [
+    (11, 700, 200, 5, 4), (11, 1_500, 300, 9, 4), (40, 2_000, 64, 4, 4),
+    (11, 8_192, 512, 4, 4)]
+WIDE_SHAPES = [(11, 1024, 4, 4), (26, 1024, 4, 4), (11, 2048, 8, 4),
+               (16, 1024, 4, 4), (11, 2048, 4, 4)]
 SMS = 132
 
 
@@ -463,29 +487,94 @@ SMS = 132
 @pytest.mark.parametrize("K,D,H,heads,elt", PLAN_SHAPES)
 def test_plan_fits_a_block_fills_the_sms_and_covers_each_column_once(
         K, D, H, heads, elt, backward):
-    """The host's plan at every shape the kernels run: a block's shared
-    memory within sm_90's 232,448 bytes (and the blocks it puts on an SM
-    within the SM's, their warps within what the registers allow), every
-    SM a tile from 1,280 columns on, a grid of at most the tiles, and
-    block b's tiles b, b + grid, ... (a column a warp) covering every
-    column exactly once."""
+    """The host's plan at every shape the kernels run, never raising: a
+    staged plan's block within sm_90's 232,448 bytes (and the blocks it
+    puts on an SM within the SM's, their warps within what the registers
+    allow, at least MIN_STAGED_WARPS of them, rows read 8 bytes or more
+    at a time), every SM a tile from 1,280
+    columns on; else the `_any` kernels' blocks of 8 warps; a grid of at
+    most the tiles, and block b's tiles b, b + grid, ... (a column a
+    warp) covering every column exactly once."""
     for x_align in ((16, 2) if elt == 2 else (16, 4)):
         plan = ga.attention_plan(K, H, heads, elt, D, SMS, backward, x_align)
-        assert plan.smem == ga.smem_bytes(K, H, heads, elt, plan.tile,
-                                          backward, x_align)
-        assert plan.smem <= ga.SMEM_BLOCK
-        assert plan.per_sm * (plan.smem + ga.SMEM_RESERVED) <= ga.SMEM_SM
-        assert 1 <= plan.tile <= ga.MAX_WARPS
-        assert plan.per_sm * plan.tile <= ga.WARPS_AN_SM
         tiles = -(-D // plan.tile)
-        if D >= 1280:
-            assert tiles >= SMS
-        assert 1 <= plan.grid <= min(tiles, plan.per_sm * SMS)
+        if plan.layout is not None:
+            assert plan.layout == ga.layout(K, H, heads, elt, plan.tile,
+                                            backward, x_align)
+            assert plan.layout.total <= ga.SMEM_BLOCK
+            assert (plan.per_sm * (plan.layout.total + ga.SMEM_RESERVED)
+                    <= ga.SMEM_SM)
+            assert 1 <= plan.tile <= ga.MAX_WARPS
+            assert (ga.MIN_STAGED_WARPS[backward] <= plan.warps_an_sm
+                    <= ga.WARPS_AN_SM)
+            assert plan.layout.read >= ga.MIN_STAGED_READ
+            assert plan.partials == plan.grid
+            if D >= 1280:
+                assert tiles >= SMS
+            assert 1 <= plan.grid <= min(tiles, plan.per_sm * SMS)
+        else:
+            assert plan.tile == ga.ANY_WARPS
+            assert plan.partials == plan.grid * ga.ANY_WARPS
+            assert plan.grid == (min(tiles, ga.ANY_BLOCKS_AN_SM * SMS)
+                                 if backward else tiles)
         seen = np.zeros(D, np.int64)
         for b in range(plan.grid):
             for t in range(b, tiles, plan.grid):
                 seen[t * plan.tile:(t + 1) * plan.tile] += 1
         assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("backward", [False, True], ids=["fwd", "bwd"])
+@pytest.mark.parametrize("K,D,H,heads,elt", STAGED_SHAPES)
+def test_the_main_path_takes_the_staged_kernels(K, D, H, heads, elt,
+                                                backward):
+    plan = ga.attention_plan(K, H, heads, elt, D, SMS, backward)
+    assert plan.layout is not None
+
+
+@pytest.mark.parametrize("backward", [False, True], ids=["fwd", "bwd"])
+@pytest.mark.parametrize("K,H,heads,elt", WIDE_SHAPES)
+def test_wide_rows_take_the_any_kernels(K, H, heads, elt, backward):
+    staged = ga.staged_plan(K, H, heads, elt, 123_904, SMS, backward)
+    assert (staged is None
+            or staged.warps_an_sm < ga.MIN_STAGED_WARPS[backward])
+    assert ga.attention_plan(K, H, heads, elt, 123_904, SMS,
+                             backward).layout is None
+
+
+@pytest.mark.parametrize("backward", [False, True], ids=["fwd", "bwd"])
+@pytest.mark.parametrize("K,H,heads,elt,x_align", [
+    (26, 100, 4, 4, 16), (26, 100, 4, 2, 16), (11, 128, 4, 4, 16),
+    (11, 200, 5, 4, 8), (40, 64, 4, 4, 16), (11, 20, 12, 4, 4),
+    (26, 301, 4, 2, 2), (1, 3, 2, 2, 16)])
+def test_layout_lays_regions_in_order_without_overlap(K, H, heads, elt,
+                                                      x_align, backward):
+    """The staged kernels' layout: 16-byte-aligned regions in the order
+    the kernel's comments give, each as large as what the kernel keeps
+    there, a block's wl first and the tile's warps after it."""
+    tile = 3
+    lay = ga.layout(K, H, heads, elt, tile, backward, x_align)
+    groups = -(-heads // ga.HEAD_GROUP)
+    assert lay.groups == groups and lay.stages == ga.STAGES
+    assert lay.wl64 == 0
+    assert lay.wl32 >= 8 * groups * lay.nvec * lay.wunit
+    assert lay.warp >= lay.wl32 + (4 * groups * 4 * H if backward else 0)
+    regions = [("rows", lay.stages * K * lay.stride),
+               ("dagg", lay.stages * lay.dstage if backward else 0),
+               ("ids", 4 * (lay.stages + 1) * K),
+               ("z", 4 * K * groups * 4),
+               ("pw", 4 * K * groups * 4 if backward else 0),
+               ("dwl", 4 * groups * H * 4 if backward else 0),
+               ("bar", 8 * lay.stages)]
+    end = 0
+    for name, size in regions:
+        at = getattr(lay, name)
+        assert at % 16 == 0 and at >= end, name
+        end = at + size
+    assert end <= lay.per_warp
+    assert lay.dstage >= 4 * heads * H and lay.dstage % 16 == 0
+    assert lay.total == lay.warp + tile * lay.per_warp
+    assert all(v % 16 == 0 for v in (lay.wl32, lay.warp, lay.per_warp))
 
 
 @pytest.mark.parametrize("H,elt,x_align", [

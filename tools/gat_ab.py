@@ -6,6 +6,7 @@ in turns.
     python3 tools/gat_ab.py inputs ROOT
     python3 tools/gat_ab.py cases ROOT --label L
     python3 tools/gat_ab.py step ROOT --label L --out DIR
+    python3 tools/gat_ab.py routes
 
 ``inputs`` builds the products-scale graph of ``chip_smoke.py`` (saved
 under ROOT) and the main path's dense neighbour matrices
@@ -28,6 +29,18 @@ attention's named ranges. ``run`` does ``inputs`` once, then ``cases``
 and ``step`` in turns (``tools/ab_turns.py``: parent, change, change,
 parent, the change being the checkout this script lies in), and prints
 both sides' lines.
+
+``routes``, in this checkout alone, first holds the attention kernels to
+their plain versions at every one of the smoke's ragged cases
+(``chip_smoke.gat_ragged_cases``, untimed: each takes the route its plan
+gives), then times both routes of each kernel, the staged kernels (where
+a column fits a block) and the ``_any`` kernels, at shapes from split GAT
+A's layer 0 to the CLI's widest options (random f32 or bf16 frames and
+matrices, 30 % padding, from a seed), and prints one JSON line a shape
+and kernel: the staged plan's warps an SM, both routes' times, the route
+the plan takes, and the largest difference between the routes' outputs
+(of the output's max |.|). ``ops/gat_attention.MIN_STAGED_WARPS`` and
+``MIN_STAGED_READ`` are set from these lines.
 """
 
 from __future__ import annotations
@@ -130,6 +143,97 @@ def run_step(root: str, label: str, out: str) -> None:
         "attention_ranges_ms": named}), flush=True)
 
 
+# (K, D, S, H, heads, dtype) where the routes are timed: split GAT A's
+# layer 0 and layer 1, 5 and 9 heads, K = 40, bf16 rows of odd width, and
+# the CLI's hidden widths (256 x 4 and, --num-hidden 128, 128 x 4).
+# Past the first two, D = 8,192 columns keep each call short.
+ROUTE_SHAPES = [
+    (26, 123_904, 200_000, 100, 4, "float32"),
+    (11, 22_528, 100_000, 128, 4, "float32"),
+    (11, 8_192, 20_000, 200, 5, "float32"),
+    (11, 8_192, 20_000, 300, 9, "float32"),
+    (40, 8_192, 20_000, 64, 4, "float32"),
+    (40, 8_192, 20_000, 100, 4, "float32"),
+    (26, 8_192, 20_000, 301, 4, "bfloat16"),
+    (26, 8_192, 20_000, 602, 8, "bfloat16"),
+    (11, 8_192, 20_000, 512, 4, "float32"),
+    (11, 8_192, 20_000, 1024, 4, "float32"),
+]
+
+
+def run_routes() -> None:
+    """In this checkout: the ragged cases' checks, then both routes' times
+    at ROUTE_SHAPES."""
+    sys.path.insert(0, str(CHANGE))
+    import torch
+
+    import chip_smoke as cs
+    from occ_gnn_tpu_torch.ops import gat_attention as ga
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device("cuda")
+    print(f"card: {cs.card_line()}", flush=True)
+    cs.build_all()
+    rate = cs.memory_rate(torch.cuda.get_device_name(0))
+    for c in cs.gat_ragged_cases(device):
+        c["timed"] = False
+        cs.gat_attention_cases(rate=rate, **c)
+    gen = torch.Generator(device).manual_seed(22)
+    sms = ga._sms(device)
+    chosen = ga._plan
+    for K, D, S, H, heads, dtype in ROUTE_SHAPES:
+        nbr = torch.randint(0, S - 1, (K, D), generator=gen, device=device,
+                            dtype=torch.int32)
+        nbr[torch.rand(K, D, generator=gen, device=device) < 0.3] = S - 1
+        x = torch.randn(S, H, generator=gen, device=device)
+        x[S - 1] = 0.0
+        x = x.to(getattr(torch, dtype))
+        wl = 0.1 * torch.randn(H, heads, generator=gen, device=device)
+        er = torch.randn(D, heads, generator=gen, device=device)
+        ds = torch.randn(D, heads, generator=gen, device=device)
+        dagg = torch.randn(D, heads, H, generator=gen, device=device)
+        grad_x = dtype == "float32"
+        m = ga.gat_attention_fwd(x, nbr, wl, er)[0]
+        valid = (nbr != S - 1).reshape(-1)
+        for backward in (False, True):
+            args = (K, H, heads, x.element_size(), D, sms, backward,
+                    ga._align(x))
+            plans = {"staged": ga.staged_plan(*args),
+                     "_any": ga.any_plan(D, sms, backward)}
+            row = {"K": K, "D": D, "S": S, "H": H, "heads": heads,
+                   "dtype": dtype,
+                   "kernel": cs.GAT_BWD if backward else cs.GAT_FWD,
+                   "takes": ("staged" if ga.attention_plan(*args).layout
+                             is not None else "_any")}
+            outs = {}
+            for route, plan in plans.items():
+                if plan is None:
+                    row[f"{route}_ms"] = None
+                    continue
+                if route == "staged":
+                    row["staged_warps_an_sm"] = plan.warps_an_sm
+                ga._plan = lambda *_, plan=plan: plan
+                try:
+                    if backward:
+                        fn = lambda: ga.gat_attention_bwd(  # noqa: E731
+                            x, nbr, wl, er, m, ds, dagg, grad_x)
+                    else:
+                        fn = lambda: ga.gat_attention_fwd(  # noqa: E731
+                            x, nbr, wl, er)
+                    out = fn()
+                    if backward and grad_x:
+                        out = (out[0][valid],) + tuple(out[1:])
+                    outs[route] = [t for t in out if t is not None]
+                    row[f"{route}_ms"] = cs.median_ms(fn)
+                finally:
+                    ga._plan = chosen
+            if len(outs) == 2:
+                row["routes_differ"] = max(
+                    ((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                    .item() for a, b in zip(outs["staged"], outs["_any"]))
+            print("ROUTE " + json.dumps(row), flush=True)
+
+
 def run_all(parent: str, out: str) -> int:
     me = str(Path(__file__).resolve())
 
@@ -163,7 +267,11 @@ def main(argv=None) -> int:
     s.add_argument("root")
     s.add_argument("--label", required=True)
     s.add_argument("--out", required=True)
+    sub.add_parser("routes")
     a = cli.parse_args(argv)
+    if a.cmd == "routes":
+        run_routes()
+        return 0
     if a.cmd == "inputs":
         make_inputs(a.root, split_b=False)
         return 0
