@@ -68,8 +68,12 @@
    kernels): forward within 1e-5 of scale,
    gradients within 1e-4 of max |.| (two bf16 rounding steps on a bf16
    frame), two launches bit-equal, timed beside the byte bound and the
-   plain version; 8 steps with one profiled: 3 forward, 3 backward and 2
-   per-slot launches a step.
+   plain version; the per-slot scatter through its scatter plan (the
+   batch's, from the C++ service, held equal to its plain version's on
+   the host; on ragged cases the latter), timed without the plan's
+   build; 8 steps with one profiled: 3 forward, 3 backward and 2
+   per-slot launches a step, every plan from the batch (the plain
+   version, ``slots_plan``, never runs on the card).
    The lowerings of ``ops/config.py`` on the same graph: layer 0 under
    ``OCC_DEVICE_SAMPLE=bitsf32``, ``bitsf32_dk`` and ``window`` (the
    doubled CSR) held to the sampling contract and timed; the layer-0
@@ -222,6 +226,9 @@ from occ_gnn_tpu_torch.ops.dense_gather_sum import (
     dense_scatter_add_reference,
     dense_scatter_slots,
     dense_scatter_slots_reference,
+    plans_equal,
+    ScatterPlan,
+    slots_plan,
 )
 from occ_gnn_tpu_torch.ops import gat_attention as gat_ops
 from occ_gnn_tpu_torch.ops.gat_attention import (
@@ -431,8 +438,20 @@ KERNEL_REPLACES = {
 
 
 def reset_launches() -> None:
+    """Every kernel's launch count to 0, and the count of scatter plans
+    ``slots_plan`` made on the card (the main path builds none: its
+    sampler ships them)."""
     for fn in ENTRIES.values():
         fn.launches = 0
+    slots_plan.on_card = 0
+
+
+def expect_no_plan_on_card(label, built: int) -> None:
+    """Raise unless a run made no scatter plan on the card: split GAT's
+    per-slot scatter took every plan from the batch."""
+    if built:
+        raise AssertionError(f"{label}: slots_plan ran {built} "
+                             f"times on the card")
 
 
 def read_launches() -> Counter:
@@ -794,8 +813,15 @@ def rel_err(got, ref):
     return err, err / max(1.0, ref[fin].abs().max().item())
 
 
+def host_plan(nbr, num_rows) -> ScatterPlan:
+    """``nbr``'s scatter plan from its plain version on the host, copied
+    to ``nbr``'s device."""
+    return ScatterPlan(*(t.to(nbr.device)
+                         for t in slots_plan(nbr.cpu(), num_rows)))
+
+
 def gat_attention_cases(label, x, nbr, heads, dh, rate, gen, grad_x,
-                        timed=True):
+                        timed=True, scatter_plan=None):
     """GAT's attention kernels on one layer's shape, against their plain
     versions on the same inputs (random weights, cotangents and, past
     layer 0, frame): the forward's ``(m, s, v)`` within GAT_FWD_TOL of
@@ -803,7 +829,10 @@ def gat_attention_cases(label, x, nbr, heads, dh, rate, gen, grad_x,
     valid slots: padding slots' rows are not written), the per-slot
     scatter's ``dx`` and the op's gradients to x (``grad_x``), wl, w3 and
     er through autograd, each within GAT_GRAD_TOL of its max |.|; each
-    kernel bit-equal over two launches.
+    kernel bit-equal over two launches. Past layer 0 the per-slot scatter
+    and the op read ``nbr``'s scatter plan: ``scatter_plan`` (a batch's,
+    from its sampler), which must equal the plain version's on the host,
+    or else the latter.
     Where the host's plan takes the staged kernels, the card holds the
     blocks an SM that it counts on.
     ``timed``: each kernel and its plain version in the CUDA-graph harness
@@ -812,8 +841,11 @@ def gat_attention_cases(label, x, nbr, heads, dh, rate, gen, grad_x,
     each output written once: agg, and past layer 0 the dxg workspace's
     rows of valid slots), the no-reuse floor (the same, each valid slot's
     leaf row read once) and
-    the operation bound; the per-slot scatter beside ``index_add_`` (one
-    library call of the same sum). The attention has no library call:
+    the operation bound; the per-slot scatter (without its plan's build)
+    beside ``index_add_`` (one library call of the same sum) and its bound
+    (each valid slot's row and what it reads of the plan once: offsets,
+    the valid slots' ids, num_long and the long rows; each dx row written
+    once). The attention has no library call:
     ``scaled_dot_product_attention`` scores by a dot product, not GAT's
     additive ``leaky_relu(el + er)``. Returns {kernel: case}."""
     K, D = nbr.shape
@@ -861,8 +893,16 @@ def gat_attention_cases(label, x, nbr, heads, dh, rate, gen, grad_x,
     ref_b = gat_attention_backward_reference(x, nbr, wl, er, m, ds, dagg,
                                              grad_x)
     dxg_rows = bwds[0][0]
+    splan = None
     if grad_x:
-        dxs = [dense_scatter_slots(dxg_rows, nbr, S) for _ in range(2)]
+        splan = host_plan(nbr, S)
+        if scatter_plan is not None:
+            if not plans_equal(scatter_plan, splan):
+                raise AssertionError(f"{label}: the batch's scatter plan "
+                                     f"differs from its plain version")
+            splan = scatter_plan
+        dxs = [dense_scatter_slots(dxg_rows, nbr, S, splan)
+               for _ in range(2)]
         ref_dx = dense_scatter_slots_reference(ref_b[0], nbr, S)
         # dxg's rows of valid slots: the kernel leaves padding slots' rows.
         at = (nbr != S - 1).reshape(-1)
@@ -883,8 +923,8 @@ def gat_attention_cases(label, x, nbr, heads, dh, rate, gen, grad_x,
     for t in leaves:
         t.requires_grad_()
     cot = (rnd(D, heads), rnd(D, heads, dh))
-    grads = torch.autograd.grad(gat_attention(x, nbr, wl, w3, er)[1:],
-                                leaves, cot)
+    grads = torch.autograd.grad(
+        gat_attention(x, nbr, wl, w3, er, splan)[1:], leaves, cot)
     ref_g = torch.autograd.grad(gat_attention_reference(x, nbr, wl, w3,
                                                         er)[1:], leaves, cot)
     for t in leaves:
@@ -948,13 +988,17 @@ def gat_attention_cases(label, x, nbr, heads, dh, rate, gen, grad_x,
         ops_ms=(6 + (4 if grad_x else 0)) * valid * hb / F32_RATE * 1e3)
     if grad_x:
         flat = nbr.reshape(-1)
+        # What the kernel reads of the plan: offsets, the valid slots'
+        # ids, num_long and the long rows it lists.
+        plan_bytes = 4 * (S + valid + 1 + int(splan.num_long))
         cases[SLOTS].update(
-            ms=median_ms(lambda: dense_scatter_slots(dxg_rows, nbr, S)),
+            ms=median_ms(lambda: dense_scatter_slots(dxg_rows, nbr, S,
+                                                     splan)),
             plain_ms=yardstick_ms(lambda: dense_scatter_slots_reference(
                 dxg_rows, nbr, S)),
             library_ms=median_ms(lambda: torch.zeros(
                 S, H, device=dev).index_add_(0, flat, dxg_rows)),
-            bytes_ms=(4 * K * D + 4 * valid * H + 4 * S * H) / rate * 1e3,
+            bytes_ms=(plan_bytes + 4 * valid * H + 4 * S * H) / rate * 1e3,
             ops_ms=valid * H / F32_RATE * 1e3)
     for name, c in cases.items():
         bound = max(c["bytes_ms"], c["ops_ms"])
@@ -1049,7 +1093,8 @@ def split_gat_cases(label, layers, x0, hidden, heads, num_classes, rate,
                                           generator=gen, device=device)
         dh = num_classes if i == len(layers) - 1 else hidden
         out[i] = gat_attention_cases(f"{label} layer {i}", x, lyr.nbr_idx,
-                                     heads, dh, rate, gen, grad_x=i > 0)
+                                     heads, dh, rate, gen, grad_x=i > 0,
+                                     scatter_plan=lyr.scatter_plan)
     return out
 
 
@@ -1213,7 +1258,8 @@ def check_synthesized_layer(g, fanouts, batch_size, device):
     plan = CachePlan(g, pmap, 1, 1.0, refresh_cap=8)
     sampler = NativeSplitSampler(g, nodes, pmap, 1, fanouts, batch_size,
                                  capacities=caps, seed=0, cache=plan,
-                                 innermost="device", device=device)
+                                 innermost="device", scatter_plans=True,
+                                 device=device)
     batch = sampler.sample_batch(nodes[:batch_size])
     sampler.close()
     csr = make_device_csr(g, device)
@@ -1388,9 +1434,10 @@ def split_op_times(batch, syn, csr, frames, hidden, rate, device):
 
 def gat_op_times(batch, syn, frames, args, num_classes, rate, device,
                  attend=dense_attention, label="dense_attention",
-                 backward_once=False):
+                 backward_once=False, planned=True):
     """GAT's dense attention (``attend``: the batched ``dense_attention``,
-    or another lowering of the same function) at split GAT A's first
+    which takes each layer's scatter plan (``planned``), or another
+    lowering of the same function) at split GAT A's first
     batch's shapes, forward and backward: device ms per call and the byte
     bound (each input read once, each output written once: the nbr matrix,
     the valid leaf rows of x, er and the (m, s, v) partials; the backward
@@ -1415,6 +1462,7 @@ def gat_op_times(batch, syn, frames, args, num_classes, rate, device,
     for i, lyr in enumerate(layers):
         nbr = lyr.nbr_idx
         K, D = nbr.shape
+        plan = (lyr.scatter_plan,) if planned else ()
         x = frames[0] if i == 0 else param(lyr.src_cap, hidden * heads)
         F, H = x.shape
         xb, dh = x.element_size(), outs[i]
@@ -1423,10 +1471,10 @@ def gat_op_times(batch, syn, frames, args, num_classes, rate, device,
         leaves = 4 * K * D + xb * valid * H
         add(f"{label} fwd, layer {i} (K={K}, D={D}, H={H}, "
             f"heads={heads}, Dh={dh})",
-            lambda: attend(x, nbr, wl, w3, er),
+            lambda: attend(x, nbr, wl, w3, er, *plan),
             leaves + 4 * D * heads + 4 * D * heads * (2 + dh))
         fwd_ms = rows[-1][1]
-        _, s, v = attend(x, nbr, wl, w3, er)
+        _, s, v = attend(x, nbr, wl, w3, er, *plan)
         grads = (torch.randn_like(s), torch.randn_like(v))
         inputs = [wl, w3, er] + ([x] if x.requires_grad else [])
         dx = 4 * F * H if x.requires_grad else 0
@@ -1435,7 +1483,7 @@ def gat_op_times(batch, syn, frames, args, num_classes, rate, device,
             # A selective checkpoint runs its backward once: time forward
             # and backward together, and count the forward's time off.
             ms = events_ms(lambda: torch.autograd.grad(
-                attend(x, nbr, wl, w3, er)[1:], inputs, grads)) - fwd_ms
+                attend(x, nbr, wl, w3, er, *plan)[1:], inputs, grads)) - fwd_ms
             rows.append((f"{label} bwd, layer {i}", ms,
                          bwd_bytes / rate * 1e3))
             print(f"  op {label} bwd, layer {i}: ms={ms:.4f} (forward and "
@@ -1610,13 +1658,15 @@ def run_split(label, args, g, fanouts, device):
     start_count(device)
     metrics = train_split(args, g, fanouts, timers, device)
     launches = read_launches()
+    metrics["plans_on_card"] = slots_plan.on_card
     peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
     steps = metrics["steps"]
     print(f"{label}: {steps} steps, loss {metrics['loss']:.4f}, acc "
           f"{metrics['acc']:.4f}, cache {metrics['cache_pct']:.4f}, "
           f"innermost {metrics['innermost']}, sampler {metrics['sampler']}, "
           f"{launch_text(launches)}, tail writes "
-          f"{metrics['tail_batches']}, peak device memory {peak_gib:.3f} GiB")
+          f"{metrics['tail_batches']}, peak device memory {peak_gib:.3f} GiB, "
+          f"scatter plans built on the card {metrics['plans_on_card']}")
     phases = metrics["phases"]
     print(f"  C++ service per batch: cxx_sample "
           f"{1e3 * phases.get('cxx_sample', float('nan')):.2f} ms, cxx_slice "
@@ -1708,8 +1758,11 @@ def check_vs_one_partition(ranks, g, args, fanouts, cache_pct, caps2,
     cache2 = SplitFeatureCache(
         CachePlan(g, pmap, P, cache_pct, refresh_cap=caps2["frame_caps"][0]),
         device=device, partitions=(lo, hi))
+    m2 = split_model(args, g).to(device)
+    plans = m2.needs_scatter_plans
     s2 = SplitSampler(g, nodes, pmap, P, fanouts, bs, seed=0, cache=cache2,
-                      capacities=caps2, emit_range=(lo, hi), device=device)
+                      capacities=caps2, emit_range=(lo, hi),
+                      scatter_plans=plans, device=device)
     raw = s2._sample_raw(nodes[:bs])
     b2 = s2.slice_raw(raw)
     zeros = np.zeros(g.num_nodes, np.int32)
@@ -1717,12 +1770,11 @@ def check_vs_one_partition(ranks, g, args, fanouts, cache_pct, caps2,
     s1 = SplitSampler(g, nodes, zeros, 1, fanouts, bs, seed=0, cache=plan1,
                       capacities=plan_split_capacities(bs, fanouts,
                                                        g.num_nodes, 1),
-                      device=device)
+                      scatter_plans=plans, device=device)
     b1 = s1.slice_raw(raw)
     x2 = cache2.frames
     x1 = (x2[:1] if cache2.plan.replicated
           else SplitFeatureCache(plan1, device=device).frames)
-    m2 = split_model(args, g).to(device)
     m1 = copy.deepcopy(m2)
     masked = copy.deepcopy(m2)
     logits2 = make_split_forward(m2, ranks=ranks)(b2, x2)
@@ -1799,6 +1851,7 @@ def split_process(ranks, spec) -> dict:
     metrics = train_split(args, g, fanouts, timers, device,
                           ranks=ranks if ranks.grouped else None)
     out = dict(rank=ranks.rank, local=[ranks.lo, ranks.hi], metrics=metrics,
+               plans_on_card=slots_plan.on_card,
                edge_cut=edge_cut_fraction(g, g.partition_map),
                launches=dict(read_launches()), shuffles=shuffle_counts(),
                collectives=collective_count(),
@@ -1979,6 +2032,8 @@ def expect_local_launches(label, results, per_partition_step):
         expect_launches(f"{label}: rank {res['rank']}", res["launches"],
                         scaled(per_partition_step, local * m["steps"]),
                         f"{m['steps']} steps of {local} partitions")
+        expect_no_plan_on_card(f"{label}: rank {res['rank']}",
+                               res["plans_on_card"])
         launches += Counter(res["launches"])
     return launches
 
@@ -2203,6 +2258,7 @@ def check_dense_run(label, metrics, launches, per_step):
     steps = metrics["steps"]
     expect_launches(label, launches, scaled(per_step, steps),
                     f"{steps} steps of dense layers only")
+    expect_no_plan_on_card(label, metrics["plans_on_card"])
 
 
 def single_gat_cases(g, args, rate, device):
@@ -3136,7 +3192,8 @@ def check_gat_variants(g, args_ga, batch, syn, frames, rate, device):
             rows += gat_op_times(batch, syn, frames, args_ga, g.num_classes,
                                  rate, device, attend=attend,
                                  label=f"GAT attention {name}",
-                                 backward_once="gat_remat" in impls)
+                                 backward_once="gat_remat" in impls,
+                                 planned="gat_attention" not in impls)
     return rows
 
 

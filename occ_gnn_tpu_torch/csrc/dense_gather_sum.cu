@@ -6,8 +6,9 @@
 //   dense_scatter_add:  dx[s, :]  = sum of g[d, :] over the slots (k, d)
 //                                   with nbr[k, d] == s
 //   dense_scatter_slots: the same with each slot's own row,
-//                        g[k * D + d, :] in place of g[d, :], and
-//                        dx[S - 1, :] = 0 (padding slots' rows unread)
+//                        rows[k * D + d] in place of g[d], and
+//                        dx[S - 1] = 0 (padding slots' rows unread),
+//                        through a plan the caller ships with nbr
 //
 // x is f32 or bf16 [S, H] row-major, and its last row S - 1 is the frame's
 // reserved zero row that every padding slot names; nbr is int32 [K, D],
@@ -73,17 +74,50 @@
 //      kWarps contiguous parts, added in order; one warp sums the
 //      third-level partials in order into dx[S - 1].
 // The zero row's tree is fixed by D alone, the row sums by nbr alone, so
-// two launches give the same bits. The per-slot mode reads the row of slot
-// i at i where the other reads i % D (the lists hold slot ids either way),
-// and builds no zero-row tree: it writes the zero row as zeros, since GAT's
-// attention backward gives padding slots no gradient and writes no row for
-// them. g (11.5 MB at split A's layer 1)
+// two launches give the same bits. g (11.5 MB at split A's layer 1)
 // stays in L2; dx is written with streaming stores. Each phase is a chain
 // of dependent loads behind a barrier, about 17 us at the smallest layers
 // (PERF.md); from split A's layer 1 up it is faster than atomics. One
 // cluster of blocks a range of rows, building its plan in distributed
 // shared memory with cluster barriers only, was measured slower
 // (PERF.md).
+//
+// Per-slot scatter: one plain launch, no grid barrier, no sort, no
+// workspace, no memset and no atomics. GAT's attention backward
+// (csrc/gat_attention.cu) writes one row a valid slot; this sums them
+// into dx. The transpose of nbr that the cooperative launch rebuilds on
+// every call depends on nbr alone, and nbr is built on the host, so the
+// host builds the plan beside it (the C++ sampling service, or the plain
+// version ops/dense_gather_sum.slots_plan) and ships it with the batch:
+//   offsets [S]   the exclusive scan of the slots naming each row s <
+//                 S - 1; offsets[S - 1] is the valid slot count;
+//   slots         each row's slot ids k * D + d in slot order, row s's at
+//                 offsets[s] .. offsets[s + 1];
+//   long_rows     the rows of more than `span` slots, *num_long of them.
+// `span` is the plan's: its builders and this kernel take it from
+// ops/dense_gather_sum.SPAN, so a row the warps skip is one the plan
+// lists.
+// A warp takes a run of `run` consecutive rows (static: warp w the run
+// from w * run), lane i holding row i's first place and count. Its places
+// (the slots of its rows, and one empty place for a row no slot names
+// and for the zero row) are taken 32 at a time: lane j finds the row of
+// place j by a binary search over the lanes' exclusive scan, and loads
+// its slot id; then the warp streams them, lanes over the row's columns,
+// kSlotUnroll rows in flight across row ends, each row's sum in f32 from
+// its first slot's row, in slot order, written once with streaming
+// stores.
+// A row of more than `span` slots is skipped by its warp and summed by one
+// of the first blocks of the grid in kWarps contiguous parts, added in
+// order. The order of every sum is the cooperative launch's, so the bits
+// are too, and the same from every launch. At H = 128 a lane holds one
+// float4 (a warp a row); wider rows loop over 128-column tiles; any other
+// width or alignment takes one element a lane. A run holds kRunTiles row
+// tiles (8 rows at H = 128, 1 at H = 1024), fewer where the grid would
+// have less than kFillWarps warps: rows hold about one slot each at split
+// GAT A's layers 1-2, and the small layers would leave the card idle.
+// Bound: each valid slot's row and what is read of the plan (offsets,
+// the valid slots' ids, num_long and the listed long rows) read once,
+// each dx row written once.
 
 #include <assert.h>
 #include <cooperative_groups.h>
@@ -120,6 +154,15 @@ constexpr int kZeroCols = 8;
 constexpr int kZeroFan = 16;
 constexpr int kGroup = 16;
 constexpr int kSpan = 256;
+// The per-slot scatter: row tiles of 128 columns a warp's run holds (at
+// most), warps its grid keeps at the least (shorter runs below), row
+// loads in flight a lane, and blocks for the long rows (at most). Each
+// value was picked by timing its neighbours at split GAT A's layers 1-2,
+// GAT P4-B's and the CLI's hidden width.
+constexpr int kRunTiles = 8;
+constexpr long long kFillWarps = 1536;
+constexpr int kSlotUnroll = 6;
+constexpr long long kLongBlocks = 128;
 
 // Column groups: float4 sums of 4 columns, or one float.
 __device__ __forceinline__ void add(float& acc, float v) { acc += v; }
@@ -566,11 +609,14 @@ __device__ __forceinline__ void sum_span(const int* list, int span, int rows,
 // takes runs w, w + kWarps, ...) from a into b, then merged pairwise
 // between b and a, a slot's place in the merged run its place in its own
 // plus the count of the other run's slots below it (a binary search):
-// O(n log^2 n) loads, spread over the block. Then warp w sums places
-// [w n / kWarps, (w + 1) n / kWarps) of the sorted list in f32 from its
-// first, and the kWarps partials are added in order into out. `part`
-// holds kWarps * 32 column groups in shared memory. A slot's g row is its
-// id modulo `mod`.
+// O(n log^2 n) loads, spread over the block. Then sum_in_parts. A slot's
+// g row is its id modulo `mod`.
+template <typename Acc>
+__device__ __forceinline__ void sum_in_parts(const int* list, int n,
+                                             const Acc* __restrict__ g,
+                                             int mod, int width, Acc* out,
+                                             Acc* part);
+
 template <typename Acc>
 __device__ __forceinline__ void sum_long_row(int* a, int* b, int n,
                                              const Acc* __restrict__ g,
@@ -616,6 +662,19 @@ __device__ __forceinline__ void sum_long_row(int* a, int* b, int n,
     src = dst;
     dst = t;
   }
+  sum_in_parts(src, n, g, mod, width, out, part);
+}
+
+// A row's n >= kWarps slots, listed in slot order, by the whole block:
+// warp w sums places [w n / kWarps, (w + 1) n / kWarps) of the list in
+// f32 from its first, and the kWarps partials are added in order into
+// out. `part` holds kWarps * 32 column groups in shared memory.
+template <typename Acc>
+__device__ __forceinline__ void sum_in_parts(const int* list, int n,
+                                             const Acc* __restrict__ g,
+                                             int mod, int width, Acc* out,
+                                             Acc* part) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int t0 = static_cast<int>(static_cast<long long>(warp) * n / kWarps);
   const int t1 =
       static_cast<int>(static_cast<long long>(warp + 1) * n / kWarps);
@@ -623,14 +682,14 @@ __device__ __forceinline__ void sum_long_row(int* a, int* b, int n,
     const int c = c0 + lane;
     if (c < width) {
       Acc acc =
-          __ldg(g + static_cast<long long>(src[t0] % mod) * width + c);
+          __ldg(g + static_cast<long long>(list[t0] % mod) * width + c);
       for (int t = t0 + 1; t < t1; t += kUnroll) {
         Acc v[kUnroll];
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u) {
           if (t + u < t1) {
-            v[u] = __ldg(g + static_cast<long long>(src[t + u] % mod) * width +
-                         c);
+            v[u] = __ldg(g + static_cast<long long>(list[t + u] % mod) *
+                                 width + c);
           }
         }
 #pragma unroll
@@ -653,8 +712,7 @@ __device__ __forceinline__ void sum_long_row(int* a, int* b, int n,
 template <typename Acc>
 __global__ void __launch_bounds__(kThreads)
 scatter_rows(const Acc* __restrict__ g, const int* __restrict__ nbr, int K,
-             int D, int S, int width, Plan p, Acc* __restrict__ dx,
-             int per_slot) {
+             int D, int S, int width, Plan p, Acc* __restrict__ dx) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ int s_base[];  // [p.chunks] each chunk's first offset
   __shared__ int s_warp[kWarps];
@@ -671,8 +729,8 @@ scatter_rows(const Acc* __restrict__ g, const int* __restrict__ nbr, int K,
   const long long gwarp = tid / 32, warps = threads / 32;
   const int zero_row = S - 1;
   const long long slots = static_cast<long long>(K) * D;
-  // A slot id modulo `mod` is its g row (slot ids are below 2^31 - 1).
-  const int mod = per_slot ? 0x7fffffff : D;
+  // A slot id modulo D is its g row.
+  const int mod = D;
 
   // 0. Counts to zero.
   for (long long s = tid; s < zero_row; s += threads) p.counts[s] = 0;
@@ -701,9 +759,8 @@ scatter_rows(const Acc* __restrict__ g, const int* __restrict__ nbr, int K,
   // The zero row's first level, from the last warp down (the slots above
   // start from the first thread): a warp for kZeroCols consecutive columns,
   // lane j counting column d0 + j's padding slots c_d, then c_d * g[d]
-  // summed over the columns in order. None per slot.
-  const long long zero_groups = per_slot ? 0 : p.nz[0];
-  for (long long j = warps - 1 - gwarp; j < zero_groups; j += warps) {
+  // summed over the columns in order.
+  for (long long j = warps - 1 - gwarp; j < p.nz[0]; j += warps) {
     const long long d0 = j * kZeroCols;
     const int n = static_cast<int>(D - d0 < kZeroCols ? D - d0 : kZeroCols);
     int c = 0;
@@ -784,10 +841,8 @@ scatter_rows(const Acc* __restrict__ g, const int* __restrict__ nbr, int K,
     if (threadIdx.x == 0) p.totals[c] = total;
   }
   if (helper >= 0) {
-    if (!per_slot) {
-      zero_level(reinterpret_cast<const Acc*>(p.zero[0]), p.nz[0], kZeroFan,
-                 reinterpret_cast<Acc*>(p.zero[1]), helper, helpers, width);
-    }
+    zero_level(reinterpret_cast<const Acc*>(p.zero[0]), p.nz[0], kZeroFan,
+               reinterpret_cast<Acc*>(p.zero[1]), helper, helpers, width);
     Acc z;
     zero(z);
     for (long long s0 = helper * 32; s0 < zero_row; s0 += helpers * 32) {
@@ -822,11 +877,9 @@ scatter_rows(const Acc* __restrict__ g, const int* __restrict__ nbr, int K,
     }
     __syncthreads();
   }
-  if (!per_slot) {
-    zero_level(reinterpret_cast<const Acc*>(p.zero[1]), p.nz[1], kZeroFan,
-               reinterpret_cast<Acc*>(p.zero[2]), warps - 1 - gwarp, warps,
-               width);
-  }
+  zero_level(reinterpret_cast<const Acc*>(p.zero[1]), p.nz[1], kZeroFan,
+             reinterpret_cast<Acc*>(p.zero[2]), warps - 1 - gwarp, warps,
+             width);
   for (long long i0 = tid; i0 < slots; i0 += threads * kBatch) {
     int r[kBatch], at[kBatch];
 #pragma unroll
@@ -869,7 +922,7 @@ scatter_rows(const Acc* __restrict__ g, const int* __restrict__ nbr, int K,
     for (int c = lane; c < width; c += 32) {
       Acc acc;
       zero(acc);
-      for (int t = 0; !per_slot && t < p.nz[2]; ++t) {
+      for (int t = 0; t < p.nz[2]; ++t) {
         add(acc, src[t * width + c]);
       }
       store_streaming(dx + static_cast<long long>(zero_row) * width + c, acc);
@@ -907,6 +960,113 @@ scatter_rows(const Acc* __restrict__ g, const int* __restrict__ nbr, int K,
       }
       sum_span(p.list + roff, rn, 1, s_row[warp], s_ent[warp], s_d[warp],
                s_meta[warp], g, mod, width, dx + (s0 + b) * width);
+    }
+  }
+}
+
+// The per-slot scatter through the host's plan (see the top of the file):
+// the first `long_blocks` blocks sum the listed long rows (those of
+// more than `span` slots), a block a row at a time; every other warp
+// takes its run of rows. A slot id is its row of `rows` (num_slots of
+// them).
+template <typename Acc>
+__global__ void __launch_bounds__(kThreads)
+scatter_slots(const Acc* __restrict__ rows, long long num_slots,
+              const int* __restrict__ offsets, const int* __restrict__ slots,
+              const int* __restrict__ long_rows,
+              const int* __restrict__ num_long, int span, int S, int width,
+              int run, int long_blocks, Acc* __restrict__ dx) {
+  __shared__ __align__(16) char s_part[kWarps * 32 * sizeof(Acc)];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  if (static_cast<int>(blockIdx.x) < long_blocks) {
+    const int n_long = __ldg(num_long);
+    for (int i = blockIdx.x; i < n_long; i += long_blocks) {
+      const int s = __ldg(long_rows + i);
+      assert(s >= 0 && s < S - 1);
+      const int a = __ldg(offsets + s);
+      sum_in_parts(slots + a, __ldg(offsets + s + 1) - a, rows, 0x7fffffff,
+                   width, dx + static_cast<long long>(s) * width,
+                   reinterpret_cast<Acc*>(s_part));
+    }
+    return;
+  }
+  const long long s0 =
+      (static_cast<long long>(blockIdx.x - long_blocks) * kWarps + warp) *
+      run;
+  if (s0 >= S) return;  // the whole warp
+  // Lane i: row s0 + i's first place in `slots` (-1: an empty place) and
+  // its count of places; 0 for a long row and past the run or the frame.
+  const long long s = s0 + lane;
+  int first = -1, count = 0;
+  if (lane < run && s < S - 1) {
+    const int a = __ldg(offsets + s), n = __ldg(offsets + s + 1) - a;
+    if (n > 0) first = a;
+    count = n == 0 ? 1 : (n > span ? 0 : n);
+  } else if (lane < run && s == S - 1) {
+    count = 1;  // the zero row, written as zeros
+  }
+  int incl = count;
+#pragma unroll
+  for (int o = 1; o < 32; o *= 2) {
+    const int v = __shfl_up_sync(kFull, incl, o);
+    if (lane >= o) incl += v;
+  }
+  const int pos = incl - count;  // the row's first place in the warp's
+  const int total = __shfl_sync(kFull, incl, 31);
+  for (int c0 = 0; c0 < width; c0 += 32) {
+    const int c = c0 + lane;
+    Acc acc;
+    zero(acc);
+    for (int t0 = 0; t0 < total; t0 += 32) {
+      // Place t: its row r (the last lane whose first place is at most t:
+      // one with places, as a lane without shares its successor's), its
+      // slot and whether it is its row's first or last.
+      const int t = t0 + lane;
+      int r = 0;
+#pragma unroll
+      for (int step = 16; step > 0; step /= 2) {
+        if (__shfl_sync(kFull, pos, r + step) <= t) r += step;
+      }
+      const int r_pos = __shfl_sync(kFull, pos, r);
+      const int r_first = __shfl_sync(kFull, first, r);
+      const int r_count = __shfl_sync(kFull, count, r);
+      int slot = -1, meta = 0;
+      if (t < total) {
+        const int j = t - r_pos;
+        if (r_first >= 0) {
+          slot = __ldg(slots + r_first + j);
+          assert(slot >= 0 && slot < num_slots);
+        }
+        meta = r | (j == 0 ? kFirst : 0) | (j == r_count - 1 ? kLast : 0);
+      }
+      const int places = total - t0 < 32 ? total - t0 : 32;
+      for (int u0 = 0; u0 < places; u0 += kSlotUnroll) {
+        Acc v[kSlotUnroll];
+        int m[kSlotUnroll];
+#pragma unroll
+        for (int u = 0; u < kSlotUnroll; ++u) {
+          const int q = u0 + u;
+          const int sl = __shfl_sync(kFull, slot, q & 31);
+          m[u] = __shfl_sync(kFull, meta, q & 31);
+          zero(v[u]);
+          if (q < places && sl >= 0 && c < width) {
+            v[u] = __ldg(rows + static_cast<long long>(sl) * width + c);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kSlotUnroll; ++u) {
+          if (u0 + u < places) {
+            if (m[u] & kFirst) {
+              acc = v[u];
+            } else {
+              add(acc, v[u]);
+            }
+            if ((m[u] & kLast) && c < width) {
+              store_streaming(dx + (s0 + (m[u] & 0xff)) * width + c, acc);
+            }
+          }
+        }
+      }
     }
   }
 }
@@ -1008,8 +1168,8 @@ cudaError_t scatter_grid(int device, size_t smem, long long work,
 template <int VEC>
 cudaError_t launch_scatter(const void* g, const void* nbr, long long ld,
                            int K, long long D, int h, long long x_rows,
-                           void* dx, void* workspace, int per_slot,
-                           int device, cudaStream_t stream) {
+                           void* dx, void* workspace, int device,
+                           cudaStream_t stream) {
   using Acc = typename Rows<float, VEC>::Acc;
   int width = h / VEC;
   Plan plan = layout(K, D, x_rows, h, static_cast<char*>(workspace)).plan;
@@ -1026,8 +1186,7 @@ cudaError_t launch_scatter(const void* g, const void* nbr, long long ld,
   const int* nbr_ = static_cast<const int*>(nbr);
   int K_ = K, D_ = static_cast<int>(D), S_ = static_cast<int>(x_rows);
   Acc* dx_ = static_cast<Acc*>(dx);
-  void* args[] = {&g_,    &nbr_, &K_,  &D_,      &S_,
-                  &width, &plan, &dx_, &per_slot};
+  void* args[] = {&g_, &nbr_, &K_, &D_, &S_, &width, &plan, &dx_};
   return cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(scatter_rows<Acc>), blocks, kThreads,
       args, smem, stream);
@@ -1096,13 +1255,14 @@ extern "C" long long dense_scatter_workspace_bytes(int k, long long d, int h,
   return static_cast<long long>(layout(k, d, x_rows, h, nullptr).bytes);
 }
 
-namespace {
-
-// Both scatter entries: g holds a row a column (per_slot == 0) or a row a
-// slot.
-int scatter(const void* g, const void* nbr, long long ld, int k, long long d,
-            int h, long long x_rows, void* dx, void* workspace, int per_slot,
-            int device, void* stream) {
+// dx[s] = sum of g[d] over the slots (k, d) naming s, in slot order; g f32
+// [D, h], dx f32 [x_rows, h], both contiguous, and nbr too (ld == d);
+// every row of dx is written. workspace: dense_scatter_workspace_bytes(k,
+// d, h, x_rows) bytes, 16-byte aligned, uninitialised. k * d < 2^31.
+extern "C" int dense_scatter_add(const void* g, const void* nbr, long long ld,
+                                 int k, long long d, int h, long long x_rows,
+                                 void* dx, void* workspace, int device,
+                                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   bool done = false;
   const int early = prologue(h, k, d, x_rows, ld, device, &done);
@@ -1114,37 +1274,73 @@ int scatter(const void* g, const void* nbr, long long ld, int k, long long d,
   const bool vec = h % 4 == 0 && aligned(g, 16) && aligned(dx, 16);
   const cudaError_t err =
       vec ? launch_scatter<4>(g, nbr, ld, k, d, h, x_rows, dx, workspace,
-                              per_slot, device, s)
+                              device, s)
           : launch_scatter<1>(g, nbr, ld, k, d, h, x_rows, dx, workspace,
-                              per_slot, device, s);
+                              device, s);
   return static_cast<int>(err);
+}
+
+namespace {
+
+template <int VEC>
+cudaError_t launch_slots(const void* rows, long long num_slots, int h,
+                         const void* offsets, const void* slots,
+                         const void* long_rows, const void* num_long,
+                         long long long_cap, int span, long long x_rows,
+                         void* dx, cudaStream_t stream) {
+  using Acc = typename Rows<float, VEC>::Acc;
+  // A run of kRunTiles row tiles a warp, halved while the grid would
+  // have less than kFillWarps warps; a block for each listed long row up
+  // to kLongBlocks.
+  const int tiles = (h / VEC + 31) / 32;
+  int run = kRunTiles / tiles > 1 ? kRunTiles / tiles : 1;
+  while (run > 1 && (x_rows + run - 1) / run < kFillWarps) run /= 2;
+  const int long_blocks =
+      static_cast<int>(long_cap < kLongBlocks ? long_cap : kLongBlocks);
+  const long long warps = (x_rows + run - 1) / run;
+  const long long blocks = long_blocks + (warps + kWarps - 1) / kWarps;
+  scatter_slots<Acc><<<static_cast<unsigned>(blocks), kThreads, 0,
+                       stream>>>(
+      static_cast<const Acc*>(rows), num_slots,
+      static_cast<const int*>(offsets), static_cast<const int*>(slots),
+      static_cast<const int*>(long_rows), static_cast<const int*>(num_long),
+      span, static_cast<int>(x_rows), h / VEC, run, long_blocks,
+      static_cast<Acc*>(dx));
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// dx[s] = sum of g[d] over the slots (k, d) naming s, in slot order; g f32
-// [D, h], dx f32 [x_rows, h], both contiguous, and nbr too (ld == d);
-// every row of dx is written. workspace: dense_scatter_workspace_bytes(k,
-// d, h, x_rows) bytes, 16-byte aligned, uninitialised. k * d < 2^31.
-extern "C" int dense_scatter_add(const void* g, const void* nbr, long long ld,
-                                 int k, long long d, int h, long long x_rows,
-                                 void* dx, void* workspace, int device,
-                                 void* stream) {
-  return scatter(g, nbr, ld, k, d, h, x_rows, dx, workspace, 0, device,
-                 stream);
-}
-
-// dense_scatter_add with a row a slot: dx[s] = sum of rows[k * d + j] over
-// the slots (k, j) naming s, in slot order, for s < x_rows - 1, and
-// dx[x_rows - 1] = 0 (the padding slots' rows are not read); rows f32
-// [k * d, h].
-extern "C" int dense_scatter_slots(const void* rows, const void* nbr,
-                                   long long ld, int k, long long d, int h,
-                                   long long x_rows, void* dx,
-                                   void* workspace, int device,
-                                   void* stream) {
-  return scatter(rows, nbr, ld, k, d, h, x_rows, dx, workspace, 1, device,
-                 stream);
+// dx[s] = sum of rows[i] over the slots i (ids k * D + d of the [K, D]
+// matrix) that name s, in slot order, for s < x_rows - 1, and dx[x_rows -
+// 1] = 0, through the plan of that matrix (see the top of the file):
+// offsets int32 [x_rows], slots int32 [num_slots], long_rows int32
+// [long_cap] (the rows of more than `span` slots, span >= kWarps - 1 so
+// that a block's parts hold a slot each) and num_long int32 [1], all on
+// the device. rows f32
+// [num_slots, h] (padding slots' rows are not read) and dx f32 [x_rows,
+// h], both contiguous; every row of dx is written. num_slots < 2^31.
+extern "C" int dense_scatter_slots(const void* rows, long long num_slots,
+                                   int h, const void* offsets,
+                                   const void* slots, const void* long_rows,
+                                   const void* num_long, long long long_cap,
+                                   int span, long long x_rows, void* dx,
+                                   int device, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  if (h < 0 || num_slots < 0 || num_slots > 2147483647LL || long_cap < 1 ||
+      span < kWarps - 1 || x_rows < 1 || x_rows > 2147483647LL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (h == 0) return 0;
+  const bool vec = h % 4 == 0 && aligned(rows, 16) && aligned(dx, 16);
+  const cudaError_t err =
+      vec ? launch_slots<4>(rows, num_slots, h, offsets, slots, long_rows,
+                            num_long, long_cap, span, x_rows, dx, s)
+          : launch_slots<1>(rows, num_slots, h, offsets, slots, long_rows,
+                            num_long, long_cap, span, x_rows, dx, s);
+  return static_cast<int>(err);
 }
 
 extern "C" const char* cuda_error_string(int err) {

@@ -19,6 +19,12 @@
 //   * dedup keeps the reference's O(1) mask-array renumbering trick
 //     (duplicate.cpp:14-39) — it is the right tool on the host.
 //
+// The port's copy adds one output to the JAX package's service: on
+// request (occ_create's last argument, the plan's span) the transpose of
+// every dense matrix past layer 0, the plan of the per-slot scatter in
+// split GAT's backward (csrc/dense_gather_sum.cu), counted in the
+// matrix's own edge walk and filled by one k-major walk.
+//
 // Exposed to Python via a C ABI (ctypes) — see sampling/native.py.
 
 #include <algorithm>
@@ -126,10 +132,24 @@ struct Config {
   // neighbor matrix per step from a resident CSR
   // (parallel/split.synthesize_device_innermost).
   int32_t device_innermost = 0;
+  // The per-slot scatter's plan (ops/dense_gather_sum.ScatterPlan) beside
+  // every dense matrix past layer 0 when > 0: split GAT's training asks
+  // for it, so that its backward sums a row a slot with no transpose on
+  // the device. Rows of more than plan_span slots are listed (a whole
+  // block of the kernel sums each); the caller passes the kernel's value,
+  // ops/dense_gather_sum.SPAN.
+  int32_t plan_span = 0;
   inline bool local(int p) const { return p >= emit_lo && p < emit_hi; }
   inline int32_t n_emit() const { return emit_hi - emit_lo; }
   inline bool coo_out(int l) const {
     return emit_coo != 0 || deg_caps[l] <= 0;
+  }
+  inline bool plan_out(int l) const {
+    return plan_span > 0 && l > 0 && deg_caps[l] > 0;
+  }
+  // Room for the plan's rows of more than plan_span of `slots` slots.
+  inline int64_t long_capacity(int64_t slots) const {
+    return slots / (plan_span + 1) + 1;
   }
 };
 
@@ -160,6 +180,13 @@ struct Sample {
     // device aggregates with K_cap row-gathers instead of a scatter-add
     // (TPU scatter lowering is ~3.3x slower at production shapes).
     std::vector<int32_t> nbr;
+    // nbr's plan when plan_out(l): per partition, offsets [F_cap] (the
+    // exclusive scan of the slots naming each row s < F_cap - 1), slots
+    // [K_cap * D_cap] (each row's slot ids k * D_cap + d in slot order;
+    // the tail past offsets[F_cap - 1] is unread and not copied out),
+    // plan_long [long_capacity] (the rows of more than plan_span slots in
+    // increasing order, then -1) and plan_num_long [1].
+    std::vector<int32_t> plan_offsets, plan_slots, plan_long, plan_num_long;
     // Device-innermost mode, layer 0 only: global ids of the dst frame
     // rows in per-partition rank order [P * D_cap], pad -1 — the ONLY
     // field emitted for that layer.
@@ -283,6 +310,10 @@ class Worker {
  private:
   void sample_raw(const std::vector<int64_t>& batch);
   bool slice_layer(int l, Sample* out);
+  void write_plan(const int32_t* nb, int64_t K_cap, int64_t D_cap,
+                  int64_t n_dst, int64_t used, int64_t F_cap,
+                  int32_t sentinel, int32_t* offs, int32_t* slots,
+                  int32_t* longs, int64_t long_cap, int32_t* num_long);
 
   const Config& cfg_;
   XorShift rng_;
@@ -303,6 +334,7 @@ class Worker {
   std::vector<std::vector<int32_t>> foreign_rows_;  // per partition
   std::vector<int64_t> ecnt_, own_cursor_, cursor_, fcnt_;
   std::vector<int32_t> n_own_;
+  std::vector<int32_t> plan_cursor_;  // the plan's fill, a row each
   // Frame-indexed routing precompute for the cache layer: src partition
   // and frame row per UNIQUE src node instead of per edge (the frame is
   // ~5x smaller than the edge list, so ~5x fewer random N-sized lookups).
@@ -454,6 +486,41 @@ void Worker::sample_raw(const std::vector<int64_t>& batch) {
   }
 }
 
+// One partition's plan of its dense matrix nb [K_cap, D_cap] (rows of a
+// frame of F_cap, the last the zero row `sentinel`; its first n_dst
+// columns in use, naming its first `used` frame rows): offs holds each
+// row s's slot count at offs[s + 1] (0 at offs[0]) and becomes its
+// exclusive scan; the rows of more than plan_span slots are listed; then
+// one walk of nb in the order of slot ids (k-major) writes each slot id
+// at its row's cursor, so every row's list is in slot order with no
+// sort. The tail of `slots`, past the lists, is unread and left as it
+// was.
+void Worker::write_plan(const int32_t* nb, int64_t K_cap, int64_t D_cap,
+                        int64_t n_dst, int64_t used, int64_t F_cap,
+                        int32_t sentinel, int32_t* offs, int32_t* slots,
+                        int32_t* longs, int64_t long_cap,
+                        int32_t* num_long) {
+  int32_t n_long = 0, run = 0;
+  for (int64_t s = 0; s < used; s++) {
+    const int32_t c = offs[s + 1];
+    if (c > cfg_.plan_span) longs[n_long++] = (int32_t)s;
+    run += c;
+    offs[s + 1] = run;
+  }
+  std::fill(offs + used + 1, offs + F_cap, run);
+  std::fill(longs + n_long, longs + long_cap, -1);
+  *num_long = n_long;
+  plan_cursor_.assign(offs, offs + used);
+  int32_t* cur = plan_cursor_.data();
+  for (int64_t k = 0; k < K_cap; k++) {
+    const int32_t* row = nb + k * D_cap;
+    for (int64_t d = 0; d < n_dst; d++) {
+      const int32_t s = row[d];
+      if (s != sentinel) slots[cur[s]++] = (int32_t)(k * D_cap + d);
+    }
+  }
+}
+
 bool Worker::slice_layer(int l, Sample* out) {
   const int P = cfg_.P;
   int d = cfg_.L - 1 - l;  // sampled depth consumed by model layer l
@@ -524,6 +591,20 @@ bool Worker::slice_layer(int l, Sample* out) {
     L.nbr.assign((size_t)PE * K_cap * D_cap, sentinel);
   else
     L.nbr.clear();
+  const bool plan = cfg_.plan_out(l);
+  const int64_t F_cap = cfg_.frame_caps[l];
+  const int64_t n_slots = K_cap * D_cap;
+  if (plan) {
+    L.plan_offsets.resize((size_t)PE * F_cap);
+    L.plan_slots.resize((size_t)PE * n_slots);
+    L.plan_long.resize((size_t)PE * cfg_.long_capacity(n_slots));
+    L.plan_num_long.resize(PE);
+  } else {
+    L.plan_offsets.clear();
+    L.plan_slots.clear();
+    L.plan_long.clear();
+    L.plan_num_long.clear();
+  }
   L.push.assign((size_t)PE * P * S_cap, -1);
   L.recv.assign((size_t)PE * P * S_cap, (int32_t)D_cap);
   L.owned_idx.assign((size_t)PE * O_cap, -1);
@@ -729,6 +810,11 @@ bool Worker::slice_layer(int l, Sample* out) {
     // (fanout neighbors + self loop); checked anyway.
     if (K_cap > 0) {
       int32_t* nb = L.nbr.data() + (size_t)(p - LO) * K_cap * D_cap;
+      // The plan's counts, a row s at offs[s + 1], in the same walk; p's
+      // edges name only its fcnt_[p] frame rows.
+      int32_t* offs =
+          plan ? L.plan_offsets.data() + (size_t)(p - LO) * F_cap : nullptr;
+      if (plan) std::fill(offs, offs + fcnt_[p] + 1, 0);
       int32_t prev = -1;
       int64_t r = 0;
       for (int64_t t = 0; t < k; t++) {
@@ -741,7 +827,16 @@ bool Worker::slice_layer(int l, Sample* out) {
           return false;
         }
         nb[r * D_cap + ed[t]] = es[t];
+        if (plan) offs[es[t] + 1]++;
         r++;
+      }
+      if (plan) {
+        const size_t q = (size_t)(p - LO);
+        write_plan(nb, K_cap, D_cap, n_own[p] + foreign_rows_[p].size(),
+                   fcnt_[p], F_cap, sentinel, offs,
+                   L.plan_slots.data() + q * n_slots,
+                   L.plan_long.data() + q * cfg_.long_capacity(n_slots),
+                   cfg_.long_capacity(n_slots), &L.plan_num_long[q]);
       }
     }
 
@@ -976,7 +1071,8 @@ void* occ_create(int64_t num_nodes, const int64_t* indptr,
                  int32_t emit_coo, int32_t emit_input,
                  const float* features, int64_t feat_stride,
                  int32_t feat_cols, int32_t feat_bf16,
-                 int32_t replicated, int32_t device_innermost) {
+                 int32_t replicated, int32_t device_innermost,
+                 int32_t plan_span) {
   Service* svc = new Service();
   Config& c = svc->cfg;
   c.num_nodes = num_nodes;
@@ -1011,6 +1107,7 @@ void* occ_create(int64_t num_nodes, const int64_t* indptr,
   c.feat_bf16 = feat_bf16;
   c.replicated = replicated;
   c.device_innermost = device_innermost;
+  c.plan_span = plan_span;
   svc->seed = seed;
   svc->work = std::make_unique<BoundedQueue<WorkItem>>(
       queue_depth > 0 ? queue_depth : 4);
@@ -1034,7 +1131,9 @@ void occ_submit(void* handle, const int64_t* nodes, int64_t n, int64_t seq) {
 // (l == 0 && device_innermost); else edge_src, edge_dst (only when
 // coo_out(l) — i.e. emit_coo or no dense nbr), push, recv, owned_idx,
 // owned_deg(float), self_idx, owned_mask(uint8), num_owned, nbr (only
-// when deg_caps[l] > 0); then input_nodes (only when emit_input),
+// when deg_caps[l] > 0), plan_offsets, plan_slots, plan_long,
+// plan_num_long (only when plan_out(l)); then input_nodes (only when
+// emit_input),
 // targets, refresh_nodes. Returns error code (0 = ok).
 int32_t occ_next(void* handle, void** field_ptrs, int64_t* seq_out) {
   Service* svc = static_cast<Service*>(handle);
@@ -1066,6 +1165,19 @@ int32_t occ_next(void* handle, void** field_ptrs, int64_t* seq_out) {
       cp(L.owned_mask.data(), L.owned_mask.size());
       cp(L.num_owned.data(), L.num_owned.size() * 4);
       if (c.deg_caps[l] > 0) cp(L.nbr.data(), L.nbr.size() * 4);
+      if (c.plan_out(l)) {
+        cp(L.plan_offsets.data(), L.plan_offsets.size() * 4);
+        // Each partition's lists only: the tail of its slots is unread.
+        const int64_t F = c.frame_caps[l];
+        const size_t n_slots = L.plan_slots.size() / c.n_emit();
+        int32_t* dst = static_cast<int32_t*>(field_ptrs[f++]);
+        for (int q = 0; q < c.n_emit(); q++) {
+          std::memcpy(dst + q * n_slots, L.plan_slots.data() + q * n_slots,
+                      (size_t)L.plan_offsets[q * F + F - 1] * 4);
+        }
+        cp(L.plan_long.data(), L.plan_long.size() * 4);
+        cp(L.plan_num_long.data(), L.plan_num_long.size() * 4);
+      }
     }
     auto cp = [&](const void* src, size_t bytes) {
       std::memcpy(field_ptrs[f++], src, bytes);

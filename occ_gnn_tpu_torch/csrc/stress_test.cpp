@@ -9,11 +9,13 @@
 // with cache routing (compact maps), emit-range sharding (the full range,
 // and ranges of two partitions, the feed of a process that holds two),
 // worker-side gathers of the refresh tail's features in f32 and bf16,
-// reservoir draws (a fanout above 64), delivery of out-of-order
-// completions, and shutdown with work in flight.
+// reservoir draws (a fanout above 64), the per-slot scatter's plan beside
+// the dense matrix past layer 0 (each row's slots in slot order, checked
+// against the matrix), delivery of out-of-order completions, and
+// shutdown with work in flight.
 //
 // It declares the service's C interface as occ_sampler.cpp defines it:
-// occ_create's 32 parameters, occ_next's field list, occ_stats' four
+// occ_create's 33 parameters, occ_next's field list, occ_stats' four
 // doubles. Exit code 0 and "STRESS OK" when every batch came back clean.
 
 #include <cstdint>
@@ -36,7 +38,8 @@ void* occ_create(int64_t num_nodes, const int64_t* indptr,
                  int32_t emit_lo, int32_t emit_hi, int32_t emit_coo,
                  int32_t emit_input, const float* features,
                  int64_t feat_stride, int32_t feat_cols, int32_t feat_bf16,
-                 int32_t replicated, int32_t device_innermost);
+                 int32_t replicated, int32_t device_innermost,
+                 int32_t plan_span);
 void occ_submit(void* handle, const int64_t* nodes, int64_t n, int64_t seq);
 int32_t occ_next(void* handle, void** field_ptrs, int64_t* seq_out);
 void occ_stats(void* handle, double* out4);
@@ -59,6 +62,8 @@ struct Emit {
   int coo;        // emit_coo: the edge lists beside the dense matrix
   int input;      // emit_input: the input frame's ids
   int features;   // 0: no tail gather, 1: f32 rows, 2: bf16 rows
+  int plan;       // plan_span: the per-slot scatter's plan past layer 0
+                  // (0: none), rows of more than `plan` slots listed
 };
 
 }  // namespace
@@ -95,9 +100,10 @@ int main() {
   frame_caps[0] = tail_start + refresh_cap + 1;
 
   const Emit configs[] = {
-      {0, P, 1, 1, 0},  // every partition, COO and dense, input ids
-      {2, 4, 0, 1, 1},  // a process holding two: f32 tail rows
-      {1, 3, 1, 0, 2},  // two in the middle: bf16 tail rows, no input ids
+      {0, P, 1, 1, 0, 0},  // every partition, COO and dense, input ids
+      {2, 4, 0, 1, 1, 3},  // a process holding two: f32 tail rows, plans
+                           // (a span of 3, so that rows are listed)
+      {1, 3, 1, 0, 2, 0},  // two in the middle: bf16 rows, no input ids
   };
   int cfg = 0;
   for (const Emit& e : configs) {
@@ -108,11 +114,13 @@ int main() {
         owner_local.data(), foreign_off, nullptr, nullptr, tail_start,
         refresh_cap, WORKERS, 4, 42 + cfg, /*sample_replace=*/0, e.lo, e.hi,
         e.coo, e.input, e.features ? features.data() : nullptr, FEAT, FEAT,
-        e.features == 2, /*replicated=*/0, /*device_innermost=*/0);
+        e.features == 2, /*replicated=*/0, /*device_innermost=*/0,
+        e.plan);
 
     // Receive buffers in occ_next's field order (device_innermost off).
     std::vector<std::vector<int32_t>> bufs;
     std::vector<void*> ptrs;
+    size_t nbr_buf = 0, plan_buf = 0;  // layer 1's matrix and plan
     auto add = [&](size_t bytes) {
       bufs.emplace_back((bytes + 3) / 4);
       ptrs.push_back(bufs.back().data());
@@ -129,8 +137,18 @@ int main() {
       add((size_t)PE * out_caps[l] * 4);             // self_idx
       add((size_t)PE * out_caps[l]);                 // owned_mask (u8)
       add((size_t)PE * 4);                           // num_owned
-      if (deg_caps[l] > 0)
+      if (deg_caps[l] > 0) {
+        nbr_buf = bufs.size();
         add((size_t)PE * deg_caps[l] * dst_caps[l] * 4);  // nbr
+      }
+      if (e.plan && l > 0 && deg_caps[l] > 0) {
+        const int64_t slots = deg_caps[l] * dst_caps[l];
+        plan_buf = bufs.size();
+        add((size_t)PE * frame_caps[l] * 4);             // plan_offsets
+        add((size_t)PE * slots * 4);                     // plan_slots
+        add((size_t)PE * (slots / (e.plan + 1) + 1) * 4);  // plan_long
+        add((size_t)PE * 4);                             // plan_num_long
+      }
     }
     if (e.input) add((size_t)PE * frame_caps[0] * 4);  // input_nodes
     add((size_t)PE * out_caps[L - 1] * 4);             // targets
@@ -153,6 +171,38 @@ int main() {
         std::fprintf(stderr, "cfg %d: batch seq %lld error %d\n", cfg,
                      (long long)seq, err);
         return 1;
+      }
+      // The plan of layer 1's matrix: each row's slots name it, in slot
+      // order, the lists hold every valid slot, and the rows of more than
+      // e.plan slots are listed in increasing order, then -1.
+      for (int q = 0; e.plan && q < PE; q++) {
+        const int64_t K = deg_caps[1], D = dst_caps[1], F = frame_caps[1];
+        const int32_t* nb = bufs[nbr_buf].data() + q * K * D;
+        const int32_t* offs = bufs[plan_buf].data() + q * F;
+        const int32_t* slots = bufs[plan_buf + 1].data() + q * K * D;
+        const int64_t long_cap = K * D / (e.plan + 1) + 1;
+        const int32_t* longs = bufs[plan_buf + 2].data() + q * long_cap;
+        const int32_t num_long = bufs[plan_buf + 3][q];
+        int64_t valid = 0;
+        for (int64_t i = 0; i < K * D; i++) valid += nb[i] != F - 1;
+        bool ok = offs[0] == 0 && offs[F - 1] == valid;
+        for (int64_t s = 0; ok && s + 1 < F; s++) {
+          for (int32_t j = offs[s]; ok && j < offs[s + 1]; j++) {
+            ok = nb[slots[j]] == s &&
+                 (j == offs[s] || slots[j - 1] < slots[j]);
+          }
+        }
+        int64_t n_long = 0;
+        for (int64_t s = 0; ok && s + 1 < F; s++) {
+          if (offs[s + 1] - offs[s] > e.plan) ok = longs[n_long++] == s;
+        }
+        ok = ok && num_long == n_long;
+        for (int64_t i = n_long; ok && i < long_cap; i++) ok = longs[i] == -1;
+        if (!ok) {
+          std::fprintf(stderr, "cfg %d: batch %lld partition %d: bad plan\n",
+                       cfg, (long long)seq, q);
+          return 1;
+        }
       }
     }
     double st[4];

@@ -139,13 +139,15 @@ def dryrun_multichip(n: int, device=None) -> list[float]:
 
     # GAT on the same partitions: each layer's reverse shuffle and softmax
     # merge, on a batch of the numpy slicer with gathered frames.
+    gat = SplitGAT(g.feature_dim, 16, g.num_classes, 2, num_heads=2,
+                   generator=torch.Generator().manual_seed(1)).to(device)
     gat_sampler = SplitSampler(g, g.train_nodes(), pmap, n, DRYRUN_FANOUTS,
-                               DRYRUN_BATCH, seed=1, device=device)
+                               DRYRUN_BATCH, seed=1,
+                               scatter_plans=gat.needs_scatter_plans,
+                               device=device)
     gat_batch = gat_sampler.sample_batch(g.train_nodes()[:DRYRUN_BATCH])
     xs = torch.stack([gather_features(g.features, ids, device)
                       for ids in gat_batch.input_nodes_host])
-    gat = SplitGAT(g.feature_dim, 16, g.num_classes, 2, num_heads=2,
-                   generator=torch.Generator().manual_seed(1)).to(device)
     gat_step = make_split_train_step(
         gat, torch.optim.Adam(gat.parameters(), lr=1e-2))
     gat_loss, _, gat_count = gat_step(gat_batch, xs)

@@ -28,11 +28,15 @@ contiguous parts, added in order); no memset, no atomics on rows, the
 same bits from every launch. The zero row is ``sum over d of c_d * g[d]``, reduced
 in a tree fixed by D.
 
-``dense_scatter_slots(rows, nbr, num_rows)`` is the backward's per-slot
-mode: the same plan and order, each slot adding its own row ``rows[k * D
-+ d]`` (GAT's attention backward writes one a valid slot) in place of
-``g[d]``; the zero row is written as zeros and padding slots' rows are not
-read.
+``dense_scatter_slots(rows, nbr, num_rows, plan)`` sums a row a slot:
+each slot adds its own row ``rows[k * D + d]`` (GAT's attention backward
+writes one a valid slot) in place of ``g[d]``, each row's slots in slot
+order as the backward above; the zero row is written as zeros and padding
+slots' rows are not read. Its kernel is one plain launch with no grid
+barrier, no sort, no workspace and no atomics: the transpose of ``nbr``
+(``ScatterPlan``) is built on the host beside ``nbr`` and shipped with the
+batch (the C++ sampling service, or ``slots_plan``, the plain version that
+the numpy slicer calls), never on the card.
 
 The gradient to a bf16 frame is summed in f32 and rounded to bf16 once;
 JAX rounds every partial sum to bf16. The port's is the nearer to the
@@ -50,6 +54,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -65,10 +70,53 @@ ARGTYPES = {
     "dense_scatter_workspace_bytes": [_I, _L, _I, _L],
     # g, nbr, ld, k, d, h, x_rows, dx, workspace, device, stream
     "dense_scatter_add": [_P, _P, _L, _I, _L, _I, _L, _P, _P, _I, _P],
-    # rows, nbr, ld, k, d, h, x_rows, dx, workspace, device, stream
-    "dense_scatter_slots": [_P, _P, _L, _I, _L, _I, _L, _P, _P, _I, _P],
+    # rows, num_slots, h, offsets, slots, long_rows, num_long, long_cap,
+    # span, x_rows, dx, device, stream
+    "dense_scatter_slots": [_P, _L, _I, _P, _P, _P, _P, _L, _I, _L, _P, _I,
+                            _P],
 }
 RESTYPES = {"dense_scatter_workspace_bytes": _L}
+# A row of more than SPAN slots is summed by a whole block of the
+# per-slot kernel; the plan lists such rows. The one owner of the value:
+# the kernel and the C++ sampling service take it as an argument.
+SPAN = 256
+
+
+class ScatterPlan(NamedTuple):
+    """``dense_scatter_slots``' plan of one int32 ``nbr [K, D]`` whose
+    sources are rows of a frame of ``S`` rows (the last, ``S - 1``, the
+    zero row that padding slots name), int32 on the device of the rows it
+    sums:
+
+    * ``offsets [S]``: the exclusive scan of the slots naming each row ``s
+      < S - 1``, so ``offsets[S - 1]`` is the valid slot count;
+    * ``slots [K * D]``: each row's slot ids ``k * D + d`` in slot order,
+      row ``s``'s at ``offsets[s]:offsets[s + 1]``; the tail past
+      ``offsets[S - 1]`` is unread (the plain version writes -1 there,
+      the C++ service leaves it as it was);
+    * ``long_rows [long_capacity(K * D)]``: the rows of more than SPAN
+      slots, in increasing order, then -1;
+    * ``num_long []``: their number."""
+
+    offsets: torch.Tensor
+    slots: torch.Tensor
+    long_rows: torch.Tensor
+    num_long: torch.Tensor
+
+
+def plans_equal(a: ScatterPlan, b: ScatterPlan) -> bool:
+    """Whether two plans agree on all that the kernel reads: every field,
+    ``slots`` as far as ``offsets[-1]``."""
+    n = int(a.offsets[-1])
+    return (torch.equal(a.offsets, b.offsets)
+            and torch.equal(a.slots[:n], b.slots[:n])
+            and torch.equal(a.long_rows, b.long_rows)
+            and torch.equal(a.num_long, b.num_long))
+
+
+def long_capacity(num_slots: int) -> int:
+    """Room for the rows of more than SPAN of ``num_slots`` slots."""
+    return num_slots // (SPAN + 1) + 1
 
 
 def dense_gather_sum_reference(x: torch.Tensor, nbr: torch.Tensor,
@@ -128,6 +176,31 @@ def dense_scatter_plan(nbr: torch.Tensor, num_rows: int):
     return counts, offsets, slots, pad
 
 
+def slots_plan(nbr: torch.Tensor, num_rows: int) -> ScatterPlan:
+    """The plain version of ``dense_scatter_slots``' plan of ``nbr [K,
+    D]`` (rows of a frame of ``num_rows``), from ``dense_scatter_plan``, on
+    ``nbr``'s device. The C++ sampling service writes the same plan beside
+    ``nbr`` (``csrc/occ_sampler.cpp``). ``slots_plan.on_card`` counts the
+    builds on a CUDA ``nbr``: the main path builds none."""
+    if nbr.device.type == "cuda":
+        slots_plan.on_card += 1
+    counts, offsets, slots, _ = dense_scatter_plan(nbr, num_rows)
+    n = nbr.numel()
+    dev = nbr.device
+    full = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    full[:slots.numel()] = slots
+    longs = torch.nonzero(counts > SPAN).reshape(-1)
+    long_rows = torch.full((long_capacity(n),), -1, dtype=torch.int32,
+                           device=dev)
+    long_rows[:longs.numel()] = longs
+    return ScatterPlan(offsets.int(), full, long_rows,
+                       torch.tensor(longs.numel(), dtype=torch.int32,
+                                    device=dev))
+
+
+slots_plan.on_card = 0
+
+
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = load_kernel("dense_gather_sum")
@@ -163,12 +236,10 @@ def _launch_gather(x: torch.Tensor, nbr: torch.Tensor,
 
 
 def _launch_scatter(grad: torch.Tensor, nbr: torch.Tensor,
-                    num_rows: int, entry: str = "dense_scatter_add"
-                    ) -> torch.Tensor:
-    """One launch of the backward kernel (``entry``: the C entry of a
-    gradient row a column, or of a row a slot); it writes every row of
-    ``dx`` and builds its plan in a workspace allocated here."""
-    _on_cuda(entry, grad)
+                    num_rows: int) -> torch.Tensor:
+    """One launch of the backward kernel; it writes every row of ``dx``
+    and builds its plan in a workspace allocated here."""
+    _on_cuda("dense_scatter_add", grad)
     K, D = nbr.shape
     h = grad.shape[1]
     if D == 0 or h == 0:
@@ -181,13 +252,37 @@ def _launch_scatter(grad: torch.Tensor, nbr: torch.Tensor,
     workspace = torch.empty(
         lib.dense_scatter_workspace_bytes(K, D, h, num_rows),
         dtype=torch.uint8, device=grad.device)
-    err = getattr(lib, entry)(
+    err = lib.dense_scatter_add(
         grad.data_ptr(), nbr.data_ptr(), nbr.stride(0), K, D, h, num_rows,
         dx.data_ptr(), workspace.data_ptr(), grad.device.index,
         torch.cuda.current_stream(grad.device).cuda_stream,
     )
-    check_launch(lib, err, entry)
-    globals()[entry].launches += 1  # the wrapper of the C entry's name
+    check_launch(lib, err, "dense_scatter_add")
+    dense_scatter_add.launches += 1
+    return dx
+
+
+def _launch_slots(rows: torch.Tensor, plan: ScatterPlan,
+                  num_rows: int) -> torch.Tensor:
+    """One launch of the per-slot kernel through ``plan``; it writes every
+    row of ``dx``."""
+    _on_cuda("dense_scatter_slots", rows)
+    h = rows.shape[1]
+    dx = torch.empty((num_rows, h), dtype=torch.float32, device=rows.device)
+    if h == 0:
+        return dx
+    if rows.shape[0] >= 2**31:
+        raise ValueError(f"{rows.shape[0]} slots: slot ids past int32")
+    lib = _library()
+    err = lib.dense_scatter_slots(
+        rows.data_ptr(), rows.shape[0], h, plan.offsets.data_ptr(),
+        plan.slots.data_ptr(), plan.long_rows.data_ptr(),
+        plan.num_long.data_ptr(), plan.long_rows.numel(), SPAN, num_rows,
+        dx.data_ptr(), rows.device.index,
+        torch.cuda.current_stream(rows.device).cuda_stream,
+    )
+    check_launch(lib, err, "dense_scatter_slots")
+    dense_scatter_slots.launches += 1
     return dx
 
 
@@ -290,16 +385,37 @@ def dense_scatter_add(grad: torch.Tensor, nbr: torch.Tensor,
 dense_scatter_add.launches = 0
 
 
+def _check_plan(plan: ScatterPlan, num_slots: int, num_rows: int,
+                like: torch.Tensor) -> None:
+    want = {"offsets": (num_rows,), "slots": (num_slots,),
+            "long_rows": (long_capacity(num_slots),), "num_long": ()}
+    for name, shape in want.items():
+        t = getattr(plan, name)
+        if t.dtype != torch.int32 or tuple(t.shape) != shape:
+            raise ValueError(f"plan.{name} must be int32 {list(shape)}, got "
+                             f"{t.dtype} {list(t.shape)}")
+        if t.device != like.device:
+            raise ValueError(f"plan.{name} on {t.device}, rows on "
+                             f"{like.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"plan.{name} must be contiguous")
+
+
 def dense_scatter_slots(rows: torch.Tensor, nbr: torch.Tensor,
-                        num_rows: int) -> torch.Tensor:
-    """The per-slot mode of ``dense_scatter_add``: ``dx[nbr[k, d]] +=
-    rows[k * D + d]`` for every slot of int32 ``nbr [K, D]`` -> f32
-    ``[num_rows, H]``, for f32 ``rows [K * D, H]`` (a gradient row a slot,
-    as GAT's attention backward writes them). The same plan and order as
-    ``dense_scatter_add``: each row's slots summed in slot order, every row
-    of ``dx`` written once, the zero row ``num_rows - 1`` as zeros (its
-    slots are padding, whose rows are not read and may hold anything).
-    ``dense_scatter_slots.launches`` counts the kernel's launches."""
+                        num_rows: int, plan: ScatterPlan | None = None
+                        ) -> torch.Tensor:
+    """``dx[nbr[k, d]] += rows[k * D + d]`` for every slot of int32 ``nbr
+    [K, D]`` -> f32 ``[num_rows, H]``, for f32 ``rows [K * D, H]`` (a
+    gradient row a slot, as GAT's attention backward writes them): each
+    row's slots summed in slot order, as ``dense_scatter_add`` sums them,
+    every row of ``dx`` written once, the zero row ``num_rows - 1`` as
+    zeros (its slots are padding, whose rows are not read and may hold
+    anything).
+
+    ``plan`` is ``nbr``'s ``ScatterPlan``, which the card's kernel reads in
+    place of ``nbr``; on a CPU tensor the plain version runs and a plan is
+    only checked. ``dense_scatter_slots.launches`` counts the kernel's
+    launches."""
     if rows.dtype != torch.float32 or rows.dim() != 2:
         raise TypeError(f"rows must be 2-D float32, got {rows.dim()}-D "
                         f"{rows.dtype}")
@@ -311,9 +427,19 @@ def dense_scatter_slots(rows: torch.Tensor, nbr: torch.Tensor,
                          f"rows {rows.shape[0]} rows")
     if not 1 <= num_rows < 2**31:
         raise ValueError(f"num_rows {num_rows} out of [1, 2^31)")
+    if plan is not None:
+        _check_plan(plan, rows.shape[0], num_rows, rows)
     if rows.device.type == "cpu":
         return dense_scatter_slots_reference(rows, nbr, num_rows)
-    return _launch_scatter(rows, nbr, num_rows, "dense_scatter_slots")
+    if plan is None:
+        raise ValueError(
+            f"dense_scatter_slots on {rows.device}: the CUDA kernel reads "
+            "nbr's plan (ScatterPlan), which the host builds beside nbr: "
+            "split GAT's samplers ship it with every dense layer past layer "
+            "0 (SplitLayer.scatter_plan; NativeSplitSampler and "
+            "SplitSampler with scatter_plans=True), and "
+            "slots_plan(nbr.cpu(), num_rows) builds one")
+    return _launch_slots(rows, plan, num_rows)
 
 
 dense_scatter_slots.launches = 0

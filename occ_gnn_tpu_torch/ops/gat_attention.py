@@ -42,8 +42,9 @@ in flight while it computes:
   one partial of ``dwl`` a block (summed here in a fixed order) and, when
   ``x`` takes a gradient, each valid slot's row of ``dx`` into an f32
   ``[K * D, H]`` workspace, which ``dense_scatter_slots`` sums into
-  ``dx`` in slot order (padding slots' rows are neither written nor
-  read).
+  ``dx`` in slot order through ``nbr``'s plan, the ``plan`` argument of
+  ``gat_attention`` that the samplers ship with the batch (padding slots'
+  rows are neither written nor read).
 
 The host plans each launch (``attention_plan``) and owns the staged
 kernels' shared-memory layout (``layout``), which it passes to them: the
@@ -88,7 +89,10 @@ from torch.nn import functional as F
 
 from occ_gnn_tpu_torch.models.gat import NEGATIVE_SLOPE
 from occ_gnn_tpu_torch.ops.build import check_launch, load_kernel
-from occ_gnn_tpu_torch.ops.dense_gather_sum import dense_scatter_slots
+from occ_gnn_tpu_torch.ops.dense_gather_sum import (
+    ScatterPlan,
+    dense_scatter_slots,
+)
 
 _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_float)
@@ -561,14 +565,16 @@ class _Projection(torch.autograd.Function):
 
 class _GatAttention(torch.autograd.Function):
     """``(m, s, agg)``, ``m`` not differentiable. Saves ``x``, ``nbr``,
-    ``wl``, ``er`` and ``m``, never the leaves; the backward recomputes
-    the scores and, when ``x`` takes a gradient, sums the slots' rows
-    into ``dx`` with ``dense_scatter_slots``."""
+    ``wl``, ``er`` and ``m``, never the leaves, and keeps ``nbr``'s
+    ``plan``; the backward recomputes the scores and, when ``x`` takes a
+    gradient, sums the slots' rows into ``dx`` with
+    ``dense_scatter_slots`` through the plan."""
 
     @staticmethod
-    def forward(ctx, x, nbr, wl, er):
+    def forward(ctx, x, nbr, wl, er, plan):
         m, s, agg = gat_attention_fwd(x, nbr, wl, er)
         ctx.save_for_backward(x, nbr, wl, er, m)
+        ctx.plan = plan
         ctx.mark_non_differentiable(m)
         return m, s, agg
 
@@ -581,8 +587,9 @@ class _GatAttention(torch.autograd.Function):
                                           dagg.contiguous(), need_dx)
         dx = None
         if need_dx:
-            dx = dense_scatter_slots(dxg, nbr, x.shape[0]).to(x.dtype)
-        return dx, None, dwl, der
+            dx = dense_scatter_slots(dxg, nbr, x.shape[0],
+                                     ctx.plan).to(x.dtype)
+        return dx, None, dwl, der, None
 
 
 def _check(x, nbr, wl, w3, er) -> None:
@@ -611,17 +618,20 @@ def _check(x, nbr, wl, w3, er) -> None:
 
 
 def gat_attention(x: torch.Tensor, nbr: torch.Tensor, wl: torch.Tensor,
-                  w3: torch.Tensor, er: torch.Tensor):
+                  w3: torch.Tensor, er: torch.Tensor,
+                  plan: ScatterPlan | None = None):
     """GAT's local softmax partials through the dense neighbour matrix:
     f32 ``(m [D, heads], s [D, heads], v [D, heads, Dh])`` for an f32 or
     bf16 frame ``x [S, H]`` (its row ``S - 1`` the zero row padding slots
     name), int32 ``nbr [K, D]``, f32 ``wl [H, heads]``, ``w3 [H, heads,
     Dh]`` and ``er [D, heads]``. Differentiable in ``x``, ``wl``, ``w3``
-    and ``er``; ``m`` is not.
+    and ``er``; ``m`` is not. ``plan`` is ``nbr``'s ``ScatterPlan``
+    (``ops.dense_gather_sum``), which the gradient to ``x`` needs on the
+    card.
 
     Every ``nbr`` entry must be a row of ``x``; on the card one out of
     range stops the kernel with a device-side assert (JAX clamps it)."""
     wl, er = wl.contiguous(), er.contiguous()
     _check(x, nbr, wl, w3, er)
-    m, s, agg = _GatAttention.apply(x, nbr, wl, er)
+    m, s, agg = _GatAttention.apply(x, nbr, wl, er, plan)
     return m, s, _Projection.apply(agg, w3)

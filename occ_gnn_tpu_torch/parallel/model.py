@@ -75,6 +75,7 @@ from occ_gnn_tpu_torch.ops.config import (
     gat_remat_impl,
     gat_tile,
 )
+from occ_gnn_tpu_torch.ops.dense_gather_sum import ScatterPlan
 from occ_gnn_tpu_torch.ops.gat_attention import (
     attention_pre,
     attention_scores,
@@ -186,6 +187,11 @@ def _indices(lyrs: list[SplitLayer]):
 class SplitSAGE(nn.Module):
     """Split-parallel GraphSAGE: h_v = W.concat(x_v, mean_{N(v)+v} x_u) + b."""
 
+    # Whether a training batch must carry each dense layer's ScatterPlan
+    # past layer 0 (the samplers' ``scatter_plans``): SAGE's backward
+    # reads none, so its arena stays as JAX's.
+    needs_scatter_plans = False
+
     def __init__(self, in_dim: int, hidden: int, num_classes: int,
                  num_layers: int, dropout: float = 0.0,
                  dtype: torch.dtype = torch.float32,
@@ -281,7 +287,8 @@ class SplitGCN(SplitSAGE):
 
 
 def dense_attention(x: torch.Tensor, nbr: torch.Tensor, wl: torch.Tensor,
-                    w3: torch.Tensor, er_frame: torch.Tensor):
+                    w3: torch.Tensor, er_frame: torch.Tensor,
+                    plan: ScatterPlan | None = None):
     """GAT's local streaming-softmax partials through the dense ``[K, D]``
     neighbour matrix, in the batched two-pass form of the JAX package
     (``parallel/model.py:294-363``, its default): score each leaf row of
@@ -293,7 +300,9 @@ def dense_attention(x: torch.Tensor, nbr: torch.Tensor, wl: torch.Tensor,
     leaves are gathered whole and the weighted sum is an unrolled K-loop
     of broadcast multiply-adds in torch ops (JAX ``:345-357``). Above
     ``OCC_GAT_RESID_WARN_GB`` of residuals, as JAX estimates them for its
-    gathered leaves, it warns, once a shape.
+    gathered leaves, it warns, once a shape. ``plan`` is ``nbr``'s
+    ``ScatterPlan``, which the kernels' gradient to ``x`` reads on the
+    card (the batch's ``SplitLayer.scatter_plan``).
 
     Padding slots read the frame's reserved zero row ``x.shape[0] - 1`` and
     are masked to -inf before the exp, so no inf reaches the backward. The
@@ -306,7 +315,7 @@ def dense_attention(x: torch.Tensor, nbr: torch.Tensor, wl: torch.Tensor,
         K, D = nbr.shape
         _warn_residuals(K, D, x, wl.shape[1])
         if gat_agg_impl() != "fma":
-            return gat_attention(x, nbr, wl, w3, er_frame)
+            return gat_attention(x, nbr, wl, w3, er_frame, plan)
         xg, pw, m_loc = attention_scores(x, nbr, wl, er_frame)
         agg = pw[0][..., None] * xg[0][:, None, :]
         for kk in range(1, K):
@@ -455,6 +464,10 @@ class SplitGAT(nn.Module):
     (``checkpoint_dots``); the shuffles are not, so a step runs the same
     exchanges with or without it."""
 
+    # The attention kernels' gradient to x sums a row a slot through the
+    # batch's ScatterPlan, which the samplers build on the host.
+    needs_scatter_plans = True
+
     def __init__(self, in_dim: int, hidden: int, num_classes: int,
                  num_layers: int, num_heads: int = 4,
                  generator: torch.Generator | None = None):
@@ -506,8 +519,11 @@ class SplitGAT(nn.Module):
 
             def attend(x, w, attn_l, wl, w3, er_frame, lyr=lyr):
                 if lyr.nbr_idx is not None:
-                    return ATTENTION[gat_attention_impl()](
-                        x, lyr.nbr_idx, wl, w3, er_frame)
+                    impl = gat_attention_impl()
+                    if impl == "batched":  # its kernels read the plan
+                        return dense_attention(x, lyr.nbr_idx, wl, w3,
+                                               er_frame, lyr.scatter_plan)
+                    return ATTENTION[impl](x, lyr.nbr_idx, wl, w3, er_frame)
                 feat = (x.float() @ w).reshape(-1, k, d_out)
                 return coo_attention(feat, attn_l, lyr.edge_src,
                                      lyr.edge_dst, er_frame)

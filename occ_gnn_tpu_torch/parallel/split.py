@@ -17,6 +17,12 @@ batch's leading axis is L (this process's rows), and the P-slot axes of
                        feature
   nbr_idx[L, K_cap, D_cap] dense neighbour matrix; padding points at the
                        frame's reserved zero row ``src_cap - 1``
+  plan_offsets[L, src_cap], plan_slots[L, K_cap * D_cap],
+  plan_long[L, long_capacity(K_cap * D_cap)], plan_num_long[L]
+                       nbr_idx's transpose (``ops.dense_gather_sum.
+                       ScatterPlan``), which the per-slot scatter of
+                       split GAT's backward reads; only on split GAT's
+                       training batches, and only past layer 0
 
 The owned output rows of layer l are layer l+1's input frame rows, so
 layers chain with no gather. Each partition aggregates partial sums and
@@ -70,7 +76,10 @@ import torch.distributed as dist
 from torch.profiler import record_function
 
 from occ_gnn_tpu_torch.ops.config import dense_agg_impl, device_sample_impl
-from occ_gnn_tpu_torch.ops.dense_gather_sum import dense_gather_sum
+from occ_gnn_tpu_torch.ops.dense_gather_sum import (
+    ScatterPlan,
+    dense_gather_sum,
+)
 from occ_gnn_tpu_torch.ops.segment_sum_sorted import gather_segment_sum
 
 # Dst rows a tile of the ``tiled`` dense aggregation (JAX ``_DENSE_TILE``).
@@ -82,7 +91,8 @@ WINDOW_PAD = 1024
 
 _TENSOR_FIELDS = ("edge_src", "edge_dst", "push_idx", "recv_idx",
                   "owned_idx", "owned_deg", "self_idx", "owned_mask",
-                  "num_owned", "nbr_idx", "dst_global")
+                  "num_owned", "nbr_idx", "plan_offsets", "plan_slots",
+                  "plan_long", "plan_num_long", "dst_global")
 
 
 @dataclasses.dataclass
@@ -102,11 +112,25 @@ class SplitLayer:
     owned_mask: torch.Tensor | None = None  # bool[P, O_cap]
     num_owned: torch.Tensor | None = None  # i32[P]
     nbr_idx: torch.Tensor | None = None    # i32[P, K_cap, D_cap]
+    # nbr_idx's ScatterPlan, when the sampler was asked for one.
+    plan_offsets: torch.Tensor | None = None   # i32[P, src_cap]
+    plan_slots: torch.Tensor | None = None     # i32[P, K_cap * D_cap]
+    plan_long: torch.Tensor | None = None      # i32[P, long_capacity]
+    plan_num_long: torch.Tensor | None = None  # i32[P]
     dst_global: torch.Tensor | None = None  # i32[P, D_cap], pad=-1
     src_cap: int = 0
     dst_cap: int = 0
     out_cap: int = 0
     fanout: int = 0
+
+    @property
+    def scatter_plan(self) -> ScatterPlan | None:
+        """The plan of one partition's layer (``partition(p)``), or None
+        when the batch carries none."""
+        if self.plan_offsets is None:
+            return None
+        return ScatterPlan(self.plan_offsets, self.plan_slots,
+                           self.plan_long, self.plan_num_long)
 
     @property
     def device_sampled(self) -> bool:

@@ -2,9 +2,17 @@
 
 ``NativeSplitSampler`` is a drop-in for the numpy ``SplitSampler``: the
 same constructor surface and the same ``SplitBatch``, but sampling and
-slicing run in C++ worker threads (``csrc/occ_sampler.cpp``, a verbatim
-copy of the JAX package's service) that pipeline ahead of the training
-loop. The library is built with ``g++`` at first use (``ops.build``).
+slicing run in C++ worker threads (``csrc/occ_sampler.cpp``, a copy of
+the JAX package's service) that pipeline ahead of the training loop. The
+library is built with ``g++`` at first use (``ops.build``).
+
+Scatter plans. With ``scatter_plans=True`` (split GAT's training) the
+service also writes, beside every dense matrix past layer 0, its
+transpose: the ``ScatterPlan`` of ``ops/dense_gather_sum.py`` that the
+per-slot scatter of split GAT's backward reads, as four fields after
+``nbr`` (``SplitLayer.plan_offsets``, ``plan_slots``, ``plan_long``,
+``plan_num_long``). The JAX package's service has no such output; every
+other field stays as JAX's.
 
 Packed transfer: the service writes every field of a sample into ONE
 int32 host arena, which crosses to the device in one non-blocking copy
@@ -45,6 +53,7 @@ import torch
 
 from occ_gnn_tpu_torch.data.graph import Graph
 from occ_gnn_tpu_torch.ops.build import load_sampler
+from occ_gnn_tpu_torch.ops.dense_gather_sum import SPAN, long_capacity
 from occ_gnn_tpu_torch.parallel.split import SplitBatch, SplitLayer
 from occ_gnn_tpu_torch.sampling.slicer import (
     default_deg_caps,
@@ -94,6 +103,7 @@ def load_library() -> ctypes.CDLL:
         ctypes.c_int32,  # feat_bf16
         ctypes.c_int32,  # replicated (identity cache frames)
         ctypes.c_int32,  # device_innermost (emit dst_global only for l0)
+        ctypes.c_int32,  # plan_span (ScatterPlan fields past layer 0; 0: none)
     ]
     lib.occ_submit.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                                ctypes.c_int64, ctypes.c_int64]
@@ -201,12 +211,15 @@ class NativeSplitSampler:
         innermost: str = "host",
         emit_range: tuple[int, int] | None = None,
         packed: bool = True,
+        scatter_plans: bool = False,
         *,
         device: torch.device | str,
     ):
         """``emit_range=(lo, hi)`` emits only partitions ``[lo, hi)``
         (this process's rows); None emits all P. ``packed=False`` moves
-        each field to the device in its own copy instead of one arena."""
+        each field to the device in its own copy instead of one arena.
+        ``scatter_plans`` ships each dense layer past layer 0 with its
+        ``ScatterPlan`` (split GAT's training asks for it)."""
         self.graph = graph
         self.device = torch.device(device)
         self.train_nodes = np.asarray(train_nodes, dtype=np.int64)
@@ -219,6 +232,7 @@ class NativeSplitSampler:
         self.P_emit = self.emit_hi - self.emit_lo
         self.fanouts = list(fanouts)
         self.batch_size = batch_size
+        self.scatter_plans = scatter_plans
         self.caps = capacities or plan_split_capacities(
             batch_size, self.fanouts, graph.num_nodes, num_partitions,
             num_edges=graph.num_edges,
@@ -385,6 +399,7 @@ class NativeSplitSampler:
             self._feat_bf16,
             1 if self.replicated else 0,
             1 if self.device_innermost else 0,
+            SPAN if scatter_plans else 0,
         )
         self._lib = lib
         self._closed = False
@@ -510,6 +525,12 @@ class NativeSplitSampler:
             add("num_owned", l, (PE,), "i32")
             if deg_caps[l] > 0:
                 add("nbr", l, (PE, deg_caps[l], caps["dst_caps"][l]), "i32")
+            if self.scatter_plans and l > 0 and deg_caps[l] > 0:
+                slots = deg_caps[l] * caps["dst_caps"][l]
+                add("plan_offsets", l, (PE, caps["frame_caps"][l]), "i32")
+                add("plan_slots", l, (PE, slots), "i32")
+                add("plan_long", l, (PE, long_capacity(slots)), "i32")
+                add("plan_num_long", l, (PE,), "i32")
         if self.emit_input:
             add("input_nodes", None, (PE, caps["frame_caps"][0]), "i32")
         add("targets", None, (PE, caps["out_caps"][-1]), "i32")
@@ -569,6 +590,10 @@ class NativeSplitSampler:
                 owned_mask=field("owned_mask", l),
                 num_owned=field("num_owned", l),
                 nbr_idx=field("nbr", l),
+                plan_offsets=field("plan_offsets", l),
+                plan_slots=field("plan_slots", l),
+                plan_long=field("plan_long", l),
+                plan_num_long=field("plan_num_long", l),
                 src_cap=(src_cap0 if l == 0 else caps["frame_caps"][l]),
                 dst_cap=caps["dst_caps"][l],
                 out_cap=caps["out_caps"][l],

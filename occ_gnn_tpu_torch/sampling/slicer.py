@@ -46,6 +46,7 @@ import torch
 
 from occ_gnn_tpu_torch.data.graph import Graph
 from occ_gnn_tpu_torch.ops.blocks import pad_to
+from occ_gnn_tpu_torch.ops.dense_gather_sum import slots_plan
 from occ_gnn_tpu_torch.parallel.split import SplitBatch, SplitLayer
 from occ_gnn_tpu_torch.sampling.neighbor import (
     dedup_first_occurrence,
@@ -148,6 +149,7 @@ class SplitSampler:
         cache=None,
         replace: bool = True,
         emit_range: tuple[int, int] | None = None,
+        scatter_plans: bool = False,
         *,
         device: torch.device | str,
     ):
@@ -157,7 +159,9 @@ class SplitSampler:
         reference sampler.py:93-123) execute there with no shuffle, others
         route to the src owner — and edge_src indexes the cache frame.
         Batches are delivered as tensors on ``device``, holding partitions
-        ``emit_range = (lo, hi)`` (by default all P)."""
+        ``emit_range = (lo, hi)`` (by default all P). ``scatter_plans``
+        ships each dense layer past layer 0 with its ``ScatterPlan``, from
+        its plain version (split GAT's training asks for it)."""
         self.graph = graph
         self.device = torch.device(device)
         self.train_nodes = np.asarray(train_nodes, dtype=np.int64)
@@ -182,6 +186,7 @@ class SplitSampler:
         self.replace = replace
         self.cache = cache
         self.cache_plan = getattr(cache, "plan", cache)
+        self.scatter_plans = scatter_plans
 
     def __iter__(self):
         order = self.rng.permutation(self.train_nodes.shape[0])
@@ -436,6 +441,11 @@ class SplitSampler:
             num_owned[p] = n_own
 
         dev = self._to_device
+        plan = [None] * 4
+        if self.scatter_plans and l > 0 and nbr_idx is not None:
+            parts = [slots_plan(torch.from_numpy(nbr_idx[p]), F_cap)
+                     for p in range(self.emit_lo, self.emit_hi)]
+            plan = [torch.stack(f).to(self.device) for f in zip(*parts)]
         return SplitLayer(
             edge_src=dev(edge_src),
             edge_dst=dev(edge_dst),
@@ -447,6 +457,10 @@ class SplitSampler:
             owned_mask=dev(owned_mask),
             num_owned=dev(num_owned),
             nbr_idx=dev(nbr_idx),
+            plan_offsets=plan[0],
+            plan_slots=plan[1],
+            plan_long=plan[2],
+            plan_num_long=plan[3],
             src_cap=F_cap,
             dst_cap=D_cap,
             out_cap=O_cap,

@@ -597,7 +597,13 @@ def train_split(args, g, fanouts, timers, device: torch.device | None = None,
         csr = make_device_csr(g, device)
         print("innermost layer: device-sampled from resident CSR")
 
-    def build_sampler(caps, nodes=None, seed=None):
+    model = _make_split_model(args, g)
+
+    # The model says whether its backward reads each dense layer's plan,
+    # which the sampler builds on the host beside the matrix; the
+    # evaluation takes no gradient, so its sampler builds none.
+    def build_sampler(caps, nodes=None, seed=None,
+                      plans=model.needs_scatter_plans):
         nodes = _train_nodes(args, g) if nodes is None else nodes
         seed = args.seed if seed is None else seed
         if args.sampler == "native":
@@ -608,15 +614,16 @@ def train_split(args, g, fanouts, timers, device: torch.device | None = None,
                 capacities=caps, seed=seed, cache=cache,
                 num_workers=args.num_workers,
                 replace=not args.sample_without_replacement,
-                innermost=innermost, emit_range=emit, device=device,
+                innermost=innermost, emit_range=emit, scatter_plans=plans,
+                device=device,
             )
         return SplitSampler(g, nodes, pmap, P, fanouts, args.batch_size,
                             capacities=caps, seed=seed, cache=cache,
                             replace=not args.sample_without_replacement,
-                            emit_range=emit, device=device)
+                            emit_range=emit, scatter_plans=plans,
+                            device=device)
 
     sampler = build_sampler(caps)
-    model = _make_split_model(args, g)
     if init_state is not None:
         model.load_state_dict(init_state)
     model = model.to(device)
@@ -738,7 +745,8 @@ def train_split(args, g, fanouts, timers, device: torch.device | None = None,
         for split_name, mask in (("val", g.val_mask), ("test", g.test_mask)):
             nodes = np.nonzero(mask)[0]
             # Same sampler backend and seeds as the JAX trainer's eval.
-            ev = build_sampler(caps, nodes=nodes, seed=args.seed + 7)
+            ev = build_sampler(caps, nodes=nodes, seed=args.seed + 7,
+                               plans=False)
             correct = total = 0
             for batch in ev:
                 xs = cache.frames if cache is not None else _gather_xs(

@@ -22,16 +22,22 @@ and its index work must be is held here against the plain versions of
   to the plain version, on frames whose last row is not zero too.
 """
 
+import ctypes
+import inspect
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
 from occ_gnn_tpu_torch.ops import dense_gather_sum as dgs
+from occ_gnn_tpu_torch.sampling import native
 from test_torch_dense_gather import CASES, _case
 
 OP_TOL = 1e-5
 ZERO_COLS, ZERO_FAN = 8, 16  # kZeroCols and kZeroFan in the source
-SPAN, WARPS = 256, 8  # kSpan and kWarps in the source
+SPAN, WARPS = dgs.SPAN, 8  # kSpan and kWarps in the source
 SLOT_CASES = [c for c in CASES if c[2] > 0]
 
 
@@ -58,6 +64,8 @@ def _transpose(nbr, S):
 
 
 def _check_plan(nbr, S):
+    """The backward's plan and the per-slot scatter's (``slots_plan``, the
+    format the samplers ship) against the numpy transpose."""
     counts, offsets, slots, pad = dgs.dense_scatter_plan(
         torch.from_numpy(nbr), S)
     rows, want_pad = _transpose(nbr, S)
@@ -67,6 +75,18 @@ def _check_plan(nbr, S):
     for s, want in enumerate(rows):
         assert slots[offsets[s]:offsets[s + 1]].tolist() == want
     assert pad.tolist() == want_pad.tolist()
+    plan = dgs.slots_plan(torch.from_numpy(nbr), S)
+    assert all(t.dtype == torch.int32 for t in plan)
+    assert plan.offsets.tolist() == offsets.tolist()
+    valid = int(offsets[-1])
+    assert plan.slots.shape == (nbr.size,)
+    assert plan.slots[:valid].tolist() == slots.tolist()
+    assert (plan.slots[valid:] == -1).all()
+    longs = [s for s, r in enumerate(rows) if len(r) > SPAN]
+    assert plan.long_rows.shape == (nbr.size // (SPAN + 1) + 1,)
+    assert int(plan.num_long) == len(longs)
+    assert plan.long_rows[:len(longs)].tolist() == longs
+    assert (plan.long_rows[len(longs):] == -1).all()
     return counts
 
 
@@ -76,10 +96,14 @@ def test_plan_is_the_transpose_in_slot_order(S, K, D, H):
     _check_plan(nbr, S)
 
 
-def test_plan_of_a_hot_row():
-    S, _, nbr = _hot_row_case()
+@pytest.mark.parametrize("n", [200, 700])
+def test_plan_of_a_hot_row(n):
+    """Row 7 of n slots: listed as a long row from SPAN + 1 slots on."""
+    S, _, nbr = _hot_row_case(n, K=20, D=80)
     counts = _check_plan(nbr, S)
-    assert counts[7] >= 200
+    assert counts[7] >= n
+    assert (int(dgs.slots_plan(torch.from_numpy(nbr), S).num_long) == 1) \
+        == (n > SPAN)
 
 
 def _model_backward(g, nbr, S, fill=None):
@@ -180,6 +204,28 @@ def test_slot_order_model_on_a_row_past_the_span(n):
                                atol=OP_TOL * float(np.abs(plain).max()))
     fill = np.random.default_rng(19).permutation(K * D)
     np.testing.assert_array_equal(_model_backward(g, nbr, S, fill), model)
+
+
+def test_the_models_constants_are_the_sources():
+    """The constants the models above take from the kernel's source, and
+    the long-row threshold's one owner: the cooperative backward sorts
+    runs of kSpan = SPAN slots, while the per-slot kernel and the C++
+    sampling service hold no threshold of their own and take SPAN as an
+    argument (the wrapper's and ``NativeSplitSampler``'s)."""
+    root = Path(dgs.__file__).resolve().parent.parent
+    kernel = (root / "csrc" / "dense_gather_sum.cu").read_text()
+    for name, value in (("kSpan", SPAN), ("kZeroCols", ZERO_COLS),
+                        ("kZeroFan", ZERO_FAN), ("kThreads", 32 * WARPS)):
+        assert re.search(rf"constexpr int {name} = {value};", kernel), name
+    body = re.search(r"scatter_slots\(const Acc\*.*?\n}\n", kernel,
+                     re.S).group(0)
+    assert "kSpan" not in body and "n > span" in body
+    assert dgs.ARGTYPES["dense_scatter_slots"][8] is ctypes.c_int  # span
+    assert "SPAN, num_rows" in inspect.getsource(dgs._launch_slots)
+    sampler = (root / "csrc" / "occ_sampler.cpp").read_text()
+    assert "kSpan" not in sampler and "int32_t plan_span)" in sampler
+    assert "SPAN if scatter_plans else 0" in inspect.getsource(
+        native.NativeSplitSampler.__init__)
 
 
 def _bf16_bytes(S, H, seed):

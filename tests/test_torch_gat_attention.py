@@ -275,10 +275,13 @@ def test_backward_reference_equals_autograd_of_the_plain_version():
             assert not dxg[pad].any()
 
 
-def test_per_slot_plan_sums_each_rows_slots_in_slot_order():
+@pytest.mark.parametrize("with_plan", [False, True],
+                         ids=["no plan", "plan"])
+def test_per_slot_plan_sums_each_rows_slots_in_slot_order(with_plan):
     """``dense_scatter_slots``: the plan's lists (``dense_scatter_plan``)
     summed row by row in slot order, against ``index_add_``; the zero row
-    is 0 whatever its padding slots' rows hold (they are not read)."""
+    is 0 whatever its padding slots' rows hold (they are not read). On
+    the CPU a plan (``slots_plan``) changes nothing."""
     S, K, D, H = 80, 7, 60, 5
     x, nbr, *_ = _case(S, K, D, H, 2, 3, seed=10)
     nbr[:, 10] = 3                               # a row of many slots
@@ -286,7 +289,8 @@ def test_per_slot_plan_sums_each_rows_slots_in_slot_order():
         (K * D, H)).astype(np.float32))
     nbr_t = torch.from_numpy(nbr)
     rows[torch.from_numpy(nbr.reshape(-1) == S - 1)] = float("nan")
-    got = dgs.dense_scatter_slots(rows, nbr_t, S)
+    plan = dgs.slots_plan(nbr_t, S) if with_plan else None
+    got = dgs.dense_scatter_slots(rows, nbr_t, S, plan)
     counts, offsets, slots, pad = dgs.dense_scatter_plan(nbr_t, S)
     want = torch.zeros(S, H)
     for r in range(S - 1):
@@ -300,6 +304,37 @@ def test_per_slot_plan_sums_each_rows_slots_in_slot_order():
     index_add[S - 1] = 0.0
     np.testing.assert_allclose(got.numpy(), index_add.numpy(), rtol=1e-6,
                                atol=1e-6)
+
+
+def test_scatter_slots_on_the_card_needs_the_plan():
+    """A call that is not on the CPU (meta tensors stand in for CUDA ones:
+    no GPU needed) without a plan raises, naming where the plan comes
+    from, and builds none; with a plan it reaches the device check."""
+    S, K, D, H = 60, 4, 12, 8
+    nbr = torch.from_numpy(_case(S, K, D, H, 2, 3)[1])
+    rows = torch.zeros(K * D, H, device="meta")
+    before = dgs.slots_plan.on_card
+    with pytest.raises(ValueError, match="plan.*slots_plan"):
+        dgs.dense_scatter_slots(rows, nbr.to("meta"), S)
+    assert dgs.slots_plan.on_card == before
+    plan = dgs.ScatterPlan(*(t.to("meta") for t in dgs.slots_plan(nbr, S)))
+    with pytest.raises(ValueError, match="runs on CUDA tensors"):
+        dgs.dense_scatter_slots(rows, nbr.to("meta"), S, plan)
+
+
+def test_scatter_slots_rejects_a_plan_of_other_shapes():
+    S, K, D, H = 60, 4, 12, 8
+    nbr = torch.from_numpy(_case(S, K, D, H, 2, 3)[1])
+    rows = torch.zeros(K * D, H)
+    plan = dgs.slots_plan(nbr, S)
+    with pytest.raises(ValueError, match="offsets"):
+        dgs.dense_scatter_slots(rows, nbr, S, dgs.slots_plan(nbr, S + 1))
+    with pytest.raises(ValueError, match="slots"):
+        dgs.dense_scatter_slots(rows, nbr, S, plan._replace(
+            slots=plan.slots.long()))
+    with pytest.raises(ValueError, match="num_long"):
+        dgs.dense_scatter_slots(rows, nbr, S, plan._replace(
+            num_long=plan.num_long.reshape(1)))
 
 
 def test_scatter_slots_rejects_mismatched_rows():

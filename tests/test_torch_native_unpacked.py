@@ -15,6 +15,7 @@ import torch
 
 from occ_gnn_tpu_torch.cache import CachePlan, SplitFeatureCache
 from occ_gnn_tpu_torch.data import partition_graph, random_graph
+from occ_gnn_tpu_torch.ops import dense_gather_sum as dgs
 from occ_gnn_tpu_torch.sampling.native import NativeSplitSampler
 
 GRAPH_KW = dict(num_nodes=500, avg_degree=6, feature_dim=16, num_classes=5,
@@ -29,6 +30,12 @@ CASES = {
     "device innermost": dict(P=1, pct=1.0, emit=None, innermost="device"),
     # No cache: the input ids travel (and the COO with them).
     "no cache": dict(P=2, pct=None, emit=None, innermost="host"),
+    # Split GAT's feed: the scatter plans past layer 0, host and device
+    # innermost.
+    "scatter plans, P = 2": dict(P=2, pct=0.25, emit=None, innermost="host",
+                                 plans=True),
+    "scatter plans, device innermost": dict(P=1, pct=1.0, emit=None,
+                                            innermost="device", plans=True),
 }
 
 
@@ -54,7 +61,7 @@ def _run(g, pmap, case, packed):
         g, g.train_nodes(), pmap, case["P"], [4, 3], 32, seed=3,
         cache=cache, num_workers=2, innermost=case["innermost"],
         emit_range=case["emit"], emit_coo=case["pct"] is None,
-        packed=packed, device="cpu")
+        packed=packed, scatter_plans=case.get("plans", False), device="cpu")
     batches = [b for _ in range(2) for b in sampler]
     sampler.close()
     return batches, (tails if cache is not None else None)
@@ -74,7 +81,13 @@ def test_unpacked_equals_packed_over_two_epochs(name):
         for la, lb in zip(a.layers, b.layers):
             for f in dataclasses.fields(la):
                 x, y = getattr(la, f.name), getattr(lb, f.name)
-                if isinstance(x, torch.Tensor):
+                if f.name == "plan_slots" and x is not None:
+                    # Each partition's lists; the tail of slots is unread.
+                    assert x.shape == y.shape
+                    assert all(dgs.plans_equal(la.partition(p).scatter_plan,
+                                               lb.partition(p).scatter_plan)
+                               for p in range(x.shape[0]))
+                elif isinstance(x, torch.Tensor):
                     assert x.dtype == y.dtype and x.shape == y.shape, f.name
                     assert torch.equal(x, y), f.name
                 else:
@@ -88,6 +101,8 @@ def test_unpacked_equals_packed_over_two_epochs(name):
             np.testing.assert_array_equal(a.input_nodes_host,
                                           b.input_nodes_host)
     assert (case["innermost"] == "device") == packed[0].layers[0].device_sampled
+    assert (packed[0].layers[1].plan_slots is not None) == case.get("plans",
+                                                                    False)
     if case["pct"] == 0.25:
         assert len(ptails) == len(utails) == len(packed)
         assert sum(t.shape[0] for tail in ptails for t in tail) > 0

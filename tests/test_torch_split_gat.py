@@ -90,6 +90,8 @@ OP_TOL = dict(rtol=1e-6, atol=1e-6)
 # mantissa bits before the products, in both packages.
 BF16_TOL = dict(rtol=1e-3, atol=1e-3)
 SHUFFLE_DH = 3
+# The port's samplers ship the plans that SplitGAT's backward reads.
+PLANS = SplitGAT.needs_scatter_plans
 
 
 def _jax_model():
@@ -164,7 +166,7 @@ def p1(small_graph):
     js = JaxSplitSampler(small_graph, small_graph.train_nodes(), pmap, 1,
                          FANOUTS, BATCH, seed=3)
     ts = SplitSampler(tg, tg.train_nodes(), pmap, 1, FANOUTS, BATCH, seed=3,
-                      device="cpu")
+                      scatter_plans=PLANS, device="cpu")
     return tg, js, ts
 
 
@@ -205,7 +207,8 @@ def test_device_synthesized_layer0_matches_jax(small_graph):
     tplan = CachePlan(tg, pmap, 1, 1.0, refresh_cap=8)
     tnat = NativeSplitSampler(tg, tg.train_nodes(), pmap, 1, fanouts, BATCH,
                               seed=3, cache=tplan, num_workers=1,
-                              innermost="device", device="cpu")
+                              innermost="device", scatter_plans=PLANS,
+                              device="cpu")
     nodes = tg.train_nodes()[:BATCH]
     jb, tb = jnat.sample_batch(nodes), tnat.sample_batch(nodes)
     jnat.close()
@@ -314,10 +317,11 @@ def port4(setup):
     sample, in this process."""
     tg = random_graph(**GRAPH_KW)
     s4 = SplitSampler(tg, tg.train_nodes(), setup["pmap"], P, FANOUTS, BATCH,
-                      seed=SEED, device="cpu")
+                      seed=SEED, scatter_plans=PLANS, device="cpu")
     raw = s4._sample_raw(tg.train_nodes()[:BATCH])
     s1 = SplitSampler(tg, tg.train_nodes(), np.zeros(tg.num_nodes, np.int32),
-                      1, FANOUTS, BATCH, seed=SEED, device="cpu")
+                      1, FANOUTS, BATCH, seed=SEED, scatter_plans=PLANS,
+                      device="cpu")
     return tg, raw, s4.slice_raw(raw), s1.slice_raw(raw), s1.caps
 
 

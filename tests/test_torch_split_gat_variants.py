@@ -31,6 +31,7 @@ from occ_gnn_tpu.parallel.split import make_mesh
 from occ_gnn_tpu.sampling.slicer import SplitSampler as JaxSplitSampler
 from occ_gnn_tpu_torch.data import random_graph
 from occ_gnn_tpu_torch.ops import config as tcfg
+from occ_gnn_tpu_torch.ops import gat_attention as ga
 from occ_gnn_tpu_torch.parallel import model as tmodel
 from occ_gnn_tpu_torch.parallel.model import make_split_forward
 from occ_gnn_tpu_torch.sampling.slicer import SplitSampler
@@ -90,9 +91,12 @@ def p1(small_graph):
     pmap = np.zeros(tg.num_nodes, np.int32)
     jb = next(iter(JaxSplitSampler(small_graph, small_graph.train_nodes(),
                                    pmap, 1, FANOUTS, BATCH, seed=3)))
+    plans = tmodel.SplitGAT.needs_scatter_plans
     tb = next(iter(SplitSampler(tg, tg.train_nodes(), pmap, 1, FANOUTS,
-                                BATCH, seed=3, device="cpu")))
+                                BATCH, seed=3, scatter_plans=plans,
+                                device="cpu")))
     assert all(l.nbr_idx is not None for l in tb.layers)
+    assert all(l.scatter_plan is not None for l in tb.layers[1:])
     return tg, jb, tb, _jax_xs(small_graph, jb), _torch_xs(tg, tb)
 
 
@@ -155,6 +159,30 @@ def test_remat_dots_gradients_equal_no_remat(p1, params, monkeypatch,
     for name in grads_n:
         np.testing.assert_allclose(grads_d[name], grads_n[name],
                                    err_msg=name, **REMAT_TOL)
+
+
+@pytest.mark.parametrize("remat", ["none", "dots"])
+def test_backward_scatters_through_the_batch_plan(p1, params, monkeypatch,
+                                                  remat):
+    """The batched form's gradient to each layer's frame past layer 0 goes
+    through the per-slot scatter with that layer's plan, under the
+    selective checkpoint too."""
+    _, _, tb, _, txs = p1
+    layers = [l.partition(0) for l in tb.layers]
+    plans = {l.nbr_idx.data_ptr(): l.scatter_plan for l in layers[1:]}
+    assert len(plans) == len(FANOUTS) - 1
+    seen = []
+    real = ga.dense_scatter_slots
+
+    def scatter(rows, nbr, num_rows, plan=None):
+        want = plans[nbr.data_ptr()]
+        seen.append(all(a is b for a, b in zip(plan, want)))
+        return real(rows, nbr, num_rows, plan)
+
+    monkeypatch.setattr(ga, "dense_scatter_slots", scatter)
+    with _lowering(remat=remat):
+        _port_loss_grads(_port_model(params), tb, txs, layers)
+    assert seen == [True] * (len(FANOUTS) - 1)
 
 
 def test_residual_warning_once_a_shape(p1, params, monkeypatch):

@@ -68,7 +68,8 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def _sampler(ranks, setup):
-    """The graph, and a sampler that emits this rank's rows."""
+    """The graph, and a sampler that emits this rank's rows (with the
+    scatter plans that split GAT's backward reads)."""
     from occ_gnn_tpu_torch.data import random_graph
     from occ_gnn_tpu_torch.sampling.slicer import SplitSampler
 
@@ -76,7 +77,7 @@ def _sampler(ranks, setup):
     sampler = SplitSampler(
         g, g.train_nodes(), setup["pmap"], ranks.num_partitions,
         setup["fanouts"], setup["batch"], seed=setup["seed"], device="cpu",
-        emit_range=dist.local_partition_range(ranks))
+        emit_range=dist.local_partition_range(ranks), scatter_plans=True)
     return g, sampler
 
 

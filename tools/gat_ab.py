@@ -7,6 +7,7 @@ in turns.
     python3 tools/gat_ab.py cases ROOT --label L
     python3 tools/gat_ab.py step ROOT --label L --out DIR
     python3 tools/gat_ab.py routes
+    python3 tools/gat_ab.py host
 
 ``inputs`` builds the products-scale graph of ``chip_smoke.py`` (saved
 under ROOT) and the main path's dense neighbour matrices
@@ -23,12 +24,24 @@ split GAT A (``chip_smoke.GAT_A_FLAGS``: hidden 32, 4 heads, replicated
 cache, layer 0 synthesized on the card, 8 steps, the fifth profiled)
 through its own ``train_split``, and prints one JSON line: the medians of
 steps 2-8 of ``train_step`` and of the step wall (one step's launch to
-the next's), the peak device memory, the launches by kernel, and the
-profiled step's kernels, device busy, window, idle share and the
+the next's), the host's side beside them (the C++ service's
+``cxx_sample`` and ``cxx_slice`` ms a batch, and the medians of steps 2-8
+of the ``sample`` phase), the peak device memory, the launches by kernel,
+and the profiled step's kernels, device busy, window, idle share and the
 attention's named ranges. ``run`` does ``inputs`` once, then ``cases``
 and ``step`` in turns (``tools/ab_turns.py``: parent, change, change,
 parent, the change being the checkout this script lies in), and prints
 both sides' lines.
+
+``host``, in this checkout alone, measures what the scatter plans cost
+the host in steady state: split GAT A's C++ sampler (the products-scale
+graph, replicated cache, layer 0 on the card, the planned capacities of
+``chip_smoke.check_synthesized_layer``) without and with
+``scatter_plans``, in turns (off, on, on, off), each for HOST_BATCHES
+batches: the workers' ``cxx_slice`` and ``cxx_sample`` ms a batch and
+the median and 90th percentile of the main thread's ``next()`` (the
+trainer's ``sample`` phase), all after HOST_WARM batches, when the
+service's pooled buffers have been touched once; one JSON line a turn.
 
 ``routes``, in this checkout alone, first holds the attention kernels to
 their plain versions at every one of the smoke's ragged cases
@@ -50,6 +63,7 @@ import json
 import os
 import statistics
 import sys
+import time
 from pathlib import Path
 
 from ab_turns import CHANGE, call, in_turns, print_tagged
@@ -133,10 +147,14 @@ def run_step(root: str, label: str, out: str) -> None:
     prof = metrics["profile"]
     named = {k: v["device_ms"] for k, v in prof["named_ms"].items()
              if "gat" in k.lower() or "Gat" in k}
+    phases = metrics["phases"]
     print("STEP " + json.dumps({
         "label": label, "steps": metrics["steps"], "loss": metrics["loss"],
         "train_step_ms": statistics.median(timers.each["train_step"][1:]),
         "step_wall_ms": statistics.median(walls),
+        "sample_ms": statistics.median(timers.each["sample"][1:]),
+        "cxx_sample_ms": 1e3 * phases["cxx_sample"],
+        "cxx_slice_ms": 1e3 * phases["cxx_slice"],
         "peak_gib": peak, "launches": launches,
         "kernels": prof["device_kernels"], "busy_ms": prof["device_busy_ms"],
         "window_ms": prof["window_ms"], "idle": prof["device_idle_share"],
@@ -234,6 +252,63 @@ def run_routes() -> None:
             print("ROUTE " + json.dumps(row), flush=True)
 
 
+HOST_BATCHES, HOST_WARM = 64, 16
+
+
+def run_host() -> None:
+    """In this checkout: the plans' host cost, in turns."""
+    sys.path.insert(0, str(CHANGE))
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from occ_gnn_tpu_torch.cache import CachePlan
+    from occ_gnn_tpu_torch.data import random_graph
+    from occ_gnn_tpu_torch.sampling.native import NativeSplitSampler
+    from occ_gnn_tpu_torch.sampling.slicer import plan_split_capacities
+
+    print(f"card: {cs.card_line()}", flush=True)
+    device = torch.device("cuda")
+    args = cs.graph_args(cs.PRODUCTS_NODES, cs.GAT_A_FLAGS)
+    g = random_graph(cs.PRODUCTS_NODES, cs.AVG_DEGREE, cs.FEATURE_DIM,
+                     num_classes=cs.NUM_CLASSES, seed=args.seed)
+    fanouts = [int(f) for f in args.fan_out.split(",")]
+    bs = args.batch_size
+    pmap = np.zeros(g.num_nodes, np.int32)
+    caps = plan_split_capacities(bs, fanouts, g.num_nodes, 1)
+    plan = CachePlan(g, pmap, 1, 1.0, refresh_cap=8)
+    for turn, plans in enumerate((False, True, True, False)):
+        sampler = NativeSplitSampler(
+            g, g.train_nodes(), pmap, 1, fanouts, bs, capacities=caps,
+            seed=turn, cache=plan, num_workers=args.num_workers,
+            innermost="device", scatter_plans=plans, device=device)
+        pops, stats = [], []
+        batches = iter(sampler)
+        for i in range(HOST_BATCHES):
+            if i == HOST_WARM:
+                stats.append(sampler.stats())
+            t0 = time.perf_counter()
+            next(batches)
+            pops.append(1e3 * (time.perf_counter() - t0))
+        stats.append(sampler.stats())
+        sampler.close()
+        torch.cuda.synchronize()
+        n = stats[1]["samples"] - stats[0]["samples"]
+
+        def per(key):
+            return 1e3 * (stats[1][key] - stats[0][key]) / n
+
+        steady = sorted(pops[HOST_WARM:])
+        print("HOST " + json.dumps({
+            "turn": turn, "scatter_plans": plans, "samples": n,
+            "arena_words": sampler._arena_words,
+            "cxx_slice_ms": per("slice_s_total"),
+            "cxx_sample_ms": per("sample_s_total"),
+            "pop_median_ms": statistics.median(steady),
+            "pop_p90_ms": steady[int(0.9 * (len(steady) - 1))]}),
+            flush=True)
+
+
 def run_all(parent: str, out: str) -> int:
     me = str(Path(__file__).resolve())
 
@@ -268,9 +343,13 @@ def main(argv=None) -> int:
     s.add_argument("--label", required=True)
     s.add_argument("--out", required=True)
     sub.add_parser("routes")
+    sub.add_parser("host")
     a = cli.parse_args(argv)
     if a.cmd == "routes":
         run_routes()
+        return 0
+    if a.cmd == "host":
+        run_host()
         return 0
     if a.cmd == "inputs":
         make_inputs(a.root, split_b=False)
