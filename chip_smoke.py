@@ -4,8 +4,9 @@
     python3 chip_smoke.py [--num-nodes N] [--ranks N]
 
 1. Prints the card (name and power limit), torch and CUDA versions, and
-   builds every hand-written kernel (``csrc/segment_sum_sorted.cu`` and
-   ``csrc/dense_gather_sum.cu``) and the C++ sampling service from the
+   builds every hand-written kernel (``csrc/segment_sum_sorted.cu``,
+   ``csrc/dense_gather_sum.cu``, ``csrc/gat_attention.cu`` and
+   ``csrc/device_sample.cu``) and the C++ sampling service from the
    sources in the checkout, one compiler for each, all at once.
 2. Builds the products-scale graph (2.45 M nodes, degree 25, 100 features,
    47 classes) once for the single path, split A and split GAT A, and
@@ -39,10 +40,25 @@
 7. Quiver: ``--mode quiver`` at the same widths: one batch's logits on
    the trainer's own drawn frontiers against a plain dense forward
    written here, 10,000 draws checked as in-neighbours, the draw, the
-   gather and the layer-0 mean timed beside their byte bounds, one steady
-   step profiled, then 8 steps through ``train_quiver`` (no launch).
+   gather-mean kernel and the two torch ops it replaced (the gather, the
+   layer-0 mean) timed beside their byte bounds, one steady step
+   profiled; ``device_sample_cases``: ``draw_neighbors`` at the three
+   layers of that batch and ``gather_mean`` at its deepest frontier (f32
+   table and a bf16 copy) against their plain versions on the same draws
+   (integers bit-equal, the mean within 1e-5 of scale, two launches
+   bit-equal), timed beside the byte bound, the no-reuse floor, the
+   plain version and, for the gather-mean, ``embedding_bag(mode="mean")``;
+   and, untimed, all three on a small graph of in-degrees 0 to 300 (pads,
+   ``out_cap`` short of D, tables of 37 columns); then 8 steps through
+   ``train_quiver``: the draws 3 times and the gather-mean once a step.
 8. Split A, products scale, every width kept: checks one layer 0
-   synthesized on the card from the resident CSR, and the split logits of
+   synthesized on the card from the resident CSR (``synthesize_innermost``,
+   the kernel, under the default ``OCC_DEVICE_SAMPLE=randint``), holds
+   the kernel to its plain version on the same draws at that layer's
+   shape (``device_sample_cases``: every field bit-equal, two launches
+   bit-equal, timed as quiver's, and the synthesis call with its
+   ``torch.randint`` beside the call before the kernel), and the split
+   logits of
    a host-innermost batch against the single-chip logits of the same
    sample; times the split path's ops at the first batch's shapes beside
    their byte bounds; holds the dense gather-sum's two kernels,
@@ -52,10 +68,11 @@
    |dx|), timed beside ``embedding_bag`` and the bound; then drives
    ``--mode split --cache-per auto`` (replicated cache, device innermost,
    C++ sampler; 8 steps) through ``train_split`` with one steady step
-   profiled: the dense kernels 3 times forward and 2 times backward a
-   step, no segment-sum. Split A bf16: the same flags at ``--dtype
-   bfloat16`` (the bench's default), 6 steps, the fifth profiled: finite
-   loss, the same dense launches a step, its kernels beside f32's.
+   profiled: the synthesis once, the dense kernels 3 times forward and 2
+   times backward a step, no segment-sum. Split A bf16: the same flags at
+   ``--dtype bfloat16`` (the bench's default), 6 steps, the fifth
+   profiled: finite loss, the same dense launches a step, its kernels
+   beside f32's.
    Split GAT A: the same with ``--model-name gat --num-hidden 32
    --num-heads 4`` (the JAX package's GAT bench widths): split vs single
    GAT logits, the batched attention's times forward and backward beside
@@ -76,7 +93,8 @@
    version, ``slots_plan``, never runs on the card).
    The lowerings of ``ops/config.py`` on the same graph: layer 0 under
    ``OCC_DEVICE_SAMPLE=bitsf32``, ``bitsf32_dk`` and ``window`` (the
-   doubled CSR) held to the sampling contract and timed; the layer-0
+   doubled CSR) held to the sampling contract and timed, with no launch
+   of the synthesis kernel (torch ops); the layer-0
    aggregation under ``OCC_DENSE_AGG=tiled`` bit-equal to the unrolled
    one, then 3 steps of split A under it; split GAT A's first batch
    under ``OCC_GAT_ATTENTION=online`` and ``tiled``, ``OCC_GAT_AGG=fma``
@@ -144,7 +162,8 @@
    gradient over both shards is held against one process summing the
    shard batches through the kernel forward, and that against the plain
    forward's at the same ReLU masks, at the run's measured capacities;
-   quiver launches no kernel. Beside each, the same flags as two
+   quiver the draws 3 times and the gather-mean once a step a shard.
+   Beside each, the same flags as two
    ``--distributed`` processes of one shard sharing the card over gloo,
    the path this replaces: global loss within 1e-5 of scale of the
    one-process run's, accuracy and steps equal, final weights within
@@ -157,15 +176,18 @@
    and at least 99.9 % of its predictions.
 13. Prints the kernels' times at every main-path shape, the card again,
    one JSON line of kernel numbers (one object each for the segment-sum's
-   two entries, the two dense kernels and the attention's three), and
-   last ``{"ok": true, "device": {...}}``. Every phase's run checks the
-   launches of each kernel its path calls: a split SAGE or GCN step
-   launches the dense kernels once a dense layer forward and once a dense
-   layer past layer 0 backward, per partition (``SPLIT_A_STEP``,
-   ``SPLIT_B_STEP``), a split GAT step the attention's forward and
-   backward once a dense layer and the per-slot scatter once a dense
-   layer past layer 0 (``SPLIT_GAT_A_STEP``, ``GAT_B_STEP``), an
-   inference batch once a dense layer (``INFER_BATCH``).
+   two entries, the two dense kernels, the attention's three and the
+   three on-device samplers), and last ``{"ok": true, "device":
+   {...}}``. Every phase's run checks the launches of each kernel its
+   path calls: a split SAGE or GCN step launches the dense kernels once a
+   dense layer forward and once a dense layer past layer 0 backward, per
+   partition (``SPLIT_A_STEP``, ``SPLIT_B_STEP``), a split GAT step the
+   attention's forward and backward once a dense layer and the per-slot
+   scatter once a dense layer past layer 0 (``SPLIT_GAT_A_STEP``,
+   ``GAT_B_STEP``), a step with layer 0 synthesized on the card the
+   synthesis once a partition, an inference batch once a dense layer
+   (``INFER_BATCH``), a quiver step the draws once a layer and the
+   gather-mean once a shard (``QUIVER_STEP``).
 
 Any failed check raises, so the script exits non-zero and prints no result.
 It also fails when torch sees no CUDA device, and outside the repository.
@@ -229,6 +251,14 @@ from occ_gnn_tpu_torch.ops.dense_gather_sum import (
     plans_equal,
     ScatterPlan,
     slots_plan,
+)
+from occ_gnn_tpu_torch.ops.device_sample import (
+    draw_neighbors,
+    draw_neighbors_reference,
+    gather_mean,
+    gather_mean_reference,
+    synthesize_innermost,
+    synthesize_innermost_reference,
 )
 from occ_gnn_tpu_torch.ops import gat_attention as gat_ops
 from occ_gnn_tpu_torch.ops.gat_attention import (
@@ -343,10 +373,14 @@ DENSE_FWD, DENSE_BWD = "dense_gather_sum", "dense_scatter_add"
 # that sums their dx rows.
 GAT_FWD, GAT_BWD, SLOTS = ("gat_attention_fwd", "gat_attention_bwd",
                            "dense_scatter_slots")
+# The on-device samplers: split A's layer-0 synthesis, quiver's draws and
+# its layer-0 gather-mean.
+SYNTH, DRAW, GMEAN = "synthesize_innermost", "draw_neighbors", "gather_mean"
 ENTRIES = {MSGS: segment_sum_sorted, FUSED: gather_segment_sum,
            DENSE_FWD: dense_gather_sum, DENSE_BWD: dense_scatter_add,
            GAT_FWD: gat_attention_fwd, GAT_BWD: gat_attention_bwd,
-           SLOTS: dense_scatter_slots}
+           SLOTS: dense_scatter_slots, SYNTH: synthesize_innermost,
+           DRAW: draw_neighbors, GMEAN: gather_mean}
 # Sorted segment-sum launches a step: one a layer. Single SAGE and GCN
 # (either norm) sum the rows of their frame through the fused gather; GAT
 # (single, and split on its COO layer 0) sums the softmax denominators and
@@ -360,13 +394,19 @@ SINGLE_ENTRY = {"sage": FUSED, "gcn": FUSED, "gat": MSGS, "gcn sym": FUSED}
 # entry (SAGE) or the messages' entry (GAT). GAT's dense layers run its
 # attention kernels once each way, and the per-slot scatter once a layer
 # past layer 0 backward; under OCC_GAT_REMAT=dots the backward runs the
-# attention's forward once more a layer (the recomputation).
-SPLIT_A_STEP = {DENSE_FWD: 3, DENSE_BWD: 2}
+# attention's forward once more a layer (the recomputation). A layer 0
+# synthesized on the card (split A, split GAT A: a replicated cache)
+# launches the synthesis once a step per partition under the default
+# OCC_DEVICE_SAMPLE=randint, and never under the other lowerings.
+SPLIT_A_STEP = {SYNTH: 1, DENSE_FWD: 3, DENSE_BWD: 2}
 SPLIT_B_STEP = {FUSED: 1, DENSE_FWD: 2, DENSE_BWD: 2}
-SPLIT_GAT_A_STEP = {GAT_FWD: 3, GAT_BWD: 3, SLOTS: 2}
+SPLIT_GAT_A_STEP = {SYNTH: 1, GAT_FWD: 3, GAT_BWD: 3, SLOTS: 2}
 GAT_B_STEP = {MSGS: 1, GAT_FWD: 2, GAT_BWD: 2, SLOTS: 2}
-GAT_REMAT_STEP = {GAT_FWD: 6, GAT_BWD: 3, SLOTS: 2}
+GAT_REMAT_STEP = {SYNTH: 1, GAT_FWD: 6, GAT_BWD: 3, SLOTS: 2}
 INFER_BATCH = {FUSED: 1, DENSE_FWD: 2}
+# Quiver, a step per shard: the draws once a layer (fan-out 10,10,25),
+# the deepest gather and first-layer mean once.
+QUIVER_STEP = {DRAW: 3, GMEAN: 1}
 # The processes of infer's P > 1 phase and of the NCCL phases.
 RANKS = 2
 # metis on the products graph took 109.12 s and 122.57 s a rank in two
@@ -401,6 +441,10 @@ GAT_GRAD_TOL = 1e-4
 # of it away. v and every gradient are held within two such steps of
 # their max |.|; m and s, which no rounding touches, to GAT_FWD_TOL.
 GAT_BF16_TOL = 2.0**-7
+# gather_mean's mean against its plain version, of its scale (at least
+# 1): the same rows summed in f32, the plain version's sum over the
+# fan-out axis in torch's order, the kernel's in the order of k.
+SAMPLE_MEAN_TOL = 1e-5
 TIMED_RUNS = 30
 GRAPH_REPS = 10
 # Peak device-memory rate by card (NVIDIA data sheets), bytes/s.
@@ -421,6 +465,9 @@ KERNEL_SOURCE = {
     GAT_FWD: "occ_gnn_tpu_torch/csrc/gat_attention.cu",
     GAT_BWD: "occ_gnn_tpu_torch/csrc/gat_attention.cu",
     SLOTS: "occ_gnn_tpu_torch/csrc/dense_gather_sum.cu",
+    SYNTH: "occ_gnn_tpu_torch/csrc/device_sample.cu",
+    DRAW: "occ_gnn_tpu_torch/csrc/device_sample.cu",
+    GMEAN: "occ_gnn_tpu_torch/csrc/device_sample.cu",
 }
 DENSE_REPLACES = ("occ_gnn_tpu/parallel/split.py:161-197 (XLA fusion, no "
                   "pallas_call)")
@@ -434,6 +481,12 @@ KERNEL_REPLACES = {
     GAT_FWD: GAT_REPLACES,
     GAT_BWD: GAT_REPLACES,
     SLOTS: GAT_REPLACES,
+    SYNTH: ("occ_gnn_tpu/parallel/split.py:200-310 (XLA, no "
+            "pallas_call)"),
+    DRAW: ("occ_gnn_tpu/sampling/device_sampler.py:71-85 (XLA, no "
+           "pallas_call)"),
+    GMEAN: ("occ_gnn_tpu/sampling/device_sampler.py:139-141,164 (XLA, no "
+            "pallas_call)"),
 }
 
 
@@ -797,6 +850,221 @@ def hot_row_cases(lyr, hidden, rate, device):
                         dtype=torch.int32)
     x = torch.randn(500, hidden, generator=gen, device=device)
     dense_cases("split A layer 1's slots, 500 rows", x, nbr, rate, gen)
+
+
+def sampler_case(label, entry, kernel, plain, nbytes, floor_bytes, ops,
+                 rate, library=None, close=(), plain_reps=GRAPH_REPS):
+    """One on-device sampler at one shape against its plain version on the
+    same inputs: ``kernel()`` and ``plain()`` return tuples of tensors,
+    each bit-equal but those at the positions ``close``, which are held
+    within SAMPLE_MEAN_TOL of their scale (at least 1); two launches
+    bit-equal. Timed in the CUDA-graph harness (``median_ms``; the plain
+    version ``plain_reps`` calls a graph) beside ``library()``, one
+    PyTorch call that computes the same function where there is one, the
+    byte bound (``nbytes``: each input read once, each output written
+    once), the no-reuse floor (``floor_bytes``: a 32-byte sector for
+    each scattered read) and ``ops`` operations at the f32 rate; with
+    ``nbytes`` None, checked and not timed. Returns the case."""
+    out, again, ref = kernel(), kernel(), plain()
+    torch.cuda.synchronize()
+    err = 0.0
+    for i, (a, b) in enumerate(zip(out, ref)):
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise AssertionError(f"{label}: {entry} output {i} is "
+                                 f"{a.dtype} {tuple(a.shape)}, its plain "
+                                 f"version's {b.dtype} {tuple(b.shape)}")
+        if i in close:
+            scale = max(1.0, b.abs().max().item())
+            e = (a - b).abs().max().item()
+            if not (torch.isfinite(a).all() and e <= SAMPLE_MEAN_TOL * scale):
+                raise AssertionError(f"{label}: {entry} output {i} differs "
+                                     f"from its plain version by {e} at "
+                                     f"scale {scale}")
+            err = max(err, e)
+        elif not torch.equal(a, b):
+            raise AssertionError(f"{label}: {entry} output {i} differs from "
+                                 f"its plain version; it must be bit-equal")
+    if not all(torch.equal(a, b) for a, b in zip(out, again)):
+        raise AssertionError(f"{label}: two launches of {entry} differ")
+    del out, again, ref
+    check = ("bit-equal" if not close else
+             f"max_abs_err={err:.3g} (the rest bit-equal)")
+    if nbytes is None:
+        print(f"kernel {entry} {label}: {check}, two launches bit-equal")
+        return dict(err=err)
+    case = dict(err=err, ms=median_ms(kernel),
+                plain_ms=median_ms(plain, reps=plain_reps),
+                library_ms=None if library is None else median_ms(library),
+                bytes_ms=nbytes / rate * 1e3,
+                floor_ms=floor_bytes / rate * 1e3,
+                ops_ms=ops / F32_RATE * 1e3)
+    bound = max(case["bytes_ms"], case["ops_ms"])
+    by = "bytes" if case["bytes_ms"] >= case["ops_ms"] else "operations"
+    lib = "—" if library is None else f"{case['library_ms']:.4f}"
+    print(f"kernel {entry} {label}: {check}, two launches bit-equal; "
+          f"ms={case['ms']:.4f} plain_ms={case['plain_ms']:.4f} "
+          f"library_ms={lib} bound_ms={bound:.4f} ({by}, "
+          f"{100 * bound / case['ms']:.1f} % of it) no_reuse_floor_ms="
+          f"{case['floor_ms']:.4f} ({100 * case['floor_ms'] / case['ms']:.1f}"
+          f" % of it)")
+    return case
+
+
+def synthesis_cases(l0, csr, rate, device):
+    """``synthesize_innermost`` at split A's layer 0 (the dst frame of
+    partition 0 of the first batch) against its plain version on the same
+    draws; then the synthesis call as the path makes it (one
+    ``torch.randint`` and the kernel) beside the call as it was before the
+    kernel (one ``torch.randint`` and the plain version's torch ops), by
+    CUDA events over 20 eager calls. Returns the case."""
+    dg, (indptr, indices) = l0.dst_global, csr
+    K, D, O, S = l0.fanout, dg.shape[0], l0.out_cap, l0.src_cap
+    gen = torch.Generator(device).manual_seed(16)
+    draws = torch.randint(0, 2**62, (K, D), generator=gen, device=device)
+    args = (dg, indptr, indices, draws, K, S, O)
+    valid = dg >= 0
+    g = dg.clamp(min=0).long()
+    deg = torch.where(valid, indptr[g + 1] - indptr[g], 0)
+    nvalid = int(valid.sum())
+    drawn = int((deg > K).sum())
+    used = int(deg.clamp(max=K).sum())
+    # dst read once, indptr's two words a valid column, the draws of the
+    # columns of deg > K, the indices of the used slots; nbr, the owned
+    # fields (13 bytes a column) and num_owned written once. The floor
+    # reads a sector for each indptr pair and each used slot's index.
+    coalesced = 4 * D + 8 * K * drawn + 4 * (K + 1) * D + 13 * O + 4
+    case = sampler_case(
+        f"split A layer 0 (K={K}, D={D}, valid={nvalid}, deg>K={drawn}, "
+        f"used slots={used})", SYNTH,
+        lambda: tuple(synthesize_innermost(*args)),
+        lambda: tuple(synthesize_innermost_reference(*args)),
+        coalesced + 8 * nvalid + 4 * used,
+        coalesced + 32 * nvalid + 32 * used, K * drawn, rate)
+
+    def before():
+        return synthesize_innermost_reference(
+            dg, indptr, indices, torch.randint(
+                0, 2**62, (K, D), generator=gen, device=device), K, S, O)
+
+    case["call_ms"] = events_ms(
+        lambda: synthesize_device_innermost(l0, indptr, indices, gen))
+    case["before_call_ms"] = events_ms(before)
+    print(f"  synthesize_device_innermost call (torch.randint + kernel): "
+          f"{case['call_ms']:.4f} ms; before the kernel (torch.randint + "
+          f"the plain version's torch ops): {case['before_call_ms']:.4f} ms")
+    return case
+
+
+def quiver_sample_cases(trainer, frontiers, rate, device):
+    """``draw_neighbors`` at each of quiver's layers (the trainer's own
+    frontiers, fresh draws from a seed) and ``gather_mean`` at its deepest
+    frontier on the trainer's f32 table and on a bf16 copy, against their
+    plain versions; ``gather_mean`` beside ``F.embedding_bag(mode="mean")``
+    over the ``[n, K + 1]`` index (built ahead of the timing), the one
+    library call that computes it. At each layer's shape, the path's
+    int32 ``torch.randint`` must draw the values of the int64 call it
+    replaced (the same seed keeps its frontiers). Returns {"draws": [a
+    case a layer], "f32": case, "bf16": case}."""
+    indptr, indices = trainer.csr
+    fanouts = trainer.fanouts
+    gen = torch.Generator(device).manual_seed(17)
+    out = {"draws": []}
+    for m, K in enumerate(fanouts):
+        f = frontiers[m]
+        n = f.shape[0]
+        r = torch.randint(0, 2**31 - 1, (n, K), generator=gen, device=device,
+                          dtype=torch.int32)
+        r64, r32 = (torch.randint(
+            0, 2**31 - 1, (n, K), device=device, dtype=dtype,
+            generator=torch.Generator(device).manual_seed(19 + m))
+            for dtype in (torch.int64, torch.int32))
+        if not torch.equal(r32.long(), r64):
+            raise AssertionError(f"quiver layer {m}: torch.randint draws "
+                                 f"other values in int32 than in int64")
+        print(f"  quiver layer {m}: torch.randint's int32 draws equal its "
+              f"int64 draws at ({n}, {K})")
+        del r64, r32
+        fl = f.long()
+        live = int((indptr[fl + 1] > indptr[fl]).sum())
+        # The frontier, r and the output once, indptr's two words a node,
+        # the index of each draw of a node of degree > 0; the floor a
+        # sector for each indptr pair and each such index.
+        coalesced = 4 * n + 4 * n * K + 4 * n * (1 + K)
+        out["draws"].append(sampler_case(
+            f"quiver layer {m} (n={n}, K={K})", DRAW,
+            lambda: (draw_neighbors(f, indptr, indices, r),),
+            lambda: (draw_neighbors_reference(f, indptr, indices, r),),
+            coalesced + 8 * n + 4 * live * K,
+            coalesced + 32 * n + 32 * live * K, n * K, rate))
+    deep, n, K = frontiers[-1], frontiers[-2].shape[0], fanouts[-1]
+    bags = torch.cat([deep[:n, None], deep[n:].view(n, K)], 1).long()
+    rows = torch.unique(deep).numel()
+    for name in ("f32", "bf16"):
+        table = (trainer.features if name == "f32"
+                 else trainer.features.to(torch.bfloat16))
+        H, row = table.shape[1], table.shape[1] * table.element_size()
+        # The frontier and both outputs once, each distinct row once; the
+        # floor reads every slot's row in whole sectors.
+        coalesced = 4 * deep.numel() + 2 * 4 * n * H
+        out[name] = sampler_case(
+            f"quiver deepest layer (n={n}, K={K}, H={H}, {name} table, "
+            f"rows read={rows} of {deep.numel()})", GMEAN,
+            lambda: gather_mean(table, deep, n, K),
+            lambda: gather_mean_reference(table, deep, n, K),
+            coalesced + rows * row,
+            coalesced + deep.numel() * (-(-row // 32) * 32),
+            n * (K + 2) * H, rate,
+            library=lambda: torch.nn.functional.embedding_bag(
+                bags, table, mode="mean"), close=(1,), plain_reps=1)
+        del table
+    return out
+
+
+def sampler_ragged_cases(rate, device):
+    """The three samplers on a small graph built here, at the shapes the
+    main path does not give them: in-degrees 0, 1, K, K + 1, 3K and 300
+    (K = 25), a dst frame with 500 pads and ``out_cap`` short of D,
+    frontiers holding zero-degree nodes, and tables of 37 columns (one
+    element a lane) in f32 and bf16. Each against its plain version as
+    ``sampler_case`` holds it, untimed. Returns [(entry, case)]."""
+    gen = torch.Generator(device).manual_seed(18)
+    N, K = 5000, 25
+    degrees = torch.tensor([0, 1, K, K + 1, 3 * K, 300], device=device)[
+        torch.randint(0, 6, (N,), generator=gen, device=device)]
+    indptr = torch.zeros(N + 1, dtype=torch.int32, device=device)
+    indptr[1:] = torch.cumsum(degrees, 0)
+    indices = torch.randint(0, N, (int(indptr[-1]),), generator=gen,
+                            device=device, dtype=torch.int32)
+    dg = torch.randperm(N, generator=gen, device=device)[:3000].int()
+    dg[2500:] = -1
+    draws = torch.randint(0, 2**62, (K, 3000), generator=gen, device=device)
+    args = (dg, indptr, indices, draws, K, N + 1, 2000)
+    out = [(SYNTH, sampler_case(
+        "ragged: degrees 0 to 300, 500 pads, out_cap 2000 of 3000", SYNTH,
+        lambda: tuple(synthesize_innermost(*args)),
+        lambda: tuple(synthesize_innermost_reference(*args)), None, None, 0,
+        rate))]
+    f = torch.randint(0, N, (4000,), generator=gen, device=device,
+                      dtype=torch.int32)
+    r = torch.randint(0, 2**31 - 1, (4000, 10), generator=gen, device=device,
+                      dtype=torch.int32)
+    zero = int((degrees[f.long()] == 0).sum())
+    out.append((DRAW, sampler_case(
+        f"ragged: n=4000, K=10, {zero} of degree 0", DRAW,
+        lambda: (draw_neighbors(f, indptr, indices, r),),
+        lambda: (draw_neighbors_reference(f, indptr, indices, r),), None,
+        None, 0, rate)))
+    n, k = 1000, 5
+    deep = torch.randint(0, N, (n * (1 + k),), generator=gen, device=device,
+                         dtype=torch.int32)
+    for dtype in (torch.float32, torch.bfloat16):
+        table = torch.randn(N, 37, generator=gen, device=device).to(dtype)
+        out.append((GMEAN, sampler_case(
+            f"ragged: n={n}, K={k}, H=37 {str(dtype)[6:]} table", GMEAN,
+            lambda: gather_mean(table, deep, n, k),
+            lambda: gather_mean_reference(table, deep, n, k), None, None, 0,
+            rate, close=(1,))))
+    return out
 
 
 def rel_err(got, ref):
@@ -2200,7 +2468,8 @@ def run_entry(device) -> Counter:
     partitions: three finite losses, the dense kernels of its two SAGE
     steps and the attention kernels of its GAT step (every layer dense:
     once a layer a partition forward, once a layer backward, and the
-    dense or per-slot scatter once a layer past layer 0)."""
+    dense or per-slot scatter once a layer past layer 0; the synthesis
+    once a partition in the device-innermost step)."""
     from occ_gnn_tpu_torch import entry as entry_mod
 
     start_count(device)
@@ -2223,8 +2492,9 @@ def run_entry(device) -> Counter:
     expect_launches("dryrun_multichip(4)", dry,
                     scaled({DENSE_FWD: layers, DENSE_BWD: layers - 1}, 2 * 4)
                     | scaled({GAT_FWD: layers, GAT_BWD: layers,
-                              SLOTS: layers - 1}, 4),
-                    "two SAGE steps and one GAT step of 4 partitions")
+                              SLOTS: layers - 1}, 4) | {SYNTH: 4},
+                    "two SAGE steps and one GAT step of 4 partitions, one "
+                    "of them with layer 0 synthesized on the card")
     return launches + dry
 
 
@@ -2476,9 +2746,12 @@ def profile_one_step(trainer, nodes) -> dict:
 def check_quiver(args, g, rate, device):
     """The quiver path's checks on its own trainer (seeded as
     ``train_quiver``'s): one batch's logits against ``plain_dense_forward``
-    on the trainer's own drawn frontiers, the draws, the draw, gather and
-    mean times beside their byte bounds, and one profiled steady step.
-    Returns the op rows and the profile."""
+    on the trainer's own drawn frontiers, the draws, the draw (one
+    ``torch.randint`` and the ``draw_neighbors`` kernel), the gather-mean
+    kernel and the two torch ops it replaced (the deepest gather, the
+    layer-0 mean) timed beside their byte bounds, and one profiled steady
+    step. Returns the op rows, the profile, the trainer and the first
+    batch's frontiers."""
     fanouts = [int(f) for f in args.fan_out.split(",")]
     nodes = g.train_nodes()[: args.limit_train]
     model = get_model("sage", g.feature_dim, args.num_hidden, g.num_classes,
@@ -2537,15 +2810,22 @@ def check_quiver(args, g, rate, device):
         lambda: (x[:n].float() + x[n:].reshape(n, k, -1).sum(
             dim=1, dtype=torch.float32)) / (k + 1.0),
         eb * M * H + 4 * n * H)
-    del x, frontiers
+    del x
+    # The kernel in their place: each distinct row read once (the bound
+    # of split_op_times: each input once), x_self and mean written once.
+    rows_read = torch.unique(deep).numel()
+    add(f"quiver gather_mean kernel (n={n}, K={k}, H={H})",
+        lambda: gather_mean(trainer.features, deep, n, k),
+        4 * M + eb * rows_read * H + 8 * n * H)
     model.train()
     profile = profile_one_step(trainer, nodes)
-    return rows, profile
+    return rows, profile, trainer, frontiers
 
 
 def run_quiver(args, g, device) -> dict:
-    """Drive ``train_quiver`` with the counts set to 0 just before; the
-    path launches no kernel."""
+    """Drive ``train_quiver`` with the counts set to 0 just before: the
+    draws once a layer and the gather-mean once a step (QUIVER_STEP), no
+    other kernel."""
     fanouts = [int(f) for f in args.fan_out.split(",")]
     timers = StepTimers()
     start_count(device)
@@ -2559,11 +2839,11 @@ def run_quiver(args, g, device) -> dict:
           f"peak device memory {peak_gib:.3f} GiB; fused_step {fused:.2f} "
           f"ms for the epoch, {fused / max(steps, 1):.2f} ms a step (the "
           f"first step's warm-up included)")
-    if steps == 0 or any(launches.values()) or not np.isfinite(
-            metrics["loss"]):
-        raise AssertionError(f"quiver: {launches} launches in {steps} "
-                             f"steps, metrics {metrics}")
-    return dict(metrics=metrics, peak_gib=peak_gib)
+    if steps == 0 or not np.isfinite(metrics["loss"]):
+        raise AssertionError(f"quiver: {steps} steps, metrics {metrics}")
+    expect_launches("quiver", launches, scaled(QUIVER_STEP, steps),
+                    f"{steps} steps")
+    return dict(metrics=metrics, peak_gib=peak_gib, launches=launches)
 
 
 def ddp_grad_check(ranks, g, args, fanouts, device):
@@ -2771,7 +3051,8 @@ def run_baselines(label, num_procs, local, name, root, flags,
 
 def expect_shard_launches(label, results):
     """ddp: the fused entry 3 times a step a local shard (one a layer);
-    quiver: no launch. Returns the launches over every process."""
+    quiver: QUIVER_STEP a step a local shard. Returns the launches over
+    every process."""
     launches = Counter()
     for res in results:
         m = res["metrics"]
@@ -2782,9 +3063,10 @@ def expect_shard_launches(label, results):
             expect_launches(f"{label}: rank {res['rank']}", res["launches"],
                             {FUSED: SINGLE_LAUNCHES["sage"] * local * steps},
                             f"{steps} steps of {local} shards")
-        elif any(res["launches"].values()):
-            raise AssertionError(f"{label}: the quiver path launched the "
-                                 f"kernel: {res['launches']}")
+        else:
+            expect_launches(f"{label}: rank {res['rank']}", res["launches"],
+                            scaled(QUIVER_STEP, local * steps),
+                            f"{steps} steps of {local} shards")
         launches += Counter(res["launches"])
     return launches
 
@@ -3065,14 +3347,22 @@ def run_sample_lowerings(g, args_a, fanouts, rate, device):
     the sampling contract, then the synthesis is timed at that batch's
     shapes beside the byte bound of split_op_times (``window`` reads K
     consecutive words of one row a dst in place of K scattered ones; its
-    doubled CSR's bytes are printed). Returns the op rows."""
+    doubled CSR's bytes are printed). None of the three launches the
+    synthesis kernel, which takes only the default ``randint``. Returns
+    the op rows."""
     rows = []
     plain_bytes = 4 * (g.indptr.shape[0] + g.indices.shape[0])
     for impl in ("bitsf32", "bitsf32_dk", "window"):
         with lowering(device_sample=impl):
             print(f"  OCC_DEVICE_SAMPLE={impl}:")
+            synthesize_innermost.launches = 0
             batch, syn, csr = check_synthesized_layer(
                 g, fanouts, args_a.batch_size, device)
+            if synthesize_innermost.launches:
+                raise AssertionError(
+                    f"OCC_DEVICE_SAMPLE={impl} launched the {SYNTH} kernel "
+                    f"{synthesize_innermost.launches} times; it is torch "
+                    f"ops")
             l0 = batch.layers[0].partition(0)
             D0, O0, K0 = l0.dst_global.shape[0], l0.out_cap, l0.fanout
             used0 = int((syn.nbr_idx[1:] != l0.src_cap - 1).sum())
@@ -3131,7 +3421,8 @@ def run_dense_tiled(g, fanouts, metrics_a, device):
     print(f"  dst tiles a layer: {tiles} (dst_caps "
           f"{metrics['capacities']['dst_caps']})")
     check_dense_run("split A tiled", metrics, launches,
-                    {DENSE_FWD: sum(tiles), DENSE_BWD: len(tiles) - 1})
+                    {SYNTH: 1, DENSE_FWD: sum(tiles),
+                     DENSE_BWD: len(tiles) - 1})
     print(f"  train_step median {metrics['medians']['train_step']:.2f} ms, "
           f"peak {metrics['peak_gib']:.3f} GiB, against unrolled's "
           f"{metrics_a['medians']['train_step']:.2f} ms, "
@@ -3200,9 +3491,10 @@ def check_gat_variants(g, args_ga, batch, syn, frames, rate, device):
 def run_gat_variants(g, fanouts, metrics_ga, device):
     """3 steps of split GAT A through ``train_split`` under each lowering
     of GAT_VARIANTS, with ``train_step`` and the peak beside batched's.
-    The online, tiled and fma lowerings are torch ops (no launch); remat
-    dots runs the kernels, with the forward once more a layer in the
-    backward (GAT_REMAT_STEP). Returns the launches."""
+    The online, tiled and fma lowerings are torch ops (no attention
+    launch; layer 0's synthesis once a step); remat dots runs the
+    kernels, with the forward once more a layer in the backward
+    (GAT_REMAT_STEP). Returns the launches."""
     args_s = graph_args(g.num_nodes, short_run(GAT_A_FLAGS))
     launches = Counter()
     for name, impls in GAT_VARIANTS:
@@ -3210,7 +3502,8 @@ def run_gat_variants(g, fanouts, metrics_ga, device):
             metrics, n = run_split(f"split GAT A, {name}", args_s, g,
                                    fanouts, device)
         check_dense_run(f"split GAT A {name}", metrics, n,
-                        GAT_REMAT_STEP if "gat_remat" in impls else {})
+                        GAT_REMAT_STEP if "gat_remat" in impls
+                        else {SYNTH: 1})
         launches += n
         print(f"  {name}: train_step median "
               f"{metrics['medians']['train_step']:.2f} ms, peak "
@@ -3537,8 +3830,14 @@ def main(argv=None) -> int:
             rate, device)
     with phase("quiver"):
         args_q = graph_args(opts.num_nodes, QUIVER_FLAGS)
-        quiver_rows, quiver_profile = check_quiver(args_q, g, rate, device)
+        quiver_rows, quiver_profile, trainer, frontiers = check_quiver(
+            args_q, g, rate, device)
         print_profile(quiver_profile)
+        with phase("device_sample_cases (quiver)"):
+            quiver_cases = quiver_sample_cases(trainer, frontiers, rate,
+                                               device)
+            sampler_ragged = sampler_ragged_cases(rate, device)
+        del trainer, frontiers
         quiver = run_quiver(args_q, g, device)
 
     # 8. Split A: products scale, replicated cache, device innermost.
@@ -3547,6 +3846,9 @@ def main(argv=None) -> int:
         fan_a = [int(f) for f in args_a.fan_out.split(",")]
         batch, syn, csr = check_synthesized_layer(g, fan_a, args_a.batch_size,
                                                   device)
+        with phase("device_sample_cases (split A)"):
+            synth_case = synthesis_cases(batch.layers[0].partition(0), csr,
+                                         rate, device)
         cache, _, _, _ = split_vs_single(g, args_a, 1.0, device)
         op_rows = split_op_times(batch, syn, csr, cache.frames,
                                  args_a.num_hidden, rate, device)
@@ -3728,8 +4030,9 @@ def main(argv=None) -> int:
     # single GAT step's; the launches are those of every phase's main-path
     # run, by entry.
     print("split op times (split A's first batch, CUDA events over 20 "
-          "eager calls; the dense aggregation through its kernels, the rest "
-          "torch ops; a step runs "
+          "eager calls; the synthesis (torch.randint + its kernel) and the "
+          "dense aggregation through their kernels, the rest torch ops; a "
+          "step runs "
           "the synthesis once, the dense aggregation 3 times forward and "
           "2 times backward, slice_owned 3 times):")
     for op, ms, bound in op_rows:
@@ -3743,14 +4046,19 @@ def main(argv=None) -> int:
           "forward, the attention once a layer each way):")
     for op, ms, bound in sample_rows + [tiled_row] + gat_variant_rows:
         print(f"  {op}: {ms:.4f} ms, bound {bound:.4f} ms")
-    print("baseline op times (torch ops; pa-cache: the first batch's "
-          "frame, once a step; quiver: its first batch, the draw once a "
-          "layer, the gather and the layer-0 mean once a step):")
+    print("baseline op times (pa-cache: the first batch's frame, torch "
+          "ops, once a step; quiver: its first batch, the deepest draw "
+          "(torch.randint + its kernel) once a step, the gather and the "
+          "layer-0 mean (torch ops the gather-mean kernel replaced), and "
+          "the gather-mean kernel, once a step):")
     for op, ms, bound in [pc_row] + quiver_rows:
         print(f"  {op}: {ms:.4f} ms, bound {bound:.4f} ms")
     print(f"quiver: peak device memory {quiver['peak_gib']:.3f} GiB, "
           f"profiled step idle share "
-          f"{quiver_profile['device_idle_share']:.4f}")
+          f"{quiver_profile['device_idle_share']:.4f}, kernels "
+          f"{quiver_profile['device_kernels']}, busy "
+          f"{quiver_profile['device_busy_ms']:.3f} of "
+          f"{quiver_profile['window_ms']:.3f} ms")
     print("fused entry's backward, torch ops, at the single SAGE step's "
           "layers 1-2 (once a step each):")
     for op, ms, bound in backward_rows:
@@ -3829,6 +4137,25 @@ def main(argv=None) -> int:
                   f"{bound(c):.4f}{floor} plain_ms={c['plain_ms']:.4f} "
                   f"library_ms={'null' if lib is None else f'{lib:.4f}'} "
                   f"max_abs_err={c['err']:.3g}")
+    print("on-device sampler kernel times (ms; CUDA-graph harness; a split "
+          "A step runs the synthesis once, a quiver step the draws once a "
+          "layer and the gather-mean once; embedding_bag(mode='mean') the "
+          "gather-mean's library call, none for the others):")
+    sampler_rows = [(SYNTH, "split A layer 0", synth_case)]
+    sampler_rows += [(DRAW, f"quiver layer {m}", c)
+                     for m, c in enumerate(quiver_cases["draws"])]
+    sampler_rows += [(GMEAN, f"quiver deepest layer, {name} table",
+                      quiver_cases[name]) for name in ("f32", "bf16")]
+    for entry, label, c in sampler_rows:
+        lib = c["library_ms"]
+        print(f"  {entry} at {label}: ms={c['ms']:.4f} bound_ms="
+              f"{bound(c):.4f} no_reuse_floor_ms={c['floor_ms']:.4f} "
+              f"plain_ms={c['plain_ms']:.4f} "
+              f"library_ms={'—' if lib is None else f'{lib:.4f}'} "
+              f"max_abs_err={c['err']:.3g}")
+    print(f"  the synthesis call: {synth_case['call_ms']:.4f} ms "
+          f"(torch.randint + kernel), {synth_case['before_call_ms']:.4f} ms "
+          f"before the kernel (torch.randint + torch ops)")
     errs = {entry: [] for entry in ENTRIES}
     for cases in (main_cases + ragged + sym_cases
                   + [split_case, gat_split_case, infer_case, p4_cases]
@@ -3837,8 +4164,13 @@ def main(argv=None) -> int:
         for entry, c in cases.items():
             errs[entry].append(c["err"])
     errs[MSGS] += [c["err"] for c in gat_cases]
+    for entry, _, c in sampler_rows:
+        errs[entry].append(c["err"])
+    for entry, c in sampler_ragged:
+        errs[entry].append(c["err"])
     errs[FUSED].append(split_bf16_case["err"])
-    launches = sum((single_launches, launches_pc, launches_a, launches_ab,
+    launches = sum((single_launches, launches_pc, quiver["launches"],
+                    launches_a, launches_ab,
                     launches_dt, launches_ga, launches_gv, launches_b,
                     launches_u, launches_sgl, launches_sym, launches_i1,
                     launches_pb, launches_gl, launches_p4, launches_en,
@@ -3846,7 +4178,9 @@ def main(argv=None) -> int:
     # The dense kernels' numbers are one split A step's: the forward at
     # its three layers, the backward at layers 1-2; the attention's one
     # split GAT A step's: forward and backward at its three layers, the
-    # per-slot scatter at layers 1-2.
+    # per-slot scatter at layers 1-2; the samplers' one split A step's
+    # synthesis and one quiver step's draws (three layers) and gather-mean
+    # (the f32 table, as the quiver run holds it).
     kernels = []
     for entry, cases in (
             (MSGS, gat_cases), (FUSED, sage_step),
@@ -3854,7 +4188,9 @@ def main(argv=None) -> int:
             (DENSE_BWD, [c[DENSE_BWD] for _, c in sorted(dense_a.items())
                          if DENSE_BWD in c])) + tuple(
             (entry, [c[entry] for _, c in sorted(gat_a.items())
-                     if entry in c]) for entry in (GAT_FWD, GAT_BWD, SLOTS)):
+                     if entry in c]) for entry in (GAT_FWD, GAT_BWD, SLOTS)
+    ) + ((SYNTH, [synth_case]), (DRAW, quiver_cases["draws"]),
+         (GMEAN, [quiver_cases["f32"]])):
         by_bytes = summed(cases, "bytes_ms") >= summed(cases, "ops_ms")
         kernels.append({
             "name": entry,

@@ -80,6 +80,11 @@ from occ_gnn_tpu_torch.ops.dense_gather_sum import (
     ScatterPlan,
     dense_gather_sum,
 )
+from occ_gnn_tpu_torch.ops.device_sample import (
+    InnermostFields,
+    innermost_fields,
+    synthesize_innermost,
+)
 from occ_gnn_tpu_torch.ops.segment_sum_sorted import gather_segment_sum
 
 # Dst rows a tile of the ``tiled`` dense aggregation (JAX ``_DENSE_TILE``).
@@ -599,11 +604,14 @@ def synthesize_device_innermost(lyr: SplitLayer, indptr: torch.Tensor,
     lowering reads; another raises ``ValueError``.
 
     The draws at deg > fanout, by ``OCC_DEVICE_SAMPLE``:
-    - ``randint``: K uniform draws with replacement. ``torch.randint``
-      takes one upper bound, not one per dst, so each draw is a 62-bit
-      uniform integer reduced modulo the dst's degree: the modulo bias of
-      a value is below deg / 2^62 (under 1e-12 for any degree below 4
-      million), far below what any sample can show.
+    - ``randint`` (the default): K uniform draws with replacement.
+      ``torch.randint`` takes one upper bound, not one per dst, so each
+      draw is a 62-bit uniform integer reduced modulo the dst's degree:
+      the modulo bias of a value is below deg / 2^62 (under 1e-12 for any
+      degree below 4 million), far below what any sample can show. The
+      draws are made here and the rest is one call of
+      ``ops/device_sample.synthesize_innermost``: its kernel on the card,
+      its plain version on the CPU.
     - ``bitsf32``: K draws of 24 random bits, ``floor(bits / 2^24 *
       deg)`` in f32, capped at deg - 1: exact for deg < 2^24.
     - ``bitsf32_dk``: the draws of ``bitsf32`` for the same generator
@@ -611,6 +619,7 @@ def synthesize_device_innermost(lyr: SplitLayer, indptr: torch.Tensor,
     - ``window``: one uniform start a dst and the K neighbours from it,
       wrapping around the adjacency through its second copy in the
       doubled CSR: uniform marginals, no neighbour twice.
+    The last three stay torch ops, with no kernel of their own.
     """
     with record_function("synthesize_device_innermost"):
         return _synthesize(lyr, indptr, indices, generator)
@@ -633,6 +642,11 @@ def _synthesize(lyr, indptr, indices, generator):
         raise ValueError(f"window sampling pads the doubled CSR by "
                          f"{WINDOW_PAD}; fanout {K} would slice past it")
     D = dg.shape[0]
+    if impl == "randint":
+        draws = torch.randint(0, 2**62, (K, D), generator=generator,
+                              device=dg.device)
+        return _as_layer(lyr, synthesize_innermost(
+            dg, indptr, indices, draws, K, lyr.src_cap, lyr.out_cap))
     valid = dg >= 0
     g = dg.clamp(min=0)
     off = indptr.index_select(0, g)
@@ -649,17 +663,12 @@ def _synthesize(lyr, indptr, indices, generator):
         base = 2 * off + torch.where(deg > K, start, 0)
         src = indices[base[None, :] + kr]
     else:
-        if impl == "randint":
-            draws = (torch.randint(0, 2**62, (K, D), generator=generator,
-                                   device=dg.device)
-                     % deg.clamp(min=1)[None, :])
-        else:
-            bits = torch.randint(0, 1 << 24, (K, D), generator=generator,
-                                 device=dg.device)
-            u = bits.float() * (1.0 / (1 << 24))
-            draws = torch.minimum(
-                torch.floor(u * deg.float()[None, :]).long(),
-                (deg - 1).clamp(min=0)[None, :])
+        bits = torch.randint(0, 1 << 24, (K, D), generator=generator,
+                             device=dg.device)
+        u = bits.float() * (1.0 / (1 << 24))
+        draws = torch.minimum(
+            torch.floor(u * deg.float()[None, :]).long(),
+            (deg - 1).clamp(min=0)[None, :])
         sel = torch.where(deg[None, :] > K, draws, kr)
         # Slots k >= take are masked below; clamp keeps their reads in
         # range (JAX clamps the same gather silently).
@@ -670,26 +679,21 @@ def _synthesize(lyr, indptr, indices, generator):
             src = indices[(off[None, :] + sel).clamp_(max=last)]
     zero_row = lyr.src_cap - 1  # reserved zero row of the cache frame
     nbr_main = torch.where(kr < take[None, :], src, zero_row)
-    return _finish_innermost(lyr, g, valid, take, nbr_main)
+    return _as_layer(lyr, innermost_fields(g, valid, take, nbr_main,
+                                           lyr.src_cap, lyr.out_cap))
 
 
-def _finish_innermost(lyr, g, valid, take, nbr_main):
-    """Prepend the self slot and assemble the owned-rank-order layer."""
-    zero_row = lyr.src_cap - 1
-    self_rows = torch.where(valid, g, zero_row).to(torch.int32)
-    nbr = torch.cat([self_rows[None, :], nbr_main.to(torch.int32)], dim=0)
-    O = lyr.out_cap
-    v = valid[:O]
-    ar = torch.arange(O, dtype=torch.int32, device=g.device)
+def _as_layer(lyr: SplitLayer, f: InnermostFields) -> SplitLayer:
+    """The synthesized fields as the owned-rank-order layer."""
     return SplitLayer(
-        owned_idx=torch.where(v, ar, -1),
-        owned_deg=torch.where(v, (take[:O] + 1).float(), 1.0),
-        self_idx=torch.where(v, g[:O], 0).to(torch.int32),
-        owned_mask=v,
-        num_owned=valid.sum().to(torch.int32),
-        nbr_idx=nbr,
+        owned_idx=f.owned_idx,
+        owned_deg=f.owned_deg,
+        self_idx=f.self_idx,
+        owned_mask=f.owned_mask,
+        num_owned=f.num_owned,
+        nbr_idx=f.nbr,
         src_cap=lyr.src_cap,
         dst_cap=lyr.dst_cap,
-        out_cap=O,
+        out_cap=lyr.out_cap,
         fanout=lyr.fanout,
     )

@@ -40,6 +40,11 @@ import torch
 from torch.profiler import record_function
 
 from occ_gnn_tpu_torch.models.common import dropout, linear
+from occ_gnn_tpu_torch.ops.device_sample import (
+    dense_layer_mean,
+    draw_neighbors,
+    gather_mean,
+)
 from occ_gnn_tpu_torch.parallel.dist import (
     DistContext,
     rank_seed,
@@ -50,39 +55,45 @@ from occ_gnn_tpu_torch.parallel.model import global_update, make_device_csr
 _DRAW_HIGH = 2**31 - 1  # JAX draws in [0, int32 max)
 
 
+def _draws(n: int, fanout: int, generator: torch.Generator,
+           device) -> torch.Tensor:
+    """A layer's draws, int32 ``[n, fanout]`` in ``[0, 2^31 - 1)``."""
+    return torch.randint(0, _DRAW_HIGH, (n, fanout), generator=generator,
+                         device=device, dtype=torch.int32)
+
+
 def sample_neighbors_dense(csr, frontier: torch.Tensor, fanout: int,
                            generator: torch.Generator) -> torch.Tensor:
     """``fanout`` uniform in-neighbours of each frontier node, with
     replacement: int32 ``[len(frontier), fanout]``. A zero-degree node
-    yields itself."""
-    indptr, indices = csr
+    yields itself. The draws of ``dense_frontiers``' next layer (its
+    ``draw_neighbors`` launch on the card)."""
     n = frontier.shape[0]
-    if indices.numel() == 0:
-        return frontier[:, None].expand(n, fanout).contiguous()
-    f = frontier.long()
-    start = indptr[f].long()
-    deg = indptr[f + 1].long() - start
-    r = torch.randint(0, _DRAW_HIGH, (n, fanout), generator=generator,
-                      device=frontier.device)
-    pos = start[:, None] + r % deg.clamp(min=1)[:, None]
-    # A zero-degree node's position indptr[v] may be one past the last
-    # edge (JAX clamps the gather, torch raises); it takes itself below.
-    nbr = indices[pos.clamp(max=indices.numel() - 1)]
-    return torch.where(deg[:, None] > 0, nbr, frontier[:, None])
+    r = _draws(n, fanout, generator, frontier.device)
+    return draw_neighbors(frontier, *csr, r)[n:].view(n, fanout)
 
 
 def dense_frontiers(csr, targets: torch.Tensor, fanouts: list[int],
                     generator: torch.Generator) -> list[torch.Tensor]:
     """Every layer's frontier, outermost first (``frontiers[0]`` is
     ``targets``): ``frontiers[l] = cat(frontiers[l - 1], drawn.flatten())``,
-    so the self rows of each layer are the prefix."""
+    so the self rows of each layer are the prefix; one ``torch.randint``
+    and one ``ops/device_sample.draw_neighbors`` a layer."""
     frontier = targets
     out = [frontier]
     for fanout in fanouts:
-        nbr = sample_neighbors_dense(csr, frontier, fanout, generator)
-        frontier = torch.cat([frontier, nbr.reshape(-1)])
+        r = _draws(frontier.shape[0], fanout, generator, frontier.device)
+        frontier = draw_neighbors(frontier, *csr, r)
         out.append(frontier)
     return out
+
+
+def _growth(fanouts: list[int]) -> list[int]:
+    """The frontier's size per target at each depth, outermost first."""
+    sizes = [1]
+    for fanout in fanouts:
+        sizes.append(sizes[-1] * (1 + fanout))
+    return sizes
 
 
 def dense_sage_forward(model, x_deepest: torch.Tensor, fanouts: list[int],
@@ -91,29 +102,46 @@ def dense_sage_forward(model, x_deepest: torch.Tensor, fanouts: list[int],
                        ) -> torch.Tensor:
     """SAGE over dense frontiers with the weights of ``model`` (a
     ``models.SAGEModel``): ``x_deepest`` holds the deepest frontier's
-    feature rows in its multiset order. The layer math is the padded
-    path's, ``h = W . cat(self, mean) + b``, accumulated in f32; between
-    layers ReLU, dropout (when ``model`` is training, drawn from
-    ``generator``) and a cast to the storage ``dtype``, as in JAX."""
-    num_layers = len(fanouts)
-    sizes = [1]
-    for fanout in fanouts:
-        sizes.append(sizes[-1] * (1 + fanout))
+    feature rows in its multiset order. The first layer's inputs are
+    ``ops/device_sample.dense_layer_mean`` of them; the rest is
+    ``dense_sage_layers``."""
+    sizes = _growth(fanouts)
     total = x_deepest.shape[0]
     if total % sizes[-1]:
         raise ValueError(
             f"x_deepest rows ({total}) not a multiple of the dense frontier "
             f"growth factor {sizes[-1]} for fanouts {fanouts}")
-    batch = total // sizes[-1]
-    x = x_deepest
+    n = total // sizes[-1] * sizes[-2]
+    x_self, mean = dense_layer_mean(x_deepest, n, fanouts[-1])
+    return dense_sage_layers(model, x_self, mean, fanouts, dtype=dtype,
+                             generator=generator)
+
+
+def dense_sage_layers(model, x_self: torch.Tensor, mean: torch.Tensor,
+                      fanouts: list[int], *,
+                      dtype: torch.dtype = torch.float32,
+                      generator: torch.Generator | None = None
+                      ) -> torch.Tensor:
+    """SAGE over dense frontiers from the first layer's inputs: the f32
+    self rows ``x_self`` and neighbour means ``mean`` of the deepest
+    sampled layer (``gather_mean`` or ``dense_layer_mean``). The layer
+    math is the padded path's, ``h = W . cat(self, mean) + b``,
+    accumulated in f32; between layers ReLU, dropout (when ``model`` is
+    training, drawn from ``generator``) and a cast to the storage
+    ``dtype``, as in JAX."""
+    num_layers = len(fanouts)
+    sizes = _growth(fanouts)
+    if x_self.shape[0] % sizes[-2]:
+        raise ValueError(
+            f"x_self rows ({x_self.shape[0]}) not a multiple of the dense "
+            f"frontier growth factor {sizes[-2]} for fanouts {fanouts}")
+    batch = x_self.shape[0] // sizes[-2]
+    x = None
     for i in range(num_layers):
-        m = num_layers - 1 - i          # sampled layer consumed (outer idx)
-        fanout = fanouts[m]
-        n_self = batch * sizes[m]
-        x_self = x[:n_self].float()
-        nbr_sum = x[n_self:].reshape(n_self, fanout, -1).sum(
-            dim=1, dtype=torch.float32)
-        mean = (x_self + nbr_sum) / (fanout + 1.0)
+        if i:
+            m = num_layers - 1 - i      # sampled layer consumed (outer idx)
+            fanout = fanouts[m]
+            x_self, mean = dense_layer_mean(x, batch * sizes[m], fanout)
         x = linear(model.layer_params(i), torch.cat([x_self, mean], dim=-1))
         if i != num_layers - 1:
             x = dropout(torch.relu(x), model.dropout, generator,
@@ -191,14 +219,17 @@ class DeviceSampleTrainer:
 
     def forward(self, frontiers: list[torch.Tensor], local: int = 0
                 ) -> torch.Tensor:
-        """The logits of the targets ``frontiers[0]``: the gather of the
-        deepest frontier's rows and the dense forward, dropping out from
-        local shard ``local``'s stream."""
+        """The logits of the targets ``frontiers[0]``: the deepest
+        frontier's self rows and first-layer means (``gather_mean``, which
+        writes no frame of its rows), then the dense layers, dropping out
+        from local shard ``local``'s stream."""
         with record_function("quiver_gather"):
-            x = self.features.index_select(0, frontiers[-1])
+            x_self, mean = gather_mean(self.features, frontiers[-1],
+                                       frontiers[-2].shape[0],
+                                       self.fanouts[-1])
         with record_function("dense_sage_forward"):
-            return dense_sage_forward(
-                self.model, x, self.fanouts, dtype=self.dtype,
+            return dense_sage_layers(
+                self.model, x_self, mean, self.fanouts, dtype=self.dtype,
                 generator=self.dropout_generators[local])
 
     def step(self, targets: np.ndarray, labels: np.ndarray):
