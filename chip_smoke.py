@@ -42,14 +42,21 @@
    written here, 10,000 draws checked as in-neighbours, the draw, the
    gather-mean kernel and the two torch ops it replaced (the gather, the
    layer-0 mean) timed beside their byte bounds, one steady step
-   profiled; ``device_sample_cases``: ``draw_neighbors`` at the three
-   layers of that batch and ``gather_mean`` at its deepest frontier (f32
-   table and a bf16 copy) against their plain versions on the same draws
-   (integers bit-equal, the mean within 1e-5 of scale, two launches
-   bit-equal), timed beside the byte bound, the no-reuse floor, the
-   plain version and, for the gather-mean, ``embedding_bag(mode="mean")``;
-   and, untimed, all three on a small graph of in-degrees 0 to 300 (pads,
-   ``out_cap`` short of D, tables of 37 columns); then 8 steps through
+   profiled (its ``quiver_gather`` range counting the gather-mean
+   kernel's time); ``device_sample_cases``: ``draw_neighbors`` at the
+   three layers of that batch and ``gather_mean`` at its deepest frontier
+   (f32 table and a bf16 copy) against their plain versions on the same
+   draws (integers bit-equal, the mean within 1e-5 of scale, two launches
+   bit-equal), timed beside the byte bound, the no-reuse floor (for the
+   gather-mean also the distinct-row floor: each output's distinct rows
+   once), the plain version and, for the gather-mean,
+   ``embedding_bag(mode="mean")``; and, untimed, all three on small
+   graphs at the shapes the main path does not give them
+   (``sampler_ragged_cases``: in-degrees 0 to 300 and a hub of 10^5,
+   pads, frames all pads, all valid and with a boundary at 255-257,
+   ``out_cap`` short of D; tables of 100, 36 and 7 columns in f32 and
+   bf16, their last row odd and even, repeated and distinct rows, 41 ids
+   an output, n = 0, a fan-out of 0 refused); then 8 steps through
    ``train_quiver``: the draws 3 times and the gather-mean once a step.
 8. Split A, products scale, every width kept: checks one layer 0
    synthesized on the card from the resident CSR (``synthesize_innermost``,
@@ -68,8 +75,9 @@
    |dx|), timed beside ``embedding_bag`` and the bound; then drives
    ``--mode split --cache-per auto`` (replicated cache, device innermost,
    C++ sampler; 8 steps) through ``train_split`` with one steady step
-   profiled: the synthesis once, the dense kernels 3 times forward and 2
-   times backward a step, no segment-sum. Split A bf16: the same flags at
+   profiled: the synthesis once (its range counting its kernel's time),
+   the dense kernels 3 times forward and 2 times backward a step, no
+   segment-sum. Split A bf16: the same flags at
    ``--dtype bfloat16`` (the bench's default), 6 steps, the fifth
    profiled: finite loss, the same dense launches a step, its kernels
    beside f32's.
@@ -253,6 +261,7 @@ from occ_gnn_tpu_torch.ops.dense_gather_sum import (
     slots_plan,
 )
 from occ_gnn_tpu_torch.ops.device_sample import (
+    distinct_rows,
     draw_neighbors,
     draw_neighbors_reference,
     gather_mean,
@@ -853,7 +862,8 @@ def hot_row_cases(lyr, hidden, rate, device):
 
 
 def sampler_case(label, entry, kernel, plain, nbytes, floor_bytes, ops,
-                 rate, library=None, close=(), plain_reps=GRAPH_REPS):
+                 rate, library=None, close=(), plain_reps=GRAPH_REPS,
+                 distinct_bytes=None):
     """One on-device sampler at one shape against its plain version on the
     same inputs: ``kernel()`` and ``plain()`` return tuples of tensors,
     each bit-equal but those at the positions ``close``, which are held
@@ -863,8 +873,10 @@ def sampler_case(label, entry, kernel, plain, nbytes, floor_bytes, ops,
     PyTorch call that computes the same function where there is one, the
     byte bound (``nbytes``: each input read once, each output written
     once), the no-reuse floor (``floor_bytes``: a 32-byte sector for
-    each scattered read) and ``ops`` operations at the f32 rate; with
-    ``nbytes`` None, checked and not timed. Returns the case."""
+    each scattered read), where given the distinct-row floor
+    (``distinct_bytes``: each output's distinct rows read once, in whole
+    sectors) and ``ops`` operations at the f32 rate; with ``nbytes``
+    None, checked and not timed. Returns the case."""
     out, again, ref = kernel(), kernel(), plain()
     torch.cuda.synchronize()
     err = 0.0
@@ -901,12 +913,18 @@ def sampler_case(label, entry, kernel, plain, nbytes, floor_bytes, ops,
     bound = max(case["bytes_ms"], case["ops_ms"])
     by = "bytes" if case["bytes_ms"] >= case["ops_ms"] else "operations"
     lib = "—" if library is None else f"{case['library_ms']:.4f}"
+    distinct = ""
+    if distinct_bytes is not None:
+        case["distinct_floor_ms"] = distinct_bytes / rate * 1e3
+        distinct = (f" distinct_row_floor_ms={case['distinct_floor_ms']:.4f}"
+                    f" ({100 * case['distinct_floor_ms'] / case['ms']:.1f} %"
+                    f" of it)")
     print(f"kernel {entry} {label}: {check}, two launches bit-equal; "
           f"ms={case['ms']:.4f} plain_ms={case['plain_ms']:.4f} "
           f"library_ms={lib} bound_ms={bound:.4f} ({by}, "
           f"{100 * bound / case['ms']:.1f} % of it) no_reuse_floor_ms="
           f"{case['floor_ms']:.4f} ({100 * case['floor_ms'] / case['ms']:.1f}"
-          f" % of it)")
+          f" % of it){distinct}")
     return case
 
 
@@ -999,51 +1017,83 @@ def quiver_sample_cases(trainer, frontiers, rate, device):
     deep, n, K = frontiers[-1], frontiers[-2].shape[0], fanouts[-1]
     bags = torch.cat([deep[:n, None], deep[n:].view(n, K)], 1).long()
     rows = torch.unique(deep).numel()
+    per_output = int(distinct_rows(deep, n, K).sum())
     for name in ("f32", "bf16"):
         table = (trainer.features if name == "f32"
                  else trainer.features.to(torch.bfloat16))
         H, row = table.shape[1], table.shape[1] * table.element_size()
         # The frontier and both outputs once, each distinct row once; the
-        # floor reads every slot's row in whole sectors.
+        # floor reads every slot's row in whole sectors, the distinct-row
+        # floor each output's distinct rows.
         coalesced = 4 * deep.numel() + 2 * 4 * n * H
+        sector_row = -(-row // 32) * 32
         out[name] = sampler_case(
             f"quiver deepest layer (n={n}, K={K}, H={H}, {name} table, "
-            f"rows read={rows} of {deep.numel()})", GMEAN,
+            f"rows read={rows} of {deep.numel()}, {per_output} distinct "
+            f"within outputs)", GMEAN,
             lambda: gather_mean(table, deep, n, K),
             lambda: gather_mean_reference(table, deep, n, K),
-            coalesced + rows * row,
-            coalesced + deep.numel() * (-(-row // 32) * 32),
+            coalesced + rows * row, coalesced + deep.numel() * sector_row,
             n * (K + 2) * H, rate,
             library=lambda: torch.nn.functional.embedding_bag(
-                bags, table, mode="mean"), close=(1,), plain_reps=1)
+                bags, table, mode="mean"), close=(1,), plain_reps=1,
+            distinct_bytes=coalesced + per_output * sector_row)
         del table
     return out
 
 
 def sampler_ragged_cases(rate, device):
-    """The three samplers on a small graph built here, at the shapes the
-    main path does not give them: in-degrees 0, 1, K, K + 1, 3K and 300
-    (K = 25), a dst frame with 500 pads and ``out_cap`` short of D,
-    frontiers holding zero-degree nodes, and tables of 37 columns (one
-    element a lane) in f32 and bf16. Each against its plain version as
-    ``sampler_case`` holds it, untimed. Returns [(entry, case)]."""
+    """The three samplers on small graphs built here, at the shapes the
+    main path does not give them, each against its plain version as
+    ``sampler_case`` holds it, untimed. ``synthesize_innermost``: in-degrees
+    0, 1, K, K + 1, 3K, 300 and a hub of 10^5 (K = 25) in a frame of 3,000
+    columns (not a multiple of the block) with 500 pads and ``out_cap``
+    short of D; a tile of runs of 8K words, more than its staging space;
+    frames all pads, all valid, and with the first pad at 255, 256 and
+    257. ``draw_neighbors``: frontiers holding zero-degree nodes.
+    ``gather_mean``: f32 and bf16 tables of 100, 36 and 7 columns (bf16
+    tables whose last row is odd and even, that row drawn), every draw of
+    an output the same row, all rows of an output distinct, 41 ids an
+    output, tables that start off a 16-byte boundary; n = 0 and a fan-out
+    of 0 refused before any launch. Returns [(entry, case)]."""
     gen = torch.Generator(device).manual_seed(18)
     N, K = 5000, 25
     degrees = torch.tensor([0, 1, K, K + 1, 3 * K, 300], device=device)[
         torch.randint(0, 6, (N,), generator=gen, device=device)]
+    degrees[7] = 100_000  # a hub
+    degrees[8:8 + 300] = 8 * K  # runs that overflow a tile's staging
     indptr = torch.zeros(N + 1, dtype=torch.int32, device=device)
     indptr[1:] = torch.cumsum(degrees, 0)
     indices = torch.randint(0, N, (int(indptr[-1]),), generator=gen,
                             device=device, dtype=torch.int32)
+    out = []
+
+    def synthesis(label, dg, out_cap):
+        draws = torch.randint(0, 2**62, (K, dg.shape[0]), generator=gen,
+                              device=device)
+        args = (dg, indptr, indices, draws, K, N + 1, out_cap)
+        out.append((SYNTH, sampler_case(
+            label, SYNTH, lambda: tuple(synthesize_innermost(*args)),
+            lambda: tuple(synthesize_innermost_reference(*args)), None,
+            None, 0, rate)))
+
     dg = torch.randperm(N, generator=gen, device=device)[:3000].int()
+    dg[:40] = 7
     dg[2500:] = -1
-    draws = torch.randint(0, 2**62, (K, 3000), generator=gen, device=device)
-    args = (dg, indptr, indices, draws, K, N + 1, 2000)
-    out = [(SYNTH, sampler_case(
-        "ragged: degrees 0 to 300, 500 pads, out_cap 2000 of 3000", SYNTH,
-        lambda: tuple(synthesize_innermost(*args)),
-        lambda: tuple(synthesize_innermost_reference(*args)), None, None, 0,
-        rate))]
+    synthesis("ragged: degrees 0 to 300 and a hub of 10^5, 500 pads, "
+              "out_cap 2000 of 3000", dg, 2000)
+    synthesis("ragged: 300 runs of 8K words, past a tile's staging space",
+              torch.arange(8, 8 + 300, dtype=torch.int32, device=device),
+              300)
+    synthesis("ragged: all pads", torch.full((1000,), -1, dtype=torch.int32,
+                                             device=device), 1000)
+    synthesis("ragged: all valid, D = 777", torch.randint(
+        0, N, (777,), generator=gen, device=device, dtype=torch.int32), 777)
+    for first in (255, 256, 257):
+        dg = torch.full((600,), -1, dtype=torch.int32, device=device)
+        dg[:first] = torch.randint(0, N, (first,), generator=gen,
+                                   device=device, dtype=torch.int32)
+        synthesis(f"ragged: first pad at {first} of 600", dg, 600)
     f = torch.randint(0, N, (4000,), generator=gen, device=device,
                       dtype=torch.int32)
     r = torch.randint(0, 2**31 - 1, (4000, 10), generator=gen, device=device,
@@ -1054,16 +1104,61 @@ def sampler_ragged_cases(rate, device):
         lambda: (draw_neighbors(f, indptr, indices, r),),
         lambda: (draw_neighbors_reference(f, indptr, indices, r),), None,
         None, 0, rate)))
-    n, k = 1000, 5
-    deep = torch.randint(0, N, (n * (1 + k),), generator=gen, device=device,
-                         dtype=torch.int32)
-    for dtype in (torch.float32, torch.bfloat16):
-        table = torch.randn(N, 37, generator=gen, device=device).to(dtype)
+
+    def mean_case(label, table, deep, n, k):
         out.append((GMEAN, sampler_case(
-            f"ragged: n={n}, K={k}, H=37 {str(dtype)[6:]} table", GMEAN,
+            f"ragged: {label}, n={n}, K={k}, H={table.shape[1]} "
+            f"{str(table.dtype)[6:]} table of {table.shape[0]} rows", GMEAN,
             lambda: gather_mean(table, deep, n, k),
             lambda: gather_mean_reference(table, deep, n, k), None, None, 0,
             rate, close=(1,))))
+
+    def ids(rows, n, k):
+        deep = torch.randint(0, rows, (n * (1 + k),), generator=gen,
+                             device=device, dtype=torch.int32)
+        deep[::7] = rows - 1  # the last row, often
+        return deep
+
+    n, k = 1000, K
+    for rows in (5001, 5000):  # the last row even / odd
+        for H in (100, 36, 7):
+            for dtype in (torch.float32, torch.bfloat16):
+                table = torch.randn(rows, H, generator=gen,
+                                    device=device).to(dtype)
+                mean_case("random ids", table, ids(rows, n, k), n, k)
+    table = torch.randn(5001, 100, generator=gen, device=device)
+    same = ids(5001, n, k).view(-1)
+    same[n:] = same[n:].view(n, k)[:, :1].expand(n, k).reshape(-1)
+    distinct = torch.randperm(5001, generator=gen, device=device)[
+        :150 * (1 + k)].int()
+    for dtype in (torch.float32, torch.bfloat16):
+        t = table.to(dtype)
+        mean_case("every draw the same row", t, same, n, k)
+        mean_case("all rows of an output distinct", t, distinct, 150, k)
+        mean_case("41 ids an output", t, ids(5001, 300, 40), 300, 40)
+        # A contiguous view one row in: bf16 rows at 8 bytes and f32 rows
+        # of 7 columns at 28 bytes off a 16-byte boundary.
+        mean_case("a table one row into its storage", t[1:],
+                  ids(5000, n, k), n, k)
+        mean_case("7 columns, a table one row into its storage",
+                  torch.randn(5001, 7, generator=gen, device=device).to(
+                      dtype)[1:], ids(5000, n, k), n, k)
+    # Neither JAX's first layer nor the plain version takes an empty
+    # block of neighbours: both routes refuse it before any launch.
+    for what, deep, rows, k in (
+            ("a fan-out of 0", same[:n], n, 0),
+            ("n = 0", torch.zeros(0, dtype=torch.int32, device=device), 0,
+             K)):
+        before = gather_mean.launches
+        try:
+            gather_mean(table, deep, rows, k)
+        except ValueError:
+            pass
+        else:
+            raise AssertionError(f"gather_mean took {what}")
+        if gather_mean.launches != before:
+            raise AssertionError(f"gather_mean launched at {what}")
+        print(f"kernel gather_mean: {what} refused, no launch")
     return out
 
 
@@ -1916,6 +2011,19 @@ def print_profile(profile: dict):
     for name, v in sorted(profile["named_ms"].items()):
         print(f"    range {name}: {v['device_ms']:.4f} ms of kernels over "
               f"{v['calls']} calls")
+
+
+def expect_range_holds(label, profile, name, kernel):
+    """Raise unless the profiled step's named range ``name`` counts at
+    least the device time of the kernels whose names hold ``kernel``,
+    which its wrapper launches through ctypes inside the range."""
+    ms = sum(v for k, v in profile["ops_ms"].items() if kernel in k)
+    got = profile["named_ms"].get(name, {}).get("device_ms", 0.0)
+    print(f"  range {name}: {got:.4f} ms of kernels, {kernel} "
+          f"{ms:.4f} ms in the step")
+    if not ms > 0 or got < ms * (1 - 1e-9):
+        raise AssertionError(f"{label}: the range {name} counts {got} ms "
+                             f"of kernels, {kernel} took {ms} ms")
 
 
 def run_split(label, args, g, fanouts, device):
@@ -3833,6 +3941,8 @@ def main(argv=None) -> int:
         quiver_rows, quiver_profile, trainer, frontiers = check_quiver(
             args_q, g, rate, device)
         print_profile(quiver_profile)
+        expect_range_holds("quiver", quiver_profile, "quiver_gather",
+                           "gather_mean_kernel")
         with phase("device_sample_cases (quiver)"):
             quiver_cases = quiver_sample_cases(trainer, frontiers, rate,
                                                device)
@@ -3875,6 +3985,8 @@ def main(argv=None) -> int:
         metrics_a, launches_a = run_split("split A", args_a, g, fan_a, device)
         check_dense_run("split A", metrics_a, launches_a, SPLIT_A_STEP)
         print_profile(metrics_a["profile"])
+        expect_range_holds("split A", metrics_a["profile"],
+                           "synthesize_device_innermost", "synthesize_kernel")
 
     # 8'. Split A at --dtype bfloat16, the bench's default: 6 steps.
     with phase("split A bf16"):
@@ -4148,9 +4260,11 @@ def main(argv=None) -> int:
                       quiver_cases[name]) for name in ("f32", "bf16")]
     for entry, label, c in sampler_rows:
         lib = c["library_ms"]
+        distinct = ("" if "distinct_floor_ms" not in c else
+                    f"distinct_row_floor_ms={c['distinct_floor_ms']:.4f} ")
         print(f"  {entry} at {label}: ms={c['ms']:.4f} bound_ms="
               f"{bound(c):.4f} no_reuse_floor_ms={c['floor_ms']:.4f} "
-              f"plain_ms={c['plain_ms']:.4f} "
+              f"{distinct}plain_ms={c['plain_ms']:.4f} "
               f"library_ms={'—' if lib is None else f'{lib:.4f}'} "
               f"max_abs_err={c['err']:.3g}")
     print(f"  the synthesis call: {synth_case['call_ms']:.4f} ms "

@@ -43,19 +43,17 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # The C entries of csrc/device_sample.cu, argument for argument, and what
 # they return.
 ARGTYPES = {
-    "synthesize_innermost_blocks": [_L],
     # dst, d, indptr, num_nodes, indices, num_indices, draws, k, out_cap,
     # zero_row, nbr, owned_idx, owned_deg, self_idx, owned_mask, num_owned,
-    # block_counts, ticket, device, stream
+    # device, stream
     "synthesize_innermost": [_P, _L, _P, _L, _P, _L, _P, _I, _I, _I, _P, _P,
-                             _P, _P, _P, _P, _P, _P, _I, _P],
+                             _P, _P, _P, _P, _I, _P],
     # frontier, n, indptr, num_nodes, indices, num_indices, r, k, out,
     # device, stream
     "draw_neighbors": [_P, _L, _P, _L, _P, _L, _P, _I, _P, _I, _P],
     # x, x_bf16, x_rows, h, f, n, k, x_self, mean, device, stream
     "gather_mean": [_P, _I, _L, _I, _P, _L, _I, _P, _P, _I, _P],
 }
-RESTYPES = {"synthesize_innermost_blocks": _L}
 
 
 class InnermostFields(NamedTuple):
@@ -158,31 +156,32 @@ def gather_mean_reference(features: torch.Tensor, frontier: torch.Tensor,
     return dense_layer_mean(features.index_select(0, frontier), n, fanout)
 
 
+def distinct_rows(frontier: torch.Tensor, n: int,
+                  fanout: int) -> torch.Tensor:
+    """How many distinct table rows each of ``gather_mean``'s ``n``
+    outputs names among its self id and its ``fanout`` draws: int64
+    ``[n]``, the rows its kernel reads once each (at ``fanout + 1 <=
+    32``)."""
+    ids = torch.cat([frontier[:n, None], frontier[n:].view(n, fanout)], 1)
+    ids = ids.sort(dim=1).values
+    return 1 + (ids[:, 1:] != ids[:, :-1]).sum(dim=1)
+
+
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = load_kernel("device_sample")
     for name, argtypes in ARGTYPES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = RESTYPES.get(name, ctypes.c_int)
+        fn.restype = ctypes.c_int
     return lib
 
 
-# One ticket a card: the last block of a synthesis launch finds itself
-# by it and sets it back to zero, so the count needs no memset. Launches
-# on one stream share it; two at once on two streams would not.
-_tickets: dict[int, torch.Tensor] = {}
-
-
-def _ticket(device: torch.device) -> torch.Tensor:
-    index = device.index if device.index is not None else 0
-    if index not in _tickets:
-        _tickets[index] = torch.zeros(1, dtype=torch.int32, device=device)
-    return _tickets[index]
-
-
 def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The current stream of ``t``'s card as a raw pointer: what
+    ``torch.cuda.current_stream(...).cuda_stream`` gives, without building
+    a Stream object (~10 us of the host a call)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
 
 
 def _on_cuda(what: str, t: torch.Tensor) -> None:
@@ -218,6 +217,8 @@ def _launch_synthesize(dst_global, indptr, indices, draws, K, src_cap,
     _on_cuda("synthesize_innermost", dst_global)
     D = dst_global.shape[0]
     dev = dst_global.device
+    # One allocation a field: on the card's host, one buffer cut into
+    # views cost more than the five allocations it saved.
     empty = functools.partial(torch.empty, device=dev)
     out = InnermostFields(
         nbr=empty((K + 1, D), dtype=torch.int32),
@@ -230,14 +231,12 @@ def _launch_synthesize(dst_global, indptr, indices, draws, K, src_cap,
         out.num_owned.zero_()
         return out
     lib = _library()
-    blocks = empty(lib.synthesize_innermost_blocks(D), dtype=torch.int32)
     err = lib.synthesize_innermost(
         dst_global.data_ptr(), D, indptr.data_ptr(), indptr.shape[0] - 1,
         indices.data_ptr(), indices.shape[0], draws.data_ptr(), K, out_cap,
         src_cap - 1, out.nbr.data_ptr(), out.owned_idx.data_ptr(),
         out.owned_deg.data_ptr(), out.self_idx.data_ptr(),
-        out.owned_mask.data_ptr(), out.num_owned.data_ptr(),
-        blocks.data_ptr(), _ticket(dev).data_ptr(), dev.index,
+        out.owned_mask.data_ptr(), out.num_owned.data_ptr(), dev.index,
         _stream(dst_global))
     check_launch(lib, err, "synthesize_innermost")
     synthesize_innermost.launches += 1
@@ -254,7 +253,12 @@ def synthesize_innermost(dst_global: torch.Tensor, indptr: torch.Tensor,
     neighbours at ``draws[k] % deg`` for the int64 ``draws [K, D]`` (in
     ``[0, 2^62)``, as ``torch.randint(0, 2**62)`` gives them). A frame row
     of the replicated cache is the global id, and ``src_cap - 1`` its zero
-    row. ``synthesize_innermost.launches`` counts the kernel's launches."""
+    row. The frame's valid columns must be a prefix, as the sampling
+    service writes them (each dst id at its dense rank, pads after):
+    ``num_owned`` is then the first pad's index. Another frame raises
+    ``ValueError`` on the CPU and stops the kernel with a device-side
+    assert on the card. ``synthesize_innermost.launches`` counts the
+    kernel's launches."""
     _check_ids("dst_global", dst_global)
     _check_csr(indptr, indices, dst_global)
     D = dst_global.shape[0]
@@ -270,6 +274,11 @@ def synthesize_innermost(dst_global: torch.Tensor, indptr: torch.Tensor,
     if D >= 2**31:
         raise ValueError(f"{D} dst columns: past int32")
     if dst_global.device.type == "cpu":
+        valid = dst_global >= 0
+        if not bool(valid[:int(valid.sum())].all()):
+            raise ValueError("dst_global holds a valid column after a pad: "
+                             "the synthesis takes frames whose valid "
+                             "columns are a prefix")
         return synthesize_innermost_reference(dst_global, indptr, indices,
                                               draws, K, src_cap, out_cap)
     return _launch_synthesize(dst_global, indptr, indices, draws, K,
@@ -283,6 +292,8 @@ def _launch_draw(frontier, indptr, indices, r) -> torch.Tensor:
     _on_cuda("draw_neighbors", frontier)
     n, K = r.shape
     out = torch.empty(n * (1 + K), dtype=torch.int32, device=frontier.device)
+    if n == 0:
+        return out
     lib = _library()
     err = lib.draw_neighbors(
         frontier.data_ptr(), n, indptr.data_ptr(), indptr.shape[0] - 1,
@@ -299,18 +310,19 @@ def draw_neighbors(frontier: torch.Tensor, indptr: torch.Tensor,
     * (1 + K)]``, ``frontier`` itself then, for each node in order, its K
     draws ``indices[indptr[f] + r[s, k] % deg]`` (the node itself at
     degree 0), for int32 ``r [n, K]`` in ``[0, 2^31)`` (``torch.randint(0,
-    2**31 - 1)``). ``draw_neighbors.launches`` counts the kernel's
-    launches."""
+    2**31 - 1)``). At ``K = 0`` it is a copy of ``frontier``, with no
+    launch (JAX's ``dense_frontiers`` keeps the frontier).
+    ``draw_neighbors.launches`` counts the kernel's launches."""
     _check_ids("frontier", frontier)
     _check_csr(indptr, indices, frontier)
     n = frontier.shape[0]
     if r.dtype != torch.int32 or r.dim() != 2 or r.shape[0] != n:
         raise TypeError(f"r must be int32 [{n}, K], got {r.dtype} "
                         f"{list(r.shape)}")
-    if r.shape[1] < 1:
-        raise ValueError("r must hold at least one draw a node (K >= 1)")
     if r.device != frontier.device or not r.is_contiguous():
         raise ValueError("r must be contiguous, on the frontier's device")
+    if r.shape[1] == 0:
+        return frontier.clone()
     if frontier.device.type == "cpu":
         return draw_neighbors_reference(frontier, indptr, indices, r)
     return _launch_draw(frontier, indptr, indices, r)
@@ -324,6 +336,8 @@ def _launch_gather_mean(features, frontier, n, fanout):
     h = features.shape[1]
     x_self = torch.empty((n, h), dtype=torch.float32, device=features.device)
     mean = torch.empty_like(x_self)
+    if h == 0:
+        return x_self, mean
     lib = _library()
     err = lib.gather_mean(
         features.data_ptr(), int(features.dtype == torch.bfloat16),
@@ -344,8 +358,10 @@ def gather_mean(features: torch.Tensor, frontier: torch.Tensor, n: int,
     over k, in order, of features[frontier[n + s * fanout + k]]) / (fanout
     + 1)``. Every id must be a row of ``features``, as ``index_select``
     requires; on the card one out of range stops the kernel with a
-    device-side assert. ``gather_mean.launches`` counts the kernel's
-    launches."""
+    device-side assert. A fan-out of 0 or ``n = 0`` raises ``ValueError``
+    on both routes, before any launch: JAX's first layer cannot reshape
+    such a block of neighbours either, nor can the plain version.
+    ``gather_mean.launches`` counts the kernel's launches."""
     if features.dtype not in (torch.float32, torch.bfloat16) or (
             features.dim() != 2):
         raise TypeError(f"features must be 2-D float32 or bfloat16, got "
@@ -359,6 +375,11 @@ def gather_mean(features: torch.Tensor, frontier: torch.Tensor, n: int,
     if fanout < 0 or n < 0 or frontier.shape[0] != n * (1 + fanout):
         raise ValueError(f"frontier of {frontier.shape[0]} ids is not n = "
                          f"{n} self rows and {fanout} draws each")
+    if fanout == 0 or n == 0:
+        raise ValueError(f"gather_mean needs a fan-out and a count of rows "
+                         f"of at least 1, got fan-out {fanout}, n = {n}: "
+                         f"the first layer's mean has no block of "
+                         f"neighbours to reshape")
     if features.device.type == "cpu":
         return gather_mean_reference(features, frontier, n, fanout)
     return _launch_gather_mean(features, frontier, n, fanout)

@@ -445,3 +445,197 @@ def test_module_imports_no_jax_in_a_fresh_process():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.split() == ["False", "False"]
+
+
+# The fan-out-0 repair: JAX keeps the frontier at a fan-out of 0.
+
+@pytest.mark.parametrize("fanouts", [[2, 0], [0]])
+def test_frontiers_at_fanout_zero_equal_jax(fanouts):
+    indptr, indices = _zero_degree_csr()
+    jcsr = jds.DeviceCSR(indptr=jnp.asarray(indptr),
+                         indices=jnp.asarray(indices))
+    targets = np.array([0, 5, 17, 39], np.int32)
+    key = jax.random.PRNGKey(12)
+    want = jds.dense_frontiers(jcsr, jnp.asarray(targets), fanouts, key)
+    ip, ix = torch.from_numpy(indptr), torch.from_numpy(indices)
+    ds.draw_neighbors.launches = 0
+    # The same layers from JAX's own draws, layer by layer.
+    frontier = torch.from_numpy(targets)
+    for layer, fanout in enumerate(fanouts):
+        n = frontier.shape[0]
+        r = np.asarray(jax.random.randint(
+            jax.random.fold_in(key, layer), (n, fanout), 0,
+            jnp.iinfo(jnp.int32).max))
+        frontier = ds.draw_neighbors(frontier, ip, ix,
+                                     torch.from_numpy(r.astype(np.int32)))
+        np.testing.assert_array_equal(frontier.numpy(),
+                                      np.asarray(want[layer + 1]))
+    # The port's own frontiers: JAX's shapes, and a layer of fan-out 0
+    # repeats the one before it.
+    got = dense_frontiers((ip, ix), torch.from_numpy(targets), fanouts,
+                          torch.Generator().manual_seed(3))
+    assert [tuple(t.shape) for t in got] == [w.shape for w in want]
+    assert all(t.dtype == torch.int32 for t in got)
+    for layer, fanout in enumerate(fanouts):
+        if fanout == 0:
+            assert torch.equal(got[layer + 1], got[layer])
+    assert ds.draw_neighbors.launches == 0
+    nbr = sample_neighbors_dense((ip, ix), torch.from_numpy(targets), 0,
+                                 torch.Generator().manual_seed(3))
+    want_nbr = jds.sample_neighbors_dense(jcsr, jnp.asarray(targets), 0, key)
+    assert tuple(nbr.shape) == want_nbr.shape == (4, 0)
+    assert nbr.dtype == torch.int32
+
+
+def test_draw_neighbors_at_fanout_zero_copies_the_frontier():
+    indptr, indices = _zero_degree_csr()
+    ip, ix = torch.from_numpy(indptr), torch.from_numpy(indices)
+    frontier = torch.tensor([3, 9, 21], dtype=torch.int32)
+    ds.draw_neighbors.launches = 0
+    out = ds.draw_neighbors(frontier, ip, ix,
+                            torch.zeros(3, 0, dtype=torch.int32))
+    assert torch.equal(out, frontier)
+    assert out.data_ptr() != frontier.data_ptr()
+    assert ds.draw_neighbors.launches == 0
+
+
+def test_gather_mean_without_neighbours_raises_on_both_routes():
+    feats = np.random.default_rng(0).standard_normal((10, 4)).astype(
+        np.float32)
+    frontier = np.array([1, 4, 7], np.int32)
+    # JAX's first layer cannot take a fan-out of 0 either.
+    x = jnp.asarray(feats)[jnp.asarray(frontier)]
+    with pytest.raises(Exception):
+        x[3:].reshape(3, 0, -1)
+    with pytest.raises(Exception):
+        x[0:].reshape(0, 4, -1)  # nor n = 0
+    ds.gather_mean.launches = 0
+    for device in ("cpu", "meta"):
+        # On meta tensors the check must come before the launcher (which
+        # would refuse a tensor off the card with another message).
+        t = torch.from_numpy(feats).to(device)
+        with pytest.raises(ValueError, match="fan-out 0"):
+            ds.gather_mean(t, torch.from_numpy(frontier).to(device), 3, 0)
+        with pytest.raises(ValueError, match="n = 0"):
+            ds.gather_mean(t, torch.zeros(0, dtype=torch.int32,
+                                          device=device), 0, 4)
+    assert ds.gather_mean.launches == 0
+
+
+# num_owned without state across launches.
+
+# The synthesis kernel's tile: a warp's columns.
+TILE = int(re.search(r"constexpr int kLanes = (\d+);",
+                     SOURCE.read_text()).group(1))
+
+
+def _kernel_num_owned(valid: np.ndarray) -> int:
+    """The synthesis kernel's count, tile by tile as it computes it:
+    each tile's first pad, whether the column before the tile is a pad,
+    and the one writer; raises where the kernel's assert would fire."""
+    D = valid.shape[0]
+    written = []
+    for d0 in range(0, D, TILE):
+        tile = valid[d0:d0 + TILE]
+        pads = np.flatnonzero(~tile)
+        first = int(pads[0]) if pads.size else TILE
+        before = d0 > 0 and not valid[d0 - 1]
+        if tile[first:].any() or (before and tile.any()):
+            raise AssertionError("valid column after a pad")
+        if not before:
+            if first < TILE:
+                written.append(d0 + first)
+            elif d0 + TILE >= D:
+                written.append(D)
+    assert len(written) == 1, written
+    return written[0]
+
+
+@pytest.mark.parametrize("boundary", ["all valid", "all pad", 0, 255, 256,
+                                      257, 600])
+def test_num_owned_at_the_frame_boundary(degree_graph, boundary):
+    """Frames of D = 600 columns (not a multiple of the tile) whose first
+    pad is at ``boundary``: the wrapper's count (the plain version's on
+    the CPU), JAX's and the kernel's tile rule all give it."""
+    D = 600
+    first = {"all valid": D, "all pad": 0}.get(boundary, boundary)
+    assert 256 % TILE == 0  # the boundaries 255-257 straddle a tile's edge
+    rng = np.random.default_rng(first)
+    dg = np.full(D, -1, np.int32)
+    dg[:first] = rng.integers(0, 64, first)
+    indptr, indices = degree_graph
+    draws = torch.zeros(K, D, dtype=torch.int64)
+    got = ds.synthesize_innermost(
+        torch.from_numpy(dg), torch.from_numpy(indptr),
+        torch.from_numpy(indices), draws, K, 65, 300)
+    assert int(got.num_owned) == first
+    lyr = jax_split.SplitLayer(dst_global=jnp.asarray(dg), src_cap=65,
+                               dst_cap=D, out_cap=300, fanout=K)
+    want = jax_split.synthesize_device_innermost(
+        lyr, jnp.asarray(indptr), jnp.asarray(indices),
+        jax.random.PRNGKey(0))
+    assert int(want.num_owned) == first
+    assert _kernel_num_owned(dg >= 0) == first
+
+
+@pytest.mark.parametrize("late", [3, 300])
+def test_a_valid_column_after_a_pad_raises(degree_graph, late):
+    indptr, indices = degree_graph
+    dg = np.full(600, -1, np.int32)
+    dg[:200] = 5
+    dg[late] = -1 if late < 200 else 7
+    with pytest.raises(AssertionError):
+        _kernel_num_owned(dg >= 0)
+    with pytest.raises(ValueError, match="after a pad"):
+        ds.synthesize_innermost(
+            torch.from_numpy(dg), torch.from_numpy(indptr),
+            torch.from_numpy(indices), torch.zeros(K, 600, dtype=torch.int64),
+            K, 65, 600)
+
+
+@pytest.mark.parametrize("parts, emit, packed, plans", [
+    (1, None, True, False), (2, None, True, True), (4, None, False, False),
+    (4, (1, 3), True, False), (4, (2, 4), False, True)])
+def test_native_sampler_frames_are_valid_prefixes(parts, emit, packed,
+                                                  plans):
+    """Every layer-0 dst frame the C++ service emits on the
+    device-innermost path (every partition count, emitted range, arena
+    and plan setting that split takes it with) is a valid prefix, the
+    form the synthesis counts by."""
+    g = random_graph(num_nodes=600, avg_degree=6, feature_dim=8,
+                     num_classes=3, seed=4)
+    pmap = np.random.default_rng(parts).integers(0, parts, g.num_nodes
+                                                 ).astype(np.int32)
+    plan = CachePlan(g, pmap, parts, 1.0, refresh_cap=8)
+    nodes = g.train_nodes()
+    sampler = NativeSplitSampler(g, nodes, pmap, parts, [4, 3], 64, seed=5,
+                                 cache=plan, num_workers=1,
+                                 innermost="device", emit_range=emit,
+                                 packed=packed, scatter_plans=plans,
+                                 device="cpu")
+    frames = 0
+    for chunk in (nodes[:64], nodes[64:128], nodes[-37:]):
+        dg = sampler.sample_batch(chunk).layers[0].dst_global
+        for p in range(dg.shape[0]):
+            valid = dg[p] >= 0
+            n = int(valid.sum())
+            assert bool(valid[:n].all()), (p, n)
+            assert n > 0
+            frames += 1
+    sampler.close()
+    lo, hi = emit or (0, parts)
+    assert frames == 3 * (hi - lo)
+
+
+def test_distinct_rows_equal_unique_per_output():
+    rng = np.random.default_rng(9)
+    for n, fanout, rows in ((50, 25, 40), (20, 3, 5), (7, 40, 1000),
+                            (0, 4, 10)):
+        f = torch.from_numpy(rng.integers(0, rows, n * (1 + fanout)).astype(
+            np.int32))
+        got = ds.distinct_rows(f, n, fanout)
+        want = [torch.unique(torch.cat([f[s:s + 1],
+                                        f[n + s * fanout:
+                                          n + (s + 1) * fanout]])).numel()
+                for s in range(n)]
+        assert got.tolist() == want

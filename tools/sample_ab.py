@@ -8,8 +8,19 @@ the steps the on-device samplers run on.
 
 ``graph`` builds the products-scale graph of ``chip_smoke.py`` and saves
 it under ROOT. ``step``, run from the root of a checkout, builds that
-checkout's kernels and drives, each through its own entry points:
+checkout's kernels, times two of them at the main path's shapes, and
+drives, each through its own entry points:
 
+* the kernels: ``gather_mean`` at quiver's deepest frontier (a trainer
+  seeded as ``train_quiver``'s, its first batch; the f32 table and a bf16
+  copy) and ``synthesize_innermost`` at split A's layer 0 (the first
+  batch of ``chip_smoke.check_synthesized_layer``), each in the CUDA-graph
+  harness (``chip_smoke.median_ms``), and the synthesis call as split A
+  makes it (``torch.randint`` and the kernel, CUDA events over 20 eager
+  calls, the median of 7 such), beside the byte bound, the no-reuse
+  floor and, for the gather-mean, the distinct-row floor (each output's
+  distinct rows read once, in whole sectors), computed here from the
+  same inputs;
 * split A and split GAT A (``chip_smoke.SPLIT_A_FLAGS`` and
   ``GAT_A_FLAGS``: replicated cache, layer 0 synthesized on the card, 8
   steps, the fifth profiled) through ``train_split``;
@@ -18,7 +29,8 @@ checkout's kernels and drives, each through its own entry points:
   the first and one after the last (the steady ms a step of steps 2-8),
   then one steady step profiled (``chip_smoke.profile_one_step``);
 
-and prints one JSON line a cell: the medians of steps 2-8 of
+and prints one JSON line a cell (the kernels one too): the medians of
+steps 2-8 of
 ``train_step`` and of the step wall (split), quiver's ``fused_step`` a
 step (its warm-up in) and steady ms a step, the peak device memory, the
 launches by kernel, and the profiled step's kernels, device busy, window,
@@ -65,6 +77,83 @@ def profile_fields(prof: dict) -> dict:
             "idle": prof["device_idle_share"], "ranges_ms": named}
 
 
+def kernel_times(cs, g, device) -> dict:
+    """The redesigned samplers' kernels of this checkout at the main path's
+    shapes, with their bounds and floors (ms)."""
+    import torch
+
+    from occ_gnn_tpu_torch.models import get_model
+    from occ_gnn_tpu_torch.ops.device_sample import (
+        gather_mean,
+        synthesize_innermost,
+    )
+    from occ_gnn_tpu_torch.parallel.split import synthesize_device_innermost
+    from occ_gnn_tpu_torch.sampling.device_sampler import DeviceSampleTrainer
+
+    rate = cs.memory_rate(torch.cuda.get_device_name(0))
+    out = {}
+    args = cs.graph_args(g.num_nodes, cs.QUIVER_FLAGS)
+    fanouts = [int(f) for f in args.fan_out.split(",")]
+    model = get_model("sage", g.feature_dim, args.num_hidden, g.num_classes,
+                      len(fanouts),
+                      generator=torch.Generator().manual_seed(args.seed))
+    trainer = DeviceSampleTrainer(g, fanouts, args.batch_size,
+                                  model.to(device), None, seed=args.seed,
+                                  device=device)
+    targets, _ = next(trainer.epoch_batches(
+        g.train_nodes()[: args.limit_train]))
+    with torch.no_grad():
+        frontiers = trainer.sample(torch.from_numpy(targets[0]).to(device))
+    deep, n, K = frontiers[-1], frontiers[-2].shape[0], fanouts[-1]
+    # ops/device_sample.distinct_rows, inline: a parent's checkout may
+    # not have it.
+    ids = torch.cat([deep[:n, None], deep[n:].view(n, K)], 1)
+    ids = ids.sort(dim=1).values
+    distinct = int((1 + (ids[:, 1:] != ids[:, :-1]).sum(dim=1)).sum())
+    rows = torch.unique(deep).numel()
+    for name, table in (("f32", trainer.features),
+                        ("bf16", trainer.features.to(torch.bfloat16))):
+        H = table.shape[1]
+        row = H * table.element_size()
+        sector = -(-row // 32) * 32
+        coalesced = 4 * deep.numel() + 8 * n * H
+        out[f"gather_mean {name}"] = {
+            "ms": cs.median_ms(lambda: gather_mean(table, deep, n, K)),
+            "bound_ms": (coalesced + rows * row) / rate * 1e3,
+            "floor_ms": (coalesced + deep.numel() * sector) / rate * 1e3,
+            "distinct_floor_ms": (coalesced + distinct * sector) / rate * 1e3,
+            "n": n, "K": K, "H": H, "rows": rows, "distinct": distinct}
+    del trainer, frontiers, deep, ids, table
+    args = cs.graph_args(g.num_nodes, cs.SPLIT_A_FLAGS)
+    fanouts = [int(f) for f in args.fan_out.split(",")]
+    batch, _, (indptr, indices) = cs.check_synthesized_layer(
+        g, fanouts, args.batch_size, device)
+    l0 = batch.layers[0].partition(0)
+    dg, K, O, S = l0.dst_global, l0.fanout, l0.out_cap, l0.src_cap
+    D = dg.shape[0]
+    gen = torch.Generator(device).manual_seed(16)
+    draws = torch.randint(0, 2**62, (K, D), generator=gen, device=device)
+    valid = dg >= 0
+    g0 = dg.clamp(min=0).long()
+    deg = torch.where(valid, indptr[g0 + 1] - indptr[g0], 0)
+    nvalid, drawn = int(valid.sum()), int((deg > K).sum())
+    used = int(deg.clamp(max=K).sum())
+    # chip_smoke.synthesis_cases' bound and floor.
+    coalesced = 4 * D + 8 * K * drawn + 4 * (K + 1) * D + 13 * O + 4
+    out["synthesize_innermost"] = {
+        "ms": cs.median_ms(lambda: synthesize_innermost(
+            dg, indptr, indices, draws, K, S, O)),
+        # The call is host-bound and its host shared: the median of 7
+        # measures of 20 eager calls each.
+        "call_ms": statistics.median(
+            cs.events_ms(lambda: synthesize_device_innermost(
+                l0, indptr, indices, gen)) for _ in range(7)),
+        "bound_ms": (coalesced + 8 * nvalid + 4 * used) / rate * 1e3,
+        "floor_ms": (coalesced + 32 * nvalid + 32 * used) / rate * 1e3,
+        "K": K, "D": D, "valid": nvalid, "drawn": drawn, "used": used}
+    return out
+
+
 def run_step(root: str, label: str, out: str) -> None:
     """In the checkout at the working directory: its split A, split GAT A
     and quiver runs, one JSON line each."""
@@ -80,6 +169,9 @@ def run_step(root: str, label: str, out: str) -> None:
     device = torch.device("cuda")
     cs.build_all()
     g = load_graph(root, "products")
+    print("STEP " + json.dumps({
+        "label": label, "cell": "kernels",
+        **kernel_times(cs, g, device)}), flush=True)
     for cell, flags in (("split A", cs.SPLIT_A_FLAGS),
                         ("split GAT A", cs.GAT_A_FLAGS)):
         args = cs.graph_args(g.num_nodes, flags + [
