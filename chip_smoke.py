@@ -49,12 +49,16 @@
    draws (integers bit-equal, the mean within 1e-5 of scale, two launches
    bit-equal), timed beside the byte bound, the no-reuse floor (for the
    gather-mean also the distinct-row floor: each output's distinct rows
-   once), the plain version and, for the gather-mean,
+   once; for the draws the run floors: each entry's or each distinct
+   node's indptr pair and run in whole sectors, ``run_sectors``), the
+   plain version and, for the gather-mean,
    ``embedding_bag(mode="mean")``; and, untimed, all three on small
    graphs at the shapes the main path does not give them
    (``sampler_ragged_cases``: in-degrees 0 to 300 and a hub of 10^5,
    pads, frames all pads, all valid and with a boundary at 255-257,
-   ``out_cap`` short of D; tables of 100, 36 and 7 columns in f32 and
+   ``out_cap`` short of D; draws at n = 1, 31, 33, 4,000 by K = 1, 25,
+   33, 41, 200, a hub's, all of degree 0, one node repeated; tables of 100,
+   36 and 7 columns in f32 and
    bf16, their last row odd and even, repeated and distinct rows, 41 ids
    an output, n = 0, a fan-out of 0 refused); then 8 steps through
    ``train_quiver``: the draws 3 times and the gather-mean once a step.
@@ -266,6 +270,7 @@ from occ_gnn_tpu_torch.ops.device_sample import (
     draw_neighbors_reference,
     gather_mean,
     gather_mean_reference,
+    run_sectors,
     synthesize_innermost,
     synthesize_innermost_reference,
 )
@@ -863,7 +868,7 @@ def hot_row_cases(lyr, hidden, rate, device):
 
 def sampler_case(label, entry, kernel, plain, nbytes, floor_bytes, ops,
                  rate, library=None, close=(), plain_reps=GRAPH_REPS,
-                 distinct_bytes=None):
+                 floors=None):
     """One on-device sampler at one shape against its plain version on the
     same inputs: ``kernel()`` and ``plain()`` return tuples of tensors,
     each bit-equal but those at the positions ``close``, which are held
@@ -873,10 +878,11 @@ def sampler_case(label, entry, kernel, plain, nbytes, floor_bytes, ops,
     PyTorch call that computes the same function where there is one, the
     byte bound (``nbytes``: each input read once, each output written
     once), the no-reuse floor (``floor_bytes``: a 32-byte sector for
-    each scattered read), where given the distinct-row floor
-    (``distinct_bytes``: each output's distinct rows read once, in whole
-    sectors) and ``ops`` operations at the f32 rate; with ``nbytes``
-    None, checked and not timed. Returns the case."""
+    each scattered read), the other floors ``floors`` names (name: bytes,
+    as ``distinct_row_floor_ms``: each output's distinct rows read once,
+    in whole sectors; kept in ``case["floors"]`` in ms) and ``ops``
+    operations at the f32 rate; with ``nbytes`` None, checked and not
+    timed. Returns the case."""
     out, again, ref = kernel(), kernel(), plain()
     torch.cuda.synchronize()
     err = 0.0
@@ -913,18 +919,16 @@ def sampler_case(label, entry, kernel, plain, nbytes, floor_bytes, ops,
     bound = max(case["bytes_ms"], case["ops_ms"])
     by = "bytes" if case["bytes_ms"] >= case["ops_ms"] else "operations"
     lib = "—" if library is None else f"{case['library_ms']:.4f}"
-    distinct = ""
-    if distinct_bytes is not None:
-        case["distinct_floor_ms"] = distinct_bytes / rate * 1e3
-        distinct = (f" distinct_row_floor_ms={case['distinct_floor_ms']:.4f}"
-                    f" ({100 * case['distinct_floor_ms'] / case['ms']:.1f} %"
-                    f" of it)")
+    case["floors"] = {name: b / rate * 1e3
+                      for name, b in (floors or {}).items()}
+    more = "".join(f" {name}={ms:.4f} ({100 * ms / case['ms']:.1f} % of it)"
+                   for name, ms in case["floors"].items())
     print(f"kernel {entry} {label}: {check}, two launches bit-equal; "
           f"ms={case['ms']:.4f} plain_ms={case['plain_ms']:.4f} "
           f"library_ms={lib} bound_ms={bound:.4f} ({by}, "
           f"{100 * bound / case['ms']:.1f} % of it) no_reuse_floor_ms="
           f"{case['floor_ms']:.4f} ({100 * case['floor_ms'] / case['ms']:.1f}"
-          f" % of it){distinct}")
+          f" % of it){more}")
     return case
 
 
@@ -1004,16 +1008,31 @@ def quiver_sample_cases(trainer, frontiers, rate, device):
         del r64, r32
         fl = f.long()
         live = int((indptr[fl + 1] > indptr[fl]).sum())
+        # A kernel warp's tile of 8 entries (kDrawTile) reads a repeated
+        # node's run again (through L1 at best): the share of entries whose
+        # node came earlier in their tile.
+        tiles = torch.nn.functional.pad(fl, (0, -n % 8), value=-1)
+        tiles = tiles.view(-1, 8).sort(dim=1).values
+        repeats = int(((tiles[:, 1:] == tiles[:, :-1])
+                       & (tiles[:, 1:] >= 0)).sum())
+        print(f"  quiver layer {m}: {repeats} of {n} frontier entries "
+              f"({100 * repeats / n:.1f} %) repeat a node of their tile "
+              f"of 8")
         # The frontier, r and the output once, indptr's two words a node,
         # the index of each draw of a node of degree > 0; the floor a
-        # sector for each indptr pair and each such index.
+        # sector for each indptr pair and each such index; the run floors
+        # each entry's (each distinct node's) indptr pair and run in whole
+        # sectors.
         coalesced = 4 * n + 4 * n * K + 4 * n * (1 + K)
         out["draws"].append(sampler_case(
             f"quiver layer {m} (n={n}, K={K})", DRAW,
             lambda: (draw_neighbors(f, indptr, indices, r),),
             lambda: (draw_neighbors_reference(f, indptr, indices, r),),
             coalesced + 8 * n + 4 * live * K,
-            coalesced + 32 * n + 32 * live * K, n * K, rate))
+            coalesced + 32 * n + 32 * live * K, n * K, rate,
+            floors={"run_floor_ms": coalesced + run_sectors(f, indptr),
+                    "distinct_run_floor_ms": coalesced + run_sectors(
+                        f, indptr, distinct=True)}))
     deep, n, K = frontiers[-1], frontiers[-2].shape[0], fanouts[-1]
     bags = torch.cat([deep[:n, None], deep[n:].view(n, K)], 1).long()
     rows = torch.unique(deep).numel()
@@ -1037,7 +1056,8 @@ def quiver_sample_cases(trainer, frontiers, rate, device):
             n * (K + 2) * H, rate,
             library=lambda: torch.nn.functional.embedding_bag(
                 bags, table, mode="mean"), close=(1,), plain_reps=1,
-            distinct_bytes=coalesced + per_output * sector_row)
+            floors={"distinct_row_floor_ms":
+                    coalesced + per_output * sector_row})
         del table
     return out
 
@@ -1050,7 +1070,11 @@ def sampler_ragged_cases(rate, device):
     columns (not a multiple of the block) with 500 pads and ``out_cap``
     short of D; a tile of runs of 8K words, more than its staging space;
     frames all pads, all valid, and with the first pad at 255, 256 and
-    257. ``draw_neighbors``: frontiers holding zero-degree nodes.
+    257. ``draw_neighbors``: n = 1, 31, 33 and 4,000 (a warp's tiles of 8
+    whole and cut) by K = 1, 25, 33, 41 and 200 (past a warp's stage of
+    1,024 words), random nodes of the graph, zero-degree ones among them;
+    a frontier of the hub, one all of degree 0, one of a single node
+    repeated.
     ``gather_mean``: f32 and bf16 tables of 100, 36 and 7 columns (bf16
     tables whose last row is odd and even, that row drawn), every draw of
     an output the same row, all rows of an output distinct, 41 ids an
@@ -1094,16 +1118,29 @@ def sampler_ragged_cases(rate, device):
         dg[:first] = torch.randint(0, N, (first,), generator=gen,
                                    device=device, dtype=torch.int32)
         synthesis(f"ragged: first pad at {first} of 600", dg, 600)
-    f = torch.randint(0, N, (4000,), generator=gen, device=device,
-                      dtype=torch.int32)
-    r = torch.randint(0, 2**31 - 1, (4000, 10), generator=gen, device=device,
-                      dtype=torch.int32)
-    zero = int((degrees[f.long()] == 0).sum())
-    out.append((DRAW, sampler_case(
-        f"ragged: n=4000, K=10, {zero} of degree 0", DRAW,
-        lambda: (draw_neighbors(f, indptr, indices, r),),
-        lambda: (draw_neighbors_reference(f, indptr, indices, r),), None,
-        None, 0, rate)))
+
+    def draw_case(label, f, k):
+        r = torch.randint(0, 2**31 - 1, (f.shape[0], k), generator=gen,
+                          device=device, dtype=torch.int32)
+        zero = int((degrees[f.long()] == 0).sum())
+        out.append((DRAW, sampler_case(
+            f"ragged: {label}, n={f.shape[0]}, K={k}, {zero} of degree 0",
+            DRAW, lambda: (draw_neighbors(f, indptr, indices, r),),
+            lambda: (draw_neighbors_reference(f, indptr, indices, r),),
+            None, None, 0, rate)))
+
+    for n in (1, 31, 33, 4000):
+        for k in (1, K, 33, 41, 200):
+            draw_case("random nodes", torch.randint(
+                0, N, (n,), generator=gen, device=device, dtype=torch.int32),
+                k)
+    draw_case("the hub of 10^5", torch.full((40,), 7, dtype=torch.int32,
+                                            device=device), 41)
+    zeros = (degrees == 0).nonzero().flatten().int()
+    draw_case("all of degree 0", zeros[torch.randint(
+        0, zeros.numel(), (100,), generator=gen, device=device)], K)
+    draw_case("one node repeated", torch.full((4000,), 9, dtype=torch.int32,
+                                              device=device), K)
 
     def mean_case(label, table, deep, n, k):
         out.append((GMEAN, sampler_case(
@@ -4260,11 +4297,11 @@ def main(argv=None) -> int:
                       quiver_cases[name]) for name in ("f32", "bf16")]
     for entry, label, c in sampler_rows:
         lib = c["library_ms"]
-        distinct = ("" if "distinct_floor_ms" not in c else
-                    f"distinct_row_floor_ms={c['distinct_floor_ms']:.4f} ")
+        more = "".join(f"{name}={ms:.4f} "
+                       for name, ms in c["floors"].items())
         print(f"  {entry} at {label}: ms={c['ms']:.4f} bound_ms="
               f"{bound(c):.4f} no_reuse_floor_ms={c['floor_ms']:.4f} "
-              f"{distinct}plain_ms={c['plain_ms']:.4f} "
+              f"{more}plain_ms={c['plain_ms']:.4f} "
               f"library_ms={'—' if lib is None else f'{lib:.4f}'} "
               f"max_abs_err={c['err']:.3g}")
     print(f"  the synthesis call: {synth_case['call_ms']:.4f} ms "

@@ -58,8 +58,23 @@
 //     seeing from the column before its tile whether the boundary came
 //     earlier. A valid column after a pad stops the kernel with a
 //     device-side assert. No memset, no atomics.
-//   * draw_neighbors: one thread an output word; the frontier and the draws
-//     read coalesced, the CSR at random.
+//   * draw_neighbors: a warp takes a tile of 8 consecutive frontier
+//     entries, a lane each, and a stage of up to 1,024 words in shared
+//     memory. Each warp is a chain of three rounds of reads, not each
+//     output word: (1) the lane's node f, then asynchronous copies
+//     (cp.async) of the tile's draws r[s0
+//     * K, (s0 + 8) * K), one contiguous block, into the stage; (2) f's
+//     indptr pair, which the lane writes to the warp's shared memory with
+//     deg's reciprocal; (3) lanes over the tile's output words,
+//     consecutive lanes on consecutive words: each word's index copied by
+//     cp.async over its draw in the stage, every copy of the warp in
+//     flight at once and none held in a register, then the stage stored
+//     coalesced. A word's node comes from its tile-local index by a 32-bit
+//     multiply-high by K's reciprocal, and r % deg by deg's (mod32): no
+//     division a word. The reads of one node's run fall in one or two warp
+//     instructions, so the coalescer fetches each of its sectors once, and
+//     L1 (the default split of it and shared memory) holds the runs of a
+//     tile's repeated nodes.
 //   * gather_mean: a warp an output row s. Its K + 1 ids (the self row,
 //     then the draws; in chunks of 32 past 31 draws) sit a lane each, and
 //     __match_any_sync merges the repeated ones before any row is read:
@@ -93,7 +108,6 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // a block of draw_neighbors
 constexpr int kLanes = 32;
 constexpr unsigned kFullMask = 0xffffffffu;
 
@@ -276,30 +290,125 @@ synthesize_kernel(const int* __restrict__ dst, int D,
 // ---------------------------------------------------------------------
 // draw_neighbors
 
-__global__ void __launch_bounds__(kThreads)
+constexpr int kDrawWarps = 4;  // a block
+constexpr int kDrawThreads = kDrawWarps * kLanes;
+// 12 blocks an SM cap a thread at 40 registers (48 without it: 10
+// blocks), which measured faster at quiver's layer 2 on an H100 80GB HBM3
+// at 700 W (PERF.md, PR 17).
+constexpr int kDrawBlocksAnSm = 12;
+// Frontier entries a warp: a tile of 8 was faster than one of 4, 16 or 32
+// at each of quiver's layers on the same card (more warps, each a shorter
+// walk of words).
+constexpr int kDrawTile = 8;
+constexpr int kDrawStage = 1024;  // a warp's staged words at most (4 KB)
+constexpr int kMaxDrawK = 1 << 25;  // a tile's words stay in an int
+
+// x / d and x % d for 0 < d and any 32-bit x, from m = floor((2^32 - 1) /
+// d): 2^32 - m d is at most d, so x / d - x m / 2^32 = x (2^32 - m d) / (d
+// 2^32) lies in [0, 1), and q = floor(x m / 2^32) is floor(x / d) or one
+// short of it; one compare finishes it. A multiply-high, a multiply and a
+// compare, where `/` and `%` are software routines on the card.
+__device__ __forceinline__ unsigned div32(unsigned x, unsigned d,
+                                          unsigned m) {
+  const unsigned q = __umulhi(x, m);
+  return x - q * d >= d ? q + 1 : q;
+}
+
+__device__ __forceinline__ unsigned mod32(unsigned x, unsigned d,
+                                          unsigned m) {
+  const unsigned rem = x - __umulhi(x, m) * d;
+  return rem >= d ? rem - d : rem;
+}
+
+// An asynchronous copy of 16 bytes into shared memory, cached in L2 only.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+// A warp owns the tile of frontier entries [s0, s0 + kDrawTile), a lane
+// each, and a stage of `stage` words (min(kDrawTile K, kDrawStage), a
+// multiple of 4) in dynamic shared memory; k_recip = floor((2^32 - 1) /
+// K).
+__global__ void __launch_bounds__(kDrawThreads, kDrawBlocksAnSm)
 draw_kernel(const int* __restrict__ frontier, long long n,
             const int* __restrict__ indptr, long long num_nodes,
             const int* __restrict__ indices, long long num_indices,
-            const int* __restrict__ r, int K, int* __restrict__ out) {
-  const long long i = static_cast<long long>(blockIdx.x) * kThreads +
-                      threadIdx.x;
-  if (i >= n * (1 + K)) return;
-  if (i < n) {
-    out[i] = __ldg(frontier + i);
-    return;
+            const int* __restrict__ r, int K, unsigned k_recip, int stage,
+            int* __restrict__ out) {
+  extern __shared__ __align__(16) int draw_smem[];
+  // Each tile node's run start (its own id at degree 0), its degree and
+  // the degree's reciprocal, at the node's lane.
+  __shared__ uint4 nodes_of[kDrawWarps][kDrawTile];
+  const int lane = threadIdx.x % kLanes, warp = threadIdx.x / kLanes;
+  uint4* nodes = nodes_of[warp];
+  int* staged = draw_smem + warp * stage;
+  const long long s0 =
+      (static_cast<long long>(blockIdx.x) * kDrawWarps + warp) * kDrawTile;
+  if (s0 >= n) return;  // whole warps
+  const int tile =
+      n - s0 < kDrawTile ? static_cast<int>(n - s0) : kDrawTile;
+  const int words = tile * K;  // the tile's output words, r's words
+  const int* rt = r + s0 * K;
+  int* ot = out + n + s0 * K;
+  // r's words [w0, w0 + len) into the stage: 16 bytes a copy where r's
+  // block is 16-byte aligned (s0 K words, s0 a multiple of 8, from an
+  // aligned r), else 4.
+  const bool quads = reinterpret_cast<uintptr_t>(rt) % 16 == 0;
+  auto stage_draws = [&](int w0, int len) {
+    const int head = quads ? len / 4 * 4 : 0;
+    for (int w = 4 * lane; w < head; w += 4 * kLanes) {
+      cp_async16(staged + w, rt + w0 + w);
+    }
+    for (int w = head + lane; w < len; w += kLanes) {
+      cp_async4(staged + w, rt + w0 + w);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  // Round 1: the lane's node, then the first stage of the tile's draws
+  // (issued after it, so it does not queue behind them); round 2: the
+  // node's indptr pair.
+  const int f = lane < tile ? __ldg(frontier + s0 + lane) : 0;
+  stage_draws(0, words < stage ? words : stage);
+  uint4 node = make_uint4(0, 0, 0, 0);
+  if (lane < tile) {
+    assert(f >= 0 && f < num_nodes);
+    out[s0 + lane] = f;
+    const int start = __ldg(indptr + f);
+    const int deg = __ldg(indptr + f + 1) - start;
+    node = deg > 0 ? make_uint4(start, deg, 0xffffffffu / deg, 0)
+                   : make_uint4(f, 0, 0, 0);
   }
-  const long long j = i - n;  // s * K + k
-  const int f = __ldg(frontier + j / K);
-  assert(f >= 0 && f < num_nodes);
-  const int start = __ldg(indptr + f);
-  const int deg = __ldg(indptr + f + 1) - start;
-  int v = f;
-  if (deg > 0) {
-    const int pos = start + __ldg(r + j) % deg;
-    assert(pos < num_indices);
-    v = __ldg(indices + pos);
+  if (lane < kDrawTile) nodes[lane] = node;
+  // Round 3, a stage at a time: each word's index copied over its draw in
+  // the stage, all in flight at once, then the stage stored coalesced.
+  for (int w0 = 0; w0 < words; w0 += stage) {
+    const int len = words - w0 < stage ? words - w0 : stage;
+    if (w0 > 0) stage_draws(w0, len);  // K > kDrawStage / kDrawTile
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncwarp();
+#pragma unroll 8
+    for (int i = lane; i < len; i += kLanes) {
+      const uint4 a = nodes[div32(w0 + i, K, k_recip)];
+      if (a.y > 0) {
+        const long long pos =
+            static_cast<long long>(a.x) +
+            mod32(static_cast<unsigned>(staged[i]), a.y, a.z);
+        assert(pos < num_indices);
+        cp_async4(staged + i, indices + pos);
+      } else {
+        staged[i] = static_cast<int>(a.x);
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncwarp();
+#pragma unroll 8
+    for (int i = lane; i < len; i += kLanes) ot[w0 + i] = staged[i];
+    __syncwarp();
   }
-  out[i] = v;
 }
 
 // ---------------------------------------------------------------------
@@ -670,7 +779,8 @@ extern "C" int synthesize_innermost(
   return static_cast<int>(cudaGetLastError());
 }
 
-// frontier int32 [n]; r int32 [n, k] in [0, 2^31); out int32 [n * (1 + k)].
+// frontier int32 [n]; r int32 [n, k] in [0, 2^31), 1 <= k <= 2^25; out
+// int32 [n * (1 + k)].
 extern "C" int draw_neighbors(const void* frontier, long long n,
                               const void* indptr, long long num_nodes,
                               const void* indices, long long num_indices,
@@ -678,18 +788,25 @@ extern "C" int draw_neighbors(const void* frontier, long long n,
                               void* stream) {
   const cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (n < 0 || k < 1 || num_nodes < 1) {
+  if (n < 0 || k < 1 || k > kMaxDrawK || num_nodes < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long total = n * (1 + k);
-  const long long blocks = (total + kThreads - 1) / kThreads;
+  const long long block_rows = kDrawWarps * kDrawTile;
+  const long long blocks = (n + block_rows - 1) / block_rows;
   if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
-  if (total == 0) return 0;
-  draw_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+  if (n == 0) return 0;
+  // The split of shared memory and L1 stays the CUDA default: L1 holds the
+  // runs a tile reads more than once (its repeated nodes); asking for all
+  // the shared memory an SM gives was slower on the same card.
+  const int stage =
+      k < kDrawStage / kDrawTile ? kDrawTile * k : kDrawStage;
+  draw_kernel<<<static_cast<unsigned>(blocks), kDrawThreads,
+                sizeof(int) * kDrawWarps * stage,
                 static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(frontier), n, static_cast<const int*>(indptr),
       num_nodes, static_cast<const int*>(indices), num_indices,
-      static_cast<const int*>(r), k, static_cast<int*>(out));
+      static_cast<const int*>(r), k, 0xffffffffu / static_cast<unsigned>(k),
+      stage, static_cast<int*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

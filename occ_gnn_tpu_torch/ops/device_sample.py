@@ -167,6 +167,25 @@ def distinct_rows(frontier: torch.Tensor, n: int,
     return 1 + (ids[:, 1:] != ids[:, :-1]).sum(dim=1)
 
 
+def run_sectors(frontier: torch.Tensor, indptr: torch.Tensor,
+                distinct: bool = False) -> int:
+    """The bytes of the CSR that ``draw_neighbors`` reads for ``frontier``
+    in whole 32-byte sectors: one sector for each entry's ``indptr`` pair,
+    and each entry's run ``indices[indptr[f], indptr[f + 1])`` in the
+    sectors it spans (none at degree 0), ``indices`` starting on a sector
+    as an allocation does. With ``distinct`` each distinct node counts
+    once. At a degree near the fan-out the draws touch about every sector
+    of a run, so this is the yardstick the kernel can reach, where the
+    byte bound counts 4 bytes a draw."""
+    f = frontier.long()
+    if distinct:
+        f = torch.unique(f)
+    start, end = indptr[f].long(), indptr[f + 1].long()
+    spans = torch.where(end > start, (4 * end + 31) // 32 - 4 * start // 32,
+                        0)
+    return 32 * (f.numel() + int(spans.sum()))
+
+
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = load_kernel("device_sample")

@@ -639,3 +639,125 @@ def test_distinct_rows_equal_unique_per_output():
                                           n + (s + 1) * fanout]])).numel()
                 for s in range(n)]
         assert got.tolist() == want
+
+
+def _straddling_csr():
+    # Runs of 0 to 17 words starting at every offset within a 32-byte
+    # sector, so many cross one or two sector edges.
+    degrees = [3, 5, 8, 1, 7, 9, 16, 0, 2, 13, 17, 6, 0, 11, 4, 8]
+    return _csr(degrees, len(degrees), 3)
+
+
+def _direct_run_bytes(frontier, indptr, distinct):
+    nodes = sorted(set(frontier)) if distinct else list(frontier)
+    total = 0
+    for f in nodes:
+        total += 32  # the indptr pair
+        sectors = {4 * i // 32 for i in range(indptr[f], indptr[f + 1])}
+        total += 32 * len(sectors)
+    return total
+
+
+@pytest.mark.parametrize("distinct", [False, True])
+@pytest.mark.parametrize("graph", ["zero_degree", "straddling"])
+def test_run_sectors_equal_a_direct_count(graph, distinct):
+    indptr, _ = (_zero_degree_csr() if graph == "zero_degree"
+                 else _straddling_csr())
+    rng = np.random.default_rng(4)
+    frontier = rng.integers(0, len(indptr) - 1, 200).astype(np.int32)
+    frontier[:5] = [0, 3, 7, 7, 7]  # zero-degree nodes, a repeated node
+    got = ds.run_sectors(torch.from_numpy(frontier),
+                         torch.from_numpy(indptr), distinct=distinct)
+    assert got == _direct_run_bytes(frontier.tolist(), indptr.tolist(),
+                                    distinct)
+
+
+def _source_constant(name):
+    m = re.search(rf"constexpr int {name} = (\d+);", SOURCE.read_text())
+    return int(m.group(1))
+
+
+def _umulhi(x, m):
+    return (x.astype(np.uint64) * np.asarray(m, np.uint64)) >> np.uint64(32)
+
+
+def _div32(x, d, m):
+    """draw_kernel's div32 on uint64 arrays of 32-bit values."""
+    q = _umulhi(x, m)
+    return np.where(x - q * d >= d, q + 1, q)
+
+
+def _mod32(x, d, m):
+    """draw_kernel's mod32, ``d`` and ``m`` arrays or scalars."""
+    rem = x - _umulhi(x, m) * d
+    return np.where(rem >= d, rem - d, rem)
+
+
+@pytest.mark.parametrize("op", ["div", "mod"])
+def test_reciprocal_division_is_exact(op):
+    rng = np.random.default_rng(5)
+    for d in (1, 2, 3, 7, 10, 25, 33, 41, 100_000, 2**25, 2**31 - 1,
+              2**32 - 1):
+        m = np.uint64(0xFFFFFFFF // d)
+        d64 = np.uint64(d)
+        # Around multiples of d, the ends of 32 bits, and at random.
+        mults = d64 * np.unique(np.linspace(0, (2**32 - 1) // d, 4000)
+                                .astype(np.uint64))
+        x = np.concatenate([mults, mults + 1, mults - 1, mults + d64 - 1,
+                            np.arange(0, 3000, dtype=np.uint64),
+                            np.array([2**31 - 1, 2**31, 2**32 - 1],
+                                     np.uint64),
+                            rng.integers(0, 2**32, 20000, dtype=np.uint64)])
+        x = x[x < 2**32]
+        if op == "div":
+            np.testing.assert_array_equal(_div32(x, d64, m), x // d64)
+        else:
+            np.testing.assert_array_equal(_mod32(x, d64, m), x % d64)
+
+
+def _kernel_draws(frontier, indptr, indices, r):
+    """draw_kernel's indexing in numpy: a warp a tile of kDrawTile entries
+    and a stage of min(kDrawTile K, kDrawStage) words, the tile's words a
+    stage at a time, a word's node by div32 of its tile-local index, its
+    draw by mod32 of the staged draw."""
+    n, k = r.shape
+    rows = _source_constant("kDrawTile")
+    stage = min(rows * k, _source_constant("kDrawStage"))
+    out = np.empty(n * (1 + k), np.int64)
+    draws = r.reshape(-1).astype(np.uint64)
+    k_recip = np.uint64(0xFFFFFFFF // k)
+    for s0 in range(0, n, rows):
+        tile = min(rows, n - s0)
+        words = tile * k
+        f = frontier[s0:s0 + tile].astype(np.int64)
+        out[s0:s0 + tile] = f
+        start = indptr[f].astype(np.int64)
+        deg = (indptr[f + 1] - start).astype(np.uint64)
+        base = np.where(deg > 0, start, f).astype(np.uint64)
+        recip = (0xFFFFFFFF // np.maximum(deg, 1)).astype(np.uint64)
+        for w0 in range(0, words, stage):
+            w = w0 + np.arange(min(stage, words - w0), dtype=np.uint64)
+            t = _div32(w, np.uint64(k), k_recip).astype(np.int64)
+            live = deg[t] > 0
+            sel = _mod32(draws[s0 * k + w.astype(np.int64)],
+                         np.maximum(deg[t], 1), recip[t])
+            pos = (base[t] + np.where(live, sel, 0)).astype(np.int64)
+            out[n + s0 * k + w.astype(np.int64)] = np.where(
+                live, indices[np.minimum(pos, len(indices) - 1)],
+                base[t].astype(np.int64))
+    return out.astype(np.int32)
+
+
+@pytest.mark.parametrize("n,k", [(1, 1), (31, 25), (33, 33), (100, 41),
+                                 (64, 10), (9, 200)])
+def test_kernel_indexing_model_equals_the_plain_version(n, k):
+    indptr, indices = _zero_degree_csr()
+    rng = np.random.default_rng(n * 100 + k)
+    frontier = rng.integers(0, len(indptr) - 1, n).astype(np.int32)
+    frontier[: min(n, 3)] = [0, 3, 17][: min(n, 3)]
+    r = rng.integers(0, 2**31 - 1, (n, k)).astype(np.int32)
+    want = ds.draw_neighbors_reference(
+        torch.from_numpy(frontier), torch.from_numpy(indptr),
+        torch.from_numpy(indices), torch.from_numpy(r))
+    np.testing.assert_array_equal(
+        _kernel_draws(frontier, indptr, indices, r), want.numpy())

@@ -40,11 +40,12 @@ def print_tagged(text: str, tag: str) -> None:
             print(line, flush=True)
 
 
-def in_turns(parent: str, out: str, prefix: str, setup, turn) -> int:
+def in_turns(parent: str, out: str, prefix: str, setup, turn,
+             after=None) -> int:
     """In a temporary root (a graph takes ~1.3 GB; removed after): print
     the card, run ``setup(root)`` once, then ``turn(cwd, root, tag)`` with
     tags parent0, change1, change2 and parent3 in the parent's checkout
-    and this one."""
+    and this one, then ``after(root)`` where given."""
     os.makedirs(out, exist_ok=True)
     root = tempfile.mkdtemp(prefix=prefix)
     try:
@@ -57,6 +58,8 @@ def in_turns(parent: str, out: str, prefix: str, setup, turn) -> int:
                  ("change", str(CHANGE)), ("parent", parent)]
         for i, (side, cwd) in enumerate(turns):
             turn(cwd, root, f"{side}{i}")
+        if after is not None:
+            after(root)
         return 0
     finally:
         shutil.rmtree(root, ignore_errors=True)
