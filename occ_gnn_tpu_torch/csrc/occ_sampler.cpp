@@ -228,19 +228,36 @@ class BoundedQueue {
     not_full_.notify_one();
     return true;
   }
+  // Blocks until an item is queued or the queue is closed, and leaves
+  // the item queued: false when the queue is closed and empty.
+  bool wait() {
+    std::unique_lock<std::mutex> lk(mu_);
+    waiting_++;
+    not_empty_.wait(lk, [&] { return !q_.empty() || closed_; });
+    bool ready = !q_.empty();
+    if (--waiting_ == 0) no_waiters_.notify_all();
+    return ready;
+  }
   void close() {
     std::lock_guard<std::mutex> lk(mu_);
     closed_ = true;
     not_empty_.notify_all();
     not_full_.notify_all();
   }
+  // Blocks until no thread is inside ``wait``: after ``close``, the queue
+  // may then be freed.
+  void drain_waiters() {
+    std::unique_lock<std::mutex> lk(mu_);
+    no_waiters_.wait(lk, [&] { return waiting_ == 0; });
+  }
 
  private:
   size_t cap_;
   std::queue<T> q_;
   std::mutex mu_;
-  std::condition_variable not_empty_, not_full_;
+  std::condition_variable not_empty_, not_full_, no_waiters_;
   bool closed_ = false;
+  int waiting_ = 0;
 };
 
 // Phase-timer accumulators (role of the reference's enum-indexed TIMERS,
@@ -1126,6 +1143,14 @@ void occ_submit(void* handle, const int64_t* nodes, int64_t n, int64_t seq) {
   svc->work->push({seq, new std::vector<int64_t>(nodes, nodes + n)});
 }
 
+// Blocking: wait until a finished sample is queued, without taking it,
+// so that the occ_next after it only copies. Returns 0 when one is
+// queued, -1 when the service was closed (occ_destroy) meanwhile.
+int32_t occ_wait(void* handle) {
+  Service* svc = static_cast<Service*>(handle);
+  return svc->done->wait() ? 0 : -1;
+}
+
 // Blocking: pop one finished sample and copy it into caller buffers.
 // `field_ptrs` order: per layer l in [0,L): dst_global ONLY when
 // (l == 0 && device_innermost); else edge_src, edge_dst (only when
@@ -1221,6 +1246,7 @@ void occ_destroy(void* handle) {
   // sentinels (closing first avoids the join deadlocking on a full
   // output queue).
   svc->done->close();
+  svc->done->drain_waiters();
   for (size_t i = 0; i < svc->threads.size(); i++)
     svc->work->push({-1, new std::vector<int64_t>()});  // sentinels
   for (auto& t : svc->threads) t.join();

@@ -11,8 +11,9 @@
 // worker-side gathers of the refresh tail's features in f32 and bf16,
 // reservoir draws (a fanout above 64), the per-slot scatter's plan beside
 // the dense matrix past layer 0 (each row's slots in slot order, checked
-// against the matrix), delivery of out-of-order completions, and
-// shutdown with work in flight.
+// against the matrix), delivery of out-of-order completions, occ_wait
+// before each occ_next, and shutdown with work in flight and a thread
+// blocked in occ_wait.
 //
 // It declares the service's C interface as occ_sampler.cpp defines it:
 // occ_create's 33 parameters, occ_next's field list, occ_stats' four
@@ -22,6 +23,7 @@
 #include <cstdio>
 #include <cstdlib>
 #include <random>
+#include <thread>
 #include <vector>
 
 extern "C" {
@@ -41,6 +43,7 @@ void* occ_create(int64_t num_nodes, const int64_t* indptr,
                  int32_t replicated, int32_t device_innermost,
                  int32_t plan_span);
 void occ_submit(void* handle, const int64_t* nodes, int64_t n, int64_t seq);
+int32_t occ_wait(void* handle);
 int32_t occ_next(void* handle, void** field_ptrs, int64_t* seq_out);
 void occ_stats(void* handle, double* out4);
 void occ_destroy(void* handle);
@@ -166,6 +169,11 @@ int main() {
     std::vector<int> seen(BATCHES, 0);
     for (int b = 0; b < BATCHES; b++) {
       int64_t seq = -1;
+      if (occ_wait(svc) != 0) {
+        std::fprintf(stderr, "cfg %d: occ_wait found the service closed\n",
+                     cfg);
+        return 1;
+      }
       int32_t err = occ_next(svc, ptrs.data(), &seq);
       if (err != 0 || seq < 0 || seq >= BATCHES || seen[seq]++) {
         std::fprintf(stderr, "cfg %d: batch seq %lld error %d\n", cfg,
@@ -215,10 +223,19 @@ int main() {
     std::printf("cfg %d: emit [%d, %d), %d batches ok, sample %.3fs slice "
                 "%.3fs tail gather %.3fs\n", cfg, e.lo, e.hi, BATCHES, st[0],
                 st[1], st[2]);
-    // Leave one batch in flight to exercise shutdown with queued work.
+    // Leave one batch in flight and a thread waiting for it, to exercise
+    // shutdown with queued work and a waiter: the waiter returns 0 (the
+    // batch came first) or -1 (the service closed first).
+    int32_t waited = 1;
+    std::thread waiter([&] { waited = occ_wait(svc); });
     std::vector<int64_t> extra(BS, 1);
     occ_submit(svc, extra.data(), BS, BATCHES);
     occ_destroy(svc);
+    waiter.join();
+    if (waited != 0 && waited != -1) {
+      std::fprintf(stderr, "cfg %d: occ_wait returned %d\n", cfg, waited);
+      return 1;
+    }
     cfg++;
   }
   std::puts("STRESS OK");

@@ -19,12 +19,12 @@ from __future__ import annotations
 import torch
 from torch import nn
 from torch.nn import functional as F
-from torch.profiler import record_function
 
 from occ_gnn_tpu_torch.models.common import dropout, xavier_uniform
 from occ_gnn_tpu_torch.ops.blocks import Block, SampledBatch
 from occ_gnn_tpu_torch.ops.segment import segment_max
 from occ_gnn_tpu_torch.ops.segment_sum_sorted import segment_sum_sorted
+from occ_gnn_tpu_torch.utils.timers import span
 
 GAT_LEAVES = ("w", "attn_l", "attn_r", "b")
 NEGATIVE_SLOPE = 0.2  # the attention scores' leaky ReLU
@@ -65,7 +65,7 @@ def coo_attention(feat: torch.Tensor, attn_l: torch.Tensor,
     segment-sum launch gives both. Returns f32 ``(m_loc, s_loc [dst_cap,
     heads], v_loc [dst_cap, heads, Dh])``; the softmax output is ``v / s``.
     A dst row with no valid edge has ``m = -inf`` and zero sums."""
-    with record_function("gat_attention_coo"):
+    with span("gat_attention_coo"):
         k, d_out = attn_l.shape
         dst_cap = er_frame.shape[0]
         # SDDMM decomposes: e_uv = el_u + er_v. Gathers are index_select,

@@ -25,6 +25,7 @@ import torch
 from occ_gnn_tpu_torch.ops.blocks import SampledBatch
 from occ_gnn_tpu_torch.parallel.dist import DistContext
 from occ_gnn_tpu_torch.parallel.model import _check_dropout_rng, global_update
+from occ_gnn_tpu_torch.utils.timers import span
 
 
 def make_dp_train_step(model: torch.nn.Module, optimizer,
@@ -43,7 +44,8 @@ def make_dp_train_step(model: torch.nn.Module, optimizer,
     ``generators`` (one generator on the device per shard, or one for a
     single batch; shard p's seeded alike whichever process holds it, as
     JAX folds the axis index into the dropout key) enables dropout; a
-    model with dropout > 0 needs them."""
+    model with dropout > 0 needs them. A step is the span ``occ.step``,
+    with ``occ.step.forward`` and ``global_update``'s spans inside it."""
 
     def step(batches, x0s, generators=None):
         if isinstance(batches, SampledBatch):
@@ -56,11 +58,13 @@ def make_dp_train_step(model: torch.nn.Module, optimizer,
                              "generators: one of each a shard")
         for gen in generators:
             _check_dropout_rng(model, gen)
-        model.train()
-        optimizer.zero_grad(set_to_none=True)
-        logits = [model(b, x0, gen)
-                  for b, x0, gen in zip(batches, x0s, generators)]
-        return global_update(model, optimizer, logits,
-                             [b.labels for b in batches], ranks)
+        with span("occ.step"):
+            model.train()
+            optimizer.zero_grad(set_to_none=True)
+            with span("occ.step.forward"):
+                logits = [model(b, x0, gen)
+                          for b, x0, gen in zip(batches, x0s, generators)]
+            return global_update(model, optimizer, logits,
+                                 [b.labels for b in batches], ranks)
 
     return step

@@ -49,7 +49,6 @@ import torch
 import torch.distributed as torch_dist
 from torch import nn
 from torch.nn import functional as F
-from torch.profiler import record_function
 from torch.utils.checkpoint import (
     CheckpointPolicy,
     checkpoint,
@@ -94,6 +93,7 @@ from occ_gnn_tpu_torch.parallel.split import (
     slice_owned,
     synthesize_device_innermost,
 )
+from occ_gnn_tpu_torch.utils.timers import span
 
 def make_device_csr(graph, device) -> tuple[torch.Tensor, torch.Tensor]:
     """The graph's in-neighbour CSR on ``device`` as int32 ``(indptr,
@@ -311,7 +311,7 @@ def dense_attention(x: torch.Tensor, nbr: torch.Tensor, wl: torch.Tensor,
     zero sums. Under bf16 storage the products are taken in f32 on
     bf16-rounded operands, which is what JAX's bf16 dots with f32
     accumulation compute (``fma`` keeps the weights f32, as JAX does)."""
-    with record_function("gat_attention_dense"):
+    with span("gat_attention_dense"):
         K, D = nbr.shape
         _warn_residuals(K, D, x, wl.shape[1])
         if gat_agg_impl() != "fma":
@@ -373,7 +373,7 @@ def online_attention(x: torch.Tensor, nbr: torch.Tensor, wl: torch.Tensor,
     product in the backward. The running max is detached and invalid
     scores are -inf before the exp, so no inf or nan reaches the backward.
     Leaves are taken in f32 under bf16 storage (JAX ``:476``)."""
-    with record_function("gat_attention_online"):
+    with span("gat_attention_online"):
         K, D = nbr.shape
         H, heads, d_out = w3.shape
         w = w3.reshape(H, heads * d_out)
@@ -394,7 +394,7 @@ def tiled_attention(x: torch.Tensor, nbr: torch.Tensor, wl: torch.Tensor,
     project-then-weight, one ``[T, H] @ [H, heads * Dh]`` product a k
     added with its softmax weight. Same numerics as the batched form but
     for the order of the sums."""
-    with record_function("gat_attention_tiled"):
+    with span("gat_attention_tiled"):
         T = gat_tile()
         K, D = nbr.shape
         H, heads, d_out = w3.shape
@@ -669,23 +669,34 @@ def global_update(model: nn.Module, optimizer, logits, labels,
     differentiates ``nll_local / count_global`` and the gradients are
     SUM-all-reduced: the gradient of the global mean, as the JAX
     ``shard_map`` transpose gives it. The optimizer's ``zero_grad`` is
-    the caller's, before the forward."""
+    the caller's, before the forward.
+
+    Its spans: ``occ.step.loss`` (the CE terms and, grouped, their
+    reduction), ``occ.step.backward`` (the backward and, grouped, the
+    gradients' all-reduce) and ``occ.step.optimizer``."""
     if isinstance(logits, torch.Tensor):
         logits, labels = [logits], [labels]
-    terms = [_local_ce(lg, lb) for lg, lb in zip(logits, labels)]
-    nll, count, correct = (sum(t[k] for t in terms) for k in range(3))
-    if ranks is None or not ranks.grouped:
-        loss = nll / count.clamp(min=1)
+    grouped = ranks is not None and ranks.grouped
+    with span("occ.step.loss"):
+        terms = [_local_ce(lg, lb) for lg, lb in zip(logits, labels)]
+        nll, count, correct = (sum(t[k] for t in terms) for k in range(3))
+        if grouped:
+            totals = _global_ce(nll, count, correct)
+            count_g = totals[1].clamp(min=1)
+            loss = nll / count_g.float()
+        else:
+            loss = nll / count.clamp(min=1)
+    with span("occ.step.backward"):
         loss.backward()
-        zero_missing_grads(model.parameters())
+        if grouped:
+            all_reduce_gradients(model.parameters())
+            _UPDATE_COLLECTIVES[0] += 1
+        else:
+            zero_missing_grads(model.parameters())
+    with span("occ.step.optimizer"):
         optimizer.step()
+    if not grouped:
         return loss.detach(), correct, count
-    totals = _global_ce(nll, count, correct)
-    count_g = totals[1].clamp(min=1)
-    (nll / count_g.float()).backward()
-    all_reduce_gradients(model.parameters())
-    _UPDATE_COLLECTIVES[0] += 1
-    optimizer.step()
     return (totals[0] / count_g).float(), totals[2].long(), totals[1].long()
 
 
@@ -703,21 +714,27 @@ def make_split_train_step(model: SplitSAGE, optimizer, csr=None,
     ``csr`` (``make_device_csr``) enables device-sampled innermost layers;
     those steps need ``sample_generator``, one generator on the device
     per local partition (a list; at L = 1 the generator itself).
-    Nothing here waits for the device: the results are device tensors."""
+    Nothing here waits for the device: the results are device tensors.
+    A step is the span ``occ.step``; inside it ``occ.step.layers`` (the
+    device-sampled layers' synthesis), ``occ.step.forward`` and
+    ``global_update``'s spans."""
 
     def step(batch: SplitBatch, x0: torch.Tensor,
              generator: torch.Generator | None = None,
              sample_generator=None):
-        _check_dropout_rng(model, generator)
-        L = batch.num_partitions
-        _check_frames(x0, L)
-        parts = _materialize_layers(_local_layers(batch, ranks), csr,
-                                    _generators(sample_generator, L))
-        model.train()
-        optimizer.zero_grad(set_to_none=True)
-        logits = model.forward_partitions(parts, x0, generator)
-        return global_update(model, optimizer, logits, batch.labels.unbind(0),
-                             ranks)
+        with span("occ.step"):
+            _check_dropout_rng(model, generator)
+            L = batch.num_partitions
+            _check_frames(x0, L)
+            with span("occ.step.layers"):
+                parts = _materialize_layers(_local_layers(batch, ranks), csr,
+                                            _generators(sample_generator, L))
+            model.train()
+            optimizer.zero_grad(set_to_none=True)
+            with span("occ.step.forward"):
+                logits = model.forward_partitions(parts, x0, generator)
+            return global_update(model, optimizer, logits,
+                                 batch.labels.unbind(0), ranks)
 
     return step
 

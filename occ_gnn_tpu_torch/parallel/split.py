@@ -73,7 +73,6 @@ import dataclasses
 import numpy as np
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
 
 from occ_gnn_tpu_torch.ops.config import dense_agg_impl, device_sample_impl
 from occ_gnn_tpu_torch.ops.dense_gather_sum import (
@@ -86,6 +85,7 @@ from occ_gnn_tpu_torch.ops.device_sample import (
     synthesize_innermost,
 )
 from occ_gnn_tpu_torch.ops.segment_sum_sorted import gather_segment_sum
+from occ_gnn_tpu_torch.utils.timers import span
 
 # Dst rows a tile of the ``tiled`` dense aggregation (JAX ``_DENSE_TILE``).
 DENSE_TILE = 8192
@@ -191,7 +191,7 @@ def local_aggregate(x: torch.Tensor, edge_src: torch.Tensor,
     by the fused gather and sorted segment-sum (the Hopper kernel on a CUDA
     tensor, which reads the frame's rows in its own type). Padding edges
     are dropped by ``edge_dst == dst_cap``."""
-    with record_function("local_aggregate"):
+    with span("local_aggregate"):
         return gather_segment_sum(x, edge_src, edge_dst, dst_cap)
 
 
@@ -204,7 +204,7 @@ def local_aggregate_dense(x: torch.Tensor, nbr_idx: torch.Tensor):
     more than ``DENSE_TILE`` dst rows is summed one tile at a time, one
     launch a tile; the backward is the same."""
     tile = DENSE_TILE if dense_agg_impl() == "tiled" else None
-    with record_function("local_aggregate_dense"):
+    with span("local_aggregate_dense"):
         return dense_gather_sum(x, nbr_idx, tile)
 
 
@@ -353,7 +353,7 @@ def shuffle_merge(neigh: torch.Tensor, push_idx: torch.Tensor,
     group (or one process and no group). ``shuffle_counts()`` counts the
     exchanges and the payload bytes each partition sends to the others."""
     _check_group(push_idx, "shuffle_merge", neigh)
-    with record_function("shuffle_merge"):
+    with span("shuffle_merge"):
         return _ShuffleMerge.apply(neigh, push_idx, recv_idx)
 
 
@@ -401,7 +401,7 @@ def reverse_shuffle(frame: torch.Tensor, push_idx: torch.Tensor,
     ``push_idx[p, q]`` of its own frame. Distributed GAT sends each dst's
     attention term to the partitions that hold its edges."""
     _check_group(push_idx, "reverse_shuffle", frame)
-    with record_function("reverse_shuffle"):
+    with span("reverse_shuffle"):
         return _ReverseShuffle.apply(frame, push_idx, recv_idx)
 
 
@@ -489,7 +489,7 @@ def shuffle_softmax_merge(m_loc: torch.Tensor, s_loc: torch.Tensor,
     its own: ``m* = max``, every partial rescaled by ``exp(m_p - m*)``.
     Returns the merged ``(s, v)``; ``m_loc`` takes no gradient."""
     _check_group(push_idx, "shuffle_softmax_merge", m_loc, s_loc, v_loc)
-    with record_function("shuffle_softmax_merge"):
+    with span("shuffle_softmax_merge"):
         return _ShuffleSoftmaxMerge.apply(m_loc.detach(), s_loc,
                                           v_loc.contiguous(), push_idx,
                                           recv_idx)
@@ -584,7 +584,7 @@ def slice_owned(merged: torch.Tensor, lyr: SplitLayer, x: torch.Tensor):
     """Select owned rows, finish the mean, fetch self features.
 
     Returns (self_x[O_cap, H] f32, neigh_mean[O_cap, H], mask[O_cap, 1])."""
-    with record_function("slice_owned"):
+    with span("slice_owned"):
         self_x = x.index_select(0, lyr.self_idx).float()
         return self_x, neigh_mean(merged, lyr), lyr.owned_mask[:, None]
 
@@ -621,7 +621,7 @@ def synthesize_device_innermost(lyr: SplitLayer, indptr: torch.Tensor,
       doubled CSR: uniform marginals, no neighbour twice.
     The last three stay torch ops, with no kernel of their own.
     """
-    with record_function("synthesize_device_innermost"):
+    with span("synthesize_device_innermost"):
         return _synthesize(lyr, indptr, indices, generator)
 
 

@@ -37,7 +37,6 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from occ_gnn_tpu_torch.models.common import dropout, linear
 from occ_gnn_tpu_torch.ops.device_sample import (
@@ -51,6 +50,7 @@ from occ_gnn_tpu_torch.parallel.dist import (
     single_process,
 )
 from occ_gnn_tpu_torch.parallel.model import global_update, make_device_csr
+from occ_gnn_tpu_torch.utils.timers import span
 
 _DRAW_HIGH = 2**31 - 1  # JAX draws in [0, int32 max)
 
@@ -213,7 +213,7 @@ class DeviceSampleTrainer:
         drawn from the stream of local shard ``local`` (shard ``lo +
         local``); -1 pads read node 0 (their loss is masked by label -1).
         ``forward(sample(targets))`` is JAX's ``dense_logits``."""
-        with record_function("quiver_draw"):
+        with span("quiver_draw"):
             return dense_frontiers(self.csr, targets.clamp(min=0),
                                    self.fanouts, self.generators[local])
 
@@ -223,11 +223,11 @@ class DeviceSampleTrainer:
         frontier's self rows and first-layer means (``gather_mean``, which
         writes no frame of its rows), then the dense layers, dropping out
         from local shard ``local``'s stream."""
-        with record_function("quiver_gather"):
+        with span("quiver_gather"):
             x_self, mean = gather_mean(self.features, frontiers[-1],
                                        frontiers[-2].shape[0],
                                        self.fanouts[-1])
-        with record_function("dense_sage_forward"):
+        with span("dense_sage_forward"):
             return dense_sage_layers(
                 self.model, x_self, mean, self.fanouts, dtype=self.dtype,
                 generator=self.dropout_generators[local])
@@ -235,17 +235,23 @@ class DeviceSampleTrainer:
     def step(self, targets: np.ndarray, labels: np.ndarray):
         """One update on this process's rows ``[lo, hi)`` of ``[P, B / P]``
         ids -> ``(loss, correct, count)``, global over the shards, on the
-        device."""
+        device. A step is the span ``occ.step``; inside it
+        ``occ.step.upload`` (the ids' copies to the device),
+        ``occ.step.forward`` (each shard's draws and forward) and
+        ``global_update``'s spans."""
         lo, hi = self.ranks.lo, self.ranks.hi
-        t = torch.from_numpy(targets[lo:hi]).to(self.device)
-        lab = torch.from_numpy(labels[lo:hi]).to(self.device)
-        self.model.train()
-        self.optimizer.zero_grad(set_to_none=True)
-        logits = [self.forward(self.sample(t[j], j), j)
-                  for j in range(hi - lo)]
-        self.steps += 1
-        return global_update(self.model, self.optimizer, logits,
-                             list(lab.unbind(0)), self.ranks)
+        with span("occ.step"):
+            with span("occ.step.upload"):
+                t = torch.from_numpy(targets[lo:hi]).to(self.device)
+                lab = torch.from_numpy(labels[lo:hi]).to(self.device)
+            self.model.train()
+            self.optimizer.zero_grad(set_to_none=True)
+            with span("occ.step.forward"):
+                logits = [self.forward(self.sample(t[j], j), j)
+                          for j in range(hi - lo)]
+            self.steps += 1
+            return global_update(self.model, self.optimizer, logits,
+                                 list(lab.unbind(0)), self.ranks)
 
     def train_epoch(self, nodes: np.ndarray):
         """One epoch over ``nodes`` -> ``(last loss, correct, total)``; the

@@ -41,6 +41,14 @@ buffer, in the same order as the arena's fields, and each crosses to the
 device in its own non-blocking copy; every buffer goes back to its own
 pool under the same event rule. The refresh list stays on the host. Both
 feeds deliver equal batches, and both apply cache tails at delivery.
+
+Spans. The consumer's side of each batch is marked for a profiler
+(``utils/timers.span``), each span closed before the batch is yielded:
+``occ.feed.submit`` (a batch's slice of the epoch's order, handed to the
+workers), ``occ.feed.wait`` (``occ_wait``: until a worker has finished a
+sample), ``occ.feed.copy`` (``occ_next``'s copy of it into the pinned
+buffers), ``occ.feed.upload`` (the copies to the device and the batch's
+views) and ``occ.feed.cache`` (the cache tail's apply).
 """
 
 from __future__ import annotations
@@ -59,6 +67,7 @@ from occ_gnn_tpu_torch.sampling.slicer import (
     default_deg_caps,
     plan_split_capacities,
 )
+from occ_gnn_tpu_torch.utils.timers import span
 
 _lib = None
 
@@ -107,6 +116,8 @@ def load_library() -> ctypes.CDLL:
     ]
     lib.occ_submit.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                                ctypes.c_int64, ctypes.c_int64]
+    lib.occ_wait.restype = ctypes.c_int32
+    lib.occ_wait.argtypes = [ctypes.c_void_p]
     lib.occ_next.restype = ctypes.c_int32
     lib.occ_next.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                              ctypes.c_void_p]
@@ -437,8 +448,8 @@ class NativeSplitSampler:
         total = len(self)
         bs = self.batch_size
         for b in range(total):
-            batch = np.ascontiguousarray(nodes[b * bs : (b + 1) * bs])
-            self._submit(batch)
+            with span("occ.feed.submit"):
+                self._submit(np.ascontiguousarray(nodes[b * bs:(b + 1) * bs]))
             pending += 1
             submitted += 1
             # keep the pipeline primed but bounded
@@ -479,15 +490,27 @@ class NativeSplitSampler:
             # order if the caller recovers.
             batch.raise_()
         refresh = batch.__dict__.pop("_refresh_nodes")
-        if self.gather_tail:
-            # The workers already gathered and cast the tail rows; the
-            # consumer only copies the buffer (bucketed) to the device.
-            buf = batch.__dict__.pop("_tail_feats")
-            self.cache.apply_tail_gathered(buf, (refresh >= 0).sum(axis=1))
-            self._tail_pool.put(buf)
-        elif self.cache is not None and hasattr(self.cache, "apply_tail"):
-            self.cache.apply_tail(refresh)
+        with span("occ.feed.cache"):
+            if self.gather_tail:
+                # The workers already gathered and cast the tail rows; the
+                # consumer only copies the buffer (bucketed) to the device.
+                buf = batch.__dict__.pop("_tail_feats")
+                self.cache.apply_tail_gathered(buf,
+                                               (refresh >= 0).sum(axis=1))
+                self._tail_pool.put(buf)
+            elif self.cache is not None and hasattr(self.cache, "apply_tail"):
+                self.cache.apply_tail(refresh)
         return batch
+
+    def _wait(self) -> None:
+        """Block until the service has a finished sample queued (the span
+        ``occ.feed.wait``: the workers' lateness), so that ``occ_next``
+        then only copies it."""
+        with span("occ.feed.wait"):
+            closed = self._lib.occ_wait(self._handle)
+        if closed:
+            raise RuntimeError("the native sampler was closed while a "
+                               "batch was awaited")
 
     def _build_layout(self):
         P, L = self.P, len(self.fanouts)
@@ -614,31 +637,38 @@ class NativeSplitSampler:
         )
 
     def _pop_packed(self):
-        arena = self._arena_pool.get()
-        base = arena.data_ptr()
-        ptrs = [base + off * 4 for off in self._field_offsets]
-        tail_buf = None
-        if self.gather_tail:
-            tail_buf = self._tail_pool.get()
-            ptrs.append(tail_buf.data_ptr())
-        arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
-        seq = ctypes.c_int64(-1)
-        err = self._lib.occ_next(self._handle, arr, ctypes.byref(seq))
-        if err != 0:
-            self._arena_pool.put(arena)
-            if tail_buf is not None:
-                self._tail_pool.put(tail_buf)
-            return seq.value, _SlicerError(err)
-        host = arena.numpy()
-        # Host copies read later: the refresh list (the cache tail) and
-        # the input ids (the host feature gather).
-        refresh = self._host_field(host, "refresh")
-        input_host = (self._host_field(host, "input_nodes")
-                      if self.emit_input else None)
-        dev = arena.to(self.device, non_blocking=True)
-        batch = self._unpack(lambda name, l: self._arena_field(dev, name, l))
-        if self._arena_pool.cuda:
-            self._arena_pool.put(arena)
+        """One sample into a pinned arena (the span ``occ.feed.copy``),
+        then one non-blocking copy of it and its typed views (the span
+        ``occ.feed.upload``)."""
+        self._wait()
+        with span("occ.feed.copy"):
+            arena = self._arena_pool.get()
+            base = arena.data_ptr()
+            ptrs = [base + off * 4 for off in self._field_offsets]
+            tail_buf = None
+            if self.gather_tail:
+                tail_buf = self._tail_pool.get()
+                ptrs.append(tail_buf.data_ptr())
+            arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
+            seq = ctypes.c_int64(-1)
+            err = self._lib.occ_next(self._handle, arr, ctypes.byref(seq))
+            if err != 0:
+                self._arena_pool.put(arena)
+                if tail_buf is not None:
+                    self._tail_pool.put(tail_buf)
+                return seq.value, _SlicerError(err)
+            host = arena.numpy()
+            # Host copies read later: the refresh list (the cache tail) and
+            # the input ids (the host feature gather).
+            refresh = self._host_field(host, "refresh")
+            input_host = (self._host_field(host, "input_nodes")
+                          if self.emit_input else None)
+        with span("occ.feed.upload"):
+            dev = arena.to(self.device, non_blocking=True)
+            batch = self._unpack(
+                lambda name, l: self._arena_field(dev, name, l))
+            if self._arena_pool.cuda:
+                self._arena_pool.put(arena)
         batch.input_nodes_host = input_host
         batch._refresh_nodes = refresh
         if tail_buf is not None:
@@ -647,39 +677,44 @@ class NativeSplitSampler:
 
     def _pop_unpacked(self):
         """One sample into a pinned buffer a field (the pointers in the
-        layout's order, which is JAX's), one non-blocking copy a field."""
-        bufs = {key: pool.get() for key, pool in self._field_pools.items()}
-        refresh = np.empty(self._layout[("refresh", None)][1], np.int32)
-        ptrs = [refresh.ctypes.data if key == ("refresh", None)
-                else bufs[key].data_ptr() for key in self._layout]
-        tail_buf = None
-        if self.gather_tail:
-            tail_buf = self._tail_pool.get()
-            ptrs.append(tail_buf.data_ptr())
-        arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
-        seq = ctypes.c_int64(-1)
-        err = self._lib.occ_next(self._handle, arr, ctypes.byref(seq))
-        if err != 0:
+        layout's order, which is JAX's), one non-blocking copy a field;
+        the spans as ``_pop_packed``'s."""
+        self._wait()
+        with span("occ.feed.copy"):
+            bufs = {key: pool.get()
+                    for key, pool in self._field_pools.items()}
+            refresh = np.empty(self._layout[("refresh", None)][1], np.int32)
+            ptrs = [refresh.ctypes.data if key == ("refresh", None)
+                    else bufs[key].data_ptr() for key in self._layout]
+            tail_buf = None
+            if self.gather_tail:
+                tail_buf = self._tail_pool.get()
+                ptrs.append(tail_buf.data_ptr())
+            arr = (ctypes.c_void_p * len(ptrs))(*ptrs)
+            seq = ctypes.c_int64(-1)
+            err = self._lib.occ_next(self._handle, arr, ctypes.byref(seq))
+            if err != 0:
+                for key, buf in bufs.items():
+                    self._field_pools[key].put(buf)
+                if tail_buf is not None:
+                    self._tail_pool.put(tail_buf)
+                return seq.value, _SlicerError(err)
+            input_host = (bufs[("input_nodes", None)].numpy().copy()
+                          if self.emit_input else None)
+        with span("occ.feed.upload"):
+            dev = {key: buf.to(self.device, non_blocking=True)
+                   for key, buf in bufs.items()}
             for key, buf in bufs.items():
-                self._field_pools[key].put(buf)
-            if tail_buf is not None:
-                self._tail_pool.put(tail_buf)
-            return seq.value, _SlicerError(err)
-        input_host = (bufs[("input_nodes", None)].numpy().copy()
-                      if self.emit_input else None)
-        dev = {key: buf.to(self.device, non_blocking=True)
-               for key, buf in bufs.items()}
-        for key, buf in bufs.items():
-            if self._field_pools[key].cuda:
-                self._field_pools[key].put(buf)
+                if self._field_pools[key].cuda:
+                    self._field_pools[key].put(buf)
 
-        def field(name, l):
-            t = dev.get((name, l))
-            if t is None or t.dtype != torch.uint8:
-                return t
-            return t != 0
+            def field(name, l):
+                t = dev.get((name, l))
+                if t is None or t.dtype != torch.uint8:
+                    return t
+                return t != 0
 
-        batch = self._unpack(field)
+            batch = self._unpack(field)
         batch.input_nodes_host = input_host
         batch._refresh_nodes = refresh
         if tail_buf is not None:

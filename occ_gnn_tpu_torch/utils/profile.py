@@ -7,8 +7,8 @@ step to finish); ``chip_smoke.py`` records one quiver step the same way.
 ``summarize_step`` reads the recorded window: its wall time, the union of
 the device's kernel and copy intervals inside it (so the device's idle
 share), the top device kernels by time, and the device time under each
-named range (``record_function``) that the split and quiver paths and
-the phase timers mark.
+named range (``utils/timers.span``) that the split and quiver paths,
+the C++ service's feed and the phase timers mark.
 
 A range's device time is that of the kernels launched inside it, on its
 thread, whoever launched them: each device kernel or copy goes to the
@@ -23,16 +23,25 @@ from __future__ import annotations
 
 from torch.autograd import DeviceType
 
-NAMED_RANGES = ("sample", "train_step", "local_aggregate_dense",
-                "_DenseAggregateBackward", "synthesize_device_innermost",
-                "local_aggregate", "slice_owned", "shuffle_merge",
-                "_ShuffleMergeBackward", "gat_attention_dense",
-                "_GatAttentionBackward",
-                "gat_attention_coo", "reverse_shuffle",
-                "_ReverseShuffleBackward", "shuffle_softmax_merge",
-                "_ShuffleSoftmaxMergeBackward", "quiver_draw",
-                "quiver_gather", "dense_sage_forward",
-                "Optimizer.step#Adam.step")
+NAMED_RANGES = (
+    # The CLI's phases (``utils/timers.PhaseTimers``).
+    "partition", "capacity_plan", "sample", "feature_load",
+    "feature_gather", "train_step", "fused_step", "infer_step",
+    # The C++ service's feed (``sampling/native.py``).
+    "occ.feed.submit", "occ.feed.wait", "occ.feed.copy", "occ.feed.upload",
+    "occ.feed.cache",
+    # A training step's phases (``parallel/model.py``, ``parallel/dp.py``,
+    # ``sampling/device_sampler.py``).
+    "occ.step", "occ.step.upload", "occ.step.layers", "occ.step.forward",
+    "occ.step.loss", "occ.step.backward", "occ.step.optimizer",
+    # The layers' ranges, and the autograd nodes of their backwards.
+    "local_aggregate_dense", "_DenseAggregateBackward",
+    "synthesize_device_innermost", "local_aggregate", "slice_owned",
+    "shuffle_merge", "_ShuffleMergeBackward", "gat_attention_dense",
+    "gat_attention_online", "gat_attention_tiled", "_GatAttentionBackward",
+    "gat_attention_coo", "reverse_shuffle", "_ReverseShuffleBackward",
+    "shuffle_softmax_merge", "_ShuffleSoftmaxMergeBackward", "quiver_draw",
+    "quiver_gather", "dense_sage_forward", "Optimizer.step#Adam.step")
 
 
 def _union_ms(intervals) -> float:
