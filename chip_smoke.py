@@ -195,9 +195,10 @@
    dense layer forward and once a dense layer past layer 0 backward, per
    partition (``SPLIT_A_STEP``, ``SPLIT_B_STEP``), a split GAT step the
    attention's forward and backward once a dense layer and the per-slot
-   scatter once a dense layer past layer 0 (``SPLIT_GAT_A_STEP``,
-   ``GAT_B_STEP``), a step with layer 0 synthesized on the card the
-   synthesis once a partition, an inference batch once a dense layer
+   scatter once a dense layer past layer 0, and the layer tail once a
+   layer each way (``SPLIT_GAT_A_STEP``, ``GAT_B_STEP``), a step with
+   layer 0 synthesized on the card the synthesis once a partition, an
+   inference batch once a dense layer
    (``INFER_BATCH``), a quiver step the draws once a layer and the
    gather-mean once a shard (``QUIVER_STEP``).
 
@@ -281,6 +282,10 @@ from occ_gnn_tpu_torch.ops.gat_attention import (
     gat_attention_bwd,
     gat_attention_fwd,
     gat_attention_reference,
+    gat_tail_backward_reference,
+    gat_tail_bwd,
+    gat_tail_fwd,
+    gat_tail_reference,
 )
 from occ_gnn_tpu_torch.ops.segment_sum_sorted import (
     TILE_EDGES,
@@ -387,13 +392,16 @@ DENSE_FWD, DENSE_BWD = "dense_gather_sum", "dense_scatter_add"
 # that sums their dx rows.
 GAT_FWD, GAT_BWD, SLOTS = ("gat_attention_fwd", "gat_attention_bwd",
                            "dense_scatter_slots")
+# Split GAT's layer tail, once a layer each way.
+TAIL_FWD, TAIL_BWD = "gat_tail_fwd", "gat_tail_bwd"
 # The on-device samplers: split A's layer-0 synthesis, quiver's draws and
 # its layer-0 gather-mean.
 SYNTH, DRAW, GMEAN = "synthesize_innermost", "draw_neighbors", "gather_mean"
 ENTRIES = {MSGS: segment_sum_sorted, FUSED: gather_segment_sum,
            DENSE_FWD: dense_gather_sum, DENSE_BWD: dense_scatter_add,
            GAT_FWD: gat_attention_fwd, GAT_BWD: gat_attention_bwd,
-           SLOTS: dense_scatter_slots, SYNTH: synthesize_innermost,
+           SLOTS: dense_scatter_slots, TAIL_FWD: gat_tail_fwd,
+           TAIL_BWD: gat_tail_bwd, SYNTH: synthesize_innermost,
            DRAW: draw_neighbors, GMEAN: gather_mean}
 # Sorted segment-sum launches a step: one a layer. Single SAGE and GCN
 # (either norm) sum the rows of their frame through the fused gather; GAT
@@ -411,12 +419,15 @@ SINGLE_ENTRY = {"sage": FUSED, "gcn": FUSED, "gat": MSGS, "gcn sym": FUSED}
 # attention's forward once more a layer (the recomputation). A layer 0
 # synthesized on the card (split A, split GAT A: a replicated cache)
 # launches the synthesis once a step per partition under the default
-# OCC_DEVICE_SAMPLE=randint, and never under the other lowerings.
+# OCC_DEVICE_SAMPLE=randint, and never under the other lowerings. Every
+# split GAT layer, under every lowering, ends in the tail's kernels, once
+# each way (TAIL_STEP).
 SPLIT_A_STEP = {SYNTH: 1, DENSE_FWD: 3, DENSE_BWD: 2}
 SPLIT_B_STEP = {FUSED: 1, DENSE_FWD: 2, DENSE_BWD: 2}
-SPLIT_GAT_A_STEP = {SYNTH: 1, GAT_FWD: 3, GAT_BWD: 3, SLOTS: 2}
-GAT_B_STEP = {MSGS: 1, GAT_FWD: 2, GAT_BWD: 2, SLOTS: 2}
-GAT_REMAT_STEP = {SYNTH: 1, GAT_FWD: 6, GAT_BWD: 3, SLOTS: 2}
+TAIL_STEP = {TAIL_FWD: 3, TAIL_BWD: 3}
+SPLIT_GAT_A_STEP = {SYNTH: 1, GAT_FWD: 3, GAT_BWD: 3, SLOTS: 2, **TAIL_STEP}
+GAT_B_STEP = {MSGS: 1, GAT_FWD: 2, GAT_BWD: 2, SLOTS: 2, **TAIL_STEP}
+GAT_REMAT_STEP = {SYNTH: 1, GAT_FWD: 6, GAT_BWD: 3, SLOTS: 2, **TAIL_STEP}
 INFER_BATCH = {FUSED: 1, DENSE_FWD: 2}
 # Quiver, a step per shard: the draws once a layer (fan-out 10,10,25),
 # the deepest gather and first-layer mean once.
@@ -455,6 +466,12 @@ GAT_GRAD_TOL = 1e-4
 # of it away. v and every gradient are held within two such steps of
 # their max |.|; m and s, which no rounding touches, to GAT_FWD_TOL.
 GAT_BF16_TOL = 2.0**-7
+# The layer tail's gradients against their plain versions: within 1e-5
+# of each value plus 1e-6 of the max |.| (the backward multiplies by the
+# sum's reciprocal where the plain version divides, and sums ds over dh
+# and the bias's gradient over the rows in another order). Its forward
+# is held to the plain version's bits.
+TAIL_RTOL, TAIL_ATOL = 1e-5, 1e-6
 # gather_mean's mean against its plain version, of its scale (at least
 # 1): the same rows summed in f32, the plain version's sum over the
 # fan-out axis in torch's order, the kernel's in the order of k.
@@ -478,6 +495,8 @@ KERNEL_SOURCE = {
     DENSE_BWD: "occ_gnn_tpu_torch/csrc/dense_gather_sum.cu",
     GAT_FWD: "occ_gnn_tpu_torch/csrc/gat_attention.cu",
     GAT_BWD: "occ_gnn_tpu_torch/csrc/gat_attention.cu",
+    TAIL_FWD: "occ_gnn_tpu_torch/csrc/gat_attention.cu",
+    TAIL_BWD: "occ_gnn_tpu_torch/csrc/gat_attention.cu",
     SLOTS: "occ_gnn_tpu_torch/csrc/dense_gather_sum.cu",
     SYNTH: "occ_gnn_tpu_torch/csrc/device_sample.cu",
     DRAW: "occ_gnn_tpu_torch/csrc/device_sample.cu",
@@ -494,6 +513,8 @@ KERNEL_REPLACES = {
     DENSE_BWD: DENSE_REPLACES,
     GAT_FWD: GAT_REPLACES,
     GAT_BWD: GAT_REPLACES,
+    TAIL_FWD: GAT_REPLACES,
+    TAIL_BWD: GAT_REPLACES,
     SLOTS: GAT_REPLACES,
     SYNTH: ("occ_gnn_tpu/parallel/split.py:200-310 (XLA, no "
             "pallas_call)"),
@@ -1415,6 +1436,118 @@ def gat_attention_cases(label, x, nbr, heads, dh, rate, gen, grad_x,
     return cases
 
 
+def gat_tail_cases(label, x, lyr, heads, dh, last, rate, gen):
+    """The layer tail's kernels at one dense layer of a batch: the
+    layer's owned rows and the softmax partials ``(s, v)`` of its
+    attention (random weights; ``v`` head-major, as the per-head
+    projection gives it; at P = 1 the merge is the identity), a random
+    bias (hidden layers) and cotangent, against the plain versions
+    (``gat_tail_reference``, ``gat_tail_backward_reference``): the
+    forward bit-equal, ``dv``, ``ds`` and ``db`` within TAIL_RTOL and
+    TAIL_ATOL of their max |.|, ``dv`` and ``ds`` zero at the dst rows no
+    owned row names, each kernel bit-equal over two launches; the owned
+    rows held to the kernels' rule (the dst frame's prefix). Timed in the
+    CUDA-graph harness beside the byte bound (forward: ``v`` and ``s`` at
+    the valid owned rows and the bias read, ``y`` at every owned row
+    written, the mask read; backward: ``dy``, ``v`` and ``s`` at the
+    valid rows and the bias read, ``dv`` and ``ds`` at every dst row
+    written, the mask read) and the operation bound (an element: forward
+    a divide, an add and an exponential; backward an exponential, four
+    multiplies and two adds). No library call computes the tail. Returns
+    {kernel: case}."""
+    D = lyr.nbr_idx.shape[1]
+    H = x.shape[1]
+    dev = x.device
+    idx, mask = lyr.owned_idx, lyr.owned_mask.bool()
+    O = idx.shape[0]
+    n = int(mask.sum())
+    if not torch.equal(idx[mask], torch.arange(n, dtype=idx.dtype,
+                                                device=dev)):
+        raise AssertionError(f"{label}: the owned rows are not the dst "
+                             f"frame's prefix")
+
+    def rnd(*shape, scale=1.0):
+        return scale * torch.randn(*shape, generator=gen, device=dev)
+
+    with torch.no_grad():
+        _, s, v = gat_attention(x, lyr.nbr_idx, rnd(H, heads, scale=0.1),
+                                rnd(H, heads, dh, scale=0.1), rnd(D, heads),
+                                lyr.scatter_plan)
+    width = dh if last else heads * dh
+    b = None if last else rnd(width, scale=0.1)
+    dy = rnd(O, width)
+    ys = [gat_tail_fwd(v, s, idx, mask, b) for _ in range(2)]
+    want = gat_tail_reference(v, s, idx, mask, b)
+    grads = [gat_tail_bwd(dy, v, s, idx, mask, b) for _ in range(2)]
+    ref = gat_tail_backward_reference(dy, v, s, idx, mask, b)
+    torch.cuda.synchronize()
+    if not torch.equal(*ys) or not all(
+            torch.equal(a, c) for a, c in zip(*grads) if a is not None):
+        raise AssertionError(f"{label}: two launches of the tail differ")
+    y = ys[0]
+    if not (torch.equal(y[:n].view(torch.int32), want[:n].view(torch.int32))
+            and torch.equal(y, want)):
+        raise AssertionError(f"{label}: {TAIL_FWD} differs from the plain "
+                             f"version's bits: max |.| "
+                             f"{(y - want).abs().max().item():.3g}")
+    named = torch.zeros(D, dtype=torch.bool, device=dev)
+    named[idx[mask].long()] = True
+    dv, ds, _ = grads[0]
+    if (dv[~named] != 0).any() or (ds[~named] != 0).any():
+        raise AssertionError(f"{label}: {TAIL_BWD} wrote a dst row no "
+                             f"owned row names")
+    bwd = {}
+    for name, a, w in zip(("dv", "ds", "db"), grads[0], ref):
+        if w is None:
+            continue
+        scale = max(w.abs().max().item(), 1e-30)
+        torch.testing.assert_close(a, w, rtol=TAIL_RTOL,
+                                   atol=TAIL_ATOL * scale,
+                                   msg=lambda m, name=name: (
+                                       f"{label}: {TAIL_BWD}'s {name}: {m}"))
+        err = (a - w).abs().max().item()
+        bwd[name] = (err, err / scale)
+    print(f"kernel GAT tail {label}: D={D} O={O} valid={n} heads={heads} "
+          f"Dh={dh} {'last' if last else 'hidden'} v strides "
+          f"{tuple(v.stride())}: forward bit-equal; backward "
+          + ", ".join(f"{k} {r:.3g}" for k, (_, r) in bwd.items())
+          + f" of max |.| (limits rtol {TAIL_RTOL:g}, atol {TAIL_ATOL:g} of "
+          f"max); dv and ds zero at the {D - n} rows no owned row names; "
+          f"two launches bit-equal")
+    del ys, want, grads, ref, dv, ds
+    elems = n * heads * dh
+    b_bytes = 0 if last else 4 * width
+    cases = {
+        TAIL_FWD: dict(
+            err=0.0,
+            ms=median_ms(lambda: gat_tail_fwd(v, s, idx, mask, b)),
+            plain_ms=yardstick_ms(lambda: gat_tail_reference(v, s, idx, mask,
+                                                             b)),
+            library_ms=None,
+            bytes_ms=(4 * (elems + n * heads + O * width) + O + b_bytes)
+            / rate * 1e3,
+            ops_ms=3 * elems / F32_RATE * 1e3),
+        TAIL_BWD: dict(
+            err=max(e for e, _ in bwd.values()),
+            ms=median_ms(lambda: gat_tail_bwd(dy, v, s, idx, mask, b)),
+            plain_ms=yardstick_ms(lambda: gat_tail_backward_reference(
+                dy, v, s, idx, mask, b)),
+            library_ms=None,
+            bytes_ms=(4 * (n * width + elems + n * heads
+                           + D * heads * (dh + 1)) + O + b_bytes)
+            / rate * 1e3,
+            ops_ms=7 * elems / F32_RATE * 1e3)}
+    for name, c in cases.items():
+        bound = max(c["bytes_ms"], c["ops_ms"])
+        by = "bytes" if c["bytes_ms"] >= c["ops_ms"] else "operations"
+        print(f"kernel {name} {label}: ms={c['ms']:.4f} plain_ms="
+              f"{c['plain_ms']:.4f} library_ms=none (no PyTorch call "
+              f"computes it) bound_ms={bound:.4f} ({by}, "
+              f"{100 * bound / c['ms']:.1f} % of it) "
+              f"max_abs_err={c['err']:.3g}")
+    return cases
+
+
 def plan_text(plan):
     """A launch plan of the attention kernels, in words."""
     if plan.layout is None:
@@ -1478,12 +1611,13 @@ def gat_ragged_cases(device):
 
 
 def split_gat_cases(label, layers, x0, hidden, heads, num_classes, rate,
-                    device):
+                    device, tail=False):
     """``gat_attention_cases`` at every dense layer of one partition's
     batch (``layers[i]`` with an ``nbr_idx``): layer 0 reads ``x0`` (a
     frame: no gradient to it), later layers a random f32 frame of
     ``hidden * heads`` columns that takes one; the last layer's heads are
-    ``num_classes`` wide. Returns {layer: cases}."""
+    ``num_classes`` wide. ``tail``: ``gat_tail_cases`` at each of those
+    layers too. Returns {layer: cases}."""
     gen = torch.Generator(device).manual_seed(14)
     out = {}
     for i, lyr in enumerate(layers):
@@ -1492,9 +1626,13 @@ def split_gat_cases(label, layers, x0, hidden, heads, num_classes, rate,
         x = x0 if i == 0 else torch.randn(lyr.src_cap, hidden * heads,
                                           generator=gen, device=device)
         dh = num_classes if i == len(layers) - 1 else hidden
+        last = i == len(layers) - 1
         out[i] = gat_attention_cases(f"{label} layer {i}", x, lyr.nbr_idx,
                                      heads, dh, rate, gen, grad_x=i > 0,
                                      scatter_plan=lyr.scatter_plan)
+        if tail:
+            out[i].update(gat_tail_cases(f"{label} layer {i}", x, lyr,
+                                         heads, dh, last, rate, gen))
     return out
 
 
@@ -2613,8 +2751,9 @@ def run_entry(device) -> Counter:
     partitions: three finite losses, the dense kernels of its two SAGE
     steps and the attention kernels of its GAT step (every layer dense:
     once a layer a partition forward, once a layer backward, and the
-    dense or per-slot scatter once a layer past layer 0; the synthesis
-    once a partition in the device-innermost step)."""
+    dense or per-slot scatter once a layer past layer 0, and the GAT
+    tail once a layer each way; the synthesis once a partition in the
+    device-innermost step)."""
     from occ_gnn_tpu_torch import entry as entry_mod
 
     start_count(device)
@@ -2637,7 +2776,8 @@ def run_entry(device) -> Counter:
     expect_launches("dryrun_multichip(4)", dry,
                     scaled({DENSE_FWD: layers, DENSE_BWD: layers - 1}, 2 * 4)
                     | scaled({GAT_FWD: layers, GAT_BWD: layers,
-                              SLOTS: layers - 1}, 4) | {SYNTH: 4},
+                              SLOTS: layers - 1, TAIL_FWD: layers,
+                              TAIL_BWD: layers}, 4) | {SYNTH: 4},
                     "two SAGE steps and one GAT step of 4 partitions, one "
                     "of them with layer 0 synthesized on the card")
     return launches + dry
@@ -3637,7 +3777,8 @@ def run_gat_variants(g, fanouts, metrics_ga, device):
     """3 steps of split GAT A through ``train_split`` under each lowering
     of GAT_VARIANTS, with ``train_step`` and the peak beside batched's.
     The online, tiled and fma lowerings are torch ops (no attention
-    launch; layer 0's synthesis once a step); remat dots runs the
+    launch; layer 0's synthesis once a step, the tail once a layer each
+    way: TAIL_STEP); remat dots runs the
     kernels, with the forward once more a layer in the backward
     (GAT_REMAT_STEP). Returns the launches."""
     args_s = graph_args(g.num_nodes, short_run(GAT_A_FLAGS))
@@ -3648,7 +3789,7 @@ def run_gat_variants(g, fanouts, metrics_ga, device):
                                    fanouts, device)
         check_dense_run(f"split GAT A {name}", metrics, n,
                         GAT_REMAT_STEP if "gat_remat" in impls
-                        else {SYNTH: 1})
+                        else {SYNTH: 1, **TAIL_STEP})
         launches += n
         print(f"  {name}: train_step median "
               f"{metrics['medians']['train_step']:.2f} ms, peak "
@@ -4048,10 +4189,12 @@ def main(argv=None) -> int:
         cache, _, _, _ = split_vs_single(g, args_ga, 1.0, device)
         gat_rows = gat_op_times(batch, syn, cache.frames, args_ga,
                                 g.num_classes, rate, device)
-        # The attention kernels at every layer of that batch, at layer 0
-        # on the frame in bf16 too, and on ragged cases.
+        # The attention kernels and the layer tail's at every layer of
+        # that batch, the attention at layer 0 on the frame in bf16 too,
+        # and on ragged cases.
         gat_a = split_gat_cases("split GAT A", layers_a, cache.frames[0],
-                                hidden, heads, g.num_classes, rate, device)
+                                hidden, heads, g.num_classes, rate, device,
+                                tail=True)
         gat_a_bf16 = gat_attention_cases(
             "split GAT A layer 0, bf16 frame",
             cache.frames[0].to(torch.bfloat16), syn.nbr_idx, heads, hidden,
@@ -4268,10 +4411,11 @@ def main(argv=None) -> int:
                   f"plain_ms={c['plain_ms']:.4f} "
                   f"library_ms={'null' if lib is None else f'{lib:.4f}'} "
                   f"max_abs_err={c['err']:.3g}")
-    print("GAT attention kernel times (ms; CUDA-graph harness; a split GAT "
-          "A step runs the forward and the backward once a layer, the "
-          "per-slot scatter once a layer past layer 0; no library call "
-          "computes the attention, index_add_ the per-slot sum):")
+    print("GAT attention and tail kernel times (ms; CUDA-graph harness; a "
+          "split GAT A step runs the attention's forward and backward and "
+          "the tail's once a layer, the per-slot scatter once a layer past "
+          "layer 0; no library call computes the attention or the tail, "
+          "index_add_ the per-slot sum):")
     gat_kernel_rows = [(f"split GAT A layer {i}", c)
                        for i, c in gat_a.items()]
     gat_kernel_rows += [("split GAT A layer 0, bf16 frame", gat_a_bf16)]
@@ -4329,7 +4473,8 @@ def main(argv=None) -> int:
     # The dense kernels' numbers are one split A step's: the forward at
     # its three layers, the backward at layers 1-2; the attention's one
     # split GAT A step's: forward and backward at its three layers, the
-    # per-slot scatter at layers 1-2; the samplers' one split A step's
+    # per-slot scatter at layers 1-2, the tail each way at its three
+    # layers; the samplers' one split A step's
     # synthesis and one quiver step's draws (three layers) and gather-mean
     # (the f32 table, as the quiver run holds it).
     kernels = []
@@ -4339,7 +4484,8 @@ def main(argv=None) -> int:
             (DENSE_BWD, [c[DENSE_BWD] for _, c in sorted(dense_a.items())
                          if DENSE_BWD in c])) + tuple(
             (entry, [c[entry] for _, c in sorted(gat_a.items())
-                     if entry in c]) for entry in (GAT_FWD, GAT_BWD, SLOTS)
+                     if entry in c])
+            for entry in (GAT_FWD, GAT_BWD, SLOTS, TAIL_FWD, TAIL_BWD)
     ) + ((SYNTH, [synth_case]), (DRAW, quiver_cases["draws"]),
          (GMEAN, [quiver_cases["f32"]])):
         by_bytes = summed(cases, "bytes_ms") >= summed(cases, "ops_ms")

@@ -1,6 +1,7 @@
 // GAT's dense attention for Hopper (sm_90a): split GAT's local softmax
 // partials through the dense [K, D] neighbour matrix, forward and backward,
-// one launch each.
+// one launch each; and the layer's tail after it (gat_tail_fwd /
+// gat_tail_bwd, below the attention's launch code).
 //
 //   gat_attention_fwd: for each dst column d and head c, over the slots k
 //     whose nbr[k, d] is not the zero row S - 1,
@@ -1525,6 +1526,404 @@ Args common(const void* x, long long x_rows, int h, const void* nbr, int k,
   return a;
 }
 
+// ---------------------------------------------------------------------------
+// The layer's tail: from the merged softmax partials (s, v) of the dst
+// rows to the layer's output at its owned rows, one launch each way.
+//
+// The owned rows are the dst frame's prefix: owned row o is dst row o
+// wherever owned_mask[o] (every layer builder makes them so), so neither
+// kernel reads the owned rows' indices.
+//
+//   gat_tail_fwd: for owned row o, head c and column j, with
+//     x = v[o, c, j] / max(s[o, c], 1e-16),
+//       hidden layer: y[o, c * dh + j] = elu(x + b[c * dh + j])
+//       last layer:   y[o, j] = (sum over c of x) * scale (the heads' mean)
+//     and zeros at a row whose owned_mask is 0 (v not read there).
+//   gat_tail_bwd: for dst row d of v, from the owned row o = d where
+//     owned_mask[d], recomputing x and z = x + b,
+//       hidden layer: g = z <= 0 ? dy[o, c * dh + j] * exp(z) : dy[...]
+//       last layer:   g = dy[o, j] * scale (1 / heads)
+//       dv[d, c, j]  = g / max(s[d, c], 1e-16)  (times the reciprocal)
+//       ds[d, c]     = -(sum over j of g * (x / max(s[d, c], 1e-16))), 0
+//                      where s[d, c] < 1e-16 (the clamp passes none there)
+//       db_part[block, c * dh + j] = sum of g over the block's rows (hidden)
+//     and zeros in dv and ds at a row no owned row names.
+//
+// v is f32 [D, heads, dh] through its strides (v_row, v_head; unit stride
+// along dh), so the per-head projection's head-major result is read in
+// place; dv is written through its own strides (the wrapper gives it v's).
+// s and ds are f32 [D, heads], owned_mask one byte [O] (O <= D wherever
+// it is set), y and dy f32 [O, heads * dh] (last layer: [O, dh]), b f32
+// [heads * dh].
+//
+// Replaces: the torch chain after split GAT's attention (index_select,
+// divide, mask, bias, mask, ELU or the heads' mean, and autograd's
+// backward of each); the JAX package's occ_gnn_tpu/parallel/model.py
+// SplitGAT.layer, whose tail XLA fuses (no pallas_call).
+//
+// Bound: device-memory bytes, a few operations a byte. Forward: v at the
+// owned rows read once, y written once; backward: dy and v at the owned
+// rows read once, dv written once (every row: the rows no owned row names
+// as zeros, so no fill before), ds and the bias's partials.
+//
+// Design: a persistent grid of blocks of kTailWarps warps, a warp an
+// owned row (backward: a dst row) at a time, rows w, w + warps, ... (a
+// static order, so the bias's partials come out the same over two
+// launches). Lanes take the row's read units of V floats (16 bytes where
+// dh, the strides and the addresses allow; 8 or 4 bytes else), and a
+// lane's loads of a group of up to 4 heads are in flight together. The
+// forward computes each element as the torch chain on the card does, in
+// its order: the IEEE divide, + b, then ELU's expm1f for z <= 0; the last
+// layer's mean adds the heads as torch's reduction does (four running
+// sums, head c into sum c % 4, added in order), then multiplies by the
+// wrapper's factor. The backward, held to f32 tolerance and not to the
+// chain's bits, divides once a head and row and multiplies by the
+// reciprocal (three IEEE divides an element would take much of its
+// instruction issue); ds's sum over dh is a lane partial, then a
+// butterfly over the warp; the bias's gradient sums in the warp's slice
+// of shared memory (each lane its own columns), then over the block's
+// warps in order, a partial a block, which the wrapper adds in a fixed
+// order: no float atomics.
+
+constexpr int kTailWarps = 8;
+constexpr float kTailFloor = 1e-16f;
+
+struct TailArgs {
+  const float* v;
+  long long v_row, v_head;
+  const float* s;
+  const unsigned char* owned_mask;
+  const float* b;  // nullptr on the last layer
+  long long D, O;
+  int heads, dh, last;
+  float scale;
+  float* y;          // forward
+  const float* dy;   // backward
+  float* dv;
+  long long dv_row, dv_head;
+  float* ds;
+  float* db_part;
+};
+
+// torch's clamp(min=1e-16): a NaN stays NaN.
+__device__ __forceinline__ float tail_floor(float s) {
+  return isnan(s) ? s : fmaxf(s, kTailFloor);
+}
+
+template <int V>
+__device__ __forceinline__ void tail_load(const float* p, float (&out)[V]) {
+  if constexpr (V == 4) {
+    const float4 t = __ldg(reinterpret_cast<const float4*>(p));
+    out[0] = t.x, out[1] = t.y, out[2] = t.z, out[3] = t.w;
+  } else if constexpr (V == 2) {
+    const float2 t = __ldg(reinterpret_cast<const float2*>(p));
+    out[0] = t.x, out[1] = t.y;
+  } else {
+    out[0] = __ldg(p);
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void tail_store(float* p, const float (&in)[V]) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(in[0], in[1], in[2], in[3]);
+  } else if constexpr (V == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(in[0], in[1]);
+  } else {
+    *p = in[0];
+  }
+}
+
+// p[0..V) += in, p in shared memory (a warp's 16-byte accesses take
+// four conflict-free phases).
+template <int V>
+__device__ __forceinline__ void tail_add(float* p, const float (&in)[V]) {
+  if constexpr (V == 4) {
+    float4 t = *reinterpret_cast<float4*>(p);
+    t.x += in[0], t.y += in[1], t.z += in[2], t.w += in[3];
+    *reinterpret_cast<float4*>(p) = t;
+  } else if constexpr (V == 2) {
+    float2 t = *reinterpret_cast<float2*>(p);
+    t.x += in[0], t.y += in[1];
+    *reinterpret_cast<float2*>(p) = t;
+  } else {
+    *p += in[0];
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void tail_zero(float* p) {
+  float z[V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) z[k] = 0.f;
+  tail_store<V>(p, z);
+}
+
+template <int V, bool Last>
+__global__ void __launch_bounds__(32 * kTailWarps)
+    gat_tail_fwd_kernel(TailArgs a) {
+  const int lane = threadIdx.x & 31;
+  const long long warps = static_cast<long long>(gridDim.x) * kTailWarps;
+  const int units = a.dh / V;
+  const int width = Last ? a.dh : a.heads * a.dh;
+  for (long long o = static_cast<long long>(blockIdx.x) * kTailWarps +
+                     (threadIdx.x >> 5);
+       o < a.O; o += warps) {
+    float* yrow = a.y + o * width;
+    if (!a.owned_mask[o]) {
+      for (int u = lane; u < width / V; u += 32) tail_zero<V>(yrow + u * V);
+      continue;
+    }
+    assert(o < a.D);
+    const float* vrow = a.v + o * a.v_row;
+    const float* srow = a.s + o * a.heads;
+    for (int u = lane; u < units; u += 32) {
+      float acc[kHeadGroup][V];
+#pragma unroll
+      for (int i = 0; i < kHeadGroup; ++i) {
+#pragma unroll
+        for (int k = 0; k < V; ++k) acc[i][k] = 0.f;
+      }
+      for (int c0 = 0; c0 < a.heads; c0 += kHeadGroup) {
+        float x[kHeadGroup][V];
+        float sc[kHeadGroup];
+#pragma unroll
+        for (int i = 0; i < kHeadGroup; ++i) {
+          if (c0 + i < a.heads) {
+            tail_load<V>(vrow + (c0 + i) * a.v_head + u * V, x[i]);
+            sc[i] = tail_floor(srow[c0 + i]);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < kHeadGroup; ++i) {
+          if (c0 + i >= a.heads) continue;
+          if constexpr (Last) {
+#pragma unroll
+            for (int k = 0; k < V; ++k) {
+              acc[i][k] = acc[i][k] + x[i][k] / sc[i];
+            }
+          } else {
+            const int col = (c0 + i) * a.dh + u * V;
+            float bb[V], out[V];
+            tail_load<V>(a.b + col, bb);
+#pragma unroll
+            for (int k = 0; k < V; ++k) {
+              const float z = x[i][k] / sc[i] + bb[k];
+              out[k] = z > 0.f ? z : expm1f(z);
+            }
+            tail_store<V>(yrow + col, out);
+          }
+        }
+      }
+      if constexpr (Last) {
+        float out[V];
+#pragma unroll
+        for (int k = 0; k < V; ++k) {
+          out[k] = (((acc[0][k] + acc[1][k]) + acc[2][k]) + acc[3][k]) *
+                   a.scale;
+        }
+        tail_store<V>(yrow + u * V, out);
+      }
+    }
+  }
+}
+
+template <int V, bool Last>
+__global__ void __launch_bounds__(32 * kTailWarps)
+    gat_tail_bwd_kernel(TailArgs a) {
+  extern __shared__ float db_smem[];  // hidden: [kTailWarps][heads * dh]
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const long long warps = static_cast<long long>(gridDim.x) * kTailWarps;
+  const int units = a.dh / V;
+  const int width = Last ? a.dh : a.heads * a.dh;
+  float* db = db_smem + warp * width;
+  if (!Last) {
+    for (int e = lane; e < width; e += 32) db[e] = 0.f;
+    __syncwarp();
+  }
+  const long long rows = max(a.D, a.O);
+  for (long long d = static_cast<long long>(blockIdx.x) * kTailWarps + warp;
+       d < rows; d += warps) {
+    const bool named = d < a.O && a.owned_mask[d];
+    assert(!named || d < a.D);
+    if (d >= a.D) continue;
+    float* dvrow = a.dv + d * a.dv_row;
+    if (!named) {
+      for (int c = 0; c < a.heads; ++c) {
+        for (int u = lane; u < units; u += 32) {
+          tail_zero<V>(dvrow + c * a.dv_head + u * V);
+        }
+      }
+      for (int c = lane; c < a.heads; c += 32) a.ds[d * a.heads + c] = 0.f;
+      continue;
+    }
+    const float* vrow = a.v + d * a.v_row;
+    const float* dyrow = a.dy + d * width;
+    const float* srow = a.s + d * a.heads;
+    for (int c0 = 0; c0 < a.heads; c0 += kHeadGroup) {
+      float raw[kHeadGroup], inv[kHeadGroup], part[kHeadGroup];
+#pragma unroll
+      for (int i = 0; i < kHeadGroup; ++i) {
+        raw[i] = c0 + i < a.heads ? srow[c0 + i] : 1.f;
+        inv[i] = 1.f / tail_floor(raw[i]);
+        part[i] = 0.f;
+      }
+      for (int u = lane; u < units; u += 32) {
+        float x[kHeadGroup][V], g[kHeadGroup][V];
+        if constexpr (Last) {
+          float dyu[V];
+          tail_load<V>(dyrow + u * V, dyu);
+#pragma unroll
+          for (int i = 0; i < kHeadGroup; ++i) {
+#pragma unroll
+            for (int k = 0; k < V; ++k) g[i][k] = dyu[k] * a.scale;
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < kHeadGroup; ++i) {
+          if (c0 + i < a.heads) {
+            tail_load<V>(vrow + (c0 + i) * a.v_head + u * V, x[i]);
+            if constexpr (!Last) {
+              tail_load<V>(dyrow + (c0 + i) * a.dh + u * V, g[i]);
+            }
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < kHeadGroup; ++i) {
+          if (c0 + i >= a.heads) continue;
+          const int col = (c0 + i) * a.dh + u * V;
+          float bb[V], out[V];
+          if constexpr (!Last) tail_load<V>(a.b + col, bb);
+#pragma unroll
+          for (int k = 0; k < V; ++k) {
+            const float xv = x[i][k] * inv[i];
+            if constexpr (!Last) {
+              const float z = xv + bb[k];
+              g[i][k] = z <= 0.f ? g[i][k] * expf(z) : g[i][k];
+            }
+            out[k] = g[i][k] * inv[i];
+            part[i] += g[i][k] * (xv * inv[i]);
+          }
+          if constexpr (!Last) tail_add<V>(db + col, g[i]);
+          tail_store<V>(dvrow + (c0 + i) * a.dv_head + u * V, out);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kHeadGroup; ++i) {
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+          part[i] += __shfl_xor_sync(kFull, part[i], off);
+        }
+        if (lane == 0 && c0 + i < a.heads) {
+          a.ds[d * a.heads + c0 + i] = raw[i] >= kTailFloor ? -part[i] : 0.f;
+        }
+      }
+    }
+  }
+  if (!Last) {
+    __syncthreads();
+    for (int e = threadIdx.x; e < width; e += blockDim.x) {
+      float t = 0.f;
+      for (int w = 0; w < kTailWarps; ++w) t += db_smem[w * width + e];
+      a.db_part[static_cast<long long>(blockIdx.x) * width + e] = t;
+    }
+  }
+}
+
+// The backward's shared memory: the hidden layer's bias partials, a
+// row of heads * dh floats a warp.
+size_t tail_smem(const TailArgs& a, bool backward) {
+  return backward && !a.last
+             ? sizeof(float) * kTailWarps * a.heads * a.dh
+             : 0;
+}
+
+template <int V, bool Last>
+cudaError_t tail_kernel(const TailArgs& a, bool backward, int grid,
+                        cudaStream_t stream, int* per_sm) {
+  const size_t smem = tail_smem(a, backward);
+  auto kernel = backward ? gat_tail_bwd_kernel<V, Last>
+                         : gat_tail_fwd_kernel<V, Last>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm != nullptr) {  // the blocks an SM holds, no launch
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        per_sm, kernel, 32 * kTailWarps, smem);
+  }
+  kernel<<<grid, 32 * kTailWarps, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+template <int V>
+cudaError_t tail_by_layer(const TailArgs& a, bool backward, int grid,
+                          cudaStream_t stream, int* per_sm) {
+  return a.last ? tail_kernel<V, true>(a, backward, grid, stream, per_sm)
+                : tail_kernel<V, false>(a, backward, grid, stream, per_sm);
+}
+
+bool aligned(const void* p, int vec) {
+  return reinterpret_cast<uintptr_t>(p) % (sizeof(float) * vec) == 0;
+}
+
+// The checks both entries make (the read unit `vec` floats: dh, the
+// strides and every vector-read address divisible by it), then the launch
+// of `grid` blocks.
+int run_tail(const TailArgs& a, int vec, bool backward, int grid, int device,
+             void* stream, int* per_sm = nullptr) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (a.heads < 1 || a.dh < 1 || a.D < 0 || a.O < 0 || grid < 1 ||
+      (vec != 1 && vec != 2 && vec != 4)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (per_sm == nullptr) {
+    const bool fits =
+        a.dh % vec == 0 && a.v_row % vec == 0 && a.v_head % vec == 0 &&
+        aligned(a.v, vec) && (a.last || aligned(a.b, vec)) &&
+        (backward ? aligned(a.dy, vec) && aligned(a.dv, vec) &&
+                        a.dv_row % vec == 0 && a.dv_head % vec == 0 &&
+                        (a.last || a.db_part != nullptr)
+                  : aligned(a.y, vec));
+    if (!fits || (!a.last && a.b == nullptr)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    if ((backward ? a.D : a.O) == 0) return 0;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (vec) {
+    case 4:
+      err = tail_by_layer<4>(a, backward, grid, s, per_sm);
+      break;
+    case 2:
+      err = tail_by_layer<2>(a, backward, grid, s, per_sm);
+      break;
+    default:
+      err = tail_by_layer<1>(a, backward, grid, s, per_sm);
+  }
+  return static_cast<int>(err);
+}
+
+TailArgs tail_common(const void* v, long long v_row, long long v_head,
+                     const void* s, const void* owned_mask, const void* b,
+                     long long d, long long o, int heads, int dh, int last,
+                     float scale) {
+  TailArgs a = {};
+  a.v = static_cast<const float*>(v);
+  a.v_row = v_row;
+  a.v_head = v_head;
+  a.s = static_cast<const float*>(s);
+  a.owned_mask = static_cast<const unsigned char*>(owned_mask);
+  a.b = static_cast<const float*>(b);
+  a.D = d;
+  a.O = o;
+  a.heads = heads;
+  a.dh = dh;
+  a.last = last != 0;
+  a.scale = scale;
+  return a;
+}
+
 }  // namespace
 
 // The entries launch on `stream` (a cudaStream_t) on device `device`,
@@ -1585,6 +1984,55 @@ extern "C" int gat_attention_occupancy(const void* x, int x_bf16,
                   0.f, tile);
   return run(a, x_bf16, 1, static_cast<const Layout*>(layout),
              backward != 0, device, nullptr, per_sm);
+}
+
+// The layer's tail. v [d, heads, dh] through its strides (v_row, v_head
+// floats), s [d, heads], owned_mask [o] (owned row o is dst row o where
+// it is set), b [heads * dh]
+// (null on the last layer, `last`); `vec` floats a read unit; `grid`
+// blocks of 8 warps. Forward: y [o, heads * dh] (last: [o, dh]), every
+// row written; `scale` is the heads' mean factor.
+extern "C" int gat_tail_fwd(const void* v, long long v_row, long long v_head,
+                            const void* s, const void* owned_mask,
+                            const void* b, long long d, long long o,
+                            int heads, int dh, int last, float scale,
+                            int vec, int grid, void* y, int device,
+                            void* stream) {
+  TailArgs a = tail_common(v, v_row, v_head, s, owned_mask, b, d, o, heads,
+                           dh, last, scale);
+  a.y = static_cast<float*>(y);
+  return run_tail(a, vec, false, grid, device, stream);
+}
+
+// Backward, from dy (as y): dv [d, heads, dh] through its strides, ds
+// [d, heads], every row written, and on a hidden layer db_part [grid,
+// heads * dh], a block's partial each; `scale` is 1 / heads.
+extern "C" int gat_tail_bwd(const void* dy, const void* v, long long v_row,
+                            long long v_head, const void* s,
+                            const void* owned_mask, const void* b,
+                            long long d, long long o, int heads, int dh,
+                            int last, float scale, int vec, int grid,
+                            void* dv, long long dv_row, long long dv_head,
+                            void* ds, void* db_part, int device,
+                            void* stream) {
+  TailArgs a = tail_common(v, v_row, v_head, s, owned_mask, b, d, o, heads,
+                           dh, last, scale);
+  a.dy = static_cast<const float*>(dy);
+  a.dv = static_cast<float*>(dv);
+  a.dv_row = dv_row;
+  a.dv_head = dv_head;
+  a.ds = static_cast<float*>(ds);
+  a.db_part = static_cast<float*>(db_part);
+  return run_tail(a, vec, true, grid, device, stream);
+}
+
+// The blocks of a tail kernel that an SM holds at once, into *per_sm (no
+// launch).
+extern "C" int gat_tail_occupancy(int backward, int last, int vec, int heads,
+                                  int dh, int device, int* per_sm) {
+  TailArgs a = tail_common(nullptr, 0, 0, nullptr, nullptr, nullptr, 0, 0,
+                           heads, dh, last, 0.f);
+  return run_tail(a, vec, backward != 0, 1, device, nullptr, per_sm);
 }
 
 extern "C" const char* cuda_error_string(int err) {

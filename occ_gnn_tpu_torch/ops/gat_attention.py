@@ -72,6 +72,19 @@ passes a bf16 tensor. A bf16 ``x`` that takes a gradient gets its
 gradient summed in f32 and rounded once (the plain autograd would add
 bf16 rows); split GAT's frames past layer 0 are f32.
 
+The layer's tail, ``gat_tail``, turns the (merged) partials into the
+layer's output at its owned rows: ``v / max(s, 1e-16)`` at the owned
+rows, then the bias and ELU on a hidden layer, the heads' mean on the
+last, zeros at the pads; one kernel each way on the card
+(``gat_tail_fwd``, ``gat_tail_bwd``), where the model ran a chain of
+torch ops and their autograd backwards. The kernels take the owned rows
+as the dst frame's prefix (owned row o is dst row o wherever it is
+valid), as every layer builder makes them. The forward reads ``v`` through
+its strides (the projection's head-major result, in place) and gives
+the chain's bits; the backward writes ``dv`` in ``v``'s layout, every
+row (zeros where no owned row names it), ``ds`` and the bias's gradient
+as a partial a block, summed here in a fixed order.
+
 On a CPU tensor each wrapper computes its plain version; on a CUDA tensor
 it launches the kernel or raises. There is no fallback between the two.
 """
@@ -110,6 +123,16 @@ ARGTYPES = {
     # per_sm
     "gat_attention_occupancy": [_P, _I, _L, _I, _I, _L, _I, _P, _I, _I, _I,
                                 _P],
+    # v, v_row, v_head, s, owned_mask, b, d, o, heads, dh, last, scale,
+    # vec, grid, y, device, stream
+    "gat_tail_fwd": [_P, _L, _L, _P, _P, _P, _L, _L, _I, _I, _I, _F, _I, _I,
+                     _P, _I, _P],
+    # dy, v, v_row, v_head, s, owned_mask, b, d, o, heads, dh, last, scale,
+    # vec, grid, dv, dv_row, dv_head, ds, db_part, device, stream
+    "gat_tail_bwd": [_P, _P, _L, _L, _P, _P, _P, _L, _L, _I, _I, _I, _F, _I,
+                     _I, _P, _L, _L, _P, _P, _I, _P],
+    # backward, last, vec, heads, dh, device, per_sm
+    "gat_tail_occupancy": [_I, _I, _I, _I, _I, _I, _P],
 }
 # The staged kernels' shared memory, as `layout` plans it and the kernels
 # take it (csrc/gat_attention.cu's `Layout`: an int each, in this order).
@@ -635,3 +658,228 @@ def gat_attention(x: torch.Tensor, nbr: torch.Tensor, wl: torch.Tensor,
     _check(x, nbr, wl, w3, er)
     m, s, agg = _GatAttention.apply(x, nbr, wl, er, plan)
     return m, s, _Projection.apply(agg, w3)
+
+
+# The layer's tail (``gat_tail``): a block's warps (``kTailWarps`` of
+# csrc/gat_attention.cu), and the floor the softmax sums are clamped to.
+TAIL_WARPS = 8
+S_FLOOR = 1e-16
+
+
+def gat_tail_reference(v: torch.Tensor, s: torch.Tensor,
+                       owned_idx: torch.Tensor, owned_mask: torch.Tensor,
+                       b: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain version of the layer's tail, the torch chain the kernels
+    replace: the owned rows of ``v / max(s, 1e-16)`` (``owned_idx`` -1
+    reads row 0), masked, then on a hidden layer ``+ b``, masked again and
+    ELU, ``[O, heads * dh]``; on the last layer (``b`` None) the heads'
+    mean, ``[O, dh]``."""
+    own = owned_idx.clamp(min=0)
+    s_own = s.index_select(0, own).clamp(min=S_FLOOR)
+    h = v.index_select(0, own) / s_own[..., None]   # [O, heads, dh]
+    h = h * owned_mask[:, None, None]
+    if b is None:
+        return h.mean(dim=1)
+    return F.elu((h.reshape(-1, h.shape[1] * h.shape[2]) + b)
+                 * owned_mask[:, None])
+
+
+def gat_tail_backward_reference(dy: torch.Tensor, v: torch.Tensor,
+                                s: torch.Tensor, owned_idx: torch.Tensor,
+                                owned_mask: torch.Tensor,
+                                b: torch.Tensor | None = None):
+    """Plain version of the tail's backward, term by term as autograd
+    differentiates ``gat_tail_reference``: from ``dy`` (the output's
+    shape) returns ``(dv, ds, db)`` in the shapes of ``v``, ``s`` and ``b``
+    (``db`` None on the last layer). Rows no owned row names are zero; the
+    clamp passes no gradient to an ``s`` under 1e-16."""
+    heads, dh = v.shape[1:]
+    own = owned_idx.clamp(min=0)
+    mask = owned_mask[:, None]
+    s_own = s.index_select(0, own)
+    s_cl = s_own.clamp(min=S_FLOOR)[..., None]
+    x = v.index_select(0, own) / s_cl               # [O, heads, dh]
+    db = None
+    if b is None:
+        g = (dy / heads)[:, None, :].expand(-1, heads, -1)
+    else:
+        z = ((x * mask[..., None]).reshape(-1, heads * dh) + b) * mask
+        g = torch.where(z <= 0, dy * torch.exp(z), dy) * mask
+        db = g.sum(dim=0)
+        g = g.reshape(-1, heads, dh)
+    g = g * mask[..., None]
+    dv = torch.zeros_like(v).index_add_(0, own, g / s_cl)
+    ds_own = -(g * (x / s_cl)).sum(dim=-1)
+    ds = torch.zeros_like(s).index_add_(
+        0, own, torch.where(s_own >= S_FLOOR, ds_own, 0.0))
+    return dv, ds, db
+
+
+def _tail_vec(dh: int, strides, tensors) -> int:
+    """The tail kernels' read unit in floats: the widest of 4 and 2 that
+    divides ``dh``, every stride and every tensor's address, else 1."""
+    for vec in (4, 2):
+        if (dh % vec == 0 and all(st % vec == 0 for st in strides)
+                and all(t.data_ptr() % (4 * vec) == 0 for t in tensors)):
+            return vec
+    return 1
+
+
+@functools.cache
+def _tail_blocks_an_sm(backward: bool, last: bool, vec: int, heads: int,
+                       dh: int, device: int) -> int:
+    lib = _library()
+    out = ctypes.c_int(0)
+    err = lib.gat_tail_occupancy(int(backward), int(last), vec, heads, dh,
+                                 device, ctypes.addressof(out))
+    check_launch(lib, err, "gat_tail_occupancy")
+    return max(1, out.value)
+
+
+def _tail_grid(rows: int, backward: bool, last: bool, vec: int, heads: int,
+               dh: int, device: torch.device) -> int:
+    """The persistent grid: as many blocks as the card holds at once, at
+    most one for each ``TAIL_WARPS`` rows."""
+    per_sm = _tail_blocks_an_sm(backward, last, vec, heads, dh, device.index)
+    return max(1, min(-(-rows // TAIL_WARPS), per_sm * _sms(device)))
+
+
+def _mean_factor(rows: int, dh: int, heads: int) -> float:
+    """torch's factor for the mean over the heads, outputs over inputs
+    in f32, as its reduction on the card computes it."""
+    return float(torch.tensor(float(rows * dh), dtype=torch.float32)
+                 / torch.tensor(float(rows * dh * heads),
+                                dtype=torch.float32))
+
+
+def gat_tail_fwd(v: torch.Tensor, s: torch.Tensor, owned_idx: torch.Tensor,
+                 owned_mask: torch.Tensor,
+                 b: torch.Tensor | None = None) -> torch.Tensor:
+    """The tail's output, without autograd: the plain version on the CPU,
+    one kernel launch on the card, which takes the owned rows as the dst
+    frame's prefix (``owned_idx[o] == o`` wherever ``owned_mask[o]``, as
+    every sampler builds them) and reads only ``owned_mask``.
+    ``gat_tail_fwd.launches`` counts the launches."""
+    if v.device.type == "cpu":
+        with torch.no_grad():
+            return gat_tail_reference(v, s, owned_idx, owned_mask, b)
+    _on_cuda(v)
+    D, heads, dh = v.shape
+    O = owned_idx.shape[0]
+    last = b is None
+    y = torch.empty((O, dh if last else heads * dh), dtype=torch.float32,
+                    device=v.device)
+    if O == 0:
+        return y
+    vec = _tail_vec(dh, v.stride()[:2], [v, y] + ([] if last else [b]))
+    grid = _tail_grid(O, False, last, vec, heads, dh, v.device)
+    lib = _library()
+    err = lib.gat_tail_fwd(
+        v.data_ptr(), v.stride(0), v.stride(1), s.data_ptr(),
+        owned_mask.data_ptr(), None if last else b.data_ptr(), D, O, heads,
+        dh, int(last), _mean_factor(O, dh, heads), vec, grid, y.data_ptr(),
+        v.device.index, _stream(v))
+    check_launch(lib, err, "gat_tail_fwd")
+    gat_tail_fwd.launches += 1
+    return y
+
+
+gat_tail_fwd.launches = 0
+
+
+def gat_tail_bwd(dy: torch.Tensor, v: torch.Tensor, s: torch.Tensor,
+                 owned_idx: torch.Tensor, owned_mask: torch.Tensor,
+                 b: torch.Tensor | None = None):
+    """The tail's ``(dv, ds, db)`` as ``gat_tail_backward_reference``
+    returns them: the plain version on the CPU, one kernel launch on the
+    card, which takes the owned rows as ``gat_tail_fwd`` does. ``dv`` takes
+    ``v``'s strides, so the per-head projection's backward reads it in
+    place; ``db``'s partials, one a block, are summed here.
+    ``gat_tail_bwd.launches`` counts the launches."""
+    if v.device.type == "cpu":
+        return gat_tail_backward_reference(dy, v, s, owned_idx, owned_mask,
+                                           b)
+    _on_cuda(v)
+    D, heads, dh = v.shape
+    O = owned_idx.shape[0]
+    last = b is None
+    dv = torch.empty_like(v)
+    ds = torch.empty((D, heads), dtype=torch.float32, device=v.device)
+    rows = max(D, O)
+    if D == 0:
+        return dv, ds, None if last else torch.zeros_like(b)
+    vec = _tail_vec(dh, v.stride()[:2] + dv.stride()[:2],
+                    [v, dy, dv] + ([] if last else [b]))
+    grid = _tail_grid(rows, True, last, vec, heads, dh, v.device)
+    part = (None if last else
+            torch.empty((grid, heads * dh), dtype=torch.float32,
+                        device=v.device))
+    lib = _library()
+    err = lib.gat_tail_bwd(
+        dy.data_ptr(), v.data_ptr(), v.stride(0), v.stride(1), s.data_ptr(),
+        owned_mask.data_ptr(), None if last else b.data_ptr(), D, O, heads,
+        dh, int(last), 1.0 / heads, vec, grid, dv.data_ptr(), dv.stride(0),
+        dv.stride(1), ds.data_ptr(), None if last else part.data_ptr(),
+        v.device.index, _stream(v))
+    check_launch(lib, err, "gat_tail_bwd")
+    gat_tail_bwd.launches += 1
+    return dv, ds, None if last else part.sum(dim=0)
+
+
+gat_tail_bwd.launches = 0
+
+
+class _GatTail(torch.autograd.Function):
+    """``gat_tail``: saves ``v``, ``s``, ``b`` and the owned rows, and
+    recomputes the normalised values in the backward."""
+
+    @staticmethod
+    def forward(ctx, v, s, b, owned_idx, owned_mask):
+        ctx.save_for_backward(v, s, b, owned_idx, owned_mask)
+        return gat_tail_fwd(v, s, owned_idx, owned_mask, b)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy):
+        v, s, b, owned_idx, owned_mask = ctx.saved_tensors
+        dv, ds, db = gat_tail_bwd(dy.contiguous(), v, s, owned_idx,
+                                  owned_mask, b)
+        return dv, ds, db, None, None
+
+
+def gat_tail(v: torch.Tensor, s: torch.Tensor, owned_idx: torch.Tensor,
+             owned_mask: torch.Tensor,
+             b: torch.Tensor | None = None) -> torch.Tensor:
+    """Split GAT's layer tail: the merged softmax partials ``s [D, heads]``
+    and ``v [D, heads, dh]`` (f32; ``v`` in any layout with unit stride
+    along ``dh``, such as the per-head projection's head-major result) to
+    the layer's output at its ``O`` owned rows (``owned_idx`` int32, -1 at
+    a pad, and ``owned_mask`` bool; on the card the owned rows must be the
+    dst frame's prefix, as the samplers build them): on a hidden layer ``elu(v / max(s,
+    1e-16) + b)`` per head, concatenated, ``[O, heads * dh]``; on the last
+    layer (``b`` None) the heads' mean, ``[O, dh]``; zero rows at the pads.
+    Differentiable in ``v``, ``s`` and ``b``."""
+    if v.dtype != torch.float32 or v.dim() != 3 or s.dtype != torch.float32:
+        raise TypeError(f"v and s must be float32 [D, heads, dh] and [D, "
+                        f"heads], got {v.dtype} {list(v.shape)} and "
+                        f"{s.dtype} {list(s.shape)}")
+    D, heads, dh = v.shape
+    if tuple(s.shape) != (D, heads):
+        raise TypeError(f"s must be [{D}, {heads}], got {list(s.shape)}")
+    if owned_idx.dtype != torch.int32 or owned_mask.dtype not in (
+            torch.bool, torch.uint8) or owned_idx.shape != owned_mask.shape:
+        raise TypeError(f"owned_idx int32 and owned_mask bool of one shape, "
+                        f"got {owned_idx.dtype} {list(owned_idx.shape)} and "
+                        f"{owned_mask.dtype} {list(owned_mask.shape)}")
+    if b is not None and (b.dtype != torch.float32
+                          or tuple(b.shape) != (heads * dh,)):
+        raise TypeError(f"b must be float32 [{heads * dh}], got {b.dtype} "
+                        f"{list(b.shape)}")
+    for name, t in (("s", s), ("owned_idx", owned_idx),
+                    ("owned_mask", owned_mask), ("b", b)):
+        if t is not None and t.device != v.device:
+            raise ValueError(f"{name} on {t.device}, v on {v.device}")
+    if v.stride(-1) != 1:
+        v = v.contiguous()
+    return _GatTail.apply(v, s.contiguous(), b, owned_idx.contiguous(),
+                          owned_mask.contiguous())

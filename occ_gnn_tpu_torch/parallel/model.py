@@ -79,6 +79,7 @@ from occ_gnn_tpu_torch.ops.gat_attention import (
     attention_pre,
     attention_scores,
     gat_attention,
+    gat_tail,
 )
 from occ_gnn_tpu_torch.parallel.dist import DistContext, all_reduce_gradients
 from occ_gnn_tpu_torch.parallel.split import (
@@ -490,7 +491,10 @@ class SplitGAT(nn.Module):
                is_last: bool) -> list[torch.Tensor]:
         """Layer ``i`` of every local partition, as ``SplitSAGE.layers``:
         each partition's er frame, one reverse shuffle, each partition's
-        local attention, one softmax merge, then the owners' rows."""
+        local attention, one softmax merge, then the tail at the owners'
+        rows (``ops.gat_attention.gat_tail``: the softmax's division, and
+        on a hidden layer the bias and ELU, on the last the heads'
+        mean)."""
         p = self.layer_params(i)
         k, d_out = p["attn_l"].shape
         # The attention vectors contracted into W: el / er of a row are
@@ -540,18 +544,10 @@ class SplitGAT(nn.Module):
             s_all, v_all = shuffle_softmax_merge(_stack(ms), _stack(ss),
                                                  _stack(vs), push, recv)
             ss, vs = list(s_all.unbind(0)), list(v_all.unbind(0))
-        out = []
-        for lyr, s, v in zip(lyrs, ss, vs):
-            own = lyr.owned_idx.clamp(min=0)
-            s_own = s.index_select(0, own).clamp(min=1e-16)
-            h = v.index_select(0, own) / s_own[..., None]   # [O_cap, K, D]
-            h = h * lyr.owned_mask[:, None, None]
-            if is_last:
-                out.append(h.mean(dim=1))
-            else:
-                out.append((h.reshape(-1, k * d_out) + p["b"])
-                           * lyr.owned_mask[:, None])
-        return out
+        with span("gat_tail"):
+            return [gat_tail(v, s, lyr.owned_idx, lyr.owned_mask,
+                             None if is_last else p["b"])
+                    for lyr, s, v in zip(lyrs, ss, vs)]
 
     def layer(self, i: int, lyr: SplitLayer, x: torch.Tensor,
               is_last: bool) -> torch.Tensor:
@@ -561,15 +557,14 @@ class SplitGAT(nn.Module):
     def forward_partitions(self, parts: list[list[SplitLayer]], xs,
                            generator: torch.Generator | None = None):
         """The local partitions' forward, as
-        ``SplitSAGE.forward_partitions``, with ELU between layers;
-        ``generator`` is unused (no dropout)."""
+        ``SplitSAGE.forward_partitions``; the ELU between layers is each
+        hidden layer's own (its tail's). ``generator`` is unused (no
+        dropout)."""
         xs = list(xs)
         last = len(parts[0]) - 1
         for i in range(last + 1):
             xs = self.layers(i, [layers[i] for layers in parts], xs,
                              is_last=(i == last))
-            if i != last:
-                xs = [F.elu(x) for x in xs]
         return xs
 
     def forward_local(self, layers: list[SplitLayer], x: torch.Tensor,

@@ -230,7 +230,10 @@ class NativeSplitSampler:
         (this process's rows); None emits all P. ``packed=False`` moves
         each field to the device in its own copy instead of one arena.
         ``scatter_plans`` ships each dense layer past layer 0 with its
-        ``ScatterPlan`` (split GAT's training asks for it)."""
+        ``ScatterPlan`` (split GAT's training asks for it). Iteration
+        keeps a batch a worker in flight after each delivery (at least
+        2, at most ``queue_depth``), so that every worker samples while
+        the caller trains."""
         self.graph = graph
         self.device = torch.device(device)
         self.train_nodes = np.asarray(train_nodes, dtype=np.int64)
@@ -249,6 +252,7 @@ class NativeSplitSampler:
             num_edges=graph.num_edges,
         )
         self.drop_last = drop_last
+        self._ahead = max(2, min(num_workers, queue_depth))
         self.rng = np.random.default_rng(seed)
         self.cache = cache
         plan = getattr(cache, "plan", cache)
@@ -452,9 +456,10 @@ class NativeSplitSampler:
                 self._submit(np.ascontiguousarray(nodes[b * bs:(b + 1) * bs]))
             pending += 1
             submitted += 1
-            # keep the pipeline primed but bounded
-            if pending >= 3 or submitted == total:
-                while pending > (0 if submitted == total else 2):
+            # keep the pipeline primed but bounded: `_ahead` batches in
+            # flight after each delivery
+            if pending > self._ahead or submitted == total:
+                while pending > (0 if submitted == total else self._ahead):
                     yield self._pop()
                     pending -= 1
         while pending > 0:

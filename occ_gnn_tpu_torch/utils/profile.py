@@ -39,9 +39,10 @@ NAMED_RANGES = (
     "synthesize_device_innermost", "local_aggregate", "slice_owned",
     "shuffle_merge", "_ShuffleMergeBackward", "gat_attention_dense",
     "gat_attention_online", "gat_attention_tiled", "_GatAttentionBackward",
-    "gat_attention_coo", "reverse_shuffle", "_ReverseShuffleBackward",
-    "shuffle_softmax_merge", "_ShuffleSoftmaxMergeBackward", "quiver_draw",
-    "quiver_gather", "dense_sage_forward", "Optimizer.step#Adam.step")
+    "gat_attention_coo", "gat_tail", "_GatTailBackward", "reverse_shuffle",
+    "_ReverseShuffleBackward", "shuffle_softmax_merge",
+    "_ShuffleSoftmaxMergeBackward", "quiver_draw", "quiver_gather",
+    "dense_sage_forward", "Optimizer.step#Adam.step")
 
 
 def _union_ms(intervals) -> float:

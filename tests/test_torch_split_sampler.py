@@ -258,6 +258,40 @@ def test_error_preserves_delivery_order(graphs, pmap):
     nat.close()
 
 
+@pytest.mark.parametrize("workers,ahead", [(2, 2), (4, 4), (8, 4)])
+def test_iteration_keeps_a_batch_a_worker_in_flight_in_order(
+        graphs, pmap, workers, ahead):
+    """After each delivery the iterator keeps a batch a worker in flight
+    (at least 2, at most the queue's depth of 4), then drains, and still
+    delivers in submission order: its batches equal the JAX service's,
+    which keeps 2."""
+    jg, tg = graphs
+    fanouts = [_max_fanout(tg)] * 2
+    caps = jsl.plan_split_capacities(16, fanouts, tg.num_nodes, P)
+    nat_j = JaxNative(jg, jg.train_nodes(), pmap, P, fanouts, 16,
+                      capacities=caps, seed=6, num_workers=workers)
+    nat_t = NativeSplitSampler(tg, tg.train_nodes(), pmap, P, fanouts, 16,
+                               capacities=caps, seed=6, num_workers=workers,
+                               device="cpu")
+    assert nat_t._ahead == ahead
+    in_flight = []
+    pop = nat_t._pop
+
+    def counted_pop():
+        in_flight.append(nat_t._next_submit_seq - nat_t._next_deliver_seq)
+        return pop()
+
+    nat_t._pop = counted_pop
+    got, want = list(nat_t), list(nat_j)
+    total = len(nat_t)
+    assert total > ahead + 2 and len(got) == len(want) == total
+    assert in_flight == [min(ahead + 1, total - k) for k in range(total)]
+    for jb, tb in zip(want, got):
+        assert_batches_equal(jb, tb)
+    nat_j.close()
+    nat_t.close()
+
+
 @pytest.mark.parametrize("mode", ["greedy", "metis", "random",
                                   "round_robin"])
 def test_one_partition_map_equals_partition_graph(graphs, mode):
