@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one NVIDIA GPU (H100).
 
-    python3 chip_smoke.py [--num-nodes N] [--ranks N]
+    python3 chip_smoke.py [--num-nodes N] [--ranks N] [--qk-only]
 
 1. Prints the card (name and power limit), torch and CUDA versions, and
    builds every hand-written kernel (``csrc/segment_sum_sorted.cu``,
@@ -103,6 +103,16 @@
    build; 8 steps with one profiled: 3 forward, 3 backward and 2
    per-slot launches a step, every plan from the batch (the plain
    version, ``slots_plan``, never runs on the card).
+   Split UniMP A: the same batch with ``--model-name unimp`` (hidden 32
+   a head, 4 heads): its query-key attention kernels (``qk_attn_fwd``,
+   ``qk_attn_bwd``) at each layer of that batch and at
+   ``unimp-split-b4096``'s three layers (random rows, the cell's share of
+   padding slots), forward within 1e-5 of scale, ``du`` and ``dxg``
+   within 1e-4 of max |.|, two launches bit-equal, layer 0 on the staged
+   kernels, timed beside the byte bound and the plain version; then one
+   step with the counts set to 0 just before it: 3 launches each way, 2
+   per-slot launches, and every one on the staged kernels
+   (``qk_attention_counts()``).
    The lowerings of ``ops/config.py`` on the same graph: layer 0 under
    ``OCC_DEVICE_SAMPLE=bitsf32``, ``bitsf32_dk`` and ``window`` (the
    doubled CSR) held to the sampling contract and timed, with no launch
@@ -188,15 +198,18 @@
    and at least 99.9 % of its predictions.
 13. Prints the kernels' times at every main-path shape, the card again,
    one JSON line of kernel numbers (one object each for the segment-sum's
-   two entries, the two dense kernels, the attention's three and the
-   three on-device samplers), and last ``{"ok": true, "device":
+   two entries, the two dense kernels, the attention's three, the
+   tail's two, the qk attention's two and the three on-device samplers), and last ``{"ok": true, "device":
    {...}}``. Every phase's run checks the launches of each kernel its
    path calls: a split SAGE or GCN step launches the dense kernels once a
    dense layer forward and once a dense layer past layer 0 backward, per
    partition (``SPLIT_A_STEP``, ``SPLIT_B_STEP``), a split GAT step the
    attention's forward and backward once a dense layer and the per-slot
    scatter once a dense layer past layer 0, and the layer tail once a
-   layer each way (``SPLIT_GAT_A_STEP``, ``GAT_B_STEP``), a step with
+   layer each way (``SPLIT_GAT_A_STEP``, ``GAT_B_STEP``), a split UniMP
+   step the qk kernels once a dense layer each way and the per-slot
+   scatter once a dense layer past layer 0 (``SPLIT_UNIMP_A_STEP``), a
+   step with
    layer 0 synthesized on the card the synthesis once a partition, an
    inference batch once a dense layer
    (``INFER_BATCH``), a quiver step the draws once a layer and the
@@ -211,7 +224,11 @@ several cards and stop when it has fewer than N; on a machine with a
 card for every rank, the ranks run over NCCL. ``--baselines-only``
 runs step 12 alone (with split B's run and the P = 1 inference it
 needs) and prints no result; ``--split-nccl-only`` runs the NCCL phase
-of step 11 alone (on several cards) and prints no result.
+of step 11 alone (on several cards) and prints no result. ``--qk-only``
+runs the part of step 8b' that needs no graph: UniMP's query-key
+attention kernels (``qk_attn_fwd``, ``qk_attn_bwd``) against their plain
+versions and timed beside their bounds at ``unimp-split-b4096``'s layers
+(``cell_qk_cases``), and prints no result.
 """
 
 from __future__ import annotations
@@ -286,6 +303,11 @@ from occ_gnn_tpu_torch.ops.gat_attention import (
     gat_tail_bwd,
     gat_tail_fwd,
     gat_tail_reference,
+    qk_attention_backward_reference,
+    qk_attention_counts,
+    qk_attn_bwd,
+    qk_attn_fwd,
+    reset_qk_attention_counts,
 )
 from occ_gnn_tpu_torch.ops.segment_sum_sorted import (
     TILE_EDGES,
@@ -365,6 +387,12 @@ GAT_FLAGS = ["--model-name", "gat", "--num-hidden", "32", "--num-heads", "4"]
 GAT_A_FLAGS = ["--mode", "split", "--cache-per", "auto", "--fan-out",
                "10,10,25", "--profile-dir",
                "chiprun_out/split_gat_a_profile"] + COMMON_FLAGS + GAT_FLAGS
+# UniMP at the same widths (hidden 32 a head, 4 heads) and graph as split
+# GAT A, one step of a batch of 1024 (the flags after COMMON_FLAGS win).
+UNIMP_A_FLAGS = (["--mode", "split", "--cache-per", "auto", "--fan-out",
+                  "10,10,25"] + COMMON_FLAGS
+                 + ["--model-name", "unimp", "--num-hidden", "32",
+                    "--num-heads", "4", "--limit-train", "1024"])
 # The single-chip GAT and GCN phases run 3 steps each on split B's graph.
 SINGLE_B_FLAGS = TRAIN_FLAGS + ["--limit-train", "3072"]
 # 3 steps of a batch of 1024 (the flags after COMMON_FLAGS win).
@@ -394,6 +422,8 @@ GAT_FWD, GAT_BWD, SLOTS = ("gat_attention_fwd", "gat_attention_bwd",
                            "dense_scatter_slots")
 # Split GAT's layer tail, once a layer each way.
 TAIL_FWD, TAIL_BWD = "gat_tail_fwd", "gat_tail_bwd"
+# UniMP's query-key attention, counted by ``qk_attention_counts()``.
+QK_FWD, QK_BWD = "qk_attn_fwd", "qk_attn_bwd"
 # The on-device samplers: split A's layer-0 synthesis, quiver's draws and
 # its layer-0 gather-mean.
 SYNTH, DRAW, GMEAN = "synthesize_innermost", "draw_neighbors", "gather_mean"
@@ -403,6 +433,9 @@ ENTRIES = {MSGS: segment_sum_sorted, FUSED: gather_segment_sum,
            SLOTS: dense_scatter_slots, TAIL_FWD: gat_tail_fwd,
            TAIL_BWD: gat_tail_bwd, SYNTH: synthesize_innermost,
            DRAW: draw_neighbors, GMEAN: gather_mean}
+# Every kernel whose launches a run counts: ENTRIES' by their own
+# counters, the qk kernels' by direction.
+COUNTED = (*ENTRIES, QK_FWD, QK_BWD)
 # Sorted segment-sum launches a step: one a layer. Single SAGE and GCN
 # (either norm) sum the rows of their frame through the fused gather; GAT
 # (single, and split on its COO layer 0) sums the softmax denominators and
@@ -421,13 +454,19 @@ SINGLE_ENTRY = {"sage": FUSED, "gcn": FUSED, "gat": MSGS, "gcn sym": FUSED}
 # launches the synthesis once a step per partition under the default
 # OCC_DEVICE_SAMPLE=randint, and never under the other lowerings. Every
 # split GAT layer, under every lowering, ends in the tail's kernels, once
-# each way (TAIL_STEP).
+# each way (TAIL_STEP). Split UniMP's dense layers run its query-key
+# attention once each way and the per-slot scatter once a layer past
+# layer 0; at the smoke's widths every layer takes the staged kernels
+# (UNIMP_A_PATHS, by ``qk_attention_counts()``).
 SPLIT_A_STEP = {SYNTH: 1, DENSE_FWD: 3, DENSE_BWD: 2}
 SPLIT_B_STEP = {FUSED: 1, DENSE_FWD: 2, DENSE_BWD: 2}
 TAIL_STEP = {TAIL_FWD: 3, TAIL_BWD: 3}
 SPLIT_GAT_A_STEP = {SYNTH: 1, GAT_FWD: 3, GAT_BWD: 3, SLOTS: 2, **TAIL_STEP}
 GAT_B_STEP = {MSGS: 1, GAT_FWD: 2, GAT_BWD: 2, SLOTS: 2, **TAIL_STEP}
 GAT_REMAT_STEP = {SYNTH: 1, GAT_FWD: 6, GAT_BWD: 3, SLOTS: 2, **TAIL_STEP}
+SPLIT_UNIMP_A_STEP = {SYNTH: 1, QK_FWD: 3, QK_BWD: 3, SLOTS: 2}
+UNIMP_A_PATHS = {"fwd_staged": 3, "fwd_any": 0, "bwd_staged": 3,
+                 "bwd_any": 0}
 INFER_BATCH = {FUSED: 1, DENSE_FWD: 2}
 # Quiver, a step per shard: the draws once a layer (fan-out 10,10,25),
 # the deepest gather and first-layer mean once.
@@ -497,6 +536,8 @@ KERNEL_SOURCE = {
     GAT_BWD: "occ_gnn_tpu_torch/csrc/gat_attention.cu",
     TAIL_FWD: "occ_gnn_tpu_torch/csrc/gat_attention.cu",
     TAIL_BWD: "occ_gnn_tpu_torch/csrc/gat_attention.cu",
+    QK_FWD: "occ_gnn_tpu_torch/csrc/gat_attention.cu",
+    QK_BWD: "occ_gnn_tpu_torch/csrc/gat_attention.cu",
     SLOTS: "occ_gnn_tpu_torch/csrc/dense_gather_sum.cu",
     SYNTH: "occ_gnn_tpu_torch/csrc/device_sample.cu",
     DRAW: "occ_gnn_tpu_torch/csrc/device_sample.cu",
@@ -506,6 +547,7 @@ DENSE_REPLACES = ("occ_gnn_tpu/parallel/split.py:161-197 (XLA fusion, no "
                   "pallas_call)")
 GAT_REPLACES = ("occ_gnn_tpu/parallel/model.py:294-363 (XLA, no "
                 "pallas_call)")
+UNIMP_REPLACES = "none: UniMP has no counterpart in occ_gnn_tpu"
 KERNEL_REPLACES = {
     MSGS: "occ_gnn_tpu/ops/pallas_spmm_blocked.py:190",
     FUSED: "occ_gnn_tpu/ops/pallas_spmm_blocked.py:190 and :213",
@@ -515,6 +557,8 @@ KERNEL_REPLACES = {
     GAT_BWD: GAT_REPLACES,
     TAIL_FWD: GAT_REPLACES,
     TAIL_BWD: GAT_REPLACES,
+    QK_FWD: UNIMP_REPLACES,
+    QK_BWD: UNIMP_REPLACES,
     SLOTS: GAT_REPLACES,
     SYNTH: ("occ_gnn_tpu/parallel/split.py:200-310 (XLA, no "
             "pallas_call)"),
@@ -531,6 +575,7 @@ def reset_launches() -> None:
     sampler ships them)."""
     for fn in ENTRIES.values():
         fn.launches = 0
+    reset_qk_attention_counts()
     slots_plan.on_card = 0
 
 
@@ -543,12 +588,15 @@ def expect_no_plan_on_card(label, built: int) -> None:
 
 
 def read_launches() -> Counter:
-    return Counter({name: fn.launches for name, fn in ENTRIES.items()})
+    qk = qk_attention_counts()
+    return Counter({**{name: fn.launches for name, fn in ENTRIES.items()},
+                    QK_FWD: qk["fwd_staged"] + qk["fwd_any"],
+                    QK_BWD: qk["bwd_staged"] + qk["bwd_any"]})
 
 
 def launch_text(launches) -> str:
     return ", ".join(f"{name} launches {launches.get(name, 0)}"
-                     for name in ENTRIES)
+                     for name in COUNTED)
 
 
 def scaled(per, n: int) -> dict:
@@ -1434,6 +1482,169 @@ def gat_attention_cases(label, x, nbr, heads, dh, rate, gen, grad_x,
               f"({by}, {100 * bound / c['ms']:.1f} % of it){floor} "
               f"max_abs_err={c['err']:.3g}")
     return cases
+
+
+# UniMP's query-key attention at unimp-split-b4096's layers (4 heads of
+# 128: K, D, S, H, grad_x), random rows with the padding the cell's
+# batches give (layer 0 about 26 % of slots, layers 1-2 about 10 %).
+# The smoke's own split A batch gives its layers (``split_qk_cases``).
+QK_HEADS = 4
+QK_CELL_SHAPES = {"unimp cell layer 0": (26, 495_616, 2_449_030, 100, False),
+                  "unimp cell layer 1": (11, 90_112, 495_616, 512, True),
+                  "unimp cell layer 2": (11, 8_192, 45_057, 512, True)}
+QK_PADDING = {26: 0.26, 11: 0.10}
+
+
+def random_qk_layer(K, D, S, H, device):
+    """A random frame ``[S, H]`` (its last row the zero row) and slots
+    ``[K, D]`` naming it, QK_PADDING[K] of them padding; and the
+    generator that made them."""
+    gen = torch.Generator(device).manual_seed(K * D + S)
+    x = torch.randn(S, H, generator=gen, device=device)
+    x[S - 1] = 0
+    nbr = torch.randint(0, S - 1, (K, D), generator=gen, device=device,
+                        dtype=torch.int32)
+    nbr[torch.rand(K, D, generator=gen, device=device)
+        < QK_PADDING[K]] = S - 1
+    return x, nbr, gen
+
+
+def qk_attention_cases(label, x, nbr, heads, grad_x, rate, gen,
+                       staged=False):
+    """UniMP's attention kernels on one layer: the frame ``x`` (its last
+    row the one padding slots name) and slots ``nbr``, with random score
+    vectors ``u`` (head-major, as the model's product gives them, scaled
+    to O(1) scores) and cotangents, against their plain versions: ``(m,
+    s, agg)`` within GAT_FWD_TOL of scale, ``du`` and the valid slots'
+    ``dxg`` rows (``grad_x``) within GAT_GRAD_TOL of max |.|, each kernel
+    bit-equal over two launches; the path each took
+    (``qk_attention_counts``), which must be the staged kernels' where
+    ``staged``; and each timed in the CUDA-graph harness beside its plain
+    version and its bound (``gnnbench/models/unimp.py``'s
+    ``qk_attention_bound``: each input read once, the distinct rows
+    ``nbr`` names, ``u`` and backward ``dagg``; each output written once,
+    ``agg``, ``du`` and the valid slots' ``dxg`` rows). No library call
+    computes it: ``scaled_dot_product_attention`` takes a dense key
+    matrix, not K slots a column. Returns {kernel: case}."""
+    K, D = nbr.shape
+    S, H = x.shape
+    device = x.device
+    u = (torch.randn(heads, D, H, generator=gen, device=device)
+         / H ** 0.5).permute(1, 0, 2)
+    ds = torch.randn(D, heads, generator=gen, device=device)
+    dagg = torch.randn(D, heads, H, generator=gen, device=device)
+    valid = int((nbr != S - 1).sum())
+    rows = torch.unique(nbr).numel() - 1
+    before = qk_attention_counts()
+    outs = [qk_attn_fwd(x, nbr, u) for _ in range(2)]
+    with torch.no_grad():
+        ref = gat_ops._qk_partials_reference(x, nbr, u)
+    if not all(torch.equal(a, b) for a, b in zip(*outs)):
+        raise AssertionError(f"{label}: two launches of {QK_FWD} differ")
+    fwd_errs = [rel_err(a, b) for a, b in zip(outs[0], ref)]
+    fwd = max(r for _, r in fwd_errs)
+    del ref
+    m = outs[0][0]
+    bwds = [qk_attn_bwd(x, nbr, u, m, ds, dagg, grad_x) for _ in range(2)]
+    ref_b = qk_attention_backward_reference(x, nbr, u, m, ds, dagg, grad_x)
+    at = (nbr != S - 1).reshape(-1)
+    pairs = [("du", bwds[0][1], bwds[1][1], ref_b[1])]
+    if grad_x:
+        pairs.append(("dxg", bwds[0][0][at], bwds[1][0][at], ref_b[0][at]))
+    bwd, bwd_abs = {}, 0.0
+    for name, a, b, w in pairs:
+        if not torch.equal(a, b):
+            raise AssertionError(f"{label}: two launches of {QK_BWD} differ")
+        err = (a - w).abs().max().item()
+        bwd[name] = err / w.abs().max().item()
+        bwd_abs = max(bwd_abs, err)
+    del ref_b, pairs
+    after = qk_attention_counts()
+    paths = {k: after[k] - before[k] for k in after if after[k] > before[k]}
+    if fwd > GAT_FWD_TOL or max(bwd.values()) > GAT_GRAD_TOL:
+        raise AssertionError(f"{label}: the qk kernels differ from their "
+                             f"plain versions: forward {fwd:.3g} of scale, "
+                             f"backward {bwd} of max")
+    if staged and (paths.get("fwd_any") or paths.get("bwd_any")):
+        raise AssertionError(f"{label}: the qk kernels took the wide-row "
+                             f"fallback: {paths}")
+    hb = heads * H
+    fwd_bytes = (4 * K * D + 4 * rows * H + 4 * D * hb + 8 * D * heads
+                 + 4 * D * hb)
+    bwd_bytes = (fwd_bytes + 4 * D * hb + (4 * valid * H if grad_x else 0))
+    cases = {QK_FWD: dict(ms=median_ms(lambda: qk_attn_fwd(x, nbr, u)),
+                          plain_ms=yardstick_ms(
+                              lambda: gat_ops._qk_partials_reference(
+                                  x, nbr, u)),
+                          library_ms=None,
+                          err=max(e for e, _ in fwd_errs),
+                          bytes_ms=fwd_bytes / rate * 1e3,
+                          ops_ms=4 * valid * hb / F32_RATE * 1e3),
+             QK_BWD: dict(ms=median_ms(lambda: qk_attn_bwd(
+                              x, nbr, u, m, ds, dagg, grad_x)),
+                          plain_ms=yardstick_ms(
+                              lambda: qk_attention_backward_reference(
+                                  x, nbr, u, m, ds, dagg, grad_x)),
+                          library_ms=None,
+                          err=bwd_abs,
+                          bytes_ms=bwd_bytes / rate * 1e3,
+                          ops_ms=(6 + (4 if grad_x else 0)) * valid * hb
+                          / F32_RATE * 1e3)}
+    print(f"kernel qk attention {label}: K={K} D={D} S={S} H={H} "
+          f"heads={heads} valid={valid} x_rows_read={rows}: forward "
+          f"{fwd:.3g} of scale (limit {GAT_FWD_TOL:.3g}), backward "
+          + ", ".join(f"{n} {r:.3g}" for n, r in bwd.items())
+          + f" of max (limit {GAT_GRAD_TOL:.3g}); two launches bit-equal; "
+          f"paths {paths}")
+    for name, c in cases.items():
+        bound = max(c["bytes_ms"], c["ops_ms"])
+        by = "bytes" if c["bytes_ms"] >= c["ops_ms"] else "operations"
+        print(f"kernel {name} {label}: ms={c['ms']:.4f} plain_ms="
+              f"{c['plain_ms']:.4f} bound_ms={bound:.4f} ({by}, "
+              f"{100 * bound / c['ms']:.1f} % of it)")
+    return cases
+
+
+def split_qk_cases(label, layers, x0, hidden, heads, rate, device):
+    """``qk_attention_cases`` at every dense layer of one partition's
+    batch, as a split UniMP step of ``hidden`` a head runs them: layer 0
+    reads ``x0`` (a frame: no gradient to it) and must take the staged
+    kernels, later layers a random f32 frame of ``hidden * heads``
+    columns that takes one. Returns {layer: cases}."""
+    gen = torch.Generator(device).manual_seed(22)
+    out = {}
+    for i, lyr in enumerate(layers):
+        if lyr.nbr_idx is None:
+            continue
+        x = x0
+        if i > 0:
+            x = torch.randn(lyr.src_cap, hidden * heads, generator=gen,
+                            device=device)
+            x[-1] = 0
+        out[i] = qk_attention_cases(f"{label} layer {i}", x, lyr.nbr_idx,
+                                    heads, i > 0, rate, gen, staged=i == 0)
+    return out
+
+
+def cell_qk_cases(rate, device) -> dict:
+    """``qk_attention_cases`` at unimp-split-b4096's three layers
+    (QK_CELL_SHAPES); layer 0 must take the staged kernels."""
+    out = {}
+    for label, (K, D, S, H, grad_x) in QK_CELL_SHAPES.items():
+        x, nbr, gen = random_qk_layer(K, D, S, H, device)
+        out[label] = qk_attention_cases(label, x, nbr, QK_HEADS, grad_x,
+                                        rate, gen, staged=not grad_x)
+        del x, nbr
+        torch.cuda.empty_cache()
+    return out
+
+
+def qk_only(rate, device) -> int:
+    """``--qk-only``: the qk kernels' cases at unimp-split-b4096's
+    layers, as the default run makes them."""
+    cell_qk_cases(rate, device)
+    print("qk attention: every check passed")
+    return 0
 
 
 def gat_tail_cases(label, x, lyr, heads, dh, last, rate, gen):
@@ -4019,6 +4230,10 @@ def main(argv=None) -> int:
     cli.add_argument("--baselines-only", action="store_true",
                      help="run only the ddp, quiver and infer phases at "
                           "--ranks (and what they need); prints no result")
+    cli.add_argument("--qk-only", action="store_true",
+                     help="run only UniMP's query-key attention kernels' "
+                          "cases at unimp-split-b4096's layers; prints no "
+                          "result")
     opts = cli.parse_args(argv)
     if not torch.cuda.is_available():
         print("error: torch sees no CUDA device; chip_smoke.py runs on a GPU",
@@ -4049,6 +4264,8 @@ def main(argv=None) -> int:
         return split_nccl_only(opts, phase)
     if opts.baselines_only:
         return baselines_only(opts, phase, rate, device)
+    if opts.qk_only:
+        return qk_only(rate, device)
 
     # 2. The products-scale graph, shared by the single path and split A.
     args = graph_args(opts.num_nodes, TRAIN_FLAGS)
@@ -4210,6 +4427,33 @@ def main(argv=None) -> int:
               f"{metrics_ga['medians']['train_step']:.2f} ms, peak "
               f"{metrics_ga['peak_gib']:.3f} GiB")
         print_profile(metrics_ga["profile"])
+
+    # 8b'. Split UniMP A: the same graph and batch with UniMP (hidden 32
+    # a head, 4 heads): its query-key attention at every layer of that
+    # batch and at unimp-split-b4096's layers, then one step through its
+    # kernels.
+    with phase("split UniMP A"):
+        frames = SplitFeatureCache(
+            CachePlan(g, np.zeros(g.num_nodes, np.int32), 1, 1.0,
+                      refresh_cap=8), device=device).frames
+        qk_a = split_qk_cases("split UniMP A", layers_a, frames[0],
+                              args_ga.num_hidden, args_ga.num_heads, rate,
+                              device)
+        del frames
+        torch.cuda.empty_cache()
+        qk_cell = cell_qk_cases(rate, device)
+        args_ua = graph_args(opts.num_nodes, UNIMP_A_FLAGS)
+        metrics_ua, launches_ua = run_split("split UniMP A", args_ua, g,
+                                            fan_a, device)
+        check_dense_run("split UniMP A", metrics_ua, launches_ua,
+                        SPLIT_UNIMP_A_STEP)
+        paths_ua = qk_attention_counts()
+        if paths_ua != scaled(UNIMP_A_PATHS, metrics_ua["steps"]):
+            raise AssertionError(f"split UniMP A: the qk kernels' paths "
+                                 f"{paths_ua} for {metrics_ua['steps']} "
+                                 f"steps; expected {UNIMP_A_PATHS} a step")
+        print(f"split UniMP A: qk paths {paths_ua} over "
+              f"{metrics_ua['steps']} steps")
 
     # 8c. Split GAT A's lowerings: online, tiled, fma and remat dots.
     with phase("split GAT A lowerings"):
@@ -4451,11 +4695,22 @@ def main(argv=None) -> int:
     print(f"  the synthesis call: {synth_case['call_ms']:.4f} ms "
           f"(torch.randint + kernel), {synth_case['before_call_ms']:.4f} ms "
           f"before the kernel (torch.randint + torch ops)")
-    errs = {entry: [] for entry in ENTRIES}
+    print("UniMP query-key attention kernel times (ms; CUDA-graph harness; "
+          "a split UniMP A step runs each once a layer; no library call "
+          "computes them):")
+    qk_rows = [(f"split UniMP A layer {i}", c) for i, c in qk_a.items()]
+    qk_rows += list(qk_cell.items())
+    for label, cases in qk_rows:
+        for entry, c in cases.items():
+            print(f"  {entry} at {label}: ms={c['ms']:.4f} bound_ms="
+                  f"{bound(c):.4f} plain_ms={c['plain_ms']:.4f} "
+                  f"library_ms=null max_abs_err={c['err']:.3g}")
+    errs = {entry: [] for entry in COUNTED}
     for cases in (main_cases + ragged + sym_cases
                   + [split_case, gat_split_case, infer_case, p4_cases]
                   + [c for _, c in dense_rows]
-                  + [c for _, c in gat_kernel_rows] + gat_ragged):
+                  + [c for _, c in gat_kernel_rows] + gat_ragged
+                  + [c for _, c in qk_rows]):
         for entry, c in cases.items():
             errs[entry].append(c["err"])
     errs[MSGS] += [c["err"] for c in gat_cases]
@@ -4466,7 +4721,8 @@ def main(argv=None) -> int:
     errs[FUSED].append(split_bf16_case["err"])
     launches = sum((single_launches, launches_pc, quiver["launches"],
                     launches_a, launches_ab,
-                    launches_dt, launches_ga, launches_gv, launches_b,
+                    launches_dt, launches_ga, launches_ua, launches_gv,
+                    launches_b,
                     launches_u, launches_sgl, launches_sym, launches_i1,
                     launches_pb, launches_gl, launches_p4, launches_en,
                     launches_nc, launches_bl), Counter())
@@ -4474,7 +4730,8 @@ def main(argv=None) -> int:
     # its three layers, the backward at layers 1-2; the attention's one
     # split GAT A step's: forward and backward at its three layers, the
     # per-slot scatter at layers 1-2, the tail each way at its three
-    # layers; the samplers' one split A step's
+    # layers; the qk kernels' one split UniMP A step's, each way at its
+    # three layers; the samplers' one split A step's
     # synthesis and one quiver step's draws (three layers) and gather-mean
     # (the f32 table, as the quiver run holds it).
     kernels = []
@@ -4486,7 +4743,8 @@ def main(argv=None) -> int:
             (entry, [c[entry] for _, c in sorted(gat_a.items())
                      if entry in c])
             for entry in (GAT_FWD, GAT_BWD, SLOTS, TAIL_FWD, TAIL_BWD)
-    ) + ((SYNTH, [synth_case]), (DRAW, quiver_cases["draws"]),
+    ) + tuple((entry, [c[entry] for _, c in sorted(qk_a.items())])
+              for entry in (QK_FWD, QK_BWD)) + ((SYNTH, [synth_case]), (DRAW, quiver_cases["draws"]),
          (GMEAN, [quiver_cases["f32"]])):
         by_bytes = summed(cases, "bytes_ms") >= summed(cases, "ops_ms")
         kernels.append({

@@ -1,7 +1,8 @@
 // GAT's dense attention for Hopper (sm_90a): split GAT's local softmax
 // partials through the dense [K, D] neighbour matrix, forward and backward,
-// one launch each; and the layer's tail after it (gat_tail_fwd /
-// gat_tail_bwd, below the attention's launch code).
+// one launch each; UniMP's query-key attention through the same staged
+// pipeline (qk_attn_fwd / qk_attn_bwd, below); and GAT's layer tail after
+// them (gat_tail_fwd / gat_tail_bwd, below the attention's launch code).
 //
 //   gat_attention_fwd: for each dst column d and head c, over the slots k
 //     whose nbr[k, d] is not the zero row S - 1,
@@ -97,6 +98,26 @@
 // The staged kernels' shared memory is laid out by the wrapper
 // (ops/gat_attention.py, `layout`), which passes the Layout below; the
 // entries check that it fits a block and matches the frame.
+//
+// UniMP's query-key attention (qk_attn_fwd / qk_attn_bwd, f32 frames): the
+// score's leaf-side vector varies with the dst column, so the kernels take
+// it per column, u [D, heads, h] through its strides (u_row, u_head; unit
+// stride along h), in place of wl and er: with u[d, c] = W_k,c^T q[d, c] /
+// sqrt(dh),
+//   qk_attn_fwd: z[k, c] = x[nbr[k, d]] . u[d, c, :] (f64, rounded once),
+//     then m, s and agg as gat_attention_fwd's (no leaky ReLU);
+//   qk_attn_bwd: from m, ds and dagg, recomputing z and pw,
+//       dpre[k, c] = pw[k, c] * (ds[d, c] + dagg[d, c, :] . x[nbr[k, d], :])
+//       du[d, c, :] = sum over k of dpre[k, c] * x[nbr[k, d], :], in slot
+//                     order (every column written, through u's strides)
+//       dxg[k * D + d, :] = sum over c of pw[k, c] * dagg[d, c, :]
+//                          + sum over c of dpre[k, c] * u[d, c, :].
+// They are GAT's kernels with the column's u staged beside its rows (by a
+// bulk copy a head, completing on the rows' mbarrier; backward, dagg too)
+// and read from there where GAT's read the block's wl; du is written where
+// GAT's add dwl's partial, and no der. Their `_any` forms read u through
+// L1 as GAT's read wl. The same precision: f64 score sums rounded once, the
+// exact max, f32 weighted sums in slot order.
 
 #include <assert.h>
 #include <cuda_bf16.h>
@@ -146,6 +167,7 @@ struct Layout {
   int wl32;    // backward, block: wl in f32 [groups * 4][h]
   // a warp's, from `warp` on, `per_warp` bytes each:
   int rows;    // [stages][K][stride]
+  int u;       // qk: [stages][heads][h] f32, 16-byte stages
   int dagg;    // backward: [stages][heads][h] f32, 16-byte stages
   int ids;     // [stages + 1][K] int32
   int z;       // [K][groups][4] f32: scores, then weights (bwd: dpre)
@@ -183,6 +205,13 @@ struct Args {
   float* der;
   float* dwl_part;
   float* dxg;  // nullptr: no gradient to x
+  // qk: the score vectors u [D, heads, h] and (backward) du, through the
+  // strides (floats) u_row, u_head; a head's u by one bulk copy.
+  int qk;
+  const float* u;
+  long long u_row, u_head;
+  int u_bulk;
+  float* du;
 };
 
 // A frame element as f32, and an f32 rounded as the frame's type.
@@ -361,6 +390,7 @@ __device__ __forceinline__ float4 load4(const float* p) {
 // A warp's shared memory, by the layout.
 struct Warp {
   unsigned char* rows;
+  float* u;
   float* dagg;
   int* ids;
   float* z;
@@ -370,6 +400,7 @@ struct Warp {
     unsigned char* base = smem + L.warp + static_cast<size_t>(warp) *
                                                L.per_warp;
     rows = base + L.rows;
+    u = reinterpret_cast<float*>(base + L.u);
     dagg = reinterpret_cast<float*>(base + L.dagg);
     ids = reinterpret_cast<int*>(base + L.ids);
     z = reinterpret_cast<float*>(base + L.z);
@@ -423,17 +454,19 @@ __device__ __forceinline__ int window_shift(const Args& a, int r) {
   }
 }
 
-// Column d's valid slots' leaf rows into `rows` and, when dagg_dst is not
-// null, its dagg [heads][h] into dagg_dst, by the warp. Rows of 16 bytes or
-// more go by bulk copies of their 16-byte-aligned windows, one a lane,
-// completing on mbarrier b with dagg's bulk copy; padding slots' rows are
-// not copied (an id outside [0, S) stops the kernel with a device-side
-// assert, as torch.index_select does on the card). Shorter rows are copied
-// by the lanes, and a dagg that is not 16-byte aligned by 4-byte cp.async.
+// Column d's valid slots' leaf rows into `rows` and, when u_dst (qk) or
+// dagg_dst is not null, its u or dagg [heads][h] into it, by the warp. Rows
+// of 16 bytes or more go by bulk copies of their 16-byte-aligned windows,
+// one a lane, completing on mbarrier b with u's bulk copies (one a head)
+// and dagg's; padding slots' rows are not copied (an id outside [0, S)
+// stops the kernel with a device-side assert, as torch.index_select does on
+// the card). Shorter rows are copied by the lanes, and a u or dagg that is
+// not 16-byte aligned by 4-byte cp.async.
 template <typename In>
 __device__ __forceinline__ void stage_column(const Args& a, const int* ids,
                                              unsigned char* rows,
-                                             float* dagg_dst, long long d,
+                                             float* u_dst, float* dagg_dst,
+                                             long long d,
                                              unsigned long long* b,
                                              int lane) {
   const int zero_row = static_cast<int>(a.x_rows - 1);
@@ -450,6 +483,7 @@ __device__ __forceinline__ void stage_column(const Args& a, const int* ids,
                                      (at & ~uintptr_t(15)));
     }
   }
+  if (lane == 0 && u_dst != nullptr && a.u_bulk) bytes += dbytes;
   if (lane == 0 && dagg_dst != nullptr && a.dagg_bulk) bytes += dbytes;
   bytes = __reduce_add_sync(kFull, bytes);
   // The stage's earlier reads come before the copies' writes.
@@ -479,6 +513,17 @@ __device__ __forceinline__ void stage_column(const Args& a, const int* ids,
       for (unsigned i = lane; i < rowbytes / 2; i += 32) dst[i] = src[i];
     }
   }
+  if (u_dst != nullptr) {
+    for (int c = 0; c < a.heads; ++c) {
+      const float* src = a.u + d * a.u_row + c * a.u_head;
+      float* dst = u_dst + c * a.h;
+      if (a.u_bulk) {
+        if (lane == c % 32) bulk_copy(dst, src, 4u * a.h, b);
+      } else {
+        for (int i = lane; i < a.h; i += 32) cp_async4(dst + i, src + i);
+      }
+    }
+  }
   if (dagg_dst == nullptr) return;
   const float* src = a.dagg + d * a.heads * a.h;
   if (a.dagg_bulk) {
@@ -501,6 +546,9 @@ struct Ring {
   __device__ unsigned char* rows(unsigned n) const {
     return sm.rows + static_cast<size_t>(n % kStages) * K * stride;
   }
+  __device__ float* u(unsigned n) const {
+    return sm.u + n % kStages * dfloats;
+  }
   __device__ float* dagg(unsigned n) const {
     return sm.dagg + n % kStages * dfloats;
   }
@@ -519,10 +567,10 @@ __device__ __forceinline__ long long column(const Args& a, int warp,
 }
 
 // The ring's first columns: the slot ids of columns 0 .. kStages - 1, then
-// the rows (and, `bwd`, dagg) of columns 0 .. kStages - 2.
+// the rows (and, `qk`, u; `bwd`, dagg) of columns 0 .. kStages - 2.
 template <typename In>
 __device__ __forceinline__ void fill(const Args& a, const Ring& ring,
-                                     int warp, int lane, bool bwd) {
+                                     int warp, int lane, bool bwd, bool qk) {
   for (unsigned i = 0; i < kStages; ++i) {
     const long long c = column(a, warp, i);
     if (c >= 0) stage_ids(a, ring.ids(i), c, lane);
@@ -534,19 +582,20 @@ __device__ __forceinline__ void fill(const Args& a, const Ring& ring,
     const long long c = column(a, warp, i);
     if (c >= 0) {
       stage_column<In>(a, ring.ids(i), ring.rows(i),
-                       bwd ? ring.dagg(i) : nullptr, c, ring.bar(i), lane);
+                       qk ? ring.u(i) : nullptr, bwd ? ring.dagg(i) : nullptr,
+                       c, ring.bar(i), lane);
     }
   }
   cp_commit();
 }
 
 // Before the warp computes its n-th column: wait for its copies, then start
-// the rows (and dagg) of column n + kStages - 1, whose slot ids are in, and
-// the slot ids of column n + kStages.
+// the rows (and u, dagg) of column n + kStages - 1, whose slot ids are in,
+// and the slot ids of column n + kStages.
 template <typename In>
 __device__ __forceinline__ void advance(const Args& a, const Ring& ring,
                                         int warp, int lane, unsigned n,
-                                        bool bwd) {
+                                        bool bwd, bool qk) {
   cp_wait_all();
   bar_wait(ring.bar(n), n / kStages & 1);
   __syncwarp();
@@ -554,7 +603,8 @@ __device__ __forceinline__ void advance(const Args& a, const Ring& ring,
   const long long c1 = column(a, warp, m);
   if (c1 >= 0) {
     stage_column<In>(a, ring.ids(m), ring.rows(m),
-                     bwd ? ring.dagg(m) : nullptr, c1, ring.bar(m), lane);
+                     qk ? ring.u(m) : nullptr, bwd ? ring.dagg(m) : nullptr,
+                     c1, ring.bar(m), lane);
   }
   const long long c2 = column(a, warp, m + 1);
   if (c2 >= 0) stage_ids(a, ring.ids(m + 1), c2, lane);
@@ -611,13 +661,15 @@ struct SlotMap {
 // A slot step's sums for the lanes of a slot (sub-lane `sub` of `lps`,
 // lanes 32 / lps apart, the read units sub, sub + lps, ... of the row at
 // `row`): the f64 sums of leaf
-// . wl[:, g * 4 + c], and in the backward (Bwd) the f32 sums of leaf .
+// . wl[:, g * 4 + c] (Qk: leaf . u[d, g * 4 + c, :] from the column's
+// staged u `us`), and in the backward (Bwd) the f32 sums of leaf .
 // dagg[d, g * 4 + c, :] from the column's staged dagg `ga` (heads past
 // `heads` left at 0); then the slot's lanes' sums added in a fixed order
 // (sub-lane 0's first), every lane of the slot holding the same bits.
-template <typename In, int V, bool Bwd>
+template <typename In, int V, bool Bwd, bool Qk>
 __device__ __forceinline__ void slot_sums(const Args& a, const double* wl64,
-                                          int g, const unsigned char* row,
+                                          const float* us, int g,
+                                          const unsigned char* row,
                                           bool valid, int sub, int lps,
                                           const float* ga, double (&t)[4],
                                           float (&u)[4]) {
@@ -633,16 +685,31 @@ __device__ __forceinline__ void slot_sums(const Args& a, const double* wl64,
     for (int j = sub; j < L.nvec; j += lps) {
       float v[E];
       R::load(row + j * V, v);
+      if constexpr (Qk) {
 #pragma unroll
-      for (int e = 0; e < E; ++e) {
-        const double* we = w + j * L.wunit + e * kHeadGroup;
-        const double lv = static_cast<double>(v[e]);
-        const double2 w01 = *reinterpret_cast<const double2*>(we);
-        const double2 w23 = *reinterpret_cast<const double2*>(we + 2);
-        t[0] = fma(lv, w01.x, t[0]);
-        t[1] = fma(lv, w01.y, t[1]);
-        t[2] = fma(lv, w23.x, t[2]);
-        t[3] = fma(lv, w23.y, t[3]);
+        for (int c = 0; c < 4; ++c) {
+          if (c < hc) {
+            float uv[E];
+            load_f32<E>(us + (g * kHeadGroup + c) * a.h + j * E, uv);
+#pragma unroll
+            for (int e = 0; e < E; ++e) {
+              t[c] = fma(static_cast<double>(v[e]),
+                         static_cast<double>(uv[e]), t[c]);
+            }
+          }
+        }
+      } else {
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          const double* we = w + j * L.wunit + e * kHeadGroup;
+          const double lv = static_cast<double>(v[e]);
+          const double2 w01 = *reinterpret_cast<const double2*>(we);
+          const double2 w23 = *reinterpret_cast<const double2*>(we + 2);
+          t[0] = fma(lv, w01.x, t[0]);
+          t[1] = fma(lv, w01.y, t[1]);
+          t[2] = fma(lv, w23.x, t[2]);
+          t[3] = fma(lv, w23.y, t[3]);
+        }
       }
       if constexpr (Bwd) {
 #pragma unroll
@@ -672,8 +739,10 @@ __device__ __forceinline__ void slot_sums(const Args& a, const double* wl64,
   }
 }
 
-template <typename In, int V>
-__global__ void __launch_bounds__(32 * kMaxWarps, 2) attention_fwd(Args a) {
+// The staged forward: GAT's (Qk false: the block's wl, the column's er and
+// the leaky ReLU) or UniMP's (the column's staged u).
+template <typename In, int V, bool Qk>
+__device__ __forceinline__ void fwd_body(const Args& a) {
   using R = Unit<In, V>;
   constexpr int E = R::E;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -682,20 +751,21 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 2) attention_fwd(Args a) {
   const int zero_row = static_cast<int>(a.x_rows - 1);
   double* wl64 = reinterpret_cast<double*>(smem + L.wl64);
   Warp sm(smem, L, warp);
-  stage_weights<In>(a, wl64, nullptr);
+  if constexpr (!Qk) stage_weights<In>(a, wl64, nullptr);
   if (lane == 0) {
     for (unsigned i = 0; i < kStages; ++i) bar_init(sm.bar + i);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
   if (column(a, warp, 0) < 0) return;
-  const Ring ring{sm, a.K, L.stride, 0};
-  fill<In>(a, ring, warp, lane, false);
+  const Ring ring{sm, a.K, L.stride, Qk ? L.dstage / 4 : 0};
+  fill<In>(a, ring, warp, lane, false, Qk);
   long long d;
   for (unsigned n = 0; (d = column(a, warp, n)) >= 0; ++n) {
-    advance<In>(a, ring, warp, lane, n, false);
+    advance<In>(a, ring, warp, lane, n, false, Qk);
     const int* ids = ring.ids(n);
     const unsigned char* rows = ring.rows(n);
+    const float* us = Qk ? ring.u(n) : nullptr;
     const unsigned vmask =
         __ballot_sync(kFull, lane < a.K && ids[lane] != zero_row);
     const SlotMap map(a, vmask, lane);
@@ -705,7 +775,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 2) attention_fwd(Args a) {
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int cc = g * kHeadGroup + c;
-        er[c] = cc < a.heads ? __ldg(a.er + d * a.heads + cc) : 0.f;
+        er[c] = !Qk && cc < a.heads ? __ldg(a.er + d * a.heads + cc) : 0.f;
       }
       // The scores, the lanes of a slot over its row, and their max.
       float mx[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
@@ -714,8 +784,8 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 2) attention_fwd(Args a) {
         const bool valid = k >= 0;
         double t[4];
         float unused[4];
-        slot_sums<In, V, false>(
-            a, wl64, g,
+        slot_sums<In, V, false, Qk>(
+            a, wl64, us, g,
             rows + static_cast<size_t>(valid ? k : 0) * L.stride +
                 (valid ? window_shift<In, V>(a, ids[k]) : 0),
             valid, map.sub, map.lps, nullptr, t, unused);
@@ -723,8 +793,13 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 2) attention_fwd(Args a) {
           float z[4];
 #pragma unroll
           for (int c = 0; c < 4; ++c) {
-            z[c] = leaky(static_cast<float>(t[c] + static_cast<double>(er[c])),
-                         a.slope);
+            if constexpr (Qk) {
+              z[c] = static_cast<float>(t[c]);
+            } else {
+              z[c] = leaky(
+                  static_cast<float>(t[c] + static_cast<double>(er[c])),
+                  a.slope);
+            }
             mx[c] = fmaxf(mx[c], z[c]);
           }
           if (map.sub == 0) {
@@ -803,8 +878,10 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 2) attention_fwd(Args a) {
   }
 }
 
-template <typename In, int V>
-__global__ void __launch_bounds__(32 * kMaxWarps, 2) attention_bwd(Args a) {
+// The staged backward: GAT's (Qk false: der, and dwl's partials a block)
+// or UniMP's (du a column).
+template <typename In, int V, bool Qk>
+__device__ __forceinline__ void bwd_body(const Args& a) {
   using R = Unit<In, V>;
   constexpr int E = R::E;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -814,24 +891,27 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 2) attention_bwd(Args a) {
   double* wl64 = reinterpret_cast<double*>(smem + L.wl64);
   float* wl32 = reinterpret_cast<float*>(smem + L.wl32);
   Warp sm(smem, L, warp);
-  stage_weights<In>(a, wl64, wl32);
-  for (int i = lane; i < L.groups * a.h * 4; i += 32) sm.dwl[i] = 0.f;
+  if constexpr (!Qk) {
+    stage_weights<In>(a, wl64, wl32);
+    for (int i = lane; i < L.groups * a.h * 4; i += 32) sm.dwl[i] = 0.f;
+  }
   if (lane == 0) {
     for (unsigned i = 0; i < kStages; ++i) bar_init(sm.bar + i);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
   const Ring ring{sm, a.K, L.stride, L.dstage / 4};
-  fill<In>(a, ring, warp, lane, true);
+  fill<In>(a, ring, warp, lane, true, Qk);
   long long d;
   for (unsigned n = 0; (d = column(a, warp, n)) >= 0; ++n) {
-    advance<In>(a, ring, warp, lane, n, true);
+    advance<In>(a, ring, warp, lane, n, true, Qk);
     const int* ids = ring.ids(n);
     const unsigned char* rows = ring.rows(n);
     const unsigned vmask =
         __ballot_sync(kFull, lane < a.K && ids[lane] != zero_row);
     const SlotMap map(a, vmask, lane);
     const float* ga = ring.dagg(n);
+    const float* us = Qk ? ring.u(n) : nullptr;
     for (int g = 0; g < L.groups; ++g) {
       const int hc = a.heads - g * kHeadGroup;
       float* dg = sm.z + g * 4;   // slot k's dpre at dg + k * groups * 4
@@ -840,7 +920,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 2) attention_bwd(Args a) {
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const long long at = d * a.heads + g * kHeadGroup + c;
-        er[c] = c < hc ? __ldg(a.er + at) : 0.f;
+        er[c] = !Qk && c < hc ? __ldg(a.er + at) : 0.f;
         mm[c] = c < hc ? __ldg(a.m + at) : 0.f;
         ds[c] = c < hc ? __ldg(a.ds + at) : 0.f;
       }
@@ -851,8 +931,8 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 2) attention_bwd(Args a) {
         const bool valid = k >= 0;
         double tp[4];
         float ta[4];
-        slot_sums<In, V, true>(
-            a, wl64, g,
+        slot_sums<In, V, true, Qk>(
+            a, wl64, us, g,
             rows + static_cast<size_t>(valid ? k : 0) * L.stride +
                 (valid ? window_shift<In, V>(a, ids[k]) : 0),
             valid, map.sub, map.lps, ga, tp, ta);
@@ -861,12 +941,18 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 2) attention_bwd(Args a) {
 #pragma unroll
           for (int c = 0; c < 4; ++c) {
             if (c < hc) {
-              const float pre =
-                  static_cast<float>(tp[c] + static_cast<double>(er[c]));
-              const float pe = expf(leaky(pre, a.slope) - mm[c]);
-              dp[c] = pe * (ds[c] + Frame<In>::round(ta[c])) *
-                      (pre > 0.f ? 1.f : a.slope);
-              pc[c] = Frame<In>::round(pe);
+              if constexpr (Qk) {
+                const float pe = expf(static_cast<float>(tp[c]) - mm[c]);
+                dp[c] = pe * (ds[c] + ta[c]);
+                pc[c] = pe;
+              } else {
+                const float pre =
+                    static_cast<float>(tp[c] + static_cast<double>(er[c]));
+                const float pe = expf(leaky(pre, a.slope) - mm[c]);
+                dp[c] = pe * (ds[c] + Frame<In>::round(ta[c])) *
+                        (pre > 0.f ? 1.f : a.slope);
+                pc[c] = Frame<In>::round(pe);
+              }
             }
           }
           *reinterpret_cast<float4*>(dg + k * L.groups * 4) =
@@ -876,8 +962,8 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 2) attention_bwd(Args a) {
         }
       }
       __syncwarp();
-      // dwl's sums and der in slot order, and the dx rows, lanes over the
-      // row's units.
+      // dwl's sums (Qk: du's) and der in slot order, and the dx rows, lanes
+      // over the row's units.
       float der[4] = {0.f, 0.f, 0.f, 0.f};
       for (int j = lane; j < L.nvec; j += 32) {
         float acc[4][E], w[4][E];
@@ -886,7 +972,16 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 2) attention_bwd(Args a) {
 #pragma unroll
           for (int e = 0; e < E; ++e) acc[c][e] = 0.f;
           if (a.dxg != nullptr) {
-            load_f32<E>(wl32 + (g * kHeadGroup + c) * a.h + j * E, w[c]);
+            if constexpr (Qk) {
+              if (c < hc) {
+                load_f32<E>(us + (g * kHeadGroup + c) * a.h + j * E, w[c]);
+              } else {
+#pragma unroll
+                for (int e = 0; e < E; ++e) w[c][e] = 0.f;
+              }
+            } else {
+              load_f32<E>(wl32 + (g * kHeadGroup + c) * a.h + j * E, w[c]);
+            }
           }
         }
 #pragma unroll 2
@@ -898,7 +993,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 2) attention_bwd(Args a) {
                   v);
           const float4 dp4 = load4(dg + k * L.groups * 4);
           const float dp[4] = {dp4.x, dp4.y, dp4.z, dp4.w};
-          if (j == lane) {
+          if (!Qk && j == lane) {
 #pragma unroll
             for (int c = 0; c < 4; ++c) der[c] += dp[c];
           }
@@ -937,16 +1032,28 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 2) attention_bwd(Args a) {
           }
           store_f32<E>(out, o);
         }
-        float* part = sm.dwl + (static_cast<long long>(g) * a.h + j * E) * 4;
+        if constexpr (Qk) {
 #pragma unroll
-        for (int e = 0; e < E; ++e) {
-          float4 p = load4(part + e * 4);
-          p.x += acc[0][e], p.y += acc[1][e], p.z += acc[2][e],
-              p.w += acc[3][e];
-          *reinterpret_cast<float4*>(part + e * 4) = p;
+          for (int c = 0; c < 4; ++c) {
+            if (c < hc) {
+              store_f32<E>(a.du + d * a.u_row +
+                               (g * kHeadGroup + c) * a.u_head + j * E,
+                           acc[c]);
+            }
+          }
+        } else {
+          float* part =
+              sm.dwl + (static_cast<long long>(g) * a.h + j * E) * 4;
+#pragma unroll
+          for (int e = 0; e < E; ++e) {
+            float4 p = load4(part + e * 4);
+            p.x += acc[0][e], p.y += acc[1][e], p.z += acc[2][e],
+                p.w += acc[3][e];
+            *reinterpret_cast<float4*>(part + e * 4) = p;
+          }
         }
       }
-      if (lane == 0) {  // lane 0 summed der over every valid slot
+      if (!Qk && lane == 0) {  // lane 0 summed der over every valid slot
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           if (c < hc) a.der[d * a.heads + g * kHeadGroup + c] = der[c];
@@ -955,19 +1062,43 @@ __global__ void __launch_bounds__(32 * kMaxWarps, 2) attention_bwd(Args a) {
       __syncwarp();
     }
   }
-  // The block's dwl partial: the warps' sums added in order.
-  __syncthreads();
-  const int n = a.h * a.heads;
-  const int warps = blockDim.x / 32;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int col = i / a.heads, c = i - col * a.heads;
-    const int at = ((c / kHeadGroup) * a.h + col) * 4 + c % kHeadGroup;
-    float s = 0.f;
-    for (int w = 0; w < warps; ++w) {
-      s += Warp(smem, L, w).dwl[at];
+  if constexpr (!Qk) {
+    // The block's dwl partial: the warps' sums added in order.
+    __syncthreads();
+    const int n = a.h * a.heads;
+    const int warps = blockDim.x / 32;
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      const int col = i / a.heads, c = i - col * a.heads;
+      const int at = ((c / kHeadGroup) * a.h + col) * 4 + c % kHeadGroup;
+      float s = 0.f;
+      for (int w = 0; w < warps; ++w) {
+        s += Warp(smem, L, w).dwl[at];
+      }
+      a.dwl_part[static_cast<long long>(blockIdx.x) * n + i] = s;
     }
-    a.dwl_part[static_cast<long long>(blockIdx.x) * n + i] = s;
   }
+}
+
+template <typename In, int V>
+__global__ void __launch_bounds__(32 * kMaxWarps, 2) attention_fwd(Args a) {
+  fwd_body<In, V, false>(a);
+}
+
+template <typename In, int V>
+__global__ void __launch_bounds__(32 * kMaxWarps, 2) attention_bwd(Args a) {
+  bwd_body<In, V, false>(a);
+}
+
+template <int V>
+__global__ void __launch_bounds__(32 * kMaxWarps, 2)
+    qk_attn_fwd_kernel(Args a) {
+  fwd_body<float, V, true>(a);
+}
+
+template <int V>
+__global__ void __launch_bounds__(32 * kMaxWarps, 2)
+    qk_attn_bwd_kernel(Args a) {
+  bwd_body<float, V, true>(a);
 }
 
 // The `_any` kernels (see the top of the file).
@@ -1041,16 +1172,23 @@ __device__ __forceinline__ void load_batch(const Args& a, const int* s_idx,
   }
 }
 
-// wl[col, c] rounded as the frame's type (zero past heads).
-template <typename In>
-__device__ __forceinline__ float weight(const Args& a, int c, int col) {
-  return c < a.heads ? Frame<In>::round(__ldg(a.wl + col * a.heads + c))
-                     : 0.f;
+// wl[col, c] rounded as the frame's type (zero past heads); Qk: column
+// d's u[d, c, col].
+template <typename In, bool Qk>
+__device__ __forceinline__ float weight(const Args& a, long long d, int c,
+                                        int col) {
+  if constexpr (Qk) {
+    return c < a.heads ? __ldg(a.u + d * a.u_row + c * a.u_head + col) : 0.f;
+  } else {
+    return c < a.heads ? Frame<In>::round(__ldg(a.wl + col * a.heads + c))
+                       : 0.f;
+  }
 }
 
-// The `_any` forward.
-template <typename In>
-__global__ void __launch_bounds__(kThreads) attention_fwd_any(Args a) {
+// The `_any` forward (Qk: UniMP's scores, from u, with no er or leaky
+// ReLU).
+template <typename In, bool Qk>
+__device__ __forceinline__ void fwd_any_body(const Args& a) {
   constexpr int J = kAnyJ, HG = kAnyHeads, kGroup = 32 / HG;
   extern __shared__ float s_fmem[];
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
@@ -1084,7 +1222,7 @@ __global__ void __launch_bounds__(kThreads) attention_fwd_any(Args a) {
 #pragma unroll
           for (int i = 0; i < J; ++i) {
             const int col = h0 + lane + 32 * i;
-            w[c][i] = col < a.h ? weight<In>(a, c0 + c, col) : 0.0;
+            w[c][i] = col < a.h ? weight<In, Qk>(a, d, c0 + c, col) : 0.0;
           }
         }
         int r[kBatch];
@@ -1104,13 +1242,18 @@ __global__ void __launch_bounds__(kThreads) attention_fwd_any(Args a) {
         }
       }
       const int c = c0 + mine;
-      const double e = head_value(a.er, a, d, c);
+      const double e = Qk ? 0.0 : head_value(a.er, a, d, c);
 #pragma unroll
       for (int u = 0; u < kBatch; ++u) {
         if (k0 + u >= a.K) break;
         float z = -INFINITY;
         if (s_idx[k0 + u] != zero_row) {
-          z = leaky(static_cast<float>(head_sums(t[u], lane) + e), a.slope);
+          if constexpr (Qk) {
+            z = static_cast<float>(head_sums(t[u], lane));
+          } else {
+            z = leaky(static_cast<float>(head_sums(t[u], lane) + e),
+                      a.slope);
+          }
         }
         if (lane % kGroup == 0 && c < nh) s_z[(k0 + u) * nh + c] = z;
       }
@@ -1179,9 +1322,10 @@ __global__ void __launch_bounds__(kThreads) attention_fwd_any(Args a) {
 // The `_any` backward.
 // A column's dpre and rounded pw for all its slots go to shared memory
 // first; then, a tile and a head group at a time, dwl's sums run over the
-// column's slots in registers and are added into the warp's partial once.
-template <typename In>
-__global__ void __launch_bounds__(kThreads) attention_bwd_any(Args a) {
+// column's slots in registers and are added into the warp's partial once
+// (Qk: du's sums, written for the column; no der).
+template <typename In, bool Qk>
+__device__ __forceinline__ void bwd_any_body(const Args& a) {
   constexpr int J = kAnyJ, HG = kAnyHeads, kGroup = 32 / HG;
   extern __shared__ float s_fmem[];
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
@@ -1199,7 +1343,7 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_any(Args a) {
   // The warp's dwl partial [h][heads], a lane's columns its own.
   float* gw = a.dwl_part +
               (static_cast<long long>(blockIdx.x) * kWarps + warp) * a.h * nh;
-  for (int col = lane; col < a.h; col += 32) {
+  for (int col = lane; col < a.h && !Qk; col += 32) {
     for (int c = 0; c < nh; ++c) gw[col * nh + c] = 0.f;
   }
   for (long long d = static_cast<long long>(blockIdx.x) * kWarps + warp;
@@ -1231,7 +1375,7 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_any(Args a) {
             for (int i = 0; i < J; ++i) {
               const int col = h0 + lane + 32 * i;
               const bool real = c0 + c < nh && col < a.h;
-              w[c][i] = real ? weight<In>(a, c0 + c, col) : 0.f;
+              w[c][i] = real ? weight<In, Qk>(a, d, c0 + c, col) : 0.f;
               g[c][i] = real ? __ldg(ga + (c0 + c) * a.h + col) : 0.f;
             }
           }
@@ -1254,17 +1398,24 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_any(Args a) {
           }
         }
         const int c = c0 + mine;
-        const double e = head_value(a.er, a, d, c);
+        const double e = Qk ? 0.0 : head_value(a.er, a, d, c);
         const float m = head_value(a.m, a, d, c);
         const float ds = head_value(a.ds, a, d, c);
 #pragma unroll
         for (int u = 0; u < kBatch; ++u) {
           if (k0 + u >= a.K) break;
           if (s_idx[k0 + u] == zero_row) continue;
-          const float pre = static_cast<float>(head_sums(tp[u], lane) + e);
+          float p, dpre;
           const float t = Frame<In>::round(head_sums(ta[u], lane));
-          const float p = expf(leaky(pre, a.slope) - m);
-          const float dpre = p * (ds + t) * (pre > 0.f ? 1.f : a.slope);
+          if constexpr (Qk) {
+            p = expf(static_cast<float>(head_sums(tp[u], lane)) - m);
+            dpre = p * (ds + t);
+          } else {
+            const float pre =
+                static_cast<float>(head_sums(tp[u], lane) + e);
+            p = expf(leaky(pre, a.slope) - m);
+            dpre = p * (ds + t) * (pre > 0.f ? 1.f : a.slope);
+          }
           if (lane % kGroup == 0 && c < nh) {
             s_dp[(k0 + u) * nh + c] = dpre;
             s_pc[(k0 + u) * nh + c] = Frame<In>::round(p);
@@ -1274,7 +1425,7 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_any(Args a) {
       }
     }
     __syncwarp();
-    for (int c = lane; c < nh; c += 32) a.der[d * nh + c] = s_der[c];
+    for (int c = lane; c < nh && !Qk; c += 32) a.der[d * nh + c] = s_der[c];
     for (int h0 = 0; h0 < a.h; h0 += kTile) {
       // dwl: a group's sums over the column's slots in registers, k in
       // order, added into the warp's partial.
@@ -1285,8 +1436,9 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_any(Args a) {
 #pragma unroll
           for (int i = 0; i < J; ++i) {
             const int col = h0 + lane + 32 * i;
-            acc[c][i] = c0 + c < nh && col < a.h ? gw[col * nh + c0 + c]
-                                                 : 0.f;
+            acc[c][i] = !Qk && c0 + c < nh && col < a.h
+                            ? gw[col * nh + c0 + c]
+                            : 0.f;
           }
         }
         for (int k0 = 0; k0 < a.K; k0 += kBatch) {
@@ -1312,7 +1464,12 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_any(Args a) {
 #pragma unroll
           for (int i = 0; i < J; ++i) {
             const int col = h0 + lane + 32 * i;
-            if (c0 + c < nh && col < a.h) gw[col * nh + c0 + c] = acc[c][i];
+            if (c0 + c >= nh || col >= a.h) continue;
+            if constexpr (Qk) {
+              a.du[d * a.u_row + (c0 + c) * a.u_head + col] = acc[c][i];
+            } else {
+              gw[col * nh + c0 + c] = acc[c][i];
+            }
           }
         }
       }
@@ -1336,7 +1493,7 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_any(Args a) {
             }
           }
           for (int c = 0; c < nh; ++c) {
-            const float w = weight<In>(a, c, col);
+            const float w = weight<In, Qk>(a, d, c, col);
 #pragma unroll
             for (int u = 0; u < kBatch; ++u) {
               if (u < n) o[u] = fmaf(s_dp[(k0 + u) * nh + c], w, o[u]);
@@ -1353,6 +1510,24 @@ __global__ void __launch_bounds__(kThreads) attention_bwd_any(Args a) {
       }
     }
   }
+}
+
+template <typename In>
+__global__ void __launch_bounds__(kThreads) attention_fwd_any(Args a) {
+  fwd_any_body<In, false>(a);
+}
+
+template <typename In>
+__global__ void __launch_bounds__(kThreads) attention_bwd_any(Args a) {
+  bwd_any_body<In, false>(a);
+}
+
+__global__ void __launch_bounds__(kThreads) qk_attn_fwd_any(Args a) {
+  fwd_any_body<float, true>(a);
+}
+
+__global__ void __launch_bounds__(kThreads) qk_attn_bwd_any(Args a) {
+  bwd_any_body<float, true>(a);
 }
 
 // Let the kernel take the layout's shared memory, and the SM give shared
@@ -1387,6 +1562,15 @@ cudaError_t launch_kernel(Kernel kernel, const Args& a, int grid,
 template <typename In, int V>
 cudaError_t launch(const Args& a, bool backward, int grid,
                    cudaStream_t stream, int* per_sm) {
+  if constexpr (std::is_same<In, float>::value) {
+    if (a.qk) {
+      return backward
+                 ? launch_kernel(qk_attn_bwd_kernel<V>, a, grid, stream,
+                                 per_sm)
+                 : launch_kernel(qk_attn_fwd_kernel<V>, a, grid, stream,
+                                 per_sm);
+    }
+  }
   return backward
              ? launch_kernel(attention_bwd<In, V>, a, grid, stream, per_sm)
              : launch_kernel(attention_fwd<In, V>, a, grid, stream, per_sm);
@@ -1421,23 +1605,32 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
                               static_cast<int>(smem));
 }
 
+template <typename Kernel>
+cudaError_t launch_any_kernel(Kernel kernel, const Args& a, int grid,
+                              size_t smem, cudaStream_t stream) {
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
 template <typename In>
 cudaError_t launch_any(const Args& a, bool backward, int grid,
                        cudaStream_t stream) {
   if (!backward) {
     const size_t smem =
         (sizeof(float) * a.heads * (a.K + 1) + sizeof(int) * a.K) * kWarps;
-    cudaError_t err = allow_smem(attention_fwd_any<In>, smem);
-    if (err != cudaSuccess) return err;
-    attention_fwd_any<In><<<grid, kThreads, smem, stream>>>(a);
-  } else {
-    const size_t smem = (sizeof(float) * a.heads * (2 * a.K + 1) +
-                         sizeof(int) * a.K) * kWarps;
-    cudaError_t err = allow_smem(attention_bwd_any<In>, smem);
-    if (err != cudaSuccess) return err;
-    attention_bwd_any<In><<<grid, kThreads, smem, stream>>>(a);
+    if (std::is_same<In, float>::value && a.qk) {
+      return launch_any_kernel(qk_attn_fwd_any, a, grid, smem, stream);
+    }
+    return launch_any_kernel(attention_fwd_any<In>, a, grid, smem, stream);
   }
-  return cudaGetLastError();
+  const size_t smem = (sizeof(float) * a.heads * (2 * a.K + 1) +
+                       sizeof(int) * a.K) * kWarps;
+  if (std::is_same<In, float>::value && a.qk) {
+    return launch_any_kernel(qk_attn_bwd_any, a, grid, smem, stream);
+  }
+  return launch_any_kernel(attention_bwd_any<In>, a, grid, smem, stream);
 }
 
 int x_align(const void* x) {
@@ -1499,9 +1692,19 @@ int run(Args& a, int x_bf16, int grid, const Layout* layout, bool backward,
   if (grid > a.tiles || !layout_fits(a.L, a, x_bf16 ? 2 : 4)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  // qk: du is written a read unit at a time through u's strides.
+  const long long unit = a.L.read / (x_bf16 ? 2 : 4);
+  if (a.qk && (a.u_row % unit != 0 || a.u_head % unit != 0 ||
+               reinterpret_cast<uintptr_t>(a.du) % (4 * unit) != 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (backward) {
     a.dagg_bulk = (a.heads * a.h) % 4 == 0 &&
                   reinterpret_cast<uintptr_t>(a.dagg) % 16 == 0;
+  }
+  if (a.qk) {
+    a.u_bulk = a.h % 4 == 0 && a.u_row % 4 == 0 && a.u_head % 4 == 0 &&
+               reinterpret_cast<uintptr_t>(a.u) % 16 == 0;
   }
   err = x_bf16 ? by_read<__nv_bfloat16>(a, backward, grid, s, per_sm)
                : by_read<float>(a, backward, grid, s, per_sm);
@@ -1970,6 +2173,52 @@ extern "C" int gat_attention_bwd(const void* x, int x_bf16, long long x_rows,
   a.dxg = static_cast<float*>(dxg);
   return run(a, x_bf16, grid, static_cast<const Layout*>(layout), true,
              device, stream);
+}
+
+// UniMP's query-key attention: m, s [d, heads] and agg [d, heads, h] as
+// gat_attention_fwd's, scored against u [d, heads, h] through its strides
+// (u_row, u_head floats; unit stride along h); x is f32.
+extern "C" int qk_attn_fwd(const void* x, long long x_rows, int h,
+                           const void* nbr, int k, long long d,
+                           const void* u, long long u_row, long long u_head,
+                           int heads, const void* layout, int tile, int grid,
+                           void* m, void* s, void* agg, int device,
+                           void* stream) {
+  Args a = common(x, x_rows, h, nbr, k, d, nullptr, nullptr, heads, 0.f,
+                  tile);
+  a.qk = 1;
+  a.u = static_cast<const float*>(u);
+  a.u_row = u_row;
+  a.u_head = u_head;
+  a.m_out = static_cast<float*>(m);
+  a.s_out = static_cast<float*>(s);
+  a.agg = static_cast<float*>(agg);
+  return run(a, 0, grid, static_cast<const Layout*>(layout), false, device,
+             stream);
+}
+
+// Its backward, from m and ds [d, heads] and dagg [d, heads, h]: du [d,
+// heads, h] through u's strides, every column written, and unless dxg is
+// null, dxg [k * d, h] as gat_attention_bwd's.
+extern "C" int qk_attn_bwd(const void* x, long long x_rows, int h,
+                           const void* nbr, int k, long long d,
+                           const void* u, long long u_row, long long u_head,
+                           int heads, const void* layout, int tile, int grid,
+                           const void* m, const void* ds, const void* dagg,
+                           void* du, void* dxg, int device, void* stream) {
+  Args a = common(x, x_rows, h, nbr, k, d, nullptr, nullptr, heads, 0.f,
+                  tile);
+  a.qk = 1;
+  a.u = static_cast<const float*>(u);
+  a.u_row = u_row;
+  a.u_head = u_head;
+  a.m = static_cast<const float*>(m);
+  a.ds = static_cast<const float*>(ds);
+  a.dagg = static_cast<const float*>(dagg);
+  a.du = static_cast<float*>(du);
+  a.dxg = static_cast<float*>(dxg);
+  return run(a, 0, grid, static_cast<const Layout*>(layout), true, device,
+             stream);
 }
 
 // The blocks of a staged kernel with this layout and tile that an SM

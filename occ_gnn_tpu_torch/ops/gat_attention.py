@@ -85,6 +85,20 @@ the chain's bits; the backward writes ``dv`` in ``v``'s layout, every
 row (zeros where no owned row names it), ``ds`` and the bias's gradient
 as a partial a block, summed here in a fixed order.
 
+UniMP's query-key attention, ``qk_attention``, takes the same pipeline
+with a score vector per dst column and head: for an f32 frame ``x``,
+``nbr`` and ``u [D, heads, H]`` (``W_k,c^T q[d, c] / sqrt(dh)``, in any
+layout with unit stride along ``H``), ``z[k, d, c] = x[nbr[k, d]] .
+u[d, c, :]`` (f64 sums rounded to f32 once, -inf on padding slots, no
+leaky ReLU), then ``m``, ``s`` and ``agg`` as above and ``v = agg @ wv``
+by ``_Projection``. The kernels ``qk_attn_fwd`` / ``qk_attn_bwd`` are the
+staged kernels with the column's ``u`` staged beside its rows (the
+backward writes ``du [D, heads, H] = sum_k dpre * leaf`` in ``u``'s
+layout where GAT's sums ``dwl``, and reads ``u`` where GAT's read ``wl``
+for ``dx``), and their ``_any`` forms where the plan finds too few warps
+an SM (wide rows); ``qk_attention_counts()`` counts their launches by
+path and direction.
+
 On a CPU tensor each wrapper computes its plain version; on a CUDA tensor
 it launches the kernel or raises. There is no fallback between the two.
 """
@@ -105,6 +119,7 @@ from occ_gnn_tpu_torch.ops.build import check_launch, load_kernel
 from occ_gnn_tpu_torch.ops.dense_gather_sum import (
     ScatterPlan,
     dense_scatter_slots,
+    dense_scatter_slots_reference,
 )
 
 _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
@@ -133,12 +148,20 @@ ARGTYPES = {
                      _I, _P, _L, _L, _P, _P, _I, _P],
     # backward, last, vec, heads, dh, device, per_sm
     "gat_tail_occupancy": [_I, _I, _I, _I, _I, _I, _P],
+    # x, x_rows, h, nbr, k, d, u, u_row, u_head, heads, layout, tile, grid,
+    # m, s, agg, device, stream
+    "qk_attn_fwd": [_P, _L, _I, _P, _I, _L, _P, _L, _L, _I, _P, _I, _I, _P,
+                    _P, _P, _I, _P],
+    # x, x_rows, h, nbr, k, d, u, u_row, u_head, heads, layout, tile, grid,
+    # m, ds, dagg, du, dxg, device, stream
+    "qk_attn_bwd": [_P, _L, _I, _P, _I, _L, _P, _L, _L, _I, _P, _I, _I, _P,
+                    _P, _P, _P, _P, _I, _P],
 }
 # The staged kernels' shared memory, as `layout` plans it and the kernels
 # take it (csrc/gat_attention.cu's `Layout`: an int each, in this order).
 LAYOUT_FIELDS = ("read", "bulk", "stride", "nvec", "groups", "wunit",
-                 "stages", "wl64", "wl32", "rows", "dagg", "ids", "z", "pw",
-                 "dwl", "bar", "dstage", "warp", "per_warp", "total")
+                 "stages", "wl64", "wl32", "rows", "u", "dagg", "ids", "z",
+                 "pw", "dwl", "bar", "dstage", "warp", "per_warp", "total")
 Layout = collections.namedtuple("Layout", LAYOUT_FIELDS)
 # The staged kernels' plan: a block's warps (a dst column of a tile each)
 # at most, as the kernels' launch bounds take them; the heads a group (the
@@ -322,32 +345,34 @@ def row_layout(H: int, elt: int, x_align: int = 16):
 
 
 def layout(K: int, H: int, heads: int, elt: int, tile: int, backward: bool,
-           x_align: int = 16) -> Layout:
+           x_align: int = 16, qk: bool = False) -> Layout:
     """A staged kernel's shared memory for a tile of ``tile`` columns, in
     bytes from its start: wl in f64 a head group, a read unit's elements'
     heads padded by 16 bytes (``wunit`` doubles a unit), and backward wl
     in f32 too; then for each of the tile's warps (``per_warp`` bytes from
-    ``warp`` on) its ring of staged rows (and, backward, of its column's
-    dagg), its ring of slot ids, its scores (backward: dpre and pw),
-    backward its dwl partial, and the mbarriers of its bulk copies."""
+    ``warp`` on) its ring of staged rows (and, ``qk``, of its column's u;
+    backward, of its dagg), its ring of slot ids, its scores (backward:
+    dpre and pw), backward its dwl partial, and the mbarriers of its bulk
+    copies. ``qk`` (UniMP's kernels) keeps no wl and no dwl partial."""
     read, bulk, stride, nvec = row_layout(H, elt, x_align)
     groups = -(-heads // HEAD_GROUP)
     groups_h = _a16(4 * groups * H * HEAD_GROUP)
     slots = _a16(4 * K * groups * HEAD_GROUP)
     dstage = _a16(4 * heads * H)
     rows = 0
-    dagg = rows + _a16(STAGES * K * stride)
+    u = rows + _a16(STAGES * K * stride)
+    dagg = u + (STAGES * dstage if qk else 0)
     ids = dagg + (STAGES * dstage if backward else 0)
     z = ids + _a16(4 * (STAGES + 1) * K)
     pw = z + slots
     dwl = pw + (slots if backward else 0)
-    bar = dwl + (groups_h if backward else 0)
+    bar = dwl + (groups_h if backward and not qk else 0)
     per_warp = bar + _a16(8 * STAGES)
     wunit = read // elt * HEAD_GROUP + 2
-    wl32 = _a16(8 * groups * nvec * wunit)
-    warp = wl32 + (groups_h if backward else 0)
+    wl32 = 0 if qk else _a16(8 * groups * nvec * wunit)
+    warp = 0 if qk else wl32 + (groups_h if backward else 0)
     return Layout(read, int(bulk), stride, nvec, groups, wunit, STAGES, 0,
-                  wl32, rows, dagg, ids, z, pw, dwl, bar, dstage, warp,
+                  wl32, rows, u, dagg, ids, z, pw, dwl, bar, dstage, warp,
                   per_warp, warp + tile * per_warp)
 
 
@@ -374,7 +399,8 @@ class Plan:
 
 
 def staged_plan(K: int, H: int, heads: int, elt: int, D: int, sms: int,
-                backward: bool, x_align: int = 16) -> Plan | None:
+                backward: bool, x_align: int = 16,
+                qk: bool = False) -> Plan | None:
     """The staged kernels' plan: the most warps an SM (at most
     ``WARPS_AN_SM``), then the widest tile, whose blocks' shared memory
     fits the SM, with a tile of at most ``MAX_WARPS`` columns and at most
@@ -385,7 +411,7 @@ def staged_plan(K: int, H: int, heads: int, elt: int, D: int, sms: int,
     for per_sm in range(1, WARPS_AN_SM + 1):
         limit = min(SMEM_BLOCK, SMEM_SM // per_sm - SMEM_RESERVED)
         for tile in range(min(cap, WARPS_AN_SM // per_sm), 0, -1):
-            lay = layout(K, H, heads, elt, tile, backward, x_align)
+            lay = layout(K, H, heads, elt, tile, backward, x_align, qk)
             if lay.total <= limit:
                 plan = Plan(tile, per_sm, min(-(-D // tile), per_sm * sms),
                             lay)
@@ -398,12 +424,13 @@ def staged_plan(K: int, H: int, heads: int, elt: int, D: int, sms: int,
 
 @functools.cache
 def attention_plan(K: int, H: int, heads: int, elt: int, D: int, sms: int,
-                   backward: bool, x_align: int = 16) -> Plan:
+                   backward: bool, x_align: int = 16,
+                   qk: bool = False) -> Plan:
     """The staged kernels' plan where it puts ``MIN_STAGED_WARPS`` warps on
     an SM and reads ``MIN_STAGED_READ`` bytes at a time, else the ``_any``
-    kernels'. Cached: a training run plans the same few shapes every
-    step."""
-    plan = staged_plan(K, H, heads, elt, D, sms, backward, x_align)
+    kernels'; ``qk`` plans UniMP's. Cached: a training run plans the same
+    few shapes every step."""
+    plan = staged_plan(K, H, heads, elt, D, sms, backward, x_align, qk)
     if (plan is not None and plan.warps_an_sm >= MIN_STAGED_WARPS[backward]
             and plan.layout.read >= MIN_STAGED_READ):
         return plan
@@ -431,10 +458,10 @@ def _sms(device: torch.device) -> int:
 
 
 def _plan(x: torch.Tensor, nbr: torch.Tensor, heads: int,
-          backward: bool) -> Plan:
+          backward: bool, qk: bool = False) -> Plan:
     K, D = nbr.shape
     return attention_plan(K, x.shape[1], heads, x.element_size(), D,
-                          _sms(x.device), backward, _align(x))
+                          _sms(x.device), backward, _align(x), qk)
 
 
 @functools.cache
@@ -658,6 +685,244 @@ def gat_attention(x: torch.Tensor, nbr: torch.Tensor, wl: torch.Tensor,
     _check(x, nbr, wl, w3, er)
     m, s, agg = _GatAttention.apply(x, nbr, wl, er, plan)
     return m, s, _Projection.apply(agg, w3)
+
+
+# UniMP's query-key attention (``qk_attention``).
+
+
+class _QkPre(torch.autograd.Function):
+    """The scores ``xg [K, D, H] . u [D, heads, H]`` per head, summed in
+    f64 about ``PRE_CHUNK_LEAVES`` leaf rows at a time and rounded once to
+    the leaves' type; the gradients are products in that type."""
+
+    @staticmethod
+    def forward(ctx, xg, u):
+        ctx.save_for_backward(xg, u)
+        K, D = xg.shape[:2]
+        out = xg.new_empty((K, D, u.shape[1]))
+        u64 = u.double()
+        step = max(1, PRE_CHUNK_LEAVES // max(1, D))
+        for i in range(0, K, step):
+            out[i:i + step] = torch.einsum(
+                "kdh,dch->kdc", xg[i:i + step].double(), u64).to(xg.dtype)
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        xg, u = ctx.saved_tensors
+        dxg = du = None
+        if ctx.needs_input_grad[0]:
+            dxg = torch.einsum("kdc,dch->kdh", g, u)
+        if ctx.needs_input_grad[1]:
+            du = torch.einsum("kdc,kdh->dch", g, xg)
+        return dxg, du
+
+
+def _qk_partials_reference(x, nbr, u):
+    """``(m, s, agg)`` of the plain version, differentiable in ``x`` and
+    ``u``, in ``x``'s type; ``m`` detached."""
+    K, D = nbr.shape
+    xg = x.index_select(0, nbr.reshape(-1)).reshape(K, D, -1)
+    valid = (nbr != x.shape[0] - 1)[..., None]
+    z = _QkPre.apply(xg, u)
+    m = z.detach().masked_fill(~valid, float("-inf")).amax(dim=0)
+    safe = torch.where(torch.isfinite(m), m, 0.0)
+    pw = torch.exp((z - safe[None]).masked_fill(~valid, float("-inf")))
+    return m, pw.sum(dim=0), torch.einsum("kdc,kdh->dch", pw, xg)
+
+
+def qk_attention_reference(x: torch.Tensor, nbr: torch.Tensor,
+                           u: torch.Tensor, wv: torch.Tensor):
+    """Plain version, differentiable by autograd: the leaves gathered
+    whole, the exact softmax over K, the weighted sum in leaf space per
+    head, then the per-head projection ``wv [H, heads, dh]``. Returns
+    ``(m, s, v)``."""
+    m, s, agg = _qk_partials_reference(x, nbr, u)
+    return m, s, torch.einsum("dch,hco->dco", agg, wv)
+
+
+def qk_attention_backward_reference(x: torch.Tensor, nbr: torch.Tensor,
+                                    u: torch.Tensor, m: torch.Tensor,
+                                    ds: torch.Tensor, dagg: torch.Tensor,
+                                    need_dx: bool):
+    """Plain version of the backward kernel, term by term: from the
+    forward's inputs, its max ``m`` and the gradients ``ds [D, heads]``
+    and ``dagg [D, heads, H]``, returns ``(dxg, du)``: each slot's gradient
+    row ``dxg [K * D, H]`` at ``k * D + d`` (zero on padding slots here,
+    where the kernel leaves them unwritten; None unless ``need_dx``) and
+    ``du [D, heads, H]``, in ``x``'s type."""
+    K, D = nbr.shape
+    S, H = x.shape
+    xg = x.index_select(0, nbr.reshape(-1)).reshape(K, D, H)
+    valid = (nbr != S - 1)[..., None]
+    with torch.no_grad():
+        pre = _QkPre.apply(xg, u)
+    safe = torch.where(torch.isfinite(m), m, 0.0)
+    pw = torch.exp((pre - safe[None]).masked_fill(~valid, float("-inf")))
+    dpre = pw * (ds[None] + torch.einsum("dch,kdh->kdc", dagg, xg))
+    du = torch.einsum("kdc,kdh->dch", dpre, xg)
+    dxg = None
+    if need_dx:
+        dxg = (torch.einsum("kdc,dch->kdh", pw, dagg)
+               + torch.einsum("kdc,dch->kdh", dpre, u)).reshape(K * D, H)
+    return dxg, du
+
+
+# The qk kernels' launches in this process, by direction and path.
+_QK_LAUNCHES = collections.Counter()
+
+
+def qk_attention_counts() -> dict:
+    """The qk kernels' launches in this process: ``fwd_staged``,
+    ``fwd_any``, ``bwd_staged`` and ``bwd_any``."""
+    return {f"{d}_{p}": _QK_LAUNCHES[d, p] for d in ("fwd", "bwd")
+            for p in ("staged", "any")}
+
+
+def reset_qk_attention_counts() -> None:
+    """Set every count of ``qk_attention_counts()`` to 0."""
+    _QK_LAUNCHES.clear()
+
+
+def _qk_u(u: torch.Tensor, plan: Plan) -> torch.Tensor:
+    """``u`` as the kernels take it: unit stride along H, and the other
+    strides whole read units (the staged kernels write ``du`` a unit at a
+    time through them)."""
+    unit = plan.layout.read // 4 if plan.layout is not None else 1
+    if u.stride(-1) != 1 or u.stride(0) % unit or u.stride(1) % unit:
+        return u.contiguous()
+    return u
+
+
+def qk_attn_fwd(x: torch.Tensor, nbr: torch.Tensor, u: torch.Tensor):
+    """The forward's partials ``(m, s, agg)``, f32 ``[D, heads]``, ``[D,
+    heads]`` and ``[D, heads, H]``, without autograd: the plain version on
+    the CPU, one kernel launch on the card."""
+    if x.device.type == "cpu":
+        with torch.no_grad():
+            return _qk_partials_reference(x, nbr, u)
+    K, D = nbr.shape
+    heads, H = u.shape[1:]
+    _on_cuda(x)
+    m = torch.empty((D, heads), dtype=torch.float32, device=x.device)
+    s = torch.empty_like(m)
+    agg = torch.empty((D, heads, H), dtype=torch.float32, device=x.device)
+    if D == 0:
+        return m, s, agg
+    plan = _plan(x, nbr, heads, False, qk=True)
+    u = _qk_u(u, plan)
+    lib = _library()
+    err = lib.qk_attn_fwd(
+        x.data_ptr(), x.shape[0], H, nbr.data_ptr(), K, D, u.data_ptr(),
+        u.stride(0), u.stride(1), heads, _c_layout(plan.layout), plan.tile,
+        plan.grid, m.data_ptr(), s.data_ptr(), agg.data_ptr(),
+        x.device.index, _stream(x))
+    check_launch(lib, err, "qk_attn_fwd")
+    _QK_LAUNCHES["fwd", "any" if plan.layout is None else "staged"] += 1
+    return m, s, agg
+
+
+def qk_attn_bwd(x: torch.Tensor, nbr: torch.Tensor, u: torch.Tensor,
+                m: torch.Tensor, ds: torch.Tensor, dagg: torch.Tensor,
+                need_dx: bool):
+    """The backward's ``(dxg, du)`` as ``qk_attention_backward_reference``
+    returns them: the plain version on the CPU, one kernel launch on the
+    card (``du`` in ``u``'s layout; ``dxg``'s rows of padding slots left
+    unwritten)."""
+    if x.device.type == "cpu":
+        return qk_attention_backward_reference(x, nbr, u, m, ds, dagg,
+                                               need_dx)
+    K, D = nbr.shape
+    heads, H = u.shape[1:]
+    _on_cuda(x)
+    dxg = (torch.empty((K * D, H), dtype=torch.float32, device=x.device)
+           if need_dx else None)
+    if D == 0:
+        if dxg is not None:
+            dxg.zero_()
+        return dxg, torch.zeros_like(u)
+    if K * D >= 2**31:
+        raise ValueError(f"{K} x {D} slots: slot ids past int32")
+    plan = _plan(x, nbr, heads, True, qk=True)
+    u = _qk_u(u, plan)
+    du = torch.empty_strided(u.shape, u.stride(), dtype=torch.float32,
+                             device=x.device)
+    lib = _library()
+    err = lib.qk_attn_bwd(
+        x.data_ptr(), x.shape[0], H, nbr.data_ptr(), K, D, u.data_ptr(),
+        u.stride(0), u.stride(1), heads, _c_layout(plan.layout), plan.tile,
+        plan.grid, m.data_ptr(), ds.data_ptr(), dagg.data_ptr(),
+        du.data_ptr(), None if dxg is None else dxg.data_ptr(),
+        x.device.index, _stream(x))
+    check_launch(lib, err, "qk_attn_bwd")
+    _QK_LAUNCHES["bwd", "any" if plan.layout is None else "staged"] += 1
+    return dxg, du
+
+
+class _QkAttention(torch.autograd.Function):
+    """``(m, s, agg)`` of UniMP's attention, ``m`` not differentiable.
+    Saves ``x``, ``nbr``, ``u`` and ``m``, never the leaves; the backward
+    recomputes the scores and, when ``x`` takes a gradient, sums the
+    slots' rows into ``dx`` through ``nbr``'s plan (an f64 frame, which
+    only the CPU's gradient checks give, by the plain sum)."""
+
+    @staticmethod
+    def forward(ctx, x, nbr, u, plan):
+        m, s, agg = qk_attn_fwd(x, nbr, u)
+        ctx.save_for_backward(x, nbr, u, m)
+        ctx.plan = plan
+        ctx.mark_non_differentiable(m)
+        return m, s, agg
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dm, ds, dagg):
+        x, nbr, u, m = ctx.saved_tensors
+        need_dx = ctx.needs_input_grad[0]
+        dxg, du = qk_attn_bwd(x, nbr, u, m, ds.contiguous(),
+                              dagg.contiguous(), need_dx)
+        dx = None
+        if need_dx and dxg.dtype == torch.float32:
+            dx = dense_scatter_slots(dxg, nbr, x.shape[0], ctx.plan)
+        elif need_dx:
+            dx = dense_scatter_slots_reference(dxg, nbr, x.shape[0])
+        return dx, None, du, None
+
+
+def qk_attention(x: torch.Tensor, nbr: torch.Tensor, u: torch.Tensor,
+                 wv: torch.Tensor, plan: ScatterPlan | None = None):
+    """UniMP's local softmax partials through the dense neighbour matrix:
+    f32 ``(m [D, heads], s [D, heads], v [D, heads, dh])`` for an f32
+    frame ``x [S, H]`` (its row ``S - 1`` the zero row padding slots
+    name), int32 ``nbr [K, D]``, f32 ``u [D, heads, H]`` (each dst
+    column's score vectors, in any layout) and ``wv [H, heads, dh]``.
+    Differentiable in ``x``, ``u`` and ``wv``; ``m`` is not. ``plan`` is
+    ``nbr``'s ``ScatterPlan``, which the gradient to ``x`` needs on the
+    card."""
+    if x.dtype != torch.float32 or x.dim() != 2:
+        raise TypeError(f"x must be 2-D float32, got {x.dim()}-D {x.dtype}")
+    if nbr.dtype != torch.int32 or nbr.dim() != 2 or nbr.shape[0] < 1:
+        raise TypeError(f"nbr must be int32 [K >= 1, D], got {nbr.dtype} "
+                        f"{list(nbr.shape)}")
+    D, H = nbr.shape[1], x.shape[1]
+    if (u.dtype != torch.float32 or u.dim() != 3 or u.shape[0] != D
+            or u.shape[2] != H):
+        raise TypeError(f"u must be float32 [{D}, heads, {H}], got "
+                        f"{u.dtype} {list(u.shape)}")
+    if (wv.dtype != torch.float32 or wv.dim() != 3
+            or tuple(wv.shape[:2]) != (H, u.shape[1])):
+        raise TypeError(f"wv must be float32 [{H}, {u.shape[1]}, dh], got "
+                        f"{wv.dtype} {list(wv.shape)}")
+    for name, t in (("nbr", nbr), ("u", u), ("wv", wv)):
+        if t.device != x.device:
+            raise ValueError(f"{name} on {t.device}, x on {x.device}")
+    if not (x.is_contiguous() and nbr.is_contiguous()):
+        raise ValueError("x and nbr must be contiguous")
+    if x.shape[0] >= 2**31 or D >= 2**31:
+        raise ValueError(f"{x.shape[0]} rows and {D} columns: past int32")
+    m, s, agg = _QkAttention.apply(x, nbr, u, plan)
+    return m, s, _Projection.apply(agg, wv)
 
 
 # The layer's tail (``gat_tail``): a block's warps (``kTailWarps`` of

@@ -5,7 +5,9 @@ The JAX package's ``parallel/model.py``: ``SplitSAGE``, ``SplitGCN`` and
 under the keys of the JAX parameter pytree (``layer_{i}/w``,
 ``layer_{i}/b``, and GAT's ``layer_{i}/attn_l`` / ``attn_r``), so
 ``utils.checkpoint`` loads JAX weights unchanged, the device CSR for
-on-device innermost sampling, and the train step and forward.
+on-device innermost sampling, and the train step and forward. Beside
+them ``SplitUniMP``, UniMP's graph transformer (which the JAX package
+does not have), on split GAT's attention pipeline.
 Weights stay f32; SAGE's and GCN's ``dtype`` is the storage precision of
 activations between layers, with f32 accumulation, as in the JAX models.
 
@@ -59,6 +61,7 @@ from occ_gnn_tpu_torch.models.common import (
     dropout,
     linear,
     linear_init,
+    xavier_uniform,
     zero_missing_grads,
 )
 from occ_gnn_tpu_torch.models.gat import (
@@ -76,11 +79,14 @@ from occ_gnn_tpu_torch.ops.config import (
 )
 from occ_gnn_tpu_torch.ops.dense_gather_sum import ScatterPlan
 from occ_gnn_tpu_torch.ops.gat_attention import (
+    _Projection,
     attention_pre,
     attention_scores,
     gat_attention,
     gat_tail,
+    qk_attention,
 )
+from occ_gnn_tpu_torch.ops.unimp_tail import unimp_tail
 from occ_gnn_tpu_torch.parallel.dist import DistContext, all_reduce_gradients
 from occ_gnn_tpu_torch.parallel.split import (
     WINDOW_PAD,
@@ -185,7 +191,32 @@ def _indices(lyrs: list[SplitLayer]):
             _stack([l.recv_idx for l in lyrs]))
 
 
-class SplitSAGE(nn.Module):
+class _SplitModel(nn.Module):
+    """The layer loop of the split models. ``layers(i, lyrs, xs,
+    is_last)`` runs layer ``i`` of every local partition; this forward
+    only chains them, so a model whose layers end in their own
+    activation (split GAT's and UniMP's tails) needs nothing more."""
+
+    def forward_partitions(self, parts: list[list[SplitLayer]], xs,
+                           generator: torch.Generator | None = None):
+        """The forward of the local partitions, layer by layer: ``parts[j]``
+        and ``xs[j]`` are partition j's layers and input frame. Returns
+        each partition's logits. ``generator`` is unused here (no
+        dropout)."""
+        xs = list(xs)
+        last = len(parts[0]) - 1
+        for i in range(last + 1):
+            xs = self.layers(i, [layers[i] for layers in parts], xs,
+                             is_last=(i == last))
+        return xs
+
+    def forward_local(self, layers: list[SplitLayer], x: torch.Tensor,
+                      generator: torch.Generator | None = None):
+        """One partition's forward (``forward_partitions`` of one)."""
+        return self.forward_partitions([layers], [x], generator)[0]
+
+
+class SplitSAGE(_SplitModel):
     """Split-parallel GraphSAGE: h_v = W.concat(x_v, mean_{N(v)+v} x_u) + b."""
 
     # Whether a training batch must carry each dense layer's ScatterPlan
@@ -249,11 +280,9 @@ class SplitSAGE(nn.Module):
 
     def forward_partitions(self, parts: list[list[SplitLayer]], xs,
                            generator: torch.Generator | None = None):
-        """The forward of the local partitions, layer by layer: ``parts[j]``
-        and ``xs[j]`` are partition j's layers and input frame. Returns
-        each partition's logits. ``generator`` enables dropout between
-        layers (training), drawn partition by partition; ``None`` is the
-        deterministic path."""
+        """As ``_SplitModel.forward_partitions``, with a ReLU between
+        layers. ``generator`` enables dropout there (training), drawn
+        partition by partition; ``None`` is the deterministic path."""
         xs = list(xs)
         last = len(parts[0]) - 1
         for i in range(last + 1):
@@ -265,11 +294,6 @@ class SplitSAGE(nn.Module):
                           for x in xs]
                 xs = [x.to(self.dtype) for x in xs]
         return xs
-
-    def forward_local(self, layers: list[SplitLayer], x: torch.Tensor,
-                      generator: torch.Generator | None = None):
-        """One partition's forward (``forward_partitions`` of one)."""
-        return self.forward_partitions([layers], [x], generator)[0]
 
 
 class SplitGCN(SplitSAGE):
@@ -446,7 +470,7 @@ def checkpoint_dots(fn, *args):
                                          _save_products))
 
 
-class SplitGAT(nn.Module):
+class SplitGAT(_SplitModel):
     """Split-parallel GAT, the component the reference only stubbed
     (``dist_gatconv.py:3-6``). At P > 1 a layer runs two shuffles
     forward and two backward: ``reverse_shuffle`` sends the owners'
@@ -554,24 +578,137 @@ class SplitGAT(nn.Module):
         """Layer ``i`` of one partition."""
         return self.layers(i, [lyr], [x], is_last)[0]
 
-    def forward_partitions(self, parts: list[list[SplitLayer]], xs,
-                           generator: torch.Generator | None = None):
-        """The local partitions' forward, as
-        ``SplitSAGE.forward_partitions``; the ELU between layers is each
-        hidden layer's own (its tail's). ``generator`` is unused (no
-        dropout)."""
-        xs = list(xs)
-        last = len(parts[0]) - 1
-        for i in range(last + 1):
-            xs = self.layers(i, [layers[i] for layers in parts], xs,
-                             is_last=(i == last))
-        return xs
+UNIMP_LEAVES = ("w_q", "b_q", "w_k", "w_v", "b_v", "w_s", "b_s", "w_beta",
+                "ln_g", "ln_b")
 
-    def forward_local(self, layers: list[SplitLayer], x: torch.Tensor,
-                      generator: torch.Generator | None = None):
-        """One partition's forward (``forward_partitions`` of one)."""
-        return self.forward_partitions([layers], [x], generator)[0]
 
+class SplitUniMP(_SplitModel):
+    """Split-parallel UniMP (Shi et al., IJCAI 2021): PyG's
+    ``TransformerConv`` with ``beta=True`` and ``root_weight=True``, each
+    hidden layer followed by LayerNorm and ReLU. A layer, per head c of
+    width dh over the slots S(i) of dst i (the node itself among them),
+
+        q_i = W_q x_i + b_q,  alpha_ij = softmax_j(q_i,c . W_k,c x_j / sqrt(dh))
+        m_i = sum_j alpha_ij (W_v x_j + b_v), heads concatenated (the last
+              layer: averaged)
+        r_i = W_s x_i + b_s,  beta_i = sigmoid(w_beta . [m_i, r_i, m_i - r_i])
+        out_i = beta_i r_i + (1 - beta_i) m_i
+
+    then on a hidden layer ``relu(layer_norm(out) * (1 + ln_g) + ln_b)``.
+    The key bias cancels in the softmax and is left out.
+
+    It runs split GAT's pipeline: ``q`` at the owned rows (one
+    ``reverse_shuffle`` at P > 1 sends it, ``heads * dh`` wide, to the
+    partitions holding the rows' edges), each partition forms the
+    score vectors ``u = W_k,c^T q_c / sqrt(dh)`` in leaf space, the
+    query-key attention kernels (``ops.gat_attention.qk_attention``) weight
+    the leaves and ``W_v`` projects the sums, one ``shuffle_softmax_merge``
+    merges the partials at the owners, and the tail
+    (``ops.unimp_tail.unimp_tail``) adds the value bias, the skip, the
+    gate and the LayerNorm. Dense layers only; no dropout; activations
+    f32 (a bf16 frame is read as f32).
+
+    Leaves ``layer_{i}/w_q, b_q, w_k, w_v, b_v, w_s, b_s, w_beta`` and on
+    a hidden layer ``ln_g, ln_b``: Xavier matrices (``w_beta [3 W, 1]``, W
+    the layer's output width), zero vectors."""
+
+    needs_scatter_plans = True
+
+    def __init__(self, in_dim: int, hidden: int, num_classes: int,
+                 num_layers: int, num_heads: int = 4,
+                 generator: torch.Generator | None = None):
+        """Weights are drawn on the CPU from ``generator``; move the model
+        with ``.to(device)``. ``hidden`` is a head's width."""
+        super().__init__()
+        self.in_dim = in_dim
+        self.hidden = hidden
+        self.num_classes = num_classes
+        self.num_layers = num_layers
+        self.num_heads = k = num_heads
+        ins = [in_dim] + [hidden * k] * (num_layers - 1)
+        outs = [hidden] * (num_layers - 1) + [num_classes]
+        for i in range(num_layers):
+            last = i == num_layers - 1
+            hq = k * outs[i]
+            width = outs[i] if last else hq
+            init = {
+                "w_q": xavier_uniform(generator, (ins[i], hq)),
+                "b_q": torch.zeros(hq),
+                "w_k": xavier_uniform(generator, (ins[i], hq)),
+                "w_v": xavier_uniform(generator, (ins[i], hq)),
+                "b_v": torch.zeros(hq),
+                "w_s": xavier_uniform(generator, (ins[i], width)),
+                "b_s": torch.zeros(width),
+                "w_beta": xavier_uniform(generator, (3 * width, 1)),
+            }
+            if not last:
+                init["ln_g"] = torch.zeros(width)
+                init["ln_b"] = torch.zeros(width)
+            for name, value in init.items():
+                self.register_parameter(f"layer_{i}/{name}",
+                                        nn.Parameter(value))
+
+    def layer_params(self, i: int) -> dict:
+        return {name: getattr(self, f"layer_{i}/{name}")
+                for name in UNIMP_LEAVES
+                if hasattr(self, f"layer_{i}/{name}")}
+
+    def layers(self, i: int, lyrs: list[SplitLayer], xs: list[torch.Tensor],
+               is_last: bool) -> list[torch.Tensor]:
+        """Layer ``i`` of every local partition, as ``SplitGAT.layers``:
+        each partition's query frame (span ``unimp_query``: ``q`` at the
+        owned rows, its reverse shuffle, the score vectors ``u``), its
+        local attention (``qk_attention_dense``), one softmax merge, then
+        the tail at the owners' rows (``unimp_tail``)."""
+        p = self.layer_params(i)
+        k = self.num_heads
+        xs = [x.float() for x in xs]
+        h_in = xs[0].shape[-1]
+        dh = p["w_q"].shape[1] // k
+        # u's product is the per-head projection of q by W_k^T (its weight
+        # gradient summed over chunks of the dst rows).
+        wk_t = (p["w_k"] * dh ** -0.5).reshape(h_in, k, dh).permute(2, 1, 0)
+        wv = p["w_v"].reshape(h_in, k, dh)
+        multi = _shuffled(lyrs)
+        if multi:
+            push, recv = _indices(lyrs)
+        with span("unimp_query"):
+            selves, q_frames = [], []
+            for lyr, x in zip(lyrs, xs):
+                x_self = x.index_select(0, lyr.self_idx)
+                q_own = (torch.addmm(p["b_q"], x_self, p["w_q"])
+                         * lyr.owned_mask[:, None])
+                # The owned rows are the dst frame's prefix; the rest of
+                # the frame is zero until the reverse shuffle fills it.
+                rest = lyr.dst_cap - q_own.shape[0]
+                q_frames.append(F.pad(q_own, (0, 0, 0, rest)) if rest
+                                else q_own)
+                selves.append(x_self)
+            if multi:
+                q_frames = list(reverse_shuffle(_stack(q_frames), push,
+                                                recv).unbind(0))
+            us = [_Projection.apply(q.view(-1, k, dh), wk_t)
+                  for q in q_frames]
+        partials = []
+        with span("qk_attention_dense"):
+            for lyr, x, u in zip(lyrs, xs, us):
+                if lyr.nbr_idx is None:
+                    raise ValueError("SplitUniMP attends through the dense "
+                                     "neighbour matrix: the batch's layer "
+                                     "carries no nbr_idx")
+                partials.append(qk_attention(x, lyr.nbr_idx, u, wv,
+                                             lyr.scatter_plan))
+        ms, ss, vs = (list(t) for t in zip(*partials))
+        if multi:
+            s_all, v_all = shuffle_softmax_merge(_stack(ms), _stack(ss),
+                                                 _stack(vs), push, recv)
+            ss, vs = list(s_all.unbind(0)), list(v_all.unbind(0))
+        with span("unimp_tail"):
+            return [unimp_tail(v, s, torch.addmm(p["b_s"], x_self, p["w_s"]),
+                               p["b_v"], p["w_beta"], lyr.owned_mask,
+                               *((None, None) if is_last
+                                 else (p["ln_g"], p["ln_b"])))
+                    for lyr, s, v, x_self in zip(lyrs, ss, vs, selves)]
 
 def _local_ce(logits: torch.Tensor, labels: torch.Tensor):
     """CE sum, valid count and correct count of one partition."""

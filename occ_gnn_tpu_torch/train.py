@@ -10,8 +10,9 @@ Runs on the CUDA device; ``--cpu`` runs on the CPU instead. Without
 back to the CPU.
 
 Modes, each the JAX trainer's:
-  split     split-parallel training (``SplitSAGE``, ``SplitGCN`` or
-            ``SplitGAT``; the C++ or numpy sampler, the feature cache,
+  split     split-parallel training (``SplitSAGE``, ``SplitGCN``,
+            ``SplitGAT`` or ``SplitUniMP``, ``--model-name unimp``, which
+            no other mode takes; the C++ or numpy sampler, the feature cache,
             on-device innermost sampling, ``--save-dir`` / ``--resume``)
   single    one-chip sampled-minibatch training, every ``--model-name``
   pa-cache  single with a PaGraph-style static cache (``--cache-per``)
@@ -90,7 +91,7 @@ def build_argparser() -> argparse.ArgumentParser:
                    choices=["split", "single", "ddp", "pa-cache", "quiver",
                             "infer"])
     p.add_argument("--model-name", type=str, default="sage",
-                   choices=["sage", "gcn", "gat"])
+                   choices=["sage", "gcn", "gat", "unimp"])
     p.add_argument("--cache-per", type=str, default="0",
                    help="feature-cache fraction of the graph, or 'auto'")
     p.add_argument("--fan-out", type=str, default="10,10,25")
@@ -211,6 +212,11 @@ def _check_flags(parser, args) -> None:
             f"{args.mode} mode does not read it, only --mode "
             f"{' / '.join(modes)} (ROADMAP.md queue 3: the port stops on a "
             "flag the JAX trainer would ignore)")
+    if args.model_name == "unimp" and args.mode != "split":
+        raise SystemExit(
+            f"--model-name unimp trains in --mode split only, not --mode "
+            f"{args.mode}: UniMP's graph transformer is the split path's "
+            "(SplitUniMP)")
     if not args.cpu and args.cpu_devices != parser.get_default("cpu_devices"):
         raise SystemExit(
             "--cpu-devices is not ported without --cpu: it gives the "
@@ -408,17 +414,23 @@ def _partition_map(args, g, P: int) -> np.ndarray:
 
 
 def _make_split_model(args, g):
-    from occ_gnn_tpu_torch.parallel.model import SplitGAT, SplitGCN, SplitSAGE
+    from occ_gnn_tpu_torch.parallel.model import (
+        SplitGAT,
+        SplitGCN,
+        SplitSAGE,
+        SplitUniMP,
+    )
 
     # As the JAX trainer, the split model is built without --dropout,
     # which therefore has no effect in split mode, and SplitGAT without
     # --dtype: its activations stay f32 (a bf16 cache frame still feeds
-    # layer 0).
+    # layer 0). SplitUniMP is built so too.
     generator = torch.Generator().manual_seed(args.seed)
     dims = (g.feature_dim, args.num_hidden, g.num_classes,
             len(args.fan_out.split(",")))
-    if args.model_name == "gat":
-        return SplitGAT(*dims, num_heads=args.num_heads, generator=generator)
+    if args.model_name in ("gat", "unimp"):
+        cls = SplitGAT if args.model_name == "gat" else SplitUniMP
+        return cls(*dims, num_heads=args.num_heads, generator=generator)
     cls = {"sage": SplitSAGE, "gcn": SplitGCN}[args.model_name]
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     return cls(*dims, dtype=dtype, generator=generator)
@@ -442,16 +454,21 @@ def _profile_window(steps: int, out_dir: str, summary: dict):
     once after the epoch, so the recorded window runs from that launch to
     the next, by which time the pipeline has waited for the step to
     finish. When the window closes, its Chrome trace goes to
-    ``out_dir/trace.json`` and its summary into ``summary``."""
+    ``out_dir/trace.json`` and its summary into ``summary``, with the
+    query-key attention kernels' launches so far
+    (``ops.gat_attention.qk_attention_counts``, by path and direction)."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
+    from occ_gnn_tpu_torch.ops.gat_attention import qk_attention_counts
     from occ_gnn_tpu_torch.utils.profile import summarize_step
 
     def on_ready(prof):
         os.makedirs(out_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
         summary.update(summarize_step(prof))
-        print(f"profiler trace -> {out_dir}")
+        summary["qk_attention_launches"] = qk_attention_counts()
+        print(f"profiler trace -> {out_dir}; qk_attention launches "
+              f"{summary['qk_attention_launches']}")
 
     target = min(4, max(steps - 1, 0))
     activities = [ProfilerActivity.CPU]

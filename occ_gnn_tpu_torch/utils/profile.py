@@ -39,7 +39,9 @@ NAMED_RANGES = (
     "synthesize_device_innermost", "local_aggregate", "slice_owned",
     "shuffle_merge", "_ShuffleMergeBackward", "gat_attention_dense",
     "gat_attention_online", "gat_attention_tiled", "_GatAttentionBackward",
-    "gat_attention_coo", "gat_tail", "_GatTailBackward", "reverse_shuffle",
+    "gat_attention_coo", "gat_tail", "_GatTailBackward", "unimp_query",
+    "qk_attention_dense", "_QkAttentionBackward", "unimp_tail",
+    "_UnimpTailBackward", "reverse_shuffle",
     "_ReverseShuffleBackward", "shuffle_softmax_merge",
     "_ShuffleSoftmaxMergeBackward", "quiver_draw", "quiver_gather",
     "dense_sage_forward", "Optimizer.step#Adam.step")

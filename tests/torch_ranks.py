@@ -88,13 +88,19 @@ def _frame(g, batch):
 
 
 def _model(setup, kind, state):
-    from occ_gnn_tpu_torch.parallel.model import SplitGAT, SplitGCN, SplitSAGE
+    from occ_gnn_tpu_torch.parallel.model import (
+        SplitGAT,
+        SplitGCN,
+        SplitSAGE,
+        SplitUniMP,
+    )
 
     g = setup["graph"]
     dims = (g["feature_dim"], setup["hidden"], g["num_classes"],
             len(setup["fanouts"]))
-    if kind == "gat":
-        model = SplitGAT(*dims, num_heads=setup["heads"])
+    if kind in ("gat", "unimp"):
+        cls = SplitGAT if kind == "gat" else SplitUniMP
+        model = cls(*dims, num_heads=setup["heads"])
     else:
         model = {"sage": SplitSAGE, "gcn": SplitGCN}[kind](*dims)
     model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()})
