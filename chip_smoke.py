@@ -109,10 +109,16 @@
    ``unimp-split-b4096``'s three layers (random rows, the cell's share of
    padding slots), forward within 1e-5 of scale, ``du`` and ``dxg``
    within 1e-4 of max |.|, two launches bit-equal, layer 0 on the staged
-   kernels, timed beside the byte bound and the plain version; then one
-   step with the counts set to 0 just before it: 3 launches each way, 2
-   per-slot launches, and every one on the staged kernels
-   (``qk_attention_counts()``).
+   kernels, timed beside the byte bound and the plain version; its layer
+   tail's kernels (``unimp_tail_fwd``, ``unimp_tail_bwd``) on the
+   partials of that attention at each layer of the batch and on random
+   partials at the cell's three layers, against the plain versions in
+   float64 (forward within 2e-6, gradients within 1e-4 of max |.|), two
+   launches bit-equal, timed beside the byte bound and the torch chain;
+   then one step with the counts set to 0 just before it: 3 launches each
+   way of the qk and the tail kernels, 2 per-slot launches, every qk
+   launch on the staged kernels (``qk_attention_counts()``) and every
+   tail launch in registers (``unimp_tail_counts()``).
    The lowerings of ``ops/config.py`` on the same graph: layer 0 under
    ``OCC_DEVICE_SAMPLE=bitsf32``, ``bitsf32_dk`` and ``window`` (the
    doubled CSR) held to the sampling contract and timed, with no launch
@@ -199,7 +205,8 @@
 13. Prints the kernels' times at every main-path shape, the card again,
    one JSON line of kernel numbers (one object each for the segment-sum's
    two entries, the two dense kernels, the attention's three, the
-   tail's two, the qk attention's two and the three on-device samplers), and last ``{"ok": true, "device":
+   tail's two, the qk attention's two, UniMP's tail's two and the three
+   on-device samplers), and last ``{"ok": true, "device":
    {...}}``. Every phase's run checks the launches of each kernel its
    path calls: a split SAGE or GCN step launches the dense kernels once a
    dense layer forward and once a dense layer past layer 0 backward, per
@@ -207,8 +214,9 @@
    attention's forward and backward once a dense layer and the per-slot
    scatter once a dense layer past layer 0, and the layer tail once a
    layer each way (``SPLIT_GAT_A_STEP``, ``GAT_B_STEP``), a split UniMP
-   step the qk kernels once a dense layer each way and the per-slot
-   scatter once a dense layer past layer 0 (``SPLIT_UNIMP_A_STEP``), a
+   step the qk kernels once a dense layer each way, the per-slot
+   scatter once a dense layer past layer 0 and its tail once a layer each
+   way (``SPLIT_UNIMP_A_STEP``), a
    step with
    layer 0 synthesized on the card the synthesis once a partition, an
    inference batch once a dense layer
@@ -226,9 +234,10 @@ runs step 12 alone (with split B's run and the P = 1 inference it
 needs) and prints no result; ``--split-nccl-only`` runs the NCCL phase
 of step 11 alone (on several cards) and prints no result. ``--qk-only``
 runs the part of step 8b' that needs no graph: UniMP's query-key
-attention kernels (``qk_attn_fwd``, ``qk_attn_bwd``) against their plain
-versions and timed beside their bounds at ``unimp-split-b4096``'s layers
-(``cell_qk_cases``), and prints no result.
+attention kernels (``qk_attn_fwd``, ``qk_attn_bwd``) and its tail's
+(``unimp_tail_fwd``, ``unimp_tail_bwd``) against their plain versions
+and timed beside their bounds at ``unimp-split-b4096``'s layers
+(``cell_qk_cases``, ``cell_unimp_tail_cases``), and prints no result.
 """
 
 from __future__ import annotations
@@ -303,11 +312,21 @@ from occ_gnn_tpu_torch.ops.gat_attention import (
     gat_tail_bwd,
     gat_tail_fwd,
     gat_tail_reference,
+    qk_attention,
     qk_attention_backward_reference,
     qk_attention_counts,
     qk_attn_bwd,
     qk_attn_fwd,
     reset_qk_attention_counts,
+)
+from occ_gnn_tpu_torch.ops.unimp_tail import (
+    reset_unimp_tail_counts,
+    unimp_tail_backward_reference,
+    unimp_tail_bwd,
+    unimp_tail_counts,
+    unimp_tail_fwd,
+    unimp_tail_plain,
+    unimp_tail_reference,
 )
 from occ_gnn_tpu_torch.ops.segment_sum_sorted import (
     TILE_EDGES,
@@ -422,8 +441,10 @@ GAT_FWD, GAT_BWD, SLOTS = ("gat_attention_fwd", "gat_attention_bwd",
                            "dense_scatter_slots")
 # Split GAT's layer tail, once a layer each way.
 TAIL_FWD, TAIL_BWD = "gat_tail_fwd", "gat_tail_bwd"
-# UniMP's query-key attention, counted by ``qk_attention_counts()``.
+# UniMP's query-key attention, counted by ``qk_attention_counts()``, and
+# its layer tail, by ``unimp_tail_counts()``.
 QK_FWD, QK_BWD = "qk_attn_fwd", "qk_attn_bwd"
+UT_FWD, UT_BWD = "unimp_tail_fwd", "unimp_tail_bwd"
 # The on-device samplers: split A's layer-0 synthesis, quiver's draws and
 # its layer-0 gather-mean.
 SYNTH, DRAW, GMEAN = "synthesize_innermost", "draw_neighbors", "gather_mean"
@@ -434,8 +455,8 @@ ENTRIES = {MSGS: segment_sum_sorted, FUSED: gather_segment_sum,
            TAIL_BWD: gat_tail_bwd, SYNTH: synthesize_innermost,
            DRAW: draw_neighbors, GMEAN: gather_mean}
 # Every kernel whose launches a run counts: ENTRIES' by their own
-# counters, the qk kernels' by direction.
-COUNTED = (*ENTRIES, QK_FWD, QK_BWD)
+# counters, the qk and UniMP tail kernels' by direction.
+COUNTED = (*ENTRIES, QK_FWD, QK_BWD, UT_FWD, UT_BWD)
 # Sorted segment-sum launches a step: one a layer. Single SAGE and GCN
 # (either norm) sum the rows of their frame through the fused gather; GAT
 # (single, and split on its COO layer 0) sums the softmax denominators and
@@ -457,16 +478,21 @@ SINGLE_ENTRY = {"sage": FUSED, "gcn": FUSED, "gat": MSGS, "gcn sym": FUSED}
 # each way (TAIL_STEP). Split UniMP's dense layers run its query-key
 # attention once each way and the per-slot scatter once a layer past
 # layer 0; at the smoke's widths every layer takes the staged kernels
-# (UNIMP_A_PATHS, by ``qk_attention_counts()``).
+# (UNIMP_A_PATHS, by ``qk_attention_counts()``); every layer ends in its
+# tail's kernels, once each way, the row in registers (UNIMP_TAIL_FORMS,
+# by ``unimp_tail_counts()``).
 SPLIT_A_STEP = {SYNTH: 1, DENSE_FWD: 3, DENSE_BWD: 2}
 SPLIT_B_STEP = {FUSED: 1, DENSE_FWD: 2, DENSE_BWD: 2}
 TAIL_STEP = {TAIL_FWD: 3, TAIL_BWD: 3}
 SPLIT_GAT_A_STEP = {SYNTH: 1, GAT_FWD: 3, GAT_BWD: 3, SLOTS: 2, **TAIL_STEP}
 GAT_B_STEP = {MSGS: 1, GAT_FWD: 2, GAT_BWD: 2, SLOTS: 2, **TAIL_STEP}
 GAT_REMAT_STEP = {SYNTH: 1, GAT_FWD: 6, GAT_BWD: 3, SLOTS: 2, **TAIL_STEP}
-SPLIT_UNIMP_A_STEP = {SYNTH: 1, QK_FWD: 3, QK_BWD: 3, SLOTS: 2}
+SPLIT_UNIMP_A_STEP = {SYNTH: 1, QK_FWD: 3, QK_BWD: 3, SLOTS: 2, UT_FWD: 3,
+                      UT_BWD: 3}
 UNIMP_A_PATHS = {"fwd_staged": 3, "fwd_any": 0, "bwd_staged": 3,
                  "bwd_any": 0}
+UNIMP_TAIL_FORMS = {"fwd_register": 3, "fwd_shared": 0, "bwd_register": 3,
+                    "bwd_shared": 0}
 INFER_BATCH = {FUSED: 1, DENSE_FWD: 2}
 # Quiver, a step per shard: the draws once a layer (fan-out 10,10,25),
 # the deepest gather and first-layer mean once.
@@ -511,6 +537,14 @@ GAT_BF16_TOL = 2.0**-7
 # and the bias's gradient over the rows in another order). Its forward
 # is held to the plain version's bits.
 TAIL_RTOL, TAIL_ATOL = 1e-5, 1e-6
+# UniMP's tail kernels against the float64 plain versions, of each one's
+# max |.|: the forward within 2e-6 (its row sums are f64 where the torch
+# chain's are f32; a few f32 roundings of O(1) values, LayerNorm's
+# division by the row's deviation among them), every gradient within 1e-4
+# (f32 sums over every owned row, in another order; the gate's weights'
+# sums cancel over the rows).
+UNIMP_TAIL_FWD_TOL = 2e-6
+UNIMP_TAIL_GRAD_TOL = 1e-4
 # gather_mean's mean against its plain version, of its scale (at least
 # 1): the same rows summed in f32, the plain version's sum over the
 # fan-out axis in torch's order, the kernel's in the order of k.
@@ -538,6 +572,8 @@ KERNEL_SOURCE = {
     TAIL_BWD: "occ_gnn_tpu_torch/csrc/gat_attention.cu",
     QK_FWD: "occ_gnn_tpu_torch/csrc/gat_attention.cu",
     QK_BWD: "occ_gnn_tpu_torch/csrc/gat_attention.cu",
+    UT_FWD: "occ_gnn_tpu_torch/csrc/unimp_tail.cu",
+    UT_BWD: "occ_gnn_tpu_torch/csrc/unimp_tail.cu",
     SLOTS: "occ_gnn_tpu_torch/csrc/dense_gather_sum.cu",
     SYNTH: "occ_gnn_tpu_torch/csrc/device_sample.cu",
     DRAW: "occ_gnn_tpu_torch/csrc/device_sample.cu",
@@ -559,6 +595,8 @@ KERNEL_REPLACES = {
     TAIL_BWD: GAT_REPLACES,
     QK_FWD: UNIMP_REPLACES,
     QK_BWD: UNIMP_REPLACES,
+    UT_FWD: UNIMP_REPLACES,
+    UT_BWD: UNIMP_REPLACES,
     SLOTS: GAT_REPLACES,
     SYNTH: ("occ_gnn_tpu/parallel/split.py:200-310 (XLA, no "
             "pallas_call)"),
@@ -576,6 +614,7 @@ def reset_launches() -> None:
     for fn in ENTRIES.values():
         fn.launches = 0
     reset_qk_attention_counts()
+    reset_unimp_tail_counts()
     slots_plan.on_card = 0
 
 
@@ -589,9 +628,12 @@ def expect_no_plan_on_card(label, built: int) -> None:
 
 def read_launches() -> Counter:
     qk = qk_attention_counts()
+    ut = unimp_tail_counts()
     return Counter({**{name: fn.launches for name, fn in ENTRIES.items()},
                     QK_FWD: qk["fwd_staged"] + qk["fwd_any"],
-                    QK_BWD: qk["bwd_staged"] + qk["bwd_any"]})
+                    QK_BWD: qk["bwd_staged"] + qk["bwd_any"],
+                    UT_FWD: ut["fwd_register"] + ut["fwd_shared"],
+                    UT_BWD: ut["bwd_register"] + ut["bwd_shared"]})
 
 
 def launch_text(launches) -> str:
@@ -1640,11 +1682,190 @@ def cell_qk_cases(rate, device) -> dict:
 
 
 def qk_only(rate, device) -> int:
-    """``--qk-only``: the qk kernels' cases at unimp-split-b4096's
-    layers, as the default run makes them."""
+    """``--qk-only``: the qk kernels' and the UniMP tail's cases at
+    unimp-split-b4096's layers, as the default run makes them."""
     cell_qk_cases(rate, device)
-    print("qk attention: every check passed")
+    cell_unimp_tail_cases(rate, device)
+    print("qk attention and UniMP tail: every check passed")
     return 0
+
+
+# UniMP's tail at unimp-split-b4096's layers (dst rows, owned rows, valid
+# owned rows, dh, last; 4 heads), on random partials.
+UNIMP_TAIL_CELL_SHAPES = {
+    "unimp cell layer 0": (495_616, 495_616, 366_381, 128, False),
+    "unimp cell layer 1": (90_112, 45_056, 40_741, 128, False),
+    "unimp cell layer 2": (8_192, 4_096, 4_096, 47, True)}
+
+
+def unimp_tail_cases(label, v, s, mask, last, rate, gen):
+    """UniMP's tail kernels on one layer's merged partials ``v [D, heads,
+    dh]`` (in the layout the value projection gives) and ``s [D, heads]``,
+    the owned rows ``mask`` (valid ones the prefix, as the kernels take
+    them), with a random skip, weights and cotangent, against the plain
+    versions in float64 (``unimp_tail_reference``, the explicit backward
+    ``unimp_tail_backward_reference`` at the kernel's ReLU mask: an
+    element within rounding of 0 may take either sign in another order of
+    sums, and moves its row's gradients by O(1)): the forward within
+    UNIMP_TAIL_FWD_TOL and every gradient within UNIMP_TAIL_GRAD_TOL of
+    its max |.| (the torch chain's own distance from float64 printed
+    beside), zeros at the pads and at the dst rows no owned row names,
+    each kernel bit-equal over two launches (the weights' gradients
+    included). Timed in the CUDA-graph harness beside the f32 torch chain
+    and the byte bound (forward: ``v``, ``s`` and ``r`` at the valid rows
+    read, ``y`` and the row statistics written at every owned row;
+    backward: ``dy``, ``v``, ``s``, ``r`` and the statistics at the valid
+    rows read, ``dv`` and ``ds`` written at every dst row, ``dr`` at every
+    owned row) and the operation bound (16 operations an output element
+    forward, 40 backward). No library call computes the tail. Returns
+    {kernel: case}."""
+    D, heads, dh = v.shape
+    dev = v.device
+    O = mask.shape[0]
+    n = int(mask.sum())
+    if not bool(mask[:n].all()):
+        raise AssertionError(f"{label}: the valid owned rows are not the "
+                             f"dst frame's prefix")
+    width = dh if last else heads * dh
+    idx = torch.where(mask, torch.arange(O, dtype=torch.int32, device=dev),
+                      -1).int()
+
+    def rnd(*shape, scale=1.0):
+        return scale * torch.randn(*shape, generator=gen, device=dev)
+
+    r, b_v = rnd(O, width), rnd(heads * dh, scale=0.1)
+    w_beta = rnd(3 * width, 1, scale=width ** -0.5)
+    ln = (None, None) if last else (rnd(width, scale=0.1),
+                                    rnd(width, scale=0.1))
+    dy = rnd(O, width)
+    ins = (v, s, r, b_v, w_beta)
+    f64 = [None if t is None else t.double() for t in (*ins, *ln)]
+    fwds = [unimp_tail_fwd(*ins, mask, *ln) for _ in range(2)]
+    y, mean, rstd = fwds[0]
+    with torch.no_grad():
+        chain = unimp_tail_reference(*ins, idx, mask, *ln)
+        want = unimp_tail_reference(*f64[:5], idx, mask, *f64[5:])
+    bwds = [unimp_tail_bwd(dy, *ins, mask, *ln, mean, rstd)
+            for _ in range(2)]
+    ref = unimp_tail_backward_reference(dy, *ins, mask, *ln, y)
+    ref64 = unimp_tail_backward_reference(dy.double(), *f64[:5], mask,
+                                          *f64[5:], y)
+    torch.cuda.synchronize()
+    for a, b in [*zip(*fwds), *zip(*bwds)]:
+        if a is not None and not torch.equal(a, b):
+            raise AssertionError(f"{label}: two launches of the UniMP tail "
+                                 f"differ")
+
+    def rel(got, w):
+        scale = max(w.abs().max().item(), 1e-30)
+        return (got.double() - w).abs().max().item() / scale
+
+    fwd, fwd_chain = rel(y, want), rel(chain, want)
+    fwd_abs = (y.double() - want).abs().max().item()
+    errs, grad_abs = {}, 0.0
+    for name, g, c, w in zip(("dv", "ds", "dr", "db_v", "dw_beta", "dln_g",
+                              "dln_b"), bwds[0], ref, ref64):
+        if w is not None:
+            errs[name] = (rel(g, w), rel(c, w))
+            grad_abs = max(grad_abs, (g.double() - w).abs().max().item())
+    del chain, want, ref, ref64, f64
+    dv, ds, dr = bwds[0][:3]
+    if ((y[n:] != 0).any() or (dv[n:] != 0).any() or (ds[n:] != 0).any()
+            or (dr[n:] != 0).any()):
+        raise AssertionError(f"{label}: the UniMP tail wrote a pad or a dst "
+                             f"row no owned row names")
+    worst = max(e for e, _ in errs.values())
+    if fwd > UNIMP_TAIL_FWD_TOL or worst > UNIMP_TAIL_GRAD_TOL:
+        raise AssertionError(f"{label}: the UniMP tail's kernels differ from "
+                             f"float64: forward {fwd:.3g}, gradients {errs}")
+    print(f"kernel UniMP tail {label}: D={D} O={O} valid={n} heads={heads} "
+          f"Dh={dh} {'last' if last else 'hidden'} v strides "
+          f"{tuple(v.stride())}: of max |.| against float64, forward "
+          f"{fwd:.3g} (chain {fwd_chain:.3g}; limit "
+          f"{UNIMP_TAIL_FWD_TOL:g}), gradients "
+          + ", ".join(f"{k} {e:.3g} (chain {c:.3g})"
+                      for k, (e, c) in errs.items())
+          + f" (limit {UNIMP_TAIL_GRAD_TOL:g}); zeros past the {n} valid "
+          f"rows; two launches bit-equal")
+    del fwds, bwds, dv, ds, dr
+    nb = heads * dh
+    stats = 0 if last else 8
+    cases = {
+        UT_FWD: dict(
+            err=fwd_abs,
+            ms=median_ms(lambda: unimp_tail_fwd(*ins, mask, *ln)),
+            plain_ms=yardstick_ms(lambda: unimp_tail_plain(*ins, mask,
+                                                            *ln)),
+            library_ms=None,
+            bytes_ms=(4 * (n * (nb + width + heads) + O * width)
+                      + O * (1 + stats)) / rate * 1e3,
+            ops_ms=16 * n * width / F32_RATE * 1e3),
+        UT_BWD: dict(
+            err=grad_abs,
+            ms=median_ms(lambda: unimp_tail_bwd(dy, *ins, mask, *ln, mean,
+                                                rstd)),
+            plain_ms=yardstick_ms(lambda: unimp_tail_backward_reference(
+                dy, *ins, mask, *ln)),
+            library_ms=None,
+            bytes_ms=(4 * (n * (2 * width + nb + heads) + D * (nb + heads)
+                           + O * width) + O + n * stats) / rate * 1e3,
+            ops_ms=40 * n * width / F32_RATE * 1e3)}
+    for name, c in cases.items():
+        bound = max(c["bytes_ms"], c["ops_ms"])
+        by = "bytes" if c["bytes_ms"] >= c["ops_ms"] else "operations"
+        print(f"kernel {name} {label}: ms={c['ms']:.4f} plain_ms="
+              f"{c['plain_ms']:.4f} library_ms=none (no PyTorch call "
+              f"computes it) bound_ms={bound:.4f} ({by}, "
+              f"{100 * bound / c['ms']:.1f} % of it) "
+              f"max_abs_err={c['err']:.3g}")
+    return cases
+
+
+def split_unimp_tail_cases(label, layers, x0, hidden, heads, num_classes,
+                           rate, device):
+    """``unimp_tail_cases`` at every dense layer of one partition's batch,
+    on the partials of UniMP's attention there (random score vectors and
+    value weights; layer 0 reads ``x0``, later layers a random frame of
+    ``hidden * heads`` columns; at P = 1 the merge is the identity): a
+    head ``hidden`` wide, the last layer's ``num_classes``. Returns
+    {layer: cases}."""
+    gen = torch.Generator(device).manual_seed(23)
+    out = {}
+    for i, lyr in enumerate(layers):
+        if lyr.nbr_idx is None:
+            continue
+        last = i == len(layers) - 1
+        x = x0 if i == 0 else torch.randn(lyr.src_cap, hidden * heads,
+                                          generator=gen, device=device)
+        D, H = lyr.nbr_idx.shape[1], x.shape[1]
+        dh = num_classes if last else hidden
+        u = (torch.randn(heads, D, H, generator=gen, device=device)
+             / H ** 0.5).permute(1, 0, 2)
+        wv = torch.randn(H, heads, dh, generator=gen, device=device) * 0.1
+        with torch.no_grad():
+            _, s, v = qk_attention(x, lyr.nbr_idx, u, wv, lyr.scatter_plan)
+        out[i] = unimp_tail_cases(f"{label} layer {i}", v, s,
+                                  lyr.owned_mask.bool(), last, rate, gen)
+        del x, u, wv, s, v
+    return out
+
+
+def cell_unimp_tail_cases(rate, device) -> dict:
+    """``unimp_tail_cases`` at unimp-split-b4096's three layers
+    (UNIMP_TAIL_CELL_SHAPES), ``v`` head-major. Every sum is positive, as
+    at a valid owned row, which names itself (a sum under the clamp's
+    floor: ``tests/test_torch_unimp_tail.py``)."""
+    out = {}
+    for label, (D, O, n, dh, last) in UNIMP_TAIL_CELL_SHAPES.items():
+        gen = torch.Generator(device).manual_seed(D + n)
+        v = torch.randn(QK_HEADS, D, dh, generator=gen,
+                        device=device).permute(1, 0, 2)
+        s = torch.rand(D, QK_HEADS, generator=gen, device=device) * 3 + 0.1
+        mask = torch.arange(O, device=device) < n
+        out[label] = unimp_tail_cases(label, v, s, mask, last, rate, gen)
+        del v, s
+        torch.cuda.empty_cache()
+    return out
 
 
 def gat_tail_cases(label, x, lyr, heads, dh, last, rate, gen):
@@ -4231,9 +4452,9 @@ def main(argv=None) -> int:
                      help="run only the ddp, quiver and infer phases at "
                           "--ranks (and what they need); prints no result")
     cli.add_argument("--qk-only", action="store_true",
-                     help="run only UniMP's query-key attention kernels' "
-                          "cases at unimp-split-b4096's layers; prints no "
-                          "result")
+                     help="run only UniMP's query-key attention and "
+                          "tail kernels' cases at unimp-split-b4096's "
+                          "layers; prints no result")
     opts = cli.parse_args(argv)
     if not torch.cuda.is_available():
         print("error: torch sees no CUDA device; chip_smoke.py runs on a GPU",
@@ -4439,9 +4660,13 @@ def main(argv=None) -> int:
         qk_a = split_qk_cases("split UniMP A", layers_a, frames[0],
                               args_ga.num_hidden, args_ga.num_heads, rate,
                               device)
+        ut_a = split_unimp_tail_cases("split UniMP A", layers_a, frames[0],
+                                      args_ga.num_hidden, args_ga.num_heads,
+                                      g.num_classes, rate, device)
         del frames
         torch.cuda.empty_cache()
         qk_cell = cell_qk_cases(rate, device)
+        ut_cell = cell_unimp_tail_cases(rate, device)
         args_ua = graph_args(opts.num_nodes, UNIMP_A_FLAGS)
         metrics_ua, launches_ua = run_split("split UniMP A", args_ua, g,
                                             fan_a, device)
@@ -4452,8 +4677,14 @@ def main(argv=None) -> int:
             raise AssertionError(f"split UniMP A: the qk kernels' paths "
                                  f"{paths_ua} for {metrics_ua['steps']} "
                                  f"steps; expected {UNIMP_A_PATHS} a step")
-        print(f"split UniMP A: qk paths {paths_ua} over "
-              f"{metrics_ua['steps']} steps")
+        forms_ua = unimp_tail_counts()
+        if forms_ua != scaled(UNIMP_TAIL_FORMS, metrics_ua["steps"]):
+            raise AssertionError(f"split UniMP A: the tail kernels' forms "
+                                 f"{forms_ua} for {metrics_ua['steps']} "
+                                 f"steps; expected {UNIMP_TAIL_FORMS} a "
+                                 f"step")
+        print(f"split UniMP A: qk paths {paths_ua}, tail forms {forms_ua} "
+              f"over {metrics_ua['steps']} steps")
 
     # 8c. Split GAT A's lowerings: online, tiled, fma and remat dots.
     with phase("split GAT A lowerings"):
@@ -4695,11 +4926,13 @@ def main(argv=None) -> int:
     print(f"  the synthesis call: {synth_case['call_ms']:.4f} ms "
           f"(torch.randint + kernel), {synth_case['before_call_ms']:.4f} ms "
           f"before the kernel (torch.randint + torch ops)")
-    print("UniMP query-key attention kernel times (ms; CUDA-graph harness; "
-          "a split UniMP A step runs each once a layer; no library call "
-          "computes them):")
-    qk_rows = [(f"split UniMP A layer {i}", c) for i, c in qk_a.items()]
-    qk_rows += list(qk_cell.items())
+    print("UniMP query-key attention and tail kernel times (ms; CUDA-graph "
+          "harness; a split UniMP A step runs each once a layer; no library "
+          "call computes them):")
+    qk_rows = [(f"split UniMP A layer {i}", {**c, **ut_a[i]})
+               for i, c in qk_a.items()]
+    qk_rows += [(label, {**c, **ut_cell[label]})
+                for label, c in qk_cell.items()]
     for label, cases in qk_rows:
         for entry, c in cases.items():
             print(f"  {entry} at {label}: ms={c['ms']:.4f} bound_ms="
@@ -4730,8 +4963,9 @@ def main(argv=None) -> int:
     # its three layers, the backward at layers 1-2; the attention's one
     # split GAT A step's: forward and backward at its three layers, the
     # per-slot scatter at layers 1-2, the tail each way at its three
-    # layers; the qk kernels' one split UniMP A step's, each way at its
-    # three layers; the samplers' one split A step's
+    # layers; the qk kernels' and the UniMP tail's one split UniMP A
+    # step's, each way at its three layers; the samplers' one split A
+    # step's
     # synthesis and one quiver step's draws (three layers) and gather-mean
     # (the f32 table, as the quiver run holds it).
     kernels = []
@@ -4744,7 +4978,9 @@ def main(argv=None) -> int:
                      if entry in c])
             for entry in (GAT_FWD, GAT_BWD, SLOTS, TAIL_FWD, TAIL_BWD)
     ) + tuple((entry, [c[entry] for _, c in sorted(qk_a.items())])
-              for entry in (QK_FWD, QK_BWD)) + ((SYNTH, [synth_case]), (DRAW, quiver_cases["draws"]),
+              for entry in (QK_FWD, QK_BWD)) + tuple(
+            (entry, [c[entry] for _, c in sorted(ut_a.items())])
+            for entry in (UT_FWD, UT_BWD)) + ((SYNTH, [synth_case]), (DRAW, quiver_cases["draws"]),
          (GMEAN, [quiver_cases["f32"]])):
         by_bytes = summed(cases, "bytes_ms") >= summed(cases, "ops_ms")
         kernels.append({

@@ -25,7 +25,7 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "build"
 KERNELS = ("segment_sum_sorted", "dense_gather_sum", "gat_attention",
-           "device_sample")
+           "device_sample", "unimp_tail")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SAMPLER_SOURCE = CSRC_DIR / "occ_sampler.cpp"

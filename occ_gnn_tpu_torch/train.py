@@ -456,10 +456,13 @@ def _profile_window(steps: int, out_dir: str, summary: dict):
     finish. When the window closes, its Chrome trace goes to
     ``out_dir/trace.json`` and its summary into ``summary``, with the
     query-key attention kernels' launches so far
-    (``ops.gat_attention.qk_attention_counts``, by path and direction)."""
+    (``ops.gat_attention.qk_attention_counts``, by path and direction)
+    and UniMP's tail kernels' (``ops.unimp_tail.unimp_tail_counts``, by
+    direction and form)."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     from occ_gnn_tpu_torch.ops.gat_attention import qk_attention_counts
+    from occ_gnn_tpu_torch.ops.unimp_tail import unimp_tail_counts
     from occ_gnn_tpu_torch.utils.profile import summarize_step
 
     def on_ready(prof):
@@ -467,8 +470,10 @@ def _profile_window(steps: int, out_dir: str, summary: dict):
         prof.export_chrome_trace(os.path.join(out_dir, "trace.json"))
         summary.update(summarize_step(prof))
         summary["qk_attention_launches"] = qk_attention_counts()
+        summary["unimp_tail_launches"] = unimp_tail_counts()
         print(f"profiler trace -> {out_dir}; qk_attention launches "
-              f"{summary['qk_attention_launches']}")
+              f"{summary['qk_attention_launches']}; unimp_tail launches "
+              f"{summary['unimp_tail_launches']}")
 
     target = min(4, max(steps - 1, 0))
     activities = [ProfilerActivity.CPU]

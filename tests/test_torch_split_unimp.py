@@ -58,6 +58,7 @@ GRAD_TOL = dict(rtol=1e-4, atol=1e-6)
 OP_TOL = dict(rtol=1e-5, atol=1e-6)
 REPO = Path(__file__).resolve().parent.parent
 SOURCE = REPO / "occ_gnn_tpu_torch" / "csrc" / "gat_attention.cu"
+TAIL_SOURCE = REPO / "occ_gnn_tpu_torch" / "csrc" / "unimp_tail.cu"
 SPANS = {"unimp_query", "qk_attention_dense", "_QkAttentionBackward",
          "unimp_tail", "_UnimpTailBackward"}
 
@@ -437,10 +438,10 @@ def test_gat_layouts_keep_their_offsets():
 def test_kernel_names_keep_the_two_families_apart():
     """The qk kernels' names hold ``qk_attn_fwd`` or ``qk_attn_bwd``, which
     ``qk_attention_roofline`` times, and neither of the substrings that
-    ``gat_attention_roofline`` times."""
-    kernels = re.findall(
-        r"__global__ void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\(",
-        SOURCE.read_text())
+    ``gat_attention_roofline`` times; the tail's kernels
+    (``csrc/unimp_tail.cu``) hold none of the four."""
+    pattern = r"__global__ void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\("
+    kernels = re.findall(pattern, SOURCE.read_text())
     qk = [k for k in kernels if k.startswith("qk_")]
     assert sorted(qk) == ["qk_attn_bwd_any", "qk_attn_bwd_kernel",
                           "qk_attn_fwd_any", "qk_attn_fwd_kernel"]
@@ -449,6 +450,12 @@ def test_kernel_names_keep_the_two_families_apart():
         assert any(n in k for n in needles) == (k in qk), k
         if k in qk:
             assert "attention_fwd" not in k and "attention_bwd" not in k
+    tail = re.findall(pattern, TAIL_SOURCE.read_text())
+    assert sorted(tail) == ["unimp_tail_bwd_kernel", "unimp_tail_fwd_kernel",
+                            "unimp_tail_sum_kernel"]
+    for k in tail:
+        assert not any(n in k for n in (*needles, "attention_fwd",
+                                         "attention_bwd")), k
 
 
 def test_named_ranges_list_the_spans():
